@@ -5,24 +5,40 @@ Run from the root of a checkout, on a machine with one card:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught and passed over):
+Phases (any failure exits non-zero; nothing is caught and passed over;
+each prints its wall time as ``[phase] <name> <s> s``):
 
 1. card    - name, count, versions, ``nvidia-smi`` name and power limit;
-2. build   - build both CUDA kernels from ``src/repro_torch/kernels/csrc``
-             and print the ``-Xptxas -v`` register/shared/spill lines;
+2. build   - build the three CUDA sources (five kernels) from
+             ``src/repro_torch/kernels/csrc`` in parallel and print the
+             ``-Xptxas -v`` register/shared/spill lines;
 3. edges   - each kernel against its plain version on the edge shapes that
-             ``tests/test_kernels.py`` pins;
+             ``tests/test_kernels.py`` pins (for the option kernels, the
+             table in ``repro_torch.testing``, shared with the card
+             tests), plus the hybrid alpha = 0 / 1 identities; every
+             hybrid answer, here and later, is also held by its two
+             halves (``testing.hybrid_by_parts``);
 4. shapes  - each kernel against its plain version at the main path's
-             shapes, timed beside its bound, the plain version and a
-             PyTorch yardstick (which the port never calls);
+             shapes, on the backends' own operands, timed beside its bound,
+             the plain version and a PyTorch yardstick (which the port
+             never calls);
 5. serve   - sift-1m width: 1M x 128 corpus, 8,192 k-means buckets built on
              the card, IVF (nprobe 32, k 10) behind a ``ServingCell``
              answering 2,048 requests from 16 client threads, the exact
              brute backend for recall@10, and the unfused IVF path for
              parity; launch counts are reset just before and read just
-             after the served run; then ``torch.profiler`` over 8 batches
-             of 64 per backend (device time by kernel, busy share);
-6. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
+             after the served run;
+6. options - the same corpus with a ``pct`` metadata column and BM25
+             postings slabs of synthetic entity text: a brute cell (f32,
+             2,048 requests over four option sets: semantic filtered at
+             selectivity 0.05, lexical, lexical filtered at 0.5, hybrid
+             alpha 0.5), a filtered IVF cell (1,024 requests at 0.05 and
+             0.5) and an int8 brute cell (1,024 requests); counts reset
+             just before and read just after the three cells; answers held
+             against the filters, the unfused path and direct backend calls;
+7. profile - ``torch.profiler`` over 8 batches of 64 per backend and mode
+             (device time by kernel, busy share);
+8. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
 
 Imports only ``torch``, numpy and ``repro_torch``.  Detailed results also
 go to ``build/chip_smoke.json``.
@@ -36,6 +52,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -46,14 +63,21 @@ import torch  # noqa: E402
 
 from repro_torch.configs.ann_corpora import SIFT_1M  # noqa: E402
 from repro_torch.core.brute import batched_l2sq, pairwise_l2sq  # noqa: E402
+from repro_torch.core.lexical import (build_lexical_slabs_flat,  # noqa: E402
+                                      query_operands)
+from repro_torch.core.metadata import FilterSpec, MetadataTable  # noqa: E402
 from repro_torch.core.metrics import LatencyTimer, recall_at_k  # noqa: E402
 from repro_torch.core.two_level import (TwoLevelConfig,  # noqa: E402
                                         build_two_level)
 from repro_torch.data.synthetic import make_corpus, make_queries  # noqa: E402
 from repro_torch.distributed.backend import ShardedSearchBackend  # noqa: E402
-from repro_torch.kernels import _build, bucket_topk, l2_topk, ref  # noqa: E402
-from repro_torch.kernels.common import merge_topk, stable_topk  # noqa: E402
+from repro_torch.kernels import (_build, bm25, bucket_topk,  # noqa: E402
+                                 l2_topk, ops, ref)
+from repro_torch.kernels.common import (LAUNCH_COUNTERS,  # noqa: E402
+                                        merge_topk, stable_topk)
 from repro_torch.serve.cell import ServingCell  # noqa: E402
+from repro_torch.testing import (EDGE_ALPHAS, OPTION_EDGES,  # noqa: E402
+                                 hybrid_by_parts, option_edge_operands)
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 and fp32 outside the
 # tensor cores.  The kernels compute in fp32 FMA, never TF32.
@@ -67,6 +91,21 @@ BATCH = 64
 N_REQUESTS = 2048
 N_CLIENTS = 16
 OUT_DIR = os.path.join(ROOT, "build")
+# options phase: 2,048 brute requests over four option sets, 1,024 each
+# through the filtered IVF and the int8 cells
+N_IVF_OPTION_REQUESTS = 1024
+N_INT8_REQUESTS = 1024
+# synthetic entity text: a 50,000-term vocabulary with Zipf-like term
+# frequencies (rank^-1.1), 6-12 tokens a document, 16 slab slots (the
+# build_lexical_slabs default), 8 query term slots (query_operands')
+VOCAB = 50_000
+ZIPF_S = 1.1
+DOC_TOKENS = (6, 12)
+SLOTS = 16
+Q_SLOTS = 8
+ALPHA = 0.5
+NARROW = FilterSpec.range("pct", 0, 4)       # selectivity 0.05
+WIDE = FilterSpec.range("pct", 0, 49)        # selectivity 0.5
 
 RESULTS: dict = {"kernels": {}}
 
@@ -82,6 +121,30 @@ class CheckFailed(Exception):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise CheckFailed(msg)
+
+
+class phase:
+    """Prints ``[phase] <name> <wall s> s`` when the block ends."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        RESULTS.setdefault("phase_s", {})[self.name] = dt
+        log(f"[phase] {self.name} {dt:.1f} s")
+
+
+def reset_launches() -> None:
+    for c in LAUNCH_COUNTERS.values():
+        c.reset()
+
+
+def read_launches() -> dict:
+    return {name: c.count for name, c in LAUNCH_COUNTERS.items()}
 
 
 # --------------------------------------------------------------- phase 1
@@ -101,15 +164,31 @@ def phase_card() -> dict:
 
 
 # --------------------------------------------------------------- phase 2
+def _kernel_name(mangled: str) -> str:
+    """``l2_topk_partial<F32Rows, 16>`` from a mangled kernel name."""
+    name = re.search(r"(l2_topk_partial|bm25_topk_partial|merge_partials|"
+                     r"candidate_topk_kernel)", mangled)
+    rows = re.search(r"(F32Rows|Int8Rows|HybridRows)", mangled)
+    kt = re.search(r"Li(\d+)E", mangled)
+    if not (name and kt):
+        return mangled[-60:]
+    return (f"{name.group(1)}<{rows.group(1) + ', ' if rows else ''}"
+            f"{kt.group(1)}>")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build_all()
     total = time.perf_counter() - t0
     for name, info in logs.items():
         log(f"[build] {name}: nvcc {info['seconds']:.1f} s")
+        entry = ""
         for line in info["ptxas"]:
-            if any(w in line for w in ("registers", "spill", "smem")):
-                log(f"[build]   {line}")
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = _kernel_name(m.group(1))
+            elif any(w in line for w in ("registers", "spill")):
+                log(f"[build]   {entry}: {line.split(':', 1)[-1].strip()}")
     log(f"[build] total {total:.1f} s (parallel nvcc)")
     RESULTS["build_s"] = total
 
@@ -187,6 +266,122 @@ def check_cand(name, q, vecs, ids, k, best_d=None, best_i=None,
     return compare(name, kd, ki, pd, pi, scale)
 
 
+def _deq_rows(codes, scales):
+    """``rows(ids)``: the dequantized rows ``scale * codes`` of any id
+    array, in float64 on the host."""
+    c = codes.cpu().numpy()
+    sc = scales.cpu().numpy().astype(np.float64)
+    return lambda ids: c[ids].astype(np.float64) * sc[ids][..., None]
+
+
+def check_int8(name, q, codes, scales, k, valid=None) -> dict:
+    """The int8 kernel against its plain version; each kernel id's
+    distance is recomputed in float64 against its dequantized row."""
+    kd, ki = l2_topk.l2_topk_int8(q, codes, scales, k, valid=valid)
+    pd, pi = ref.l2_topk_int8_ref(q, codes, scales, k, valid=valid)
+    torch.cuda.synchronize()
+    rows = _deq_rows(codes, scales)
+    qn = _norms(q).cpu().numpy()
+    scale = qn[:, None] + (rows(np.maximum(pi.cpu().numpy(), 0)) ** 2).sum(-1)
+    return compare(name, kd, ki, pd, pi, scale,
+                   vec_of=lambda b, i: rows(i), q=q)
+
+
+def _lex_scale(pd) -> np.ndarray:
+    """BM25 distances are rounded sums of score terms: REL of |score|,
+    with a floor of 1."""
+    return np.maximum(np.abs(np.nan_to_num(pd.cpu().numpy(), posinf=0.0)),
+                      1.0)
+
+
+def check_bm25(name, qt, qw, terms, tf, k, valid=None,
+               exact: bool = True) -> dict:
+    """``exact``: slab rows hold distinct terms, so each hit sum has one
+    non-zero term and the kernel's ids and distances equal the plain
+    version's bit for bit (-0.0 included)."""
+    kd, ki = bm25.bm25_topk(qt, qw, terms, tf, k, valid=valid)
+    pd, pi = ref.bm25_topk_ref(qt, qw, terms, tf, k, valid=valid)
+    torch.cuda.synchronize()
+    out = compare(name, kd, ki, pd, pi, _lex_scale(pd))
+    if exact:
+        require(torch.equal(ki, pi) and torch.equal(
+            kd.view(torch.int32), pd.view(torch.int32)),
+            f"{name}: not bitwise equal to the plain version")
+    return out
+
+
+def require_by_parts(name, q, x, qt, qw, terms, tf, alpha, kd, ki) -> dict:
+    """A hybrid answer equals ``a * d2 - (1 - a) * score`` bit for bit on
+    every returned pair, with ``d2`` the fp32 L2 kernel's and ``score``
+    the kernels' float32 BM25 order; ``d2`` within REL of float64 and the
+    score within its rounding bound of float64."""
+    parts = hybrid_by_parts(q, x, qt, qw, terms, tf, alpha, kd, ki)
+    require(parts["mismatches"] == 0,
+            f"{name}: {parts['mismatches']} of {parts['pairs']} distances "
+            "are not alpha d2 - (1 - alpha) score")
+    require(parts["l2_max_rel_err"] <= REL,
+            f"{name}: an L2 half is off float64: {parts}")
+    require(parts["lex_max_rel_err"] <= parts["lex_bound"],
+            f"{name}: a BM25 half is off float64: {parts}")
+    return parts
+
+
+def check_hybrid(name, q, x, qt, qw, terms, tf, alpha: float, k,
+                 valid=None) -> dict:
+    a = torch.full((1, 1), alpha, dtype=torch.float32, device=q.device)
+    kd, ki = bm25.hybrid_topk(q, x, qt, qw, terms, tf, a, k, valid=valid)
+    pd, pi = ref.hybrid_topk_ref(q, x, qt, qw, terms, tf, a, k,
+                                 valid=valid)
+    torch.cuda.synchronize()
+    xn = _norms(x).cpu().numpy()
+    qn = _norms(q).cpu().numpy()
+    scale = (alpha * (qn[:, None] + xn[np.maximum(pi.cpu().numpy(), 0)])
+             + (1.0 - alpha) * _lex_scale(pd))
+    out = compare(name, kd, ki, pd, pi, scale)
+    # the tolerance above is loose enough at sift magnitudes to hide the
+    # whole lexical half: hold each returned pair's two halves apart
+    out["by_parts"] = require_by_parts(name, q, x, qt, qw, terms, tf,
+                                       alpha, kd, ki)
+    # the limits: alpha = 0 is the BM25 kernel's answer (by value: an
+    # unmatched row is 0 * d2 - 0, +0.0 or -0.0), alpha = 1 the fp32 L2
+    # kernel's (the same tile code), both on every slot
+    if alpha in (0.0, 1.0):
+        od, oi = (bm25.bm25_topk(qt, qw, terms, tf, k, valid=valid)
+                  if alpha == 0.0 else l2_topk.l2_topk(q, x, k, valid=valid))
+        torch.cuda.synchronize()
+        require(torch.equal(ki, oi) and torch.equal(kd, od),
+                f"{name}: the alpha = {alpha} identity does not hold")
+    return out
+
+
+def edges_options(dev) -> int:
+    """int8, BM25 and hybrid on the shared edge shapes
+    (``repro_torch.testing.OPTION_EDGES``, each with distinct and with
+    repeated slab terms); returns near-ties."""
+    near = 0
+    for case in OPTION_EDGES:
+        for repeat in (False, True):
+            o = option_edge_operands(case, repeat)
+            q, x, qt, qw, terms, tf, valid = (
+                None if o[n] is None else torch.as_tensor(o[n], device=dev)
+                for n in ("q", "x", "qt", "qw", "terms", "tf", "valid"))
+            k, name = o["k"], case[0]
+            tag = "repeated slab terms" if repeat else "distinct"
+            if not repeat:     # int8 reads no slabs: once per shape
+                codes, scales = (torch.as_tensor(a, device=dev)
+                                 for a in ops.quantize_rows_int8(o["x"]))
+                near += check_int8(f"edge int8 {name}", q, codes, scales, k,
+                                   valid)["near_ties"]
+            lex = (qt, qw, terms, tf)
+            near += check_bm25(f"edge bm25 {name} {tag}", *lex, k, valid,
+                               exact=not repeat)["near_ties"]
+            for alpha in EDGE_ALPHAS:
+                near += check_hybrid(f"edge hybrid {name} {tag} a={alpha}",
+                                     q, x, *lex, alpha, k,
+                                     valid)["near_ties"]
+    return near
+
+
 # --------------------------------------------------------------- phase 3
 def phase_edges(dev) -> None:
     rng = np.random.default_rng(0)
@@ -251,6 +446,7 @@ def phase_edges(dev) -> None:
     plain = (plain[0], torch.where(torch.isinf(plain[0]), -1, plain[1]))
     near += check_cand("edge cand duplicate ids", q, vd, idd, k,
                        plain=plain)["near_ties"]
+    near += edges_options(dev)
     log(f"[edges] all edge shapes agree; near-ties {near}")
     RESULTS["edge_near_ties"] = near
 
@@ -368,10 +564,11 @@ def phase_shapes(dev, brute_be, ivf_be, queries) -> None:
 
 
 # --------------------------------------------------------------- phase 5
-def serve(cell: ServingCell, queries: np.ndarray):
+def serve(cell: ServingCell, queries: np.ndarray, options=None):
     """N_CLIENTS threads, each sending its share of ``queries`` one
-    blocking request at a time.  Returns (ids, dists, latencies s, wall
-    s)."""
+    blocking request at a time; ``options(r)`` gives request ``r``'s
+    keyword arguments of ``cell.search``.  Returns (ids, dists, latencies
+    s, wall s)."""
     n = queries.shape[0]
     ids = np.full((n, K), -2, np.int32)
     dists = np.full((n, K), np.nan, np.float32)
@@ -381,8 +578,9 @@ def serve(cell: ServingCell, queries: np.ndarray):
     def client(rows, timer):
         try:
             for r in rows:
+                kw = options(r) if options is not None else {}
                 with timer:
-                    d, i = cell.search(queries[r], timeout=120)
+                    d, i = cell.search(queries[r], timeout=120, **kw)
                 ids[r], dists[r] = i, d
         except Exception as e:   # reported and failed below
             errors.append(e)
@@ -410,7 +608,21 @@ def batched(fn, queries: np.ndarray):
             np.concatenate([o[1] for o in outs]))
 
 
-def phase_main(dev, card) -> tuple:
+def entity_text(n: int, seed: int):
+    """Synthetic entity text: ``n`` documents of 6-12 tokens drawn with
+    repetition from a Zipf-like vocabulary.  Returns (tokens, offsets,
+    term probabilities)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, VOCAB + 1, dtype=np.float64) ** ZIPF_S
+    p /= p.sum()
+    lens = rng.integers(DOC_TOKENS[0], DOC_TOKENS[1] + 1, size=n)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    tokens = rng.choice(VOCAB, size=int(offsets[-1]), p=p)
+    return tokens, offsets, p
+
+
+def phase_main(dev, card) -> dict:
     label = f"{card['name']}, {card['nvidia_smi']}"
     t0 = time.perf_counter()
     corpus = make_corpus("sift", seed=0)
@@ -418,6 +630,13 @@ def phase_main(dev, card) -> tuple:
     log(f"[data] corpus {corpus.shape} queries {queries.shape} "
         f"{time.perf_counter() - t0:.1f} s (host)")
     require(corpus.shape == (SIFT_1M.n, SIFT_1M.d), "corpus is not sift-1m")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2)
+    meta = MetadataTable({"pct": rng.permutation(SIFT_1M.n) % 100})
+    tokens, offsets, p_term = entity_text(SIFT_1M.n, seed=3)
+    slabs = build_lexical_slabs_flat(tokens, offsets, VOCAB, slots=SLOTS)
+    log(f"[data] metadata + slabs {slabs.terms.shape} "
+        f"{time.perf_counter() - t0:.1f} s (host)")
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -432,9 +651,12 @@ def phase_main(dev, card) -> tuple:
         f"cap={cap} bucket sizes min/mean/max {counts.min()}/"
         f"{counts.mean():.1f}/{counts.max()}")
 
+    # the served backends also carry the options phase's sidecars; an
+    # unfiltered semantic call never reads them
     ivf = ShardedSearchBackend(idx, kind="ivf", k=K,
-                               nprobe_local=SIFT_1M.nprobe)
-    brute = ShardedSearchBackend(corpus, kind="brute", k=K)
+                               nprobe_local=SIFT_1M.nprobe, metadata=meta)
+    brute = ShardedSearchBackend(corpus, kind="brute", k=K, metadata=meta,
+                                 lexical=slabs)
     cell = ServingCell(ivf, max_batch=BATCH, max_wait_ms=2.0)
     # warm-up: first cuBLAS handles, allocator pools
     ivf(queries[:BATCH])
@@ -443,18 +665,18 @@ def phase_main(dev, card) -> tuple:
 
     phase_shapes(dev, brute, ivf, queries)
 
-    l2_topk.LAUNCHES.reset()
-    bucket_topk.LAUNCHES.reset()
+    # the served IVF path runs candidate_topk (its centroid probe is a
+    # plain GEMM + sort); l2_topk's path is the options phase's brute cell
+    reset_launches()
     ids, dists, lat, wall = serve(cell, queries)
-    truth_d, truth = batched(brute, queries)
     torch.cuda.synchronize()
-    launches = {"l2_topk": l2_topk.LAUNCHES.count,
-                "candidate_topk": bucket_topk.LAUNCHES.count}
+    launches = read_launches()
     stats = cell.stats()
     cell.close()
     log(f"[serve] launches {launches}")
-    require(all(v > 0 for v in launches.values()),
+    require(launches["candidate_topk"] > 0,
             "a kernel of the main path was never launched")
+    truth_d, truth = batched(brute, queries)
     require((ids >= 0).all() and np.isfinite(dists).all(),
             "served results hold sentinels or non-finite distances")
     # every served (id, distance) pair holds against a float64 recompute
@@ -514,16 +736,374 @@ def phase_main(dev, card) -> tuple:
     main["fused_unfused_max_gap"] = gap
     main["served_direct_agree"] = served_agree
     RESULTS["main"] = main
-    for name, n in launches.items():
-        RESULTS["kernels"][name]["launches"] = n
-    for kind, backend in (("ivf", ivf), ("brute", brute)):
-        RESULTS[f"profile_{kind}"] = phase_profile(kind, backend, queries,
-                                                   label)
-    return launches
+    RESULTS["kernels"]["candidate_topk"]["launches"] = launches[
+        "candidate_topk"]
+    return {"label": label, "corpus": corpus, "queries": queries,
+            "truth": truth, "idx": idx, "ivf": ivf, "brute": brute,
+            "meta": meta, "slabs": slabs, "tokens": tokens,
+            "offsets": offsets, "p_term": p_term}
 
 
-def phase_profile(kind: str, backend, queries: np.ndarray, label: str
-                  ) -> dict:
+# ------------------------------------------------------------ phase 4 (b)
+def _csr_and_weights(terms, tf, qt, qw, scale: float = 1.0):
+    """The yardstick's operands: an (N, V) CSR of ``tf_sat`` and the
+    (V, B) query weight matrix ``scale * qw``, so that ``csr @ W`` is
+    every (document, query) BM25 score."""
+    live = terms >= 0
+    crow = torch.zeros(terms.shape[0] + 1, dtype=torch.int64,
+                       device=terms.device)
+    crow[1:] = torch.cumsum(live.sum(1), 0)
+    with warnings.catch_warnings():      # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(crow, terms[live].long(), tf[live],
+                                      size=(terms.shape[0], VOCAB),
+                                      check_invariants=False)
+    w = torch.zeros((VOCAB, qt.shape[0]), device=terms.device)
+    cols = torch.arange(qt.shape[0], device=terms.device)[:, None].expand(
+        qt.shape)
+    ok = qt >= 0
+    w[qt[ok].long(), cols[ok]] = scale * qw[ok]
+    return csr, w
+
+
+def phase_option_shapes(dev, ctx, int8_be, qt_all, qw_all) -> None:
+    """int8, BM25 and hybrid at B = 64, N = 1M on the backends' own
+    operands: checked against the plain version, timed beside the bound,
+    the plain version and a PyTorch yardstick."""
+    brute, queries = ctx["brute"], ctx["queries"]
+    q = torch.as_tensor(queries[:BATCH], device=dev)
+    qt = torch.as_tensor(qt_all[:BATCH], device=dev)
+    qw = torch.as_tensor(qw_all[:BATCH], device=dev)
+    B, D = q.shape
+    T = qt.shape[1]
+
+    # l2_topk_int8 over the int8 backend's codes
+    codes, scales, valid = int8_be._args
+    N = codes.shape[0]
+    res = check_int8("shape l2_topk_int8 B64 N1M", q, codes, scales, K,
+                     valid)
+    res["ms"] = time_ms(lambda: l2_topk.l2_topk_int8(
+        q, codes, scales, K, valid=valid), 20)
+    res["plain_ms"] = time_ms(lambda: ref.l2_topk_int8_ref(
+        q, codes, scales, K, valid=valid), 3, warmup=1)
+    deq = codes.float() * scales[:, None]
+    xn = (deq * deq).sum(-1)[None, :].contiguous()
+    res["library_ms"] = time_ms(lambda: torch.topk(
+        torch.addmm(xn, q, deq.T, alpha=-2.0), K, largest=False), 20)
+    res["library_call"] = ("torch.topk(torch.addmm(xn, q, deq.T)) over the "
+                           "dequantized fp32 rows: two calls")
+    del deq
+    live = int((valid != 0).sum())
+    flops = 2.0 * B * live * D + 2.0 * N * D + 2.0 * B * D + 5.0 * B * live
+    nbytes = 1.0 * N * D + 4.0 * (N + N + B * D) + 8.0 * B * K
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+    res["shape"] = [B, N, D, K]
+    res["placed_bytes"] = int(sum(t.numel() * t.element_size()
+                                  for t in int8_be._args))
+    RESULTS["kernels"]["l2_topk_int8"] = res
+    log(f"[shape l2_topk_int8] ms {res['ms']:.4f} bound {res['bound_ms']:.4f}"
+        f" ({res['bound_by']}) plain {res['plain_ms']:.3f} library "
+        f"{res['library_ms']:.4f}")
+
+    # bm25_topk over the brute backend's slabs
+    terms, tf = brute._lex_args
+    x, valid = brute._args
+    N, S = terms.shape
+    res = check_bm25("shape bm25_topk B64 N1M", qt, qw, terms, tf, K, valid)
+    res["ms"] = time_ms(lambda: bm25.bm25_topk(qt, qw, terms, tf, K,
+                                               valid=valid), 20)
+    res["plain_ms"] = time_ms(lambda: ref.bm25_topk_ref(
+        qt, qw, terms, tf, K, valid=valid), 3, warmup=1)
+    csr, w = _csr_and_weights(terms, tf, qt, qw)
+    res["library_ms"] = time_ms(lambda: torch.topk(
+        torch.sparse.mm(csr, w).T, K), 20)
+    res["library_call"] = ("torch.topk(torch.sparse.mm(csr, W).T): an (N, V)"
+                           " CSR of tf_sat against the (V, B) query weights")
+    live_t = int((qt >= 0).sum())        # term slots the scan compares
+    lex_ops = 2.0 * S * N * live_t       # a compare-select and an add each
+    nbytes = 8.0 * N * S + 4.0 * N + 8.0 * B * T + 8.0 * B * K
+    res["bound_ms"], res["bound_by"] = bound(nbytes, lex_ops)
+    res["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    res["ops_ms"] = lex_ops / FP32_FLOPS_PER_S * 1e3
+    res["shape"] = [B, N, S, T, K]
+    res["live_term_slots"] = live_t
+    RESULTS["kernels"]["bm25_topk"] = res
+    log(f"[shape bm25_topk] ms {res['ms']:.4f} bound {res['bound_ms']:.4f} "
+        f"({res['bound_by']}; bytes {res['bytes_ms']:.4f}, operations "
+        f"{res['ops_ms']:.4f}) plain {res['plain_ms']:.3f} library "
+        f"{res['library_ms']:.4f}")
+
+    # hybrid_topk over the brute backend's rows and slabs
+    a = torch.full((1, 1), ALPHA, dtype=torch.float32, device=dev)
+    res = check_hybrid("shape hybrid_topk B64 N1M", q, x, qt, qw, terms, tf,
+                       ALPHA, K, valid)
+    res["ms"] = time_ms(lambda: bm25.hybrid_topk(
+        q, x, qt, qw, terms, tf, a, K, valid=valid), 20)
+    res["plain_ms"] = time_ms(lambda: ref.hybrid_topk_ref(
+        q, x, qt, qw, terms, tf, a, K, valid=valid), 3, warmup=1)
+    csr, w = _csr_and_weights(terms, tf, qt, qw, scale=-(1.0 - ALPHA))
+    axn = (ALPHA * (x * x).sum(-1))[None, :].contiguous()
+    res["library_ms"] = time_ms(lambda: torch.topk(torch.addmm(
+        torch.sparse.mm(csr, w).T.add(axn), q, x.T, alpha=-2.0 * ALPHA), K,
+        largest=False), 20)
+    res["library_call"] = ("torch.topk(torch.addmm(torch.sparse.mm(csr, W).T"
+                           " + a xn, q, x.T)): four calls")
+    del csr, w, axn
+    live = int((valid != 0).sum())
+    flops = (2.0 * B * live * D + 2.0 * N * D + 2.0 * B * D
+             + 6.0 * B * live + lex_ops)
+    nbytes = (4.0 * N * D + 8.0 * N * S + 4.0 * N + 4.0 * B * D
+              + 8.0 * B * T + 4.0 + 8.0 * B * K)
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+    res["shape"] = [B, N, D, S, T, K]
+    RESULTS["kernels"]["hybrid_topk"] = res
+    log(f"[shape hybrid_topk] ms {res['ms']:.4f} bound {res['bound_ms']:.4f}"
+        f" ({res['bound_by']}) plain {res['plain_ms']:.3f} library "
+        f"{res['library_ms']:.4f}")
+
+
+# --------------------------------------------------------------- phase 6
+def _kw(o: dict, qt, qw, rows) -> dict:
+    """A backend call's options for the requests ``rows``."""
+    kw = {"filter_spec": o.get("filter"), "mode": o.get("mode", "semantic"),
+          "alpha": o.get("alpha", 0.5)}
+    if kw["mode"] != "semantic":
+        kw["q_terms"], kw["q_weights"] = qt[rows], qw[rows]
+    return kw
+
+
+def direct(backend, queries, rows, o, qt, qw):
+    """Direct backend calls for ``rows`` in batches of 64."""
+    outs = [backend(queries[rows[s:s + BATCH]],
+                    **_kw(o, qt, qw, rows[s:s + BATCH]))
+            for s in range(0, len(rows), BATCH)]
+    return (np.concatenate([x[0] for x in outs]),
+            np.concatenate([x[1] for x in outs]))
+
+
+def near_tie_parity(name, a, b, scale, floor: float = 0.99) -> dict:
+    """Two answers (dists, ids) agree except at near-ties (slots whose
+    distances agree within REL * scale), on at least ``floor`` of
+    slots."""
+    err = np.abs(np.where(np.isfinite(b[0]), a[0].astype(np.float64) - b[0],
+                          0.0))
+    differ = a[1] != b[1]
+    off = differ & (err > REL * scale)
+    agree = float((~differ).mean())
+    require(np.array_equal(np.isinf(a[0]), np.isinf(b[0])),
+            f"{name}: sentinel slots differ")
+    require(not off.any(), f"{name}: ids differ off a near-tie")
+    require(agree >= floor, f"{name}: ids agree on {agree} < {floor}")
+    return {"agree": agree, "differing": int(differ.sum())}
+
+
+def cell_stats(name, cell, lat, wall, n) -> dict:
+    st = cell.stats()
+    out = {"requests": n, "p50_ms": float(np.percentile(lat * 1e3, 50)),
+           "p99_ms": float(np.percentile(lat * 1e3, 99)), "qps": n / wall,
+           "wall_s": wall, "collected_batches": st.collected_batches,
+           "dispatches": st.dispatches,
+           "mean_batch": n / max(st.collected_batches, 1),
+           "mean_dispatch": n / max(st.dispatches, 1),
+           "dispatches_per_batch": st.dispatches / max(st.collected_batches,
+                                                       1),
+           "stages": st.stages}
+    log(f"[options] {name}: {n} requests, {N_CLIENTS} clients: p50 "
+        f"{out['p50_ms']:.3f} ms p99 {out['p99_ms']:.3f} ms QPS "
+        f"{out['qps']:.1f}; mean batch {out['mean_batch']:.2f} requests, "
+        f"{out['dispatches_per_batch']:.2f} dispatches per batch (mean "
+        f"dispatch {out['mean_dispatch']:.2f})")
+    return out
+
+
+def require_admitted(name, ids, spec, meta) -> None:
+    mask = spec.mask(meta, meta.n_rows)
+    got = ids[ids >= 0]
+    require(mask[got].all(), f"{name}: an id outside its filter came back")
+
+
+def phase_options(dev, ctx) -> None:
+    corpus, queries, truth = ctx["corpus"], ctx["queries"], ctx["truth"]
+    brute, ivf, meta, slabs = (ctx[k] for k in ("brute", "ivf", "meta",
+                                                "slabs"))
+    label = ctx["label"]
+    n = len(queries)
+    # query text: 3 tokens of the query's exact nearest entity's document
+    # plus 1 random token
+    rng = np.random.default_rng(4)
+    tokens, offsets = ctx["tokens"], ctx["offsets"]
+    extra = rng.choice(VOCAB, size=n, p=ctx["p_term"])
+    q_docs = [list(rng.choice(tokens[offsets[e]:offsets[e + 1]], 3,
+                              replace=False)) + [int(extra[r])]
+              for r, e in enumerate(truth[:, 0])]
+    qt, qw = query_operands(q_docs, slabs, slots=Q_SLOTS)
+
+    t0 = time.perf_counter()
+    int8_be = ShardedSearchBackend(corpus, kind="brute", k=K,
+                                   precision="int8")
+    int8_be(queries[:BATCH])
+    torch.cuda.synchronize()
+    log(f"[options] int8 placement (quantize + place) "
+        f"{time.perf_counter() - t0:.1f} s")
+    with phase("shapes (int8, bm25, hybrid)"):
+        phase_option_shapes(dev, ctx, int8_be, qt, qw)
+
+    sets = [{"filter": NARROW}, {"mode": "lexical"},
+            {"mode": "lexical", "filter": WIDE},
+            {"mode": "hybrid", "alpha": ALPHA}]
+
+    def brute_opts(r):
+        o = dict(sets[r % len(sets)])
+        if o.get("mode", "semantic") != "semantic":
+            o["q_terms"], o["q_weights"] = qt[r], qw[r]
+        return o
+
+    n_ivf, n_i8 = N_IVF_OPTION_REQUESTS, N_INT8_REQUESTS
+    ivf_filters = (NARROW, WIDE)
+    cells = {"brute": ServingCell(brute, max_batch=BATCH, max_wait_ms=2.0),
+             "ivf": ServingCell(ivf, max_batch=BATCH, max_wait_ms=2.0),
+             "int8": ServingCell(int8_be, max_batch=BATCH, max_wait_ms=2.0)}
+    # the main path of this phase: the three cells, counts reset just
+    # before and read just after
+    reset_launches()
+    served = {
+        "brute": serve(cells["brute"], queries, brute_opts),
+        "ivf": serve(cells["ivf"], queries[:n_ivf],
+                     lambda r: {"filter": ivf_filters[r % 2]}),
+        "int8": serve(cells["int8"], queries[:n_i8]),
+    }
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[options] launches {launches}")
+    require(all(v > 0 for v in launches.values()),
+            "a kernel of the options path was never launched")
+    out = {"label": label, "launches": launches}
+    for name, cell in cells.items():
+        ids, _, lat, wall = served[name]
+        out[name] = cell_stats(name, cell, lat, wall, len(ids))
+        cell.close()
+
+    qn = (queries.astype(np.float64) ** 2).sum(1)
+    xn = (corpus.astype(np.float64) ** 2).sum(1)
+    unfused = ShardedSearchBackend(corpus, kind="brute", k=K, fused=False,
+                                   metadata=meta, lexical=slabs)
+    ids, dists = served["brute"][0], served["brute"][1]
+    for j, o in enumerate(sets):
+        rows = np.arange(j, n, len(sets))
+        tag = (f"{o.get('mode', 'semantic')}"
+               f"{' a=' + str(o['alpha']) if 'alpha' in o else ''}"
+               f"{' ' + o['filter'].describe() if 'filter' in o else ''}")
+        mine = (dists[rows], ids[rows])
+        if "filter" in o:
+            require_admitted(f"brute {tag}", mine[1], o["filter"], meta)
+        fused = direct(brute, queries, rows, o, qt, qw)
+        plain = direct(unfused, queries, rows, o, qt, qw)
+        same_cell = float((mine[1] == fused[1]).mean())
+        require(same_cell >= 0.99, f"brute {tag}: cell answers differ from "
+                "direct backend calls")
+        res = {"cell_direct_agree": same_cell}
+        if o.get("mode") == "lexical":
+            require(np.array_equal(mine[1], plain[1])
+                    and np.array_equal(mine[0].view(np.int32),
+                                       plain[0].view(np.int32)),
+                    f"brute {tag}: lexical answers differ from the unfused "
+                    "path (ids, or distance bits)")
+            res["unfused_agree"] = 1.0
+        else:
+            a = o.get("alpha", 1.0) if o.get("mode") == "hybrid" else 1.0
+            scale = (a * (qn[rows, None] + xn[np.maximum(plain[1], 0)])
+                     + (1 - a) * np.maximum(np.abs(plain[0]), 1.0))
+            par = near_tie_parity(f"brute {tag} vs unfused", mine, plain,
+                                  scale)
+            res["unfused_agree"] = par["agree"]
+            res["unfused_differing"] = par["differing"]
+        if o.get("mode") is None:
+            # semantic filtered: every served pair against float64
+            d64 = ((queries[rows][:, None, :].astype(np.float64)
+                    - corpus[mine[1]].astype(np.float64)) ** 2).sum(-1)
+            err = np.abs(d64 - mine[0]) / (qn[rows, None] + xn[mine[1]])
+            require((err <= REL).all(), f"brute {tag}: a wrong distance")
+            res["max_rel_err_f64"] = float(err.max())
+        if o.get("mode") == "hybrid":
+            # the near-tie tolerance above cannot see the lexical half at
+            # sift magnitudes: every served pair, held by its two halves
+            rt = torch.as_tensor(rows, device=dev)
+            res["by_parts"] = require_by_parts(
+                f"brute {tag}", torch.as_tensor(queries, device=dev)[rt],
+                brute._args[0], torch.as_tensor(qt, device=dev)[rt],
+                torch.as_tensor(qw, device=dev)[rt], *brute._lex_args,
+                o["alpha"], torch.as_tensor(mine[0]),
+                torch.as_tensor(mine[1]))
+            res["not_in_semantic_top10"] = float(np.mean(
+                [1 - np.intersect1d(a_, b_).size / K
+                 for a_, b_ in zip(mine[1], truth[rows])]))
+        log(f"[options] brute {tag}: {res}")
+        out[f"brute {tag}"] = res
+
+    ids, dists = served["ivf"][0], served["ivf"][1]
+    for j, spec in enumerate(ivf_filters):
+        rows = np.arange(j, n_ivf, 2)
+        mine = (dists[rows], ids[rows])
+        require_admitted(f"ivf {spec.describe()}", mine[1], spec, meta)
+        o = {"filter": spec}
+        fused = direct(ivf, queries, rows, o, qt, qw)
+        exact = direct(brute, queries, rows, o, qt, qw)
+        agree = float((mine[1] == fused[1]).mean())
+        require(agree >= 0.99, "filtered IVF cell answers differ from "
+                "direct backend calls")
+        rec = recall_at_k(mine[1], exact[1])
+        res = {"selectivity": float(spec.mask(meta, meta.n_rows).mean()),
+               "recall_at_10_vs_filtered_exact": rec,
+               "cell_direct_agree": agree}
+        log(f"[options] ivf {spec.describe()}: {res}")
+        out[f"ivf {spec.describe()}"] = res
+        if spec is WIDE:
+            # filter-blind probing sags at 0.05 (docs/filtering.md): the
+            # floor only catches breakage, at 0.5
+            require(rec >= 0.5, f"filtered IVF recall@10 {rec} at 0.5")
+
+    ids, dists = served["int8"][0], served["int8"][1]
+    rows = np.arange(n_i8)
+    fused = direct(int8_be, queries, rows, {}, qt, qw)
+    agree = float((ids == fused[1]).mean())
+    require(agree >= 0.99, "int8 cell answers differ from direct calls")
+    deq = _deq_rows(*int8_be._args[:2])(ids)
+    d64 = ((queries[:n_i8, None, :].astype(np.float64) - deq) ** 2).sum(-1)
+    err = np.abs(d64 - dists) / (qn[:n_i8, None] + (deq ** 2).sum(-1))
+    require((err <= REL).all(), "int8: a served id carries a wrong distance")
+    rec = recall_at_k(ids, truth[:n_i8])
+    f32_bytes = int(sum(t.numel() * t.element_size() for t in brute._args))
+    i8_bytes = int(sum(t.numel() * t.element_size() for t in int8_be._args))
+    res = {"recall_at_10_vs_exact_f32": rec, "cell_direct_agree": agree,
+           "max_rel_err_f64_dequantized": float(err.max()),
+           "placed_bytes_f32": f32_bytes, "placed_bytes_int8": i8_bytes}
+    log(f"[options] int8: {res}")
+    require(rec >= 0.5, f"int8 recall@10 {rec} is implausibly low")
+    out["int8 checks"] = res
+    RESULTS["options"] = out
+    for name in ("l2_topk", "l2_topk_int8", "bm25_topk", "hybrid_topk"):
+        RESULTS["kernels"][name]["launches"] = launches[name]
+    ctx.update(int8=int8_be, qt=qt, qw=qw)
+
+
+# --------------------------------------------------------------- phase 7
+def phase_profiles(ctx) -> None:
+    queries, qt, qw = ctx["queries"], ctx["qt"], ctx["qw"]
+
+    def opts(o):
+        return lambda s: _kw(o, qt, qw, np.arange(s, s + BATCH))
+
+    for kind, backend, o in (
+            ("ivf", ctx["ivf"], {}), ("brute", ctx["brute"], {}),
+            ("lexical", ctx["brute"], {"mode": "lexical"}),
+            ("hybrid", ctx["brute"], {"mode": "hybrid", "alpha": ALPHA}),
+            ("int8", ctx["int8"], {})):
+        RESULTS[f"profile_{kind}"] = phase_profile(
+            kind, backend, queries, ctx["label"], opts(o))
+
+
+def phase_profile(kind: str, backend, queries: np.ndarray, label: str,
+                  opts) -> dict:
     """Where the device time of one backend goes: ``torch.profiler`` over
     8 batches of 64, kernels summed by name, and the device's busy share
     of the window's wall time."""
@@ -531,27 +1111,19 @@ def phase_profile(kind: str, backend, queries: np.ndarray, label: str
     from torch.profiler import ProfilerActivity, profile
 
     n = 8 * BATCH
-    backend(queries[:BATCH])
+    backend(queries[:BATCH], **opts(0))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for s in range(0, n, BATCH):
-            backend(queries[s:s + BATCH])
+            backend(queries[s:s + BATCH], **opts(s))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    for e in kernels:
-        for name in SOURCES:
-            if f"{name}_" in e.key and name in RESULTS["kernels"]:
-                per = RESULTS["kernels"][name].setdefault(
-                    "profiled_us_per_launch", {})
-                kernel = re.search(r"(\w+<\d+>)\(", e.key)
-                per[kernel.group(1) if kernel else e.key[:60]] = (
-                    e.self_device_time_total / e.count)
     out = {"batches": n // BATCH, "batch": BATCH,
            "wall_ms_per_batch": wall_us / 1e3 / (n // BATCH),
            "device_busy_share": busy_us / wall_us,
@@ -572,6 +1144,12 @@ SOURCES = {
                 "src/repro/kernels/l2_topk.py:109"),
     "candidate_topk": ("src/repro_torch/kernels/csrc/candidate_topk.cu",
                        "src/repro/kernels/bucket_topk.py:69"),
+    "l2_topk_int8": ("src/repro_torch/kernels/csrc/l2_topk.cu",
+                     "src/repro/kernels/l2_topk.py:161"),
+    "bm25_topk": ("src/repro_torch/kernels/csrc/bm25_topk.cu",
+                  "src/repro/kernels/bm25.py:111"),
+    "hybrid_topk": ("src/repro_torch/kernels/csrc/l2_topk.cu",
+                    "src/repro/kernels/bm25.py:160"),
 }
 
 
@@ -591,11 +1169,19 @@ def kernel_line() -> dict:
 
 
 def main() -> int:
-    card = phase_card()
+    with phase("card"):
+        card = phase_card()
     dev = torch.device("cuda", 0)
-    phase_build()
-    phase_edges(dev)
-    phase_main(dev, card)
+    with phase("build"):
+        phase_build()
+    with phase("edges"):
+        phase_edges(dev)
+    with phase("serve"):
+        ctx = phase_main(dev, card)
+    with phase("options"):
+        phase_options(dev, ctx)
+    with phase("profile"):
+        phase_profiles(ctx)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)

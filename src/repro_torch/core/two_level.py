@@ -27,7 +27,8 @@ from repro_torch.core.kmeans import _assign_topm, kmeans_fit
 from repro_torch.device import resolve
 from repro_torch.kernels.common import stable_topk
 
-__all__ = ["TwoLevelConfig", "TwoLevelIndex", "build_two_level"]
+__all__ = ["TwoLevelConfig", "TwoLevelIndex", "build_two_level",
+           "check_sidecars"]
 
 TOP_ALGOS = ("brute", "kdtree", "pq")
 BOTTOM_ALGOS = ("brute", "tree", "qlbt", "lsh")
@@ -71,6 +72,10 @@ class TwoLevelIndex:
     entity_bucket: Optional[np.ndarray] = None  # (N,) int32, -1 = deleted
     dirty: Optional[np.ndarray] = None          # (K,) bool, membership changed
     device: Optional[torch.device] = None       # where search runs
+    # per-entity sidecars, row-aligned with db: a MetadataTable (filters)
+    # and LexicalSlabs (lexical / hybrid modes), placed by the backend
+    metadata: Optional[object] = dataclasses.field(default=None, repr=False)
+    lexical: Optional[object] = dataclasses.field(default=None, repr=False)
 
     @property
     def n(self) -> int:
@@ -142,14 +147,30 @@ def _probe_scan_brute(db, bucket_ids, buckets, q, k):
     return best_d, torch.where(torch.isinf(best_d), -1, best_i)
 
 
+def check_sidecars(n: int, metadata=None, lexical=None) -> None:
+    """The metadata table and the lexical slabs must hold one row per
+    corpus row."""
+    if metadata is not None and metadata.n_rows != n:
+        raise ValueError(
+            f"metadata table has {metadata.n_rows} rows for a {n}-row db")
+    if lexical is not None and lexical.n_docs != n:
+        raise ValueError(
+            f"lexical slabs hold {lexical.n_docs} docs for a {n}-row db")
+
+
 def build_two_level(db: np.ndarray, config: TwoLevelConfig, *,
+                    metadata=None, lexical=None,
                     device=None) -> TwoLevelIndex:
     """Paper §3.2 build, brute/brute: k-means (on the card unless
-    ``device`` says otherwise) -> capped bucket fill."""
+    ``device`` says otherwise) -> capped bucket fill.  ``metadata`` (a
+    :class:`repro_torch.core.metadata.MetadataTable`) and ``lexical`` (a
+    :class:`repro_torch.core.lexical.LexicalSlabs`) are optional
+    row-aligned sidecars."""
     _check_levels(config)
     dev = resolve(device)
     db = np.ascontiguousarray(db, dtype=np.float32)
     n = db.shape[0]
+    check_sidecars(n, metadata, lexical)
     k = min(config.n_clusters, n)
     km = kmeans_fit(db, k, iters=config.kmeans_iters, seed=config.seed,
                     minibatch=config.kmeans_minibatch, device=dev)
@@ -166,7 +187,8 @@ def build_two_level(db: np.ndarray, config: TwoLevelConfig, *,
         bucket_ids=bucket_ids, bucket_counts=counts.astype(np.int32),
         alive=np.ones(n, dtype=bool),
         entity_bucket=entity_buckets(bucket_ids, n),
-        dirty=np.zeros(k, dtype=bool), device=dev)
+        dirty=np.zeros(k, dtype=bool), device=dev, metadata=metadata,
+        lexical=lexical)
 
 
 def entity_buckets(bucket_ids: np.ndarray, n: int) -> np.ndarray:

@@ -12,8 +12,9 @@ import threading
 
 import torch
 
-__all__ = ["INF", "KMAX", "LaunchCounter", "list_len", "merge_topk",
-           "pad_sentinel", "stable_topk", "valid_operand"]
+__all__ = ["INF", "KMAX", "LAUNCH_COUNTERS", "LaunchCounter", "empty_result",
+           "list_len", "merge_topk", "pad_sentinel", "stable_topk",
+           "valid_operand"]
 
 INF = float("inf")
 
@@ -29,6 +30,10 @@ def list_len(k: int) -> int:
     return 8 if k <= 8 else 16 if k <= 16 else 32
 
 
+# every kernel's counter by kernel name, so a run can reset and read all
+LAUNCH_COUNTERS: "dict[str, LaunchCounter]" = {}
+
+
 class LaunchCounter:
     """Counts a kernel's launches: its wrapper adds one where it launches
     the kernel and nowhere else, so a run can show that the main path
@@ -38,6 +43,7 @@ class LaunchCounter:
         self.name = name
         self._lock = threading.Lock()
         self._n = 0
+        LAUNCH_COUNTERS[name] = self
 
     def inc(self) -> None:
         with self._lock:
@@ -56,9 +62,17 @@ class LaunchCounter:
 def stable_topk(d: torch.Tensor, k: int):
     """The ``k`` smallest of each row, ascending, ties toward the lower
     column: ``lax.top_k(-d, k)``'s order.  ``torch.topk`` breaks ties
-    differently, so the port never uses it."""
-    vals, idx = torch.sort(d, dim=1, stable=True)
-    return vals[:, :k], idx[:, :k]
+    differently, so the port never uses it.
+
+    The sort key is ``d + 0.0``, which turns -0.0 into +0.0: the card's
+    radix sort would otherwise rank -0.0 before +0.0, while the kernels
+    (and the CPU sort) hold them equal and break the tie on the column.
+    A lexical distance is -0.0 for an unmatched document, and a hybrid
+    one at alpha = 0 is -0.0 or +0.0 with the sign of the rounded L2
+    term.  The values come back from ``d`` itself, signs intact."""
+    _, idx = torch.sort(d + 0.0, dim=1, stable=True)
+    idx = idx[:, :k]
+    return torch.gather(d, 1, idx), idx
 
 
 def merge_topk(best_d, best_i, tile_d, tile_i, k: int):
@@ -103,3 +117,9 @@ def pad_sentinel(d, i, k: int, k_eff: int):
     b = d.shape[0]
     return (torch.cat([d, d.new_full((b, k - k_eff), INF)], dim=1),
             torch.cat([i, i.new_full((b, k - k_eff), -1)], dim=1))
+
+
+def empty_result(b: int, k: int, device):
+    """(B, k) of the ``(inf, -1)`` sentinel: a scan over no rows."""
+    return (torch.full((b, k), INF, device=device),
+            torch.full((b, k), -1, dtype=torch.int32, device=device))

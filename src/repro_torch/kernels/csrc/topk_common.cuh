@@ -130,4 +130,28 @@ __device__ __forceinline__ void block_merge(TopK<KT>& top, int group, bool leade
   }
 }
 
+// Second pass of the split scans (l2_topk.cu, bm25_topk.cu): one block per
+// query merges its L sorted partial lists, part_d / part_i (B, L, KT),
+// into the top-k.
+template <int KT, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+merge_partials(const float* __restrict__ part_d, const int* __restrict__ part_i, int L,
+               float* __restrict__ out_d, int* __restrict__ out_i, int k) {
+  __shared__ float sd[(THREADS / 2) * KT];
+  __shared__ int si[(THREADS / 2) * KT];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const float* pd = part_d + (size_t)b * L * KT;
+  const int* pi = part_i + (size_t)b * L * KT;
+
+  TopK<KT> top;
+  top.init();
+  for (int e = tid; e < L * KT; e += THREADS) {
+    const float dist = pd[e];
+    if (dist < CUDART_INF_F) top.push(dist, pi[e]);
+  }
+  block_merge<KT, false>(top, tid, true, THREADS, sd, si);
+  if (tid == 0) top.store(out_d + (size_t)b * k, out_i + (size_t)b * k, k);
+}
+
 }  // namespace rt

@@ -1,12 +1,13 @@
-"""Wrapper of the CUDA fused L2 + streaming top-k kernel.
+"""Wrappers of the CUDA fused L2 + streaming top-k kernels (fp32, int8).
 
-Replaces ``repro/kernels/l2_topk.py::l2_topk_pallas``; the kernel is
-``csrc/l2_topk.cu`` (its header note gives the design and the bound).
-This module checks the operands, allocates the outputs and the per-split
-partial lists, chooses the split count, launches on PyTorch's current
-stream and counts launches.  It takes CUDA tensors only; the plain
-version is ``ref.l2_topk_ref`` and ``ops.l2_topk_op`` picks between them
-by device.
+Replace ``repro/kernels/l2_topk.py::l2_topk_pallas`` and
+``l2_topk_int8_pallas``; the kernels are the ``F32Rows`` and ``Int8Rows``
+instantiations of ``csrc/l2_topk.cu`` (its header note gives the design
+and the bounds).  This module checks the operands, allocates the outputs
+and the per-split partial lists, chooses the split count, launches on
+PyTorch's current stream and counts launches.  It takes CUDA tensors
+only; the plain versions are ``ref.l2_topk_ref`` / ``ref.l2_topk_int8_ref``
+and ``ops`` picks between kernel and plain version by device.
 """
 from __future__ import annotations
 
@@ -15,31 +16,39 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (KMAX, LaunchCounter, list_len,
-                                        pad_sentinel, valid_operand)
+from repro_torch.kernels.common import (KMAX, LaunchCounter, empty_result,
+                                        list_len, pad_sentinel, valid_operand)
 
-__all__ = ["l2_topk", "LAUNCHES", "splits_for"]
+__all__ = ["l2_topk", "l2_topk_int8", "LAUNCHES", "INT8_LAUNCHES",
+           "library", "splits_for", "scan_outputs", "check_scan",
+           "stream_handle"]
 
 LAUNCHES = LaunchCounter("l2_topk")
+INT8_LAUNCHES = LaunchCounter("l2_topk_int8")
 
-BN = 128        # rows per tile in csrc/l2_topk.cu
-BQ = 64         # queries per block tile in csrc/l2_topk.cu
+BN = 128        # rows per tile in csrc/l2_topk.cu and csrc/bm25_topk.cu
+BQ = 64         # queries per block tile in both
 MAX_D = 512     # the staged query tile must fit in shared memory
 
-_fn = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_lib = None
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
+def library():
+    """The ``l2_topk`` library with its three launchers' signatures set
+    (the hybrid one is wrapped by ``kernels.bm25``)."""
+    global _lib
+    if _lib is None:
         lib = _build.library("l2_topk")
-        f = lib.l2_topk_launch
-        f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-        f.restype = ctypes.c_int
-        lib.l2_topk_selectors.restype = ctypes.c_int
-        _fn = (f, int(lib.l2_topk_selectors()))
-    return _fn
+        for fn, argtypes in (
+                (lib.l2_topk_launch, [_P] * 7 + [_I] * 7 + [_P]),
+                (lib.l2_topk_int8_launch, [_P] * 8 + [_I] * 7 + [_P]),
+                (lib.hybrid_topk_launch, [_P] * 12 + [_I] * 9 + [_P])):
+            fn.argtypes = argtypes
+            fn.restype = _I
+        lib.l2_topk_selectors.restype = _I
+        _lib = lib
+    return _lib
 
 
 def splits_for(b: int, n: int, sm_count: int) -> tuple[int, int]:
@@ -50,6 +59,41 @@ def splits_for(b: int, n: int, sm_count: int) -> tuple[int, int]:
     s = max(1, min(tiles, (2 * sm_count) // q_tiles))
     rows = -(-tiles // s) * BN
     return -(-n // rows), rows
+
+
+def scan_outputs(b: int, n: int, k_eff: int, selectors: int, dev):
+    """Outputs and partial lists of a split scan over ``n`` rows:
+    ``(out_d, out_i, part_d, part_i, kt, splits, rows per split)``."""
+    kt = list_len(k_eff)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, rows = splits_for(b, n, sm)
+    out_d = torch.empty((b, k_eff), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k_eff), dtype=torch.int32, device=dev)
+    part_d = torch.empty((b, splits * selectors, kt), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((b, splits * selectors, kt), dtype=torch.int32,
+                         device=dev)
+    return out_d, out_i, part_d, part_i, kt, splits, rows
+
+
+def check_scan(name: str, queries, n: int, k: int) -> int:
+    """Checks shared by the dense scans; returns ``k`` clamped to N."""
+    if queries.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 queries")
+    if queries.dim() != 2:
+        raise ValueError(f"queries have shape {tuple(queries.shape)}, "
+                         "not (B, D)")
+    if queries.shape[1] > MAX_D:
+        raise ValueError(f"d={queries.shape[1]} exceeds the kernel's {MAX_D}")
+    k_eff = min(k, n)
+    if k_eff > KMAX:
+        raise ValueError(f"k={k_eff} exceeds the kernel's KMAX={KMAX}")
+    return k_eff
+
+
+def stream_handle(dev) -> int:
+    """PyTorch's current stream on ``dev``, as the launchers take it."""
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def l2_topk(queries: torch.Tensor, db: torch.Tensor, k: int = 10, *,
@@ -64,41 +108,69 @@ def l2_topk(queries: torch.Tensor, db: torch.Tensor, k: int = 10, *,
     if queries.device.type != "cuda" or db.device.type != "cuda":
         raise ValueError("l2_topk takes CUDA tensors; the plain version is "
                          "ref.l2_topk_ref")
-    if queries.dtype != torch.float32 or db.dtype != torch.float32:
-        raise TypeError("l2_topk takes float32 queries and db")
-    if queries.dim() != 2 or db.dim() != 2 or queries.shape[1] != db.shape[1]:
+    if db.dtype != torch.float32:
+        raise TypeError("l2_topk takes a float32 db")
+    if db.dim() != 2 or queries.dim() != 2 or (
+            queries.shape[1] != db.shape[1]):
         raise ValueError(f"shapes {tuple(queries.shape)} x {tuple(db.shape)}"
                          " are not (B, D) x (N, D)")
     B, D = queries.shape
     N = db.shape[0]
-    if D > MAX_D:
-        raise ValueError(f"d={D} exceeds the kernel's {MAX_D}")
-    k_eff = min(k, N)
-    if k_eff > KMAX:
-        raise ValueError(f"k={k_eff} exceeds the kernel's KMAX={KMAX}")
+    k_eff = check_scan("l2_topk", queries, N, k)
     dev = queries.device
-    q = queries.contiguous()
-    x = db.contiguous()
-    v = valid_operand(valid, N, dev)
-    out_d = torch.empty((B, k_eff), dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, k_eff), dtype=torch.int32, device=dev)
     if B == 0 or k_eff == 0:
-        return pad_sentinel(out_d, out_i, k, k_eff)
-    fn, selectors = _launcher()
-    kt = list_len(k_eff)
-    sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, rows = splits_for(B, N, sm)
-    part_d = torch.empty((B, splits * selectors, kt), dtype=torch.float32,
-                         device=dev)
-    part_i = torch.empty((B, splits * selectors, kt), dtype=torch.int32,
-                         device=dev)
+        return empty_result(B, k, dev)
+    q, x = queries.contiguous(), db.contiguous()
+    v = valid_operand(valid, N, dev)
+    lib = library()
+    out_d, out_i, part_d, part_i, kt, splits, rows = scan_outputs(
+        B, N, k_eff, lib.l2_topk_selectors(), dev)
     with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), x.data_ptr(),
-                None if v is None else v.data_ptr(),
-                part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-                out_i.data_ptr(), B, N, D, k_eff, kt, splits, rows,
-                torch.cuda.current_stream(dev).cuda_stream)
+        rc = lib.l2_topk_launch(
+            q.data_ptr(), x.data_ptr(), None if v is None else v.data_ptr(),
+            part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), B, N, D, k_eff, kt, splits, rows,
+            stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"l2_topk launch failed: CUDA error {rc}")
     LAUNCHES.inc()
+    return pad_sentinel(out_d, out_i, k, k_eff)
+
+
+def l2_topk_int8(queries: torch.Tensor, codes: torch.Tensor,
+                 scales: torch.Tensor, k: int = 10, *, valid=None):
+    """The int8-footprint scan: ``codes`` (N, D) int8 and ``scales`` (N,)
+    float32 with ``row ~= scale * codes``; queries stay float32.  Same
+    contract and errors as :func:`l2_topk`."""
+    if any(t.device.type != "cuda" for t in (queries, codes, scales)):
+        raise ValueError("l2_topk_int8 takes CUDA tensors; the plain version "
+                         "is ref.l2_topk_int8_ref")
+    if codes.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError("l2_topk_int8 takes int8 codes and float32 scales")
+    if codes.dim() != 2 or queries.dim() != 2 or (
+            queries.shape[1] != codes.shape[1]) or (
+            tuple(scales.shape) != (codes.shape[0],)):
+        raise ValueError(f"shapes {tuple(queries.shape)} x "
+                         f"{tuple(codes.shape)} x {tuple(scales.shape)} are "
+                         "not (B, D) x (N, D) x (N,)")
+    B, D = queries.shape
+    N = codes.shape[0]
+    k_eff = check_scan("l2_topk_int8", queries, N, k)
+    dev = queries.device
+    if B == 0 or k_eff == 0:
+        return empty_result(B, k, dev)
+    q, c, s = queries.contiguous(), codes.contiguous(), scales.contiguous()
+    v = valid_operand(valid, N, dev)
+    lib = library()
+    out_d, out_i, part_d, part_i, kt, splits, rows = scan_outputs(
+        B, N, k_eff, lib.l2_topk_selectors(), dev)
+    with torch.cuda.device(dev):
+        rc = lib.l2_topk_int8_launch(
+            q.data_ptr(), c.data_ptr(), s.data_ptr(),
+            None if v is None else v.data_ptr(), part_d.data_ptr(),
+            part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), B, N, D,
+            k_eff, kt, splits, rows, stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"l2_topk_int8 launch failed: CUDA error {rc}")
+    INT8_LAUNCHES.inc()
     return pad_sentinel(out_d, out_i, k, k_eff)

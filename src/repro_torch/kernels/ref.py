@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the ported kernels (the ``ref.py`` contract).
 
-Port of the l2 and candidate parts of ``repro/kernels/ref.py``.  Each
+Port of the l2, int8, candidate, BM25 and hybrid parts of
+``repro/kernels/ref.py``.  Each
 function computes its kernel's result with no tiling; ``ops`` runs it for
 tensors on the CPU, the tests hold it against the reference, and
 ``chip_smoke.py`` holds each kernel against it on the card.
@@ -16,6 +17,12 @@ scan (``l2_topk``) that is the same order.  ``candidate_topk_ref`` keeps
 the reference oracle's column order (carried best first, then the tile),
 so it agrees with the kernel wherever ids are distinct and distances
 untied — true on the IVF path, whose buckets are disjoint.
+
+Operation order (the kernels follow it with round-to-nearest intrinsics,
+nothing contracted into an FMA): int8 is ``qn + (s * s * xn8)`` then
+``- (2 * s) * dot``; BM25 runs the query term slot ``t`` outer and the
+document slot ``s`` inner, ``score = score + hit * qw[t]`` as two
+roundings; hybrid is ``a * d2 - (1 - a) * score``.
 """
 from __future__ import annotations
 
@@ -24,7 +31,12 @@ import torch
 from repro_torch.core.brute import batched_l2sq, pairwise_l2sq
 from repro_torch.kernels.common import INF, pad_sentinel, stable_topk
 
-__all__ = ["l2_topk_ref", "candidate_topk_ref"]
+__all__ = ["l2_topk_ref", "l2_topk_int8_ref", "candidate_topk_ref",
+           "bm25_dists_ref", "bm25_topk_ref", "hybrid_topk_ref"]
+
+# Elements of the (B, rows, S) match mask ``bm25_dists_ref`` builds at
+# once (about 1 GB as float32); longer slabs are scanned in row chunks.
+_MASK_ELEMS = 1 << 28
 
 
 def _finish(d2: torch.Tensor, k: int):
@@ -49,6 +61,18 @@ def l2_topk_ref(queries, db, k: int = 10, *, valid=None):
     return _finish(_apply_valid(pairwise_l2sq(q, x), valid), k)
 
 
+def l2_topk_int8_ref(queries, codes, scales, k: int = 10, *, valid=None):
+    """The int8-footprint scan over ``row ~= scale * codes``, the scale
+    applied to the reduced terms."""
+    q = queries.to(torch.float32)
+    xf = codes.to(torch.float32)
+    s = scales.to(torch.float32)
+    qn = torch.sum(q * q, dim=1, keepdim=True)
+    xn8 = torch.sum(xf * xf, dim=1)
+    d2 = qn + (s * s * xn8)[None, :] - 2.0 * s[None, :] * (q @ xf.T)
+    return _finish(_apply_valid(d2, valid), k)
+
+
 def candidate_topk_ref(queries, vecs, ids, k: int = 10, *,
                        best_d=None, best_i=None):
     """Per-query candidate tiles with an optional carried running best
@@ -68,3 +92,49 @@ def candidate_topk_ref(queries, vecs, ids, k: int = 10, *,
         d, sel = stable_topk(d2, k_eff)
         d, out_i = pad_sentinel(d, torch.gather(ids, 1, sel), k, k_eff)
     return d, torch.where(torch.isinf(d), -1, out_i)
+
+
+def bm25_dists_ref(q_terms, q_weights, terms, tf_sat):
+    """(B, N) BM25 ranking distances (``-score``), reduced term slot
+    first, then document slot.  Rows are taken in chunks that keep the
+    match mask near ``_MASK_ELEMS``; no element depends on the chunk."""
+    qt = q_terms.to(torch.int32)
+    qw = q_weights.to(torch.float32)
+    t = terms.to(torch.int32)
+    f = tf_sat.to(torch.float32)
+    b, n = qt.shape[0], t.shape[0]
+    chunk = max(1, _MASK_ELEMS // max(1, b * t.shape[1]))
+    score = torch.empty((b, n), dtype=torch.float32, device=qt.device)
+    for r0 in range(0, n, chunk):
+        tc, fc = t[r0:r0 + chunk], f[r0:r0 + chunk]
+        sc = torch.zeros((b, tc.shape[0]), dtype=torch.float32,
+                         device=qt.device)
+        for slot in range(qt.shape[1]):
+            s = qt[:, slot]                                     # (B,)
+            m = (tc[None, :, :] == s[:, None, None]) & (
+                s[:, None, None] >= 0)                          # (B, n, S)
+            hit = torch.where(m, fc[None, :, :], 0.0).sum(-1)
+            sc = sc + hit * qw[:, slot][:, None]
+        score[:, r0:r0 + chunk] = sc
+    return -score
+
+
+def bm25_topk_ref(q_terms, q_weights, terms, tf_sat, k: int = 10, *,
+                  valid=None):
+    """The BM25 scan: (ranking dists = -score ascending, ids)."""
+    dist = bm25_dists_ref(q_terms, q_weights, terms, tf_sat)
+    return _finish(_apply_valid(dist, valid), k)
+
+
+def hybrid_topk_ref(queries, db, q_terms, q_weights, terms, tf_sat, alpha,
+                    k: int = 10, *, valid=None):
+    """The hybrid scan ``alpha * l2sq - (1 - alpha) * bm25``; ``alpha`` is
+    a (1, 1) operand (a tensor on the queries' device, or a number)."""
+    q = queries.to(torch.float32)
+    x = db.to(torch.float32)
+    d2 = pairwise_l2sq(q, x)
+    score = -bm25_dists_ref(q_terms, q_weights, terms, tf_sat)
+    a = torch.as_tensor(alpha, dtype=torch.float32,
+                        device=q.device).reshape(1, 1)
+    dist = a * d2 - (1.0 - a) * score
+    return _finish(_apply_valid(dist, valid), k)

@@ -14,10 +14,16 @@ wraps one search function:
     latency or queue-wait stats;
   * fail-fast failure: a backend exception does not strand the batch —
     every request in it receives a :class:`CellFailure`, and
-    :meth:`ServingCell.search` re-raises the error.
+    :meth:`ServingCell.search` re-raises the error;
+  * request options: ``filter`` / ``mode`` / ``alpha`` / ``q_terms`` /
+    ``q_weights`` pass through to the backend.  One backend dispatch
+    carries one filter, mode and alpha, so a collected batch is served
+    as one dispatch per distinct option set, the lexical operands of its
+    requests stacked and padded.
 
-The result cache, likelihood estimator, hedging, filter/mode options,
-``apply_updates`` and the fleet tier are later slices (ROADMAP.md).
+The result cache (which must fold the option key into its own key),
+likelihood estimator, hedging, ``apply_updates`` and the fleet tier are
+later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from repro_torch.distributed.backend import MODES
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import get_tracer
 
@@ -45,6 +52,17 @@ class CellFailure:
     error: BaseException
 
 
+def _opts_key(filter_spec, mode: str, alpha: float) -> tuple:
+    """Hashable key of the request options that change the answer
+    (filter predicates, search mode, hybrid alpha): ``()`` for a default
+    semantic unfiltered request, so those all batch together."""
+    if mode == "semantic" and (filter_spec is None or filter_spec.empty):
+        return ()
+    fkey = (b"" if filter_spec is None or filter_spec.empty
+            else filter_spec.key())
+    return (fkey, mode, np.float32(alpha).tobytes())
+
+
 @dataclasses.dataclass
 class _Request:
     query: np.ndarray
@@ -52,6 +70,13 @@ class _Request:
     future: "queue.Queue"
     cancelled: threading.Event
     trace_id: int = 0
+    # the micro-batch grouping key (``_opts_key``) and the options
+    opts: tuple = ()
+    filter_spec: "object | None" = None
+    mode: str = "semantic"
+    alpha: float = 0.5
+    q_terms: "np.ndarray | None" = None
+    q_weights: "np.ndarray | None" = None
 
 
 @dataclasses.dataclass
@@ -72,6 +97,10 @@ class EngineStats:
     # stage name (queue/batch/dispatch/kernel/rerank) -> {"n", "p50_ms",
     # "p99_ms", "mean_ms"}; kernel/rerank come from the backend's registry
     stages: "dict | None" = None
+    # batches the worker collected, and the backend dispatches it made for
+    # them: one per distinct option set in a batch
+    collected_batches: int = 0
+    dispatches: int = 0
 
 
 def _bucket(n: int) -> int:
@@ -100,6 +129,7 @@ class ServingCell:
                                                hi=4096.0)
         self._c_cancelled = self.metrics.counter("cancelled")
         self._c_failures = self.metrics.counter("backend_failures")
+        self._c_collected = self.metrics.counter("collected_batches")
         # last-100 batch sizes for EngineStats.batch_sizes (bounded)
         self._recent_batches: deque = deque(maxlen=100)
         self._failure: Optional[BaseException] = None
@@ -133,14 +163,39 @@ class ServingCell:
     # ------------------------------------------------------------------
     def submit(self, query: np.ndarray, *,
                cancelled: Optional[threading.Event] = None,
-               trace_id: int = 0) -> "queue.Queue":
+               trace_id: int = 0, filter_spec=None, mode: str = "semantic",
+               alpha: float = 0.5, q_terms=None,
+               q_weights=None) -> "queue.Queue":
         """Enqueue one request; returns the future its result lands in.
-        Once ``cancelled`` is set the worker drops the request."""
+        Once ``cancelled`` is set the worker drops the request.  The
+        options pass through to the backend; the worker batches only
+        requests that share ``filter_spec``, ``mode`` and ``alpha``.
+
+        Raises :class:`ValueError` for an unknown ``mode``, and for a
+        lexical or hybrid request without ``q_terms`` and ``q_weights`` of
+        one length, so that one bad request never fails the dispatch it
+        would share with other callers' requests."""
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        if mode != "semantic":
+            if q_terms is None or q_weights is None:
+                raise ValueError(f"mode={mode!r} requires q_terms and "
+                                 "q_weights")
+            q_terms = np.asarray(q_terms, np.int32).reshape(-1)
+            q_weights = np.asarray(q_weights, np.float32).reshape(-1)
+            if q_terms.size != q_weights.size:
+                raise ValueError(
+                    f"q_terms has {q_terms.size} slots, q_weights "
+                    f"{q_weights.size}")
         fut: "queue.Queue" = queue.Queue()
         self.q.put(_Request(
             query=query, t_enqueue=time.perf_counter(), future=fut,
             cancelled=cancelled if cancelled is not None
-            else threading.Event(), trace_id=trace_id))
+            else threading.Event(), trace_id=trace_id,
+            opts=_opts_key(filter_spec, mode, alpha),
+            filter_spec=filter_spec, mode=mode, alpha=alpha,
+            q_terms=q_terms if mode != "semantic" else None,
+            q_weights=q_weights if mode != "semantic" else None))
         return fut
 
     def failure(self) -> Optional[BaseException]:
@@ -148,8 +203,15 @@ class ServingCell:
         with self._stats_lock:
             return self._failure
 
-    def search(self, query: np.ndarray, timeout: float = 30.0):
+    def search(self, query: np.ndarray, timeout: float = 30.0, *,
+               filter=None, mode: str = "semantic", alpha: float = 0.5,
+               q_terms=None, q_weights=None):
         """Blocking single-query call.
+
+        ``filter`` (a ``FilterSpec``), ``mode`` (``"semantic"`` /
+        ``"lexical"`` / ``"hybrid"``), ``alpha`` and the lexical operands
+        ``q_terms`` / ``q_weights`` (one query's term ids and weights)
+        pass through to the backend.
 
         Raises :class:`TimeoutError` when no result arrives in ``timeout``
         seconds; the abandoned request is cancelled, so the worker drops
@@ -158,7 +220,9 @@ class ServingCell:
         tracer = get_tracer()
         cancelled = threading.Event()
         trace_id = tracer.new_trace_id()
-        fut = self.submit(query, cancelled=cancelled, trace_id=trace_id)
+        fut = self.submit(query, cancelled=cancelled, trace_id=trace_id,
+                          filter_spec=filter, mode=mode, alpha=alpha,
+                          q_terms=q_terms, q_weights=q_weights)
         try:
             out = fut.get(timeout=timeout)
         except queue.Empty:
@@ -210,8 +274,16 @@ class ServingCell:
         while not self._stop.is_set():
             collected, t_first = self._collect()
             # requests abandoned by their caller are dropped here
-            batch = [r for r in collected if not r.cancelled.is_set()]
-            if batch:
+            collected = [r for r in collected if not r.cancelled.is_set()]
+            if not collected:
+                continue
+            self._c_collected.inc()
+            # one backend dispatch carries one filter/mode/alpha: serve
+            # one group per distinct option set, in arrival order
+            groups: "dict[tuple, list[_Request]]" = {}
+            for r in collected:
+                groups.setdefault(r.opts, []).append(r)
+            for batch in groups.values():
                 self._serve_batch(batch, t_first)
 
     def _serve_batch(self, batch: "list[_Request]", t_first: float):
@@ -230,7 +302,10 @@ class ServingCell:
         try:
             with tracer.span("dispatch", trace_id=batch[0].trace_id,
                              cell=self.name, size=b, bucket=bb):
-                d, i = self.search_fn(qs)
+                kw = self._group_kw(batch, bb)
+                # a plain callable backend only ever sees the bare call
+                d, i = (self.search_fn(qs, **kw) if kw
+                        else self.search_fn(qs))
         except Exception as e:
             # fail fast, keep the worker alive: every request in the batch
             # gets a CellFailure instead of timing out
@@ -257,6 +332,28 @@ class ServingCell:
         for j, r in served:
             r.future.put((np.asarray(d[j]), np.asarray(i[j])))
 
+    @staticmethod
+    def _group_kw(batch: "list[_Request]", bb: int) -> dict:
+        """Backend keyword arguments for one option group: the shared
+        filter/mode/alpha plus the stacked per-request lexical operands,
+        term rows padded to the group's power-of-two slot width with
+        -1 / 0 (so the batch's pad queries score nothing)."""
+        r0 = batch[0]
+        if not r0.opts:
+            return {}
+        kw = {"filter_spec": r0.filter_spec, "mode": r0.mode,
+              "alpha": r0.alpha}
+        if r0.mode != "semantic":
+            slots = _bucket(max(r.q_terms.size for r in batch))
+            qt = np.full((bb, slots), -1, np.int32)
+            qw = np.zeros((bb, slots), np.float32)
+            for j, r in enumerate(batch):
+                qt[j, :r.q_terms.size] = r.q_terms
+                qw[j, :r.q_weights.size] = r.q_weights
+            kw["q_terms"] = qt
+            kw["q_weights"] = qw
+        return kw
+
     # ------------------------------------------------------------------
     def _stage_stats(self) -> dict:
         stages = {
@@ -279,9 +376,11 @@ class ServingCell:
         with self._stats_lock:
             batch_sizes = list(self._recent_batches)
         stages = self._stage_stats()
+        counts = {"collected_batches": self._c_collected.value,
+                  "dispatches": self._h_bsize.count}
         if lat.count == 0:
             return EngineStats(0, 0, 0, 0, 0, 0, [], cancelled=cancelled,
-                               stages=stages)
+                               stages=stages, **counts)
         return EngineStats(
             n=lat.count,
             p50_ms=lat.quantile(0.5),
@@ -292,4 +391,5 @@ class ServingCell:
             batch_sizes=batch_sizes,
             cancelled=cancelled,
             stages=stages,
+            **counts,
         )

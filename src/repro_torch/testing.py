@@ -1,0 +1,163 @@
+"""Checks of the option kernels shared by ``tests/test_torch_gpu.py`` and
+``chip_smoke.py``: one table of edge shapes, the operands each edge is
+drawn from, and the by-parts check of a hybrid answer.
+
+The edge shapes are those ``tests/test_kernels.py`` pins for the int8,
+BM25 and hybrid kernels of the reference: B = 1, N not a multiple of the
+row tile, k > N, all rows dead, about half the rows live, duplicate rows,
+and two query tiles over several splits; each is drawn with slab rows of
+distinct terms and with a repeated term, and query 0 holds only pad
+terms (-1).
+
+A hybrid distance is ``a * d2 - (1 - a) * score``.  At sift magnitudes
+the fp32 rounding of ``d2`` (about one unit) is as large as the whole
+BM25 term, so holding the sum to a tolerance cannot tell a right lexical
+half from a missing one.  :func:`hybrid_by_parts` holds the halves
+apart: the kernel's own ``d2`` of each returned pair comes from the fp32
+L2 scan (the same tile code, so the same bits), its score from
+:func:`lexical_scores_f32` (the kernels' float32 order), and the answer
+must then equal ``a * d2 - (1 - a) * score`` bit for bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+
+__all__ = ["OPTION_EDGES", "EDGE_ALPHAS", "slab_rows",
+           "option_edge_operands", "lexical_scores_f32", "hybrid_by_parts"]
+
+# (name, B, N, d, k, rows): rows "dead" = every row dead, "half" = about
+# half live, "dup" = the second half repeats the first
+OPTION_EDGES = (
+    ("B=1", 1, 100, 8, 5, None),
+    ("N%tile!=0", 4, 300, 8, 5, None),
+    ("k>N", 3, 6, 8, 10, None),
+    ("all dead", 4, 50, 8, 5, "dead"),
+    ("partial valid", 6, 120, 16, 7, "half"),
+    ("duplicate rows", 5, 50, 8, 9, "dup"),
+    ("two query tiles, splits", 70, 5000, 128, 32, "half"),
+)
+# the hybrid's limits (0: the BM25 answer, 1: the fp32 L2 answer) and a
+# blend between them
+EDGE_ALPHAS = (0.0, 0.3, 1.0)
+EDGE_VOCAB = 40
+
+
+def slab_rows(rng, n: int, s: int, vocab: int = EDGE_VOCAB,
+              repeat: bool = False):
+    """(terms, tf_sat) of ``n`` slab rows of up to ``s`` terms, -1 / 0
+    padded: sorted distinct terms, or drawn with repetition."""
+    terms = np.full((n, s), -1, np.int32)
+    tf = np.zeros((n, s), np.float32)
+    for r in range(n):
+        m = int(rng.integers(0, s + 1))
+        ids = rng.choice(vocab, size=m, replace=repeat)
+        terms[r, :m] = ids if repeat else np.sort(ids)
+        tf[r, :m] = rng.random(m) + 0.05
+    return terms, tf
+
+
+def option_edge_operands(case, repeat: bool, seed: int = 0) -> dict:
+    """numpy operands of one ``OPTION_EDGES`` case: ``q`` (B, d), ``x``
+    (N, d), ``valid`` (N,) int32 or None, slabs ``terms`` / ``tf`` (N, S),
+    query terms ``qt`` / weights ``qw`` (B, T), and ``k``."""
+    _, b, n, d, k, rows = case
+    rng = np.random.default_rng([seed, b, n, d, int(repeat)])
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    valid = None
+    if rows == "dead":
+        valid = np.zeros(n, np.int32)
+    elif rows == "half":
+        valid = (rng.random(n) > .5).astype(np.int32)
+    s, t = (16, 8) if d == 128 else (6, 4)
+    terms, tf = slab_rows(rng, n, s, repeat=repeat)
+    if rows == "dup":
+        h = n - n // 2
+        x[n // 2:], terms[n // 2:], tf[n // 2:] = x[:h], terms[:h], tf[:h]
+    qt = rng.integers(0, EDGE_VOCAB, size=(b, t)).astype(np.int32)
+    qt[0] = -1                                 # a query of pad terms only
+    qw = (rng.random((b, t)) + 0.1).astype(np.float32)
+    return {"q": q, "x": x, "valid": valid, "terms": terms, "tf": tf,
+            "qt": qt, "qw": qw, "k": k}
+
+
+def lexical_scores_f32(qt, qw, terms, tf) -> np.ndarray:
+    """(P,) BM25 scores of P (query, document) pairs, row p pairing query
+    operands ``qt[p]`` / ``qw[p]`` (T,) with slab row ``terms[p]`` /
+    ``tf[p]`` (S,), in the kernels' float32 order (``csrc/lexical.cuh``):
+    term slot t outer, document slot s inner, every add and multiply
+    rounded once."""
+    qt = np.asarray(qt, np.int32)
+    qw = np.asarray(qw, np.float32)
+    terms = np.asarray(terms, np.int32)
+    tf = np.asarray(tf, np.float32)
+    zero = np.float32(0.0)
+    score = np.zeros(qt.shape[0], np.float32)
+    for t in range(qt.shape[1]):
+        term = qt[:, t]
+        hit = np.zeros_like(score)
+        for s in range(terms.shape[1]):
+            hit = hit + np.where((terms[:, s] == term) & (term >= 0),
+                                 tf[:, s], zero)
+        score = score + hit * qw[:, t]
+    return score
+
+
+def hybrid_by_parts(q, x, qt, qw, terms, tf, alpha: float, kd, ki) -> dict:
+    """Holds a hybrid answer (kd, ki) (B, k) to its two halves.
+
+    For every returned pair (b, id): ``d2`` is the fp32 L2 scan's distance
+    of row ``id`` for query ``b`` (one ``ops.l2_topk_op`` call per query
+    over its returned rows: the kernel for CUDA tensors, the plain version
+    for CPU ones) and ``score`` is :func:`lexical_scores_f32`.  Returns
+    ``mismatches``, the pairs whose distance is not bitwise
+    ``a * d2 - (1 - a) * score`` in float32; ``l2_max_rel_err``, the
+    largest ``|d2 - d2_f64| / (qn + xn)``; ``lex_max_rel_err``, the
+    largest ``|score - score_f64|`` over the float64 sum of the absolute
+    score terms; and ``lex_bound``, the first-order bound of that error
+    for float32 sums of S + T terms, ``(S + T) * 2**-24``."""
+    kd_h = kd.cpu().numpy()
+    ki_h = ki.cpu().numpy()
+    fin = ki_h >= 0
+    if not fin.any():
+        return {"pairs": 0, "mismatches": 0, "l2_max_rel_err": 0.0,
+                "lex_max_rel_err": 0.0, "lex_bound": 0.0}
+    dev = x.device
+    d2 = np.zeros(kd_h.shape, np.float32)
+    for b in np.flatnonzero(fin.any(1)):
+        live = np.flatnonzero(fin[b])
+        rows = x[torch.as_tensor(ki_h[b, live].astype(np.int64), device=dev)]
+        d, pos = ops.l2_topk_op(q[b:b + 1], rows, live.size)
+        d2[b, live[pos[0].cpu().numpy()]] = d[0].cpu().numpy()
+    bq, _ = np.nonzero(fin)
+    ids = torch.as_tensor(ki_h[fin].astype(np.int64), device=dev)
+    bqt = torch.as_tensor(bq.astype(np.int64), device=qt.device)
+    pair_qt, pair_qw = qt[bqt].cpu().numpy(), qw[bqt].cpu().numpy()
+    pair_t, pair_f = terms[ids].cpu().numpy(), tf[ids].cpu().numpy()
+    score = lexical_scores_f32(pair_qt, pair_qw, pair_t, pair_f)
+
+    a = np.float32(alpha)
+    want = a * d2[fin] - (np.float32(1.0) - a) * score
+    mismatches = int((want.view(np.int32)
+                      != kd_h[fin].view(np.int32)).sum())
+
+    qq = q[torch.as_tensor(bq.astype(np.int64), device=q.device)].double()
+    xx = x[ids].double()
+    d2_64 = ((qq - xx) ** 2).sum(-1).cpu().numpy()
+    norms = ((qq * qq).sum(-1) + (xx * xx).sum(-1)).cpu().numpy()
+    terms64 = ((pair_t[:, None, :] == pair_qt[:, :, None])
+               & (pair_qt[:, :, None] >= 0)) * (
+        pair_f.astype(np.float64)[:, None, :]
+        * pair_qw.astype(np.float64)[:, :, None])
+    score_64 = terms64.sum((1, 2))
+    lex_abs = np.abs(terms64).sum((1, 2))
+    return {
+        "pairs": int(fin.sum()), "mismatches": mismatches,
+        "l2_max_rel_err": float(np.max(np.abs(d2[fin] - d2_64) / norms)),
+        "lex_max_rel_err": float(np.max(
+            np.abs(score - score_64) / np.maximum(lex_abs, 1e-30))),
+        "lex_bound": (terms.shape[1] + qt.shape[1]) * 2.0 ** -24,
+    }

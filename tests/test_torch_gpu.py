@@ -1,5 +1,7 @@
 """Card tests of the port's CUDA kernels: each kernel against its plain
-version, and one small IVF serve through the kernels.
+version (with the hybrid alpha = 0 / 1 identities), one small IVF serve
+and one small filtered / lexical / hybrid / int8 serve through the
+kernels.
 
 Marked ``gpu``; each test decides inside itself whether a card is there
 and skips with the reason when not.  Run on the card with:
@@ -8,7 +10,10 @@ and skips with the reason when not.  Run on the card with:
 
 Tolerance: the kernels sum in another order than PyTorch's ops, so
 distances agree to |d_k - d_p| <= 1e-5 * (qn + xn); ids agree exactly on
-these inputs (continuous random data, no near-ties at these sizes).
+these inputs (continuous random data, no near-ties at these sizes),
+except on BM25 slabs with a repeated term, whose massively tied scores
+round differently in the two orders: there ids may differ at near-ties,
+and each kernel distance is held bit for bit to the kernels' own order.
 """
 from __future__ import annotations
 
@@ -17,12 +22,16 @@ import pytest
 import torch
 
 from repro_torch.core.brute import batched_l2sq
+from repro_torch.core.lexical import build_lexical_slabs, query_operands
+from repro_torch.core.metadata import FilterSpec, MetadataTable
 from repro_torch.core.two_level import TwoLevelConfig, build_two_level
 from repro_torch.data.synthetic import make_corpus, make_queries
 from repro_torch.distributed.backend import ShardedSearchBackend
-from repro_torch.kernels import bucket_topk, l2_topk, ref
+from repro_torch.kernels import bm25, bucket_topk, l2_topk, ops, ref
 from repro_torch.kernels.common import merge_topk
 from repro_torch.serve.cell import ServingCell
+from repro_torch.testing import (EDGE_ALPHAS, OPTION_EDGES, hybrid_by_parts,
+                                 lexical_scores_f32, option_edge_operands)
 
 pytestmark = pytest.mark.gpu
 REL = 1e-5
@@ -42,6 +51,20 @@ def _close(kd, ki, pd, pi, scale):
     fin = np.isfinite(pd)
     assert (np.abs(kd[fin] - pd[fin])
             <= REL * np.broadcast_to(scale, pd.shape)[fin]).all()
+
+
+def _close_near_ties(kd, ki, pd, pi, scale):
+    """``_close`` for slab rows with a repeated term: the plain version's
+    hit sums round in another order than the kernel's, and BM25 scores tie
+    massively, so ids may differ where the two distances of a slot agree
+    within the tolerance."""
+    kd, ki, pd, pi = (t.cpu().numpy() for t in (kd, ki, pd, pi))
+    assert np.array_equal(np.isinf(kd), np.isinf(pd))
+    fin = np.isfinite(pd)
+    tol = REL * np.broadcast_to(scale, pd.shape)
+    err = np.abs(np.where(fin, kd.astype(np.float64) - pd, 0.0))
+    assert (err <= tol).all()
+    assert ((ki == pi) | (err <= tol)).all()
 
 
 @pytest.mark.parametrize("b,n,d,k,valid", [
@@ -145,3 +168,125 @@ def test_small_ivf_serve_runs_through_the_kernels(dev):
     # a neighbour pair closer than that may swap (two of 160 slots)
     assert (ids == plain[1]).mean() >= 0.95
     assert cell.stats().n == 16
+
+
+@pytest.mark.parametrize("repeat", [False, True],
+                         ids=["distinct", "repeated_terms"])
+@pytest.mark.parametrize("case", OPTION_EDGES, ids=[c[0] for c in OPTION_EDGES])
+def test_option_kernels_match_plain(dev, case, repeat):
+    o = option_edge_operands(case, repeat)
+    q, x, qt, qw, terms, tf, v = (
+        None if o[n] is None else torch.as_tensor(o[n], device=dev)
+        for n in ("q", "x", "qt", "qw", "terms", "tf", "valid"))
+    k = o["k"]
+    qn = (q * q).sum(1)[:, None].cpu().numpy()
+
+    codes, scales = (torch.as_tensor(a, device=dev)
+                     for a in ops.quantize_rows_int8(o["x"]))
+    deq = codes.float() * scales[:, None]
+    n8 = l2_topk.INT8_LAUNCHES.count
+    kd, ki = l2_topk.l2_topk_int8(q, codes, scales, k, valid=v)
+    pd, pi = ref.l2_topk_int8_ref(q, codes, scales, k, valid=v)
+    torch.cuda.synchronize()
+    assert l2_topk.INT8_LAUNCHES.count == n8 + 1
+    _close(kd, ki, pd, pi, qn + float((deq * deq).sum(1).max()))
+
+    bd, bi = bm25.bm25_topk(qt, qw, terms, tf, k, valid=v)
+    pd, pi = ref.bm25_topk_ref(qt, qw, terms, tf, k, valid=v)
+    torch.cuda.synchronize()
+    if repeat:
+        _close_near_ties(bd, bi, pd, pi, 1.0)
+    else:   # one non-zero term per hit sum: bitwise on every slot
+        assert torch.equal(bi, pi)
+        assert torch.equal(bd.view(torch.int32), pd.view(torch.int32))
+    # every returned distance is -score in the kernels' float32 order
+    got = bi.cpu().numpy() >= 0
+    bq, _ = np.nonzero(got)
+    rows = bi.cpu().numpy()[got]
+    want = -lexical_scores_f32(o["qt"][bq], o["qw"][bq], o["terms"][rows],
+                               o["tf"][rows])
+    assert want.tobytes() == bd.cpu().numpy()[got].tobytes()
+
+    ld, li = l2_topk.l2_topk(q, x, k, valid=v)
+    scale = qn + float((x * x).sum(1).max())
+    for alpha in EDGE_ALPHAS:
+        a = torch.full((1, 1), alpha, device=dev)
+        hd, hi = bm25.hybrid_topk(q, x, qt, qw, terms, tf, a, k, valid=v)
+        pd, pi = ref.hybrid_topk_ref(q, x, qt, qw, terms, tf, a, k, valid=v)
+        torch.cuda.synchronize()
+        (_close_near_ties if repeat else _close)(hd, hi, pd, pi,
+                                                 alpha * scale + 1.0)
+        # each returned pair is a * d2 - (1 - a) * score bit for bit
+        parts = hybrid_by_parts(q, x, qt, qw, terms, tf, alpha, hd, hi)
+        assert parts["mismatches"] == 0, parts
+        assert parts["l2_max_rel_err"] <= REL
+        assert parts["lex_max_rel_err"] <= parts["lex_bound"]
+        if alpha == 0.0:     # the BM25 kernel's answer
+            assert torch.equal(hi, bi) and torch.equal(hd, bd)
+        if alpha == 1.0:     # the fp32 L2 kernel's answer (same tile code)
+            assert torch.equal(hi, li) and torch.equal(hd, ld)
+
+
+def test_option_kernels_reject_what_they_cannot_take(dev):
+    t = torch.zeros((4, 17), dtype=torch.int32, device=dev)
+    f = torch.zeros((4, 17), device=dev)
+    qt = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    qw = torch.zeros((2, 3), device=dev)
+    with pytest.raises(ValueError, match="slots"):
+        bm25.bm25_topk(qt, qw, t, f, 2)
+    with pytest.raises(TypeError):
+        l2_topk.l2_topk_int8(torch.zeros((2, 8), device=dev),
+                             torch.zeros((4, 8), device=dev),
+                             torch.ones(4, device=dev), 2)
+
+
+def test_small_option_serve_runs_through_the_kernels(dev):
+    rng = np.random.default_rng(3)
+    db = make_corpus("sift", scale=0.016, seed=0)
+    n = db.shape[0]
+    queries = make_queries(db, 32, seed=1)
+    docs = [rng.integers(0, 500, size=int(rng.integers(6, 13))).tolist()
+            for _ in range(n)]
+    slabs = build_lexical_slabs(docs, 500)
+    meta = MetadataTable({"pct": rng.permutation(n) % 100})
+    qt, qw = query_operands([docs[int(i)][:3] for i in range(32)], slabs)
+    spec = FilterSpec.range("pct", 0, 49)
+    brute = ShardedSearchBackend(db, kind="brute", k=10, metadata=meta,
+                                 lexical=slabs)
+    int8 = ShardedSearchBackend(db, kind="brute", k=10, precision="int8")
+    plain = ShardedSearchBackend(db, kind="brute", k=10, metadata=meta,
+                                 lexical=slabs, device="cpu")
+    sets = [dict(filter=spec), dict(mode="lexical"),
+            dict(mode="hybrid", alpha=0.5)]
+    before = {c.name: c.count for c in (l2_topk.LAUNCHES, bm25.LAUNCHES,
+                                        bm25.HYBRID_LAUNCHES,
+                                        l2_topk.INT8_LAUNCHES)}
+    cell, cell8 = (ServingCell(brute, max_batch=16),
+                   ServingCell(int8, max_batch=16))
+    try:
+        served = [[cell.search(queries[r], timeout=60, q_terms=qt[r],
+                               q_weights=qw[r], **o) for r in range(32)]
+                  for o in sets]
+        served8 = [cell8.search(q, timeout=60) for q in queries]
+    finally:
+        cell.close()
+        cell8.close()
+    after = {c.name: c.count for c in (l2_topk.LAUNCHES, bm25.LAUNCHES,
+                                       bm25.HYBRID_LAUNCHES,
+                                       l2_topk.INT8_LAUNCHES)}
+    assert all(after[k] > before[k] for k in before)
+    admitted = spec.mask(meta, n)
+    assert admitted[np.stack([s[1] for s in served[0]])].all()
+    for o, got in zip(sets, served):
+        want = plain(queries, filter_spec=o.get("filter"),
+                     mode=o.get("mode", "semantic"),
+                     alpha=o.get("alpha", 0.5), q_terms=qt, q_weights=qw)
+        ids = np.stack([s[1] for s in got])
+        if o.get("mode") == "lexical":
+            assert (ids == want[1]).all()
+        else:                # sift-range rows: near-ties may swap
+            assert (ids == want[1]).mean() >= 0.95
+    ids8 = np.stack([s[1] for s in served8])
+    truth = plain(queries)[1]
+    assert np.mean([len(set(a) & set(b)) / 10
+                    for a, b in zip(ids8, truth)]) >= 0.5

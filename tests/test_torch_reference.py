@@ -35,9 +35,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _REFERENCE = (
     "repro.core.brute", "repro.core.kmeans", "repro.core.two_level",
-    "repro.core.metrics", "repro.kernels.common", "repro.kernels.ref",
+    "repro.core.metrics", "repro.core.metadata", "repro.core.lexical",
+    "repro.kernels.common", "repro.kernels.ref", "repro.kernels.ops",
     "repro.kernels.l2_topk", "repro.kernels.bucket_topk",
-    "repro.distributed.sharding", "repro.distributed.backend",
+    "repro.kernels.bm25", "repro.distributed.sharding",
+    "repro.distributed.backend", "repro.serve.cell",
     "repro.data.synthetic",
 )
 
@@ -146,6 +148,8 @@ def _modules_after(code: str) -> set:
 @pytest.mark.parametrize("code", [
     "import repro_torch.serve.cell, repro_torch.distributed.backend, "
     "repro_torch.convert, repro_torch.core.kmeans, repro_torch.kernels.ops",
+    "import repro_torch.core.metadata, repro_torch.core.lexical, "
+    "repro_torch.kernels.bm25, repro_torch.kernels.ops",
     "import chip_smoke",
 ])
 def test_port_imports_neither_jax_nor_reference(code):
@@ -201,7 +205,8 @@ def test_entry_points_honour_cpu_and_refuse_without_a_card():
 
 
 def test_ops_send_cpu_tensors_to_the_plain_version():
-    from repro_torch.kernels import bucket_topk, l2_topk, ops, ref
+    from repro_torch.kernels import (bm25, bucket_topk, common, l2_topk,
+                                     ops, ref)
 
     rng = np.random.default_rng(1)
     q = torch.as_tensor(rng.normal(size=(3, 8)).astype(np.float32))
@@ -218,11 +223,36 @@ def test_ops_send_cpu_tensors_to_the_plain_version():
     dr, ir = ref.candidate_topk_ref(q, vecs, ids, 4)
     assert torch.equal(i, ir) and torch.equal(d, dr)
     assert bucket_topk.LAUNCHES.count == n1
+    codes, scales = (torch.as_tensor(a)
+                     for a in ops.quantize_rows_int8(x.numpy()))
+    terms = torch.as_tensor(rng.integers(-1, 20, (40, 6)).astype(np.int32))
+    tf = torch.as_tensor(rng.random((40, 6)).astype(np.float32))
+    qt = torch.as_tensor(rng.integers(-1, 20, (3, 4)).astype(np.int32))
+    qw = torch.as_tensor(rng.random((3, 4)).astype(np.float32))
+    alpha = torch.full((1, 1), 0.3)
+    counts = {n: c.count for n, c in common.LAUNCH_COUNTERS.items()}
+    for op, plain, args in (
+            (ops.l2_topk_int8_op, ref.l2_topk_int8_ref, (q, codes, scales)),
+            (ops.bm25_topk_op, ref.bm25_topk_ref, (qt, qw, terms, tf)),
+            (ops.hybrid_topk_op, ref.hybrid_topk_ref,
+             (q, x, qt, qw, terms, tf, alpha))):
+        d, i = op(*args, 4)
+        dr, ir = plain(*args, 4)
+        assert torch.equal(i, ir) and torch.equal(d, dr)
+    assert {n: c.count for n, c in common.LAUNCH_COUNTERS.items()} == counts
+    assert {"l2_topk", "l2_topk_int8", "candidate_topk", "bm25_topk",
+            "hybrid_topk"} <= set(common.LAUNCH_COUNTERS)
     # the kernel wrappers themselves never take a CPU tensor
     with pytest.raises(ValueError, match="CUDA"):
         l2_topk.l2_topk(q, x, 4)
     with pytest.raises(ValueError, match="CUDA"):
         bucket_topk.candidate_topk(q, vecs, ids, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        l2_topk.l2_topk_int8(q, codes, scales, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        bm25.bm25_topk(qt, qw, terms, tf, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        bm25.hybrid_topk(q, x, qt, qw, terms, tf, alpha, 4)
 
 
 def test_two_level_refuses_unported_levels_and_mutation():
