@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over;
 each prints its wall time as ``[phase] <name> <s> s``):
 
 1. card    - name, count, versions, ``nvidia-smi`` name and power limit;
-2. build   - build the three CUDA sources (five kernels) from
+2. build   - build the five CUDA sources (seven kernels) from
              ``src/repro_torch/kernels/csrc`` in parallel and print the
              ``-Xptxas -v`` register/shared/spill lines;
 3. edges   - each kernel against its plain version on the edge shapes that
@@ -38,13 +38,25 @@ each prints its wall time as ``[phase] <name> <s> s``):
              against the filters, the unfused path and direct backend calls;
 7. profile - ``torch.profiler`` over 8 batches of 64 per backend and mode
              (device time by kernel, busy share);
-8. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
+8. index   - the paper's index layer through ``build_index`` /
+             ``auto_build_index`` and ``search``: DEEP-10M (10M x 96,
+             32,768 buckets, PQ top, brute bottom; recall@10 against the
+             exact top-10 of the ``l2_topk`` kernel at nprobe 8-64), the
+             sift-1m corpus with a PQ top over brute, LSH and tree bottoms
+             and the one-level ``lsh_search`` (96 bits, shortlists of 64 to
+             1,024), and RADIO-STATION (10K x 256) where §5.3 picks QLBT
+             with traffic and the balanced tree without; ``pq_adc_topk``
+             and ``hamming_topk`` held against their plain versions and
+             timed at those shapes; counts reset just before and read just
+             after each of the three runs;
+9. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
 
 Imports only ``torch``, numpy and ``repro_torch``.  Detailed results also
 go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -61,23 +73,37 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
-from repro_torch.configs.ann_corpora import SIFT_1M  # noqa: E402
+from repro_torch.configs.ann_corpora import (DEEP_10M,  # noqa: E402
+                                             RADIO_STATION, SIFT_1M)
 from repro_torch.core.brute import batched_l2sq, pairwise_l2sq  # noqa: E402
+from repro_torch.core.index import (auto_build_index,  # noqa: E402
+                                    build_index)
+from repro_torch.core.likelihood import (beta_for_unbalance,  # noqa: E402
+                                         sample_queries)
+from repro_torch.core.lsh import (lsh_build, lsh_search,  # noqa: E402
+                                  pack_bits)
+from repro_torch.core.pq import adc_lut  # noqa: E402
+from repro_torch.core.protocol import (IndexSpec,  # noqa: E402
+                                       select_index_spec)
+from repro_torch.core.tree import tree_search  # noqa: E402
 from repro_torch.core.lexical import (build_lexical_slabs_flat,  # noqa: E402
                                       query_operands)
 from repro_torch.core.metadata import FilterSpec, MetadataTable  # noqa: E402
 from repro_torch.core.metrics import LatencyTimer, recall_at_k  # noqa: E402
 from repro_torch.core.two_level import (TwoLevelConfig,  # noqa: E402
-                                        build_two_level)
+                                        build_forest, build_two_level)
 from repro_torch.data.synthetic import make_corpus, make_queries  # noqa: E402
 from repro_torch.distributed.backend import ShardedSearchBackend  # noqa: E402
 from repro_torch.kernels import (_build, bm25, bucket_topk,  # noqa: E402
-                                 l2_topk, ops, ref)
+                                 hamming, l2_topk, ops, pq_adc, ref)
 from repro_torch.kernels.common import (LAUNCH_COUNTERS,  # noqa: E402
                                         merge_topk, stable_topk)
+from repro_torch.obs.trace import Tracer, set_tracer  # noqa: E402
 from repro_torch.serve.cell import ServingCell  # noqa: E402
-from repro_torch.testing import (EDGE_ALPHAS, OPTION_EDGES,  # noqa: E402
-                                 hybrid_by_parts, option_edge_operands)
+from repro_torch.testing import (EDGE_ALPHAS, HAMMING_EDGES,  # noqa: E402
+                                 OPTION_EDGES, PQ_EDGES,
+                                 hamming_edge_operands, hybrid_by_parts,
+                                 option_edge_operands, pq_edge_operands)
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 and fp32 outside the
 # tensor cores.  The kernels compute in fp32 FMA, never TF32.
@@ -104,8 +130,25 @@ DOC_TOKENS = (6, 12)
 SLOTS = 16
 Q_SLOTS = 8
 ALPHA = 0.5
+# the kernels the options phase's three cells run
+OPTION_KERNELS = ("l2_topk", "l2_topk_int8", "bm25_topk", "hybrid_topk")
 NARROW = FilterSpec.range("pct", 0, 4)       # selectivity 0.05
 WIDE = FilterSpec.range("pct", 0, 49)        # selectivity 0.5
+# index phase: query chunks of 1,024 (``TwoLevelIndex.search``'s default);
+# fig2d_deep.py's nprobe sweep; Table 1's LSH bits (64 in a bucket, 96 flat)
+# and shortlists; the paper's real-traffic unbalance (§4.2) and fig1's beam
+# sweep and recall target
+INDEX_QUERIES = 1024
+DEEP_NPROBES = (8, 16, 32, 64)
+SIFT_NPROBE = 32
+BEAM = 8
+BUCKET_LSH_BITS = 64
+FLAT_LSH_BITS = 96
+LSH_CANDIDATES = (64, 256, 1024)
+RADIO_UNBALANCE = 0.23
+RADIO_QUERIES = 2000
+RADIO_BEAMS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
+RADIO_RECALL = 0.95
 
 RESULTS: dict = {"kernels": {}}
 
@@ -167,9 +210,12 @@ def phase_card() -> dict:
 def _kernel_name(mangled: str) -> str:
     """``l2_topk_partial<F32Rows, 16>`` from a mangled kernel name."""
     name = re.search(r"(l2_topk_partial|bm25_topk_partial|merge_partials|"
-                     r"candidate_topk_kernel)", mangled)
+                     r"candidate_topk_kernel|pq_adc_partial|hamming_count|"
+                     r"hamming_offsets|hamming_emit)", mangled)
     rows = re.search(r"(F32Rows|Int8Rows|HybridRows)", mangled)
     kt = re.search(r"Li(\d+)E", mangled)
+    if name and name.group(1).startswith("hamming"):
+        return name.group(1)
     if not (name and kt):
         return mangled[-60:]
     return (f"{name.group(1)}<{rows.group(1) + ', ' if rows else ''}"
@@ -382,6 +428,51 @@ def edges_options(dev) -> int:
     return near
 
 
+def check_bitwise(name, kd, ki, pd, pi) -> dict:
+    """Kernel (kd, ki) equal to its plain version (pd, pi) bit for bit:
+    the PQ kernel sums in the plain version's order, and Hamming distances
+    are whole numbers, so ties included, ids and distances agree."""
+    torch.cuda.synchronize()
+    require(kd.shape == pd.shape and torch.equal(ki, pi),
+            f"{name}: ids differ from the plain version")
+    require(torch.equal(kd.view(torch.int32), pd.view(torch.int32)),
+            f"{name}: distances differ from the plain version")
+    fin = torch.isfinite(pd)
+    err = float((kd[fin].double() - pd[fin].double()).abs().max()) \
+        if bool(fin.any()) else 0.0
+    out = {"ids_match": 1.0, "near_ties": 0, "max_abs_err": err,
+           "max_rel_err": 0.0}
+    log(f"[{name}] {out}")
+    return out
+
+
+def check_pq(name, lut, codes, k, valid=None) -> dict:
+    kd, ki = pq_adc.pq_adc_topk(lut, codes, k, valid=valid)
+    pd, pi = ref.pq_adc_topk_ref(lut, codes, k, valid=valid)
+    return check_bitwise(name, kd, ki, pd, pi)
+
+
+def check_hamming(name, qcodes, codes, k, valid=None) -> dict:
+    kd, ki = hamming.hamming_topk(qcodes, codes, k, valid=valid)
+    pd, pi = ref.hamming_topk_ref(qcodes, codes, k, valid=valid)
+    return check_bitwise(name, kd, ki, pd, pi)
+
+
+def edges_index(dev) -> None:
+    """PQ-ADC and Hamming on the shared edge shapes
+    (``repro_torch.testing.PQ_EDGES`` / ``HAMMING_EDGES``)."""
+    def t(a):
+        return None if a is None else torch.as_tensor(a, device=dev)
+
+    for case in PQ_EDGES:
+        lut, codes, valid, k = pq_edge_operands(case)
+        check_pq(f"edge pq_adc {case[0]}", t(lut), t(codes), k, t(valid))
+    for case in HAMMING_EDGES:
+        q, codes, valid, k = hamming_edge_operands(case)
+        check_hamming(f"edge hamming {case[0]}", t(q), t(codes), k,
+                      t(valid))
+
+
 # --------------------------------------------------------------- phase 3
 def phase_edges(dev) -> None:
     rng = np.random.default_rng(0)
@@ -447,6 +538,7 @@ def phase_edges(dev) -> None:
     near += check_cand("edge cand duplicate ids", q, vd, idd, k,
                        plain=plain)["near_ties"]
     near += edges_options(dev)
+    edges_index(dev)
     log(f"[edges] all edge shapes agree; near-ties {near}")
     RESULTS["edge_near_ties"] = near
 
@@ -975,7 +1067,7 @@ def phase_options(dev, ctx) -> None:
     torch.cuda.synchronize()
     launches = read_launches()
     log(f"[options] launches {launches}")
-    require(all(v > 0 for v in launches.values()),
+    require(all(launches[name] > 0 for name in OPTION_KERNELS),
             "a kernel of the options path was never launched")
     out = {"label": label, "launches": launches}
     for name, cell in cells.items():
@@ -1081,7 +1173,7 @@ def phase_options(dev, ctx) -> None:
     require(rec >= 0.5, f"int8 recall@10 {rec} is implausibly low")
     out["int8 checks"] = res
     RESULTS["options"] = out
-    for name in ("l2_topk", "l2_topk_int8", "bm25_topk", "hybrid_topk"):
+    for name in OPTION_KERNELS:
         RESULTS["kernels"][name]["launches"] = launches[name]
     ctx.update(int8=int8_be, qt=qt, qw=qw)
 
@@ -1107,38 +1199,420 @@ def phase_profile(kind: str, backend, queries: np.ndarray, label: str,
     """Where the device time of one backend goes: ``torch.profiler`` over
     8 batches of 64, kernels summed by name, and the device's busy share
     of the window's wall time."""
+    backend(queries[:BATCH], **opts(0))
+    torch.cuda.synchronize()
+
+    def run():
+        for s in range(0, 8 * BATCH, BATCH):
+            backend(queries[s:s + BATCH], **opts(s))
+
+    return profile_window(kind, label, run, 8, BATCH)
+
+
+def profile_window(kind: str, label: str, run, batches: int,
+                   batch: int) -> dict:
+    """``torch.profiler`` over ``run()`` (``batches`` batches of ``batch``
+    queries, already warm): kernels summed by name, and the device's busy
+    share of the window's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    n = 8 * BATCH
-    backend(queries[:BATCH], **opts(0))
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for s in range(0, n, BATCH):
-            backend(queries[s:s + BATCH], **opts(s))
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    out = {"batches": n // BATCH, "batch": BATCH,
-           "wall_ms_per_batch": wall_us / 1e3 / (n // BATCH),
+    out = {"batches": batches, "batch": batch,
+           "wall_ms_per_batch": wall_us / 1e3 / batches,
            "device_busy_share": busy_us / wall_us,
            "top": [{"name": e.key[:90], "calls": e.count,
-                    "us_per_batch": e.self_device_time_total / (n // BATCH)}
+                    "us_per_batch": e.self_device_time_total / batches}
                    for e in top]}
     log(f"[profile {kind}] on {label}: {out['wall_ms_per_batch']:.3f} ms "
-        f"per batch of {BATCH}, device busy {out['device_busy_share']:.3f}")
+        f"per batch of {batch}, device busy {out['device_busy_share']:.3f}")
     for t in out["top"]:
         log(f"[profile {kind}]   {t['us_per_batch']:9.1f} us/batch "
             f"{t['calls']:6d} calls  {t['name']}")
     return out
 
 
-# --------------------------------------------------------------- phase 6
+# --------------------------------------------------------------- phase 8
+def exact_top10(q_np: np.ndarray, x: torch.Tensor) -> np.ndarray:
+    """Exact top-10 ids of every query by the ``l2_topk`` kernel, in
+    batches of ``INDEX_QUERIES``."""
+    dev = x.device
+    out = []
+    for s in range(0, len(q_np), INDEX_QUERIES):
+        q = torch.as_tensor(q_np[s:s + INDEX_QUERIES], device=dev)
+        out.append(l2_topk.l2_topk(q, x, K)[1].cpu().numpy())
+    return np.concatenate(out)
+
+
+def timed_search(search, queries: np.ndarray, **kw):
+    """``search(queries, K, **kw)`` after a warm call on 32 queries: (ids,
+    work, per-query host seconds, as fig2d_deep.py measures it)."""
+    search(queries[:32], K, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = search(queries, K, **kw)
+    per_q = (time.perf_counter() - t0) / len(queries)
+    return out[1], (out[2] if len(out) > 2 else None), per_q
+
+
+def build_spans(tracer: Tracer) -> dict:
+    """Seconds of each ``build.*`` span the tracer holds."""
+    return {e["name"]: e["dur"] / 1e6 for e in tracer.events()
+            if e["name"].startswith("build.")}
+
+
+def sign_flips(x: np.ndarray, proj: np.ndarray, bits_f32) -> int:
+    """Sign bits of ``x @ proj`` that differ from a float64 recompute
+    (a product within rounding of zero may land either side)."""
+    want = (x.astype(np.float64) @ proj.astype(np.float64)) > 0
+    return int((np.asarray(bits_f32, bool) != want).sum())
+
+
+def phase_index_sift(dev, ctx) -> dict:
+    """Table 1's two-level rows at sift-1m width: one k-means build with a
+    PQ top, its brute bottom, and the LSH and tree bottoms over the same
+    buckets; then the one-level ``lsh_search`` through ``hamming_topk``."""
+    corpus, queries = ctx["corpus"], ctx["queries"][:INDEX_QUERIES]
+    truth = ctx["truth"][:INDEX_QUERIES]
+    out = {}
+    tracer = Tracer()
+    old = set_tracer(tracer)
+    try:
+        t0 = time.perf_counter()
+        base = build_index(IndexSpec("two_level", TwoLevelConfig(
+            n_clusters=SIFT_1M.n_clusters, top=SIFT_1M.top, bottom="brute",
+            pq_m=8, lsh_bits=BUCKET_LSH_BITS, seed=0)), corpus).two_level
+        torch.cuda.synchronize()
+        build = {"pq top + brute": time.perf_counter() - t0,
+                 "stages": build_spans(tracer)}
+    finally:
+        set_tracer(old)
+    cfg = base.config
+    t0 = time.perf_counter()
+    lsh_idx = dataclasses.replace(
+        base, config=dataclasses.replace(cfg, bottom="lsh"),
+        bottom_lsh=lsh_build(corpus, n_bits=BUCKET_LSH_BITS, seed=cfg.seed))
+    build["lsh bottom"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree_cfg = dataclasses.replace(cfg, bottom="tree")
+    tree_idx = dataclasses.replace(base, config=tree_cfg, forest=build_forest(
+        corpus, base.bucket_ids, base.bucket_counts, tree_cfg, None))
+    build["tree bottom (one tree per bucket, host)"] = (time.perf_counter()
+                                                        - t0)
+    log(f"[index sift] build s {build}")
+    out["build_s"] = build
+
+    # the LSH bottom's query bits come from a product on the card
+    qb = (torch.as_tensor(queries, device=dev)
+          @ torch.as_tensor(lsh_idx.bottom_lsh.proj, device=dev) > 0)
+    out["lsh64_query_bit_flips_vs_f64"] = sign_flips(
+        queries, lsh_idx.bottom_lsh.proj, qb.cpu().numpy())
+
+    reset_launches()
+    rows = {}
+    for name, idx in (("brute", base), ("lsh", lsh_idx), ("tree", tree_idx)):
+        ids, work, per_q = timed_search(idx.search, queries,
+                                        nprobe=SIFT_NPROBE, beam_width=BEAM)
+        rows[name] = {"recall_at_10": recall_at_k(ids, truth),
+                      "per_query_ms": per_q * 1e3,
+                      "work_per_query": {k: v / len(queries)
+                                         for k, v in work.items()}}
+        log(f"[index sift] pq top + {name} bottom, nprobe {SIFT_NPROBE} "
+            f"beam {BEAM}: {rows[name]}")
+    torch.cuda.synchronize()
+    out["two_level"] = rows
+    out["two_level_launches"] = read_launches()
+    for name, idx in (("brute", base), ("lsh", lsh_idx), ("tree", tree_idx)):
+        RESULTS[f"profile_sift_pq_{name}"] = profile_window(
+            f"sift pq top + {name} bottom", ctx["label"],
+            lambda idx=idx: idx.search(queries, K, nprobe=SIFT_NPROBE,
+                                       beam_width=BEAM), 1, len(queries))
+    log(f"[index sift] launches {out['two_level_launches']}")
+    require(out["two_level_launches"]["pq_adc_topk"] > 0,
+            "the PQ top level never launched pq_adc_topk")
+    for name, r in rows.items():
+        require(r["recall_at_10"] >= 0.5,
+                f"sift pq+{name} recall@10 {r['recall_at_10']} is "
+                "implausibly low")
+
+    t0 = time.perf_counter()
+    flat = lsh_build(corpus, n_bits=FLAT_LSH_BITS, seed=0)
+    out["flat_lsh_build_s"] = time.perf_counter() - t0
+    qbits = (queries @ flat.proj) > 0
+    out["lsh96_query_bit_flips_vs_f64"] = sign_flips(queries, flat.proj,
+                                                     qbits)
+    out["lsh96_corpus_bits"] = int(corpus.shape[0] * FLAT_LSH_BITS)
+    xt = torch.as_tensor(corpus, device=dev)
+    reset_launches()
+    lsh_rows = {}
+    for nc in LSH_CANDIDATES:
+        ids, _, per_q = timed_search(
+            lambda q, k, n_candidates: lsh_search(
+                flat, xt, q, k, n_candidates=n_candidates), queries,
+            n_candidates=nc)
+        lsh_rows[nc] = {"recall_at_10": recall_at_k(ids, truth),
+                        "per_query_ms": per_q * 1e3}
+        log(f"[index sift] one-level lsh_search {FLAT_LSH_BITS} bits, "
+            f"n_candidates {nc}: {lsh_rows[nc]}")
+    torch.cuda.synchronize()
+    out["lsh_search"] = lsh_rows
+    out["lsh_launches"] = read_launches()
+    RESULTS["profile_sift_lsh_search"] = profile_window(
+        f"sift lsh_search n_candidates {LSH_CANDIDATES[-1]}", ctx["label"],
+        lambda: lsh_search(flat, xt, queries, K,
+                           n_candidates=LSH_CANDIDATES[-1]), 1, len(queries))
+    log(f"[index sift] launches {out['lsh_launches']}")
+    require(out["lsh_launches"]["hamming_topk"] > 0,
+            "lsh_search never launched hamming_topk")
+    log(f"[index sift] query sign-bit flips vs float64: 64-bit bucket "
+        f"codes {out['lsh64_query_bit_flips_vs_f64']}, 96-bit flat "
+        f"{out['lsh96_query_bit_flips_vs_f64']}")
+
+    # hamming_topk at the one-level scan's shapes (B = 1,024, N = 1M,
+    # W = 3, k = 1,024), on lsh_search's own operands
+    qc = torch.as_tensor(pack_bits(qbits.astype(np.uint8)), device=dev)
+    codes = torch.as_tensor(flat.codes, device=dev)
+    kk = LSH_CANDIDATES[-1]
+    res = check_hamming("shape hamming_topk B1024 N1M W3 k1024", qc, codes,
+                        kk)
+    res["ms"] = time_ms(lambda: hamming.hamming_topk(qc, codes, kk), 10)
+    res["ms_k64"] = time_ms(lambda: hamming.hamming_topk(
+        qc, codes, LSH_CANDIDATES[0]), 10)
+    res["plain_ms"] = time_ms(lambda: ref.hamming_topk_ref(qc, codes, kk), 2,
+                              warmup=1)
+    pm = (2.0 * qbits - 1.0).astype(np.float32)          # (B, bits) +-1
+    cbits = ((corpus @ flat.proj) > 0)
+    cm = torch.as_tensor((2.0 * cbits - 1.0).astype(np.float32), device=dev)
+    pmt = torch.as_tensor(pm, device=dev)
+    half = torch.full((1, 1), FLAT_LSH_BITS / 2.0, device=dev)
+    res["library_ms"] = time_ms(lambda: torch.topk(torch.addmm(
+        half, pmt, cm.T, alpha=-0.5), kk, largest=False), 10)
+    res["library_call"] = ("torch.topk(torch.addmm(n_bits / 2, s_q, s_x.T, "
+                           "alpha=-1/2)) over +-1 bit expansions: two calls")
+    del cm
+    B, W = qc.shape
+    N = codes.shape[0]
+    nbytes = 4.0 * (N * W + B * W) + 8.0 * B * kk
+    ops_ = 3.0 * B * N * W
+    res["bound_ms"], res["bound_by"] = bound(nbytes, ops_)
+    res["shape"] = [B, N, W, kk]
+    RESULTS["kernels"]["hamming_topk"] = res
+    log(f"[shape hamming_topk] ms {res['ms']:.4f} (k=64: "
+        f"{res['ms_k64']:.4f}) bound {res['bound_ms']:.4f} "
+        f"({res['bound_by']}) plain {res['plain_ms']:.3f} library "
+        f"{res['library_ms']:.4f}")
+    del xt
+    return out
+
+
+def phase_index_deep(dev, label: str) -> dict:
+    """Fig. 2(d) at the paper's 10M claim: DEEP-10M through ``build_index``
+    with the DEEP_10M settings, nprobe 8-64, and ``pq_adc_topk`` at the
+    top level's shapes."""
+    out = {}
+    t0 = time.perf_counter()
+    deep = make_corpus("deep", seed=0)
+    queries = make_queries(deep, INDEX_QUERIES, seed=1)
+    out["corpus_s_host"] = time.perf_counter() - t0
+    require(deep.shape == (DEEP_10M.n, DEEP_10M.d), "corpus is not deep-10m")
+    log(f"[index deep] corpus {deep.shape} {out['corpus_s_host']:.1f} s "
+        "(host)")
+    chosen = select_index_spec(deep.shape[0], embedding_dim=deep.shape[1])
+    out["protocol_choice"] = {"kind": chosen.kind, "reason": chosen.reason,
+                              "config": chosen.two_level and
+                              dataclasses.asdict(chosen.two_level)}
+    log(f"[index deep] the 5.3 protocol would choose "
+        f"{out['protocol_choice']}; built "
+        f"with DEEP_10M: n_clusters {DEEP_10M.n_clusters} top "
+        f"{DEEP_10M.top} bottom {DEEP_10M.bottom}")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x = torch.as_tensor(deep, device=dev)
+    truth = exact_top10(queries, x)
+    torch.cuda.synchronize()
+    out["exact_truth_s"] = time.perf_counter() - t0
+    del x
+    tracer = Tracer()
+    old = set_tracer(tracer)
+    try:
+        t0 = time.perf_counter()
+        index = build_index(IndexSpec("two_level", TwoLevelConfig(
+            n_clusters=DEEP_10M.n_clusters, top=DEEP_10M.top,
+            bottom=DEEP_10M.bottom, pq_m=8, seed=0)), deep)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        out["build_stages_s"] = build_spans(tracer)
+    finally:
+        set_tracer(old)
+    idx = index.two_level
+    counts = idx.bucket_counts
+    require(int(counts.sum()) == DEEP_10M.n, "build lost entities")
+    out["cap"] = int(idx.bucket_ids.shape[1])
+    out["footprint_bytes"] = int(index.footprint_bytes())
+    log(f"[index deep] build {out['build_s']:.1f} s, stages "
+        f"{out['build_stages_s']}; cap {out['cap']}, bucket sizes "
+        f"min/mean/max {counts.min()}/{counts.mean():.1f}/{counts.max()}; "
+        f"footprint {out['footprint_bytes']} bytes")
+
+    reset_launches()
+    rows = {}
+    for nprobe in DEEP_NPROBES:
+        ids, work, per_q = timed_search(index.search, queries,
+                                        nprobe=nprobe)
+        rows[nprobe] = {"recall_at_10": recall_at_k(ids, truth),
+                        "per_query_ms": per_q * 1e3,
+                        "work_per_query": {k: v / len(queries)
+                                           for k, v in work.items()}}
+        log(f"[index deep] nprobe {nprobe}: {rows[nprobe]}")
+    torch.cuda.synchronize()
+    out["search"] = rows
+    out["launches"] = read_launches()
+    out["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
+    RESULTS["profile_deep_nprobe32"] = profile_window(
+        "deep nprobe 32", label,
+        lambda: index.search(queries, K, nprobe=32), 1, len(queries))
+    log(f"[index deep] launches {out['launches']}; max_memory_allocated "
+        f"{out['max_memory_allocated_bytes']}")
+    require(out["launches"]["pq_adc_topk"] > 0,
+            "the DEEP PQ top level never launched pq_adc_topk")
+    require(rows[32]["recall_at_10"] >= 0.5,
+            f"deep recall@10 {rows[32]['recall_at_10']} at nprobe 32 is "
+            "implausibly low")
+
+    # pq_adc_topk at the top level's shapes (B = 1,024, N = 32,768, M = 8,
+    # k = nprobe) on the index's own codebooks and codes; the probed
+    # buckets of every nprobe against the plain version on the card
+    q = torch.as_tensor(queries, device=dev)
+    lut = adc_lut(q, torch.as_tensor(idx.top_pq.codebooks, device=dev))
+    codes = torch.as_tensor(idx.top_pq.codes, device=dev)
+    for nprobe in DEEP_NPROBES:
+        check_pq(f"deep probe pq_adc_topk nprobe {nprobe}", lut, codes,
+                 nprobe)
+    kk = DEEP_10M.nprobe
+    res = check_pq("shape pq_adc_topk B1024 N32768 M8 k32", lut, codes, kk)
+    res["ms"] = time_ms(lambda: pq_adc.pq_adc_topk(lut, codes, kk), 20)
+    res["ms_k64"] = time_ms(lambda: pq_adc.pq_adc_topk(lut, codes, 64), 20)
+    res["plain_ms"] = time_ms(lambda: ref.pq_adc_topk_ref(lut, codes, kk), 5,
+                              warmup=1)
+    B, M, _ = lut.shape
+    N = codes.shape[0]
+    cidx = codes.long().T[None].expand(B, M, N)
+    res["library_ms"] = time_ms(lambda: torch.topk(
+        torch.gather(lut, 2, cidx).sum(1), kk, largest=False), 20)
+    res["library_call"] = ("torch.topk(torch.gather(lut, 2, codes).sum(1)):"
+                           " three calls")
+    nbytes = 4.0 * B * M * 256 + 1.0 * N * M + 8.0 * B * kk
+    res["bound_ms"], res["bound_by"] = bound(nbytes, 1.0 * B * N * M)
+    res["shape"] = [B, N, M, kk]
+    RESULTS["kernels"]["pq_adc_topk"] = res
+    log(f"[shape pq_adc_topk] ms {res['ms']:.4f} (k=64: "
+        f"{res['ms_k64']:.4f}) bound {res['bound_ms']:.5f} "
+        f"({res['bound_by']}) plain {res['plain_ms']:.3f} library "
+        f"{res['library_ms']:.4f}")
+    return out
+
+
+def radio_work(tree, db, q, gt, dev) -> dict:
+    """fig1_qlbt.py's measure: the narrowest beam whose recall@10 of the
+    true entity reaches ``RADIO_RECALL``, with the mean and P90 of the
+    work (internal-node dot products + leaf candidates) per query."""
+    arrays = tree.device_arrays(dev)
+    for w in RADIO_BEAMS:
+        res = tree_search(arrays, db, q, kind=tree.kind, beam_width=w, k=K,
+                          max_steps=tree.max_depth + 4)
+        r = recall_at_k(res.ids.cpu().numpy(), gt)
+        if r >= RADIO_RECALL:
+            work = (res.internal_visits + res.candidates).cpu().numpy()
+            return {"beam": w, "recall_at_10": r,
+                    "mean_work": float(work.mean()),
+                    "p90_work": float(np.percentile(work, 90))}
+    raise CheckFailed(f"no beam up to {RADIO_BEAMS[-1]} reached recall@10 "
+                      f"{RADIO_RECALL}")
+
+
+def phase_index_radio(dev) -> dict:
+    """Fig. 1 / §5.3 at the radio-station size: ``auto_build_index`` picks
+    QLBT when the traffic ``p`` is known and the balanced tree when not;
+    QLBT's expected depth under ``p`` and its work at recall 0.95."""
+    db = make_corpus("radio_station", seed=0)
+    require(db.shape == (RADIO_STATION.n, RADIO_STATION.d),
+            "corpus is not radio-station")
+    _, u, p = beta_for_unbalance(RADIO_UNBALANCE, db.shape[0])
+    q_np, gt = sample_queries(np.random.default_rng(0), db, p, RADIO_QUERIES)
+    out = {"unbalance": u}
+    idxs = {}
+    for name, traffic in (("qlbt", p), ("tree", None)):
+        t0 = time.perf_counter()
+        idxs[name] = auto_build_index(db, p=traffic)
+        out[f"{name}_build_s"] = time.perf_counter() - t0
+        require(idxs[name].spec.kind == name,
+                f"§5.3 chose {idxs[name].spec.kind}, not {name}")
+    xt = torch.as_tensor(db, device=dev)
+    qt = torch.as_tensor(q_np, device=dev)
+    exact = exact_top10(q_np, xt)
+    reset_launches()
+    for name, idx in idxs.items():
+        r = radio_work(idx.tree, xt, qt, gt, dev)
+        r["expected_depth"] = idx.tree.expected_depth(p)
+        ids, work, per_q = timed_search(idx.search, q_np,
+                                        beam_width=r["beam"])
+        r["recall_at_10_vs_exact_top10"] = recall_at_k(ids, exact)
+        r["per_query_ms"] = per_q * 1e3
+        # split margins near zero may round to the other side on the card:
+        # the same descent on the CPU, query by query
+        res = tree_search(idx.tree.device_arrays(dev), xt, qt,
+                          kind=idx.tree.kind, beam_width=r["beam"], k=K,
+                          max_steps=idx.tree.max_depth + 4)
+        cpu = tree_search(idx.tree.device_arrays("cpu"), xt.cpu(), qt.cpu(),
+                          kind=idx.tree.kind, beam_width=r["beam"], k=K,
+                          max_steps=idx.tree.max_depth + 4)
+        r["queries_off_cpu_descent"] = int((
+            (res.internal_visits.cpu() != cpu.internal_visits)
+            | (res.ids.cpu() != cpu.ids).any(dim=1)).sum())
+        out[name] = r
+        log(f"[index radio] {name}: {r}")
+    torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    out["mean_work_gain"] = 1 - out["qlbt"]["mean_work"] / out["tree"][
+        "mean_work"]
+    out["p90_work_gain"] = 1 - out["qlbt"]["p90_work"] / out["tree"][
+        "p90_work"]
+    log(f"[index radio] U {u:.3f}: E[depth] qlbt "
+        f"{out['qlbt']['expected_depth']:.3f} vs tree "
+        f"{out['tree']['expected_depth']:.3f}; work gain mean "
+        f"{out['mean_work_gain']:.3f} p90 {out['p90_work_gain']:.3f}")
+    require(out["qlbt"]["expected_depth"] < out["tree"]["expected_depth"],
+            "QLBT is not shallower than the balanced tree under p")
+    return out
+
+
+def phase_index(dev, ctx) -> None:
+    out = {"label": ctx["label"]}
+    with phase("index sift-1m"):
+        out["sift"] = phase_index_sift(dev, ctx)
+    with phase("index deep-10m"):
+        out["deep"] = phase_index_deep(dev, ctx["label"])
+    with phase("index radio-station"):
+        out["radio"] = phase_index_radio(dev)
+    RESULTS["index"] = out
+    RESULTS["kernels"]["pq_adc_topk"]["launches"] = (
+        out["sift"]["two_level_launches"]["pq_adc_topk"]
+        + out["deep"]["launches"]["pq_adc_topk"])
+    RESULTS["kernels"]["hamming_topk"]["launches"] = out["sift"][
+        "lsh_launches"]["hamming_topk"]
+
+
+# ------------------------------------------------------------- the line
 SOURCES = {
     "l2_topk": ("src/repro_torch/kernels/csrc/l2_topk.cu",
                 "src/repro/kernels/l2_topk.py:109"),
@@ -1150,6 +1624,10 @@ SOURCES = {
                   "src/repro/kernels/bm25.py:111"),
     "hybrid_topk": ("src/repro_torch/kernels/csrc/l2_topk.cu",
                     "src/repro/kernels/bm25.py:160"),
+    "pq_adc_topk": ("src/repro_torch/kernels/csrc/pq_adc_topk.cu",
+                    "src/repro/kernels/pq_adc.py:73"),
+    "hamming_topk": ("src/repro_torch/kernels/csrc/hamming_topk.cu",
+                     "src/repro/kernels/hamming.py:48"),
 }
 
 
@@ -1182,6 +1660,7 @@ def main() -> int:
         phase_options(dev, ctx)
     with phase("profile"):
         phase_profiles(ctx)
+    phase_index(dev, ctx)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)

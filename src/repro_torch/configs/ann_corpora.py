@@ -5,8 +5,11 @@ radio-station : 10 K x 256  (private VA traffic; QLBT territory, <30 K)
 sift-1m       : 1 M  x 128  (public SIFT; two-level PQ+brute, 2^13 buckets)
 deep-10m      : 10 M x 96   (public DEEP subset; two-level, 2^15 buckets)
 
-This slice serves the brute top level only; ``top="pq"`` is the paper's
-choice for the two large corpora and waits for the PQ port.
+``top="pq"`` is the paper's choice for the two large corpora: the index
+path (``core.index.build_index`` / ``core.two_level.build_two_level``)
+honours it, scoring the centroid codes with the ``pq_adc_topk`` kernel.
+The served IVF backend (``distributed.backend``) probes its centroids by
+brute force whatever ``top`` says, as the reference's does.
 """
 from __future__ import annotations
 

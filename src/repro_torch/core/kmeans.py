@@ -21,7 +21,6 @@ import numpy as np
 import torch
 
 from repro_torch.device import require_fp32_matmul, resolve
-from repro_torch.kernels.common import stable_topk
 
 __all__ = ["KMeansResult", "kmeans_fit", "kmeans_assign"]
 
@@ -48,14 +47,25 @@ def _assign_chunked(x: torch.Tensor, c: torch.Tensor, chunk: int):
 
 def _assign_topm_chunked(x: torch.Tensor, c: torch.Tensor, m: int,
                          chunk: int):
+    """The m nearest centroids of each row, ascending, ties toward the
+    lower centroid id: ``stable_topk``'s order, found by m rounds of a
+    first-occurrence min that retires the column it picks.  m is small
+    (4 for the capped fill) against k (up to 32,768), so m row passes
+    cost far less than sorting every row of the (chunk, k) tile."""
     c_norm = torch.sum(c * c, dim=1)
     ids, dist = [], []
     for s in range(0, x.shape[0], chunk):
         xi = x[s:s + chunk]
         d2 = c_norm[None, :] - 2.0 * (xi @ c.T)
-        v, sel = stable_topk(d2, m)
-        ids.append(sel.to(torch.int32))
-        dist.append(v + torch.sum(xi * xi, dim=1, keepdim=True))
+        vals, sels = [], []
+        for _ in range(m):
+            v, sel = torch.min(d2, dim=1)
+            vals.append(v)
+            sels.append(sel)
+            d2.scatter_(1, sel[:, None], float("inf"))
+        ids.append(torch.stack(sels, dim=1).to(torch.int32))
+        dist.append(torch.stack(vals, dim=1)
+                    + torch.sum(xi * xi, dim=1, keepdim=True))
     return torch.cat(ids), torch.cat(dist)
 
 

@@ -53,8 +53,8 @@ class ShardedSearchBackend:
     """Callable ``queries (B, d) -> (dists (B, k), ids (B, k))``, numpy.
 
     ``target`` is either a raw ``(N, d)`` corpus (exact scan) or a built
-    ``TwoLevelIndex`` (IVF over its brute bottom); ``kind="auto"`` picks
-    accordingly.  ``headroom`` > 1 reserves rows (brute) or bucket width
+    ``TwoLevelIndex`` (IVF over its buckets; ``kind="forest"``, a tree or
+    QLBT bottom, is not ported yet); ``kind="auto"`` picks accordingly.  ``headroom`` > 1 reserves rows (brute) or bucket width
     (IVF) for an index that grows; ``alive`` (brute) masks tombstoned
     rows.  ``fused=False`` runs the unfused plain ops instead of the
     kernels.  ``precision="int8"`` (brute, fused) scans per-row-scaled
@@ -95,6 +95,8 @@ class ShardedSearchBackend:
             if isinstance(target, np.ndarray) or not hasattr(
                     target, "bucket_ids"):
                 kind = "brute"
+            elif getattr(target, "forest", None) is not None:
+                kind = "forest"
             else:
                 kind = "ivf"
         self.kind = kind

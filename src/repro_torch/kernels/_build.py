@@ -25,7 +25,8 @@ __all__ = ["SOURCES", "build_all", "library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("l2_topk", "candidate_topk", "bm25_topk")
+SOURCES = ("l2_topk", "candidate_topk", "bm25_topk", "pq_adc_topk",
+           "hamming_topk")
 HEADERS = ("topk_common.cuh", "lexical.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -12,22 +12,26 @@ import threading
 
 import torch
 
-__all__ = ["INF", "KMAX", "LAUNCH_COUNTERS", "LaunchCounter", "empty_result",
-           "list_len", "merge_topk", "pad_sentinel", "stable_topk",
-           "valid_operand"]
+__all__ = ["INF", "KMAX", "KMAX_PQ", "LAUNCH_COUNTERS", "LaunchCounter",
+           "empty_result", "list_len", "merge_topk", "pad_sentinel",
+           "popcount32", "stable_topk", "valid_operand"]
 
 INF = float("inf")
 
-# Compile-time ceiling on k in the CUDA kernels (rt::KMAX in
-# csrc/topk_common.cuh); the wrappers refuse a larger k.
+# Compile-time ceilings on k in the CUDA kernels' register lists
+# (csrc/topk_common.cuh): the dense scans instantiate lists of up to 32
+# entries, the PQ scan up to 64 (its nprobe sweep reaches 64).  The
+# wrappers refuse a larger k; the Hamming scan has no list and no ceiling.
 KMAX = 32
+KMAX_PQ = 64
 
 
-def list_len(k: int) -> int:
-    """Register-list length a kernel instantiates for ``k`` (8, 16, 32)."""
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"k={k} outside the kernels' range 1..{KMAX}")
-    return 8 if k <= 8 else 16 if k <= 16 else 32
+def list_len(k: int, kmax: int = KMAX) -> int:
+    """Register-list length a kernel instantiates for ``k`` (8, 16, 32,
+    and 64 where ``kmax`` allows it)."""
+    if not 1 <= k <= kmax:
+        raise ValueError(f"k={k} outside the kernels' range 1..{kmax}")
+    return 8 if k <= 8 else 16 if k <= 16 else 32 if k <= 32 else 64
 
 
 # every kernel's counter by kernel name, so a run can reset and read all
@@ -96,6 +100,17 @@ def merge_topk(best_d, best_i, tile_d, tile_i, k: int):
         out_i.append(mi)
         cat_d = torch.where(tie & (cat_i == mi[:, None]), INF, cat_d)
     return torch.stack(out_d, dim=1), torch.stack(out_i, dim=1)
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word of an int32 tensor (the branch-free
+    SWAR sequence of ``repro.kernels.common.popcount32``), computed in
+    int64 so that no step overflows; returns int32."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24 & 0xFF).to(torch.int32)
 
 
 def valid_operand(valid, n: int, device) -> "torch.Tensor | None":

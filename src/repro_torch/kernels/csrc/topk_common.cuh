@@ -18,7 +18,9 @@
 
 namespace rt {
 
-// Compile-time ceiling on k: the wrappers refuse a larger k.
+// Ceiling on k of the dense scans' lists (l2, candidate, bm25); the PQ scan
+// also instantiates lists of 64.  The wrappers refuse a larger k
+// (kernels/common.py: KMAX, KMAX_PQ).
 constexpr int KMAX = 32;
 
 // Id of an empty slot.  It sorts after every real id, and the writers turn

@@ -9,10 +9,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import bm25, bucket_topk, l2_topk, ref
+from repro_torch.kernels import (bm25, bucket_topk, hamming, l2_topk, pq_adc,
+                                 ref)
 
 __all__ = ["l2_topk_op", "l2_topk_int8_op", "candidate_topk_op",
-           "bm25_topk_op", "hybrid_topk_op", "quantize_rows_int8"]
+           "bm25_topk_op", "hybrid_topk_op", "pq_adc_topk_op",
+           "hamming_topk_op", "quantize_rows_int8"]
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -81,3 +83,18 @@ def hybrid_topk_op(queries, db, q_terms, q_weights, terms, tf_sat, alpha,
                                 tf_sat, alpha, k, valid=valid)
     return ref.hybrid_topk_ref(queries, db, q_terms, q_weights, terms,
                                tf_sat, alpha, k, valid=valid)
+
+
+def pq_adc_topk_op(lut, codes, k: int = 10, *, valid=None):
+    """PQ ADC scan + top-k from a per-query (B, M, 256) LUT: (adc dists
+    ascending, ids)."""
+    if _on_card(lut):
+        return pq_adc.pq_adc_topk(lut, codes, k, valid=valid)
+    return ref.pq_adc_topk_ref(lut, codes, k, valid=valid)
+
+
+def hamming_topk_op(qcodes, codes, k: int = 10, *, valid=None):
+    """Packed-bit Hamming scan + top-k: (dists ascending, ids)."""
+    if _on_card(qcodes):
+        return hamming.hamming_topk(qcodes, codes, k, valid=valid)
+    return ref.hamming_topk_ref(qcodes, codes, k, valid=valid)

@@ -1,0 +1,108 @@
+"""Wrapper of the CUDA PQ asymmetric-distance (ADC) scan + top-k kernel.
+
+Replaces ``repro/kernels/pq_adc.py::pq_adc_topk_pallas``; the kernel is
+``csrc/pq_adc_topk.cu`` (its header note gives the design and the bound).
+This module checks the operands, chooses the split count, allocates the
+outputs and the per-split partial lists, launches on PyTorch's current
+stream and counts launches.  CUDA tensors only; the plain version is
+``ref.pq_adc_topk_ref`` and ``ops.pq_adc_topk_op`` picks between them by
+device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import (KMAX_PQ, LaunchCounter, empty_result,
+                                        list_len, pad_sentinel, valid_operand)
+
+__all__ = ["pq_adc_topk", "LAUNCHES"]
+
+LAUNCHES = LaunchCounter("pq_adc_topk")
+
+WARPS = 8              # queries per block in csrc/pq_adc_topk.cu
+CODEWORDS = 256
+MAX_M = 24             # the block's 8 staged LUTs (8 M KB) fit in 227 KB
+
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        f = _build.library("pq_adc_topk").pq_adc_topk_launch
+        f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        _fn = f
+    return _fn
+
+
+def splits_for(b: int, n: int, sm_count: int) -> int:
+    """Splits of N: none once the query groups fill the SMs, else enough
+    for about one block per SM, each split at least 64 rows a lane."""
+    groups = -(-b // WARPS)
+    return max(1, min(-(-n // (32 * 64)), sm_count // groups))
+
+
+def pq_adc_topk(lut: torch.Tensor, codes: torch.Tensor, k: int = 10, *,
+                valid=None):
+    """Returns (adc dists (B, k) ascending fp32, ids (B, k) int32).
+
+    ``lut`` (B, M, 256) float32 holds each query's subspace distances,
+    ``codes`` (N, M) the codes (uint8, or an integer type with values in
+    0..255), ``valid`` an optional (N,) liveness mask.  ``k`` is clamped to
+    N and the requested width restored with the ``(inf, -1)`` sentinel.
+    Raises for a CPU tensor, a wrong dtype or shape, ``k`` beyond
+    ``KMAX_PQ`` after the clamp, or a failed launch.
+    """
+    if lut.device.type != "cuda" or codes.device.type != "cuda":
+        raise ValueError("pq_adc_topk takes CUDA tensors; the plain version "
+                         "is ref.pq_adc_topk_ref")
+    if lut.dtype != torch.float32:
+        raise TypeError("pq_adc_topk takes a float32 lut")
+    if codes.dtype.is_floating_point or codes.dtype == torch.bool:
+        raise TypeError("pq_adc_topk takes integer codes")
+    if lut.dim() != 3 or codes.dim() != 2 or lut.shape[2] != CODEWORDS or (
+            lut.shape[1] != codes.shape[1]):
+        raise ValueError(f"shapes {tuple(lut.shape)} x {tuple(codes.shape)} "
+                         f"are not (B, M, {CODEWORDS}) x (N, M)")
+    B, M, _ = lut.shape
+    N = codes.shape[0]
+    if not 1 <= M <= MAX_M:
+        raise ValueError(f"M={M} outside the kernel's range 1..{MAX_M}")
+    k_eff = min(k, N)
+    if k_eff > KMAX_PQ:
+        raise ValueError(f"k={k_eff} exceeds the kernel's KMAX_PQ={KMAX_PQ}")
+    dev = lut.device
+    if B == 0 or k_eff == 0:
+        return empty_result(B, k, dev)
+    lt = lut.contiguous()
+    c = codes.to(torch.uint8).contiguous()
+    if c.data_ptr() % 8:             # the kernel reads rows 8 bytes at a time
+        c = c.clone()
+    v = valid_operand(valid, N, dev)
+    kt = list_len(k_eff, KMAX_PQ)
+    splits = splits_for(
+        B, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    rows = -(-N // splits)
+    out_d = torch.empty((B, k_eff), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, k_eff), dtype=torch.int32, device=dev)
+    part_d = part_i = None
+    if splits > 1:
+        part_d = torch.empty((B, splits, kt), dtype=torch.float32, device=dev)
+        part_i = torch.empty((B, splits, kt), dtype=torch.int32, device=dev)
+    fn = _launcher()
+    with torch.cuda.device(dev):
+        rc = fn(lt.data_ptr(), c.data_ptr(),
+                None if v is None else v.data_ptr(),
+                None if part_d is None else part_d.data_ptr(),
+                None if part_i is None else part_i.data_ptr(),
+                out_d.data_ptr(), out_i.data_ptr(), B, N, M, k_eff, kt,
+                splits, rows, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"pq_adc_topk launch failed: CUDA error {rc}")
+    LAUNCHES.inc()
+    return pad_sentinel(out_d, out_i, k, k_eff)

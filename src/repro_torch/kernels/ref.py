@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the ported kernels (the ``ref.py`` contract).
 
-Port of the l2, int8, candidate, BM25 and hybrid parts of
-``repro/kernels/ref.py``.  Each
+Port of ``repro/kernels/ref.py``: the l2, int8, candidate, BM25, hybrid,
+PQ-ADC and Hamming plain versions.  Each
 function computes its kernel's result with no tiling; ``ops`` runs it for
 tensors on the CPU, the tests hold it against the reference, and
 ``chip_smoke.py`` holds each kernel against it on the card.
@@ -22,17 +22,22 @@ Operation order (the kernels follow it with round-to-nearest intrinsics,
 nothing contracted into an FMA): int8 is ``qn + (s * s * xn8)`` then
 ``- (2 * s) * dot``; BM25 runs the query term slot ``t`` outer and the
 document slot ``s`` inner, ``score = score + hit * qw[t]`` as two
-roundings; hybrid is ``a * d2 - (1 - a) * score``.
+roundings; hybrid is ``a * d2 - (1 - a) * score``; PQ-ADC sums the M
+subspace entries in order ``m = 0..M-1`` from 0.0 (the Pallas kernel's
+``fori_loop`` order), so the kernel equals it bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.brute import batched_l2sq, pairwise_l2sq
-from repro_torch.kernels.common import INF, pad_sentinel, stable_topk
+from repro_torch.kernels.common import (INF, pad_sentinel, popcount32,
+                                        stable_topk)
 
 __all__ = ["l2_topk_ref", "l2_topk_int8_ref", "candidate_topk_ref",
-           "bm25_dists_ref", "bm25_topk_ref", "hybrid_topk_ref"]
+           "bm25_dists_ref", "bm25_topk_ref", "hybrid_topk_ref",
+           "pq_adc_scores_ref", "pq_adc_topk_ref", "hamming_dists_ref",
+           "hamming_topk_ref"]
 
 # Elements of the (B, rows, S) match mask ``bm25_dists_ref`` builds at
 # once (about 1 GB as float32); longer slabs are scanned in row chunks.
@@ -138,3 +143,41 @@ def hybrid_topk_ref(queries, db, q_terms, q_weights, terms, tf_sat, alpha,
                         device=q.device).reshape(1, 1)
     dist = a * d2 - (1.0 - a) * score
     return _finish(_apply_valid(dist, valid), k)
+
+
+def pq_adc_scores_ref(lut, codes):
+    """(B, N) ADC scores ``sum_m lut[b, m, codes[n, m]]``, summed in order
+    ``m = 0..M-1`` from 0.0, one (B, N) gather per subspace."""
+    lut = lut.to(torch.float32)
+    c = codes.to(torch.int64)
+    score = torch.zeros((lut.shape[0], c.shape[0]), dtype=torch.float32,
+                        device=lut.device)
+    for m in range(c.shape[1]):
+        score = score + lut[:, m].index_select(1, c[:, m])
+    return score
+
+
+def pq_adc_topk_ref(lut, codes, k: int = 10, *, valid=None):
+    """The PQ-ADC scan: (adc dists ascending, ids)."""
+    return _finish(_apply_valid(pq_adc_scores_ref(lut, codes), valid), k)
+
+
+def hamming_dists_ref(qcodes, codes):
+    """(B, N) float32 Hamming distances between packed int32 codes; rows
+    are taken in chunks that keep the (B, rows, W) XOR near
+    ``_MASK_ELEMS``."""
+    q = qcodes.to(torch.int32)
+    c = codes.to(torch.int32)
+    b, n, w = q.shape[0], c.shape[0], q.shape[1]
+    chunk = max(1, _MASK_ELEMS // max(1, b * w))
+    out = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    for r0 in range(0, n, chunk):
+        x = torch.bitwise_xor(q[:, None, :], c[None, r0:r0 + chunk, :])
+        out[:, r0:r0 + chunk] = popcount32(x).sum(-1).to(torch.float32)
+    return out
+
+
+def hamming_topk_ref(qcodes, codes, k: int = 10, *, valid=None):
+    """The Hamming scan: (dists ascending, ids); ties toward the lower id
+    (a stable sort of the flat scan)."""
+    return _finish(_apply_valid(hamming_dists_ref(qcodes, codes), valid), k)

@@ -1,6 +1,7 @@
-"""Checks of the option kernels shared by ``tests/test_torch_gpu.py`` and
-``chip_smoke.py``: one table of edge shapes, the operands each edge is
-drawn from, and the by-parts check of a hybrid answer.
+"""Checks of the kernels shared by ``tests/test_torch_gpu.py``,
+``tests/test_torch_index_slice.py`` and ``chip_smoke.py``: the tables of
+edge shapes, the operands each edge is drawn from, and the by-parts check
+of a hybrid answer.
 
 The edge shapes are those ``tests/test_kernels.py`` pins for the int8,
 BM25 and hybrid kernels of the reference: B = 1, N not a multiple of the
@@ -25,8 +26,9 @@ import torch
 
 from repro_torch.kernels import ops
 
-__all__ = ["OPTION_EDGES", "EDGE_ALPHAS", "slab_rows",
-           "option_edge_operands", "lexical_scores_f32", "hybrid_by_parts"]
+__all__ = ["OPTION_EDGES", "EDGE_ALPHAS", "PQ_EDGES", "HAMMING_EDGES",
+           "slab_rows", "option_edge_operands", "pq_edge_operands",
+           "hamming_edge_operands", "lexical_scores_f32", "hybrid_by_parts"]
 
 # (name, B, N, d, k, rows): rows "dead" = every row dead, "half" = about
 # half live, "dup" = the second half repeats the first
@@ -43,6 +45,69 @@ OPTION_EDGES = (
 # blend between them
 EDGE_ALPHAS = (0.0, 0.3, 1.0)
 EDGE_VOCAB = 40
+
+
+# The PQ-ADC and Hamming kernels' edges: (name, B, N, M or W, k, rows),
+# rows "dead" = every row dead, "half" = about half live, "ties" = every
+# code row the same (so every distance ties and ids decide).  PQ covers
+# k = 1, 10, 32, 33 and 64 (its list lengths' edges), Hamming k = 128 and
+# 1,024 (the LSH shortlists), both k > N and a batch over several splits.
+PQ_EDGES = (
+    ("B=1 k=1", 1, 100, 8, 1, None),
+    ("N%block!=0 k=10", 4, 300, 8, 10, None),
+    ("k>N", 3, 6, 8, 10, None),
+    ("all dead", 4, 50, 8, 5, "dead"),
+    ("k=32 partial valid", 6, 400, 8, 32, "half"),
+    ("k=33 partial valid", 6, 400, 8, 33, "half"),
+    ("k=64", 5, 700, 8, 64, None),
+    ("M=4", 3, 90, 4, 7, "half"),
+    ("all-equal codes", 3, 80, 8, 32, "ties"),
+    ("B=70 splits k=64", 70, 20000, 8, 64, "half"),
+)
+HAMMING_EDGES = (
+    ("B=1 k=1", 1, 100, 2, 1, None),
+    ("N%block!=0 k=10", 4, 300, 2, 10, None),
+    ("k>N", 3, 6, 2, 10, None),
+    ("all dead", 4, 50, 3, 5, "dead"),
+    ("partial valid k=33", 6, 400, 3, 33, "half"),
+    ("W=1 k=64", 5, 700, 1, 64, None),
+    ("k=128 partial valid", 3, 2000, 2, 128, "half"),
+    ("k=1024", 2, 3000, 3, 1024, None),
+    ("all-equal codes", 3, 80, 2, 32, "ties"),
+    ("B=70 splits k=1024", 70, 50000, 3, 1024, "half"),
+)
+
+
+def _edge_rows(rng, n: int, rows):
+    if rows == "dead":
+        return np.zeros(n, np.int32)
+    if rows == "half":
+        return (rng.random(n) > .5).astype(np.int32)
+    return None
+
+
+def pq_edge_operands(case, seed: int = 0):
+    """numpy operands of one ``PQ_EDGES`` case: ``lut`` (B, M, 256)
+    float32, ``codes`` (N, M) uint8, ``valid`` (N,) int32 or None, ``k``."""
+    _, b, n, m, k, rows = case
+    rng = np.random.default_rng([seed, b, n, m, k])
+    lut = (rng.random((b, m, 256)) * 10).astype(np.float32)
+    codes = rng.integers(0, 256, size=(n, m)).astype(np.uint8)
+    if rows == "ties":
+        codes[:] = codes[0]
+    return lut, codes, _edge_rows(rng, n, rows), k
+
+
+def hamming_edge_operands(case, seed: int = 0):
+    """numpy operands of one ``HAMMING_EDGES`` case: ``qcodes`` (B, W) and
+    ``codes`` (N, W) int32 words, ``valid`` (N,) int32 or None, ``k``."""
+    _, b, n, w, k, rows = case
+    rng = np.random.default_rng([seed, b, n, w, k])
+    q = rng.integers(-2**31, 2**31, size=(b, w)).astype(np.int32)
+    codes = rng.integers(-2**31, 2**31, size=(n, w)).astype(np.int32)
+    if rows == "ties":
+        codes[:] = codes[0]
+    return q, codes, _edge_rows(rng, n, rows), k
 
 
 def slab_rows(rng, n: int, s: int, vocab: int = EDGE_VOCAB,

@@ -1,7 +1,7 @@
 """Card tests of the port's CUDA kernels: each kernel against its plain
-version (with the hybrid alpha = 0 / 1 identities), one small IVF serve
-and one small filtered / lexical / hybrid / int8 serve through the
-kernels.
+version (with the hybrid alpha = 0 / 1 identities), one small IVF serve,
+one small filtered / lexical / hybrid / int8 serve and one small run of
+the index layer (PQ top level, one-level LSH) through the kernels.
 
 Marked ``gpu``; each test decides inside itself whether a card is there
 and skips with the reason when not.  Run on the card with:
@@ -14,24 +14,35 @@ these inputs (continuous random data, no near-ties at these sizes),
 except on BM25 slabs with a repeated term, whose massively tied scores
 round differently in the two orders: there ids may differ at near-ties,
 and each kernel distance is held bit for bit to the kernels' own order.
+The PQ-ADC kernel sums in the plain version's order and the Hamming
+distances are whole numbers, so those two equal their plain versions bit
+for bit, ids and distances, ties included.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.brute import batched_l2sq
+from repro_torch.core.index import build_index
 from repro_torch.core.lexical import build_lexical_slabs, query_operands
+from repro_torch.core.lsh import lsh_build, lsh_search
 from repro_torch.core.metadata import FilterSpec, MetadataTable
+from repro_torch.core.protocol import IndexSpec
 from repro_torch.core.two_level import TwoLevelConfig, build_two_level
 from repro_torch.data.synthetic import make_corpus, make_queries
 from repro_torch.distributed.backend import ShardedSearchBackend
-from repro_torch.kernels import bm25, bucket_topk, l2_topk, ops, ref
+from repro_torch.kernels import (bm25, bucket_topk, hamming, l2_topk, ops,
+                                 pq_adc, ref)
 from repro_torch.kernels.common import merge_topk
 from repro_torch.serve.cell import ServingCell
-from repro_torch.testing import (EDGE_ALPHAS, OPTION_EDGES, hybrid_by_parts,
-                                 lexical_scores_f32, option_edge_operands)
+from repro_torch.testing import (EDGE_ALPHAS, HAMMING_EDGES, OPTION_EDGES,
+                                 PQ_EDGES, hamming_edge_operands,
+                                 hybrid_by_parts, lexical_scores_f32,
+                                 option_edge_operands, pq_edge_operands)
 
 pytestmark = pytest.mark.gpu
 REL = 1e-5
@@ -290,3 +301,79 @@ def test_small_option_serve_runs_through_the_kernels(dev):
     truth = plain(queries)[1]
     assert np.mean([len(set(a) & set(b)) / 10
                     for a, b in zip(ids8, truth)]) >= 0.5
+
+
+def _bitwise(kd, ki, pd, pi):
+    assert torch.equal(ki, pi)
+    assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", PQ_EDGES, ids=[c[0] for c in PQ_EDGES])
+def test_pq_adc_topk_kernel_matches_plain(dev, case):
+    lut, codes, valid, k = (
+        None if a is None else torch.as_tensor(a, device=dev)
+        if isinstance(a, np.ndarray) else a for a in pq_edge_operands(case))
+    before = pq_adc.LAUNCHES.count
+    kd, ki = pq_adc.pq_adc_topk(lut, codes, k, valid=valid)
+    pd, pi = ref.pq_adc_topk_ref(lut, codes, k, valid=valid)
+    torch.cuda.synchronize()
+    assert pq_adc.LAUNCHES.count == before + 1
+    _bitwise(kd, ki, pd, pi)
+    # int32 codes are taken as well (the Pallas kernel's operand type)
+    kd2, ki2 = pq_adc.pq_adc_topk(lut, codes.to(torch.int32), k, valid=valid)
+    _bitwise(kd2, ki2, pd, pi)
+
+
+@pytest.mark.parametrize("case", HAMMING_EDGES,
+                         ids=[c[0] for c in HAMMING_EDGES])
+def test_hamming_topk_kernel_matches_plain(dev, case):
+    q, codes, valid, k = (
+        None if a is None else torch.as_tensor(a, device=dev)
+        if isinstance(a, np.ndarray) else a
+        for a in hamming_edge_operands(case))
+    before = hamming.LAUNCHES.count
+    kd, ki = hamming.hamming_topk(q, codes, k, valid=valid)
+    pd, pi = ref.hamming_topk_ref(q, codes, k, valid=valid)
+    torch.cuda.synchronize()
+    assert hamming.LAUNCHES.count == before + 1
+    _bitwise(kd, ki, pd, pi)
+
+
+def test_index_kernels_reject_what_they_cannot_take(dev):
+    lut = torch.zeros((2, 8, 256), device=dev)
+    codes = torch.zeros((100, 8), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="KMAX_PQ"):
+        pq_adc.pq_adc_topk(lut, codes, 65)
+    with pytest.raises(ValueError):
+        pq_adc.pq_adc_topk(lut[:, :, :128], codes, 5)
+    with pytest.raises(TypeError):
+        pq_adc.pq_adc_topk(lut, codes.float(), 5)
+    q = torch.zeros((2, 9), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="W=9"):
+        hamming.hamming_topk(q, torch.zeros((10, 9), dtype=torch.int32,
+                                            device=dev), 3)
+    with pytest.raises(TypeError):
+        hamming.hamming_topk(q.float(), torch.zeros((10, 9), device=dev), 3)
+
+
+def test_small_index_runs_through_the_kernels(dev):
+    """A PQ-top two-level index and the one-level LSH scan on the card:
+    both kernels launch, and the answers are the CPU run's on the same
+    structures."""
+    db = make_corpus("deep", scale=0.002, seed=0)
+    queries = make_queries(db, 64, seed=1)
+    idx = build_index(IndexSpec("two_level", TwoLevelConfig(
+        n_clusters=128, top="pq", bottom="brute", seed=0)), db)
+    before = pq_adc.LAUNCHES.count
+    d, i, w = idx.search(queries, 10, nprobe=8)
+    torch.cuda.synchronize()
+    assert pq_adc.LAUNCHES.count > before
+    cpu = dataclasses.replace(idx.two_level, device=torch.device("cpu"))
+    dc, ic, wc = cpu.search(queries, 10, nprobe=8)
+    assert (i == ic).mean() >= 0.99 and w == wc
+    lsh = lsh_build(db, 96, seed=0)
+    before = hamming.LAUNCHES.count
+    _, li = lsh_search(lsh, db, queries, 10, n_candidates=256)
+    assert hamming.LAUNCHES.count == before + 1
+    _, lc = lsh_search(lsh, db, queries, 10, n_candidates=256, device="cpu")
+    assert (li == lc).mean() >= 0.99

@@ -40,7 +40,9 @@ _REFERENCE = (
     "repro.kernels.l2_topk", "repro.kernels.bucket_topk",
     "repro.kernels.bm25", "repro.distributed.sharding",
     "repro.distributed.backend", "repro.serve.cell",
-    "repro.data.synthetic",
+    "repro.data.synthetic", "repro.core.pq", "repro.core.lsh",
+    "repro.core.tree", "repro.core.likelihood", "repro.core.protocol",
+    "repro.core.index", "repro.kernels.pq_adc", "repro.kernels.hamming",
 )
 
 
@@ -150,6 +152,10 @@ def _modules_after(code: str) -> set:
     "repro_torch.convert, repro_torch.core.kmeans, repro_torch.kernels.ops",
     "import repro_torch.core.metadata, repro_torch.core.lexical, "
     "repro_torch.kernels.bm25, repro_torch.kernels.ops",
+    "import repro_torch.core.index, repro_torch.core.protocol, "
+    "repro_torch.core.tree, repro_torch.core.pq, repro_torch.core.lsh, "
+    "repro_torch.core.likelihood, repro_torch.kernels.pq_adc, "
+    "repro_torch.kernels.hamming, repro_torch.kernels.ops",
     "import chip_smoke",
 ])
 def test_port_imports_neither_jax_nor_reference(code):
@@ -174,6 +180,9 @@ def test_default_device_is_the_card_or_raises():
 
 def test_entry_points_honour_cpu_and_refuse_without_a_card():
     from repro_torch.core.brute import brute_search
+    from repro_torch.core.index import auto_build_index
+    from repro_torch.core.lsh import lsh_build, lsh_search
+    from repro_torch.core.pq import pq_search, pq_train
     from repro_torch.core.two_level import TwoLevelConfig, build_two_level
     from repro_torch.distributed.backend import ShardedSearchBackend
     from repro_torch.serve.cell import ServingCell
@@ -195,18 +204,28 @@ def test_entry_points_honour_cpu_and_refuse_without_a_card():
         assert cell.search(q[0], timeout=30)[1][0] == 0
     finally:
         cell.close()
+    small = auto_build_index(db, device="cpu")
+    assert small.spec.kind == "tree" and small.device == torch.device("cpu")
+    assert small.search(q, 3)[1][:, 0].tolist() == [0, 1, 2, 3]
+    lsh = lsh_build(db, 32)
+    assert lsh_search(lsh, db, q, 3, n_candidates=64,
+                      device="cpu")[1][:, 0].tolist() == [0, 1, 2, 3]
     if not torch.cuda.is_available():
         for call in (lambda: ShardedSearchBackend(db, kind="brute"),
                      lambda: brute_search(q, db, 3),
                      lambda: build_two_level(db, TwoLevelConfig(n_clusters=8)),
-                     lambda: ServingCell.sharded(db, kind="brute")):
+                     lambda: ServingCell.sharded(db, kind="brute"),
+                     lambda: auto_build_index(db),
+                     lambda: lsh_search(lsh, db, q, 3),
+                     lambda: pq_search(pq_train(db, 4, iters=1,
+                                                device="cpu"), q, 3)):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
 
 
 def test_ops_send_cpu_tensors_to_the_plain_version():
-    from repro_torch.kernels import (bm25, bucket_topk, common, l2_topk,
-                                     ops, ref)
+    from repro_torch.kernels import (bm25, bucket_topk, common, hamming,
+                                     l2_topk, ops, pq_adc, ref)
 
     rng = np.random.default_rng(1)
     q = torch.as_tensor(rng.normal(size=(3, 8)).astype(np.float32))
@@ -230,18 +249,27 @@ def test_ops_send_cpu_tensors_to_the_plain_version():
     qt = torch.as_tensor(rng.integers(-1, 20, (3, 4)).astype(np.int32))
     qw = torch.as_tensor(rng.random((3, 4)).astype(np.float32))
     alpha = torch.full((1, 1), 0.3)
+    lut = torch.as_tensor(rng.random((3, 8, 256)).astype(np.float32))
+    pq_codes = torch.as_tensor(rng.integers(0, 256, (40, 8)).astype(np.uint8))
+    qcodes = torch.as_tensor(rng.integers(-2**31, 2**31, (3, 2)).astype(
+        np.int32))
+    hcodes = torch.as_tensor(rng.integers(-2**31, 2**31, (40, 2)).astype(
+        np.int32))
     counts = {n: c.count for n, c in common.LAUNCH_COUNTERS.items()}
     for op, plain, args in (
             (ops.l2_topk_int8_op, ref.l2_topk_int8_ref, (q, codes, scales)),
             (ops.bm25_topk_op, ref.bm25_topk_ref, (qt, qw, terms, tf)),
             (ops.hybrid_topk_op, ref.hybrid_topk_ref,
-             (q, x, qt, qw, terms, tf, alpha))):
+             (q, x, qt, qw, terms, tf, alpha)),
+            (ops.pq_adc_topk_op, ref.pq_adc_topk_ref, (lut, pq_codes)),
+            (ops.hamming_topk_op, ref.hamming_topk_ref, (qcodes, hcodes))):
         d, i = op(*args, 4)
         dr, ir = plain(*args, 4)
         assert torch.equal(i, ir) and torch.equal(d, dr)
     assert {n: c.count for n, c in common.LAUNCH_COUNTERS.items()} == counts
     assert {"l2_topk", "l2_topk_int8", "candidate_topk", "bm25_topk",
-            "hybrid_topk"} <= set(common.LAUNCH_COUNTERS)
+            "hybrid_topk", "pq_adc_topk", "hamming_topk"} <= set(
+                common.LAUNCH_COUNTERS)
     # the kernel wrappers themselves never take a CPU tensor
     with pytest.raises(ValueError, match="CUDA"):
         l2_topk.l2_topk(q, x, 4)
@@ -253,28 +281,44 @@ def test_ops_send_cpu_tensors_to_the_plain_version():
         bm25.bm25_topk(qt, qw, terms, tf, 4)
     with pytest.raises(ValueError, match="CUDA"):
         bm25.hybrid_topk(q, x, qt, qw, terms, tf, alpha, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        pq_adc.pq_adc_topk(lut, pq_codes, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        hamming.hamming_topk(qcodes, hcodes, 4)
 
 
 def test_two_level_refuses_unported_levels_and_mutation():
+    """Every top and bottom level is ported; mutation is not, and refuses
+    on the two-level index, the unified index and a tree, naming the
+    ROADMAP item."""
     from repro_torch.convert import index_from_arrays
+    from repro_torch.core.index import SearchIndex
+    from repro_torch.core.protocol import IndexSpec
+    from repro_torch.core.tree import build_rp_tree
     from repro_torch.core.two_level import TwoLevelConfig, build_two_level
 
-    db = np.zeros((64, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_two_level(db, TwoLevelConfig(n_clusters=4, top="pq"),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_two_level(db, TwoLevelConfig(n_clusters=4, bottom="qlbt"),
-                        device="cpu")
+    db = np.random.default_rng(2).normal(size=(64, 4)).astype(np.float32)
     with pytest.raises(ValueError):
         build_two_level(db, TwoLevelConfig(n_clusters=4, top="nope"),
+                        device="cpu")
+    with pytest.raises(ValueError):
+        build_two_level(db, TwoLevelConfig(n_clusters=4, bottom="nope"),
                         device="cpu")
     idx = index_from_arrays(
         {"db": db, "centroids": db[:4], "bucket_counts": np.full(4, 16),
          "bucket_ids": np.arange(64, dtype=np.int32).reshape(4, 16)},
         {"n_clusters": 4}, device="cpu")
     assert (idx.entity_bucket == np.repeat(np.arange(4), 16)).all()
-    for name in ("add_entities", "delete_entities", "rebalance", "reboost",
-                 "pop_delta"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(idx, name)()
+    tree = build_rp_tree(db)
+    one = SearchIndex(spec=IndexSpec("tree"), db=db, tree=tree, device="cpu")
+    two = SearchIndex(spec=IndexSpec("two_level"), db=db, two_level=idx)
+    for obj, names in (
+            (idx, ("add_entities", "delete_entities", "refresh_forest",
+                   "rebalance", "reboost", "pop_delta")),
+            (one, ("add_entities", "delete_entities", "rebalance", "reboost",
+                   "pop_delta", "rebuild_with_likelihood")),
+            (two, ("add_entities", "delete_entities", "reboost")),
+            (tree, ("reboost", "drop_entities"))):
+        for name in names:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                getattr(obj, name)()
