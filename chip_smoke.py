@@ -14,20 +14,24 @@ each prints its wall time as ``[phase] <name> <s> s``):
              ``-Xptxas -v`` register/shared/spill lines;
 3. edges   - each kernel against its plain version on the edge shapes that
              ``tests/test_kernels.py`` pins (for the option kernels, the
-             table in ``repro_torch.testing``, shared with the card
-             tests), plus the hybrid alpha = 0 / 1 identities; every
+             index kernels and the probe chain, the tables in
+             ``repro_torch.testing``, shared with the card tests), plus
+             the hybrid alpha = 0 / 1 identities; every
              hybrid answer, here and later, is also held by its two
              halves (``testing.hybrid_by_parts``);
 4. shapes  - each kernel against its plain version at the main path's
              shapes, on the backends' own operands, timed beside its bound,
              the plain version and a PyTorch yardstick (which the port
-             never calls);
+             never calls); ``candidate_topk`` as one probe step and as the
+             whole served chain (B 64, nprobe 32, also held bit for bit
+             against the rows read by id and 32 per-step launches);
 5. serve   - sift-1m width: 1M x 128 corpus, 8,192 k-means buckets built on
              the card, IVF (nprobe 32, k 10) behind a ``ServingCell``
              answering 2,048 requests from 16 client threads, the exact
-             brute backend for recall@10, and the unfused IVF path for
-             parity; launch counts are reset just before and read just
-             after the served run;
+             brute backend for recall@10, the unfused IVF path for
+             parity, and the chain against 32 per-step launches bit for
+             bit on every served batch; launch counts are reset just
+             before and read just after the served run;
 6. options - the same corpus with a ``pct`` metadata column and BM25
              postings slabs of synthetic entity text: a brute cell (f32,
              2,048 requests over four option sets: semantic filtered at
@@ -47,8 +51,11 @@ each prints its wall time as ``[phase] <name> <s> s``):
              1,024), and RADIO-STATION (10K x 256) where §5.3 picks QLBT
              with traffic and the balanced tree without; ``pq_adc_topk``
              and ``hamming_topk`` held against their plain versions and
-             timed at those shapes; counts reset just before and read just
-             after each of the three runs;
+             timed at those shapes (their yardsticks at k = 64 too), the
+             DEEP brute bottom's probe chain (``candidate_topk``, rows by
+             entity id) against its plain version and float64 and timed;
+             counts reset just before and read just after each of the
+             three runs;
 9. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
 
 Imports only ``torch``, numpy and ``repro_torch``.  Detailed results also
@@ -100,10 +107,12 @@ from repro_torch.kernels.common import (LAUNCH_COUNTERS,  # noqa: E402
                                         merge_topk, stable_topk)
 from repro_torch.obs.trace import Tracer, set_tracer  # noqa: E402
 from repro_torch.serve.cell import ServingCell  # noqa: E402
-from repro_torch.testing import (EDGE_ALPHAS, HAMMING_EDGES,  # noqa: E402
-                                 OPTION_EDGES, PQ_EDGES,
+from repro_torch.testing import (CHAIN_EDGES, EDGE_ALPHAS,  # noqa: E402
+                                 HAMMING_EDGES, OPTION_EDGES, PQ_EDGES,
+                                 chain_edge_operands, chain_union_topk,
                                  hamming_edge_operands, hybrid_by_parts,
-                                 option_edge_operands, pq_edge_operands)
+                                 option_edge_operands, pq_edge_operands,
+                                 step_chain)
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 and fp32 outside the
 # tensor cores.  The kernels compute in fp32 FMA, never TF32.
@@ -210,11 +219,16 @@ def phase_card() -> dict:
 def _kernel_name(mangled: str) -> str:
     """``l2_topk_partial<F32Rows, 16>`` from a mangled kernel name."""
     name = re.search(r"(l2_topk_partial|bm25_topk_partial|merge_partials|"
-                     r"candidate_topk_kernel|pq_adc_partial|hamming_count|"
-                     r"hamming_offsets|hamming_emit)", mangled)
+                     r"candidate_scan|candidate_merge|pq_adc_partial|"
+                     r"hamming_count|hamming_offsets|hamming_emit)", mangled)
     rows = re.search(r"(F32Rows|Int8Rows|HybridRows)", mangled)
     kt = re.search(r"Li(\d+)E", mangled)
-    if name and name.group(1).startswith("hamming"):
+    if name and name.group(1) == "candidate_scan":
+        vec, ind = re.search(r"ILb(\d)ELb(\d)E", mangled).groups()
+        return (f"candidate_scan<{'float4' if vec == '1' else 'scalar'}, "
+                f"{'IndirectRows' if ind == '1' else 'direct rows'}>")
+    if name and (name.group(1).startswith("hamming")
+                 or name.group(1) == "candidate_merge"):
         return name.group(1)
     if not (name and kt):
         return mangled[-60:]
@@ -260,7 +274,7 @@ def compare(name: str, kd, ki, pd, pi, scale, vec_of=None, q=None) -> dict:
     err = np.abs(np.where(fin, kd, 0.0).astype(np.float64)
                  - np.where(fin, pd, 0.0))
     require((err <= tol).all(),
-            f"{name}: distance error {err.max()} above tolerance")
+            f"{name}: distance error {err.max(initial=0.0)} above tolerance")
     diff = ki != pi
     near = diff & (err <= tol)
     require(not (diff & ~near).any(), f"{name}: ids differ off a near-tie")
@@ -273,7 +287,8 @@ def compare(name: str, kd, ki, pd, pi, scale, vec_of=None, q=None) -> dict:
                     f"{name}: id {ki[b, j]} has distance {kd[b, j]}, "
                     f"float64 gives {d64}")
     rel = np.where(fin, err / np.maximum(scale, 1e-30), 0.0)
-    out = {"ids_match": float((~diff).mean()), "near_ties": int(near.sum()),
+    out = {"ids_match": float((~diff).mean()) if diff.size else 1.0,
+           "near_ties": int(near.sum()),
            "max_abs_err": float(err.max(initial=0.0)),
            "max_rel_err": float(rel.max(initial=0.0))}
     log(f"[{name}] {out}")
@@ -310,6 +325,38 @@ def check_cand(name, q, vecs, ids, k, best_d=None, best_i=None,
     vmax = _norms(vecs).amax(dim=1).cpu().numpy()
     scale = (qn + vmax)[:, None] * np.ones((1, k))
     return compare(name, kd, ki, pd, pi, scale)
+
+
+def require_bits(name, a, b) -> None:
+    """Two (dists, ids) answers equal bit for bit."""
+    torch.cuda.synchronize()
+    require(torch.equal(a[1], b[1]), f"{name}: ids differ")
+    require(torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)),
+            f"{name}: distance bits differ")
+
+
+def check_chain(name, q, probe, bids, k, db, *, bvecs=None,
+                plain=None) -> dict:
+    """The probe chain entry against its plain version (or ``plain``),
+    each returned pair's distance recomputed in float64 from ``db``.  With
+    ``bvecs`` the chain reads rows by slot and is also held bit for bit
+    against the rows read by id and against the chain of per-step
+    launches."""
+    src = {"db": db} if bvecs is None else {"bucket_vecs": bvecs}
+    kd, ki = bucket_topk.bucket_probe_topk(q, probe, bids, k, **src)
+    if bvecs is not None:
+        require_bits(f"{name} (rows by id)", (kd, ki),
+                     bucket_topk.bucket_probe_topk(q, probe, bids, k, db=db))
+        require_bits(f"{name} (per-step chain)", (kd, ki),
+                     step_chain(q, probe, bids, bvecs, k))
+    pd, pi = plain if plain is not None else ref.bucket_probe_topk_ref(
+        q, probe, bids, k, **src)
+    torch.cuda.synchronize()
+    xh = db.cpu().numpy()
+    scale = (_norms(q).cpu().numpy() + float(_norms(db).max()))[:, None] \
+        * np.ones((1, k))
+    return compare(name, kd, ki, pd, pi, scale, vec_of=lambda b, i: xh[i],
+                   q=q)
 
 
 def _deq_rows(codes, scales):
@@ -428,6 +475,26 @@ def edges_options(dev) -> int:
     return near
 
 
+def edges_chain(dev) -> int:
+    """The probe chain on the shared edge shapes
+    (``repro_torch.testing.CHAIN_EDGES``): both row sources, the chain of
+    per-step launches, and the plain version (for a repeated probe,
+    ``chain_union_topk``: the plain loop keeps both copies); returns
+    near-ties."""
+    near = 0
+    for case in CHAIN_EDGES:
+        o = chain_edge_operands(case)
+        q, db, bids, bvecs, probe = (torch.as_tensor(o[n], device=dev)
+                                     for n in ("q", "db", "bucket_ids",
+                                               "bucket_vecs", "probe"))
+        k = o["k"]
+        plain = (chain_union_topk(q, probe, bids, db, k)
+                 if case[-1] == "repeat" else None)
+        near += check_chain(f"edge chain {case[0]}", q, probe, bids, k, db,
+                            bvecs=bvecs, plain=plain)["near_ties"]
+    return near
+
+
 def check_bitwise(name, kd, ki, pd, pi) -> dict:
     """Kernel (kd, ki) equal to its plain version (pd, pi) bit for bit:
     the PQ kernel sums in the plain version's order, and Hamming distances
@@ -537,6 +604,7 @@ def phase_edges(dev) -> None:
     plain = (plain[0], torch.where(torch.isinf(plain[0]), -1, plain[1]))
     near += check_cand("edge cand duplicate ids", q, vd, idd, k,
                        plain=plain)["near_ties"]
+    near += edges_chain(dev)
     near += edges_options(dev)
     edges_index(dev)
     log(f"[edges] all edge shapes agree; near-ties {near}")
@@ -649,10 +717,83 @@ def phase_shapes(dev, brute_be, ivf_be, queries) -> None:
     nbytes = 4.0 * (live * D + B * C + B * D + 2 * B * K) + 8.0 * B * K
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
     res["shape"] = [B, C, D, K]
-    log(f"[shape candidate_topk] C={C} ms {res['ms']:.5f} bound "
+    log(f"[shape candidate_topk step] C={C} ms {res['ms']:.5f} bound "
+        f"{res['bound_ms']:.5f} ({res['bound_by']}) plain "
+        f"{res['plain_ms']:.4f} library {res['library_ms']:.5f}")
+    step_res = res
+
+    # the whole probe chain at the served shape (B 64, nprobe 32): one
+    # scan and one merge, the rows read by slot from the IVF tables; held
+    # against its plain version, the rows read by id (the brute backend's
+    # copy of the corpus) and 32 per-step launches
+    res = check_chain("shape chain B64 nprobe32", q, probe, bids, K, x,
+                      bvecs=bvecs)
+    res["ms"] = time_graph_ms(lambda: bucket_topk.bucket_probe_topk(
+        q, probe, bids, K, bucket_vecs=bvecs), 100)
+    res["plain_ms"] = time_graph_ms(lambda: ref.bucket_probe_topk_ref(
+        q, probe, bids, K, bucket_vecs=bvecs), 3)
+    yard = chain_yardstick(q, probe, bids, K, bvecs=bvecs)
+    res["library_ms"] = time_graph_ms(yard, 20)
+    res["library_call"] = CHAIN_YARDSTICK
+    res.update(chain_bound(q, probe, bids, K))
+    res["step"] = step_res
+    log(f"[shape candidate_topk chain] B={B} nprobe={probe.shape[1]} "
+        f"pairs {res['pairs']} ms {res['ms']:.5f} bound "
         f"{res['bound_ms']:.5f} ({res['bound_by']}) plain "
         f"{res['plain_ms']:.4f} library {res['library_ms']:.5f}")
     RESULTS["kernels"]["candidate_topk"] = res
+
+
+CHAIN_YARDSTICK = ("gather + torch.baddbmm + torch.topk over each query's "
+                   "(nprobe cap) slots, row norms precomputed")
+
+
+def chain_yardstick(q, probe, bids, k, *, bvecs=None, db=None):
+    """The PyTorch calls for the chain's function, which the port never
+    makes: gather the (B, nprobe cap, d) rows, ``baddbmm`` against the
+    queries onto the precomputed norms (+inf in dead slots), ``topk``."""
+    B, D = q.shape
+    qn = (q * q).sum(1)[:, None]
+    p = probe.long()
+    if bvecs is not None:
+        vn = torch.where(bids >= 0, (bvecs * bvecs).sum(-1), float("inf"))
+
+        def rows():
+            return (bvecs[p].reshape(B, -1, D),
+                    vn[p].reshape(B, -1))
+    else:
+        xn = (db * db).sum(1)
+
+        def rows():
+            cand = bids[p].reshape(B, -1)
+            c = cand.clamp(min=0).long()
+            return db[c], torch.where(cand >= 0, xn[c], float("inf"))
+
+    def run():
+        vecs, norms = rows()
+        d = torch.baddbmm((norms + qn)[..., None], vecs, q[:, :, None],
+                          alpha=-2.0)[..., 0]
+        dd, sel = torch.topk(d, k, largest=False)
+        return dd, bids[p].reshape(B, -1).gather(1, sel)
+    return run
+
+
+def chain_bound(q, probe, bids, k) -> dict:
+    """The chain's bound from this run's operands: bytes are the distinct
+    probed buckets' ids and live rows read once, the queries, the probe
+    list and the output; operations 4 d + 3 a (query, live row) pair."""
+    B, D = q.shape
+    u = torch.unique(probe.long())
+    live_u = int((bids[u] >= 0).sum())
+    pairs = int((bids[probe.long()] >= 0).sum())
+    nbytes = (4.0 * (live_u * D + u.numel() * bids.shape[1] + B * D
+                     + probe.numel()) + 8.0 * B * k)
+    flops = (4.0 * D + 3.0) * pairs + 2.0 * B * D
+    b, by = bound(nbytes, flops)
+    return {"bound_ms": b, "bound_by": by, "pairs": pairs,
+            "distinct_buckets": int(u.numel()), "distinct_live_rows": live_u,
+            "pair_bytes_ms": 4.0 * pairs * D / HBM_BYTES_PER_S * 1e3,
+            "shape": [B, int(probe.shape[1]), int(bids.shape[1]), D, k]}
 
 
 # --------------------------------------------------------------- phase 5
@@ -824,6 +965,21 @@ def phase_main(dev, card) -> dict:
     log(f"[parity] served (cell batches) vs direct fused batches: "
         f"{served_agree:.6f} of slots")
     require(served_agree >= 0.99, "cell answers differ from the backend's")
+    # the chain against 32 per-step launches, bit for bit, on the served
+    # batches (the same probe lists as the backend's local)
+    cents, bids, bvecs = ivf._args
+    for s0 in range(0, len(queries), BATCH):
+        qb = torch.as_tensor(queries[s0:s0 + BATCH], device=dev)
+        _, probe = stable_topk(pairwise_l2sq(qb, cents), SIFT_1M.nprobe)
+        require_bits(f"served batch {s0 // BATCH} chain vs per-step",
+                     bucket_topk.bucket_probe_topk(qb, probe, bids, K,
+                                                   bucket_vecs=bvecs),
+                     step_chain(qb, probe, bids, bvecs, K))
+    log(f"[parity] chain vs {SIFT_1M.nprobe} per-step launches: bit for bit "
+        f"on all {len(queries) // BATCH} served batches")
+    main["unfused_recall_at_10"] = recall_at_k(unfused[1], truth)
+    log(f"[parity] recall@10 served {recall:.4f}, unfused plain path "
+        f"{main['unfused_recall_at_10']:.4f}")
     main["fused_unfused_agree"] = agree
     main["fused_unfused_max_gap"] = gap
     main["served_direct_agree"] = served_agree
@@ -1396,6 +1552,8 @@ def phase_index_sift(dev, ctx) -> dict:
     half = torch.full((1, 1), FLAT_LSH_BITS / 2.0, device=dev)
     res["library_ms"] = time_ms(lambda: torch.topk(torch.addmm(
         half, pmt, cm.T, alpha=-0.5), kk, largest=False), 10)
+    res["library_ms_k64"] = time_ms(lambda: torch.topk(torch.addmm(
+        half, pmt, cm.T, alpha=-0.5), LSH_CANDIDATES[0], largest=False), 10)
     res["library_call"] = ("torch.topk(torch.addmm(n_bits / 2, s_q, s_x.T, "
                            "alpha=-1/2)) over +-1 bit expansions: two calls")
     del cm
@@ -1409,7 +1567,7 @@ def phase_index_sift(dev, ctx) -> dict:
     log(f"[shape hamming_topk] ms {res['ms']:.4f} (k=64: "
         f"{res['ms_k64']:.4f}) bound {res['bound_ms']:.4f} "
         f"({res['bound_by']}) plain {res['plain_ms']:.3f} library "
-        f"{res['library_ms']:.4f}")
+        f"{res['library_ms']:.4f} (k=64: {res['library_ms_k64']:.4f})")
     del xt
     return out
 
@@ -1485,9 +1643,44 @@ def phase_index_deep(dev, label: str) -> dict:
         f"{out['max_memory_allocated_bytes']}")
     require(out["launches"]["pq_adc_topk"] > 0,
             "the DEEP PQ top level never launched pq_adc_topk")
+    require(out["launches"]["candidate_topk"] > 0,
+            "the DEEP brute bottom never launched candidate_topk")
     require(rows[32]["recall_at_10"] >= 0.5,
             f"deep recall@10 {rows[32]['recall_at_10']} at nprobe 32 is "
             "implausibly low")
+
+    # the probe chain at the brute bottom's shape (B = 1,024, nprobe 32,
+    # rows read by entity id) on the index's own tables: against its plain
+    # version and float64, timed beside its bound, the plain version and
+    # the gather + baddbmm + topk yardstick (a 9.6 GB gather)
+    t = idx._tables(dev)
+    q = torch.as_tensor(queries, device=dev)
+    bids, db = t["bucket_ids"], t["db"]
+    # the plain chain on the same probes: the kernel moves no recall
+    for nprobe in DEEP_NPROBES:
+        probe, _ = idx._top_probe(t, q, nprobe)
+        plain_ids = ref.bucket_probe_topk_ref(q, probe, bids, K, db=db)[1]
+        rows[nprobe]["recall_at_10_plain_chain"] = recall_at_k(
+            plain_ids.cpu().numpy(), truth)
+    log("[index deep] recall@10 kernel / plain chain: " + ", ".join(
+        f"nprobe {n} {r['recall_at_10']:.5f} / "
+        f"{r['recall_at_10_plain_chain']:.5f}" for n, r in rows.items()))
+    probe, _ = idx._top_probe(t, q, DEEP_10M.nprobe)
+    res = check_chain("deep chain B1024 nprobe32", q, probe, bids, K, db)
+    res["ms"] = time_ms(lambda: bucket_topk.bucket_probe_topk(
+        q, probe, bids, K, db=db), 20)
+    res["plain_ms"] = time_ms(lambda: ref.bucket_probe_topk_ref(
+        q, probe, bids, K, db=db), 3, warmup=1)
+    res["library_ms"] = time_ms(chain_yardstick(q, probe, bids, K, db=db), 3,
+                                warmup=1)
+    res["library_call"] = CHAIN_YARDSTICK
+    res.update(chain_bound(q, probe, bids, K))
+    RESULTS["kernels"]["candidate_topk"]["deep"] = res
+    log(f"[shape candidate_topk deep] pairs {res['pairs']} ms "
+        f"{res['ms']:.4f} bound {res['bound_ms']:.4f} ({res['bound_by']}; "
+        f"pair by pair {res['pair_bytes_ms']:.4f}) plain "
+        f"{res['plain_ms']:.3f} library {res['library_ms']:.4f}")
+    del q
 
     # pq_adc_topk at the top level's shapes (B = 1,024, N = 32,768, M = 8,
     # k = nprobe) on the index's own codebooks and codes; the probed
@@ -1509,6 +1702,8 @@ def phase_index_deep(dev, label: str) -> dict:
     cidx = codes.long().T[None].expand(B, M, N)
     res["library_ms"] = time_ms(lambda: torch.topk(
         torch.gather(lut, 2, cidx).sum(1), kk, largest=False), 20)
+    res["library_ms_k64"] = time_ms(lambda: torch.topk(
+        torch.gather(lut, 2, cidx).sum(1), 64, largest=False), 20)
     res["library_call"] = ("torch.topk(torch.gather(lut, 2, codes).sum(1)):"
                            " three calls")
     nbytes = 4.0 * B * M * 256 + 1.0 * N * M + 8.0 * B * kk
@@ -1518,7 +1713,7 @@ def phase_index_deep(dev, label: str) -> dict:
     log(f"[shape pq_adc_topk] ms {res['ms']:.4f} (k=64: "
         f"{res['ms_k64']:.4f}) bound {res['bound_ms']:.5f} "
         f"({res['bound_by']}) plain {res['plain_ms']:.3f} library "
-        f"{res['library_ms']:.4f}")
+        f"{res['library_ms']:.4f} (k=64: {res['library_ms_k64']:.4f})")
     return out
 
 
@@ -1610,6 +1805,8 @@ def phase_index(dev, ctx) -> None:
         + out["deep"]["launches"]["pq_adc_topk"])
     RESULTS["kernels"]["hamming_topk"]["launches"] = out["sift"][
         "lsh_launches"]["hamming_topk"]
+    RESULTS["kernels"]["candidate_topk"]["deep_launches"] = out["deep"][
+        "launches"]["candidate_topk"]
 
 
 # ------------------------------------------------------------- the line
@@ -1632,17 +1829,28 @@ SOURCES = {
 
 
 def kernel_line() -> dict:
+    """Each kernel at its main path's shape (``candidate_topk``: the served
+    chain, with its one-step and DEEP-10M numbers beside it)."""
     out = []
     for name, (source, replaces) in SOURCES.items():
         r = RESULTS["kernels"][name]
-        out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": r["launches"],
-                    "max_abs_err": r["max_abs_err"],
-                    "max_rel_err": r["max_rel_err"],
-                    "ids_match": r["ids_match"], "ms": r["ms"],
-                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"],
-                    "library_ms": r["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": r["launches"],
+               "max_abs_err": r["max_abs_err"],
+               "max_rel_err": r["max_rel_err"],
+               "ids_match": r["ids_match"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if "library_ms_k64" in r:
+            row.update(ms_k64=r["ms_k64"], library_ms_k64=r["library_ms_k64"])
+        for part in ("step", "deep"):
+            if part in r:
+                row[part] = {key: r[part][key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err")}
+        if "deep" in r:
+            row["deep"]["launches"] = r["deep_launches"]
+        out.append(row)
     return {"kernels": out}
 
 

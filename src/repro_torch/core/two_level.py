@@ -18,8 +18,15 @@ mutation method raises ``NotImplementedError`` naming the ROADMAP item).
 The PQ top level scores the centroid codes with the ``pq_adc_topk``
 kernel, where the reference calls its jnp ``adc_scores``
 (``repro/core/pq.py:8-10`` names the kernel as that scan's home); the
-results are the same up to the order of the ADC sum.  The LSH bottom's
-gathered Hamming scan and every other step are plain PyTorch.
+results are the same up to the order of the ADC sum.  The brute bottom
+runs the whole probe chain through ``bucket_probe_topk_op`` (the
+``candidate_topk`` kernel, rows read from the corpus by entity id), where
+the reference runs its ``_probe_scan_brute`` loop (its docstring names the
+kernel tile loop over the probed buckets as the loop's home): the same
+ids up to rounding, except that a bucket probed twice is emitted once on
+the card (ROADMAP fault 5).  On the card ``k`` is at most ``KMAX``.  The
+LSH bottom's gathered Hamming scan and every other step are plain
+PyTorch.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from repro_torch.core.tree import (LATER_MUTATION, FlatTree, build_kd_tree,
                                    build_qlbt, build_rp_tree)
 from repro_torch.device import require_fp32_matmul, resolve
 from repro_torch.kernels.common import popcount32, stable_topk
-from repro_torch.kernels.ops import pq_adc_topk_op
+from repro_torch.kernels.ops import bucket_probe_topk_op, pq_adc_topk_op
 from repro_torch.obs.trace import get_tracer
 
 __all__ = ["TwoLevelConfig", "TwoLevelIndex", "build_two_level",
@@ -236,7 +243,10 @@ class TwoLevelIndex:
 
         bottom = self.config.bottom
         if bottom == "brute":
-            d, i = _probe_scan_brute(t["db"], t["bucket_ids"], buckets, q, k)
+            # the whole probe chain: on the card one scan and one merge
+            # launch of candidate_topk (k <= KMAX), rows read by entity id
+            d, i = bucket_probe_topk_op(q, buckets, t["bucket_ids"], k,
+                                        db=t["db"])
             return d, i, work
         if bottom == "lsh":
             cap = self.bucket_ids.shape[1]
@@ -300,23 +310,6 @@ def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
         32, device=bits.device)
     v = (b * w).sum(dim=2)
     return (v - ((v >> 31) << 32)).to(torch.int32)
-
-
-def _probe_scan_brute(db, bucket_ids, buckets, q, k):
-    """Stream probed buckets with a running top-k merge (bounded memory):
-    one probe step gathers a (B, cap, d) tile."""
-    B = q.shape[0]
-    best_d = q.new_full((B, k), float("inf"))
-    best_i = torch.full((B, k), -1, dtype=torch.int32, device=q.device)
-    for j in range(buckets.shape[1]):
-        cand = bucket_ids[buckets[:, j].long()]            # (B, cap)
-        vecs = db[torch.clamp(cand, min=0).long()]         # (B, cap, d)
-        d2 = torch.where(cand >= 0, batched_l2sq(vecs, q), float("inf"))
-        cat_d = torch.cat([best_d, d2], dim=1)
-        cat_i = torch.cat([best_i, cand], dim=1)
-        best_d, sel = stable_topk(cat_d, k)
-        best_i = torch.gather(cat_i, 1, sel)
-    return best_d, torch.where(torch.isinf(best_d), -1, best_i)
 
 
 def _probe_scan_lsh(codes, proj, bucket_ids, buckets, q, shortlist):

@@ -233,16 +233,23 @@ def make_sharded_ivf_fn(k: int, nprobe_local: int, n_buckets: int, *,
     ``fn(cents, bucket_ids, bucket_vecs, q)``.
 
     The shard (1) scores its ``n_buckets`` centroids, (2) probes its
-    ``nprobe_local`` best buckets one step at a time, carrying the running
-    best, and (3) contributes its top-k to the merge.  (Sharded over more
-    cards, the bucket tables are padded to the shard grid and the pads are
-    masked by global bucket index, as in the reference.)
+    ``nprobe_local`` best buckets, and (3) contributes its top-k to the
+    merge.  Fused, step (2) is one ``bucket_probe_topk_op`` call (on the
+    card one scan and one merge launch, the bucket rows read inside the
+    kernel); unfused, it is the reference's step-by-step loop with a
+    carried running best.  (Sharded over more cards, the bucket tables are
+    padded to the shard grid and the pads are masked by global bucket
+    index, as in the reference.)
     """
     nprobe_local = min(nprobe_local, n_buckets)
 
     def local(cents, bucket_ids, bucket_vecs, q):
         d2c = pairwise_l2sq(q, cents)                      # (B, K)
         _, probe = stable_topk(d2c, nprobe_local)          # (B, np)
+        if fused:
+            best_d, best_i = kernel_ops.bucket_probe_topk_op(
+                q, probe, bucket_ids, k, bucket_vecs=bucket_vecs)
+            return _merge_gathered(*_gather_shards(best_d, best_i), k)
         B = q.shape[0]
         best_d = q.new_full((B, k), INF)
         best_i = torch.full((B, k), -1, dtype=torch.int32, device=q.device)
@@ -250,12 +257,6 @@ def make_sharded_ivf_fn(k: int, nprobe_local: int, n_buckets: int, *,
             bsel = probe[:, j]                             # (B,)
             ids = bucket_ids[bsel]                         # (B, cap)
             vecs = bucket_vecs[bsel]                       # (B, cap, d)
-            if fused:
-                # distance + merge in one launch; the probe chain carries
-                # the running best through the kernel
-                best_d, best_i = kernel_ops.candidate_topk_op(
-                    q, vecs, ids, k, best_d=best_d, best_i=best_i)
-                continue
             d2 = torch.where(ids >= 0, batched_l2sq(vecs, q), INF)
             cat_d = torch.cat([best_d, d2], dim=1)
             cat_i = torch.cat([best_i, ids], dim=1)

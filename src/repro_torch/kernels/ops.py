@@ -13,6 +13,7 @@ from repro_torch.kernels import (bm25, bucket_topk, hamming, l2_topk, pq_adc,
                                  ref)
 
 __all__ = ["l2_topk_op", "l2_topk_int8_op", "candidate_topk_op",
+           "bucket_probe_topk_op",
            "bm25_topk_op", "hybrid_topk_op", "pq_adc_topk_op",
            "hamming_topk_op", "quantize_rows_int8"]
 
@@ -62,6 +63,18 @@ def candidate_topk_op(queries, vecs, ids, k: int = 10, *,
                                           best_d=best_d, best_i=best_i)
     return ref.candidate_topk_ref(queries, vecs, ids, k,
                                   best_d=best_d, best_i=best_i)
+
+
+def bucket_probe_topk_op(queries, probe, bucket_ids, k: int = 10, *,
+                         bucket_vecs=None, db=None):
+    """The whole IVF probe chain: the top-k of each query's probed buckets,
+    rows from ``bucket_vecs`` (K, cap, d) or ``db`` (N, d): (dists
+    ascending, ids).  On the card one scan and one merge launch."""
+    if _on_card(queries):
+        return bucket_topk.bucket_probe_topk(queries, probe, bucket_ids, k,
+                                             bucket_vecs=bucket_vecs, db=db)
+    return ref.bucket_probe_topk_ref(queries, probe, bucket_ids, k,
+                                     bucket_vecs=bucket_vecs, db=db)
 
 
 def bm25_topk_op(q_terms, q_weights, terms, tf_sat, k: int = 10, *,

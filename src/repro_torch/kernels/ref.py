@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the ported kernels (the ``ref.py`` contract).
 
 Port of ``repro/kernels/ref.py``: the l2, int8, candidate, BM25, hybrid,
-PQ-ADC and Hamming plain versions.  Each
+PQ-ADC and Hamming plain versions, and the probe chain over buckets
+(``bucket_probe_topk_ref``, the loops the IVF local and the two-level
+brute bottom ran before the chain had a kernel).  Each
 function computes its kernel's result with no tiling; ``ops`` runs it for
 tensors on the CPU, the tests hold it against the reference, and
 ``chip_smoke.py`` holds each kernel against it on the card.
@@ -35,6 +37,7 @@ from repro_torch.kernels.common import (INF, pad_sentinel, popcount32,
                                         stable_topk)
 
 __all__ = ["l2_topk_ref", "l2_topk_int8_ref", "candidate_topk_ref",
+           "bucket_probe_topk_ref",
            "bm25_dists_ref", "bm25_topk_ref", "hybrid_topk_ref",
            "pq_adc_scores_ref", "pq_adc_topk_ref", "hamming_dists_ref",
            "hamming_topk_ref"]
@@ -97,6 +100,41 @@ def candidate_topk_ref(queries, vecs, ids, k: int = 10, *,
         d, sel = stable_topk(d2, k_eff)
         d, out_i = pad_sentinel(d, torch.gather(ids, 1, sel), k, k_eff)
     return d, torch.where(torch.isinf(d), -1, out_i)
+
+
+def bucket_probe_topk_ref(queries, probe, bucket_ids, k: int = 10, *,
+                          bucket_vecs=None, db=None):
+    """The probe chain: query b's candidates are the slots of buckets
+    ``probe[b, :]`` of ``bucket_ids`` (K, cap), ``-1`` dead, one probe
+    step at a time with a carried running best.  Rows come from
+    ``bucket_vecs`` (K, cap, d) by (bucket, slot) or from ``db`` (N, d) by
+    entity id: exactly one of the two.
+
+    With ``bucket_vecs`` each step is ``candidate_topk_ref`` (the served
+    IVF local's loop); with ``db`` it is the reference's
+    ``_probe_scan_brute`` step (the two-level brute bottom).  A bucket
+    probed twice keeps both copies, as the reference does (the kernel
+    emits the pair once)."""
+    if (bucket_vecs is None) == (db is None):
+        raise ValueError("pass exactly one of bucket_vecs and db")
+    q = queries.to(torch.float32)
+    B = q.shape[0]
+    best_d = q.new_full((B, k), INF)
+    best_i = torch.full((B, k), -1, dtype=torch.int32, device=q.device)
+    for j in range(probe.shape[1]):
+        bsel = probe[:, j].long()                          # (B,)
+        cand = bucket_ids[bsel]                            # (B, cap)
+        if bucket_vecs is not None:
+            best_d, best_i = candidate_topk_ref(
+                q, bucket_vecs[bsel], cand, k, best_d=best_d, best_i=best_i)
+            continue
+        vecs = db[torch.clamp(cand, min=0).long()]         # (B, cap, d)
+        d2 = torch.where(cand >= 0, batched_l2sq(vecs, q), INF)
+        cat_d = torch.cat([best_d, d2], dim=1)
+        cat_i = torch.cat([best_i, cand], dim=1)
+        best_d, sel = stable_topk(cat_d, k)
+        best_i = torch.gather(cat_i, 1, sel)
+    return best_d, torch.where(torch.isinf(best_d), -1, best_i)
 
 
 def bm25_dists_ref(q_terms, q_weights, terms, tf_sat):

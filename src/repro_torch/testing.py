@@ -24,11 +24,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.brute import batched_l2sq
 from repro_torch.kernels import ops
+from repro_torch.kernels.common import INF, merge_topk
 
 __all__ = ["OPTION_EDGES", "EDGE_ALPHAS", "PQ_EDGES", "HAMMING_EDGES",
-           "slab_rows", "option_edge_operands", "pq_edge_operands",
-           "hamming_edge_operands", "lexical_scores_f32", "hybrid_by_parts"]
+           "CHAIN_EDGES", "slab_rows", "option_edge_operands",
+           "pq_edge_operands", "hamming_edge_operands",
+           "chain_edge_operands", "chain_union_topk", "step_chain",
+           "lexical_scores_f32", "hybrid_by_parts"]
 
 # (name, B, N, d, k, rows): rows "dead" = every row dead, "half" = about
 # half live, "dup" = the second half repeats the first
@@ -76,6 +80,87 @@ HAMMING_EDGES = (
     ("all-equal codes", 3, 80, 2, 32, "ties"),
     ("B=70 splits k=1024", 70, 50000, 3, 1024, "half"),
 )
+
+
+# The probe chain's edges (``bucket_probe_topk``): (name, B, nprobe, K,
+# cap, d, k, slots).  slots "mid" = about a third of the slots dead,
+# scattered through each bucket (as the filtered IVF masks them in place);
+# "bucket" = bucket 0 all dead and probed by every query; "repeat" = every
+# query probes one bucket twice.  They cover d = 96, 128 and d not a
+# multiple of 4, k above the live candidates, B = 1 and 0, one probe (a
+# single scan block a query), buckets wider than the kernel's 512-slot
+# compaction round, and k = 1 and 32.
+CHAIN_EDGES = (
+    ("dead mid-bucket d=128", 6, 4, 12, 40, 128, 10, "mid"),
+    ("all-dead bucket d=96", 5, 4, 10, 30, 96, 7, "bucket"),
+    ("k>live d=13", 4, 2, 8, 6, 13, 32, "mid"),
+    ("repeated probe", 4, 5, 10, 20, 32, 8, "repeat"),
+    ("B=1", 1, 3, 6, 25, 16, 5, None),
+    ("B=0", 0, 3, 6, 25, 16, 5, None),
+    ("one probe", 7, 1, 5, 50, 8, 10, None),
+    ("cap>512 d=96", 3, 3, 4, 1300, 96, 32, "mid"),
+    ("k=1 d=128", 5, 6, 9, 33, 128, 1, "mid"),
+)
+
+
+def chain_edge_operands(case, seed: int = 0) -> dict:
+    """numpy operands of one ``CHAIN_EDGES`` case: ``q`` (B, d), ``db``
+    (N, d) with N = K cap, ``bucket_ids`` (K, cap) int32 (a permutation of
+    the entity ids, ``-1`` where a slot is dead: disjoint buckets),
+    ``bucket_vecs`` (K, cap, d) (the rows by slot, zeros in dead slots, as
+    the served IVF places them), ``probe`` (B, nprobe) int32 and ``k``."""
+    _, b, nprobe, K, cap, d, k, slots = case
+    rng = np.random.default_rng([seed, b, nprobe, K, cap, d, k])
+    n = K * cap
+    db = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    bids = rng.permutation(n).astype(np.int32).reshape(K, cap)
+    if slots == "mid":
+        bids[rng.random((K, cap)) < 1 / 3] = -1
+    elif slots == "bucket":
+        bids[0] = -1
+    probe = np.array([rng.choice(K, nprobe, replace=False)
+                      for _ in range(b)], np.int32).reshape(b, nprobe)
+    if slots == "bucket":
+        probe[:, 0] = 0
+    elif slots == "repeat":
+        probe[:, 1] = probe[:, 0]
+    vecs = np.where((bids >= 0)[..., None], db[np.maximum(bids, 0)], 0.0)
+    return {"q": q, "db": db, "bucket_ids": bids,
+            "bucket_vecs": vecs.astype(np.float32), "probe": probe, "k": k}
+
+
+def chain_union_topk(q, probe, bucket_ids, db, k: int):
+    """The chain's answer under the kernels' rule, computed plainly: the
+    k smallest (distance, id) pairs of the union of each query's probed
+    buckets, a pair seen twice kept once (``common.merge_topk`` over every
+    probed slot).  Distances are ``batched_l2sq``'s."""
+    b = q.shape[0]
+    cand = bucket_ids[probe.long()].reshape(
+        b, probe.shape[1] * bucket_ids.shape[1])           # (B, np cap)
+    vecs = db[torch.clamp(cand, min=0).long()]
+    d2 = torch.where(cand >= 0, batched_l2sq(vecs, q), INF)
+    sent_d = torch.full((b, k), INF, device=q.device)
+    sent_i = torch.full((b, k), -1, dtype=torch.int32, device=q.device)
+    d, i = merge_topk(sent_d, sent_i, d2, cand, k)
+    return d, torch.where(torch.isinf(d), -1, i)
+
+
+def step_chain(q, probe, bucket_ids, bucket_vecs, k: int):
+    """The probe chain as ``nprobe`` calls of ``ops.candidate_topk_op``,
+    one per probe step on its gathered (B, cap, d) tile, carrying the
+    best: on the card ``nprobe`` launches of the per-step kernel (the
+    chain entry must equal them bit for bit), on the CPU the plain loop
+    of ``ref.bucket_probe_topk_ref``."""
+    b = q.shape[0]
+    best_d = torch.full((b, k), INF, device=q.device)
+    best_i = torch.full((b, k), -1, dtype=torch.int32, device=q.device)
+    for j in range(probe.shape[1]):
+        bsel = probe[:, j].long()
+        best_d, best_i = ops.candidate_topk_op(
+            q, bucket_vecs[bsel], bucket_ids[bsel], k, best_d=best_d,
+            best_i=best_i)
+    return best_d, best_i
 
 
 def _edge_rows(rng, n: int, rows):

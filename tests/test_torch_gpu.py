@@ -1,5 +1,7 @@
 """Card tests of the port's CUDA kernels: each kernel against its plain
-version (with the hybrid alpha = 0 / 1 identities), one small IVF serve,
+version (with the hybrid alpha = 0 / 1 identities), the probe chain's two
+row sources against each other and against the chain of single steps,
+one small IVF serve,
 one small filtered / lexical / hybrid / int8 serve and one small run of
 the index layer (PQ top level, one-level LSH) through the kernels.
 
@@ -16,7 +18,10 @@ round differently in the two orders: there ids may differ at near-ties,
 and each kernel distance is held bit for bit to the kernels' own order.
 The PQ-ADC kernel sums in the plain version's order and the Hamming
 distances are whole numbers, so those two equal their plain versions bit
-for bit, ids and distances, ties included.
+for bit, ids and distances, ties included.  The probe chain's entry
+(``bucket_probe_topk``) shares ``candidate_topk``'s arithmetic, so its
+two row sources and the chain of ``candidate_topk`` steps agree with it
+bit for bit; against the plain version it holds the tolerance above.
 """
 from __future__ import annotations
 
@@ -39,8 +44,10 @@ from repro_torch.kernels import (bm25, bucket_topk, hamming, l2_topk, ops,
                                  pq_adc, ref)
 from repro_torch.kernels.common import merge_topk
 from repro_torch.serve.cell import ServingCell
-from repro_torch.testing import (EDGE_ALPHAS, HAMMING_EDGES, OPTION_EDGES,
-                                 PQ_EDGES, hamming_edge_operands,
+from repro_torch.testing import (CHAIN_EDGES, EDGE_ALPHAS, HAMMING_EDGES,
+                                 OPTION_EDGES, PQ_EDGES,
+                                 chain_edge_operands, chain_union_topk,
+                                 hamming_edge_operands, step_chain,
                                  hybrid_by_parts, lexical_scores_f32,
                                  option_edge_operands, pq_edge_operands)
 
@@ -149,6 +156,69 @@ def test_candidate_topk_duplicate_emitted_once(dev):
         assert len(set(row.tolist())) == k
     scale = ((q * q).sum(1) + (vecs * vecs).sum(-1).amax(1))[:, None]
     _close(kd, ki, pd, pi, scale.cpu().numpy())
+
+
+def _bits_equal(a, b):
+    (ad, ai), (bd, bi) = a, b
+    assert torch.equal(ai, bi), "ids differ"
+    assert torch.equal(ad.view(torch.int32), bd.view(torch.int32)), \
+        "distance bits differ"
+
+
+@pytest.mark.parametrize("case", CHAIN_EDGES, ids=[c[0] for c in CHAIN_EDGES])
+def test_probe_chain_kernel_matches_plain(dev, case):
+    o = chain_edge_operands(case)
+    q, db, bids, bvecs, probe = (torch.as_tensor(o[n], device=dev) for n in (
+        "q", "db", "bucket_ids", "bucket_vecs", "probe"))
+    k, B = o["k"], q.shape[0]
+    before = bucket_topk.LAUNCHES.count
+    by_slot = bucket_topk.bucket_probe_topk(q, probe, bids, k,
+                                            bucket_vecs=bvecs)
+    by_id = bucket_topk.bucket_probe_topk(q, probe, bids, k, db=db)
+    torch.cuda.synchronize()
+    assert bucket_topk.LAUNCHES.count == before + (2 if B else 0)
+    # the same rows through either source: the same bits
+    _bits_equal(by_slot, by_id)
+    # the chain of single steps carries the best through the same
+    # arithmetic, a pair seen twice dropped at each merge
+    _bits_equal(by_slot, step_chain(q, probe, bids, bvecs, k))
+    if case[-1] == "repeat":
+        # the plain loop keeps both copies of a repeated bucket; the rule
+        # (a pair seen twice emitted once) is merge_topk's
+        pd, pi = chain_union_topk(q, probe, bids, db, k)
+        assert all(len(set(r[r >= 0].tolist())) == (r >= 0).sum()
+                   for r in by_slot[1].cpu().numpy())
+    else:
+        pd, pi = ref.bucket_probe_topk_ref(q, probe, bids, k,
+                                           bucket_vecs=bvecs)
+        _bits_equal((pd, pi), ref.bucket_probe_topk_ref(q, probe, bids, k,
+                                                        db=db))
+    scale = ((q * q).sum(1) + (db * db).sum(1).max())[:, None]
+    _close(*by_slot, pd, pi, scale.cpu().numpy())
+
+
+def test_probe_chain_rejects_what_it_cannot_take(dev):
+    o = chain_edge_operands(CHAIN_EDGES[0])
+    q, db, bids, bvecs, probe = (torch.as_tensor(o[n], device=dev) for n in (
+        "q", "db", "bucket_ids", "bucket_vecs", "probe"))
+    with pytest.raises(ValueError, match="KMAX"):
+        bucket_topk.bucket_probe_topk(q, probe, bids, 33, db=db)
+    with pytest.raises(ValueError, match="exactly one"):
+        bucket_topk.bucket_probe_topk(q, probe, bids, 5)
+    with pytest.raises(ValueError, match="exactly one"):
+        bucket_topk.bucket_probe_topk(q, probe, bids, 5, db=db,
+                                      bucket_vecs=bvecs)
+    with pytest.raises(ValueError, match="CUDA"):
+        bucket_topk.bucket_probe_topk(q.cpu(), probe, bids, 5, db=db)
+    with pytest.raises(TypeError):
+        bucket_topk.bucket_probe_topk(q, probe, bids.long(), 5, db=db)
+    with pytest.raises(ValueError):
+        bucket_topk.bucket_probe_topk(q, probe, bids, 5,
+                                      bucket_vecs=bvecs[:, :3])
+    idx = build_two_level(o["db"], TwoLevelConfig(n_clusters=8, seed=0),
+                          device=dev)
+    with pytest.raises(ValueError, match="KMAX"):
+        idx.search(o["q"], 40, nprobe=2)
 
 
 def test_kernels_reject_cpu_tensors_and_large_k(dev):
@@ -365,9 +435,12 @@ def test_small_index_runs_through_the_kernels(dev):
     idx = build_index(IndexSpec("two_level", TwoLevelConfig(
         n_clusters=128, top="pq", bottom="brute", seed=0)), db)
     before = pq_adc.LAUNCHES.count
+    chain = bucket_topk.LAUNCHES.count
     d, i, w = idx.search(queries, 10, nprobe=8)
     torch.cuda.synchronize()
     assert pq_adc.LAUNCHES.count > before
+    # the brute bottom: one chain call a query chunk
+    assert bucket_topk.LAUNCHES.count == chain + 1
     cpu = dataclasses.replace(idx.two_level, device=torch.device("cpu"))
     dc, ic, wc = cpu.search(queries, 10, nprobe=8)
     assert (i == ic).mean() >= 0.99 and w == wc
