@@ -158,6 +158,9 @@ RADIO_UNBALANCE = 0.23
 RADIO_QUERIES = 2000
 RADIO_BEAMS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
 RADIO_RECALL = 0.95
+# no-op kernels each profiler session launches first, to take the loss of a
+# late session's first GPU records (profile_window)
+LEAD_KERNELS = 2000
 
 RESULTS: dict = {"kernels": {}}
 
@@ -218,8 +221,9 @@ def phase_card() -> dict:
 # --------------------------------------------------------------- phase 2
 def _kernel_name(mangled: str) -> str:
     """``l2_topk_partial<F32Rows, 16>`` from a mangled kernel name."""
-    name = re.search(r"(l2_topk_partial|bm25_topk_partial|merge_partials|"
-                     r"candidate_scan|candidate_merge|pq_adc_partial|"
+    name = re.search(r"(l2_topk_partial|bm25_topk_partial|"
+                     r"warp_merge_partials|merge_partials|"
+                     r"candidate_scan|candidate_merge|pq_adc_scan|"
                      r"hamming_count|hamming_offsets|hamming_emit)", mangled)
     rows = re.search(r"(F32Rows|Int8Rows|HybridRows)", mangled)
     kt = re.search(r"Li(\d+)E", mangled)
@@ -652,6 +656,15 @@ def time_graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def sm_clocks_mhz() -> dict:
+    """The SM clock ``nvidia-smi`` reads now and its maximum, in MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits", "--id=0"], capture_output=True,
+        text=True, timeout=60, check=True).stdout.split(",")
+    return {"now": float(out[0]), "max": float(out[1])}
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
@@ -1014,6 +1027,35 @@ def _csr_and_weights(terms, tf, qt, qw, scale: float = 1.0):
     return csr, w
 
 
+def _matched_slots(terms, valid, qt) -> int:
+    """The (query term slot, document slot) pairs whose terms match, over
+    the live documents: the adds the BM25 hits need."""
+    live_rows = (terms >= 0) & (valid != 0)[:, None]
+    slot_df = torch.bincount(terms[live_rows].long(),
+                             minlength=int(terms.max()) + 1)
+    q_live = qt[(qt >= 0) & (qt < slot_df.numel())].long()
+    return int(slot_df[q_live].sum())
+
+
+def _eight_term_queries(ctx):
+    """(qt, qw) of BATCH queries that fill all Q_SLOTS slots: 4 tokens of
+    the query's exact nearest entity's document, then Zipf draws until
+    Q_SLOTS distinct terms."""
+    rng = np.random.default_rng(5)
+    tokens, offsets = ctx["tokens"], ctx["offsets"]
+    extra = rng.choice(VOCAB, size=(BATCH, 64), p=ctx["p_term"])
+    q_docs = []
+    for r, e in enumerate(ctx["truth"][:BATCH, 0]):
+        doc = np.unique(tokens[offsets[e]:offsets[e + 1]])
+        terms = list(rng.choice(doc, min(4, doc.size), replace=False))
+        for t in extra[r]:
+            if len(set(terms)) == Q_SLOTS:
+                break
+            terms.append(int(t))
+        q_docs.append(terms)
+    return query_operands(q_docs, ctx["slabs"], slots=Q_SLOTS)
+
+
 def phase_option_shapes(dev, ctx, int8_be, qt_all, qw_all) -> None:
     """int8, BM25 and hybrid at B = 64, N = 1M on the backends' own
     operands: checked against the plain version, timed beside the bound,
@@ -1067,19 +1109,51 @@ def phase_option_shapes(dev, ctx, int8_be, qt_all, qw_all) -> None:
         torch.sparse.mm(csr, w).T, K), 20)
     res["library_call"] = ("torch.topk(torch.sparse.mm(csr, W).T): an (N, V)"
                            " CSR of tf_sat against the (V, B) query weights")
-    live_t = int((qt >= 0).sum())        # term slots the scan compares
-    lex_ops = 2.0 * S * N * live_t       # a compare-select and an add each
+    # the work these inputs need: a multiply and an add a (live query term
+    # slot, live document) pair, and an add a matched (query term slot,
+    # document slot) pair; beside it, the count of lexical.cuh's T x S
+    # compare loop (a compare-select and an add a query term slot and slab
+    # slot), which this kernel no longer runs
+    live_t = int((qt >= 0).sum())
+    live_docs = int((valid != 0).sum())
+    matched = _matched_slots(terms, valid, qt)
+    lex_ops = 2.0 * live_docs * live_t + matched
+    compare_ops = 2.0 * S * N * live_t
     nbytes = 8.0 * N * S + 4.0 * N + 8.0 * B * T + 8.0 * B * K
     res["bound_ms"], res["bound_by"] = bound(nbytes, lex_ops)
     res["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
     res["ops_ms"] = lex_ops / FP32_FLOPS_PER_S * 1e3
+    res["compare_loop_ops_ms"] = compare_ops / FP32_FLOPS_PER_S * 1e3
     res["shape"] = [B, N, S, T, K]
     res["live_term_slots"] = live_t
+    res["matched_slots"] = matched
+    res["matched_slots_per_doc"] = matched / live_docs
+    # queries of eight distinct terms, as many as the slots hold: a tile
+    # of 64 then holds more distinct terms than the kernel's 256 hit rows,
+    # and the kernel takes its queries in groups
+    qt8, qw8 = _eight_term_queries(ctx)
+    qt8, qw8 = torch.as_tensor(qt8, device=dev), torch.as_tensor(qw8,
+                                                                 device=dev)
+    r8 = check_bm25("shape bm25_topk B64 N1M T8", qt8, qw8, terms, tf, K,
+                    valid)
+    r8["ms"] = time_ms(lambda: bm25.bm25_topk(qt8, qw8, terms, tf, K,
+                                              valid=valid), 20)
+    r8["live_term_slots"] = int((qt8 >= 0).sum())
+    r8["distinct_terms"] = int(torch.unique(qt8[qt8 >= 0]).numel())
+    r8["matched_slots"] = _matched_slots(terms, valid, qt8)
+    res["eight_terms"] = r8
     RESULTS["kernels"]["bm25_topk"] = res
     log(f"[shape bm25_topk] ms {res['ms']:.4f} bound {res['bound_ms']:.4f} "
         f"({res['bound_by']}; bytes {res['bytes_ms']:.4f}, operations "
-        f"{res['ops_ms']:.4f}) plain {res['plain_ms']:.3f} library "
-        f"{res['library_ms']:.4f}")
+        f"{res['ops_ms']:.4f}; the T x S loop's count "
+        f"{res['compare_loop_ops_ms']:.4f}) plain {res['plain_ms']:.3f} "
+        f"library {res['library_ms']:.4f}; matched (query slot, document "
+        f"slot) pairs {matched} ({res['matched_slots_per_doc']:.2f} a "
+        f"document)")
+    log(f"[shape bm25_topk T8] ms {r8['ms']:.4f} with "
+        f"{r8['live_term_slots']} live term slots ({r8['distinct_terms']} "
+        f"distinct terms in the tile), matched pairs {r8['matched_slots']}; "
+        f"max_abs_err {r8['max_abs_err']}")
 
     # hybrid_topk over the brute backend's rows and slabs
     a = torch.full((1, 1), ALPHA, dtype=torch.float32, device=dev)
@@ -1099,7 +1173,7 @@ def phase_option_shapes(dev, ctx, int8_be, qt_all, qw_all) -> None:
     del csr, w, axn
     live = int((valid != 0).sum())
     flops = (2.0 * B * live * D + 2.0 * N * D + 2.0 * B * D
-             + 6.0 * B * live + lex_ops)
+             + 6.0 * B * live + lex_ops)      # lex_ops: BM25's, above
     nbytes = (4.0 * N * D + 8.0 * N * S + 4.0 * N + 4.0 * B * D
               + 8.0 * B * T + 4.0 + 8.0 * B * K)
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
@@ -1368,29 +1442,60 @@ def phase_profile(kind: str, backend, queries: np.ndarray, label: str,
 def profile_window(kind: str, label: str, run, batches: int,
                    batch: int) -> dict:
     """``torch.profiler`` over ``run()`` (``batches`` batches of ``batch``
-    queries, already warm): kernels summed by name, and the device's busy
-    share of the window's wall time."""
+    queries, already warm): kernels summed by name (``top``: the largest
+    8; ``all``: every one), and the device's busy share of the window's
+    wall time.
+
+    Late in a long process a session loses its first GPU records (after
+    the sift index phase's windows, up to hundreds of them: the DEEP window
+    listed the probe chain and none of the PQ top level before it, though
+    the trace held the runtime calls that launched them).  So a session
+    first launches ``LEAD_KERNELS`` no-op kernels (``torch.cuda._sleep``),
+    which take the loss and are left out of every figure
+    (``lead_recorded`` says how many were kept).  A session that still
+    recorded fewer kernels than its traced launches is taken again, at
+    most four times; ``sessions`` and ``launched`` / ``recorded`` say how
+    it went."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    for sessions in range(1, 5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_KERNELS):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.key_averages()
+        gpu = [e for e in events if e.device_type == DeviceType.CUDA]
+        kernels = [e for e in gpu if "spin_kernel" not in e.key]
+        lead_recorded = sum(e.count for e in gpu if "spin_kernel" in e.key)
+        launched = sum(e.count for e in events
+                       if e.key.startswith(("cudaLaunchKernel",
+                                            "cuLaunchKernel"))) - LEAD_KERNELS
+        recorded = sum(e.count for e in kernels
+                       if not e.key.startswith(("Memcpy", "Memset")))
+        if recorded >= launched:
+            break
     busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    ranked = [{"name": e.key[:90], "calls": e.count,
+               "us_per_batch": e.self_device_time_total / batches}
+              for e in kernels]
     out = {"batches": batches, "batch": batch,
            "wall_ms_per_batch": wall_us / 1e3 / batches,
            "device_busy_share": busy_us / wall_us,
-           "top": [{"name": e.key[:90], "calls": e.count,
-                    "us_per_batch": e.self_device_time_total / batches}
-                   for e in top]}
+           "sessions": sessions, "launched": launched,
+           "recorded": recorded, "lead_recorded": lead_recorded,
+           "top": ranked[:8], "all": ranked}
     log(f"[profile {kind}] on {label}: {out['wall_ms_per_batch']:.3f} ms "
-        f"per batch of {batch}, device busy {out['device_busy_share']:.3f}")
+        f"per batch of {batch}, device busy {out['device_busy_share']:.3f} "
+        f"({recorded} kernels recorded of {launched} launches traced, "
+        f"session {sessions}; {lead_recorded} of {LEAD_KERNELS} lead "
+        f"kernels recorded)")
     for t in out["top"]:
         log(f"[profile {kind}]   {t['us_per_batch']:9.1f} us/batch "
             f"{t['calls']:6d} calls  {t['name']}")
@@ -1636,9 +1741,15 @@ def phase_index_deep(dev, label: str) -> dict:
     out["search"] = rows
     out["launches"] = read_launches()
     out["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
-    RESULTS["profile_deep_nprobe32"] = profile_window(
-        "deep nprobe 32", label,
-        lambda: index.search(queries, K, nprobe=32), 1, len(queries))
+    prof = profile_window("deep nprobe 32", label,
+                          lambda: index.search(queries, K, nprobe=32),
+                          1, len(queries))
+    RESULTS["profile_deep_nprobe32"] = prof
+    pq_rows = [t for t in prof["all"] if "pq_adc" in t["name"]]
+    log("[index deep] profile: PQ top level "
+        + (", ".join(f"{t['name'][:60]} {t['us_per_batch']:.1f} us"
+                     for t in pq_rows) or "NOT in the window")
+        + f"; {len(prof['all'])} kernels in the window")
     log(f"[index deep] launches {out['launches']}; max_memory_allocated "
         f"{out['max_memory_allocated_bytes']}")
     require(out["launches"]["pq_adc_topk"] > 0,
@@ -1708,12 +1819,24 @@ def phase_index_deep(dev, label: str) -> dict:
                            " three calls")
     nbytes = 4.0 * B * M * 256 + 1.0 * N * M + 8.0 * B * kk
     res["bound_ms"], res["bound_by"] = bound(nbytes, 1.0 * B * N * M)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    res["splits"] = pq_adc.splits_for(B, N, sms)
+    # beside the bound: each of the B N M adds reads its LUT entry from
+    # shared memory, at most 32 a clock on each SM (no bank conflicts)
+    res["sm_clock_mhz"] = sm_clocks_mhz()
+    res["lookups"] = float(B) * N * M
+    res["lookup_ms"] = res["lookups"] / (
+        32.0 * sms * res["sm_clock_mhz"]["max"] * 1e6) * 1e3
     res["shape"] = [B, N, M, kk]
     RESULTS["kernels"]["pq_adc_topk"] = res
     log(f"[shape pq_adc_topk] ms {res['ms']:.4f} (k=64: "
-        f"{res['ms_k64']:.4f}) bound {res['bound_ms']:.5f} "
-        f"({res['bound_by']}) plain {res['plain_ms']:.3f} library "
-        f"{res['library_ms']:.4f} (k=64: {res['library_ms_k64']:.4f})")
+        f"{res['ms_k64']:.4f}; {res['splits']} split(s)) "
+        f"bound {res['bound_ms']:.5f} "
+        f"({res['bound_by']}; shared-memory lookups {res['lookup_ms']:.5f} "
+        f"at {res['sm_clock_mhz']['max']} MHz, clock after the runs "
+        f"{res['sm_clock_mhz']['now']} MHz) plain {res['plain_ms']:.3f} "
+        f"library {res['library_ms']:.4f} (k=64: "
+        f"{res['library_ms_k64']:.4f})")
     return out
 
 
@@ -1843,6 +1966,12 @@ def kernel_line() -> dict:
                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         if "library_ms_k64" in r:
             row.update(ms_k64=r["ms_k64"], library_ms_k64=r["library_ms_k64"])
+        for extra in ("lookup_ms", "bytes_ms", "compare_loop_ops_ms",
+                      "matched_slots"):
+            if extra in r:
+                row[extra] = r[extra]
+        if "eight_terms" in r:
+            row["ms_t8"] = r["eight_terms"]["ms"]
         for part in ("step", "deep"):
             if part in r:
                 row[part] = {key: r[part][key] for key in (

@@ -2,10 +2,16 @@
 
 Replace ``repro/kernels/bm25.py::bm25_topk_pallas`` (the kernel is
 ``csrc/bm25_topk.cu``) and ``hybrid_topk_pallas`` (the ``HybridRows``
-instantiation of ``csrc/l2_topk.cu``, whose tile loop it shares); the
-per-document score is ``csrc/lexical.cuh``.  Documents carry fixed-shape
-postings slabs (``core.lexical``): ``terms`` (N, S) int32, -1 padded, and
-``tf_sat`` (N, S) float32; queries carry (B, T) term ids and weights.
+instantiation of ``csrc/l2_topk.cu``, whose tile loop it shares).  The
+BM25 scan looks each document's slab up in a dictionary of the block's
+query terms (in groups of queries when the tile holds more distinct
+terms than its hit rows) and reads per-term hits; the hybrid scan scores
+a document by the compare loop of ``csrc/lexical.cuh``.  Both give the
+same bits.
+
+Documents carry fixed-shape postings slabs (``core.lexical``): ``terms``
+(N, S) int32, -1 padded, and ``tf_sat`` (N, S) float32; queries carry
+(B, T) term ids and weights.
 
 The hybrid blend ``alpha`` is a (1, 1) float32 tensor on the card, read
 by the kernel: sweeping it builds nothing and never reads it back to the
@@ -43,7 +49,6 @@ def _library():
                                          + [ctypes.c_int] * 8
                                          + [ctypes.c_void_p])
         lib.bm25_topk_launch.restype = ctypes.c_int
-        lib.bm25_topk_selectors.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -90,7 +95,7 @@ def bm25_topk(q_terms: torch.Tensor, q_weights: torch.Tensor,
     v = valid_operand(valid, N, dev)
     lib = _library()
     out_d, out_i, part_d, part_i, kt, splits, rows = l2_topk.scan_outputs(
-        B, N, k_eff, lib.bm25_topk_selectors(), dev)
+        B, N, k_eff, 1, dev)
     with torch.cuda.device(dev):
         rc = lib.bm25_topk_launch(
             qt.data_ptr(), qw.data_ptr(), t.data_ptr(), f.data_ptr(),

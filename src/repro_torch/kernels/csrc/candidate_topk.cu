@@ -102,49 +102,9 @@ struct ScanArgs {
 };
 
 // The warp's running top-k: entry j of the sorted list in lane j (lanes
-// j >= k stay (inf, ID_NONE)), and the k-th pair, which every lane holds.
-struct WarpList {
-  float d;
-  int i;
-  float thr_d;
-  int thr_i;
-
-  __device__ __forceinline__ void init() {
-    d = CUDART_INF_F;
-    i = rt::ID_NONE;
-    thr_d = CUDART_INF_F;
-    thr_i = rt::ID_NONE;
-  }
-
-  // Insert the warp-uniform pair (dd, ii) if it beats the k-th pair and is
-  // not held already.  Every lane calls this in step.
-  __device__ __forceinline__ void insert(float dd, int ii, int k, int lane) {
-    if (!rt::lex_less(dd, ii, thr_d, thr_i)) return;
-    const bool in = lane < k;
-    if (__any_sync(FULL, in && d == dd && i == ii)) return;
-    // entries before the new one; it beats entry k - 1, so p <= k - 1
-    const int p = __popc(__ballot_sync(FULL, in && rt::lex_less(d, i, dd, ii)));
-    const float up_d = __shfl_up_sync(FULL, d, 1);
-    const int up_i = __shfl_up_sync(FULL, i, 1);
-    if (in && lane >= p) {
-      d = lane == p ? dd : up_d;
-      i = lane == p ? ii : up_i;
-    }
-    thr_d = __shfl_sync(FULL, d, k - 1);
-    thr_i = __shfl_sync(FULL, i, k - 1);
-  }
-
-  // Offer one pair per lane (cand false: none); the pairs that beat the
-  // threshold are inserted one at a time, lowest lane first.
-  __device__ __forceinline__ void offer(bool cand, float dd, int ii, int k, int lane) {
-    unsigned m = __ballot_sync(FULL, cand && dd < CUDART_INF_F && rt::lex_less(dd, ii, thr_d, thr_i));
-    while (m) {
-      const int src = __ffs(m) - 1;
-      m &= m - 1;
-      insert(__shfl_sync(FULL, dd, src), __shfl_sync(FULL, ii, src), k, lane);
-    }
-  }
-};
+// j >= k stay (inf, ID_NONE)) and the k-th pair in every lane, a pair held
+// already never inserted twice.
+using WarpList = rt::WarpTopK<1, true>;
 
 // ||q||^2 in the rows' order: lane l of the group sums its elements, the
 // group's partials are summed by the butterfly.
@@ -299,18 +259,15 @@ __global__ void __launch_bounds__(THREADS) candidate_scan(const ScanArgs a) {
 
   // fold the other warps' lists into warp 0's, then write the partial
   if (warp > 0) {
-    s_ld[(warp - 1) * 32 + lane] = top.d;
-    s_li[(warp - 1) * 32 + lane] = top.i;
+    s_ld[(warp - 1) * 32 + lane] = top.d[0];
+    s_li[(warp - 1) * 32 + lane] = top.i[0];
   }
   __syncthreads();
   if (warp == 0) {
     for (int w = 0; w < WARPS - 1; ++w)
       top.offer(lane < a.k, s_ld[w * 32 + lane], s_li[w * 32 + lane], a.k, lane);
-    if (lane < a.kt) {
-      const size_t o = ((size_t)b * a.S + s) * a.kt + lane;
-      a.part_d[o] = top.d;
-      a.part_i[o] = top.i;
-    }
+    const size_t o = ((size_t)b * a.S + s) * a.kt;
+    top.store(a.part_d + o, a.part_i + o, a.kt, lane, false);
   }
 }
 
@@ -337,11 +294,7 @@ candidate_merge(const float* __restrict__ part_d, const int* __restrict__ part_i
     const bool in = e < L;
     top.offer(in, in ? pd[e] : CUDART_INF_F, in ? pi[e] : rt::ID_NONE, k, lane);
   }
-  if (lane < k) {
-    const bool filled = top.d < CUDART_INF_F;
-    out_d[(size_t)b * k + lane] = filled ? top.d : CUDART_INF_F;
-    out_i[(size_t)b * k + lane] = filled ? top.i : -1;
-  }
+  top.store(out_d + (size_t)b * k, out_i + (size_t)b * k, k, lane, true);
 }
 
 int scan_and_merge(const ScanArgs& a, bool indirect, const float* best_d, const int* best_i,

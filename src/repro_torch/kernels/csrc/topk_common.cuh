@@ -132,9 +132,137 @@ __device__ __forceinline__ void block_merge(TopK<KT>& top, int group, bool leade
   }
 }
 
-// Second pass of the split scans (l2_topk.cu, bm25_topk.cu): one block per
-// query merges its L sorted partial lists, part_d / part_i (B, L, KT),
-// into the top-k.
+// A warp's running top-k spread over its lanes (pq_adc_topk.cu,
+// bm25_topk.cu, candidate_topk.cu): entry r * 32 + j of the sorted list
+// sits in register r of lane j, NR registers a lane (lists of up to 32 NR
+// entries), and every lane holds the k-th pair as the threshold.
+// Candidates are offered one a lane; a ballot keeps those that beat the
+// threshold, and each of them is inserted with one ballot for its position
+// and two shuffles a register to shift the tail.  With UNIQUE a pair the
+// list holds already is not inserted again (the probe chain can meet a row
+// twice); without it the ids offered to one list are distinct (each row is
+// scanned once).  All lanes call in step.
+template <int NR, bool UNIQUE = false>
+struct WarpTopK {
+  float d[NR];
+  int i[NR];
+  float thr_d;
+  int thr_i;
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      d[r] = CUDART_INF_F;
+      i[r] = ID_NONE;
+    }
+    thr_d = CUDART_INF_F;
+    thr_i = ID_NONE;
+  }
+
+  __device__ __forceinline__ bool beats(float dd, int ii) const {
+    return lex_less(dd, ii, thr_d, thr_i);
+  }
+
+  // Insert the warp-uniform pair (dd, ii) if it beats the k-th pair (and,
+  // with UNIQUE, is not held already).
+  __device__ __forceinline__ void insert(float dd, int ii, int k, int lane) {
+    if (!beats(dd, ii)) return;
+    if (UNIQUE) {
+      bool held = false;
+#pragma unroll
+      for (int r = 0; r < NR; ++r) held = held || (r * 32 + lane < k && d[r] == dd && i[r] == ii);
+      if (__any_sync(0xffffffffu, held)) return;
+    }
+    int p = 0;   // entries ahead of the new one; it beats entry k - 1
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+      p += __popc(__ballot_sync(0xffffffffu,
+                                r * 32 + lane < k && lex_less(d[r], i[r], dd, ii)));
+    float up_d[NR];
+    int up_i[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      up_d[r] = __shfl_up_sync(0xffffffffu, d[r], 1);
+      up_i[r] = __shfl_up_sync(0xffffffffu, i[r], 1);
+      if (r > 0) {   // lane 0 of register r takes lane 31 of register r - 1
+        const float wd = __shfl_sync(0xffffffffu, d[r - 1], 31);
+        const int wi = __shfl_sync(0xffffffffu, i[r - 1], 31);
+        if (lane == 0) {
+          up_d[r] = wd;
+          up_i[r] = wi;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const int e = r * 32 + lane;
+      if (e < k && e >= p) {
+        d[r] = e == p ? dd : up_d[r];
+        i[r] = e == p ? ii : up_i[r];
+      }
+    }
+    const int last = k - 1;
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      if (NR == 1 || last / 32 == r) {
+        thr_d = __shfl_sync(0xffffffffu, d[r], last & 31);
+        thr_i = __shfl_sync(0xffffffffu, i[r], last & 31);
+      }
+    }
+  }
+
+  // Offer one pair a lane (cand false: none); the pairs that beat the
+  // threshold are inserted one at a time, lowest lane first, each checked
+  // again against the tightened threshold.  +inf and NaN never rank.
+  __device__ __forceinline__ void offer(bool cand, float dd, int ii, int k, int lane) {
+    unsigned m = __ballot_sync(0xffffffffu, cand && dd < CUDART_INF_F && beats(dd, ii));
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      insert(__shfl_sync(0xffffffffu, dd, src), __shfl_sync(0xffffffffu, ii, src), k, lane);
+    }
+  }
+
+  // Write entries 0 .. n - 1 (n <= 32 NR) at out + e; with `sentinel`,
+  // unfilled entries as (inf, -1), else as held ((inf, ID_NONE)).
+  __device__ __forceinline__ void store(float* out_d, int* out_i, int n, int lane,
+                                        bool sentinel) const {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const int e = r * 32 + lane;
+      if (e < n) {
+        const bool filled = d[r] < CUDART_INF_F;
+        out_d[e] = filled ? d[r] : CUDART_INF_F;
+        out_i[e] = filled || !sentinel ? i[r] : -1;
+      }
+    }
+  }
+};
+
+// Second pass of the warp-list scans: one warp per query folds its L
+// partial entries, part_d / part_i (B, L), into the top-k (B, k) through
+// a WarpTopK; WARPS queries a block.
+template <int NR, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+warp_merge_partials(const float* __restrict__ part_d, const int* __restrict__ part_i, int L,
+                    float* __restrict__ out_d, int* __restrict__ out_i, int B, int k) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;   // the whole warp leaves together
+  WarpTopK<NR> top;
+  top.init();
+  const float* pd = part_d + (size_t)b * L;
+  const int* pi = part_i + (size_t)b * L;
+  for (int e0 = 0; e0 < L; e0 += 32) {
+    const int e = e0 + lane;
+    const bool in = e < L;
+    top.offer(in, in ? pd[e] : CUDART_INF_F, in ? pi[e] : ID_NONE, k, lane);
+  }
+  top.store(out_d + (size_t)b * k, out_i + (size_t)b * k, k, lane, true);
+}
+
+// Second pass of the split scans (l2_topk.cu): one block per query merges
+// its L sorted partial lists, part_d / part_i (B, L, KT), into the top-k.
 template <int KT, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 merge_partials(const float* __restrict__ part_d, const int* __restrict__ part_i, int L,

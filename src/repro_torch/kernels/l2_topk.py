@@ -26,7 +26,7 @@ __all__ = ["l2_topk", "l2_topk_int8", "LAUNCHES", "INT8_LAUNCHES",
 LAUNCHES = LaunchCounter("l2_topk")
 INT8_LAUNCHES = LaunchCounter("l2_topk_int8")
 
-BN = 128        # rows per tile in csrc/l2_topk.cu and csrc/bm25_topk.cu
+BN = 128        # rows per tile in csrc/l2_topk.cu; bm25_topk.cu splits by it
 BQ = 64         # queries per block tile in both
 MAX_D = 512     # the staged query tile must fit in shared memory
 

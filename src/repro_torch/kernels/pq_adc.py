@@ -22,9 +22,11 @@ __all__ = ["pq_adc_topk", "LAUNCHES"]
 
 LAUNCHES = LaunchCounter("pq_adc_topk")
 
-WARPS = 8              # queries per block in csrc/pq_adc_topk.cu
+WARPS = 4              # warps per block (one query) in csrc/pq_adc_topk.cu
 CODEWORDS = 256
-MAX_M = 24             # the block's 8 staged LUTs (8 M KB) fit in 227 KB
+MAX_M = 24             # the block's staged LUT (M KB) fits one SM's 227 KB
+BLOCKS_PER_SM = 4      # the grid's aim: 4 blocks of 4 warps per SM
+MIN_ROWS = 32 * WARPS * 8   # a split gives each warp at least 8 passes
 
 _fn = None
 
@@ -41,10 +43,14 @@ def _launcher():
 
 
 def splits_for(b: int, n: int, sm_count: int) -> int:
-    """Splits of N: none once the query groups fill the SMs, else enough
-    for about one block per SM, each split at least 64 rows a lane."""
-    groups = -(-b // WARPS)
-    return max(1, min(-(-n // (32 * 64)), sm_count // groups))
+    """Splits of N across blocks: enough (query, split) blocks for about
+    ``BLOCKS_PER_SM`` a SM (1 at B = 1,024 on 132 SMs, whose queries alone
+    give 7.8 blocks a SM; 9 at B = 64), and no more than one split a
+    ``MIN_ROWS`` rows.  Every split is scanned by the block's 4 warps, and
+    every split and warp keeps a list of its own, so splitting past what
+    fills the card costs more merging than it gains."""
+    want = -(-BLOCKS_PER_SM * sm_count // max(b, 1))
+    return max(1, min(want, -(-n // MIN_ROWS)))
 
 
 def pq_adc_topk(lut: torch.Tensor, codes: torch.Tensor, k: int = 10, *,

@@ -35,7 +35,15 @@ __all__ = ["OPTION_EDGES", "EDGE_ALPHAS", "PQ_EDGES", "HAMMING_EDGES",
            "lexical_scores_f32", "hybrid_by_parts"]
 
 # (name, B, N, d, k, rows): rows "dead" = every row dead, "half" = about
-# half live, "dup" = the second half repeats the first
+# half live, "dup" = the second half repeats the first; the BM25 lookup's
+# edges: "head" = term 0 in every document and every query, "qrepeat" =
+# each query repeats its first term in its second slot, "bigids" = term
+# ids 2**31 - 1 - 64 v, all equal modulo 64 and up to the largest int32,
+# "wide" = every query slot a distinct term of a 4,096-term vocabulary
+# (a tile of 64 such queries holds more distinct terms than the kernel's
+# 256 hit rows, so its block takes its queries in groups), each document
+# holding one query term; "t64" = the same with T = 64 slots a query
+# (bm25.MAX_T: the kernel's smallest group, four queries)
 OPTION_EDGES = (
     ("B=1", 1, 100, 8, 5, None),
     ("N%tile!=0", 4, 300, 8, 5, None),
@@ -44,18 +52,26 @@ OPTION_EDGES = (
     ("partial valid", 6, 120, 16, 7, "half"),
     ("duplicate rows", 5, 50, 8, 9, "dup"),
     ("two query tiles, splits", 70, 5000, 128, 32, "half"),
+    ("head term everywhere", 6, 300, 128, 10, "head"),
+    ("query repeats a term", 6, 300, 128, 10, "qrepeat"),
+    ("colliding ids near 2^31", 6, 300, 128, 10, "bigids"),
+    ("query tile past the dictionary", 70, 300, 128, 10, "wide"),
+    ("64 term slots", 20, 300, 128, 10, "t64"),
 )
 # the hybrid's limits (0: the BM25 answer, 1: the fp32 L2 answer) and a
 # blend between them
 EDGE_ALPHAS = (0.0, 0.3, 1.0)
 EDGE_VOCAB = 40
+WIDE_VOCAB = 4096
 
 
 # The PQ-ADC and Hamming kernels' edges: (name, B, N, M or W, k, rows),
 # rows "dead" = every row dead, "half" = about half live, "ties" = every
 # code row the same (so every distance ties and ids decide).  PQ covers
 # k = 1, 10, 32, 33 and 64 (its list lengths' edges), Hamming k = 128 and
-# 1,024 (the LSH shortlists), both k > N and a batch over several splits.
+# 1,024 (the LSH shortlists), both k > N and a batch over several splits;
+# PQ also lists filled by ties across its split boundaries and several
+# query blocks at k = 64 with dead rows.
 PQ_EDGES = (
     ("B=1 k=1", 1, 100, 8, 1, None),
     ("N%block!=0 k=10", 4, 300, 8, 10, None),
@@ -67,6 +83,8 @@ PQ_EDGES = (
     ("M=4", 3, 90, 4, 7, "half"),
     ("all-equal codes", 3, 80, 8, 32, "ties"),
     ("B=70 splits k=64", 70, 20000, 8, 64, "half"),
+    ("ties across splits k=64", 3, 3000, 8, 64, "ties"),
+    ("B=12 splits k=64 dead rows", 12, 2500, 8, 64, "half"),
 )
 HAMMING_EDGES = (
     ("B=1 k=1", 1, 100, 2, 1, None),
@@ -223,12 +241,35 @@ def option_edge_operands(case, repeat: bool, seed: int = 0) -> dict:
     elif rows == "half":
         valid = (rng.random(n) > .5).astype(np.int32)
     s, t = (16, 8) if d == 128 else (6, 4)
+    if rows == "t64":
+        t = 64
     terms, tf = slab_rows(rng, n, s, repeat=repeat)
     if rows == "dup":
         h = n - n // 2
         x[n // 2:], terms[n // 2:], tf[n // 2:] = x[:h], terms[:h], tf[:h]
     qt = rng.integers(0, EDGE_VOCAB, size=(b, t)).astype(np.int32)
     qt[0] = -1                                 # a query of pad terms only
+    if rows == "head":
+        for r in range(n):
+            if not (terms[r] == 0).any():
+                m = int((terms[r] >= 0).sum())
+                slot = min(m, s - 1)
+                terms[r, slot], tf[r, slot] = 0, rng.random() + 0.05
+        qt[:, -1] = 0
+    elif rows == "qrepeat":
+        qt[1:, 1] = qt[1:, 0]
+    elif rows in ("wide", "t64"):
+        terms, tf = slab_rows(rng, n, s, vocab=WIDE_VOCAB, repeat=repeat)
+        qt = rng.permutation(WIDE_VOCAB)[:b * t].reshape(b, t).astype(
+            np.int32)
+        qt[0] = -1
+        for r in range(n):
+            term = qt[1 + r % (b - 1), r % t]
+            if not (terms[r] == term).any():
+                terms[r, 0], tf[r, 0] = term, rng.random() + 0.05
+    elif rows == "bigids":
+        terms, qt = (np.where(a >= 0, 2**31 - 1 - 64 * a, a).astype(np.int32)
+                     for a in (terms, qt))
     qw = (rng.random((b, t)) + 0.1).astype(np.float32)
     return {"q": q, "x": x, "valid": valid, "terms": terms, "tf": tf,
             "qt": qt, "qw": qw, "k": k}

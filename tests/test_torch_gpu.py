@@ -394,6 +394,29 @@ def test_pq_adc_topk_kernel_matches_plain(dev, case):
     _bitwise(kd2, ki2, pd, pi)
 
 
+@pytest.mark.parametrize("k", [32, 64])
+@pytest.mark.parametrize("b, split", [(1030, False), (100, True)],
+                         ids=["B=1030", "B=100 split"])
+def test_pq_adc_topk_main_path_batch_matches_plain(dev, b, split, k):
+    """Past one query chunk over more centroid codes than DEEP-10M has,
+    with dead rows (one split: the queries fill the card), and a smaller
+    batch whose rows the grid splits across blocks; both bit for bit the
+    plain version."""
+    rng = np.random.default_rng([7, b, k])
+    lut = torch.as_tensor((rng.random((b, 8, 256)) * 10).astype(
+        np.float32), device=dev)
+    codes = torch.as_tensor(rng.integers(0, 256, size=(40000, 8)).astype(
+        np.uint8), device=dev)
+    valid = torch.as_tensor((rng.random(40000) > 0.1).astype(np.int32),
+                            device=dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (pq_adc.splits_for(b, 40000, sm) > 1) == split
+    kd, ki = pq_adc.pq_adc_topk(lut, codes, k, valid=valid)
+    pd, pi = ref.pq_adc_topk_ref(lut, codes, k, valid=valid)
+    torch.cuda.synchronize()
+    _bitwise(kd, ki, pd, pi)
+
+
 @pytest.mark.parametrize("case", HAMMING_EDGES,
                          ids=[c[0] for c in HAMMING_EDGES])
 def test_hamming_topk_kernel_matches_plain(dev, case):

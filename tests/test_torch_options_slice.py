@@ -299,7 +299,7 @@ def test_hybrid_topk_plain_matches_reference(reference, name, alpha):
                          ids=["distinct", "repeated_terms"])
 def test_lexical_scores_f32_match_plain_and_reference(reference, repeat):
     # the widest shared edge: 70 queries x 5,000 rows, S = 16, T = 8
-    o = option_edge_operands(OPTION_EDGES[-1], repeat)
+    o = option_edge_operands(OPTION_EDGES[6], repeat)
     b, n = o["qt"].shape[0], o["terms"].shape[0]
     bq, rows = np.divmod(np.arange(b * n), n)
     mine = lexical_scores_f32(o["qt"][bq], o["qw"][bq], o["terms"][rows],
@@ -311,6 +311,36 @@ def test_lexical_scores_f32_match_plain_and_reference(reference, repeat):
         plain = -ref.bm25_dists_ref(*map(torch.as_tensor, (
             o["qt"], o["qw"], o["terms"], o["tf"]))).numpy()
         assert mine.tobytes() == plain.tobytes()
+
+
+@pytest.mark.parametrize("repeat", [False, True],
+                         ids=["distinct", "repeated_terms"])
+@pytest.mark.parametrize("case", OPTION_EDGES,
+                         ids=[c[0] for c in OPTION_EDGES])
+def test_bm25_option_edges_match_reference(reference, case, repeat):
+    # the edges the card holds bm25_topk to (a head term in every document
+    # and query, a query repeating a term, ids colliding modulo a power of
+    # two up to 2**31 - 1, a query tile of more distinct terms than the
+    # kernel's hit rows): the plain version against the reference's jnp
+    # oracle and its Pallas kernel in interpret mode, and the kernels'
+    # float32 score order against the reference's numpy scores
+    o = option_edge_operands(case, repeat)
+    qt, qw, terms, tf, k, valid = (o[n] for n in ("qt", "qw", "terms", "tf",
+                                                  "k", "valid"))
+    port = ref.bm25_topk_ref(*map(torch.as_tensor, (qt, qw, terms, tf)), k,
+                             valid=_tv(valid))
+    args = tuple(map(jnp.asarray, (qt, qw, terms, tf)))
+    oracle = reference.ref.bm25_topk_ref(*args, k, valid=_jv(valid))
+    pallas = reference.bm25.bm25_topk_pallas(*args, k, valid=_jv(valid),
+                                             bq=8, bn=32, interpret=True)
+    _same(port, oracle, pallas, rtol=1e-6, atol=0)
+    _check_contract(port, valid)
+    b, n = qt.shape[0], terms.shape[0]
+    bq, rows = np.divmod(np.arange(b * n), n)
+    mine = lexical_scores_f32(qt[bq], qw[bq], terms[rows],
+                              tf[rows]).reshape(b, n)
+    theirs = -reference.lexical.bm25_dists(terms, tf, qt, qw)
+    np.testing.assert_allclose(mine, theirs, rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("case", OPTION_EDGES,
