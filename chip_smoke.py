@@ -18,7 +18,9 @@ each prints its wall time as ``[phase] <name> <s> s``):
              ``repro_torch.testing``, shared with the card tests), plus
              the hybrid alpha = 0 / 1 identities; every
              hybrid answer, here and later, is also held by its two
-             halves (``testing.hybrid_by_parts``);
+             halves (``testing.hybrid_by_parts``); the same tables at
+             k = 33, 64, 65 and 100 and at k = N (the kernels' passes
+             above their lists' length), and ``l2_topk`` at d = 960;
 4. shapes  - each kernel against its plain version at the main path's
              shapes, on the backends' own operands, timed beside its bound,
              the plain version and a PyTorch yardstick (which the port
@@ -40,9 +42,13 @@ each prints its wall time as ``[phase] <name> <s> s``):
              0.5) and an int8 brute cell (1,024 requests); counts reset
              just before and read just after the three cells; answers held
              against the filters, the unfused path and direct backend calls;
-7. profile - ``torch.profiler`` over 8 batches of 64 per backend and mode
+7. large k - every kernel with a list ceiling at k = 33, 64, 65, 100 at
+             the main path's shapes on the backends' operands, against
+             its plain version; its passes and time at k = 100 beside
+             k = 10;
+8. profile - ``torch.profiler`` over 8 batches of 64 per backend and mode
              (device time by kernel, busy share);
-8. index   - the paper's index layer through ``build_index`` /
+9. index   - the paper's index layer through ``build_index`` /
              ``auto_build_index`` and ``search``: DEEP-10M (10M x 96,
              32,768 buckets, PQ top, brute bottom; recall@10 against the
              exact top-10 of the ``l2_topk`` kernel at nprobe 8-64), the
@@ -51,12 +57,17 @@ each prints its wall time as ``[phase] <name> <s> s``):
              1,024), and RADIO-STATION (10K x 256) where §5.3 picks QLBT
              with traffic and the balanced tree without; ``pq_adc_topk``
              and ``hamming_topk`` held against their plain versions and
-             timed at those shapes (their yardsticks at k = 64 too), the
+             timed at those shapes (their yardsticks at k = 64 too; PQ at
+             k = 100 in two passes), ``SearchIndex.search`` at k = 100 on
+             the sift two-level index (recall@100), the
              DEEP brute bottom's probe chain (``candidate_topk``, rows by
              entity id) against its plain version and float64 and timed;
              counts reset just before and read just after each of the
              three runs;
-9. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
+10. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
+
+The serve phase also runs the brute and IVF backends at k = 50 (above the
+kernels' 32-pair lists) against their unfused plain paths.
 
 Imports only ``torch``, numpy and ``repro_torch``.  Detailed results also
 go to ``build/chip_smoke.json``.
@@ -114,10 +125,14 @@ from repro_torch.testing import (CHAIN_EDGES, EDGE_ALPHAS,  # noqa: E402
                                  option_edge_operands, pq_edge_operands,
                                  step_chain)
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 and fp32 outside the
-# tensor cores.  The kernels compute in fp32 FMA, never TF32.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3, fp32 outside the
+# tensor cores, and dense TF32 on them.  Every kernel computes in fp32 FMA;
+# the fp32 L2 tile (l2_topk, hybrid_topk) also reports the bound of the
+# tensor-core route it did not ship (3xTF32: three TF32 products a
+# multiply-add), whose distances broke the options cells' parity floor.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 # Distances may differ by fp32 rounding, since the kernel and the plain
 # version sum in another order: |d_kernel - d_plain| <= REL * (qn + xn).
 REL = 1e-5
@@ -158,6 +173,10 @@ RADIO_UNBALANCE = 0.23
 RADIO_QUERIES = 2000
 RADIO_BEAMS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
 RADIO_RECALL = 0.95
+# k above the kernels' 32-pair lists (64 for PQ): served in passes
+LARGE_KS = (33, 64, 65, 100)
+K_LARGE = 100
+K_BACKEND_LARGE = 50
 # no-op kernels each profiler session launches first, to take the loss of a
 # late session's first GPU records (profile_window)
 LEAD_KERNELS = 2000
@@ -220,7 +239,15 @@ def phase_card() -> dict:
 
 # --------------------------------------------------------------- phase 2
 def _kernel_name(mangled: str) -> str:
-    """``l2_topk_partial<F32Rows, 16>`` from a mangled kernel name."""
+    """``l2_topk_partial<Int8Rows, 16, bounded>`` from a mangled kernel
+    name (``bounded``: the instantiation for a pass with a bound)."""
+    last = re.search(r"Lb([01])EEEv", mangled)
+    suffix = ", bounded" if last and last.group(1) == "1" else ""
+    tile = re.search(r"l2_tile_scanINS_\d+(\w+?Rows)ELb(\d)ELb(\d)E", mangled)
+    if tile:
+        rows, vec, _ = tile.groups()
+        return (f"l2_tile_scan<{rows}, {'float4' if vec == '1' else 'scalar'}"
+                f"{suffix}>")
     name = re.search(r"(l2_topk_partial|bm25_topk_partial|"
                      r"warp_merge_partials|merge_partials|"
                      r"candidate_scan|candidate_merge|pq_adc_scan|"
@@ -230,14 +257,15 @@ def _kernel_name(mangled: str) -> str:
     if name and name.group(1) == "candidate_scan":
         vec, ind = re.search(r"ILb(\d)ELb(\d)E", mangled).groups()
         return (f"candidate_scan<{'float4' if vec == '1' else 'scalar'}, "
-                f"{'IndirectRows' if ind == '1' else 'direct rows'}>")
-    if name and (name.group(1).startswith("hamming")
-                 or name.group(1) == "candidate_merge"):
+                f"{'IndirectRows' if ind == '1' else 'direct rows'}{suffix}>")
+    if name and name.group(1) == "candidate_merge":
+        return f"candidate_merge{'<bounded>' if suffix else ''}"
+    if name and name.group(1).startswith("hamming"):
         return name.group(1)
     if not (name and kt):
         return mangled[-60:]
     return (f"{name.group(1)}<{rows.group(1) + ', ' if rows else ''}"
-            f"{kt.group(1)}>")
+            f"{kt.group(1)}{suffix}>")
 
 
 def phase_build() -> None:
@@ -611,8 +639,68 @@ def phase_edges(dev) -> None:
     near += edges_chain(dev)
     near += edges_options(dev)
     edges_index(dev)
+    # d = 960: the staged chunks carry any d (the old tile refused d > 512)
+    q, x = case(9, 2000, 960)
+    for k in (K, K_LARGE):
+        near += check_l2(f"edge l2 d=960 k={k}", q, x, k,
+                         valid=t((rng.random(2000) > .2).astype(np.int32))
+                         )["near_ties"]
+    near += edges_large_k(dev)
     log(f"[edges] all edge shapes agree; near-ties {near}")
     RESULTS["edge_near_ties"] = near
+
+
+def edges_large_k(dev) -> int:
+    """The edge tables above the kernels' lists: every option edge
+    (distinct-term slabs: BM25 bit for bit), chain edge and PQ edge at
+    k = 33, 64, 65 and 100, the candidate tile with a carried best of k
+    pairs, and k = N on small edges; returns near-ties."""
+    def t(a):
+        return None if a is None else torch.as_tensor(a, device=dev)
+
+    near = 0
+    for case in OPTION_EDGES:
+        o = option_edge_operands(case, False)
+        q, x, qt, qw, terms, tf, valid = (t(o[n]) for n in (
+            "q", "x", "qt", "qw", "terms", "tf", "valid"))
+        codes, scales = (t(a) for a in ops.quantize_rows_int8(o["x"]))
+        ks = LARGE_KS + ((x.shape[0],) if case[0] == "N%tile!=0" else ())
+        for k in ks:
+            tag = f"large k={k} {case[0]}"
+            near += check_l2(f"edge l2 {tag}", q, x, k, valid)["near_ties"]
+            near += check_int8(f"edge int8 {tag}", q, codes, scales, k,
+                               valid)["near_ties"]
+            near += check_bm25(f"edge bm25 {tag}", qt, qw, terms, tf, k,
+                               valid)["near_ties"]
+            near += check_hybrid(f"edge hybrid {tag}", q, x, qt, qw, terms,
+                                 tf, 0.5, k, valid)["near_ties"]
+    for case in CHAIN_EDGES:
+        o = chain_edge_operands(case)
+        q, db, bids, bvecs, probe = (t(o[n]) for n in (
+            "q", "db", "bucket_ids", "bucket_vecs", "probe"))
+        for k in LARGE_KS:
+            plain = (chain_union_topk(q, probe, bids, db, k)
+                     if case[-1] == "repeat" else None)
+            near += check_chain(f"edge chain large k={k} {case[0]}", q,
+                                probe, bids, k, db, bvecs=bvecs,
+                                plain=plain)["near_ties"]
+    for case in PQ_EDGES:
+        lut, codes, valid, _ = pq_edge_operands(case)
+        ks = LARGE_KS + ((codes.shape[0],) if case[0] == "k>N" else ())
+        for k in ks:
+            check_pq(f"edge pq_adc large k={k} {case[0]}", t(lut), t(codes),
+                     k, t(valid))
+    rng = np.random.default_rng(7)
+    B, C, D = 5, 37, 8
+    q = t(rng.normal(size=(B, D)).astype(np.float32))
+    vecs = t(rng.normal(size=(B, C, D)).astype(np.float32))
+    ids = t(rng.integers(0, 500, size=(B, C)).astype(np.int32))
+    for k in LARGE_KS:
+        bd = t(np.sort(rng.random((B, k)).astype(np.float32) * 20, axis=1))
+        bi = t(rng.integers(1000, 2000, size=(B, k)).astype(np.int32))
+        near += check_cand(f"edge cand carried best large k={k}", q, vecs,
+                           ids, k, best_d=bd, best_i=bi)["near_ties"]
+    return near
 
 
 # ----------------------------------------------------------------- timing
@@ -665,9 +753,23 @@ def sm_clocks_mhz() -> dict:
     return {"now": float(out[0]), "max": float(out[1])}
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+def bound(nbytes: float, flops: float,
+          tc_flops: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) for ``nbytes`` of memory traffic and ``flops``
+    fp32 operations outside the tensor cores plus ``tc_flops`` on them at
+    the dense TF32 rate, and which of bytes and operations bounds it."""
+    tb = nbytes / HBM_BYTES_PER_S
+    tf = flops / FP32_FLOPS_PER_S + tc_flops / TF32_FLOPS_PER_S
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+
+
+def counted(name: str, fn):
+    """``fn()`` and the launches it made of kernel ``name`` (its passes)."""
+    c = LAUNCH_COUNTERS[name]
+    before = c.count
+    out = fn()
+    torch.cuda.synchronize()
+    return out, c.count - before
 
 
 # --------------------------------------------------------------- phase 4
@@ -687,13 +789,22 @@ def phase_shapes(dev, brute_be, ivf_be, queries) -> None:
         torch.addmm(xn, q, x.T, alpha=-2.0), K, largest=False), 20)
     res["library_call"] = "torch.topk(torch.addmm(xn, q, x.T)): two calls"
     live = int(valid.sum())
-    flops = 2.0 * B * live * D + 2.0 * N * D + 2.0 * B * D + 3.0 * B * live
+    # the products, norms and epilogue in fp32 FMA (the bound the kernel
+    # is held to); beside it the bytes alone and the bound of the
+    # tensor-core route (3xTF32: three TF32 products a multiply-add)
+    products = 2.0 * B * live * D
+    flops = 2.0 * N * D + 2.0 * B * D + 3.0 * B * live
     nbytes = 4.0 * (B * D + N * D + N) + 8.0 * B * K
-    res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops + products)
+    res["tc_bound_ms"] = bound(nbytes, flops, 3.0 * products)[0]
+    res["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
     res["shape"] = [B, N, D, K]
     log(f"[shape l2_topk] ms {res['ms']:.4f} bound {res['bound_ms']:.4f} "
-        f"({res['bound_by']}) plain {res['plain_ms']:.3f} "
-        f"library {res['library_ms']:.4f}")
+        f"({res['bound_by']}, fp32 FMA; bytes {res['bytes_ms']:.4f}; the "
+        f"3xTF32 route's {res['tc_bound_ms']:.4f}: "
+        f"{3.0 * products / 1e9:.1f} GFLOP at "
+        f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s) plain {res['plain_ms']:.3f} "
+        f"library {res['library_ms']:.4f}; near-ties {res['near_ties']}")
     RESULTS["kernels"]["l2_topk"] = res
 
     # candidate_topk at one IVF probe step (B=64 x cap x 128) with a
@@ -996,6 +1107,7 @@ def phase_main(dev, card) -> dict:
     main["fused_unfused_agree"] = agree
     main["fused_unfused_max_gap"] = gap
     main["served_direct_agree"] = served_agree
+    main["k50"] = backends_k50(idx, corpus, queries[:4 * BATCH], qn, xn)
     RESULTS["main"] = main
     RESULTS["kernels"]["candidate_topk"]["launches"] = launches[
         "candidate_topk"]
@@ -1003,6 +1115,46 @@ def phase_main(dev, card) -> dict:
             "truth": truth, "idx": idx, "ivf": ivf, "brute": brute,
             "meta": meta, "slabs": slabs, "tokens": tokens,
             "offsets": offsets, "p_term": p_term}
+
+
+def backends_k50(idx, corpus, queries, qn, xn) -> dict:
+    """The IVF and brute backends at k = 50 (above the kernels' 32-pair
+    lists: two passes a call) on the card, each against its unfused plain
+    path: ids equal except at near-ties, on at least 0.9 of slots (a
+    breakage floor: ranks 11-50 of sift-magnitude neighbours hold many
+    more pairs closer than d2's one-unit rounding than the top 10 do,
+    fault 7: the IVF chain agreed on 0.972 of slots, every difference a
+    near-tie); every returned pair's distance within REL of float64; the
+    IVF answers' recall@50 against the brute's."""
+    out = {}
+    k = K_BACKEND_LARGE
+    n = len(queries)
+    for kind, target in (("ivf", idx), ("brute", corpus)):
+        fused = ShardedSearchBackend(target, kind=kind, k=k,
+                                     nprobe_local=SIFT_1M.nprobe)
+        plain = ShardedSearchBackend(target, kind=kind, k=k,
+                                     nprobe_local=SIFT_1M.nprobe, fused=False)
+        a = batched(fused, queries)
+        b = batched(plain, queries)
+        require(a[1].shape == (n, k) and (a[1] >= 0).all(),
+                f"{kind} at k={k}: wrong shape or sentinels")
+        scale = qn[:n, None] + xn[np.maximum(b[1], 0)]
+        out[kind] = near_tie_parity(f"{kind} k={k} vs unfused", a, b, scale,
+                                    floor=0.9)
+        d64 = ((queries[:, None, :].astype(np.float64)
+                - corpus[a[1]].astype(np.float64)) ** 2).sum(-1)
+        err = np.abs(d64 - a[0]) / (qn[:n, None] + xn[a[1]])
+        require((err <= REL).all(), f"{kind} at k={k}: a wrong distance")
+        out[kind]["max_rel_err_f64"] = float(err.max())
+        out[kind]["ids"] = a[1]
+    out["ivf_recall_at_50_vs_brute"] = recall_at_k(out["ivf"]["ids"],
+                                                   out["brute"]["ids"])
+    for kind in ("ivf", "brute"):
+        del out[kind]["ids"]
+    log(f"[serve] backends at k={k} on the card: {out}")
+    require(out["ivf_recall_at_50_vs_brute"] >= 0.5,
+            "IVF recall@50 is implausibly low")
+    return out
 
 
 # ------------------------------------------------------------ phase 4 (b)
@@ -1172,16 +1324,20 @@ def phase_option_shapes(dev, ctx, int8_be, qt_all, qw_all) -> None:
                            " + a xn, q, x.T)): four calls")
     del csr, w, axn
     live = int((valid != 0).sum())
-    flops = (2.0 * B * live * D + 2.0 * N * D + 2.0 * B * D
-             + 6.0 * B * live + lex_ops)      # lex_ops: BM25's, above
+    products = 2.0 * B * live * D
+    flops = (2.0 * N * D + 2.0 * B * D + 6.0 * B * live
+             + lex_ops)                     # lex_ops: BM25's, above
     nbytes = (4.0 * N * D + 8.0 * N * S + 4.0 * N + 4.0 * B * D
               + 8.0 * B * T + 4.0 + 8.0 * B * K)
-    res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops + products)
+    res["tc_bound_ms"] = bound(nbytes, flops, 3.0 * products)[0]
+    res["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
     res["shape"] = [B, N, D, S, T, K]
     RESULTS["kernels"]["hybrid_topk"] = res
     log(f"[shape hybrid_topk] ms {res['ms']:.4f} bound {res['bound_ms']:.4f}"
-        f" ({res['bound_by']}) plain {res['plain_ms']:.3f} library "
-        f"{res['library_ms']:.4f}")
+        f" ({res['bound_by']}, fp32 FMA; bytes {res['bytes_ms']:.4f}; the "
+        f"3xTF32 route's {res['tc_bound_ms']:.4f}) plain "
+        f"{res['plain_ms']:.3f} library {res['library_ms']:.4f}")
 
 
 # --------------------------------------------------------------- phase 6
@@ -1408,6 +1564,92 @@ def phase_options(dev, ctx) -> None:
     ctx.update(int8=int8_be, qt=qt, qw=qw)
 
 
+# ------------------------------------------------------------ phase 6 (b)
+def phase_large_k(dev, ctx) -> None:
+    """Every kernel with a list ceiling above it, at the main path's shapes
+    on the backends' own operands (B 64 against the 1M-row corpus, its
+    int8 codes and slabs; the served chain and one probe step with a
+    carried best of k pairs on the IVF tables): k = 33, 64, 65 and 100
+    against the plain version (``compare``, REL as everywhere; BM25 bit for
+    bit), then the passes (counted launches of one call) and time at
+    k = 100 beside k = 10.  PQ's are in the DEEP index phase."""
+    brute, ivf, int8_be = ctx["brute"], ctx["ivf"], ctx["int8"]
+    q = torch.as_tensor(ctx["queries"][:BATCH], device=dev)
+    qt = torch.as_tensor(ctx["qt"][:BATCH], device=dev)
+    qw = torch.as_tensor(ctx["qw"][:BATCH], device=dev)
+    x, valid = brute._args
+    terms, tf = brute._lex_args
+    codes, scales, ivalid = int8_be._args
+    a = torch.full((1, 1), ALPHA, dtype=torch.float32, device=dev)
+    cents, bids, bvecs = ivf._args
+    _, probe = stable_topk(pairwise_l2sq(q, cents), ivf.nprobe_local)
+    half = probe.shape[1] // 2
+
+    def step_operands(k):
+        """The served chain's first half by the plain loop at width k (the
+        carried best), and the next probe's tile."""
+        bd = torch.full((BATCH, k), float("inf"), device=dev)
+        bi = torch.full((BATCH, k), -1, dtype=torch.int32, device=dev)
+        for j in range(half):
+            bd, bi = ref.candidate_topk_ref(q, bvecs[probe[:, j]],
+                                            bids[probe[:, j]], k,
+                                            best_d=bd, best_i=bi)
+        return (bvecs[probe[:, half]].contiguous(),
+                bids[probe[:, half]].contiguous(), bd, bi)
+
+    near = 0
+    for k in LARGE_KS:
+        near += check_l2(f"large k l2_topk k={k}", q, x, k, valid)[
+            "near_ties"]
+        near += check_int8(f"large k l2_topk_int8 k={k}", q, codes, scales, k,
+                           ivalid)["near_ties"]
+        near += check_bm25(f"large k bm25_topk k={k}", qt, qw, terms, tf, k,
+                           valid)["near_ties"]
+        near += check_hybrid(f"large k hybrid_topk k={k}", q, x, qt, qw,
+                             terms, tf, ALPHA, k, valid)["near_ties"]
+        vecs, ids, bd, bi = step_operands(k)
+        near += check_cand(f"large k candidate_topk step k={k}", q, vecs, ids,
+                           k, best_d=bd, best_i=bi)["near_ties"]
+        near += check_chain(f"large k candidate_topk chain k={k}", q, probe,
+                            bids, k, x, bvecs=bvecs)["near_ties"]
+    vecs, ids, bd, bi = step_operands(K_LARGE)
+    calls = {
+        "l2_topk": lambda k: l2_topk.l2_topk(q, x, k, valid=valid),
+        "l2_topk_int8": lambda k: l2_topk.l2_topk_int8(q, codes, scales, k,
+                                                        valid=ivalid),
+        "bm25_topk": lambda k: bm25.bm25_topk(qt, qw, terms, tf, k,
+                                              valid=valid),
+        "hybrid_topk": lambda k: bm25.hybrid_topk(q, x, qt, qw, terms, tf, a,
+                                                  k, valid=valid),
+    }
+    out = {"near_ties": near}
+    for name, fn in calls.items():
+        _, passes = counted(name, lambda: fn(K_LARGE))
+        r = {"passes": passes, "ms": time_ms(lambda: fn(K_LARGE), 10),
+             "ms_k10": RESULTS["kernels"][name]["ms"]}
+        RESULTS["kernels"][name]["k100"] = out[name] = r
+        log(f"[large k] {name}: k={K_LARGE} {passes} passes {r['ms']:.4f} ms "
+            f"(k={K}: {r['ms_k10']:.4f} ms)")
+    # the chain and the step: graph replays, as at k = 10 (one call costs
+    # the host more than the card)
+    chain = lambda: bucket_topk.bucket_probe_topk(  # noqa: E731
+        q, probe, bids, K_LARGE, bucket_vecs=bvecs)
+    step = lambda: bucket_topk.candidate_topk(  # noqa: E731
+        q, vecs, ids, K_LARGE, best_d=bd, best_i=bi)
+    cand = RESULTS["kernels"]["candidate_topk"]
+    for part, fn, k10 in (("chain", chain, cand["ms"]),
+                          ("step", step, cand["step"]["ms"])):
+        _, passes = counted("candidate_topk", fn)
+        r = {"passes": passes, "ms": time_graph_ms(fn, 20), "ms_k10": k10}
+        out[f"candidate_topk {part}"] = r
+        log(f"[large k] candidate_topk {part}: k={K_LARGE} {passes} passes "
+            f"{r['ms']:.5f} ms (k={K}: {k10:.5f} ms)")
+    cand["k100"] = out["candidate_topk chain"]
+    log(f"[large k] every kernel agrees with its plain version at k in "
+        f"{LARGE_KS}; near-ties {near}")
+    RESULTS["large_k"] = out
+
+
 # --------------------------------------------------------------- phase 7
 def phase_profiles(ctx) -> None:
     queries, qt, qw = ctx["queries"], ctx["qt"], ctx["qw"]
@@ -1549,9 +1791,10 @@ def phase_index_sift(dev, ctx) -> dict:
     old = set_tracer(tracer)
     try:
         t0 = time.perf_counter()
-        base = build_index(IndexSpec("two_level", TwoLevelConfig(
+        index = build_index(IndexSpec("two_level", TwoLevelConfig(
             n_clusters=SIFT_1M.n_clusters, top=SIFT_1M.top, bottom="brute",
-            pq_m=8, lsh_bits=BUCKET_LSH_BITS, seed=0)), corpus).two_level
+            pq_m=8, lsh_bits=BUCKET_LSH_BITS, seed=0)), corpus)
+        base = index.two_level
         torch.cuda.synchronize()
         build = {"pq top + brute": time.perf_counter() - t0,
                  "stages": build_spans(tracer)}
@@ -1600,6 +1843,7 @@ def phase_index_sift(dev, ctx) -> dict:
     log(f"[index sift] launches {out['two_level_launches']}")
     require(out["two_level_launches"]["pq_adc_topk"] > 0,
             "the PQ top level never launched pq_adc_topk")
+    out["k100"] = search_index_k100(index, corpus, queries, dev)
     for name, r in rows.items():
         require(r["recall_at_10"] >= 0.5,
                 f"sift pq+{name} recall@10 {r['recall_at_10']} is "
@@ -1674,6 +1918,44 @@ def phase_index_sift(dev, ctx) -> dict:
         f"({res['bound_by']}) plain {res['plain_ms']:.3f} library "
         f"{res['library_ms']:.4f} (k=64: {res['library_ms_k64']:.4f})")
     del xt
+    return out
+
+
+def search_index_k100(index, corpus, queries, dev) -> dict:
+    """``SearchIndex.search`` at k = 100 on the sift two-level index (PQ top,
+    brute bottom, nprobe 32), on the card: the PQ top level at k = nprobe,
+    the probe chain in four passes; recall@100 against the exact top-100
+    of the ``l2_topk`` kernel (four passes a batch), whose first batch is
+    held against its plain version."""
+    x = torch.as_tensor(corpus, device=dev)
+    q0 = torch.as_tensor(queries[:BATCH], device=dev)
+    check_l2("index sift exact top-100", q0, x, K_LARGE)
+    exact = []
+    for s0 in range(0, len(queries), INDEX_QUERIES):
+        qb = torch.as_tensor(queries[s0:s0 + INDEX_QUERIES], device=dev)
+        exact.append(l2_topk.l2_topk(qb, x, K_LARGE)[1].cpu().numpy())
+    exact = np.concatenate(exact)
+    del x
+    reset_launches()
+    t0 = time.perf_counter()
+    d, ids, _ = index.search(queries, K_LARGE, nprobe=SIFT_NPROBE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    require(ids.shape == (len(queries), K_LARGE) and (ids >= 0).all()
+            and np.isfinite(d).all(), "search at k=100: sentinels or shape")
+    require(all((np.diff(r) >= 0).all() for r in d),
+            "search at k=100: distances out of order")
+    out = {"recall_at_100": recall_at_k(ids, exact),
+           "per_query_ms": wall / len(queries) * 1e3,
+           "launches": launches}
+    log(f"[index sift] SearchIndex.search k={K_LARGE} nprobe {SIFT_NPROBE}: "
+        f"recall@100 {out['recall_at_100']:.4f} against the exact top-100, "
+        f"{out['per_query_ms']:.5f} ms a query (cold call), launches "
+        f"{launches}")
+    require(launches["candidate_topk"] > 0 and launches["pq_adc_topk"] > 0,
+            "search at k=100 ran no kernel")
+    require(out["recall_at_100"] >= 0.5, "recall@100 is implausibly low")
     return out
 
 
@@ -1817,6 +2099,15 @@ def phase_index_deep(dev, label: str) -> dict:
         torch.gather(lut, 2, cidx).sum(1), 64, largest=False), 20)
     res["library_call"] = ("torch.topk(torch.gather(lut, 2, codes).sum(1)):"
                            " three calls")
+    # above the 64-pair lists: passes of 64, bit for bit the plain version
+    for k in (65, K_LARGE):
+        check_pq(f"shape pq_adc_topk B1024 N32768 M8 k{k}", lut, codes, k)
+    _, passes = counted("pq_adc_topk",
+                        lambda: pq_adc.pq_adc_topk(lut, codes, K_LARGE))
+    res["k100"] = {"passes": passes, "ms": time_ms(
+        lambda: pq_adc.pq_adc_topk(lut, codes, K_LARGE), 20)}
+    log(f"[large k] pq_adc_topk: k={K_LARGE} {passes} passes "
+        f"{res['k100']['ms']:.4f} ms (k={kk}: {res['ms']:.4f} ms)")
     nbytes = 4.0 * B * M * 256 + 1.0 * N * M + 8.0 * B * kk
     res["bound_ms"], res["bound_by"] = bound(nbytes, 1.0 * B * N * M)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1967,11 +2258,14 @@ def kernel_line() -> dict:
         if "library_ms_k64" in r:
             row.update(ms_k64=r["ms_k64"], library_ms_k64=r["library_ms_k64"])
         for extra in ("lookup_ms", "bytes_ms", "compare_loop_ops_ms",
-                      "matched_slots"):
+                      "matched_slots", "tc_bound_ms"):
             if extra in r:
                 row[extra] = r[extra]
         if "eight_terms" in r:
             row["ms_t8"] = r["eight_terms"]["ms"]
+        if "k100" in r:
+            row.update(ms_k100=r["k100"]["ms"],
+                       passes_k100=r["k100"]["passes"])
         for part in ("step", "deep"):
             if part in r:
                 row[part] = {key: r[part][key] for key in (
@@ -1995,6 +2289,8 @@ def main() -> int:
         ctx = phase_main(dev, card)
     with phase("options"):
         phase_options(dev, ctx)
+    with phase("large k"):
+        phase_large_k(dev, ctx)
     with phase("profile"):
         phase_profiles(ctx)
     phase_index(dev, ctx)

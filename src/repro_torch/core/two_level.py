@@ -24,9 +24,8 @@ runs the whole probe chain through ``bucket_probe_topk_op`` (the
 the reference runs its ``_probe_scan_brute`` loop (its docstring names the
 kernel tile loop over the probed buckets as the loop's home): the same
 ids up to rounding, except that a bucket probed twice is emitted once on
-the card (ROADMAP fault 5).  On the card ``k`` is at most ``KMAX``.  The
-LSH bottom's gathered Hamming scan and every other step are plain
-PyTorch.
+the card (ROADMAP fault 5).  The LSH bottom's gathered Hamming scan and
+every other step are plain PyTorch.
 """
 from __future__ import annotations
 
@@ -244,7 +243,7 @@ class TwoLevelIndex:
         bottom = self.config.bottom
         if bottom == "brute":
             # the whole probe chain: on the card one scan and one merge
-            # launch of candidate_topk (k <= KMAX), rows read by entity id
+            # launch of candidate_topk a pass, rows read by entity id
             d, i = bucket_probe_topk_op(q, buckets, t["bucket_ids"], k,
                                         db=t["db"])
             return d, i, work

@@ -2,12 +2,13 @@
 
 Replace ``repro/kernels/bm25.py::bm25_topk_pallas`` (the kernel is
 ``csrc/bm25_topk.cu``) and ``hybrid_topk_pallas`` (the ``HybridRows``
-instantiation of ``csrc/l2_topk.cu``, whose tile loop it shares).  The
-BM25 scan looks each document's slab up in a dictionary of the block's
-query terms (in groups of queries when the tile holds more distinct
-terms than its hit rows) and reads per-term hits; the hybrid scan scores
-a document by the compare loop of ``csrc/lexical.cuh``.  Both give the
-same bits.
+instantiation of ``csrc/l2_topk.cu``'s fp32 tile loop, whose d2 it
+shares).  Both look each document's slab up in a dictionary of the
+block's query terms (in groups of queries when the tile holds more
+distinct terms than its hit rows) and read per-term hits, the device
+functions of ``csrc/lexical.cuh``; both give the same bits.  A ``k`` above
+``KMAX`` is served in passes (``common.topk_passes``), each one counted
+launch.
 
 Documents carry fixed-shape postings slabs (``core.lexical``): ``terms``
 (N, S) int32, -1 padded, and ``tf_sat`` (N, S) float32; queries carry
@@ -27,7 +28,9 @@ import torch
 
 from repro_torch.kernels import _build, l2_topk
 from repro_torch.kernels.common import (KMAX, LaunchCounter, empty_result,
-                                        pad_sentinel, valid_operand)
+                                        pad_sentinel, topk_passes,
+                                        valid_operand)
+from repro_torch.kernels.l2_topk import ptr
 
 __all__ = ["bm25_topk", "hybrid_topk", "LAUNCHES", "HYBRID_LAUNCHES",
            "SLAB_MAX", "MAX_T"]
@@ -45,7 +48,7 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.library("bm25_topk")
-        lib.bm25_topk_launch.argtypes = ([ctypes.c_void_p] * 9
+        lib.bm25_topk_launch.argtypes = ([ctypes.c_void_p] * 11
                                          + [ctypes.c_int] * 8
                                          + [ctypes.c_void_p])
         lib.bm25_topk_launch.restype = ctypes.c_int
@@ -77,34 +80,37 @@ def bm25_topk(q_terms: torch.Tensor, q_weights: torch.Tensor,
               valid=None):
     """Returns (ranking dists = -bm25 (B, k) ascending fp32, ids (B, k)
     int32).  ``valid`` (N,) masks dead rows; ``k`` is clamped to N and
-    restored with the ``(inf, -1)`` sentinel.  Raises for a CPU tensor, a
-    wrong dtype or shape, slabs wider than ``SLAB_MAX``, ``k`` beyond
-    ``KMAX``, or a failed launch."""
+    restored with the ``(inf, -1)`` sentinel; any ``k`` is served (above
+    ``KMAX`` in passes).  Raises for a CPU tensor, a wrong dtype or shape,
+    slabs wider than ``SLAB_MAX``, or a failed launch."""
     tensors = (q_terms, q_weights, terms, tf_sat)
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError("bm25_topk takes CUDA tensors; the plain version is "
                          "ref.bm25_topk_ref")
     B, T, N, S = _check_lexical("bm25_topk", *tensors)
     k_eff = min(k, N)
-    if k_eff > KMAX:
-        raise ValueError(f"k={k_eff} exceeds the kernel's KMAX={KMAX}")
     dev = q_terms.device
     if B == 0 or k_eff == 0:
         return empty_result(B, k, dev)
     qt, qw, t, f = (x.contiguous() for x in tensors)
     v = valid_operand(valid, N, dev)
     lib = _library()
-    out_d, out_i, part_d, part_i, kt, splits, rows = l2_topk.scan_outputs(
-        B, N, k_eff, 1, dev)
-    with torch.cuda.device(dev):
-        rc = lib.bm25_topk_launch(
-            qt.data_ptr(), qw.data_ptr(), t.data_ptr(), f.data_ptr(),
-            None if v is None else v.data_ptr(), part_d.data_ptr(),
-            part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), B, N, T, S,
-            k_eff, kt, splits, rows, l2_topk.stream_handle(dev))
-    if rc != 0:
-        raise RuntimeError(f"bm25_topk launch failed: CUDA error {rc}")
-    LAUNCHES.inc()
+
+    def run(kr, after_d, after_i):
+        out_d, out_i, part_d, part_i, kt, splits, rows = l2_topk.scan_outputs(
+            B, N, kr, 1, dev)
+        with torch.cuda.device(dev):
+            rc = lib.bm25_topk_launch(
+                qt.data_ptr(), qw.data_ptr(), t.data_ptr(), f.data_ptr(),
+                ptr(v), ptr(after_d), ptr(after_i), part_d.data_ptr(),
+                part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), B, N,
+                T, S, kr, kt, splits, rows, l2_topk.stream_handle(dev))
+        if rc != 0:
+            raise RuntimeError(f"bm25_topk launch failed: CUDA error {rc}")
+        LAUNCHES.inc()
+        return out_d, out_i
+
+    out_d, out_i = topk_passes(run, B, k_eff, KMAX, dev)
     return pad_sentinel(out_d, out_i, k, k_eff)
 
 
@@ -140,16 +146,22 @@ def hybrid_topk(queries: torch.Tensor, db: torch.Tensor,
     q, x, qt, qw, t, f, a = (x_.contiguous() for x_ in tensors)
     v = valid_operand(valid, N, dev)
     lib = l2_topk.library()
-    out_d, out_i, part_d, part_i, kt, splits, rows = l2_topk.scan_outputs(
-        B, N, k_eff, lib.l2_topk_selectors(), dev)
-    with torch.cuda.device(dev):
-        rc = lib.hybrid_topk_launch(
-            q.data_ptr(), x.data_ptr(), qt.data_ptr(), qw.data_ptr(),
-            t.data_ptr(), f.data_ptr(), a.data_ptr(),
-            None if v is None else v.data_ptr(), part_d.data_ptr(),
-            part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), B, N, D, T,
-            S, k_eff, kt, splits, rows, l2_topk.stream_handle(dev))
-    if rc != 0:
-        raise RuntimeError(f"hybrid_topk launch failed: CUDA error {rc}")
-    HYBRID_LAUNCHES.inc()
+
+    def run(kr, after_d, after_i):
+        out_d, out_i, part_d, part_i, kt, splits, rows = l2_topk.scan_outputs(
+            B, N, kr, 1, dev)
+        with torch.cuda.device(dev):
+            rc = lib.hybrid_topk_launch(
+                q.data_ptr(), x.data_ptr(), qt.data_ptr(), qw.data_ptr(),
+                t.data_ptr(), f.data_ptr(), a.data_ptr(), ptr(v),
+                ptr(after_d), ptr(after_i),
+                l2_topk.shared_bound(B, dev).data_ptr(), part_d.data_ptr(),
+                part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), B, N,
+                D, T, S, kr, kt, splits, rows, l2_topk.stream_handle(dev))
+        if rc != 0:
+            raise RuntimeError(f"hybrid_topk launch failed: CUDA error {rc}")
+        HYBRID_LAUNCHES.inc()
+        return out_d, out_i
+
+    out_d, out_i = topk_passes(run, B, k_eff, KMAX, dev)
     return pad_sentinel(out_d, out_i, k, k_eff)

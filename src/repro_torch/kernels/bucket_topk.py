@@ -16,9 +16,11 @@ and the bound).  Two entries share its device code and its launch count:
 
 Both check the operands, choose the split count, allocate the outputs and
 the per-block partial lists, launch on PyTorch's current stream and count
-one launch of ``candidate_topk`` per call.  CUDA tensors only; the plain
-versions are ``ref.candidate_topk_ref`` / ``ref.bucket_probe_topk_ref``
-and ``ops`` picks between kernel and plain version by device.
+one launch of ``candidate_topk`` per pass: one a call up to ``KMAX``, and
+``ceil(k / KMAX)`` above it (``common.topk_passes``).  CUDA tensors only;
+the plain versions are ``ref.candidate_topk_ref`` /
+``ref.bucket_probe_topk_ref`` and ``ops`` picks between kernel and plain
+version by device.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (KMAX, LaunchCounter, empty_result,
-                                        list_len)
+                                        list_len, topk_passes)
+from repro_torch.kernels.l2_topk import ptr
 
 __all__ = ["candidate_topk", "bucket_probe_topk", "splits_for", "LAUNCHES"]
 
@@ -44,8 +47,8 @@ _fns: dict = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # each extern "C" launcher's arguments; the last is the stream
 _ARGTYPES = {
-    "candidate_topk_launch": [_P] * 9 + [_I] * 7 + [_P],
-    "bucket_probe_topk_launch": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 7 + [_P],
+    "candidate_topk_launch": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 7 + [_P],
+    "bucket_probe_topk_launch": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 7 + [_P],
 }
 
 
@@ -72,12 +75,6 @@ def _check_cuda(name: str, plain: str, tensors) -> None:
                          f"ref.{plain}")
 
 
-def _check_k(k: int) -> int:
-    if k > KMAX:
-        raise ValueError(f"k={k} exceeds the kernel's KMAX={KMAX}")
-    return list_len(k)
-
-
 def _rows_operand(t: torch.Tensor) -> torch.Tensor:
     """Contiguous float32 rows, 16-byte aligned: the kernel reads float4s
     where D is a multiple of 4, so the rounding depends on D alone."""
@@ -95,9 +92,10 @@ def candidate_topk(queries: torch.Tensor, vecs: torch.Tensor,
     ``vecs`` (B, C, D) float32 and ``ids`` (B, C) int32 are each query's
     candidates, ``id < 0`` marking a dead slot.  With ``best_d``/``best_i``
     (B, k) the result is their merge with the tile, otherwise the list
-    starts from the ``(inf, -1)`` sentinel; ``k`` may exceed C.  A pair
-    seen twice is emitted once.  Raises for a CPU tensor, a wrong dtype or
-    shape, ``k`` beyond ``KMAX``, or a failed launch.
+    starts from the ``(inf, -1)`` sentinel; ``k`` may exceed C, and any
+    ``k`` is served (above ``KMAX`` in passes).  A pair seen twice is
+    emitted once.  Raises for a CPU tensor, a wrong dtype or shape, or a
+    failed launch.
     """
     tensors = [queries, vecs, ids] + [t for t in (best_d, best_i)
                                       if t is not None]
@@ -116,7 +114,8 @@ def candidate_topk(queries: torch.Tensor, vecs: torch.Tensor,
                          f"{tuple(ids.shape)} do not match vecs {(B, C, D)}")
     if D > MAX_D:
         raise ValueError(f"D={D} exceeds the kernel's MAX_D={MAX_D}")
-    kt = _check_k(k)
+    if k < 1:
+        raise ValueError(f"k={k} must be at least 1")
     if best_d is not None:
         if best_d.dtype != torch.float32 or best_i.dtype != torch.int32:
             raise TypeError("best_d/best_i must be float32/int32")
@@ -130,22 +129,27 @@ def candidate_topk(queries: torch.Tensor, vecs: torch.Tensor,
     splits = splits_for(
         B, C, torch.cuda.get_device_properties(dev).multi_processor_count)
     per = -(-C // splits)
-    part_d = torch.empty((B, splits, kt), dtype=torch.float32, device=dev)
-    part_i = torch.empty((B, splits, kt), dtype=torch.int32, device=dev)
-    out_d = torch.empty((B, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     fn = _launcher("candidate_topk_launch")
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), v.data_ptr(), i.data_ptr(),
-                None if best_d is None else best_d.data_ptr(),
-                None if best_i is None else best_i.data_ptr(),
-                part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-                out_i.data_ptr(), B, C, D, k, kt, splits, per,
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"candidate_topk launch failed: CUDA error {rc}")
-    LAUNCHES.inc()
-    return out_d, out_i
+
+    def run(kr, after_d, after_i):
+        kt = list_len(kr)
+        part_d = torch.empty((B, splits, kt), dtype=torch.float32, device=dev)
+        part_i = torch.empty((B, splits, kt), dtype=torch.int32, device=dev)
+        out_d = torch.empty((B, kr), dtype=torch.float32, device=dev)
+        out_i = torch.empty((B, kr), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = fn(q.data_ptr(), v.data_ptr(), i.data_ptr(), ptr(best_d),
+                    ptr(best_i), k, ptr(after_d), ptr(after_i),
+                    part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+                    out_i.data_ptr(), B, C, D, kr, kt, splits, per,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"candidate_topk launch failed: CUDA error "
+                               f"{rc}")
+        LAUNCHES.inc()
+        return out_d, out_i
+
+    return topk_passes(run, B, k, KMAX, dev)
 
 
 def bucket_probe_topk(queries: torch.Tensor, probe: torch.Tensor,
@@ -160,8 +164,9 @@ def bucket_probe_topk(queries: torch.Tensor, probe: torch.Tensor,
     The rows are ``bucket_vecs`` (K, cap, D) float32 by (bucket, slot), or
     ``db`` (N, D) float32 by entity id: exactly one of the two.  A pair
     seen twice (a bucket probed twice) is emitted once; ``k`` may exceed
-    the live candidates.  Raises for a CPU tensor, a wrong dtype or shape,
-    ``k`` beyond ``KMAX``, or a failed launch.
+    the live candidates, and any ``k`` is served (above ``KMAX`` in
+    passes).  Raises for a CPU tensor, a wrong dtype or shape, or a failed
+    launch.
     """
     if (bucket_vecs is None) == (db is None):
         raise ValueError("pass exactly one of bucket_vecs and db")
@@ -191,24 +196,32 @@ def bucket_probe_topk(queries: torch.Tensor, probe: torch.Tensor,
         raise ValueError(f"D={D} exceeds the kernel's MAX_D={MAX_D}")
     if nprobe > 65535:
         raise ValueError(f"nprobe={nprobe} exceeds the grid's 65535")
-    kt = _check_k(k)
+    if k < 1:
+        raise ValueError(f"k={k} must be at least 1")
     dev = queries.device
     if B == 0:
         return empty_result(B, k, dev)
     q, r = queries.contiguous(), _rows_operand(rows)
     p = probe.to(torch.int32).contiguous()
     bids = bucket_ids.contiguous()
-    part_d = torch.empty((B, nprobe, kt), dtype=torch.float32, device=dev)
-    part_i = torch.empty((B, nprobe, kt), dtype=torch.int32, device=dev)
-    out_d = torch.empty((B, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     fn = _launcher("bucket_probe_topk_launch")
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), p.data_ptr(), bids.data_ptr(), r.data_ptr(),
-                int(db is not None), part_d.data_ptr(), part_i.data_ptr(),
-                out_d.data_ptr(), out_i.data_ptr(), B, nprobe, K, cap, D, k,
-                kt, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bucket_probe_topk launch failed: CUDA error {rc}")
-    LAUNCHES.inc()
-    return out_d, out_i
+
+    def run(kr, after_d, after_i):
+        kt = list_len(kr)
+        part_d = torch.empty((B, nprobe, kt), dtype=torch.float32, device=dev)
+        part_i = torch.empty((B, nprobe, kt), dtype=torch.int32, device=dev)
+        out_d = torch.empty((B, kr), dtype=torch.float32, device=dev)
+        out_i = torch.empty((B, kr), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = fn(q.data_ptr(), p.data_ptr(), bids.data_ptr(), r.data_ptr(),
+                    int(db is not None), ptr(after_d), ptr(after_i),
+                    part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+                    out_i.data_ptr(), B, nprobe, K, cap, D, kr, kt,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"bucket_probe_topk launch failed: CUDA error "
+                               f"{rc}")
+        LAUNCHES.inc()
+        return out_d, out_i
+
+    return topk_passes(run, B, k, KMAX, dev)

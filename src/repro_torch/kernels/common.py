@@ -14,16 +14,17 @@ import torch
 
 __all__ = ["INF", "KMAX", "KMAX_PQ", "LAUNCH_COUNTERS", "LaunchCounter",
            "empty_result", "list_len", "merge_topk", "pad_sentinel",
-           "popcount32", "stable_topk", "valid_operand"]
+           "popcount32", "stable_topk", "topk_passes", "valid_operand"]
 
 INF = float("inf")
 
-# Compile-time ceilings on k in the CUDA kernels' register lists
+# The longest register list of one pass of the CUDA kernels
 # (csrc/topk_common.cuh): the dense scans instantiate lists of up to 32
-# entries, the PQ scan up to 64 (its nprobe sweep reaches 64).  The
-# wrappers refuse a larger k; the Hamming scan has no list and no ceiling.
+# entries, the PQ scan up to 64 (its nprobe sweep reaches 64).  A larger k
+# takes ceil(k / KMAX) passes (topk_passes); the Hamming scan has no list.
 KMAX = 32
 KMAX_PQ = 64
+_ID_MAX = torch.iinfo(torch.int32).max
 
 
 def list_len(k: int, kmax: int = KMAX) -> int:
@@ -100,6 +101,38 @@ def merge_topk(best_d, best_i, tile_d, tile_i, k: int):
         out_i.append(mi)
         cat_d = torch.where(tie & (cat_i == mi[:, None]), INF, cat_d)
     return torch.stack(out_d, dim=1), torch.stack(out_i, dim=1)
+
+
+def topk_passes(run, b: int, k: int, kmax: int, device):
+    """The top-``k`` of a kernel whose list holds at most ``kmax`` pairs, in
+    ``ceil(k / kmax)`` passes.
+
+    ``run(kr, after_d, after_i)`` launches the kernel once for ``kr <=
+    kmax`` pairs a query, each pair strictly after ``(after_d[b],
+    after_i[b])`` in the (distance, id) order (``None``: no bound), and
+    returns its ``(B, kr)`` lists.  Pass r is bounded by each query's last
+    pair of pass r - 1 and fills columns ``r kmax ..`` of the result; a
+    query whose list ended in the ``(inf, -1)`` sentinel is bounded by
+    ``(inf, int32 max)``, after which nothing ranks, so the rest of its row
+    is sentinels too.  Everything stays on the device: no pass waits for
+    the host.  A pair repeated in the candidates has one (distance, id),
+    so both copies fall in the same pass, which emits it once."""
+    if k <= kmax:
+        return run(k, None, None)
+    out_d = torch.empty((b, k), dtype=torch.float32, device=device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=device)
+    after_d = after_i = None
+    for c0 in range(0, k, kmax):
+        kr = min(kmax, k - c0)
+        d, i = run(kr, after_d, after_i)
+        out_d[:, c0:c0 + kr] = d
+        out_i[:, c0:c0 + kr] = i
+        last_d, last_i = d[:, -1], i[:, -1]
+        done = last_i < 0
+        after_d = torch.where(done, INF, last_d).contiguous()
+        after_i = torch.where(done, _ID_MAX, last_i).to(torch.int32)
+        after_i = after_i.contiguous()
+    return out_d, out_i
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:

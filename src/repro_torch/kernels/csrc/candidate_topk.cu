@@ -6,8 +6,11 @@
 //   d2 = (vn - 2 v.q) + qn, rounded in that order; dead slots (id < 0)
 //   never rank.  The result is the k smallest (distance, id) pairs, a pair
 //   seen twice emitted once (as the Pallas merge retires every copy of the
-//   pair it selects), (inf, -1) in slots nothing fills.  Two entries share
-//   the device code:
+//   pair it selects), (inf, -1) in slots nothing fills.  One launch serves
+//   k <= 32; a larger k is taken in passes (kernels/common.py:
+//   topk_passes), each bounded by the last pair of the one before
+//   (after_d / after_i: rt::WarpTopK::beats), the carried best filtered by
+//   the same bound.  Two entries share the device code:
 //   candidate_topk_launch     a per-query (B, C, D) tile, merged with an
 //                             optional carried best (the Pallas kernel's
 //                             contract);
@@ -92,6 +95,8 @@ struct ScanArgs {
   const float* rows;     // vecs (B, C, D) | bucket_vecs (K, cap, D) | db (N, D)
   const int* ids;        // ids (B, C) | bucket_ids (K, cap)
   const int* probe;      // (B, nprobe) probed buckets, or null: the tile entry
+  const float* after_d;  // (B,) the pass's bound, or null: none
+  const int* after_i;
   float* part_d;         // (B, S, kt)
   int* part_i;
   int B, D, k, kt, S;
@@ -103,8 +108,9 @@ struct ScanArgs {
 
 // The warp's running top-k: entry j of the sorted list in lane j (lanes
 // j >= k stay (inf, ID_NONE)) and the k-th pair in every lane, a pair held
-// already never inserted twice.
-using WarpList = rt::WarpTopK<1, true>;
+// already never inserted twice; BOUNDED: a pass's bound is tested too.
+template <bool BOUNDED>
+using WarpList = rt::WarpTopK<1, true, BOUNDED>;
 
 // ||q||^2 in the rows' order: lane l of the group sums its elements, the
 // group's partials are summed by the butterfly.
@@ -141,10 +147,11 @@ __device__ __forceinline__ void acc4(const float4 v, const float4 qq, float& vn,
 
 // One pass of a warp: live entries p0 + g and p0 + GROUPS + g of the
 // compacted list, scored by lane group g and offered to the warp's list.
-template <bool VEC, bool INDIRECT>
+template <bool VEC, bool INDIRECT, bool BOUNDED>
 __device__ __forceinline__ void scan_pass(const ScanArgs& a, const float* qs, float qn,
                                           const int* s_slot, const int* s_id, int cnt,
-                                          size_t row_base, int p0, int lane, WarpList& top) {
+                                          size_t row_base, int p0, int lane,
+                                          WarpList<BOUNDED>& top) {
   const int g = lane / GROUP, l = lane % GROUP;
   const int pa = p0 + g, pb = p0 + GROUPS + g;
   const bool va = pa < cnt, vb = pb < cnt;
@@ -196,7 +203,7 @@ __device__ __forceinline__ void scan_pass(const ScanArgs& a, const float* qs, fl
 }
 
 // Scan block (b, s): the live slots of its segments into a sorted partial.
-template <bool VEC, bool INDIRECT>
+template <bool VEC, bool INDIRECT, bool BOUNDED>
 __global__ void __launch_bounds__(THREADS) candidate_scan(const ScanArgs a) {
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);   // [D rounded up to 4]
@@ -230,8 +237,15 @@ __global__ void __launch_bounds__(THREADS) candidate_scan(const ScanArgs a) {
     seg_ids = a.ids + row_base;
   }
 
-  WarpList top;
-  top.init();
+  WarpList<BOUNDED> top;
+  if (BOUNDED) {
+    float ad;
+    int ai;
+    rt::after_of(a.after_d, a.after_i, b, ad, ai);
+    top.init(ad, ai);
+  } else {
+    top.init();
+  }
   for (int c0 = 0; c0 < n; c0 += CHUNK) {
     const int m = min(CHUNK, n - c0);
     if (tid == 0) s_count = 0;
@@ -253,7 +267,7 @@ __global__ void __launch_bounds__(THREADS) candidate_scan(const ScanArgs a) {
     __syncthreads();
     const int cnt = s_count;
     for (int p0 = warp * PASS; p0 < cnt; p0 += WARPS * PASS)
-      scan_pass<VEC, INDIRECT>(a, qs, qn, s_slot, s_id, cnt, row_base, p0, lane, top);
+      scan_pass<VEC, INDIRECT, BOUNDED>(a, qs, qn, s_slot, s_id, cnt, row_base, p0, lane, top);
     __syncthreads();
   }
 
@@ -271,21 +285,34 @@ __global__ void __launch_bounds__(THREADS) candidate_scan(const ScanArgs a) {
   }
 }
 
-// One warp per query: the carried best (B, k) and the L = S * kt partial
-// entries into the top-k, a pair seen twice kept once.
+// One warp per query: the carried best (B, kb) and the L = S * kt partial
+// entries into the top-k, a pair seen twice kept once; the carried best is
+// held to the pass's bound like every other pair.
+template <bool BOUNDED>
 __global__ void __launch_bounds__(MERGE_WARPS * 32)
 candidate_merge(const float* __restrict__ part_d, const int* __restrict__ part_i, int L,
-                const float* __restrict__ best_d, const int* __restrict__ best_i,
+                const float* __restrict__ best_d, const int* __restrict__ best_i, int kb,
+                const float* __restrict__ after_d, const int* __restrict__ after_i,
                 float* __restrict__ out_d, int* __restrict__ out_i, int B, int k) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * MERGE_WARPS + (threadIdx.x >> 5);
   if (b >= B) return;   // the whole warp leaves together
-  WarpList top;
-  top.init();
+  WarpList<BOUNDED> top;
+  if (BOUNDED) {
+    float ad;
+    int ai;
+    rt::after_of(after_d, after_i, b, ad, ai);
+    top.init(ad, ai);
+  } else {
+    top.init();
+  }
   if (best_d != nullptr) {
-    const bool in = lane < k;
-    top.offer(in, in ? best_d[(size_t)b * k + lane] : CUDART_INF_F,
-              in ? best_i[(size_t)b * k + lane] : rt::ID_NONE, k, lane);
+    for (int e0 = 0; e0 < kb; e0 += 32) {
+      const int e = e0 + lane;
+      const bool in = e < kb;
+      top.offer(in, in ? best_d[(size_t)b * kb + e] : CUDART_INF_F,
+                in ? best_i[(size_t)b * kb + e] : rt::ID_NONE, k, lane);
+    }
   }
   const float* pd = part_d + (size_t)b * L;
   const int* pi = part_i + (size_t)b * L;
@@ -297,27 +324,39 @@ candidate_merge(const float* __restrict__ part_d, const int* __restrict__ part_i
   top.store(out_d + (size_t)b * k, out_i + (size_t)b * k, k, lane, true);
 }
 
-int scan_and_merge(const ScanArgs& a, bool indirect, const float* best_d, const int* best_i,
-                   float* out_d, int* out_i, cudaStream_t stream) {
+template <bool BOUNDED>
+int scan_and_merge_bounded(const ScanArgs& a, bool indirect, const float* best_d,
+                           const int* best_i, int kb, float* out_d, int* out_i,
+                           cudaStream_t stream) {
   if (a.S > 0) {
     const bool vec = (a.D % 4) == 0;
     const size_t smem = sizeof(float) * (size_t)((a.D + 3) / 4 * 4);
     const dim3 grid(a.B, a.S);
     if (vec && indirect)
-      candidate_scan<true, true><<<grid, THREADS, smem, stream>>>(a);
+      candidate_scan<true, true, BOUNDED><<<grid, THREADS, smem, stream>>>(a);
     else if (vec)
-      candidate_scan<true, false><<<grid, THREADS, smem, stream>>>(a);
+      candidate_scan<true, false, BOUNDED><<<grid, THREADS, smem, stream>>>(a);
     else if (indirect)
-      candidate_scan<false, true><<<grid, THREADS, smem, stream>>>(a);
+      candidate_scan<false, true, BOUNDED><<<grid, THREADS, smem, stream>>>(a);
     else
-      candidate_scan<false, false><<<grid, THREADS, smem, stream>>>(a);
+      candidate_scan<false, false, BOUNDED><<<grid, THREADS, smem, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (a.B + MERGE_WARPS - 1) / MERGE_WARPS;
-  candidate_merge<<<blocks, MERGE_WARPS * 32, 0, stream>>>(
-      a.part_d, a.part_i, a.S * a.kt, best_d, best_i, out_d, out_i, a.B, a.k);
+  candidate_merge<BOUNDED><<<blocks, MERGE_WARPS * 32, 0, stream>>>(
+      a.part_d, a.part_i, a.S * a.kt, best_d, best_i, kb, a.after_d, a.after_i, out_d, out_i,
+      a.B, a.k);
   return (int)cudaGetLastError();
+}
+
+// A first pass (no bound) runs the lists without the bound's test.
+int scan_and_merge(const ScanArgs& a, bool indirect, const float* best_d, const int* best_i,
+                   int kb, float* out_d, int* out_i, cudaStream_t stream) {
+  return a.after_d != nullptr
+             ? scan_and_merge_bounded<true>(a, indirect, best_d, best_i, kb, out_d, out_i, stream)
+             : scan_and_merge_bounded<false>(a, indirect, best_d, best_i, kb, out_d, out_i,
+                                             stream);
 }
 
 }  // namespace
@@ -325,29 +364,33 @@ int scan_and_merge(const ScanArgs& a, bool indirect, const float* best_d, const 
 extern "C" {
 
 // Each returns a cudaError_t as int (0 = launched); B >= 1, 1 <= k <= kt
-// <= 32, the partials (B, splits, kt) / (B, nprobe, kt) scratch.
+// <= 32, the partials (B, splits, kt) / (B, nprobe, kt) scratch; after_d /
+// after_i are (B,) or both null: the pass's bound.
 
 // The tile entry: C slots a query in `splits` segments of `per`.  best_d /
-// best_i are both null (start from the sentinel) or both (B, k).
+// best_i are both null (start from the sentinel) or both (B, kb).
 int candidate_topk_launch(const float* q, const float* vecs, const int* ids,
-                          const float* best_d, const int* best_i, float* part_d,
-                          int* part_i, float* out_d, int* out_i, int B, int C, int D,
-                          int k, int kt, int splits, int per, cudaStream_t stream) {
+                          const float* best_d, const int* best_i, int kb, const float* after_d,
+                          const int* after_i, float* part_d, int* part_i, float* out_d,
+                          int* out_i, int B, int C, int D, int k, int kt, int splits, int per,
+                          cudaStream_t stream) {
   if (k < 1 || k > kt || kt > rt::KMAX) return (int)cudaErrorInvalidValue;
-  ScanArgs a{q, vecs, ids, nullptr, part_d, part_i, B, D, k, kt, splits, C, per, 0, 0};
-  return scan_and_merge(a, false, best_d, best_i, out_d, out_i, stream);
+  ScanArgs a{q, vecs, ids, nullptr, after_d, after_i, part_d, part_i, B, D, k, kt, splits, C,
+             per, 0, 0};
+  return scan_and_merge(a, false, best_d, best_i, kb, out_d, out_i, stream);
 }
 
 // The probe chain: rows are bucket_vecs (K, cap, D) when indirect == 0,
 // db (N, D) by entity id when indirect == 1.
 int bucket_probe_topk_launch(const float* q, const int* probe, const int* bucket_ids,
-                             const float* rows, int indirect, float* part_d, int* part_i,
-                             float* out_d, int* out_i, int B, int nprobe, int K, int cap,
-                             int D, int k, int kt, cudaStream_t stream) {
+                             const float* rows, int indirect, const float* after_d,
+                             const int* after_i, float* part_d, int* part_i, float* out_d,
+                             int* out_i, int B, int nprobe, int K, int cap, int D, int k, int kt,
+                             cudaStream_t stream) {
   if (k < 1 || k > kt || kt > rt::KMAX) return (int)cudaErrorInvalidValue;
-  ScanArgs a{q, rows, bucket_ids, probe, part_d, part_i, B, D, k, kt, nprobe, cap, 0, K,
-             nprobe};
-  return scan_and_merge(a, indirect != 0, nullptr, nullptr, out_d, out_i, stream);
+  ScanArgs a{q, rows, bucket_ids, probe, after_d, after_i, part_d, part_i, B, D, k, kt, nprobe,
+             cap, 0, K, nprobe};
+  return scan_and_merge(a, indirect != 0, nullptr, nullptr, 0, out_d, out_i, stream);
 }
 
 }  // extern "C"

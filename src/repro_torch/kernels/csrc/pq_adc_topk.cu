@@ -5,8 +5,11 @@
 //   from 0.0f with round-to-nearest adds (the Pallas kernel's fori_loop
 //   order, so the plain version ref.pq_adc_topk_ref equals this kernel bit
 //   for bit); rows with valid == 0 never rank; the k smallest under the
-//   (distance, id) order, k <= 64 (the nprobe sweep of fig2d_deep.py
-//   reaches 64), (inf, -1) in slots no live row fills.
+//   (distance, id) order, (inf, -1) in slots no live row fills.  One launch
+//   serves k <= 64 (the nprobe sweep of fig2d_deep.py reaches 64); a larger
+//   k is taken in passes of 64 (kernels/common.py: topk_passes), each
+//   bounded by the last pair of the one before (after_d / after_i:
+//   rt::WarpTopK::beats).
 //
 // Bound at the main path's shape (the PQ top level of DEEP-10M: B = 1,024
 // queries of a query chunk, N = 32,768 centroid codes, M = 8, k = nprobe
@@ -28,7 +31,7 @@
 //   not split across blocks; at B = 64 it is split 9 ways.  Each split and
 //   warp keeps its own list, so splitting further costs merges (the
 //   smoke times the doubled split count beside the chosen one).  With
-//   more than one split, a second pass (one warp a query,
+//   more than one split, a second pass (a block of warps a query,
 //   rt::warp_merge_partials) folds the (B, S, KT) partials, linear in
 //   S x KT.
 // * Selection: one list per warp, spread over its lanes (rt::WarpTopK:
@@ -60,7 +63,7 @@ namespace {
 
 constexpr int WARPS = 4;              // warps per block, one query
 constexpr int THREADS = WARPS * 32;
-constexpr int MERGE_WARPS = 4;        // queries per merge block
+constexpr int MERGE_WARPS = 8;        // warps merging one query's partials
 constexpr int C = 256;                // codewords per subspace
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -71,10 +74,10 @@ constexpr unsigned FULL = 0xffffffffu;
 // merged into the list by rank (each entry's place is its index plus the
 // count of the other side's entries ahead of it, found by binary search),
 // in place of one ballot-and-shift insertion a row.
-template <int NR>
+template <int NR, bool BOUNDED>
 struct BatchedList {
   static constexpr int KT = 32 * NR;
-  rt::WarpTopK<NR> list;
+  rt::WarpTopK<NR, false, BOUNDED> list;
   float* bd;   // [32] the buffer, then [KT] the list while merging
   int* bi;
   int cnt;     // rows in the buffer (warp-uniform)
@@ -188,10 +191,13 @@ struct BatchedList {
   }
 };
 
-template <int NR>
+// BOUNDED: the launch carries a pass's bound (a first pass runs the lists
+// without its test).
+template <int NR, bool BOUNDED>
 __global__ void __launch_bounds__(THREADS)
 pq_adc_scan(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
-            const int* __restrict__ valid, float* __restrict__ out_d,
+            const int* __restrict__ valid, const float* __restrict__ after_d,
+            const int* __restrict__ after_i, float* __restrict__ out_d,
             int* __restrict__ out_i, int N, int M, int rows, int k, int kt, int splits) {
   extern __shared__ float smem[];   // the query's LUT [M][C], then the fold
   __shared__ float s_buf_d[WARPS][32 + 32 * NR];   // each warp's batch, then its list
@@ -205,8 +211,9 @@ pq_adc_scan(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
   for (int e = threadIdx.x; e < M * C; e += THREADS) smem[e] = lb[e];
   __syncthreads();
 
-  BatchedList<NR> top;
+  BatchedList<NR, BOUNDED> top;
   top.init(s_buf_d[warp], s_buf_i[warp]);
+  if (BOUNDED) rt::after_of(after_d, after_i, b, top.list.aft_d, top.list.aft_i);
   const int r0 = split * rows;
   const int r1 = min(N, r0 + rows);
   const bool wide = (M % 8) == 0;   // rows are 8-byte aligned: M bytes each
@@ -276,25 +283,24 @@ pq_adc_scan(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
   }
 }
 
-template <int NR>
-int launch(const float* lut, const uint8_t* codes, const int* valid, float* part_d,
-           int* part_i, float* out_d, int* out_i, int B, int N, int M, int k, int kt,
-           int splits, int rows, cudaStream_t stream) {
+template <int NR, bool BOUNDED>
+int launch(const float* lut, const uint8_t* codes, const int* valid, const float* after_d,
+           const int* after_i, float* part_d, int* part_i, float* out_d, int* out_i, int B,
+           int N, int M, int k, int kt, int splits, int rows, cudaStream_t stream) {
   // the LUT; the fold's (WARPS - 1) lists of 32 NR pairs fit inside it
   // whenever M >= 2, and the max covers M = 1
   const size_t smem = sizeof(float) * (size_t)max(M * C, 2 * (WARPS - 1) * NR * 32);
   cudaError_t err = cudaFuncSetAttribute(
-      pq_adc_scan<NR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      pq_adc_scan<NR, BOUNDED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B, splits);
   const bool one = splits == 1;
-  pq_adc_scan<NR><<<grid, THREADS, smem, stream>>>(lut, codes, valid, one ? out_d : part_d,
-                                                   one ? out_i : part_i, N, M, rows, k, kt,
-                                                   splits);
+  pq_adc_scan<NR, BOUNDED><<<grid, THREADS, smem, stream>>>(lut, codes, valid, after_d, after_i,
+                                                   one ? out_d : part_d, one ? out_i : part_i,
+                                                   N, M, rows, k, kt, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess || one) return (int)err;
-  rt::warp_merge_partials<NR, MERGE_WARPS>
-      <<<(B + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32, 0, stream>>>(
+  rt::warp_merge_partials<NR, MERGE_WARPS><<<B, MERGE_WARPS * 32, 0, stream>>>(
           part_d, part_i, splits * kt, out_d, out_i, B, k);
   return (int)cudaGetLastError();
 }
@@ -304,18 +310,22 @@ int launch(const float* lut, const uint8_t* codes, const int* valid, float* part
 extern "C" {
 
 // Returns a cudaError_t as int (0 = launched).  lut (B, M, 256) fp32, codes
-// (N, M) uint8, valid (N,) int32 or null; out (B, k) with 1 <= k <= kt, kt
-// the list length 8, 16, 32 or 64.  With splits > 1, part_d / part_i are
-// (B, splits, kt) scratch; with splits == 1 they are not read.
-int pq_adc_topk_launch(const float* lut, const uint8_t* codes, const int* valid, float* part_d,
-                       int* part_i, float* out_d, int* out_i, int B, int N, int M, int k,
-                       int kt, int splits, int rows, cudaStream_t stream) {
+// (N, M) uint8, valid (N,) int32 or null; after_d / after_i (B,) or both
+// null: the pass's bound; out (B, k) with 1 <= k <= kt, kt the list length
+// 8, 16, 32 or 64.  With splits > 1, part_d / part_i are (B, splits, kt)
+// scratch; with splits == 1 they are not read.
+int pq_adc_topk_launch(const float* lut, const uint8_t* codes, const int* valid,
+                       const float* after_d, const int* after_i, float* part_d, int* part_i,
+                       float* out_d, int* out_i, int B, int N, int M, int k, int kt, int splits,
+                       int rows, cudaStream_t stream) {
   if (k < 1 || k > kt || kt > 64) return (int)cudaErrorInvalidValue;
-  if (kt <= 32)
-    return launch<1>(lut, codes, valid, part_d, part_i, out_d, out_i, B, N, M, k, kt, splits,
-                     rows, stream);
-  return launch<2>(lut, codes, valid, part_d, part_i, out_d, out_i, B, N, M, k, kt, splits,
-                   rows, stream);
+#define RT_PQ_LAUNCH(NR, BOUNDED)                                                            \
+  launch<NR, BOUNDED>(lut, codes, valid, after_d, after_i, part_d, part_i, out_d, out_i, B, N, \
+                      M, k, kt, splits, rows, stream)
+  const bool bounded = after_d != nullptr;
+  if (kt <= 32) return bounded ? RT_PQ_LAUNCH(1, true) : RT_PQ_LAUNCH(1, false);
+  return bounded ? RT_PQ_LAUNCH(2, true) : RT_PQ_LAUNCH(2, false);
+#undef RT_PQ_LAUNCH
 }
 
 }  // extern "C"

@@ -11,6 +11,16 @@
 // stay in registers (every loop below is fully unrolled).  The top-KT of a
 // subset of the candidates contains that subset's share of the global
 // top-k, so merging per-thread lists gives the exact result.
+//
+// Any k: a list may carry a lower bound, the pair `after`; a pair ranks
+// only if it comes strictly after it in the (distance, id) order.  The
+// wrappers (kernels/common.py: topk_passes) run a scan ceil(k / KMAX)
+// times, each pass bounded by the last pair of the pass before, and
+// concatenate the passes' lists.  The bound is tested where a pair is
+// offered (TopK::push, WarpTopK::beats), so every kernel keeps it.  It is
+// a compile-time choice (BOUNDED): a first pass, which has no bound, runs
+// lists without the test, since even a constant bound's test slowed the
+// BM25 scan and the fp32 tile on the card (kernels/tile_ablation.py, PERF.md).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,9 +28,9 @@
 
 namespace rt {
 
-// Ceiling on k of the dense scans' lists (l2, candidate, bm25); the PQ scan
-// also instantiates lists of 64.  The wrappers refuse a larger k
-// (kernels/common.py: KMAX, KMAX_PQ).
+// Longest list of one pass of the dense scans (l2, candidate, bm25); the PQ
+// scan also instantiates lists of 64 (kernels/common.py: KMAX, KMAX_PQ).
+// A larger k takes several passes.
 constexpr int KMAX = 32;
 
 // Id of an empty slot.  It sorts after every real id, and the writers turn
@@ -32,29 +42,48 @@ __device__ __forceinline__ bool lex_less(float da, int ia, float db, int ib) {
   return da < db || (da == db && ia < ib);
 }
 
+// No bound, (-inf, INT_MIN): every pair above -inf comes after it.
+#define RT_AFTER_NONE_D (-CUDART_INF_F)
+constexpr int AFTER_NONE_I = -0x7fffffff - 1;
+
+// The bound of query b: after_d / after_i are (B,) or null (no bound).
+__device__ __forceinline__ void after_of(const float* after_d, const int* after_i, int b,
+                                         float& ad, int& ai) {
+  ad = after_d == nullptr ? RT_AFTER_NONE_D : after_d[b];
+  ai = after_i == nullptr ? AFTER_NONE_I : after_i[b];
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-template <int KT>
+template <int KT, bool BOUNDED = false>
 struct TopK {
   float d[KT];
   int i[KT];
+  float aft_d;   // the lower bound (none: RT_AFTER_NONE_D, AFTER_NONE_I)
+  int aft_i;
 
-  __device__ __forceinline__ void init() {
+  __device__ __forceinline__ void init() { init(RT_AFTER_NONE_D, AFTER_NONE_I); }
+
+  __device__ __forceinline__ void init(float ad, int ai) {
 #pragma unroll
     for (int j = 0; j < KT; ++j) {
       d[j] = CUDART_INF_F;
       i[j] = ID_NONE;
     }
+    aft_d = ad;
+    aft_i = ai;
   }
 
-  // Insert (dd, ii) if it ranks among the KT best held; the list stays
-  // sorted ascending on (distance, id).  NaN never ranks.
+  // Insert (dd, ii) if it comes after the bound and ranks among the KT
+  // best held; the list stays sorted ascending on (distance, id).  NaN
+  // never ranks.
   __device__ __forceinline__ void push(float dd, int ii) {
     if (!lex_less(dd, ii, d[KT - 1], i[KT - 1])) return;
+    if (BOUNDED && !lex_less(aft_d, aft_i, dd, ii)) return;
     bool placed = false;
 #pragma unroll
     for (int j = KT - 1; j > 0; --j) {
@@ -142,14 +171,18 @@ __device__ __forceinline__ void block_merge(TopK<KT>& top, int group, bool leade
 // list holds already is not inserted again (the probe chain can meet a row
 // twice); without it the ids offered to one list are distinct (each row is
 // scanned once).  All lanes call in step.
-template <int NR, bool UNIQUE = false>
+template <int NR, bool UNIQUE = false, bool BOUNDED = false>
 struct WarpTopK {
   float d[NR];
   int i[NR];
   float thr_d;
   int thr_i;
+  float aft_d;   // the lower bound (none: RT_AFTER_NONE_D, AFTER_NONE_I)
+  int aft_i;
 
-  __device__ __forceinline__ void init() {
+  __device__ __forceinline__ void init() { init(RT_AFTER_NONE_D, AFTER_NONE_I); }
+
+  __device__ __forceinline__ void init(float ad, int ai) {
 #pragma unroll
     for (int r = 0; r < NR; ++r) {
       d[r] = CUDART_INF_F;
@@ -157,10 +190,31 @@ struct WarpTopK {
     }
     thr_d = CUDART_INF_F;
     thr_i = ID_NONE;
+    aft_d = ad;
+    aft_i = ai;
   }
 
+  // (dd, ii) beats the k-th pair (and comes after the bound).
   __device__ __forceinline__ bool beats(float dd, int ii) const {
-    return lex_less(dd, ii, thr_d, thr_i);
+    return lex_less(dd, ii, thr_d, thr_i) && (!BOUNDED || lex_less(aft_d, aft_i, dd, ii));
+  }
+
+  // A one-register list kept in shared memory between uses (sd / si: 32
+  // entries, entry j at j); the threshold is entry k - 1.
+  __device__ __forceinline__ void load(const float* sd, const int* si, float ad, int ai, int k,
+                                       int lane) {
+    static_assert(NR == 1, "lists of one register a lane");
+    d[0] = sd[lane];
+    i[0] = si[lane];
+    thr_d = __shfl_sync(0xffffffffu, d[0], k - 1);
+    thr_i = __shfl_sync(0xffffffffu, i[0], k - 1);
+    aft_d = ad;
+    aft_i = ai;
+  }
+
+  __device__ __forceinline__ void save(float* sd, int* si, int lane) const {
+    sd[lane] = d[0];
+    si[lane] = i[0];
   }
 
   // Insert the warp-uniform pair (dd, ii) if it beats the k-th pair (and,
@@ -239,26 +293,38 @@ struct WarpTopK {
   }
 };
 
-// Second pass of the warp-list scans: one warp per query folds its L
-// partial entries, part_d / part_i (B, L), into the top-k (B, k) through
-// a WarpTopK; WARPS queries a block.
+// Second pass of the warp-list scans: a block of WARPS warps per query
+// folds its L partial entries, part_d / part_i (B, L), into the top-k (B,
+// k): each warp offers every WARPS-th run of 32 entries to a WarpTopK, and
+// warp 0 folds the others' lists.  (One warp a query left a batch of 64
+// with 16 blocks for 132 SMs: 57 us of the fp32 scan's 0.74 ms.)  Launched
+// with B blocks; the answer is the top-k of the union under the (distance,
+// id) order whatever the split of the work.
 template <int NR, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32)
 warp_merge_partials(const float* __restrict__ part_d, const int* __restrict__ part_i, int L,
                     float* __restrict__ out_d, int* __restrict__ out_i, int B, int k) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (b >= B) return;   // the whole warp leaves together
+  __shared__ float sd[(WARPS - 1) * 32 * NR];
+  __shared__ int si[(WARPS - 1) * 32 * NR];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x;
   WarpTopK<NR> top;
   top.init();
   const float* pd = part_d + (size_t)b * L;
   const int* pi = part_i + (size_t)b * L;
-  for (int e0 = 0; e0 < L; e0 += 32) {
+  for (int e0 = 32 * warp; e0 < L; e0 += 32 * WARPS) {
     const int e = e0 + lane;
     const bool in = e < L;
     top.offer(in, in ? pd[e] : CUDART_INF_F, in ? pi[e] : ID_NONE, k, lane);
   }
-  top.store(out_d + (size_t)b * k, out_i + (size_t)b * k, k, lane, true);
+  if (warp > 0)
+    top.store(sd + (warp - 1) * 32 * NR, si + (warp - 1) * 32 * NR, 32 * NR, lane, false);
+  __syncthreads();
+  if (warp == 0) {
+    for (int e0 = 0; e0 < (WARPS - 1) * 32 * NR; e0 += 32)
+      top.offer(true, sd[e0 + lane], si[e0 + lane], k, lane);
+    top.store(out_d + (size_t)b * k, out_i + (size_t)b * k, k, lane, true);
+  }
 }
 
 // Second pass of the split scans (l2_topk.cu): one block per query merges

@@ -2,7 +2,10 @@
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the plain version in ``ref``.  There is no fallback
-from one to the other and no switch that forces either.
+from one to the other and no switch that forces either.  Both answer any
+``k``, as the reference does: the kernels whose lists hold at most
+``common.KMAX`` (``KMAX_PQ``) pairs take a larger ``k`` in passes
+(``common.topk_passes``).
 """
 from __future__ import annotations
 
@@ -69,7 +72,7 @@ def bucket_probe_topk_op(queries, probe, bucket_ids, k: int = 10, *,
                          bucket_vecs=None, db=None):
     """The whole IVF probe chain: the top-k of each query's probed buckets,
     rows from ``bucket_vecs`` (K, cap, d) or ``db`` (N, d): (dists
-    ascending, ids).  On the card one scan and one merge launch."""
+    ascending, ids).  On the card one scan and one merge launch a pass."""
     if _on_card(queries):
         return bucket_topk.bucket_probe_topk(queries, probe, bucket_ids, k,
                                              bucket_vecs=bucket_vecs, db=db)

@@ -4,9 +4,10 @@ Replaces ``repro/kernels/pq_adc.py::pq_adc_topk_pallas``; the kernel is
 ``csrc/pq_adc_topk.cu`` (its header note gives the design and the bound).
 This module checks the operands, chooses the split count, allocates the
 outputs and the per-split partial lists, launches on PyTorch's current
-stream and counts launches.  CUDA tensors only; the plain version is
-``ref.pq_adc_topk_ref`` and ``ops.pq_adc_topk_op`` picks between them by
-device.
+stream and counts launches; a ``k`` above ``KMAX_PQ`` is served in passes
+of ``KMAX_PQ`` (``common.topk_passes``), each one counted launch.  CUDA
+tensors only; the plain version is ``ref.pq_adc_topk_ref`` and
+``ops.pq_adc_topk_op`` picks between them by device.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (KMAX_PQ, LaunchCounter, empty_result,
-                                        list_len, pad_sentinel, valid_operand)
+                                        list_len, pad_sentinel, topk_passes,
+                                        valid_operand)
+from repro_torch.kernels.l2_topk import ptr
 
 __all__ = ["pq_adc_topk", "LAUNCHES"]
 
@@ -35,7 +38,7 @@ def _launcher():
     global _fn
     if _fn is None:
         f = _build.library("pq_adc_topk").pq_adc_topk_launch
-        f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        f.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fn = f
@@ -60,9 +63,9 @@ def pq_adc_topk(lut: torch.Tensor, codes: torch.Tensor, k: int = 10, *,
     ``lut`` (B, M, 256) float32 holds each query's subspace distances,
     ``codes`` (N, M) the codes (uint8, or an integer type with values in
     0..255), ``valid`` an optional (N,) liveness mask.  ``k`` is clamped to
-    N and the requested width restored with the ``(inf, -1)`` sentinel.
-    Raises for a CPU tensor, a wrong dtype or shape, ``k`` beyond
-    ``KMAX_PQ`` after the clamp, or a failed launch.
+    N and the requested width restored with the ``(inf, -1)`` sentinel; any
+    ``k`` is served (above ``KMAX_PQ`` in passes).  Raises for a CPU tensor,
+    a wrong dtype or shape, or a failed launch.
     """
     if lut.device.type != "cuda" or codes.device.type != "cuda":
         raise ValueError("pq_adc_topk takes CUDA tensors; the plain version "
@@ -80,8 +83,6 @@ def pq_adc_topk(lut: torch.Tensor, codes: torch.Tensor, k: int = 10, *,
     if not 1 <= M <= MAX_M:
         raise ValueError(f"M={M} outside the kernel's range 1..{MAX_M}")
     k_eff = min(k, N)
-    if k_eff > KMAX_PQ:
-        raise ValueError(f"k={k_eff} exceeds the kernel's KMAX_PQ={KMAX_PQ}")
     dev = lut.device
     if B == 0 or k_eff == 0:
         return empty_result(B, k, dev)
@@ -90,25 +91,30 @@ def pq_adc_topk(lut: torch.Tensor, codes: torch.Tensor, k: int = 10, *,
     if c.data_ptr() % 8:             # the kernel reads rows 8 bytes at a time
         c = c.clone()
     v = valid_operand(valid, N, dev)
-    kt = list_len(k_eff, KMAX_PQ)
     splits = splits_for(
         B, N, torch.cuda.get_device_properties(dev).multi_processor_count)
     rows = -(-N // splits)
-    out_d = torch.empty((B, k_eff), dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, k_eff), dtype=torch.int32, device=dev)
-    part_d = part_i = None
-    if splits > 1:
-        part_d = torch.empty((B, splits, kt), dtype=torch.float32, device=dev)
-        part_i = torch.empty((B, splits, kt), dtype=torch.int32, device=dev)
     fn = _launcher()
-    with torch.cuda.device(dev):
-        rc = fn(lt.data_ptr(), c.data_ptr(),
-                None if v is None else v.data_ptr(),
-                None if part_d is None else part_d.data_ptr(),
-                None if part_i is None else part_i.data_ptr(),
-                out_d.data_ptr(), out_i.data_ptr(), B, N, M, k_eff, kt,
-                splits, rows, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"pq_adc_topk launch failed: CUDA error {rc}")
-    LAUNCHES.inc()
+
+    def run(kr, after_d, after_i):
+        kt = list_len(kr, KMAX_PQ)
+        out_d = torch.empty((B, kr), dtype=torch.float32, device=dev)
+        out_i = torch.empty((B, kr), dtype=torch.int32, device=dev)
+        part_d = part_i = None
+        if splits > 1:
+            part_d = torch.empty((B, splits, kt), dtype=torch.float32,
+                                 device=dev)
+            part_i = torch.empty((B, splits, kt), dtype=torch.int32,
+                                 device=dev)
+        with torch.cuda.device(dev):
+            rc = fn(lt.data_ptr(), c.data_ptr(), ptr(v), ptr(after_d),
+                    ptr(after_i), ptr(part_d), ptr(part_i), out_d.data_ptr(),
+                    out_i.data_ptr(), B, N, M, kr, kt, splits, rows,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"pq_adc_topk launch failed: CUDA error {rc}")
+        LAUNCHES.inc()
+        return out_d, out_i
+
+    out_d, out_i = topk_passes(run, B, k_eff, KMAX_PQ, dev)
     return pad_sentinel(out_d, out_i, k, k_eff)

@@ -14,6 +14,16 @@ come back as ``(inf, -1)``, and the distance expansions are exactly
 Top-k is a stable sort over id-ordered columns (``lax.top_k``'s tie
 order), never ``torch.topk``.
 
+Each kernel with a list ceiling (all but Hamming) serves a large ``k`` in
+passes, each pass bounded by a pair ``after`` (``common.topk_passes``).
+Its plain version takes the same bound, ``after=(after_d, after_i)`` of
+shape (B,): the pairs at or before the bound in the (distance, id) order
+are dropped (-0.0 equal to +0.0), a pair repeated with the same distance
+and id is kept once where the kernel does so (the candidate tile and the
+probe chain), and the rest are ranked on (distance, id).  The tests drive
+the pass loop over these to prove it exact; nothing on the card's path
+calls them.
+
 Tie rule: the kernels rank on the (distance, id) pair.  On an id-ordered
 scan (``l2_topk``) that is the same order.  ``candidate_topk_ref`` keeps
 the reference oracle's column order (carried best first, then the tile),
@@ -56,6 +66,42 @@ def _finish(d2: torch.Tensor, k: int):
     return pad_sentinel(d, ids, k, k_eff)
 
 
+def _after_topk(d: torch.Tensor, ids: torch.Tensor, k: int, after,
+                unique: bool = False):
+    """The ``k`` smallest (distance, id) pairs of the candidates ``d`` /
+    ``ids`` (B, C) strictly after ``after = (after_d, after_i)``, each (B,)
+    (``None``: no bound); with ``unique`` a pair repeated with the same
+    distance and id counts once.  Dead candidates carry +inf; unfilled
+    slots are ``(inf, -1)``."""
+    ids = ids.to(torch.int32)
+    if after is not None:
+        ad = after[0].to(d.device, torch.float32)[:, None]
+        ai = after[1].to(d.device, torch.int32)[:, None]
+        d = torch.where((d > ad) | ((d == ad) & (ids > ai)), d, INF)
+    order = torch.argsort(ids, dim=1, stable=True)      # (distance, id)
+    d, ids = torch.gather(d, 1, order), torch.gather(ids, 1, order)
+    if unique:
+        d, sel = stable_topk(d, d.shape[1])
+        ids = torch.gather(ids, 1, sel)
+        again = torch.zeros_like(ids, dtype=torch.bool)
+        again[:, 1:] = (d[:, 1:] == d[:, :-1]) & (ids[:, 1:] == ids[:, :-1])
+        d = torch.where(again, INF, d)
+    k_eff = min(k, d.shape[1])
+    dd, sel = stable_topk(d, k_eff)
+    ii = torch.gather(ids, 1, sel)
+    return pad_sentinel(dd, torch.where(torch.isinf(dd), -1, ii), k, k_eff)
+
+
+def _scan_topk(d2: torch.Tensor, k: int, after):
+    """An id-ordered scan's top-k: ``_finish``, or with a bound
+    ``_after_topk`` over the column ids."""
+    if after is None:
+        return _finish(d2, k)
+    ids = torch.arange(d2.shape[1], dtype=torch.int32,
+                       device=d2.device).expand(d2.shape[0], -1)
+    return _after_topk(d2, ids, k, after)
+
+
 def _apply_valid(d2: torch.Tensor, valid):
     if valid is None:
         return d2
@@ -63,13 +109,14 @@ def _apply_valid(d2: torch.Tensor, valid):
     return torch.where(live[None, :], d2, INF)
 
 
-def l2_topk_ref(queries, db, k: int = 10, *, valid=None):
+def l2_topk_ref(queries, db, k: int = 10, *, valid=None, after=None):
     q = queries.to(torch.float32)
     x = db.to(torch.float32)
-    return _finish(_apply_valid(pairwise_l2sq(q, x), valid), k)
+    return _scan_topk(_apply_valid(pairwise_l2sq(q, x), valid), k, after)
 
 
-def l2_topk_int8_ref(queries, codes, scales, k: int = 10, *, valid=None):
+def l2_topk_int8_ref(queries, codes, scales, k: int = 10, *, valid=None,
+                     after=None):
     """The int8-footprint scan over ``row ~= scale * codes``, the scale
     applied to the reduced terms."""
     q = queries.to(torch.float32)
@@ -78,18 +125,24 @@ def l2_topk_int8_ref(queries, codes, scales, k: int = 10, *, valid=None):
     qn = torch.sum(q * q, dim=1, keepdim=True)
     xn8 = torch.sum(xf * xf, dim=1)
     d2 = qn + (s * s * xn8)[None, :] - 2.0 * s[None, :] * (q @ xf.T)
-    return _finish(_apply_valid(d2, valid), k)
+    return _scan_topk(_apply_valid(d2, valid), k, after)
 
 
 def candidate_topk_ref(queries, vecs, ids, k: int = 10, *,
-                       best_d=None, best_i=None):
+                       best_d=None, best_i=None, after=None):
     """Per-query candidate tiles with an optional carried running best
     (the IVF probe-chain pattern); the literal ops of the unfused IVF
-    local."""
+    local.  With ``after``: the kernel's rule over [best | tile], a
+    repeated pair kept once."""
     q = queries.to(torch.float32)
     v = vecs.to(torch.float32)
     ids = ids.to(torch.int32)
     d2 = torch.where(ids >= 0, batched_l2sq(v, q), INF)
+    if after is not None:
+        if best_d is not None:
+            d2 = torch.cat([best_d.to(torch.float32), d2], dim=1)
+            ids = torch.cat([best_i.to(torch.int32), ids], dim=1)
+        return _after_topk(d2, ids, k, after, unique=True)
     if best_d is not None:
         cat_d = torch.cat([best_d.to(torch.float32), d2], dim=1)
         cat_i = torch.cat([best_i.to(torch.int32), ids], dim=1)
@@ -103,7 +156,7 @@ def candidate_topk_ref(queries, vecs, ids, k: int = 10, *,
 
 
 def bucket_probe_topk_ref(queries, probe, bucket_ids, k: int = 10, *,
-                          bucket_vecs=None, db=None):
+                          bucket_vecs=None, db=None, after=None):
     """The probe chain: query b's candidates are the slots of buckets
     ``probe[b, :]`` of ``bucket_ids`` (K, cap), ``-1`` dead, one probe
     step at a time with a carried running best.  Rows come from
@@ -114,11 +167,25 @@ def bucket_probe_topk_ref(queries, probe, bucket_ids, k: int = 10, *,
     IVF local's loop); with ``db`` it is the reference's
     ``_probe_scan_brute`` step (the two-level brute bottom).  A bucket
     probed twice keeps both copies, as the reference does (the kernel
-    emits the pair once)."""
+    emits the pair once).
+
+    With ``after``: the union of every query's probed slots at once, a
+    repeated pair kept once (the kernel's rule), bounded as the kernel's
+    pass is."""
     if (bucket_vecs is None) == (db is None):
         raise ValueError("pass exactly one of bucket_vecs and db")
     q = queries.to(torch.float32)
     B = q.shape[0]
+    if after is not None:
+        p = probe.long()
+        cand = bucket_ids[p].reshape(B, -1)                 # (B, np cap)
+        if bucket_vecs is not None:
+            vecs = bucket_vecs[p].reshape(B, cand.shape[1], -1)
+        else:
+            vecs = db[torch.clamp(cand, min=0).long()]
+        d2 = torch.where(cand >= 0, batched_l2sq(vecs.to(torch.float32), q),
+                         INF)
+        return _after_topk(d2, cand, k, after, unique=True)
     best_d = q.new_full((B, k), INF)
     best_i = torch.full((B, k), -1, dtype=torch.int32, device=q.device)
     for j in range(probe.shape[1]):
@@ -163,14 +230,14 @@ def bm25_dists_ref(q_terms, q_weights, terms, tf_sat):
 
 
 def bm25_topk_ref(q_terms, q_weights, terms, tf_sat, k: int = 10, *,
-                  valid=None):
+                  valid=None, after=None):
     """The BM25 scan: (ranking dists = -score ascending, ids)."""
     dist = bm25_dists_ref(q_terms, q_weights, terms, tf_sat)
-    return _finish(_apply_valid(dist, valid), k)
+    return _scan_topk(_apply_valid(dist, valid), k, after)
 
 
 def hybrid_topk_ref(queries, db, q_terms, q_weights, terms, tf_sat, alpha,
-                    k: int = 10, *, valid=None):
+                    k: int = 10, *, valid=None, after=None):
     """The hybrid scan ``alpha * l2sq - (1 - alpha) * bm25``; ``alpha`` is
     a (1, 1) operand (a tensor on the queries' device, or a number)."""
     q = queries.to(torch.float32)
@@ -180,7 +247,7 @@ def hybrid_topk_ref(queries, db, q_terms, q_weights, terms, tf_sat, alpha,
     a = torch.as_tensor(alpha, dtype=torch.float32,
                         device=q.device).reshape(1, 1)
     dist = a * d2 - (1.0 - a) * score
-    return _finish(_apply_valid(dist, valid), k)
+    return _scan_topk(_apply_valid(dist, valid), k, after)
 
 
 def pq_adc_scores_ref(lut, codes):
@@ -195,9 +262,10 @@ def pq_adc_scores_ref(lut, codes):
     return score
 
 
-def pq_adc_topk_ref(lut, codes, k: int = 10, *, valid=None):
+def pq_adc_topk_ref(lut, codes, k: int = 10, *, valid=None, after=None):
     """The PQ-ADC scan: (adc dists ascending, ids)."""
-    return _finish(_apply_valid(pq_adc_scores_ref(lut, codes), valid), k)
+    return _scan_topk(_apply_valid(pq_adc_scores_ref(lut, codes), valid), k,
+                      after)
 
 
 def hamming_dists_ref(qcodes, codes):

@@ -1,5 +1,7 @@
 """Card tests of the port's CUDA kernels: each kernel against its plain
-version (with the hybrid alpha = 0 / 1 identities), the probe chain's two
+version (with the hybrid alpha = 0 / 1 identities), at k up to the
+lists' length and above it (the passes of ``common.topk_passes``), the
+fp32 tile at d = 960, the probe chain's two
 row sources against each other and against the chain of single steps,
 one small IVF serve,
 one small filtered / lexical / hybrid / int8 serve and one small run of
@@ -201,8 +203,12 @@ def test_probe_chain_rejects_what_it_cannot_take(dev):
     o = chain_edge_operands(CHAIN_EDGES[0])
     q, db, bids, bvecs, probe = (torch.as_tensor(o[n], device=dev) for n in (
         "q", "db", "bucket_ids", "bucket_vecs", "probe"))
-    with pytest.raises(ValueError, match="KMAX"):
-        bucket_topk.bucket_probe_topk(q, probe, bids, 33, db=db)
+    # k above KMAX: served in passes, the reference's answer (it clamps
+    # any k), not a refusal
+    got = bucket_topk.bucket_probe_topk(q, probe, bids, 33, db=db)
+    scale = ((q * q).sum(1) + (db * db).sum(1).max())[:, None]
+    _close(*got, *ref.bucket_probe_topk_ref(q, probe, bids, 33, db=db),
+           scale.cpu().numpy())
     with pytest.raises(ValueError, match="exactly one"):
         bucket_topk.bucket_probe_topk(q, probe, bids, 5)
     with pytest.raises(ValueError, match="exactly one"):
@@ -217,16 +223,29 @@ def test_probe_chain_rejects_what_it_cannot_take(dev):
                                       bucket_vecs=bvecs[:, :3])
     idx = build_two_level(o["db"], TwoLevelConfig(n_clusters=8, seed=0),
                           device=dev)
-    with pytest.raises(ValueError, match="KMAX"):
-        idx.search(o["q"], 40, nprobe=2)
+    d, i, w = idx.search(o["q"], 40, nprobe=2)
+    cpu = dataclasses.replace(idx, device=torch.device("cpu"))
+    dc, ic, wc = cpu.search(o["q"], 40, nprobe=2)
+    assert i.shape == (o["q"].shape[0], 40) and w == wc
+    assert (i == ic).all()
+    np.testing.assert_allclose(d, dc, rtol=REL, atol=1e-4)
 
 
 def test_kernels_reject_cpu_tensors_and_large_k(dev):
     q = torch.zeros((2, 8), device=dev)
     with pytest.raises(ValueError):
         l2_topk.l2_topk(q.cpu(), torch.zeros((10, 8)), 3)
-    with pytest.raises(ValueError):
-        l2_topk.l2_topk(q, torch.zeros((100, 8), device=dev), 33)
+    # k above KMAX: passes, each one counted launch, the plain answer
+    rng = np.random.default_rng(33)
+    x = torch.as_tensor(rng.normal(size=(100, 8)).astype(np.float32),
+                        device=dev)
+    q = torch.as_tensor(rng.normal(size=(2, 8)).astype(np.float32),
+                        device=dev)
+    before = l2_topk.LAUNCHES.count
+    kd, ki = l2_topk.l2_topk(q, x, 33)
+    assert l2_topk.LAUNCHES.count == before + 2
+    scale = ((q * q).sum(1)[:, None] + (x * x).sum(1).max()).cpu().numpy()
+    _close(kd, ki, *ref.l2_topk_ref(q, x, 33), scale)
 
 
 def test_small_ivf_serve_runs_through_the_kernels(dev):
@@ -435,8 +454,15 @@ def test_hamming_topk_kernel_matches_plain(dev, case):
 def test_index_kernels_reject_what_they_cannot_take(dev):
     lut = torch.zeros((2, 8, 256), device=dev)
     codes = torch.zeros((100, 8), dtype=torch.uint8, device=dev)
-    with pytest.raises(ValueError, match="KMAX_PQ"):
-        pq_adc.pq_adc_topk(lut, codes, 65)
+    # k above KMAX_PQ: two passes, bit for bit the plain version
+    lut_r = torch.as_tensor(np.random.default_rng(65).random(
+        (2, 8, 256)).astype(np.float32), device=dev)
+    codes_r = torch.as_tensor(np.random.default_rng(66).integers(
+        0, 256, size=(100, 8)).astype(np.uint8), device=dev)
+    before = pq_adc.LAUNCHES.count
+    got = pq_adc.pq_adc_topk(lut_r, codes_r, 65)
+    assert pq_adc.LAUNCHES.count == before + 2
+    _bitwise(*got, *ref.pq_adc_topk_ref(lut_r, codes_r, 65))
     with pytest.raises(ValueError):
         pq_adc.pq_adc_topk(lut[:, :, :128], codes, 5)
     with pytest.raises(TypeError):
@@ -473,3 +499,153 @@ def test_small_index_runs_through_the_kernels(dev):
     assert hamming.LAUNCHES.count == before + 1
     _, lc = lsh_search(lsh, db, queries, 10, n_candidates=256, device="cpu")
     assert (li == lc).mean() >= 0.99
+
+
+LARGE_KS = (33, 64, 65, 100)
+
+
+def _passes(k: int, kmax: int = 32) -> int:
+    return -(-k // kmax)
+
+
+@pytest.mark.parametrize("k", LARGE_KS)
+def test_bounded_kernels_at_large_k_match_plain(dev, k):
+    """Every kernel with a list ceiling, above it: two query tiles over
+    several splits, about half the rows live; ceil(k / KMAX) counted
+    launches a call (KMAX_PQ for PQ); BM25 on distinct-term slabs and PQ
+    bit for bit, the hybrid by its two halves.  Down to rank 100 of a few
+    thousand rows two neighbours' distances may agree within the rounding
+    of the two sums, so ids may differ where the distances agree within
+    the tolerance (as ``chip_smoke.compare`` allows); a pair a pass misses
+    or repeats changes a distance past it."""
+    o = option_edge_operands(("large k", 70, 3000, 128, k, "half"), False)
+    q, x, qt, qw, terms, tf, v = (
+        torch.as_tensor(o[n], device=dev)
+        for n in ("q", "x", "qt", "qw", "terms", "tf", "valid"))
+    B = q.shape[0]
+    qn = (q * q).sum(1)[:, None].cpu().numpy()
+    scale = qn + float((x * x).sum(1).max())
+
+    def counted(counter, passes, fn):
+        """``fn()``, asserting it made ``passes`` counted launches."""
+        before = counter.count
+        out = fn()
+        assert counter.count == before + passes, counter.name
+        return out
+
+    _close_near_ties(*counted(l2_topk.LAUNCHES, _passes(k),
+                    lambda: l2_topk.l2_topk(q, x, k, valid=v)),
+           *ref.l2_topk_ref(q, x, k, valid=v), scale)
+    codes, scales = (torch.as_tensor(a, device=dev)
+                     for a in ops.quantize_rows_int8(o["x"]))
+    deq = codes.float() * scales[:, None]
+    _close_near_ties(*counted(l2_topk.INT8_LAUNCHES, _passes(k),
+                    lambda: l2_topk.l2_topk_int8(q, codes, scales, k,
+                                                 valid=v)),
+           *ref.l2_topk_int8_ref(q, codes, scales, k, valid=v),
+           qn + float((deq * deq).sum(1).max()))
+    _bitwise(*counted(bm25.LAUNCHES, _passes(k),
+                      lambda: bm25.bm25_topk(qt, qw, terms, tf, k, valid=v)),
+             *ref.bm25_topk_ref(qt, qw, terms, tf, k, valid=v))
+    a = torch.full((1, 1), 0.5, device=dev)
+    hd, hi = counted(bm25.HYBRID_LAUNCHES, _passes(k),
+                     lambda: bm25.hybrid_topk(q, x, qt, qw, terms, tf, a, k,
+                                              valid=v))
+    _close_near_ties(hd, hi, *ref.hybrid_topk_ref(q, x, qt, qw, terms, tf, a,
+                                                  k, valid=v),
+                     0.5 * scale + 1.0)
+    assert hybrid_by_parts(q, x, qt, qw, terms, tf, 0.5, hd,
+                           hi)["mismatches"] == 0
+
+    # the candidate tile with a carried best of k pairs
+    rng = np.random.default_rng([k, 1])
+    C = 300
+    vecs = torch.as_tensor(rng.normal(size=(B, C, 128)).astype(np.float32),
+                           device=dev)
+    ids = torch.as_tensor(np.where(rng.random((B, C)) > .3,
+                                   rng.permutation(5000)[:C], -1)
+                          .astype(np.int32), device=dev)
+    best_d = torch.as_tensor(np.sort(rng.random((B, k)).astype(np.float32)
+                                     * 200 + 180, axis=1), device=dev)
+    best_i = torch.as_tensor(rng.integers(10000, 20000, size=(B, k))
+                             .astype(np.int32), device=dev)
+    cscale = ((q * q).sum(1) + (vecs * vecs).sum(-1).amax(1))[:, None]
+    _close_near_ties(*counted(bucket_topk.LAUNCHES, _passes(k),
+                    lambda: bucket_topk.candidate_topk(
+                        q, vecs, ids, k, best_d=best_d, best_i=best_i)),
+           *ref.candidate_topk_ref(q, vecs, ids, k, best_d=best_d,
+                                   best_i=best_i), cscale.cpu().numpy())
+    # the probe chain over disjoint buckets
+    ch = chain_edge_operands(("large k", B, 6, 40, 30, 128, k, "mid"))
+    cq, cdb, cbids, cprobe = (torch.as_tensor(ch[n], device=dev) for n in (
+        "q", "db", "bucket_ids", "probe"))
+    _close_near_ties(*counted(bucket_topk.LAUNCHES, _passes(k),
+                    lambda: bucket_topk.bucket_probe_topk(cq, cprobe, cbids,
+                                                          k, db=cdb)),
+           *ref.bucket_probe_topk_ref(cq, cprobe, cbids, k, db=cdb),
+           ((cq * cq).sum(1) + (cdb * cdb).sum(1).max())[:, None]
+           .cpu().numpy())
+    # PQ: passes of 64
+    lut, pcodes, pvalid, _ = (
+        None if a_ is None else torch.as_tensor(a_, device=dev)
+        if isinstance(a_, np.ndarray) else a_
+        for a_ in pq_edge_operands(("large k", B, 3000, 8, k, "half")))
+    _bitwise(*counted(pq_adc.LAUNCHES, _passes(k, 64),
+                      lambda: pq_adc.pq_adc_topk(lut, pcodes, k,
+                                                 valid=pvalid)),
+             *ref.pq_adc_topk_ref(lut, pcodes, k, valid=pvalid))
+
+
+@pytest.mark.parametrize("k", [10, 40])
+@pytest.mark.parametrize("repeat", [False, True],
+                         ids=["distinct", "repeated_terms"])
+def test_hybrid_limits_equal_bm25_and_l2(dev, repeat, k):
+    """alpha = 1 is the fp32 L2 kernel's answer bit for bit (the same d2),
+    alpha = 0 the BM25 kernel's (by value: an unmatched row is 0 d2 - 0,
+    +0.0 or -0.0), over two query tiles and several splits, above KMAX
+    too."""
+    o = option_edge_operands(("limits", 70, 5000, 128, k, "half"), repeat)
+    q, x, qt, qw, terms, tf, v = (
+        torch.as_tensor(o[n], device=dev)
+        for n in ("q", "x", "qt", "qw", "terms", "tf", "valid"))
+    one = torch.ones((1, 1), device=dev)
+    hd, hi = bm25.hybrid_topk(q, x, qt, qw, terms, tf, one, k, valid=v)
+    ld, li = l2_topk.l2_topk(q, x, k, valid=v)
+    torch.cuda.synchronize()
+    assert torch.equal(hi, li)
+    assert torch.equal(hd.view(torch.int32), ld.view(torch.int32))
+    hd, hi = bm25.hybrid_topk(q, x, qt, qw, terms, tf, 0.0 * one, k, valid=v)
+    bd, bi = bm25.bm25_topk(qt, qw, terms, tf, k, valid=v)
+    torch.cuda.synchronize()
+    assert torch.equal(hi, bi) and torch.equal(hd, bd)
+
+
+@pytest.mark.parametrize("k", [10, 100])
+def test_l2_topk_wide_rows(dev, k):
+    """d = 960 (the staged chunks carry any d; the old tile refused d above
+    512), with dead rows and N not a multiple of the tile; and d = 13, the
+    4-byte copies' path."""
+    for b, n, d in ((9, 2000, 960), (5, 700, 13)):
+        rng = np.random.default_rng([d, k])
+        q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32),
+                            device=dev)
+        x = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32),
+                            device=dev)
+        v = torch.as_tensor((rng.random(n) > .2).astype(np.int32), device=dev)
+        scale = ((q * q).sum(1)[:, None] + (x * x).sum(1).max()).cpu().numpy()
+        _close(*l2_topk.l2_topk(q, x, k, valid=v),
+               *ref.l2_topk_ref(q, x, k, valid=v), scale)
+
+
+def test_tile_shared_memory_matches_the_host_layout(dev):
+    """The launcher's layout of the fp32 / hybrid tile equals the host's
+    mirror (``l2_topk.tile_smem_bytes``, which the CPU layout tests
+    hold under the block limit)."""
+    lib = l2_topk.library()
+    for t in (1, 4, 8, 16, 64):
+        bits = 1
+        while (1 << bits) < 2 * 64 * t and bits < l2_topk.DICT_BITS_MAX:
+            bits += 1
+        assert lib.l2_tile_smem_bytes(1, t, bits) == \
+            l2_topk.tile_smem_bytes(True, t)
+    assert lib.l2_tile_smem_bytes(0, 0, 0) == l2_topk.tile_smem_bytes(False)

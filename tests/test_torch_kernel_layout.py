@@ -1,5 +1,13 @@
-"""Host-side choices of the PQ and BM25 wrappers, and the arithmetic the
-BM25 kernel's per-document lookup rests on, on the CPU.
+"""Host-side choices of the PQ, BM25 and fp32 / hybrid tile wrappers, and
+the arithmetic the BM25 kernel's per-document lookup rests on, on the CPU.
+
+The fp32 / hybrid tile of ``csrc/l2_topk.cu`` stages rows and queries BK
+dims at a time through a ring of STAGES buffers, so its shared memory does
+not grow with d; ``l2_topk.tile_smem_bytes`` mirrors its layout, whose
+constants are read from the source here, and the layout must fit the
+227 KB a block may use (two fp32 blocks an SM) at every d and every query
+term count the wrappers admit (the card test holds the mirror to the
+launcher's own figure).
 
 ``pq_adc.splits_for`` decides how many blocks the PQ scan gives the card
 at the main path's shapes (the DEEP-10M top level, B = 1,024 x N =
@@ -19,7 +27,7 @@ import re
 import numpy as np
 import pytest
 
-from repro_torch.kernels import bm25, pq_adc
+from repro_torch.kernels import bm25, l2_topk, pq_adc
 from repro_torch.testing import (OPTION_EDGES, lexical_scores_f32,
                                  option_edge_operands)
 
@@ -50,10 +58,22 @@ def test_pq_splits_never_exceed_the_rows():
             assert 1 <= s <= max(1, -(-n // pq_adc.MIN_ROWS))
 
 
-def _kernel_constants(name: str) -> dict:
-    src = pathlib.Path(pq_adc.__file__).with_name("csrc") / name
-    return {m[1]: int(m[2]) for m in re.finditer(
-        r"constexpr int (\w+) = (\d+);", src.read_text())}
+def _kernel_constants(name: str, namespace: str = "") -> dict:
+    """The integer ``constexpr``s of a kernel source (of one of its
+    namespaces, when named, and the file's own before the first), and of
+    the lexical header it shares (``csrc/lexical.cuh``)."""
+    csrc = pathlib.Path(pq_adc.__file__).with_name("csrc")
+    text = (csrc / name).read_text()
+    if namespace:
+        head = text[:text.index("namespace int8 {")]
+        body = text[text.index(f"namespace {namespace} {{"):
+                    text.index(f"}}  // namespace {namespace}")]
+        text = head + body
+    out = {}
+    for src in ((csrc / "lexical.cuh").read_text(), text):
+        out.update({m[1]: int(m[2]) for m in re.finditer(
+            r"constexpr int (\w+) = (\d+);", src)})
+    return out
 
 
 def test_bm25_query_groups_always_fit_the_hit_rows():
@@ -107,3 +127,51 @@ def test_lookup_hits_equal_the_compare_loop_bitwise(case, repeat):
     table = _table_order_scores(*args)
     loop = lexical_scores_f32(*args)
     assert table.tobytes() == loop.tobytes()
+
+
+def test_tile_constants_match_the_host_mirror():
+    c = _kernel_constants("l2_topk.cu", "tile")
+    assert c["BK"] == l2_topk.TILE_BK
+    assert c["STAGES"] == l2_topk.TILE_STAGES >= 3
+    assert c["LIST"] == l2_topk.TILE_LIST
+    assert c["BQ"] == l2_topk.BQ == 8 * c["THREADS"] // 32
+    assert c["DICT_BITS_MAX"] == l2_topk.DICT_BITS_MAX
+    assert c["UCAP"] == l2_topk.UCAP and c["SLAB_MAX"] == l2_topk.SLAB_MAX
+    assert c["MAX_T"] == bm25.MAX_T
+    # the staged stride keeps the float4 reads of eight lanes (rows lane,
+    # a quarter-warp's phase) on 32 distinct banks
+    ldk = c["BK"] + 4
+    assert ldk == l2_topk.TILE_LDK and ldk % 4 == 0
+    assert len({(r * ldk + w) % 32 for r in range(8) for w in range(4)}) == 32
+
+
+@pytest.mark.parametrize("d", [128, 960, 13])
+@pytest.mark.parametrize("t", [0, 1, 4, 8, 16, 64])
+def test_tile_shared_memory_fits_at_any_d(d, t):
+    """The staged chunks carry any d: the query tile no longer sits whole in
+    shared memory (the old tile refused d above 512), so the layout is the
+    same at d = 128, 960 and 13; the hybrid's hit rows (257 of 64
+    documents), dictionary and query slots fit at every T."""
+    hybrid = t > 0
+    smem = l2_topk.tile_smem_bytes(hybrid, t)
+    assert smem <= l2_topk.SMEM_MAX
+    chunks = -(-d // l2_topk.TILE_BK)
+    assert chunks * l2_topk.TILE_BK >= d
+    if not hybrid:   # two fp32 blocks an SM (228 KB, 1 KB reserved a block)
+        assert 2 * (smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("b, n, splits, rows", [
+    (64, 1_000_000, 261, 3840),     # the main shape: one wave, two an SM
+    (70, 5000, 40, 128),            # two query tiles: one tile a split
+    (1024, 1_000_000, 16, 62592),   # the index's exact-truth batches
+    (1, 100, 1, 128),
+])
+def test_dense_splits_at_the_main_shapes(b, n, splits, rows):
+    s, r = l2_topk.splits_for(b, n, H100_SMS)
+    assert (s, r) == (splits, rows)
+    # whole tiles of the fp32 and int8 loops, and of the hybrid's and
+    # BM25's 64-row tiles; every row in exactly one split
+    assert r % l2_topk.BN == 0 and r % l2_topk.HYBRID_BN == 0
+    assert (s - 1) * r < n <= s * r
+    assert s * -(-b // l2_topk.BQ) <= 2 * H100_SMS    # one wave, two an SM
