@@ -20,7 +20,8 @@ each prints its wall time as ``[phase] <name> <s> s``):
              hybrid answer, here and later, is also held by its two
              halves (``testing.hybrid_by_parts``); the same tables at
              k = 33, 64, 65 and 100 and at k = N (the kernels' passes
-             above their lists' length), and ``l2_topk`` at d = 960;
+             above their lists' length), ``l2_topk`` at d = 960 and
+             ``l2_topk_int8`` at d = 640 and 1,000;
 4. shapes  - each kernel against its plain version at the main path's
              shapes, on the backends' own operands, timed beside its bound,
              the plain version and a PyTorch yardstick (which the port
@@ -133,6 +134,11 @@ from repro_torch.testing import (CHAIN_EDGES, EDGE_ALPHAS,  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+# Results a clock on each SM of compute capability 9.0 (the CUDA C++
+# Programming Guide's arithmetic-instruction throughput table): population
+# count, and 32-bit integer add and bitwise operations.
+POPC_PER_CLOCK_SM = 16
+INT_PER_CLOCK_SM = 64
 # Distances may differ by fp32 rounding, since the kernel and the plain
 # version sum in another order: |d_kernel - d_plain| <= REL * (qn + xn).
 REL = 1e-5
@@ -239,8 +245,9 @@ def phase_card() -> dict:
 
 # --------------------------------------------------------------- phase 2
 def _kernel_name(mangled: str) -> str:
-    """``l2_topk_partial<Int8Rows, 16, bounded>`` from a mangled kernel
-    name (``bounded``: the instantiation for a pass with a bound)."""
+    """``l2_tile_scan<Int8Rows, float4, bounded>`` or ``hamming_count<3>``
+    from a mangled kernel name (``bounded``: the instantiation for a pass
+    with a bound; 3: the words a code)."""
     last = re.search(r"Lb([01])EEEv", mangled)
     suffix = ", bounded" if last and last.group(1) == "1" else ""
     tile = re.search(r"l2_tile_scanINS_\d+(\w+?Rows)ELb(\d)ELb(\d)E", mangled)
@@ -248,8 +255,7 @@ def _kernel_name(mangled: str) -> str:
         rows, vec, _ = tile.groups()
         return (f"l2_tile_scan<{rows}, {'float4' if vec == '1' else 'scalar'}"
                 f"{suffix}>")
-    name = re.search(r"(l2_topk_partial|bm25_topk_partial|"
-                     r"warp_merge_partials|merge_partials|"
+    name = re.search(r"(bm25_topk_partial|warp_merge_partials|"
                      r"candidate_scan|candidate_merge|pq_adc_scan|"
                      r"hamming_count|hamming_offsets|hamming_emit)", mangled)
     rows = re.search(r"(F32Rows|Int8Rows|HybridRows)", mangled)
@@ -260,7 +266,7 @@ def _kernel_name(mangled: str) -> str:
                 f"{'IndirectRows' if ind == '1' else 'direct rows'}{suffix}>")
     if name and name.group(1) == "candidate_merge":
         return f"candidate_merge{'<bounded>' if suffix else ''}"
-    if name and name.group(1).startswith("hamming"):
+    if name and name.group(1) == "hamming_offsets":
         return name.group(1)
     if not (name and kt):
         return mangled[-60:]
@@ -645,6 +651,16 @@ def phase_edges(dev) -> None:
         near += check_l2(f"edge l2 d=960 k={k}", q, x, k,
                          valid=t((rng.random(2000) > .2).astype(np.int32))
                          )["near_ties"]
+    # int8 rows past d = 512 (the first tile loop refused them), with dead
+    # rows; d = 1,000 also takes the byte copies (d % 16 != 0)
+    for d in (640, 1000):
+        q = t(rng.normal(size=(9, d)).astype(np.float32))
+        codes, scales = (t(a) for a in ops.quantize_rows_int8(
+            rng.normal(size=(2000, d)).astype(np.float32)))
+        for k in (K, K_LARGE):
+            near += check_int8(f"edge int8 d={d} k={k}", q, codes, scales, k,
+                               t((rng.random(2000) > .2).astype(np.int32))
+                               )["near_ties"]
     near += edges_large_k(dev)
     log(f"[edges] all edge shapes agree; near-ties {near}")
     RESULTS["edge_near_ties"] = near
@@ -1909,14 +1925,37 @@ def phase_index_sift(dev, ctx) -> dict:
     B, W = qc.shape
     N = codes.shape[0]
     nbytes = 4.0 * (N * W + B * W) + 8.0 * B * kk
-    ops_ = 3.0 * B * N * W
-    res["bound_ms"], res["bound_by"] = bound(nbytes, ops_)
+    # the operations at their own rates (the CUDA C++ Programming Guide's
+    # arithmetic-instruction throughput table, compute capability 9.0, a
+    # clock an SM): population count 16, 32-bit XOR and add 64.  The
+    # kernel's carry-save adder takes two popcounts for three words.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    res["sm_clock_mhz"] = sm_clocks_mhz()
+    per_s = sms * res["sm_clock_mhz"]["max"] * 1e6
+    res["popc"] = float(B) * N * (2 * (W // 3) + W % 3)
+    res["popc_ms"] = res["popc"] / (POPC_PER_CLOCK_SM * per_s) * 1e3
+    res["int_ms"] = 2.0 * B * N * W / (INT_PER_CLOCK_SM * per_s) * 1e3
+    res["popc_each_word_ms"] = (float(B) * N * W
+                                / (POPC_PER_CLOCK_SM * per_s) * 1e3)
+    res["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    res["bound_ms"] = max(res["bytes_ms"], res["popc_ms"], res["int_ms"])
+    res["bound_by"] = ("bytes" if res["bound_ms"] == res["bytes_ms"]
+                       else "operations")
+    # the figure held until this bound counted popcounts at their rate:
+    # 3 B N W operations at the fp32 rate
+    res["fp32_rate_bound_ms"] = 3.0 * B * N * W / FP32_FLOPS_PER_S * 1e3
     res["shape"] = [B, N, W, kk]
     RESULTS["kernels"]["hamming_topk"] = res
     log(f"[shape hamming_topk] ms {res['ms']:.4f} (k=64: "
         f"{res['ms_k64']:.4f}) bound {res['bound_ms']:.4f} "
-        f"({res['bound_by']}) plain {res['plain_ms']:.3f} library "
-        f"{res['library_ms']:.4f} (k=64: {res['library_ms_k64']:.4f})")
+        f"({res['bound_by']}: {res['popc']:.4g} popcounts at "
+        f"{POPC_PER_CLOCK_SM} a clock an SM, {res['sm_clock_mhz']['max']} "
+        f"MHz; XOR and add {res['int_ms']:.4f}; bytes "
+        f"{res['bytes_ms']:.4f}; a popcount a word "
+        f"{res['popc_each_word_ms']:.4f}; the old fp32-rate figure "
+        f"{res['fp32_rate_bound_ms']:.4f}) plain {res['plain_ms']:.3f} "
+        f"library {res['library_ms']:.4f} (k=64: "
+        f"{res['library_ms_k64']:.4f})")
     del xt
     return out
 
@@ -2258,7 +2297,8 @@ def kernel_line() -> dict:
         if "library_ms_k64" in r:
             row.update(ms_k64=r["ms_k64"], library_ms_k64=r["library_ms_k64"])
         for extra in ("lookup_ms", "bytes_ms", "compare_loop_ops_ms",
-                      "matched_slots", "tc_bound_ms"):
+                      "matched_slots", "tc_bound_ms", "popc_ms", "int_ms",
+                      "popc_each_word_ms", "fp32_rate_bound_ms"):
             if extra in r:
                 row[extra] = r[extra]
         if "eight_terms" in r:

@@ -98,7 +98,7 @@ def bm25_topk(q_terms: torch.Tensor, q_weights: torch.Tensor,
 
     def run(kr, after_d, after_i):
         out_d, out_i, part_d, part_i, kt, splits, rows = l2_topk.scan_outputs(
-            B, N, kr, 1, dev)
+            B, N, kr, dev)
         with torch.cuda.device(dev):
             rc = lib.bm25_topk_launch(
                 qt.data_ptr(), qw.data_ptr(), t.data_ptr(), f.data_ptr(),
@@ -149,7 +149,7 @@ def hybrid_topk(queries: torch.Tensor, db: torch.Tensor,
 
     def run(kr, after_d, after_i):
         out_d, out_i, part_d, part_i, kt, splits, rows = l2_topk.scan_outputs(
-            B, N, kr, 1, dev)
+            B, N, kr, dev)
         with torch.cuda.device(dev):
             rc = lib.hybrid_topk_launch(
                 q.data_ptr(), x.data_ptr(), qt.data_ptr(), qw.data_ptr(),

@@ -228,7 +228,7 @@ extern "C" {
 
 // Returns a cudaError_t as int (0 = launched).  valid may be null (all
 // rows live); after_d / after_i are (B,) or both null: the pass's bound
-// (rt::TopK).  S <= rt::SLAB_MAX; kt is 8, 16 or 32, with 1 <= k <= kt;
+// (rt::WarpTopK).  S <= rt::SLAB_MAX; kt is 8, 16 or 32, with 1 <= k <= kt;
 // part_d / part_i are (B, splits, kt) scratch, one list a query a split.
 int bm25_topk_launch(const int* q_terms, const float* q_weights, const int* terms,
                      const float* tf_sat, const int* valid, const float* after_d,

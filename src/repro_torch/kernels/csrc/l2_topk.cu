@@ -1,5 +1,5 @@
-// Fused brute-force scans + streaming top-k for Hopper (sm_90a): two tile
-// loops, for three row types.
+// Fused brute-force scans + streaming top-k for Hopper (sm_90a): one tile
+// loop, `tile::l2_tile_scan`, for three row types.
 //
 // Replaces (the TPU kernels):
 //   F32Rows    repro/kernels/l2_topk.py::l2_topk_pallas
@@ -14,7 +14,7 @@
 // id) order, (inf, -1) in slots no live row fills.  One launch serves
 // k <= 32; a larger k is taken in passes (kernels/common.py: topk_passes),
 // each bounded by the last pair of the pass before (after_d / after_i,
-// held where a pair is offered: rt::WarpTopK::beats, rt::TopK::push).
+// held where a pair is offered: rt::WarpTopK::beats).
 //
 // Blocks on Hopper run in no order, so the TPU kernels' carry of the
 // running top-k through a sequential grid axis does not port: the grid is
@@ -24,7 +24,6 @@
 // chosen by the wrapper so that B = 64 against N = 1M still fills all 132
 // SMs.
 //
-// F32Rows and HybridRows: the tile loop `tile::l2_tile_scan`.
 // * Staging: row tiles (BN = 128 rows; 64 for the hybrid) and the query
 //   tile are copied BK = 16 dimensions at a time by cp.async (16-byte
 //   cp.async.cg; 4-byte cp.async.ca when d is not a multiple of 4), in a
@@ -34,28 +33,39 @@
 //   the threads' float4 reads of rows 32 apart free of bank conflicts.
 //   Queries are staged by chunk like the rows, so d has no ceiling (the
 //   first tile kept the whole query tile in shared memory: d <= 512).
+// * Int8 rows: a row's 16 codes of a chunk are one 16-byte cp.async.cg (a
+//   stage of rows is 2 KB, a quarter of the fp32 one; byte copies when d is
+//   not a multiple of 16).  The block widens each landed chunk once into an
+//   fp32 chunk of the fp32 layout (two of them, alternating), one step
+//   ahead of the products: at step s, after the step's barrier, the threads
+//   widen chunk s + 1 (so the ring is one stage longer and waits for one
+//   chunk more) while the products read chunk s's.  The products and norms
+//   then run the fp32 code unchanged, and no conversion sits in the FMA
+//   loop (I2F issues at a fraction of the FMA rate).  The row scales are
+//   read with the liveness mask as a tile starts.
 // * Products: register-blocked fp32 FMA.  Thread (lane, warp w) owns
 //   queries 8 w .. 8 w + 7 and rows lane, lane + 32, ... of the tile (8 x 4
-//   for the fp32 scan, 8 x 2 for the hybrid's 64-row tile), and adds
+//   for the 128-row tiles, 8 x 2 for the hybrid's 64-row tile), and adds
 //   q[k] x[k] into each dot with fmaf over the dims in order: the same
-//   sequence as the first tile, so every d2 is that kernel's bit for bit.
-//   An 8 x 8 micro-tile (a 256-row tile) fed the FMAs better but left no
-//   registers for the selection at two blocks an SM: it spilled, and took
-//   0.83-0.93 ms against 0.35 ms without selection (kernels/tile_ablation.py).
-//   The products were first taken on the tensor cores (3xTF32: a split of
-//   each operand into two TF32 parts and three mma.sync products).  At
-//   sift magnitudes its d2 differed from the plain path's fp32 products by
-//   up to 7.1e-7 of qn + xn (fp32 FMA: 1.8e-7), so near-tied neighbours
-//   swapped with the unfused path's far more often, and the options cells'
-//   unchanged hybrid parity check (ids equal to the unfused path's on 0.99
-//   of slots) failed on 0.981 (PERF.md).
+//   sequence as the first tile loop, so every d2 (int8 included) is that
+//   loop's bit for bit.  An 8 x 8 micro-tile (a 256-row tile) fed the FMAs
+//   better but left no registers for the selection at two blocks an SM: it
+//   spilled, and took 0.83-0.93 ms against 0.35 ms without selection
+//   (kernels/tile_ablation.py).  The products were first taken on the
+//   tensor cores (3xTF32: a split of each operand into two TF32 parts and
+//   three mma.sync products).  At sift magnitudes its d2 differed from the
+//   plain path's fp32 products by up to 7.1e-7 of qn + xn (fp32 FMA:
+//   1.8e-7), so near-tied neighbours swapped with the unfused path's far
+//   more often, and the options cells' unchanged hybrid parity check (ids
+//   equal to the unfused path's on 0.99 of slots) failed on 0.981 (PERF.md).
 // * Norms: xn and qn are fp32 FMA over the dimensions in order (warp w
 //   computes row lane + 32 w's; lanes 0-7 of each warp their queries', in
-//   the first tile).  The epilogue forms d2 in the reference's order with
-//   round-to-nearest intrinsics (nothing contracted into an FMA); dead and
-//   pad rows read +inf.  So a row's d2 depends on the query, the row and d
-//   only: not on the tile, the split or N (testing.hybrid_by_parts relies
-//   on that), and alpha = 1 gives the fp32 scan's distances exactly.
+//   the first tile); the code-space norm ||x8||^2 <= 128 * 127^2 < 2^24 is
+//   exact in any order.  The epilogue forms d2 in the reference's order
+//   with round-to-nearest intrinsics (nothing contracted into an FMA); dead
+//   and pad rows read +inf.  So a row's d2 depends on the query, the row
+//   and d only: not on the tile, the split or N (testing.hybrid_by_parts
+//   relies on that), and alpha = 1 gives the fp32 scan's distances exactly.
 // * Selection: each warp selects for its own 8 queries (no barrier: it
 //   computed their distances), one rt::WarpTopK a query kept in shared
 //   memory between tiles.  Its epilogue writes the distances to the
@@ -76,13 +86,6 @@
 //   back; alpha = 0 gives the BM25 scan's distances (by value).  The T x S
 //   compare loop is gone.
 //
-// Int8Rows keeps the first tile loop (`int8::l2_topk_partial`): the query
-// tile staged once, transposed, in shared memory (so d <= 512), the row
-// chunk widened to fp32 as it is staged (one 16-byte load of 16 codes a
-// row), a 4 x 8 micro-tile of fp32 FMA a thread, SEL threads a query
-// scanning the distance tile into register lists, rt::merge_partials.  The
-// code-space norm ||x8||^2 <= 128 * 127^2 < 2^24 is exact in any order.
-//
 // Bound at the main path's shapes (B = 64, N = 1M, d = 128; 3.35 TB/s, 67
 // TFLOP/s fp32 outside the tensor cores):
 //   fp32:   16.4 GFLOP = 245 us against 512 MB = 153 us -> operations;
@@ -92,10 +95,12 @@
 //   int8:   16.4 GFLOP = 245 us against 136 MB = 41 us -> operations.
 // chip_smoke.py computes each from the run's operands.
 //
-// Left on the table: the fp32 scan issues a shared load a 16 FMAs and
-// waits at a barrier every 16 dims; deeper chunks, a warp-specialised
-// producer and TMA copies would hide more; the hybrid's lexical half runs
-// between the tiles' products with three barriers of its own.
+// Left on the table: the scan issues a shared load a 16 FMAs and waits at
+// a barrier every 16 dims; deeper chunks, a warp-specialised producer and
+// TMA copies would hide more; the hybrid's lexical half runs between the
+// tiles' products with three barriers of its own; int8 could take its
+// products on the tensor cores exactly in bf16 parts (x8 is exact in bf16),
+// but their accumulation does not round at each add.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -106,18 +111,11 @@
 
 namespace {
 
-struct F32Rows {
-  using T = float;
-};
-struct Int8Rows {
-  using T = signed char;
-};
-struct HybridRows {
-  using T = float;
-};
+struct F32Rows {};
+struct Int8Rows {};
+struct HybridRows {};
 
-constexpr int BQ = 64;             // queries per block (both loops)
-constexpr int MERGE_THREADS = 128;
+constexpr int BQ = 64;             // queries per block
 constexpr int MERGE_WARPS = 8;     // warps merging one query's partials
 
 // ------------------------------------------------------------ PTX helpers
@@ -151,206 +149,6 @@ __device__ __forceinline__ float order_float(int key) {
   return __int_as_float(key >= 0 ? key : key ^ 0x7fffffff);
 }
 
-// =================================================== the int8 tile loop
-namespace int8 {
-
-constexpr int BN = 128;       // corpus rows per tile
-constexpr int BK = 16;        // dims per staged chunk
-constexpr int THREADS = 256;
-constexpr int TQ = 4;         // queries per thread micro-tile
-constexpr int TR = 8;         // rows per thread micro-tile
-constexpr int SEL = THREADS / BQ;   // selector threads per query
-constexpr int XS_LD = BN + 4;       // padded stride of the row chunk
-constexpr int DS_LD = BN + 1;       // padded stride of the distance tile
-
-static_assert((BQ / TQ) * (BN / TR) == THREADS, "micro-tiles must cover the block tile");
-static_assert(BK == 16, "an int8 row chunk is one 16-byte load");
-
-// Operands of one int8 scan.
-struct Operands {
-  const float* q;          // (B, D) fp32
-  const signed char* x;    // (N, D) int8 codes
-  const float* scales;     // (N,) row scales
-  const int* valid;        // (N,) or null: all rows live
-  const float* after_d;    // (B,) the pass's bound, or null
-  const int* after_i;
-  float* part_d;           // (B, splits * SEL, KT)
-  int* part_i;
-  int B, N, D, d_pad, rows_per_split;
-};
-
-// BOUNDED: the launch carries a pass's bound; without one the lists'
-// bound is the constant none (no registers for it).
-template <class Rows, int KT, bool BOUNDED>
-__global__ void __launch_bounds__(THREADS) l2_topk_partial(const Operands op) {
-  static_assert(std::is_same<Rows, Int8Rows>::value, "the int8 rows' loop");
-  const float* __restrict__ q = op.q;
-  const signed char* __restrict__ x = op.x;
-  const int* __restrict__ valid = op.valid;
-  const int B = op.B, N = op.N, D = op.D, d_pad = op.d_pad;
-
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* qs = smem;                    // [d_pad][BQ]
-  float* xs = qs + d_pad * BQ;         // [BK][XS_LD]
-  float* ds = xs + BK * XS_LD;         // [BQ][DS_LD]
-  float* qn = ds + BQ * DS_LD;         // [BQ]
-  float* xn = qn + BQ;                 // [BN]
-  float* sc = xn + BN;                 // [BN] row scales of the tile
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const int split = blockIdx.y;
-  const int r_begin = split * op.rows_per_split;
-  const int r_end = min(N, r_begin + op.rows_per_split);
-
-  for (int e = tid; e < BQ * d_pad; e += THREADS) {
-    const int qq = e / d_pad, dd = e % d_pad;
-    const int gq = q0 + qq;
-    qs[dd * BQ + qq] = (gq < B && dd < D) ? q[(size_t)gq * D + dd] : 0.f;
-  }
-  __syncthreads();
-  if (tid < BQ) {
-    float s = 0.f;
-    for (int dd = 0; dd < D; ++dd) {
-      const float v = qs[dd * BQ + tid];
-      s = fmaf(v, v, s);
-    }
-    qn[tid] = s;
-  }
-  // one 16-byte load per row and chunk when the rows allow it
-  const bool vec16 = (D % BK) == 0 && (reinterpret_cast<uintptr_t>(x) % 16) == 0;
-
-  const int tq = tid / (BN / TR);     // micro-tile queries tq*TQ ..
-  const int tr = tid % (BN / TR);     // micro-tile rows tr*TR ..
-  const int sel_q = tid / SEL;        // selector: query of the tile
-  const int sel_c = tid % SEL;        // selector: first column it scans
-
-  rt::TopK<KT, BOUNDED> top;
-  if (BOUNDED) {
-    float ad;
-    int ai;
-    rt::after_of(op.after_d, op.after_i, min(q0 + sel_q, B - 1), ad, ai);
-    top.init(ad, ai);
-  } else {
-    top.init();
-  }
-
-  for (int r0 = r_begin; r0 < r_end; r0 += BN) {
-    // read by the epilogue, after the chunk loop's barriers
-    if (tid < BN) sc[tid] = r0 + tid < r_end ? op.scales[r0 + tid] : 1.f;
-
-    float acc[TQ][TR];
-#pragma unroll
-    for (int a_ = 0; a_ < TQ; ++a_)
-#pragma unroll
-      for (int c = 0; c < TR; ++c) acc[a_][c] = 0.f;
-    float xn_acc = 0.f;   // thread tid < BN: norm of row r0 + tid
-
-    for (int k0 = 0; k0 < d_pad; k0 += BK) {
-      if (vec16) {
-        if (tid < BN) {
-          int4 v = make_int4(0, 0, 0, 0);
-          if (r0 + tid < r_end)
-            v = *reinterpret_cast<const int4*>(x + (size_t)(r0 + tid) * D + k0);
-          const signed char* c = reinterpret_cast<const signed char*>(&v);
-#pragma unroll
-          for (int kk = 0; kk < BK; ++kk) xs[kk * XS_LD + tid] = static_cast<float>(c[kk]);
-        }
-      } else {
-        for (int e = tid; e < BN * BK; e += THREADS) {
-          const int row = e / BK, kk = e % BK;
-          const int gr = r0 + row, gk = k0 + kk;
-          xs[kk * XS_LD + row] =
-              (gr < r_end && gk < D) ? static_cast<float>(x[(size_t)gr * D + gk]) : 0.f;
-        }
-      }
-      __syncthreads();
-      if (tid < BN) {
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          const float v = xs[kk * XS_LD + tid];
-          xn_acc = fmaf(v, v, xn_acc);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 av4 = *reinterpret_cast<const float4*>(&qs[(k0 + kk) * BQ + tq * TQ]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&xs[kk * XS_LD + tr * TR]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&xs[kk * XS_LD + tr * TR + 4]);
-        const float av[TQ] = {av4.x, av4.y, av4.z, av4.w};
-        const float bv[TR] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < TQ; ++i)
-#pragma unroll
-          for (int j = 0; j < TR; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-    if (tid < BN) xn[tid] = xn_acc;
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < TR; ++j) {
-      const int row = tr * TR + j;
-      const int gr = r0 + row;
-      const bool live = gr < r_end && (valid == nullptr || valid[gr] != 0);
-#pragma unroll
-      for (int i = 0; i < TQ; ++i) {
-        const int qq = tq * TQ + i;
-        const float s = sc[row];
-        const float dist = __fsub_rn(__fadd_rn(qn[qq], __fmul_rn(__fmul_rn(s, s), xn[row])),
-                                     __fmul_rn(__fmul_rn(2.f, s), acc[i][j]));
-        ds[qq * DS_LD + row] = live ? dist : CUDART_INF_F;
-      }
-    }
-    __syncthreads();
-
-    const int lim = min(BN, r_end - r0);
-    for (int c = sel_c; c < lim; c += SEL) {
-      const float dist = ds[sel_q * DS_LD + c];
-      if (dist < CUDART_INF_F) top.push(dist, r0 + c);
-    }
-    __syncthreads();
-  }
-
-  const int gq = q0 + sel_q;
-  if (gq < B) {
-    const size_t base = ((size_t)gq * gridDim.y * SEL + (size_t)split * SEL + sel_c) * KT;
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      op.part_d[base + j] = top.d[j];
-      op.part_i[base + j] = top.i[j];
-    }
-  }
-}
-
-template <int KT, bool BOUNDED>
-int launch_bounded(const Operands& op, size_t smem, int splits, cudaStream_t stream) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(l2_topk_partial<Int8Rows, KT, BOUNDED>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((op.B + BQ - 1) / BQ, splits);
-  l2_topk_partial<Int8Rows, KT, BOUNDED><<<grid, THREADS, smem, stream>>>(op);
-  return (int)cudaGetLastError();
-}
-
-template <int KT>
-int launch(const Operands& op, float* out_d, int* out_i, int k, int splits,
-           cudaStream_t stream) {
-  const size_t words = (size_t)op.d_pad * BQ + BK * XS_LD + BQ * DS_LD + BQ + 2 * BN;
-  const size_t smem = sizeof(float) * words;
-  const int rc = op.after_d != nullptr ? launch_bounded<KT, true>(op, smem, splits, stream)
-                                       : launch_bounded<KT, false>(op, smem, splits, stream);
-  if (rc != 0) return rc;
-  rt::merge_partials<KT, MERGE_THREADS><<<op.B, MERGE_THREADS, 0, stream>>>(
-      op.part_d, op.part_i, splits * SEL, out_d, out_i, k);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace int8
-
 // ============================================ the fp32 and hybrid tile loop
 namespace tile {
 
@@ -366,24 +164,35 @@ constexpr int DICT_BITS_MAX = 12;      // the hybrid's dictionary: at most 4,096
 template <class Rows>
 struct Shape {
   static constexpr bool kHybrid = std::is_same<Rows, HybridRows>::value;
+  static constexpr bool kInt8 = std::is_same<Rows, Int8Rows>::value;
   static constexpr int BN = kHybrid ? 64 : 128;   // rows a tile
   static constexpr int RPT = BN / 32;             // rows a thread: lane, lane + 32, ...
   static constexpr int LDS = BN + 4;              // the distance tile's stride
-  static constexpr int STAGE = (BN + BQ) * LDK;   // floats a stage: rows, then queries
+  // a stage holds the chunk's rows (fp32 [row][LDK], or int8 [row][BK]
+  // bytes), then the queries' (fp32 [query][LDK])
+  static constexpr int ROW_BYTES = kInt8 ? BN * BK : 4 * BN * LDK;
+  static constexpr int STAGE_BYTES = ROW_BYTES + 4 * BQ * LDK;
+  // int8: one stage more, since the chunk after the current one is widened
+  // ahead of its products
+  static constexpr int RING = kInt8 ? STAGES + 1 : STAGES;
   static constexpr int MIN_BLOCKS = kHybrid ? 1 : 2;
   static constexpr int QG = THREADS / BN;         // hybrid: threads a document
   static constexpr int GROUPS_MAX = BQ / QG;      // hybrid: query groups at most
 };
 
 static_assert(BQ == WARPS * 8, "eight queries a warp");
-static_assert(Shape<F32Rows>::RPT <= WARPS && Shape<HybridRows>::RPT <= WARPS,
+static_assert(Shape<F32Rows>::RPT <= WARPS && Shape<Int8Rows>::RPT <= WARPS &&
+                  Shape<HybridRows>::RPT <= WARPS,
               "one warp a row slot computes the rows' norms");
+static_assert(Shape<Int8Rows>::BN * BK == THREADS * 8, "a thread widens 8 codes a chunk");
 static_assert((rt::lex::MAX_T * (BQ / Shape<HybridRows>::GROUPS_MAX)) <= rt::lex::ZERO_ROW,
               "the hybrid's smallest query group always fits the hit rows");
 
 struct Args {
   const float* q;          // (B, D)
-  const float* x;          // (N, D)
+  const float* x;          // (N, D), fp32 and hybrid
+  const signed char* x8;   // (N, D), int8 codes
+  const float* scales;     // (N,), int8: each row's scale
   const int* valid;        // (N,) or null
   const float* after_d;    // (B,) the pass's bound, or null
   const int* after_i;
@@ -400,7 +209,7 @@ struct Args {
 
 // Byte offsets of the block's shared memory (every one a multiple of 16).
 struct Layout {
-  size_t stages, ds, sl_d, sl_i, xn, aft_d, aft_i;             // both
+  size_t stages, wide, ds, sl_d, sl_i, xn, aft_d, aft_i;       // every row type (wide: int8)
   size_t hits, qinfo, dkey, dval, su, tf, rows, small, total;  // hybrid
 };
 
@@ -416,7 +225,8 @@ __host__ __device__ Layout layout(int T, int dict_bits) {
     o += up16(bytes);
     return at;
   };
-  l.stages = take(4ull * STAGES * S::STAGE);
+  l.stages = take(1ull * S::RING * S::STAGE_BYTES);
+  if (S::kInt8) l.wide = take(2ull * 4 * S::BN * LDK);
   l.ds = take(4ull * BQ * S::LDS);
   l.sl_d = take(4ull * BQ * LIST);
   l.sl_i = take(4ull * BQ * LIST);
@@ -439,21 +249,54 @@ __host__ __device__ Layout layout(int T, int dict_bits) {
 
 // Copy the chunk of dims k0 .. k0 + BK - 1 of rows r0 .. r0 + BN - 1 and
 // of the block's queries into a stage; what lies past r_end, B or D reads
-// as zero.
-template <int BN, bool VEC>
-__device__ __forceinline__ void load_step(float* stage, const float* __restrict__ x,
-                                          const float* __restrict__ q, int r0, int r_end, int q0,
-                                          int B, int D, int k0, int tid) {
-  float* xs = stage;
-  float* qs = stage + BN * LDK;
-  if (VEC) {
-#pragma unroll
-    for (int e = tid; e < BN * (BK / 4); e += THREADS) {
-      const int row = e / (BK / 4), j = e % (BK / 4);
-      const int gr = r0 + row, gk = k0 + 4 * j;
-      const bool ok = gr < r_end && gk < D;
-      cp_async16(xs + row * LDK + 4 * j, ok ? x + (size_t)gr * D + gk : x, ok);
+// as zero.  VEC: 16-byte copies (int8 rows: d a multiple of 16).
+template <class Rows, bool VEC>
+__device__ __forceinline__ void load_step(unsigned char* stage, const Args& a, int r0, int r_end,
+                                          int q0, int k0, int tid) {
+  constexpr int BN = Shape<Rows>::BN;
+  const int B = a.B, D = a.D;
+  const float* __restrict__ q = a.q;
+  float* qs = reinterpret_cast<float*>(stage + Shape<Rows>::ROW_BYTES);
+  if constexpr (Shape<Rows>::kInt8) {
+    const signed char* __restrict__ x = a.x8;
+    signed char* xs = reinterpret_cast<signed char*>(stage);
+    if (VEC) {
+      if (tid < BN) {
+        const int gr = r0 + tid;
+        const bool ok = gr < r_end;
+        cp_async16(xs + tid * BK, ok ? x + (size_t)gr * D + k0 : x, ok);
+      }
+    } else {   // byte copies, landed by the barriers before the chunk is widened
+#pragma unroll 4
+      for (int e = tid; e < BN * BK; e += THREADS) {
+        const int row = e / BK, kk = e % BK;
+        const int gr = r0 + row, gk = k0 + kk;
+        xs[e] = gr < r_end && gk < D ? x[(size_t)gr * D + gk] : 0;
+      }
     }
+  } else {
+    const float* __restrict__ x = a.x;
+    float* xs = reinterpret_cast<float*>(stage);
+    if (VEC) {
+#pragma unroll
+      for (int e = tid; e < BN * (BK / 4); e += THREADS) {
+        const int row = e / (BK / 4), j = e % (BK / 4);
+        const int gr = r0 + row, gk = k0 + 4 * j;
+        const bool ok = gr < r_end && gk < D;
+        cp_async16(xs + row * LDK + 4 * j, ok ? x + (size_t)gr * D + gk : x, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int e = tid; e < BN * BK; e += THREADS) {
+        const int row = e / BK, kk = e % BK;
+        const int gr = r0 + row, gk = k0 + kk;
+        const bool ok = gr < r_end && gk < D;
+        cp_async4(xs + row * LDK + kk, ok ? x + (size_t)gr * D + gk : x, ok);
+      }
+    }
+  }
+  // the queries are fp32 for every row type; 16-byte copies need d % 4 == 0
+  if (VEC) {
 #pragma unroll
     for (int e = tid; e < BQ * (BK / 4); e += THREADS) {
       const int qq = e / (BK / 4), j = e % (BK / 4);
@@ -463,13 +306,6 @@ __device__ __forceinline__ void load_step(float* stage, const float* __restrict_
     }
   } else {
 #pragma unroll 4
-    for (int e = tid; e < BN * BK; e += THREADS) {
-      const int row = e / BK, kk = e % BK;
-      const int gr = r0 + row, gk = k0 + kk;
-      const bool ok = gr < r_end && gk < D;
-      cp_async4(xs + row * LDK + kk, ok ? x + (size_t)gr * D + gk : x, ok);
-    }
-#pragma unroll 4
     for (int e = tid; e < BQ * BK; e += THREADS) {
       const int qq = e / BK, kk = e % BK;
       const int gq = q0 + qq, gk = k0 + kk;
@@ -477,6 +313,18 @@ __device__ __forceinline__ void load_step(float* stage, const float* __restrict_
       cp_async4(qs + qq * LDK + kk, ok ? q + (size_t)gq * D + gk : q, ok);
     }
   }
+}
+
+// Widen a landed int8 chunk of rows into the fp32 layout the products
+// read ([row][LDK]): thread t takes 8 codes of row t % BN.
+template <int BN>
+__device__ __forceinline__ void widen(const unsigned char* stage, float* wide, int tid) {
+  const int row = tid % BN, half = tid / BN;
+  const int2 v = *reinterpret_cast<const int2*>(stage + row * BK + 8 * half);
+  const signed char* c = reinterpret_cast<const signed char*>(&v);
+  float4* w = reinterpret_cast<float4*>(wide + row * LDK + 8 * half);
+  w[0] = make_float4(c[0], c[1], c[2], c[3]);
+  w[1] = make_float4(c[4], c[5], c[6], c[7]);
 }
 
 // s + v.v over four dims in order.
@@ -493,11 +341,12 @@ template <class Rows, bool VEC, bool BOUNDED>
 __global__ void __launch_bounds__(THREADS, Shape<Rows>::MIN_BLOCKS)
 l2_tile_scan(const Args a) {
   using S = Shape<Rows>;
-  constexpr int BN = S::BN, RPT = S::RPT, LDS = S::LDS;
+  constexpr int BN = S::BN, RPT = S::RPT, LDS = S::LDS, RING = S::RING;
   extern __shared__ float4 smem4[];
   unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
   const Layout L = layout<Rows>(a.T, a.dict_bits);
-  float* stages = reinterpret_cast<float*>(base + L.stages);
+  unsigned char* stages = base + L.stages;
+  float* wide = reinterpret_cast<float*>(base + L.wide);    // int8: [2][BN][LDK] widened rows
   float* ds = reinterpret_cast<float*>(base + L.ds);        // [BQ][LDS] the tile's distances
   float* sl_d = reinterpret_cast<float*>(base + L.sl_d);    // [BQ][LIST] the lists
   int* sl_i = reinterpret_cast<int*>(base + L.sl_i);
@@ -551,10 +400,10 @@ l2_tile_scan(const Args a) {
     dc.nq = dc.reach + S::GROUPS_MAX;
     // the dictionary's scratch (2 BQ T words, 32 KB at T = 64) lies in the
     // stages and the distance tile that follows them, free until then
-    static_assert(STAGES * S::STAGE + BQ * S::LDS >= 2 * BQ * rt::lex::MAX_T,
+    static_assert(RING * S::STAGE_BYTES + 4 * BQ * S::LDS >= 8 * BQ * rt::lex::MAX_T,
                   "the dictionary's scratch fits the stages and the distance tile");
-    float* qws = stages;
-    int* qts = reinterpret_cast<int*>(stages + BQ * a.T);
+    float* qws = reinterpret_cast<float*>(stages);
+    int* qts = reinterpret_cast<int*>(qws + BQ * a.T);
     for (int e = tid; e < rt::lex::UCAP * BN; e += THREADS) hits[e] = 0.f;
     for (int e = tid; e < BQ * a.T; e += THREADS)
       qws[e] = q0 + e / a.T < B ? a.q_weights[(size_t)q0 * a.T + e] : 0.f;
@@ -575,34 +424,46 @@ l2_tile_scan(const Args a) {
   __syncthreads();   // lists, bounds and dictionary set; the stages free
 
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
+  for (int s = 0; s < RING - 1; ++s) {
     if (s < steps)
-      load_step<BN, VEC>(stages + s * S::STAGE, a.x, a.q, r_begin + (s / nk) * BN, r_end, q0,
-                         B, D, (s % nk) * BK, tid);
+      load_step<Rows, VEC>(stages + s * S::STAGE_BYTES, a, r_begin + (s / nk) * BN, r_end, q0,
+                           (s % nk) * BK, tid);
     cp_commit();
+  }
+  if constexpr (S::kInt8) {   // chunk 0 widened ahead of the loop
+    cp_wait<RING - 2>();
+    __syncthreads();
+    if (steps > 0) widen<BN>(stages, wide, tid);
   }
 
   // thread (lane, warp): queries qb .. qb + 7, rows lane + 32 j of the tile
   float acc[QPT][RPT];
   bool live[RPT];          // its rows, read as a tile starts
+  float scl[RPT];          // int8: their scales, read as a tile starts
   float thr = CUDART_INF_F;  // lane i < 8: a bound on query qb + i's k-th distance
   int g_key = 0;           // lane i < 8: the splits' shared bound, read as a tile starts
   float norm = 0.f;        // warp w < RPT: the norm of row lane + 32 w of the tile
   float qnorm = 0.f;       // lane i < 8: the norm of query qb + i (the first tile)
   int tile = 0, kc = 0;
-  int ld_tile = (STAGES - 1) / nk, ld_kc = (STAGES - 1) % nk;   // the next step to load
+  int ld_tile = (RING - 1) / nk, ld_kc = (RING - 1) % nk;   // the next step to load
 
   for (int step = 0; step < steps; ++step) {
-    cp_wait<STAGES - 2>();
-    __syncthreads();   // this step's chunk has landed; the oldest stage is free
-    if (step + STAGES - 1 < steps)
-      load_step<BN, VEC>(stages + ((step + STAGES - 1) % STAGES) * S::STAGE, a.x, a.q,
-                         r_begin + ld_tile * BN, r_end, q0, B, D, ld_kc * BK, tid);
+    // this step's chunk (int8: also the next one, widened below) has landed;
+    // the oldest stage is free, and so is the widened chunk of the step before
+    cp_wait<S::kInt8 ? RING - 3 : RING - 2>();
+    __syncthreads();
+    if (step + RING - 1 < steps)
+      load_step<Rows, VEC>(stages + ((step + RING - 1) % RING) * S::STAGE_BYTES, a,
+                           r_begin + ld_tile * BN, r_end, q0, ld_kc * BK, tid);
     cp_commit();
     if (++ld_kc == nk) {
       ld_kc = 0;
       ++ld_tile;
     }
+    if constexpr (S::kInt8)
+      if (step + 1 < steps)
+        widen<BN>(stages + ((step + 1) % RING) * S::STAGE_BYTES,
+                  wide + ((step + 1) & 1) * BN * LDK, tid);
     const int r0 = r_begin + tile * BN;
 
     if (kc == 0) {
@@ -614,6 +475,7 @@ l2_tile_scan(const Args a) {
       for (int j = 0; j < RPT; ++j) {
         const int gr = r0 + lane + 32 * j;
         live[j] = gr < r_end && (a.valid == nullptr || a.valid[gr] != 0);
+        if constexpr (S::kInt8) scl[j] = gr < r_end ? a.scales[gr] : 0.f;
       }
       if (lane < QPT)
         g_key = q0 + qb + lane < B ? __ldcg(a.thr_g + q0 + qb + lane) : order_key(CUDART_INF_F);
@@ -649,8 +511,10 @@ l2_tile_scan(const Args a) {
     // chunk's dims in order (so each dot is the sequential fmaf sum over
     // d); the rows' norms by warp w < RPT (row lane + 32 w), the warp's
     // queries' in the first tile by its lanes 0-7
-    const float* xs = stages + (step % STAGES) * S::STAGE;
-    const float* qs = xs + BN * LDK;
+    const unsigned char* stage = stages + (step % RING) * S::STAGE_BYTES;
+    const float* xs = S::kInt8 ? wide + (step & 1) * BN * LDK
+                               : reinterpret_cast<const float*>(stage);
+    const float* qs = reinterpret_cast<const float*>(stage + S::ROW_BYTES);
 #pragma unroll
     for (int kq = 0; kq < BK; kq += 4) {
       float4 xv[RPT];
@@ -681,9 +545,18 @@ l2_tile_scan(const Args a) {
       // pair over it can be an answer
       if (lane < QPT) thr = fminf(thr, order_float(g_key));
       __syncthreads();   // the rows' norms (and the hybrid's scores) are in place
-      float xn[RPT];
+      // each row's term and the factor of its dot: xn and 2, or for int8
+      // rows (s s) xn8 and 2 s
+      float xn[RPT], two[RPT];
 #pragma unroll
-      for (int j = 0; j < RPT; ++j) xn[j] = xn_s[lane + 32 * j];
+      for (int j = 0; j < RPT; ++j) {
+        xn[j] = xn_s[lane + 32 * j];
+        two[j] = 2.f;
+        if constexpr (S::kInt8) {
+          xn[j] = __fmul_rn(__fmul_rn(scl[j], scl[j]), xn[j]);
+          two[j] = __fmul_rn(2.f, scl[j]);
+        }
+      }
       // the distances of the warp's queries into its rows of the tile (the
       // hybrid's over its lexical scores: each read and written by the
       // same thread), and a ballot a run of 32 rows against the query's
@@ -697,7 +570,7 @@ l2_tile_scan(const Args a) {
 #pragma unroll
         for (int j = 0; j < RPT; ++j) {
           float* dp = ds + qq * LDS + lane + 32 * j;
-          float d = __fsub_rn(__fadd_rn(qn, xn[j]), __fmul_rn(2.f, acc[i][j]));
+          float d = __fsub_rn(__fadd_rn(qn, xn[j]), __fmul_rn(two[j], acc[i][j]));
           if constexpr (S::kHybrid) d = __fsub_rn(__fmul_rn(al, d), __fmul_rn(one_minus_al, *dp));
           const float dist = live[j] ? d : CUDART_INF_F;
           *dp = dist;
@@ -769,8 +642,10 @@ int launch(Args a, float* out_d, int* out_i, int splits, cudaStream_t stream) {
     a.dict_bits = bits;
   }
   const size_t smem = layout<Rows>(a.T, a.dict_bits).total;
-  const bool vec = a.D % 4 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.x)) & 15) == 0;
+  // 16-byte copies: every row and query chunk starts 16-byte aligned
+  const bool vec = a.D % (Shape<Rows>::kInt8 ? 16 : 4) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.x) |
+                     reinterpret_cast<uintptr_t>(a.x8)) & 15) == 0;
   const bool bounded = a.after_d != nullptr;
   const int rc = vec ? (bounded ? launch_vec<Rows, true, true>(a, smem, splits, stream)
                                 : launch_vec<Rows, true, false>(a, smem, splits, stream))
@@ -782,13 +657,14 @@ int launch(Args a, float* out_d, int* out_i, int splits, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-Args args(const float* q, const float* x, const int* valid, const float* after_d,
-          const int* after_i, int* thr_g, float* part_d, int* part_i, int B, int N, int D, int k,
-          int kt, int rows_per_split) {
+// The operands every row type takes (the rows themselves are set by the
+// launcher).
+Args args(const float* q, const int* valid, const float* after_d, const int* after_i,
+          int* thr_g, float* part_d, int* part_i, int B, int N, int D, int k, int kt,
+          int rows_per_split) {
   Args a{};
   a.thr_g = thr_g;
   a.q = q;
-  a.x = x;
   a.valid = valid;
   a.after_d = after_d;
   a.after_i = after_i;
@@ -812,40 +688,41 @@ extern "C" {
 // Each launcher returns a cudaError_t as int (0 = launched).  valid may be
 // null (all rows live); after_d / after_i are (B,) or both null: the
 // pass's bound.  kt is the list length 8, 16 or 32, with 1 <= k <= kt.
-// thr_g (fp32 and hybrid) is (B,) int32 scratch holding 0x7f800000 (+inf)
-// at the launch: the splits' shared bound on each query's k-th distance.
+// thr_g is (B,) int32 scratch holding 0x7f800000 (+inf) at the launch:
+// the splits' shared bound on each query's k-th distance.  part_d /
+// part_i are (B, splits, kt): one partial list a query and split.
 
-// Shared memory of a block of the fp32 (hybrid = 0) or hybrid tile loop
-// with T query term slots and a dictionary of 2^dict_bits slots.
-size_t l2_tile_smem_bytes(int hybrid, int T, int dict_bits) {
-  return hybrid ? tile::layout<HybridRows>(T, dict_bits).total
-                : tile::layout<F32Rows>(T, dict_bits).total;
+// Shared memory of a block of the tile loop for rows 0 (fp32), 1 (hybrid,
+// with T query term slots and a dictionary of 2^dict_bits slots) or 2
+// (int8).
+size_t l2_tile_smem_bytes(int rows, int T, int dict_bits) {
+  return rows == 1   ? tile::layout<HybridRows>(T, dict_bits).total
+         : rows == 2 ? tile::layout<Int8Rows>(T, dict_bits).total
+                     : tile::layout<F32Rows>(T, dict_bits).total;
 }
 
-// Partial lists per query and split of the int8 loop: its wrappers size
-// part_d / part_i as (B, splits * l2_topk_int8_selectors(), kt).
-int l2_topk_int8_selectors() { return int8::SEL; }
-
-// The fp32 scan; part_d / part_i (B, splits, kt).
+// The fp32 scan.
 int l2_topk_launch(const float* q, const float* x, const int* valid, const float* after_d,
                    const int* after_i, int* thr_g, float* part_d, int* part_i, float* out_d,
                    int* out_i, int B, int N, int D, int k, int kt, int splits,
                    int rows_per_split, cudaStream_t stream) {
-  const tile::Args a = tile::args(q, x, valid, after_d, after_i, thr_g, part_d, part_i, B, N,
-                                  D, k, kt, rows_per_split);
+  tile::Args a = tile::args(q, valid, after_d, after_i, thr_g, part_d, part_i, B, N, D, k, kt,
+                            rows_per_split);
+  a.x = x;
   return tile::launch<F32Rows>(a, out_d, out_i, splits, stream);
 }
 
 // The hybrid scan; S <= rt::SLAB_MAX, T <= 64; alpha is a (1, 1) device
-// tensor, read by the kernel; part_d / part_i (B, splits, kt).
+// tensor, read by the kernel.
 int hybrid_topk_launch(const float* q, const float* x, const int* q_terms,
                        const float* q_weights, const int* terms, const float* tf_sat,
                        const float* alpha, const int* valid, const float* after_d,
                        const int* after_i, int* thr_g, float* part_d, int* part_i,
                        float* out_d, int* out_i, int B, int N, int D, int T, int S, int k,
                        int kt, int splits, int rows_per_split, cudaStream_t stream) {
-  tile::Args a = tile::args(q, x, valid, after_d, after_i, thr_g, part_d, part_i, B, N, D, k,
-                            kt, rows_per_split);
+  tile::Args a = tile::args(q, valid, after_d, after_i, thr_g, part_d, part_i, B, N, D, k, kt,
+                            rows_per_split);
+  a.x = x;
   a.q_terms = q_terms;
   a.q_weights = q_weights;
   a.terms = terms;
@@ -856,37 +733,17 @@ int hybrid_topk_launch(const float* q, const float* x, const int* q_terms,
   return tile::launch<HybridRows>(a, out_d, out_i, splits, stream);
 }
 
-// The int8 scan; part_d / part_i (B, splits * l2_topk_int8_selectors(), kt).
+// The int8 scan over codes (N, D) with one fp32 scale a row.
 int l2_topk_int8_launch(const float* q, const signed char* codes, const float* scales,
-                        const int* valid, const float* after_d, const int* after_i,
+                        const int* valid, const float* after_d, const int* after_i, int* thr_g,
                         float* part_d, int* part_i, float* out_d, int* out_i, int B, int N,
                         int D, int k, int kt, int splits, int rows_per_split,
                         cudaStream_t stream) {
-  if (k < 1 || k > kt) return (int)cudaErrorInvalidValue;
-  int8::Operands op{};
-  op.q = q;
-  op.x = codes;
-  op.scales = scales;
-  op.valid = valid;
-  op.after_d = after_d;
-  op.after_i = after_i;
-  op.part_d = part_d;
-  op.part_i = part_i;
-  op.B = B;
-  op.N = N;
-  op.D = D;
-  op.d_pad = (D + int8::BK - 1) / int8::BK * int8::BK;
-  op.rows_per_split = rows_per_split;
-  switch (kt) {
-    case 8:
-      return int8::launch<8>(op, out_d, out_i, k, splits, stream);
-    case 16:
-      return int8::launch<16>(op, out_d, out_i, k, splits, stream);
-    case 32:
-      return int8::launch<32>(op, out_d, out_i, k, splits, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  tile::Args a = tile::args(q, valid, after_d, after_i, thr_g, part_d, part_i, B, N, D, k, kt,
+                            rows_per_split);
+  a.x8 = codes;
+  a.scales = scales;
+  return tile::launch<Int8Rows>(a, out_d, out_i, splits, stream);
 }
 
 }  // extern "C"

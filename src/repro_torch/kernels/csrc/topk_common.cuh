@@ -2,22 +2,22 @@
 //
 // The counterpart of repro/kernels/common.py::merge_topk.  The Pallas
 // kernels merge each score tile into the running best with K masked mins
-// over [best | tile]; here every thread (or every warp, all lanes in step)
-// keeps its own sorted list in registers and pushes candidates into it one
-// at a time.  Both follow one order: ascending on the (distance, id) pair,
-// so equal distances break toward the smaller id whatever the tiling.
+// over [best | tile]; here every warp keeps its own sorted list spread over
+// its lanes' registers and inserts candidates into it one at a time.  Both
+// follow one order: ascending on the (distance, id) pair, so equal
+// distances break toward the smaller id whatever the tiling.
 //
-// A list holds KT >= k entries, KT a compile-time constant so the arrays
-// stay in registers (every loop below is fully unrolled).  The top-KT of a
-// subset of the candidates contains that subset's share of the global
-// top-k, so merging per-thread lists gives the exact result.
+// A list holds 32 NR >= k entries, NR a compile-time constant so the
+// arrays stay in registers (every loop below is fully unrolled).  The
+// top-k of a subset of the candidates contains that subset's share of the
+// global top-k, so merging per-warp lists gives the exact result.
 //
 // Any k: a list may carry a lower bound, the pair `after`; a pair ranks
 // only if it comes strictly after it in the (distance, id) order.  The
 // wrappers (kernels/common.py: topk_passes) run a scan ceil(k / KMAX)
 // times, each pass bounded by the last pair of the pass before, and
 // concatenate the passes' lists.  The bound is tested where a pair is
-// offered (TopK::push, WarpTopK::beats), so every kernel keeps it.  It is
+// offered (WarpTopK::beats), so every kernel keeps it.  It is
 // a compile-time choice (BOUNDED): a first pass, which has no bound, runs
 // lists without the test, since even a constant bound's test slowed the
 // BM25 scan and the fp32 tile on the card (kernels/tile_ablation.py, PERF.md).
@@ -51,114 +51,6 @@ __device__ __forceinline__ void after_of(const float* after_d, const int* after_
                                          float& ad, int& ai) {
   ad = after_d == nullptr ? RT_AFTER_NONE_D : after_d[b];
   ai = after_i == nullptr ? AFTER_NONE_I : after_i[b];
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <int KT, bool BOUNDED = false>
-struct TopK {
-  float d[KT];
-  int i[KT];
-  float aft_d;   // the lower bound (none: RT_AFTER_NONE_D, AFTER_NONE_I)
-  int aft_i;
-
-  __device__ __forceinline__ void init() { init(RT_AFTER_NONE_D, AFTER_NONE_I); }
-
-  __device__ __forceinline__ void init(float ad, int ai) {
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      d[j] = CUDART_INF_F;
-      i[j] = ID_NONE;
-    }
-    aft_d = ad;
-    aft_i = ai;
-  }
-
-  // Insert (dd, ii) if it comes after the bound and ranks among the KT
-  // best held; the list stays sorted ascending on (distance, id).  NaN
-  // never ranks.
-  __device__ __forceinline__ void push(float dd, int ii) {
-    if (!lex_less(dd, ii, d[KT - 1], i[KT - 1])) return;
-    if (BOUNDED && !lex_less(aft_d, aft_i, dd, ii)) return;
-    bool placed = false;
-#pragma unroll
-    for (int j = KT - 1; j > 0; --j) {
-      if (!placed) {
-        if (lex_less(dd, ii, d[j - 1], i[j - 1])) {
-          d[j] = d[j - 1];
-          i[j] = i[j - 1];
-        } else {
-          d[j] = dd;
-          i[j] = ii;
-          placed = true;
-        }
-      }
-    }
-    if (!placed) {
-      d[0] = dd;
-      i[0] = ii;
-    }
-  }
-
-  // As push, but a pair equal in distance and id to one already held is
-  // dropped: a candidate duplicated with an identical distance is emitted
-  // once, as the Pallas merge retires every copy of the pair it selects.
-  __device__ __forceinline__ void push_unique(float dd, int ii) {
-    bool dup = false;
-#pragma unroll
-    for (int j = 0; j < KT; ++j) dup |= (d[j] == dd) & (i[j] == ii);
-    if (!dup) push(dd, ii);
-  }
-
-  // Write the first k entries as (distance, id), the sentinel as (inf, -1).
-  __device__ __forceinline__ void store(float* out_d, int* out_i, int k) const {
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      if (j < k) {
-        const bool filled = d[j] < CUDART_INF_F;
-        out_d[j] = filled ? d[j] : CUDART_INF_F;
-        out_i[j] = filled ? i[j] : -1;
-      }
-    }
-  }
-};
-
-// Merge the lists of `n` groups (threads or warps) into group 0's list.
-// Group g's list lives in `top` of the threads with `leader` set for g;
-// sd/si hold n/2 lists of KT entries.  n is a power of two.  Every thread
-// of the block calls this (it synchronises); afterwards group 0 holds the
-// merged list.
-template <int KT, bool UNIQUE>
-__device__ __forceinline__ void block_merge(TopK<KT>& top, int group, bool leader, int n,
-                                            float* sd, int* si) {
-  for (int stride = n / 2; stride > 0; stride >>= 1) {
-    if (leader && group >= stride && group < 2 * stride) {
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        sd[(group - stride) * KT + j] = top.d[j];
-        si[(group - stride) * KT + j] = top.i[j];
-      }
-    }
-    __syncthreads();
-    if (group < stride) {
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        const float dd = sd[group * KT + j];
-        const int ii = si[group * KT + j];
-        if (dd < CUDART_INF_F) {
-          if (UNIQUE)
-            top.push_unique(dd, ii);
-          else
-            top.push(dd, ii);
-        }
-      }
-    }
-    __syncthreads();
-  }
 }
 
 // A warp's running top-k spread over its lanes (pq_adc_topk.cu,
@@ -325,29 +217,6 @@ warp_merge_partials(const float* __restrict__ part_d, const int* __restrict__ pa
       top.offer(true, sd[e0 + lane], si[e0 + lane], k, lane);
     top.store(out_d + (size_t)b * k, out_i + (size_t)b * k, k, lane, true);
   }
-}
-
-// Second pass of the split scans (l2_topk.cu): one block per query merges
-// its L sorted partial lists, part_d / part_i (B, L, KT), into the top-k.
-template <int KT, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-merge_partials(const float* __restrict__ part_d, const int* __restrict__ part_i, int L,
-               float* __restrict__ out_d, int* __restrict__ out_i, int k) {
-  __shared__ float sd[(THREADS / 2) * KT];
-  __shared__ int si[(THREADS / 2) * KT];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* pd = part_d + (size_t)b * L * KT;
-  const int* pi = part_i + (size_t)b * L * KT;
-
-  TopK<KT> top;
-  top.init();
-  for (int e = tid; e < L * KT; e += THREADS) {
-    const float dist = pd[e];
-    if (dist < CUDART_INF_F) top.push(dist, pi[e]);
-  }
-  block_merge<KT, false>(top, tid, true, THREADS, sd, si);
-  if (tid == 0) top.store(out_d + (size_t)b * k, out_i + (size_t)b * k, k);
 }
 
 }  // namespace rt

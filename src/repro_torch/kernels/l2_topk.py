@@ -1,9 +1,9 @@
 """Wrappers of the CUDA fused L2 + streaming top-k kernels (fp32, int8).
 
 Replace ``repro/kernels/l2_topk.py::l2_topk_pallas`` and
-``l2_topk_int8_pallas``; the kernels are the ``F32Rows`` tile loop (shared
-with the hybrid scan, ``kernels.bm25``) and the ``Int8Rows`` loop of
-``csrc/l2_topk.cu`` (its header note gives the design and the bounds).
+``l2_topk_int8_pallas``; the kernels are the ``F32Rows`` and ``Int8Rows``
+instances of the tile loop of ``csrc/l2_topk.cu`` (shared with the hybrid
+scan, ``kernels.bm25``; its header note gives the design and the bounds).
 This module checks the operands, allocates the outputs and the per-split
 partial lists, chooses the split count, launches on PyTorch's current
 stream and counts launches.  A ``k`` above ``KMAX`` is served in passes of
@@ -31,13 +31,13 @@ __all__ = ["l2_topk", "l2_topk_int8", "LAUNCHES", "INT8_LAUNCHES",
 LAUNCHES = LaunchCounter("l2_topk")
 INT8_LAUNCHES = LaunchCounter("l2_topk_int8")
 
-BN = 128        # rows per tile of the fp32 and int8 loops; splits are whole tiles
+BN = 128        # rows per tile of the fp32 and int8 scans; splits are whole tiles
 BQ = 64         # queries per block tile in every scan
-INT8_MAX_D = 512   # the int8 loop stages the whole query tile in shared memory
 
-# The fp32 / hybrid tile loop of csrc/l2_topk.cu (namespace tile): its
-# shared memory does not depend on d, since rows and queries are staged
-# BK dims at a time through a ring of STAGES buffers.
+# The tile loop of csrc/l2_topk.cu (namespace tile): its shared memory does
+# not depend on d, since rows and queries are staged BK dims at a time
+# through a ring of STAGES buffers (one more for int8 rows, whose chunks
+# are widened to fp32 one step ahead, into two fp32 chunks).
 TILE_BK = 16
 TILE_STAGES = 3
 TILE_LDK = TILE_BK + 4
@@ -53,14 +53,20 @@ def _up16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def tile_smem_bytes(hybrid: bool, t: int = 0) -> int:
-    """Shared memory of one block of the fp32 (or hybrid, with ``t`` query
-    term slots) tile loop: ``tile::layout`` of ``csrc/l2_topk.cu``."""
+def tile_smem_bytes(rows: str, t: int = 0) -> int:
+    """Shared memory of one block of the tile loop for ``rows`` "f32",
+    "hybrid" (with ``t`` query term slots) or "int8": ``tile::layout`` of
+    ``csrc/l2_topk.cu``."""
+    hybrid, int8 = rows == "hybrid", rows == "int8"
     bn = HYBRID_BN if hybrid else BN
-    parts = [4 * TILE_STAGES * (bn + BQ) * TILE_LDK,   # the staged chunks
-             4 * BQ * (bn + 4),                         # the distance tile
-             4 * BQ * TILE_LIST, 4 * BQ * TILE_LIST,    # the query lists
-             4 * bn, 4 * BQ, 4 * BQ]                    # row norms, bounds
+    row_bytes = bn * TILE_BK if int8 else 4 * bn * TILE_LDK
+    ring = TILE_STAGES + 1 if int8 else TILE_STAGES
+    parts = [ring * (row_bytes + 4 * BQ * TILE_LDK)]    # the staged chunks
+    if int8:
+        parts.append(2 * 4 * bn * TILE_LDK)            # the widened chunks
+    parts += [4 * BQ * (bn + 4),                       # the distance tile
+              4 * BQ * TILE_LIST, 4 * BQ * TILE_LIST,  # the query lists
+              4 * bn, 4 * BQ, 4 * BQ]                  # row norms, bounds
     if hybrid:
         bits = 1
         while (1 << bits) < 2 * BQ * t and bits < DICT_BITS_MAX:
@@ -70,6 +76,7 @@ def tile_smem_bytes(hybrid: bool, t: int = 0) -> int:
                   2 * SLAB_MAX * bn, 4 * SLAB_MAX * bn, SLAB_MAX * bn,
                   4 * (2 * groups + BQ)]
     return sum(_up16(p) for p in parts)
+
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _lib = None
@@ -83,11 +90,10 @@ def library():
         lib = _build.library("l2_topk")
         for fn, argtypes in (
                 (lib.l2_topk_launch, [_P] * 10 + [_I] * 7 + [_P]),
-                (lib.l2_topk_int8_launch, [_P] * 10 + [_I] * 7 + [_P]),
+                (lib.l2_topk_int8_launch, [_P] * 11 + [_I] * 7 + [_P]),
                 (lib.hybrid_topk_launch, [_P] * 15 + [_I] * 9 + [_P])):
             fn.argtypes = argtypes
             fn.restype = _I
-        lib.l2_topk_int8_selectors.restype = _I
         lib.l2_tile_smem_bytes.argtypes = [_I] * 3
         lib.l2_tile_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
@@ -105,18 +111,17 @@ def splits_for(b: int, n: int, sm_count: int) -> tuple[int, int]:
     return -(-n // rows), rows
 
 
-def scan_outputs(b: int, n: int, k_eff: int, selectors: int, dev):
-    """Outputs and partial lists of a split scan over ``n`` rows:
-    ``(out_d, out_i, part_d, part_i, kt, splits, rows per split)``."""
+def scan_outputs(b: int, n: int, k_eff: int, dev):
+    """Outputs and partial lists (one a query and split) of a split scan
+    over ``n`` rows: ``(out_d, out_i, part_d, part_i, kt, splits, rows per
+    split)``."""
     kt = list_len(k_eff)
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     splits, rows = splits_for(b, n, sm)
     out_d = torch.empty((b, k_eff), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k_eff), dtype=torch.int32, device=dev)
-    part_d = torch.empty((b, splits * selectors, kt), dtype=torch.float32,
-                         device=dev)
-    part_i = torch.empty((b, splits * selectors, kt), dtype=torch.int32,
-                         device=dev)
+    part_d = torch.empty((b, splits, kt), dtype=torch.float32, device=dev)
+    part_i = torch.empty((b, splits, kt), dtype=torch.int32, device=dev)
     return out_d, out_i, part_d, part_i, kt, splits, rows
 
 
@@ -146,8 +151,8 @@ _INF_KEY = 0x7F800000
 
 
 def shared_bound(b: int, dev) -> torch.Tensor:
-    """The (B,) int32 scratch the fp32 / hybrid tile shares its bound on
-    each query's k-th distance through, +inf to start a pass."""
+    """The (B,) int32 scratch the tile shares its bound on each query's
+    k-th distance through, +inf to start a pass."""
     return torch.full((b,), _INF_KEY, dtype=torch.int32, device=dev)
 
 
@@ -181,7 +186,7 @@ def l2_topk(queries: torch.Tensor, db: torch.Tensor, k: int = 10, *,
 
     def run(kr, after_d, after_i):
         out_d, out_i, part_d, part_i, kt, splits, rows = scan_outputs(
-            B, N, kr, 1, dev)
+            B, N, kr, dev)
         with torch.cuda.device(dev):
             rc = lib.l2_topk_launch(
                 q.data_ptr(), x.data_ptr(), ptr(v), ptr(after_d),
@@ -202,8 +207,7 @@ def l2_topk_int8(queries: torch.Tensor, codes: torch.Tensor,
                  scales: torch.Tensor, k: int = 10, *, valid=None):
     """The int8-footprint scan: ``codes`` (N, D) int8 and ``scales`` (N,)
     float32 with ``row ~= scale * codes``; queries stay float32.  Same
-    contract and errors as :func:`l2_topk`, and d at most ``INT8_MAX_D``
-    (its loop stages the whole query tile)."""
+    contract and errors as :func:`l2_topk`; any d."""
     if any(t.device.type != "cuda" for t in (queries, codes, scales)):
         raise ValueError("l2_topk_int8 takes CUDA tensors; the plain version "
                          "is ref.l2_topk_int8_ref")
@@ -218,8 +222,6 @@ def l2_topk_int8(queries: torch.Tensor, codes: torch.Tensor,
     B, D = queries.shape
     N = codes.shape[0]
     k_eff = check_scan("l2_topk_int8", queries, N, k)
-    if D > INT8_MAX_D:
-        raise ValueError(f"d={D} exceeds the int8 kernel's {INT8_MAX_D}")
     dev = queries.device
     if B == 0 or k_eff == 0:
         return empty_result(B, k, dev)
@@ -229,13 +231,14 @@ def l2_topk_int8(queries: torch.Tensor, codes: torch.Tensor,
 
     def run(kr, after_d, after_i):
         out_d, out_i, part_d, part_i, kt, splits, rows = scan_outputs(
-            B, N, kr, lib.l2_topk_int8_selectors(), dev)
+            B, N, kr, dev)
         with torch.cuda.device(dev):
             rc = lib.l2_topk_int8_launch(
                 q.data_ptr(), c.data_ptr(), s.data_ptr(), ptr(v),
-                ptr(after_d), ptr(after_i), part_d.data_ptr(),
-                part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), B, N,
-                D, kr, kt, splits, rows, stream_handle(dev))
+                ptr(after_d), ptr(after_i), shared_bound(B, dev).data_ptr(),
+                part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+                out_i.data_ptr(), B, N, D, kr, kt, splits, rows,
+                stream_handle(dev))
         if rc != 0:
             raise RuntimeError(f"l2_topk_int8 launch failed: CUDA error {rc}")
         INT8_LAUNCHES.inc()

@@ -1,16 +1,19 @@
-"""Where the time of the fp32 / hybrid tile and the BM25 scan goes, on one
-card: each variant is the kernel source with one part taken out, built by
-``nvcc`` beside the kernel and timed on the same operands.
+"""Where the time of the tile (fp32, hybrid and int8 rows), the BM25 scan
+and the Hamming select goes, on one card: each variant is the kernel
+source with one part taken out (or done another way), built by ``nvcc``
+beside the kernel and timed on the same operands.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.tile_ablation \
         [--out build/ablation] [--baseline DIR]
 
-``--baseline DIR`` also builds ``DIR/l2_topk.cu`` and ``DIR/bm25_topk.cu``
-of a checkout before the large-k passes (their launchers take no bound
-operands; the int8 loop's selector count sizes the fp32 partials), times
-them in the same rounds, and holds this checkout's answers to theirs bit
-for bit (fp32, hybrid, BM25 at k = 10): the kernels' redesign keeps every
-distance.
+``--baseline DIR`` also builds ``DIR/l2_topk.cu``, ``DIR/bm25_topk.cu``
+and ``DIR/hamming_topk.cu`` of a checkout whose int8 scan is the first
+tile loop (its launcher takes no shared-bound scratch, and
+``l2_topk_int8_selectors()`` partial lists a split) and whose Hamming
+scan takes one query a block row (warps of 128 rows and more, about four
+blocks an SM), times them in the same rounds, and holds this checkout's
+answers to theirs bit for bit (fp32, hybrid, BM25 and int8 at k = 10,
+Hamming at k = 1,024): the kernels' redesign keeps every distance.
 
 Run from the root of a checkout on a machine with a card and the CUDA
 toolkit; nothing runs at import (the CPU tests import every module).  The variants' answers are wrong by construction; only their
@@ -18,7 +21,10 @@ times mean something: the time a part costs is the kernel's time less the
 time of the variant without it.  Operands: B = 64 queries against N = 1M
 rows of d = 128 (SIFT-like integer rows, queries perturbed), about 2 %
 dead, k = 10; slabs of 10 Zipf-drawn terms a row (of 16 slots), queries of
-4 real term slots (of 8).  Each variant is timed twice, the second round in
+4 real term slots (of 8); the int8 rows are those rows quantized
+(``ops.quantize_rows_int8``); the Hamming codes are the rows' 96 sign
+bits under ``lsh_build``'s kind of projection, against 1,024 perturbed
+rows, k = 1,024 (the one-level LSH scan's shape).  Each variant is timed twice, the second round in
 the reverse order, with CUDA events over 20 launches after 3 warm-ups.  A
 variant whose edit no longer matches the source is reported and skipped.
 """
@@ -45,8 +51,8 @@ SHARED = ("l2_topk.cu",
 FLAGS_ALL = ("l2_topk.cu", "if (__ballot_sync(0xffffffffu, dist <= bound))",
              "if (__ballot_sync(0xffffffffu, dist <= CUDART_INF_F))")
 LOADS = ("l2_topk.cu",
-         "    if (step + STAGES - 1 < steps)\n      load_step",
-         "    if (step + STAGES - 1 < 0)\n      load_step")
+         "    if (step + RING - 1 < steps)\n      load_step",
+         "    if (step + RING - 1 < 0)\n      load_step")
 # three of every four FMAs of the products taken out
 PRODUCTS = ("l2_topk.cu",
             "          acc[i][j] = fmaf(qv.y, xv[j].y, acc[i][j]);\n"
@@ -65,6 +71,46 @@ TESTED_BOUND = [("l2_topk.cu", "rt::WarpTopK<1, false, BOUNDED> top;",
 DEEPER = ("l2_topk.cu",
           "constexpr int STAGES = 3;              // ring of staged chunks",
           "constexpr int STAGES = 4;")
+# int8 rows: no chunk widened to fp32 (the products read stale chunks)
+NO_WIDEN = [("l2_topk.cu", "    if (steps > 0) widen<BN>(stages, wide, tid);",
+             ""),
+            ("l2_topk.cu", "    if constexpr (S::kInt8)\n      if (step + 1 < steps)",
+             "    if constexpr (false)\n      if (step + 1 < steps)")]
+# int8 rows widened in registers where the products read them: a char4 of
+# the staged codes a row and 4 dims, each code by a byte permute into the
+# low byte of 2^23 and one exact fadd (no I2F), in place of the widened
+# fp32 chunk
+IN_REGISTERS = NO_WIDEN + [(
+    "l2_topk.cu",
+    "      for (int j = 0; j < RPT; ++j)\n"
+    "        xv[j] = *reinterpret_cast<const float4*>(xs + (lane + 32 * j) * LDK + kq);",
+    "      for (int j = 0; j < RPT; ++j) {\n"
+    "        if constexpr (S::kInt8) {\n"
+    "          const unsigned u = *reinterpret_cast<const unsigned*>(\n"
+    "              stage + (lane + 32 * j) * BK + kq) ^ 0x80808080u;\n"
+    "          const float m = 8388736.f;   // 2^23 + 128\n"
+    "          xv[j] = make_float4(\n"
+    "              __int_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - m,\n"
+    "              __int_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - m,\n"
+    "              __int_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - m,\n"
+    "              __int_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - m);\n"
+    "        } else {\n"
+    "          xv[j] = *reinterpret_cast<const float4*>(xs + (lane + 32 * j) * LDK + kq);\n"
+    "        }\n"
+    "      }")]
+
+# the Hamming select: a popcount for each word (no carry-save adder), and
+# the emit's bound left at the threshold bin once that bin is full
+HAM_EACH_WORD = ("hamming_topk.cu", "  for (; w + 3 <= W; w += 3) {",
+                 "  for (; w + 3 <= 0; w += 3) {")
+HAM_NO_DROP = [
+    ("hamming_topk.cu",
+     "#pragma unroll\n  for (int j = 0; j < QW; ++j)\n"
+     "    if (bound[j] >= 0 && next[(warp + WARPS * j) * M::BINS + bound[j]]"
+     " >= a.k) --bound[j];", ""),
+    ("hamming_topk.cu",
+     "        if (nx[bound[j]] >= a.k) --bound[j];   // the threshold bin is"
+     " full", "")]
 
 VARIANTS = {
     "kernel": [],
@@ -76,13 +122,18 @@ VARIANTS = {
     "no lexical half": [LEXICAL],
     "bound tested in a first pass": TESTED_BOUND,
     "four stages": [DEEPER],
+    "int8: no widening": NO_WIDEN,
+    "int8: widened in registers": IN_REGISTERS,
+    "hamming: a popcount a word": [HAM_EACH_WORD],
+    "hamming: bound kept at the threshold bin": HAM_NO_DROP,
 }
+LIBS = ("l2_topk", "bm25_topk", "hamming_topk")
 
 
 def build(out: Path, baseline) -> dict:
     """Each variant's csrc copy with its edits (and the baseline's csrc),
-    l2_topk.cu and bm25_topk.cu built by parallel nvcc; returns {variant:
-    dir} for those that built."""
+    its ``LIBS`` built by parallel nvcc; returns {variant: dir} for those
+    that built."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     procs, dirs = [], {}
     todo = dict(VARIANTS)
@@ -103,7 +154,7 @@ def build(out: Path, baseline) -> dict:
         if not ok:
             continue
         dirs[name] = d
-        for lib in ("l2_topk", "bm25_topk"):
+        for lib in LIBS:
             procs.append((name, lib, subprocess.Popen(
                 [nvcc, *FLAGS, "-o", str(d / f"{lib}.so"),
                  str(d / f"{lib}.cu")],
@@ -127,7 +178,8 @@ def main() -> int:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import l2_topk
+    from repro_torch.core.lsh import pack_bits
+    from repro_torch.kernels import hamming, l2_topk, ops
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -135,8 +187,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     n, b, d, k = 1_000_000, 64, 128, 10
-    x = torch.as_tensor(np.round(rng.random((n, d)) * 255).astype(np.float32),
-                        device=dev)
+    x_np = np.round(rng.random((n, d)) * 255).astype(np.float32)
+    codes, scales = (torch.as_tensor(a, device=dev)
+                     for a in ops.quantize_rows_int8(x_np))
+    x = torch.as_tensor(x_np, device=dev)
     q = torch.as_tensor((np.round(rng.random((b, d)) * 255)
                          + rng.normal(size=(b, d))).astype(np.float32),
                         device=dev)
@@ -153,8 +207,27 @@ def main() -> int:
     qt[:, 4:] = -1
     qw = torch.as_tensor(rng.random((b, 8)).astype(np.float32), device=dev)
     alpha = torch.full((1, 1), 0.5, device=dev)
+    hb, hk, hw = 1024, 1024, 3
+    proj = rng.normal(size=(d, 32 * hw)).astype(np.float32)
+    proj /= np.linalg.norm(proj, axis=0, keepdims=True)
+    hq_np = x_np[:hb] + rng.normal(size=(hb, d)).astype(np.float32)
+    hcodes, hq = (torch.as_tensor(pack_bits((a @ proj > 0).astype(np.uint8)),
+                                  device=dev) for a in (x_np, hq_np))
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, h_splits, h_rows = hamming.plan(hb, n, sm)
+    h_hist = torch.empty((hb, h_splits, 32 * hw + 1), dtype=torch.int32,
+                         device=dev)
+    h_thr = torch.empty((hb,), dtype=torch.int32, device=dev)
+    h_d = torch.empty((hb, hk), device=dev)
+    h_i = torch.empty((hb, hk), dtype=torch.int32, device=dev)
+    # the baseline's Hamming grid: warps of whole 32-row runs, at least 128
+    # rows each, about four blocks an SM over the queries
+    o_blocks = max(1, min(-(-n // (8 * 128)), (4 * sm) // hb))
+    o_rows = -(-(-(-n // (o_blocks * 8))) // 32) * 32
+    o_hist = torch.empty((hb, o_blocks * 8, 32 * hw + 1), dtype=torch.int32,
+                         device=dev)
     out_d, out_i, part_d, part_i, kt, splits, rows = l2_topk.scan_outputs(
-        b, n, k, 1, dev)
+        b, n, k, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     P, I = ctypes.c_void_p, ctypes.c_int
     outs = (part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
@@ -164,32 +237,11 @@ def main() -> int:
     def launchers(dd: Path, name: str):
         lib = ctypes.CDLL(str(dd / "l2_topk.so"))
         bm = ctypes.CDLL(str(dd / "bm25_topk.so"))
-        if name == "baseline":   # no bound operands; SEL lists a split
-            sel = lib.l2_topk_selectors()
-            pd = torch.empty((b, splits * sel, kt), device=dev)
-            pi = torch.empty((b, splits * sel, kt), dtype=torch.int32,
-                             device=dev)
-            old = (pd.data_ptr(), pi.data_ptr(), out_d.data_ptr(),
-                   out_i.data_ptr())
-            lib.l2_topk_launch.argtypes = [P] * 7 + [I] * 7 + [P]
-            lib.hybrid_topk_launch.argtypes = [P] * 12 + [I] * 9 + [P]
-            bm.bm25_topk_launch.argtypes = [P] * 9 + [I] * 8 + [P]
-            return {
-                "l2_topk": lambda: lib.l2_topk_launch(
-                    q.data_ptr(), x.data_ptr(), valid.data_ptr(), *old, b, n,
-                    d, k, kt, splits, rows, stream),
-                "hybrid_topk": lambda: lib.hybrid_topk_launch(
-                    q.data_ptr(), x.data_ptr(), qt.data_ptr(), qw.data_ptr(),
-                    terms.data_ptr(), tf.data_ptr(), alpha.data_ptr(),
-                    valid.data_ptr(), *old, b, n, d, 8, 16, k, kt, splits,
-                    rows, stream),
-                "bm25_topk": lambda: bm.bm25_topk_launch(
-                    qt.data_ptr(), qw.data_ptr(), terms.data_ptr(),
-                    tf.data_ptr(), valid.data_ptr(), *old, b, n, 8, 16, k,
-                    kt, splits, rows, stream)}
+        ham = ctypes.CDLL(str(dd / "hamming_topk.so")).hamming_topk_launch
         lib.l2_topk_launch.argtypes = [P] * 10 + [I] * 7 + [P]
         lib.hybrid_topk_launch.argtypes = [P] * 15 + [I] * 9 + [P]
         bm.bm25_topk_launch.argtypes = [P] * 11 + [I] * 8 + [P]
+
         def fresh(launch):
             """The launch after refilling the splits' shared bound with
             +inf, as the wrappers do for every pass."""
@@ -198,6 +250,33 @@ def main() -> int:
                 return launch()
             return run
 
+        if name == "baseline":   # the first tile loop: SEL lists a split
+            sel = lib.l2_topk_int8_selectors()
+            pd = torch.empty((b, splits * sel, kt), device=dev)
+            pi = torch.empty((b, splits * sel, kt), dtype=torch.int32,
+                             device=dev)
+            lib.l2_topk_int8_launch.argtypes = [P] * 10 + [I] * 7 + [P]
+            int8 = lambda: lib.l2_topk_int8_launch(  # noqa: E731
+                q.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                valid.data_ptr(), None, None, pd.data_ptr(), pi.data_ptr(),
+                out_d.data_ptr(), out_i.data_ptr(), b, n, d, k, kt, splits,
+                rows, stream)
+            ham.argtypes = [P] * 6 + [I] * 6 + [P]
+            hamm = lambda: ham(  # noqa: E731
+                hq.data_ptr(), hcodes.data_ptr(), None, o_hist.data_ptr(),
+                h_d.data_ptr(), h_i.data_ptr(), hb, n, hw, hk, o_blocks,
+                o_rows, stream)
+        else:
+            lib.l2_topk_int8_launch.argtypes = [P] * 11 + [I] * 7 + [P]
+            int8 = fresh(lambda: lib.l2_topk_int8_launch(
+                q.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                valid.data_ptr(), None, None, bound.data_ptr(), *outs, b, n,
+                d, k, kt, splits, rows, stream))
+            ham.argtypes = [P] * 7 + [I] * 6 + [P]
+            hamm = lambda: ham(  # noqa: E731
+                hq.data_ptr(), hcodes.data_ptr(), None, h_hist.data_ptr(),
+                h_thr.data_ptr(), h_d.data_ptr(), h_i.data_ptr(), hb, n, hw,
+                hk, h_splits, h_rows, stream)
         return {
             "l2_topk": fresh(lambda: lib.l2_topk_launch(
                 q.data_ptr(), x.data_ptr(), valid.data_ptr(), None, None,
@@ -211,7 +290,9 @@ def main() -> int:
             "bm25_topk": lambda: bm.bm25_topk_launch(
                 qt.data_ptr(), qw.data_ptr(), terms.data_ptr(), tf.data_ptr(),
                 valid.data_ptr(), None, None, *outs, b, n, 8, 16, k, kt,
-                splits, rows, stream)}
+                splits, rows, stream),
+            "l2_topk_int8": int8,
+            "hamming_topk": hamm}
 
     def time_ms(fn) -> float:
         for _ in range(3):
@@ -230,12 +311,14 @@ def main() -> int:
     print("[ablation] " + os.popen("nvidia-smi --query-gpu=name,power.limit "
                                    "--format=csv,noheader").read().strip())
     if "baseline" in runs:
-        for kern in ("l2_topk", "hybrid_topk", "bm25_topk"):
+        for kern in ("l2_topk", "hybrid_topk", "bm25_topk", "l2_topk_int8",
+                     "hamming_topk"):
+            od, oi = (h_d, h_i) if kern == "hamming_topk" else (out_d, out_i)
             got = []
             for name in ("kernel", "baseline"):
                 assert runs[name][kern]() == 0
                 torch.cuda.synchronize()
-                got.append((out_d.clone(), out_i.clone()))
+                got.append((od.clone(), oi.clone()))
             same = (torch.equal(got[0][1], got[1][1]) and torch.equal(
                 got[0][0].view(torch.int32), got[1][0].view(torch.int32)))
             print(f"[ablation] {kern}: this checkout's answer equals the "

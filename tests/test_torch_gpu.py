@@ -1,7 +1,9 @@
 """Card tests of the port's CUDA kernels: each kernel against its plain
 version (with the hybrid alpha = 0 / 1 identities), at k up to the
 lists' length and above it (the passes of ``common.topk_passes``), the
-fp32 tile at d = 960, the probe chain's two
+fp32 tile at d = 960 and the int8 one at d = 13, 640 and 1,000 (and an
+int8 backend at d = 640), Hamming over every word count, batch shape and
+threshold edge, the probe chain's two
 row sources against each other and against the chain of single steps,
 one small IVF serve,
 one small filtered / lexical / hybrid / int8 serve and one small run of
@@ -638,14 +640,108 @@ def test_l2_topk_wide_rows(dev, k):
 
 
 def test_tile_shared_memory_matches_the_host_layout(dev):
-    """The launcher's layout of the fp32 / hybrid tile equals the host's
-    mirror (``l2_topk.tile_smem_bytes``, which the CPU layout tests
-    hold under the block limit)."""
+    """The launcher's layout of the tile (fp32, hybrid, int8 rows) equals
+    the host's mirror (``l2_topk.tile_smem_bytes``, which the CPU layout
+    tests hold under the block limit)."""
     lib = l2_topk.library()
     for t in (1, 4, 8, 16, 64):
         bits = 1
         while (1 << bits) < 2 * 64 * t and bits < l2_topk.DICT_BITS_MAX:
             bits += 1
         assert lib.l2_tile_smem_bytes(1, t, bits) == \
-            l2_topk.tile_smem_bytes(True, t)
-    assert lib.l2_tile_smem_bytes(0, 0, 0) == l2_topk.tile_smem_bytes(False)
+            l2_topk.tile_smem_bytes("hybrid", t)
+    assert lib.l2_tile_smem_bytes(0, 0, 0) == l2_topk.tile_smem_bytes("f32")
+    assert lib.l2_tile_smem_bytes(2, 0, 0) == l2_topk.tile_smem_bytes("int8")
+
+
+@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("b, n, d", [(5, 700, 13), (9, 2000, 640),
+                                     (9, 2000, 1000), (70, 3000, 128)],
+                         ids=["d=13", "d=640", "d=1000", "d=128"])
+def test_l2_topk_int8_any_d(dev, b, n, d, k):
+    """The int8 rows on the tile loop: d = 640 and 1,000 (the first loop
+    refused d above 512), d = 13 and 1,000 through the byte copies (d not
+    a multiple of 16), two query tiles at d = 128; dead rows, k within
+    one list and above it; ids equal, distances within REL."""
+    rng = np.random.default_rng([d, k])
+    q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32),
+                        device=dev)
+    codes, scales = (torch.as_tensor(a, device=dev) for a in
+                     ops.quantize_rows_int8(
+                         rng.normal(size=(n, d)).astype(np.float32)))
+    v = torch.as_tensor((rng.random(n) > .2).astype(np.int32), device=dev)
+    deq = codes.float() * scales[:, None]
+    scale = ((q * q).sum(1)[:, None] + (deq * deq).sum(1).max()).cpu().numpy()
+    before = l2_topk.INT8_LAUNCHES.count
+    kd, ki = l2_topk.l2_topk_int8(q, codes, scales, k, valid=v)
+    assert l2_topk.INT8_LAUNCHES.count == before + _passes(k)
+    _close(kd, ki, *ref.l2_topk_int8_ref(q, codes, scales, k, valid=v),
+           scale)
+
+
+def test_int8_backend_serves_wide_rows(dev):
+    """A brute int8 backend over d = 640 rows answers on the card as on
+    the CPU (the same quantized codes, the plain version there)."""
+    rng = np.random.default_rng(640)
+    db = rng.normal(size=(3000, 640)).astype(np.float32)
+    queries = (db[:16] + 0.1 * rng.normal(size=(16, 640))).astype(np.float32)
+    card = ShardedSearchBackend(db, kind="brute", k=10, precision="int8")
+    cpu = ShardedSearchBackend(db, kind="brute", k=10, precision="int8",
+                               device="cpu")
+    before = l2_topk.INT8_LAUNCHES.count
+    got, want = card(queries), cpu(queries)
+    assert l2_topk.INT8_LAUNCHES.count > before
+    codes, scales = ops.quantize_rows_int8(db)
+    deq = codes.astype(np.float64) * scales[:, None]
+    scale = ((queries.astype(np.float64) ** 2).sum(1)[:, None]
+             + (deq * deq).sum(1).max())
+    _close(*(torch.as_tensor(a) for a in (*got, *want)), scale)
+    assert (np.asarray(got[1])[:, 0] == np.arange(16)).all()
+
+
+def _hamming_case(w, b, n, seed, ties=False):
+    rng = np.random.default_rng([w, b, n, seed])
+    q = rng.integers(-2**31, 2**31, size=(b, w)).astype(np.int32)
+    codes = rng.integers(-2**31, 2**31, size=(n, w)).astype(np.int32)
+    if ties:
+        codes[:] = codes[0]
+    valid = (rng.random(n) > 0.3).astype(np.int32)
+    return q, codes, valid
+
+
+@pytest.mark.parametrize("b", [1, 33, 1024])
+@pytest.mark.parametrize("w", list(range(1, 9)))
+def test_hamming_topk_every_word_count_and_batch(dev, w, b):
+    """W = 1 .. 8 at B = 1, 33 (a group of 32 and one of 1) and 1,024,
+    over several splits with dead rows, at k = 1, at the running count
+    that ends query 0's threshold bin (and one past it) and at k = N:
+    bit for bit the plain version."""
+    n = 6000 if b == 1024 else 20000
+    q, codes, valid = (torch.as_tensor(a, device=dev)
+                       for a in _hamming_case(w, b, n, 0))
+    d0 = ref.hamming_dists_ref(q[:1], codes)[0][valid != 0]
+    cum = np.cumsum(np.bincount(d0.cpu().numpy().astype(np.int64),
+                                minlength=32 * w + 1))
+    edge = int(cum[np.searchsorted(cum, 50)])       # a bin's running count
+    ks = [1, edge, edge + 1] + ([n] if b < 1024 else [])
+    for k in ks:
+        before = hamming.LAUNCHES.count
+        got = hamming.hamming_topk(q, codes, k, valid=valid)
+        assert hamming.LAUNCHES.count == before + 1
+        _bitwise(*got, *ref.hamming_topk_ref(q, codes, k, valid=valid))
+
+
+@pytest.mark.parametrize("b, ties", [(70, False), (45, True), (1, True)],
+                         ids=["B=70", "B=45 all-equal codes",
+                              "B=1 all-equal codes"])
+def test_hamming_topk_partial_group_and_equal_codes(dev, b, ties):
+    """A last query group that is partly empty (B not a multiple of 32),
+    and codes all equal (one bin holds every live row, across every
+    split): bit for bit the plain version, k below and above the live
+    count."""
+    q, codes, valid = (torch.as_tensor(a, device=dev)
+                       for a in _hamming_case(3, b, 9000, 1, ties))
+    live = int((valid != 0).sum())
+    for k in (10, 500, live + 7):
+        _bitwise(*hamming.hamming_topk(q, codes, k, valid=valid),
+                 *ref.hamming_topk_ref(q, codes, k, valid=valid))

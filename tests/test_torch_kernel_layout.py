@@ -1,13 +1,14 @@
 """Host-side choices of the PQ, BM25 and fp32 / hybrid tile wrappers, and
 the arithmetic the BM25 kernel's per-document lookup rests on, on the CPU.
 
-The fp32 / hybrid tile of ``csrc/l2_topk.cu`` stages rows and queries BK
-dims at a time through a ring of STAGES buffers, so its shared memory does
-not grow with d; ``l2_topk.tile_smem_bytes`` mirrors its layout, whose
-constants are read from the source here, and the layout must fit the
-227 KB a block may use (two fp32 blocks an SM) at every d and every query
-term count the wrappers admit (the card test holds the mirror to the
-launcher's own figure).
+The tile of ``csrc/l2_topk.cu`` (fp32, hybrid and int8 rows) stages rows
+and queries BK dims at a time through a ring of STAGES buffers (one more
+for int8 rows, widened to fp32 a chunk ahead into two fp32 chunks), so
+its shared memory does not grow with d; ``l2_topk.tile_smem_bytes``
+mirrors its layout, whose constants are read from the source here, and
+the layout must fit the 227 KB a block may use (two fp32 or int8 blocks
+an SM) at every d and every query term count the wrappers admit (the
+card test holds the mirror to the launcher's own figure).
 
 ``pq_adc.splits_for`` decides how many blocks the PQ scan gives the card
 at the main path's shapes (the DEEP-10M top level, B = 1,024 x N =
@@ -60,15 +61,12 @@ def test_pq_splits_never_exceed_the_rows():
 
 def _kernel_constants(name: str, namespace: str = "") -> dict:
     """The integer ``constexpr``s of a kernel source (of one of its
-    namespaces, when named, and the file's own before the first), and of
-    the lexical header it shares (``csrc/lexical.cuh``)."""
+    namespaces, when named, and the file's own before it), and of the
+    lexical header it shares (``csrc/lexical.cuh``)."""
     csrc = pathlib.Path(pq_adc.__file__).with_name("csrc")
     text = (csrc / name).read_text()
     if namespace:
-        head = text[:text.index("namespace int8 {")]
-        body = text[text.index(f"namespace {namespace} {{"):
-                    text.index(f"}}  // namespace {namespace}")]
-        text = head + body
+        text = text[:text.index(f"}}  // namespace {namespace}")]
     out = {}
     for src in ((csrc / "lexical.cuh").read_text(), text):
         out.update({m[1]: int(m[2]) for m in re.finditer(
@@ -133,6 +131,9 @@ def test_tile_constants_match_the_host_mirror():
     c = _kernel_constants("l2_topk.cu", "tile")
     assert c["BK"] == l2_topk.TILE_BK
     assert c["STAGES"] == l2_topk.TILE_STAGES >= 3
+    # an int8 row's chunk is one 16-byte copy, and a block's 256 threads
+    # widen a 128-row chunk 8 codes each
+    assert c["BK"] == 16 and l2_topk.BN * c["BK"] == 8 * c["THREADS"]
     assert c["LIST"] == l2_topk.TILE_LIST
     assert c["BQ"] == l2_topk.BQ == 8 * c["THREADS"] // 32
     assert c["DICT_BITS_MAX"] == l2_topk.DICT_BITS_MAX
@@ -145,19 +146,22 @@ def test_tile_constants_match_the_host_mirror():
     assert len({(r * ldk + w) % 32 for r in range(8) for w in range(4)}) == 32
 
 
-@pytest.mark.parametrize("d", [128, 960, 13])
-@pytest.mark.parametrize("t", [0, 1, 4, 8, 16, 64])
-def test_tile_shared_memory_fits_at_any_d(d, t):
+@pytest.mark.parametrize("d", [128, 960, 13, 640, 1000])
+@pytest.mark.parametrize("rows, t", [("f32", 0), ("int8", 0),
+                                     ("hybrid", 1), ("hybrid", 4),
+                                     ("hybrid", 8), ("hybrid", 16),
+                                     ("hybrid", 64)])
+def test_tile_shared_memory_fits_at_any_d(d, rows, t):
     """The staged chunks carry any d: the query tile no longer sits whole in
-    shared memory (the old tile refused d above 512), so the layout is the
-    same at d = 128, 960 and 13; the hybrid's hit rows (257 of 64
-    documents), dictionary and query slots fit at every T."""
-    hybrid = t > 0
-    smem = l2_topk.tile_smem_bytes(hybrid, t)
+    shared memory (the first tile loop, int8 rows included, refused d
+    above 512), so the layout is the same at every d; the hybrid's hit
+    rows (257 of 64 documents), dictionary and query slots fit at every
+    T."""
+    smem = l2_topk.tile_smem_bytes(rows, t)
     assert smem <= l2_topk.SMEM_MAX
     chunks = -(-d // l2_topk.TILE_BK)
     assert chunks * l2_topk.TILE_BK >= d
-    if not hybrid:   # two fp32 blocks an SM (228 KB, 1 KB reserved a block)
+    if rows != "hybrid":   # two blocks an SM (228 KB, 1 KB reserved a block)
         assert 2 * (smem + 1024) <= 228 * 1024
 
 
@@ -170,7 +174,7 @@ def test_tile_shared_memory_fits_at_any_d(d, t):
 def test_dense_splits_at_the_main_shapes(b, n, splits, rows):
     s, r = l2_topk.splits_for(b, n, H100_SMS)
     assert (s, r) == (splits, rows)
-    # whole tiles of the fp32 and int8 loops, and of the hybrid's and
+    # whole tiles of the fp32 and int8 scans, and of the hybrid's and
     # BM25's 64-row tiles; every row in exactly one split
     assert r % l2_topk.BN == 0 and r % l2_topk.HYBRID_BN == 0
     assert (s - 1) * r < n <= s * r

@@ -193,13 +193,15 @@ def _slabs(rng, n, s=6, repeat=False):
 def _edge(name):
     """Operands of one edge case: (q, x, qt, qw, terms, tf, k, valid)."""
     rng = _rng(name)
-    b, n, k = _B, _N, _K
+    b, n, k, d = _B, _N, _K, _D
+    if name.startswith("d="):      # "d=640...": rows wider than 512
+        d = int(name[2:].split("_")[0])
     if name == "single_query_row":
         b = 1
     elif name == "k_exceeds_n":
         n, k = 6, 10
-    q = rng.normal(size=(b, _D)).astype(np.float32)
-    x = rng.normal(size=(n, _D)).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
     if name == "duplicate_rows":
         x[n // 2:] = x[:n - n // 2]
     terms, tf = _slabs(rng, n, repeat=name == "repeated_slab_terms")
@@ -210,7 +212,7 @@ def _edge(name):
     valid = None
     if name == "all_dead":
         valid = np.zeros(n, np.int32)
-    elif name == "partial_valid":
+    elif name.endswith("partial_valid"):
         valid = (rng.random(n) > 0.5).astype(np.int32)
     return q, x, qt, qw, terms, tf, k, valid
 
@@ -235,7 +237,7 @@ def _check_contract(port, valid):
         assert not np.isin(i, np.flatnonzero(valid == 0)).any()
 
 
-@pytest.mark.parametrize("name", _EDGES)
+@pytest.mark.parametrize("name", _EDGES + ["d=640_partial_valid", "d=1000"])
 def test_l2_topk_int8_plain_matches_reference(reference, name):
     q, x, _, _, _, _, k, valid = _edge(name)
     codes, scales = ops.quantize_rows_int8(x)
