@@ -65,7 +65,25 @@ each prints its wall time as ``[phase] <name> <s> s``):
              entity id) against its plain version and float64 and timed;
              counts reset just before and read just after each of the
              three runs;
-10. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
+10. forest serve - the sift tree-bottom index (8,192 buckets, leaf 8)
+             through ``ServingCell.sharded(kind="auto")`` (the forest
+             kind: nprobe 32, beam 8, k 10), 2,048 requests from 16
+             clients, recall@10 against the exact top-10; counts reset just
+             before and read just after; fused against unfused on every
+             batch (near-ties recomputed in float64, repeats counted);
+             filtered at 0.05 and 0.5; k = 50; a stage profile of one
+             batch; ``candidate_topk``'s rows-by-id entry at the served
+             shape (B 64, C 2,048, d 128) against its plain version, timed
+             beside its bound, the library yardstick and the gathered tile;
+11. lifecycle - a copy of that index (brute top): add 10,000 entities
+             with metadata rows, delete 10,000, ``refresh_forest``,
+             ``reboost`` (unbalance 0.23), ``rebalance``; after each,
+             ``pop_delta`` and ``apply_updates(delta=...)`` on forest, IVF
+             and brute backends, each held bit for bit (tables, answers)
+             against a full re-place, the bucket-local steps required to
+             ship a delta in place (same storage), no deleted id ever
+             returned, every added vector its own rank 1;
+12. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
 
 The serve phase also runs the brute and IVF backends at k = 50 (above the
 kernels' 32-pair lists) against their unfused plain paths.
@@ -121,10 +139,11 @@ from repro_torch.obs.trace import Tracer, set_tracer  # noqa: E402
 from repro_torch.serve.cell import ServingCell  # noqa: E402
 from repro_torch.testing import (CHAIN_EDGES, EDGE_ALPHAS,  # noqa: E402
                                  HAMMING_EDGES, OPTION_EDGES, PQ_EDGES,
-                                 chain_edge_operands, chain_union_topk,
-                                 hamming_edge_operands, hybrid_by_parts,
-                                 option_edge_operands, pq_edge_operands,
-                                 step_chain)
+                                 ROWS_EDGES, chain_edge_operands,
+                                 chain_union_topk, hamming_edge_operands,
+                                 hybrid_by_parts, option_edge_operands,
+                                 pq_edge_operands, rows_edge_operands,
+                                 rows_union_topk, step_chain)
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3, fp32 outside the
 # tensor cores, and dense TF32 on them.  Every kernel computes in fp32 FMA;
@@ -373,6 +392,25 @@ def require_bits(name, a, b) -> None:
             f"{name}: distance bits differ")
 
 
+def check_rows(name, q, rows, ids, k, plain=None) -> dict:
+    """The tile read by row id against its plain version (or ``plain``),
+    each returned pair's distance recomputed in float64 from ``rows``, and
+    bit for bit against the tile entry on the gathered rows (the same
+    arithmetic, the same segments)."""
+    kd, ki = bucket_topk.candidate_rows_topk(q, rows, ids, k)
+    live = torch.where((ids >= 0) & (ids < rows.shape[0]), ids, -1)
+    require_bits(f"{name} (tile entry on the gathered rows)", (kd, ki),
+                 bucket_topk.candidate_topk(
+                     q, rows[live.clamp(min=0).long()].contiguous(), live, k))
+    pd, pi = plain if plain is not None else ref.candidate_rows_topk_ref(
+        q, rows, ids, k)
+    torch.cuda.synchronize()
+    scale = (_norms(q).cpu().numpy() + float(_norms(rows).max()))[:, None] \
+        * np.ones((1, k))
+    return compare(name, kd, ki, pd, pi, scale,
+                   vec_of=lambda b, i: rows[int(i)].cpu().numpy(), q=q)
+
+
 def check_chain(name, q, probe, bids, k, db, *, bvecs=None,
                 plain=None) -> dict:
     """The probe chain entry against its plain version (or ``plain``),
@@ -533,6 +571,25 @@ def edges_chain(dev) -> int:
     return near
 
 
+def edges_rows(dev) -> int:
+    """The tile read by row id on the shared edge shapes
+    (``repro_torch.testing.ROWS_EDGES``) at their k and at k = 33, 64, 65
+    and 100: the plain version, or for a list that repeats ids
+    ``rows_union_topk`` (the plain gather keeps both copies); returns
+    near-ties."""
+    near = 0
+    for case in ROWS_EDGES:
+        o = rows_edge_operands(case)
+        q, rows, ids = (torch.as_tensor(o[n], device=dev)
+                        for n in ("q", "rows", "ids"))
+        for k in (o["k"],) + LARGE_KS:
+            plain = (rows_union_topk(q, rows, ids, k)
+                     if case[-1] == "repeat" else None)
+            near += check_rows(f"edge rows k={k} {case[0]}", q, rows, ids, k,
+                               plain=plain)["near_ties"]
+    return near
+
+
 def check_bitwise(name, kd, ki, pd, pi) -> dict:
     """Kernel (kd, ki) equal to its plain version (pd, pi) bit for bit:
     the PQ kernel sums in the plain version's order, and Hamming distances
@@ -643,6 +700,7 @@ def phase_edges(dev) -> None:
     near += check_cand("edge cand duplicate ids", q, vd, idd, k,
                        plain=plain)["near_ties"]
     near += edges_chain(dev)
+    near += edges_rows(dev)
     near += edges_options(dev)
     edges_index(dev)
     # d = 960: the staged chunks carry any d (the old tile refused d > 512)
@@ -1826,6 +1884,7 @@ def phase_index_sift(dev, ctx) -> dict:
     tree_cfg = dataclasses.replace(cfg, bottom="tree")
     tree_idx = dataclasses.replace(base, config=tree_cfg, forest=build_forest(
         corpus, base.bucket_ids, base.bucket_counts, tree_cfg, None))
+    ctx["tree_idx"] = tree_idx
     build["tree bottom (one tree per bucket, host)"] = (time.perf_counter()
                                                         - t0)
     log(f"[index sift] build s {build}")
@@ -1851,6 +1910,7 @@ def phase_index_sift(dev, ctx) -> dict:
     torch.cuda.synchronize()
     out["two_level"] = rows
     out["two_level_launches"] = read_launches()
+    ctx["index_tree_recall"] = rows["tree"]["recall_at_10"]
     for name, idx in (("brute", base), ("lsh", lsh_idx), ("tree", tree_idx)):
         RESULTS[f"profile_sift_pq_{name}"] = profile_window(
             f"sift pq top + {name} bottom", ctx["label"],
@@ -2262,6 +2322,525 @@ def phase_index(dev, ctx) -> None:
         "launches"]["candidate_topk"]
 
 
+# ------------------------------------------------------------ phase 10
+FOREST_HEADROOM = 1.25     # bucket, node and leaf room for the adds
+LIFE_ADDS = 10_000         # 1 % of sift-1m: 100 near each of 100 buckets
+LIFE_HOT = 100
+LIFE_DELETES = 10_000      # the members of whole cold buckets
+LIFE_CHUNK = 1024          # queries a call in the lifecycle's checks
+STAGE_KERNELS = (("descent gathers", r"index|gather|Gather|take"),
+                 ("node products", r"gemm|gemv|Gemm|xmma|cutlass|bmm|dot"),
+                 ("beam sorts", r"[sS]ort|radix|Radix|topk"))
+
+
+def forest_parity(name, a, b, queries, db, floor: float = 0.99) -> dict:
+    """Fused (a) against unfused (b) forest answers: the same sentinel
+    slots, and ids equal except at near-ties (fault 7), each differing
+    slot's two entities recomputed in float64 and within REL * (qn + xn)
+    of each other; the unfused answer's repeated ids are counted (fault 5:
+    the fused rerank emits a pair once)."""
+    require(np.array_equal(np.isinf(a[0]), np.isinf(b[0])),
+            f"{name}: sentinel slots differ")
+    differ = a[1] != b[1]
+    rows, cols = np.nonzero(differ)
+    gaps = []
+    for r, c in zip(rows, cols):
+        ia, ib = int(a[1][r, c]), int(b[1][r, c])
+        q64 = queries[r].astype(np.float64)
+        xa, xb = db[ia].astype(np.float64), db[ib].astype(np.float64)
+        gap = abs(((q64 - xa) ** 2).sum() - ((q64 - xb) ** 2).sum())
+        gaps.append(gap / ((q64 ** 2).sum() + max((xa ** 2).sum(),
+                                                  (xb ** 2).sum())))
+    worst = float(max(gaps, default=0.0))
+    repeats = int(sum((row >= 0).sum() - len(set(row[row >= 0].tolist()))
+                      for row in b[1]))
+    agree = float((~differ).mean())
+    out = {"agree": agree, "differing": int(differ.sum()),
+           "worst_f64_gap_rel": worst, "unfused_repeated_ids": repeats}
+    log(f"[parity] {name}: {out}")
+    require(worst <= REL, f"{name}: ids differ off a near-tie")
+    require(agree >= floor, f"{name}: ids agree on {agree} < {floor}")
+    return out
+
+
+def forest_local_stages(be, q):
+    """The forest local of ``be`` on its own placed tables, stage by stage
+    (the local's own calls in its order), each stage under a
+    ``record_function`` range.  Returns (dists, ids, candidate slot ids,
+    the (Kloc cap, d) rows they index)."""
+    from torch.profiler import record_function
+
+    (cents, valid, roots, bids, bvecs, proj, dims, tau, children, leaf_row,
+     leaf_ents) = (t[0] for t in be._args)
+    arrays = dict(proj=proj, dims=dims, tau=tau, children=children,
+                  leaf_row=leaf_row, leaf_entities=leaf_ents)
+    B, d = q.shape
+    sh = be._shapes
+    with record_function("forest: centroid scan"):
+        d2c = torch.where(valid[None, :], pairwise_l2sq(q, cents),
+                          float("inf"))
+    with record_function("forest: probe sort"):
+        _, probe = stable_topk(d2c, min(be.nprobe_local, cents.shape[0]))
+    with record_function("forest: descent"):
+        res = tree_search(arrays, bvecs.reshape(-1, d),
+                          torch.repeat_interleave(q, probe.shape[1], dim=0),
+                          kind="rp", beam_width=be.beam_width,
+                          k=be.beam_width * sh.leaf_sz,
+                          max_steps=sh.max_depth + 4, rerank=False,
+                          roots=roots[probe].reshape(-1))
+        flat = bids.reshape(-1)
+        cand = res.ids.reshape(B, -1)
+        cand = torch.where(
+            (cand >= 0) & (flat[cand.clamp(min=0).long()] >= 0), cand, -1)
+    rows = bvecs.reshape(-1, d)
+    with record_function("forest: rerank"):
+        ld, slot = bucket_topk.candidate_rows_topk(q, rows, cand, be.k)
+        li = torch.where((slot >= 0) & ~torch.isinf(ld),
+                         flat[slot.clamp(min=0).long()], -1)
+    return ld, li, cand, rows
+
+
+def forest_stage_profile(be, q, label: str) -> dict:
+    """Device time of one batch by stage of the forest local (the
+    ``record_function`` ranges' kernels), the descent's kernels split into
+    gathers, node products, beam sorts and the rest by kernel name; beside
+    it each stage's time by CUDA events, the stages run one at a time."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    forest_local_stages(be, q)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        forest_local_stages(be, q)
+        torch.cuda.synchronize()
+
+    def kernels_of(e):
+        out = [(k.name, k.duration) for k in e.kernels]
+        for ch in e.cpu_children:
+            out += kernels_of(ch)
+        return out
+
+    stages, descent = {}, {name: 0.0 for name, _ in STAGE_KERNELS}
+    descent["descent other"] = 0.0
+    for e in prof.events():
+        # the host-side range (the device timeline repeats each range as a
+        # user annotation with no kernels of its own)
+        if (not e.name.startswith("forest: ")
+                or e.device_type != DeviceType.CPU):
+            continue
+        ks = kernels_of(e)
+        stage = e.name[len("forest: "):]
+        stages[stage] = stages.get(stage, 0.0) + sum(dur for _, dur in ks)
+        if e.name == "forest: descent":
+            for kname, dur in ks:
+                for cat, pat in STAGE_KERNELS:
+                    if re.search(pat, kname):
+                        descent[cat] += dur
+                        break
+                else:
+                    descent["descent other"] += dur
+    # CUDA events around each stage, one at a time
+    events = {}
+    (cents, valid, *_rest) = (t[0] for t in be._args)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for name, fn in (
+            ("centroid scan", lambda: pairwise_l2sq(q, cents)),
+            ("whole local", lambda: forest_local_stages(be, q))):
+        fn()
+        torch.cuda.synchronize()
+        marks[0].record()
+        fn()
+        marks[1].record()
+        marks[1].synchronize()
+        events[name] = marks[0].elapsed_time(marks[1]) * 1e3
+    out = {"stage_us": stages, "descent_us": descent,
+           "events_us": events,
+           "measured": bool(sum(stages.values()) > 0)}
+    log(f"[profile forest stages] on {label}: one batch of {q.shape[0]}: "
+        + ", ".join(f"{k} {v:.1f} us" for k, v in stages.items())
+        + "; descent: " + ", ".join(f"{k} {v:.1f} us"
+                                    for k, v in descent.items())
+        + f"; CUDA events: {events}")
+    if not out["measured"]:
+        log("[profile forest stages] the ranges recorded no device time: "
+            "not measured")
+    return out
+
+
+def shape_rows(dev, be, queries) -> dict:
+    """``candidate_topk``'s rows-by-id entry at the served forest's shape
+    (B 64, C = nprobe 32 x beam 8 x leaf 8 = 2,048 slot ids a query, d
+    128) on the forest backend's own rows and candidates: against its
+    plain version at k 10 and 33 / 64 / 100, timed (CUDA graph replays)
+    beside its bound, the plain version, the library yardstick (gather,
+    ``torch.baddbmm``, ``torch.topk``) and the tile entry on the gathered
+    rows with the gather timed on its own."""
+    q = torch.as_tensor(queries[:BATCH], device=dev)
+    ld, li, cand, rows = forest_local_stages(be, q)
+    want = be(queries[:BATCH])
+    torch.cuda.synchronize()
+    require(np.array_equal(li.cpu().numpy(), want[1])
+            and np.array_equal(ld.cpu().numpy().view(np.int32),
+                               want[0].view(np.int32)),
+            "the forest local run stage by stage differs from the backend")
+    B, C = cand.shape
+    D = rows.shape[1]
+    res = check_rows(f"shape candidate_topk rows-by-id B{B} C{C}", q, rows,
+                     cand, K)
+    near = 0
+    for k in LARGE_KS:
+        near += check_rows(f"shape rows-by-id k={k}", q, rows, cand,
+                           k)["near_ties"]
+    res["large_k_near_ties"] = near
+    res["ms"] = time_graph_ms(
+        lambda: bucket_topk.candidate_rows_topk(q, rows, cand, K), 100)
+    res["plain_ms"] = time_graph_ms(
+        lambda: ref.candidate_rows_topk_ref(q, rows, cand, K), 3)
+    live = cand.clamp(min=0).long()
+    tile = rows[live].contiguous()
+    res["gather_ms"] = time_graph_ms(lambda: rows[live], 20)
+    res["tile_entry_ms"] = time_graph_ms(
+        lambda: bucket_topk.candidate_topk(q, tile, cand, K), 100)
+    vn = torch.where(cand >= 0, (rows * rows).sum(1)[live], float("inf"))
+    qn = (q * q).sum(1)[:, None]
+
+    def library():
+        d = torch.baddbmm((vn + qn)[..., None], rows[live], q[:, :, None],
+                          alpha=-2.0)[..., 0]
+        return torch.topk(d, K, largest=False)
+
+    res["library_ms"] = time_graph_ms(library, 20)
+    res["library_call"] = ("rows[ids] gather + torch.baddbmm + torch.topk, "
+                           "row norms precomputed: three calls")
+    (kd, _), passes = counted("candidate_topk", lambda: (
+        bucket_topk.candidate_rows_topk(q, rows, cand, K_LARGE)))
+    res["k100"] = {"ms": time_graph_ms(lambda: bucket_topk.candidate_rows_topk(
+        q, rows, cand, K_LARGE), 20), "passes": passes}
+    pairs = int((cand >= 0).sum())
+    distinct = int(torch.unique(cand[cand >= 0]).numel())
+    nbytes = 4.0 * (distinct * D + B * C + B * D) + 8.0 * B * K
+    flops = (4.0 * D + 3.0) * pairs + 2.0 * B * D
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+    res.update(pairs=pairs, distinct_rows=distinct,
+               pair_bytes_ms=4.0 * pairs * D / HBM_BYTES_PER_S * 1e3,
+               gather_bytes=4 * B * C * D, shape=[B, C, D, K])
+    log(f"[shape candidate_topk rows-by-id] B={B} C={C} d={D} pairs {pairs} "
+        f"(distinct rows {distinct}) ms {res['ms']:.5f} bound "
+        f"{res['bound_ms']:.5f} ({res['bound_by']}; pair by pair "
+        f"{res['pair_bytes_ms']:.5f}) plain {res['plain_ms']:.4f} library "
+        f"{res['library_ms']:.5f}; the gathered tile: gather "
+        f"{res['gather_ms']:.5f} ({res['gather_bytes'] / 2**20:.0f} MiB) + "
+        f"tile entry {res['tile_entry_ms']:.5f}; k=100 "
+        f"{res['k100']['passes']} passes {res['k100']['ms']:.5f}")
+    return res
+
+
+def phase_forest_serve(dev, ctx) -> dict:
+    """The served forest kind at sift-1m width: the index phase's tree
+    bottom (8,192 buckets, leaf 8) through ``ServingCell.sharded(kind=
+    "auto")`` (nprobe 32, beam 8, k 10) answering 2,048 requests from 16
+    clients; recall@10 against the exact top-10; launches reset just
+    before and read just after; fused against unfused on every batch;
+    filtered at selectivity 0.05 and 0.5; k = 50; a stage profile; the
+    rows-by-id shape."""
+    tree_idx = ctx["tree_idx"]
+    corpus, queries, truth, label = (ctx[k] for k in (
+        "corpus", "queries", "truth", "label"))
+    tree_idx.metadata = ctx["meta"]
+    t0 = time.perf_counter()
+    cell = ServingCell.sharded(
+        tree_idx, kind="auto", k=K, nprobe_local=SIFT_NPROBE,
+        beam_width=BEAM, headroom=FOREST_HEADROOM, delta_updates=True,
+        max_batch=BATCH, max_wait_ms=2.0)
+    be = cell.search_fn
+    torch.cuda.synchronize()
+    out = {"place_s": time.perf_counter() - t0,
+           "shapes": dataclasses.asdict(be._shapes),
+           "full_bytes": be._full_bytes}
+    require(be.kind == "forest", f"auto picked {be.kind}, not forest")
+    log(f"[forest] placed in {out['place_s']:.1f} s: slab shapes "
+        f"{out['shapes']}, {out['full_bytes']} bytes")
+    be(queries[:BATCH])
+    torch.cuda.synchronize()
+    reset_launches()
+    ids, dists, lat, wall = serve(cell, queries)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    stats = cell.stats()
+    cell.close()
+    log(f"[forest] launches {launches}")
+    require(launches["candidate_topk"] > 0,
+            "the forest path never launched candidate_topk")
+    require(all(v == 0 for n, v in launches.items() if n != "candidate_topk"),
+            "the forest path launched another kernel")
+    require((ids >= 0).all() and np.isfinite(dists).all(),
+            "served forest results hold sentinels or non-finite distances")
+    qn = (queries.astype(np.float64) ** 2).sum(1)
+    xn = (corpus.astype(np.float64) ** 2).sum(1)
+    d64 = ((queries[:, None, :].astype(np.float64)
+            - corpus[ids].astype(np.float64)) ** 2).sum(-1)
+    pair_err = np.abs(d64 - dists) / (qn[:, None] + xn[ids])
+    require((pair_err <= REL).all(), "a served forest id carries a wrong "
+            "distance")
+    recall = recall_at_k(ids, truth)
+    out.update({
+        "requests": int(len(queries)), "clients": N_CLIENTS,
+        "recall_at_10": recall,
+        "index_path_tree_recall_at_10": ctx["index_tree_recall"],
+        "p50_ms": float(np.percentile(lat * 1e3, 50)),
+        "p99_ms": float(np.percentile(lat * 1e3, 99)),
+        "qps": len(queries) / wall, "wall_s": wall,
+        "dispatches": stats.dispatches,
+        "launches": launches,
+        "launches_per_batch": launches["candidate_topk"]
+        / max(stats.dispatches, 1),
+        "mean_batch": len(queries) / max(stats.dispatches, 1),
+        "max_rel_err_f64": float(pair_err.max()), "stages": stats.stages})
+    log(f"[forest] {len(queries)} requests, {N_CLIENTS} clients on {label}: "
+        f"recall@10 {recall:.4f} (index path, tree bottom, PQ top: "
+        f"{ctx['index_tree_recall']:.4f}) p50 {out['p50_ms']:.3f} ms p99 "
+        f"{out['p99_ms']:.3f} ms QPS {out['qps']:.1f}; "
+        f"{out['launches_per_batch']:.2f} candidate_topk launches a batch "
+        f"of {out['mean_batch']:.1f}")
+    log(f"[forest] stages {json.dumps(stats.stages)}")
+    require(recall >= ctx["index_tree_recall"] - 0.05,
+            "served forest recall@10 is far below the index path's")
+
+    fused = batched(be, queries)
+    served_agree = float((ids == fused[1]).mean())
+    require(served_agree >= 0.99, "forest cell answers differ from the "
+            "backend's")
+    unfused_be = ShardedSearchBackend(
+        tree_idx, k=K, nprobe_local=SIFT_NPROBE, beam_width=BEAM,
+        headroom=FOREST_HEADROOM, fused=False)
+    out["parity"] = forest_parity("forest fused vs unfused, every batch",
+                                  fused, batched(unfused_be, queries),
+                                  queries, corpus)
+    del unfused_be
+    out["served_direct_agree"] = served_agree
+
+    out["filtered"] = {}
+    rows = queries[:N_IVF_OPTION_REQUESTS]
+    for sel, spec in (("0.05", NARROW), ("0.5", WIDE)):
+        got = batched(lambda qb, s=spec: be(qb, filter_spec=s), rows)
+        exact = batched(lambda qb, s=spec: ctx["brute"](qb, filter_spec=s),
+                        rows)
+        require_admitted(f"forest filtered {sel}", got[1], spec, ctx["meta"])
+        out["filtered"][sel] = {
+            "recall_at_10_vs_filtered_exact": recall_at_k(got[1], exact[1]),
+            "sentinel_share": float((got[1] < 0).mean())}
+    log(f"[forest] filtered: {out['filtered']}")
+
+    k = K_BACKEND_LARGE
+    q50 = queries[:4 * BATCH]
+    f50 = ShardedSearchBackend(tree_idx, k=k, nprobe_local=SIFT_NPROBE,
+                               beam_width=BEAM)
+    p50 = ShardedSearchBackend(tree_idx, k=k, nprobe_local=SIFT_NPROBE,
+                               beam_width=BEAM, fused=False)
+    a, b = batched(f50, q50), batched(p50, q50)
+    del f50, p50
+    k50 = forest_parity(f"forest k={k} vs unfused", a, b, q50, corpus,
+                        floor=0.9)
+    brute50 = ShardedSearchBackend(corpus, kind="brute", k=k)
+    k50["forest_recall_at_50_vs_brute"] = recall_at_k(
+        a[1], batched(brute50, q50)[1])
+    del brute50
+    RESULTS["main"]["k50"]["forest"] = k50
+    log(f"[serve] backends at k={k} on the card, forest: {k50}")
+
+    RESULTS["profile_forest"] = profile_window(
+        "forest", label, lambda: be(queries[:BATCH]), 1, BATCH)
+    out["stage_profile"] = forest_stage_profile(
+        be, torch.as_tensor(queries[:BATCH], device=dev), label)
+    res = shape_rows(dev, be, queries)
+    res["launches"] = launches["candidate_topk"]
+    RESULTS["kernels"]["candidate_topk"]["rows"] = res
+    RESULTS["forest"] = out
+    del be, cell
+    return out
+
+
+def life_copy(idx, metadata):
+    """A copy of ``idx`` whose mutations reach no other index: every table
+    the lifecycle changes in place is copied, and the top level is brute
+    (the served forest never reads the top; ``rebalance`` then retrains
+    nothing)."""
+    f = idx.forest
+    trees = [dataclasses.replace(t, leaf_entities=t.leaf_entities.copy())
+             for t in f.trees]
+    return dataclasses.replace(
+        idx, config=dataclasses.replace(idx.config, top="brute"),
+        top_pq=None, top_kd=None, centroids=idx.centroids.copy(),
+        bucket_ids=idx.bucket_ids.copy(),
+        bucket_counts=idx.bucket_counts.copy(), alive=idx.alive.copy(),
+        entity_bucket=idx.entity_bucket.copy(), dirty=idx.dirty.copy(),
+        forest=dataclasses.replace(f, arrays=dict(f.arrays), trees=trees),
+        metadata=metadata, lexical=None, base_trees=None, delta_log=None)
+
+
+def in_chunks(fn, x: np.ndarray) -> np.ndarray:
+    """``fn`` over ``x`` in calls of ``LIFE_CHUNK`` queries: the ids."""
+    return np.concatenate([fn(x[s:s + LIFE_CHUNK])[1]
+                           for s in range(0, len(x), LIFE_CHUNK)])
+
+
+def phase_lifecycle(dev, ctx) -> dict:
+    """The index lifecycle at sift-1m width on the tree-bottom index (a
+    copy, brute top): add 10,000 entities with metadata rows (100 near
+    each of 100 buckets), delete 10,000 (whole cold buckets),
+    ``refresh_forest``, ``reboost`` with the radio phase's skewed
+    likelihood, ``rebalance``; after each, ``pop_delta`` and
+    ``apply_updates(delta=...)`` on live forest, IVF and brute backends
+    (the brute kind gets the flat part of the manifest), each held bit for
+    bit, tables and answers, against a control backend of its kind
+    re-placed in full from the same index."""
+    corpus, label = ctx["corpus"], ctx["label"]
+    queries = ctx["queries"][:INDEX_QUERIES]
+    meta = MetadataTable({"pct": ctx["meta"].column("pct").copy()})
+    life = life_copy(ctx["tree_idx"], meta)
+    rng = np.random.default_rng(5)
+
+    def make(kind):
+        if kind == "brute":
+            return ShardedSearchBackend(life.db, kind="brute", k=K,
+                                        headroom=FOREST_HEADROOM)
+        return ShardedSearchBackend(life, kind=kind, k=K,
+                                    nprobe_local=SIFT_NPROBE,
+                                    beam_width=BEAM,
+                                    headroom=FOREST_HEADROOM)
+
+    t0 = time.perf_counter()
+    kinds = ("forest", "ivf", "brute")
+    live = {kind: make(kind) for kind in kinds}
+    control = {kind: make(kind) for kind in kinds}
+    torch.cuda.synchronize()
+    out = {"place_s": time.perf_counter() - t0, "steps": {}}
+    counts = life.bucket_counts
+    # hot buckets at most the median size: 100 more entities still fit
+    # the pad width, and the rebuilt trees stay within the node slabs
+    hot = rng.choice(np.flatnonzero((counts > 0)
+                                    & (counts <= np.median(counts))),
+                     LIFE_HOT, replace=False)
+    per = LIFE_ADDS // LIFE_HOT
+    spread = np.stack([corpus[life.bucket_ids[b][:counts[b]]].std(0)
+                       for b in hot])
+    new = (np.repeat(life.centroids[hot], per, axis=0)
+           + 0.3 * np.repeat(spread, per, axis=0)
+           * rng.normal(size=(LIFE_ADDS, corpus.shape[1]))).astype(
+               np.float32)
+    hot_set = set(hot.tolist())
+    cold = [b for b in rng.permutation(life.k_clusters)
+            if b not in hot_set and counts[b] > 0]
+    gone, total = [], 0
+    for b in cold:
+        if total >= LIFE_DELETES:
+            break
+        members = life.bucket_ids[b][:counts[b]].astype(np.int64)
+        gone.append(members[:LIFE_DELETES - total])
+        total += gone[-1].size
+    gone = np.concatenate(gone)
+    _, unbalance, p_skew = beta_for_unbalance(RADIO_UNBALANCE,
+                                              corpus.shape[0] + LIFE_ADDS)
+    added = np.zeros(0, np.int64)
+    deleted = np.zeros(0, np.int64)
+    steps = (
+        ("add", lambda: life.add_entities(
+            new, metadata={"pct": rng.integers(0, 100, LIFE_ADDS)})),
+        ("delete", lambda: life.delete_entities(gone)),
+        ("refresh_forest", life.refresh_forest),
+        ("reboost", lambda: life.reboost(p_skew)),
+        ("rebalance", life.rebalance))
+    for name, op in steps:
+        t0 = time.perf_counter()
+        ret = op()
+        mut_s = time.perf_counter() - t0
+        if name == "add":
+            added = np.asarray(ret, np.int64)
+        elif name == "delete":
+            deleted = gone
+        man = life.pop_delta()
+        flat = dataclasses.replace(man, dirty_buckets=man.dirty_buckets[:0])
+        step = {"mutation_s": mut_s, "manifest": man.describe(),
+                "max_depth": life.forest.max_depth}
+        if isinstance(ret, dict):
+            step["stats"] = ret
+        for kind in kinds:
+            target = life.db if kind == "brute" else life
+            ptrs = [t.data_ptr() for t in live[kind]._args]
+            t0 = time.perf_counter()
+            try:
+                st = live[kind].apply_updates(
+                    target, delta=flat if kind == "brute" else man)
+            except ValueError as e:
+                # the contract of an outgrown reservation: rebuild
+                require("outgrew" in str(e) and name == "reboost",
+                        f"{kind} apply after {name}: {e}")
+                log(f"[lifecycle] {name}: {kind}: {e}; rebuilding its "
+                    "backends, as the contract says")
+                live[kind], control[kind] = make(kind), make(kind)
+                st = {"mode": "rebuilt", "bytes": live[kind]._full_bytes,
+                      "full_bytes": live[kind]._full_bytes,
+                      "reason": "outgrew"}
+            torch.cuda.synchronize()
+            st = dict(st, apply_s=time.perf_counter() - t0)
+            control[kind].apply_updates(
+                target, alive=life.alive if kind == "brute" else None)
+            if st["mode"] == "delta":
+                require([t.data_ptr() for t in live[kind]._args] == ptrs,
+                        f"{kind} delta after {name} moved a placed tensor")
+            require(all(torch.equal(a, b) for a, b in zip(
+                live[kind]._args, control[kind]._args)),
+                f"{kind} after {name}: the placed tables differ from a full "
+                "re-place's")
+            a, c = batched(live[kind], queries), batched(control[kind],
+                                                         queries)
+            require(np.array_equal(a[1], c[1]) and np.array_equal(
+                a[0].view(np.int32), c[0].view(np.int32)),
+                f"{kind} after {name}: answers differ from a full "
+                "re-place's")
+            if deleted.size:
+                got = in_chunks(live[kind], life.db[deleted])
+                require(not np.isin(got, deleted).any(),
+                        f"{kind} after {name}: a deleted id came back")
+            if added.size:
+                got = in_chunks(live[kind], new)[:, 0]
+                st["added_found_at_rank_1"] = float((got == added).mean())
+                require((got == added).all(),
+                        f"{kind} after {name}: an added vector did not find "
+                        "itself at rank 1")
+            step[kind] = st
+            log(f"[lifecycle] {name} ({mut_s:.2f} s on the host; "
+                f"{man.describe()}): {kind} mode {st['mode']} bytes "
+                f"{st['bytes']} full_bytes {st['full_bytes']} reason "
+                f"{st['reason']} apply {st['apply_s']:.2f} s")
+        out["steps"][name] = step
+        if name in ("add", "delete", "refresh_forest"):
+            for kind in ("forest", "ivf"):
+                require(step[kind]["mode"] == "delta",
+                        f"{kind} after {name} did not take the delta path")
+        if name in ("add", "delete"):
+            require(step["brute"]["mode"] == "delta",
+                    f"brute after {name} did not take the delta path")
+    require(life.metadata.n_rows == life.n, "metadata rows lag the db")
+    out["unbalance"] = unbalance
+    out["counters"] = {kind: {"delta_applies": live[kind].n_delta_applies,
+                              "full_applies": live[kind].n_full_applies,
+                              "republished_bytes":
+                                  live[kind].republished_bytes,
+                              "republish_full_bytes":
+                                  live[kind].republish_full_bytes}
+                       for kind in kinds}
+    log(f"[lifecycle] counters {out['counters']}")
+    RESULTS["lifecycle"] = out
+    return out
+
+
 # ------------------------------------------------------------- the line
 SOURCES = {
     "l2_topk": ("src/repro_torch/kernels/csrc/l2_topk.cu",
@@ -2283,7 +2862,8 @@ SOURCES = {
 
 def kernel_line() -> dict:
     """Each kernel at its main path's shape (``candidate_topk``: the served
-    chain, with its one-step and DEEP-10M numbers beside it)."""
+    chain, with its one-step, DEEP-10M and served forest rows-by-id
+    numbers beside it)."""
     out = []
     for name, (source, replaces) in SOURCES.items():
         r = RESULTS["kernels"][name]
@@ -2306,13 +2886,19 @@ def kernel_line() -> dict:
         if "k100" in r:
             row.update(ms_k100=r["k100"]["ms"],
                        passes_k100=r["k100"]["passes"])
-        for part in ("step", "deep"):
+        for part in ("step", "deep", "rows"):
             if part in r:
                 row[part] = {key: r[part][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "max_abs_err")}
         if "deep" in r:
             row["deep"]["launches"] = r["deep_launches"]
+        if "rows" in r:
+            row["rows"].update(
+                launches=r["rows"]["launches"],
+                gather_ms=r["rows"]["gather_ms"],
+                tile_entry_ms=r["rows"]["tile_entry_ms"],
+                ms_k100=r["rows"]["k100"]["ms"])
         out.append(row)
     return {"kernels": out}
 
@@ -2334,6 +2920,10 @@ def main() -> int:
     with phase("profile"):
         phase_profiles(ctx)
     phase_index(dev, ctx)
+    with phase("forest serve"):
+        phase_forest_serve(dev, ctx)
+    with phase("lifecycle"):
+        phase_lifecycle(dev, ctx)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)

@@ -67,7 +67,12 @@ def index_from_arrays(arrays: dict, config: dict, device=None, *,
     (M, 256, ds) and ``pq_codes`` (K, M); ``kd`` (a dict for
     :func:`tree_from_arrays`); ``lsh_proj`` (d, bits) and ``lsh_codes``
     (N, W); ``forest`` (a list of K such dicts, one per bucket, leaf ids
-    global).  ``config``: keyword arguments of :class:`TwoLevelConfig`.
+    global).  An index already mid-lifecycle also carries its mutation
+    state: ``entity_bucket`` (N,), ``dirty`` (K,), ``base_trees`` (a list
+    of K tree dicts, the reboost base) and the counters ``n_adds``,
+    ``n_deletes``, ``mutation_version`` (the delta log starts afresh at
+    that version, as after a ``pop_delta``).  ``config``: keyword
+    arguments of :class:`TwoLevelConfig`.
     ``metadata`` / ``lexical``: the port's sidecars (see the two helpers
     above), one row per corpus row."""
     cfg = TwoLevelConfig(**config)
@@ -80,6 +85,8 @@ def index_from_arrays(arrays: dict, config: dict, device=None, *,
     alive = arrays.get("alive")
     p = arrays.get("p")
     part_feats = arrays.get("part_feats")
+    eb = arrays.get("entity_bucket")
+    dirty = arrays.get("dirty")
     idx = TwoLevelIndex(
         config=cfg, db=db,
         centroids=np.array(arrays["centroids"], dtype=np.float32, order="C"),
@@ -87,11 +94,16 @@ def index_from_arrays(arrays: dict, config: dict, device=None, *,
         bucket_counts=np.array(arrays["bucket_counts"], dtype=np.int32),
         alive=(np.ones(n, dtype=bool) if alive is None
                else np.array(alive, dtype=bool)),
-        entity_bucket=entity_buckets(bucket_ids, n),
-        dirty=np.zeros(k, dtype=bool),
+        entity_bucket=(entity_buckets(bucket_ids, n) if eb is None
+                       else np.array(eb, dtype=np.int32)),
+        dirty=(np.zeros(k, dtype=bool) if dirty is None
+               else np.array(dirty, dtype=bool)),
         p=None if p is None else np.array(p, dtype=np.float64),
         part_feats=(None if part_feats is None
                     else np.array(part_feats, dtype=np.float32, order="C")),
+        n_adds=int(arrays.get("n_adds", 0)),
+        n_deletes=int(arrays.get("n_deletes", 0)),
+        mutation_version=int(arrays.get("mutation_version", 0)),
         device=resolve(device), metadata=metadata, lexical=lexical)
     if cfg.top == "pq":
         codebooks = np.array(arrays["pq_codebooks"], dtype=np.float32,
@@ -111,4 +123,7 @@ def index_from_arrays(arrays: dict, config: dict, device=None, *,
     elif cfg.bottom in ("tree", "qlbt"):
         idx.forest = concat_forest([tree_from_arrays(t)
                                     for t in arrays["forest"]])
+        if arrays.get("base_trees") is not None:
+            idx.base_trees = [tree_from_arrays(t)
+                              for t in arrays["base_trees"]]
     return idx

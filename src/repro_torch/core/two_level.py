@@ -11,9 +11,25 @@ to the next-nearest centroid; per-bucket trees are one concatenated
 batched call.
 
 The index keeps its tables as host numpy arrays, as the reference does;
-``device`` is where ``search`` runs.  The tables are placed there once, at
-the first search, and reused: nothing in this slice changes them (every
-mutation method raises ``NotImplementedError`` naming the ROADMAP item).
+``device`` is where ``search`` runs.  The tables are placed there at the
+first search and reused until a mutation drops them.
+
+Mutation model (the online lifecycle, numpy copies of the reference's):
+
+  * ``add_entities``    - route new vectors to the nearest centroid with a
+    free bucket slot (spill to next-nearest, grow the pad on overflow) and
+    rebuild *only the dirty buckets'* trees;
+  * ``delete_entities`` - tombstones: the db row stays (ids are stable),
+    the bucket slot is swap-filled for reuse, and forest leaves are masked
+    in place so a deleted id can never be returned;
+  * ``refresh_forest`` / ``rebalance`` / ``reboost`` - rebuild dirty
+    trees; a Lloyd step restricted to drifted buckets; the QLBT re-split
+    of every bucket tree for a new likelihood.
+
+Each mutation records what it dirtied in a ``DeltaLog``; ``pop_delta()``
+emits the ``DeltaManifest`` that ``ShardedSearchBackend.apply_updates``
+scatters in place.  Every mutation drops the placed search tables
+(``_placed``), so the next search places the mutated index.
 
 The PQ top level scores the centroid codes with the ``pq_adc_topk``
 kernel, where the reference calls its jnp ``adc_scores``
@@ -37,11 +53,12 @@ import torch
 
 from repro_torch.core import tree as tree_mod
 from repro_torch.core.brute import batched_l2sq, pairwise_l2sq
+from repro_torch.core.delta import DeltaLog, DeltaManifest
 from repro_torch.core.kmeans import _assign_topm, kmeans_fit
-from repro_torch.core.lsh import LSHIndex, lsh_build
+from repro_torch.core.lsh import LSHIndex, lsh_build, pack_bits
 from repro_torch.core.pq import ProductQuantizer, adc_lut, pq_train
-from repro_torch.core.tree import (LATER_MUTATION, FlatTree, build_kd_tree,
-                                   build_qlbt, build_rp_tree)
+from repro_torch.core.tree import (FlatTree, build_kd_tree, build_qlbt,
+                                   build_rp_tree)
 from repro_torch.device import require_fp32_matmul, resolve
 from repro_torch.kernels.common import popcount32, stable_topk
 from repro_torch.kernels.ops import bucket_probe_topk_op, pq_adc_topk_op
@@ -83,8 +100,10 @@ class _Forest:
     """Per-bucket trees concatenated into one node table.
 
     ``trees`` keeps the per-bucket :class:`FlatTree` segments (leaf ids
-    already global); ``arrays`` are the concatenated host tables
-    ``tree_search`` reads (see :meth:`FlatTree.device_arrays`)."""
+    already global) so a mutation can rebuild one bucket's tree and
+    re-concatenate without touching the other K-1; ``arrays`` are the
+    concatenated host tables ``tree_search`` reads (see
+    :meth:`FlatTree.device_arrays`)."""
     arrays: dict                  # host numpy node tables
     roots: np.ndarray             # (K,) int32 root node per bucket
     max_depth: int
@@ -108,13 +127,23 @@ class TwoLevelIndex:
     dirty: Optional[np.ndarray] = None          # (K,) bool, membership changed
     p: Optional[np.ndarray] = None              # (N,) likelihood (qlbt)
     part_feats: Optional[np.ndarray] = None     # (N, pd) if built on features
+    n_adds: int = 0                             # mutations since last rebalance
+    n_deletes: int = 0
+    # last fully-BUILT per-bucket trees: reboost always derives from these,
+    # never from a previous reboost (chained re-splits compound float
+    # relocations until recall erodes).  None until the first reboost.
+    base_trees: Optional[list] = None
+    mutation_version: int = 0                   # bumped per mutation batch
+    delta_log: Optional[DeltaLog] = dataclasses.field(default=None,
+                                                      repr=False)
     device: Optional[torch.device] = None       # where search runs
     # per-entity sidecars, row-aligned with db: a MetadataTable (filters)
     # and LexicalSlabs (lexical / hybrid modes), placed by the backend
     metadata: Optional[object] = dataclasses.field(default=None, repr=False)
     lexical: Optional[object] = dataclasses.field(default=None, repr=False)
-    # the search tables on the device, placed by the first search (a copy
-    # made with dataclasses.replace starts without them)
+    # the search tables on the device, placed by the first search and
+    # dropped by every mutation (a copy made with dataclasses.replace
+    # starts without them)
     _placed: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False, compare=False)
 
@@ -130,24 +159,369 @@ class TwoLevelIndex:
     def k_clusters(self) -> int:
         return int(self.centroids.shape[0])
 
-    # ---------------- mutation: a later slice ----------------
-    def add_entities(self, *args, **kwargs):
-        raise NotImplementedError(f"add_entities: see {LATER_MUTATION}")
+    @property
+    def feats(self) -> np.ndarray:
+        """Partition-feature view of the corpus (db itself by default)."""
+        return self.db if self.part_feats is None else self.part_feats
 
-    def delete_entities(self, *args, **kwargs):
-        raise NotImplementedError(f"delete_entities: see {LATER_MUTATION}")
+    # ---------------- mutation (online lifecycle) ----------------
+    def _ensure_mutable(self):
+        """Lazily create mutation state for indexes built before it."""
+        if self.alive is None:
+            self.alive = np.ones(self.n, dtype=bool)
+        if self.dirty is None:
+            self.dirty = np.zeros(self.k_clusters, dtype=bool)
+        if self.entity_bucket is None:
+            self.entity_bucket = entity_buckets(self.bucket_ids, self.n)
+        if self.delta_log is None:
+            # created BEFORE the first mutation touches any state, so
+            # base_n/base_version name the last published snapshot
+            self.delta_log = DeltaLog(
+                base_version=self.mutation_version, base_n=self.n)
 
-    def refresh_forest(self, *args, **kwargs):
-        raise NotImplementedError(f"refresh_forest: see {LATER_MUTATION}")
+    def _drop_placed(self) -> None:
+        """Forget the placed search tables: the next search places the
+        mutated index (a search already running keeps the old dict)."""
+        self._placed = {}
 
-    def rebalance(self, *args, **kwargs):
-        raise NotImplementedError(f"rebalance: see {LATER_MUTATION}")
+    def pop_delta(self) -> DeltaManifest:
+        """Emit (and reset) the record of everything mutated since the
+        last pop: the input to ``ShardedSearchBackend.apply_updates(target,
+        delta=...)``.  The manifest is metadata only; the payload is
+        sliced from the index's *current* state at apply time."""
+        self._ensure_mutable()
+        return self.delta_log.pop(self.mutation_version, self.n)
 
-    def reboost(self, *args, **kwargs):
-        raise NotImplementedError(f"reboost: see {LATER_MUTATION}")
+    def _place(self, feat_rows: np.ndarray, gids: np.ndarray) -> None:
+        """Route rows into buckets: nearest centroid with a free slot,
+        spill to next-nearest, grow the pad width on overflow.  Marks the
+        receiving buckets dirty."""
+        top_b, _ = _assign_topm(feat_rows, self.centroids,
+                                min(4, self.k_clusters), device=self.device)
+        cap = self.bucket_ids.shape[1]
+        counts = self.bucket_counts.astype(np.int64).copy()
+        for j in range(gids.size):
+            for b in top_b[j]:
+                if counts[b] < cap:
+                    break
+            else:
+                b = int(top_b[j, 0])
+                if counts[b] >= cap:          # grow the pad width
+                    grow = max(8, cap // 4)
+                    self.bucket_ids = np.pad(
+                        self.bucket_ids, ((0, 0), (0, grow)),
+                        constant_values=-1)
+                    cap += grow
+            self.bucket_ids[b, counts[b]] = gids[j]
+            counts[b] += 1
+            self.entity_bucket[gids[j]] = b
+            self.dirty[b] = True
+            self.delta_log.mark_buckets(b)
+        self.bucket_counts = counts.astype(np.int32)
 
-    def pop_delta(self, *args, **kwargs):
-        raise NotImplementedError(f"pop_delta: see {LATER_MUTATION}")
+    def add_entities(
+        self,
+        new_vecs: np.ndarray,
+        *,
+        partition_features: Optional[np.ndarray] = None,
+        p: Optional[np.ndarray] = None,
+        refresh: bool = True,
+        metadata: Optional[dict] = None,
+        docs: Optional[list] = None,
+    ) -> np.ndarray:
+        """Incremental insert for every bottom level; returns the new
+        global entity ids (db rows are append-only, so ids never shift).
+
+        Routing reuses the build's capped spill; freed (tombstoned) slots
+        are reused before the pad grows.  Bottom-level upkeep: brute -
+        none; lsh - append packed codes under the shared projections;
+        tree/qlbt - rebuild the *dirty buckets'* trees only (with
+        ``refresh=False`` the new entities stay invisible to the forest
+        descent until ``refresh_forest()``).  ``metadata`` (column name ->
+        values) and ``docs`` (token lists) grow the index's sidecars in
+        lockstep.  Centroids are NOT refit here (``rebalance()`` does).
+        """
+        self._ensure_mutable()
+        new_vecs = np.ascontiguousarray(new_vecs, dtype=np.float32)
+        if self.part_feats is not None:
+            if partition_features is None:
+                raise ValueError(
+                    "index was built on side partition features; "
+                    "add_entities needs partition_features for new rows")
+            partition_features = np.ascontiguousarray(
+                partition_features, np.float32)
+            if partition_features.shape[0] != new_vecs.shape[0]:
+                raise ValueError(
+                    f"partition_features has {partition_features.shape[0]} "
+                    f"rows for {new_vecs.shape[0]} new vectors")
+        elif partition_features is not None:
+            raise ValueError(
+                "index was built on the embeddings themselves; "
+                "partition_features would be silently ignored")
+        m = new_vecs.shape[0]
+        start = self.n
+        ids = np.arange(start, start + m, dtype=np.int32)
+        self.db = np.concatenate([self.db, new_vecs], axis=0)
+        self.alive = np.concatenate([self.alive, np.ones(m, bool)])
+        self.entity_bucket = np.concatenate(
+            [self.entity_bucket, np.full(m, -1, np.int32)])
+        if self.part_feats is not None:
+            self.part_feats = np.concatenate(
+                [self.part_feats, partition_features])
+        if self.p is not None:
+            if p is None:
+                # no traffic estimate yet: assume average likelihood
+                p = np.full(m, float(np.mean(self.p)), self.p.dtype)
+            self.p = np.concatenate([self.p, np.asarray(p, self.p.dtype)])
+
+        if self.metadata is not None:
+            # rows not named in ``metadata`` get the column fill (0),
+            # appended before _place so a failed placement can't leave
+            # the table short of the db
+            self.metadata.append_rows(metadata or {}, m)
+        elif metadata:
+            raise ValueError(
+                "index has no metadata table; build with metadata= to "
+                "accept per-entity metadata on add_entities")
+        if self.lexical is not None:
+            self.lexical.append_docs(
+                docs if docs is not None else [[] for _ in range(m)])
+        elif docs is not None:
+            raise ValueError(
+                "index has no lexical slabs; build with lexical= to "
+                "accept docs on add_entities")
+
+        feat_rows = (new_vecs if self.part_feats is None
+                     else self.part_feats[ids])
+        self._place(feat_rows, ids)
+        self.n_adds += m
+
+        if self.bottom_lsh is not None:
+            bits = (new_vecs @ self.bottom_lsh.proj > 0).astype(np.uint8)
+            self.bottom_lsh.codes = np.concatenate(
+                [self.bottom_lsh.codes, pack_bits(bits)], axis=0)
+            self.delta_log.lsh_rows += m
+        self.mutation_version += 1
+        if self.forest is not None and refresh:
+            self.refresh_forest()
+        self._drop_placed()
+        return ids
+
+    def delete_entities(self, ids: np.ndarray) -> None:
+        """Tombstone-delete: swap-fill the bucket slot for reuse, mask any
+        forest leaves holding the id, keep the db row (stable ids).  A
+        deleted id is immediately invisible on every search path."""
+        self._ensure_mutable()
+        ids = np.unique(np.asarray(ids, dtype=np.int64))
+        if ids.size == 0:
+            return
+        if ids.min() < 0 or ids.max() >= self.n:
+            raise ValueError("delete_entities: id out of range")
+        if not self.alive[ids].all():
+            raise ValueError("delete_entities: id already deleted")
+        for e in ids:
+            b = int(self.entity_bucket[e])
+            row = self.bucket_ids[b]
+            col = int(np.nonzero(row == e)[0][0])
+            last = int(self.bucket_counts[b]) - 1
+            row[col] = row[last]              # swap-fill the hole
+            row[last] = -1
+            self.bucket_counts[b] = last
+            self.dirty[b] = True
+            self.delta_log.mark_buckets(b)
+        self.alive[ids] = False
+        self.entity_bucket[ids] = -1
+        self.delta_log.mark_tombstones(ids)
+        self.n_deletes += ids.size
+        self.mutation_version += 1
+        if self.forest is not None:
+            # mask in the concatenated tables AND the per-bucket segments
+            # so a later partial refresh can't resurrect a deleted id
+            le = self.forest.arrays["leaf_entities"].copy()
+            le[np.isin(le, ids) & (le >= 0)] = -1
+            self.forest.arrays["leaf_entities"] = le
+            if self.forest.trees is not None:
+                for t in self.forest.trees:
+                    t.drop_entities(ids)
+        if self.base_trees is not None:
+            # the reboost base must drop the ids too, or the next reboost
+            # would resurrect them
+            for t in self.base_trees:
+                t.drop_entities(ids)
+        self._drop_placed()
+
+    def refresh_forest(self) -> int:
+        """Rebuild the trees of dirty buckets only and re-concatenate the
+        forest (clears the dirty flags; no-op for non-tree bottoms).
+        Returns #buckets rebuilt."""
+        self._ensure_mutable()
+        if self.forest is None:
+            self.dirty[:] = False
+            return 0
+        if not self.dirty.any():
+            return 0
+        rebuilt = 0
+        for b in np.nonzero(self.dirty)[0]:
+            ids = self.bucket_ids[b][: self.bucket_counts[b]]
+            ids = ids[ids >= 0]
+            self.forest.trees[b] = bucket_tree(
+                self.db, ids.astype(np.int64), self.config, self.p, int(b))
+            if self.base_trees is not None:
+                self.base_trees[b] = self.forest.trees[b]
+            self.delta_log.mark_buckets(b)
+            rebuilt += 1
+        self.mutation_version += 1
+        self.dirty[:] = False
+        # publish with a single reference swap: a reader snapshotting
+        # self.forest never sees new roots with old arrays
+        self.forest = concat_forest(self.forest.trees)
+        self._drop_placed()
+        return rebuilt
+
+    def rebalance(
+        self,
+        *,
+        drift_threshold: float = 0.25,
+        recenter: bool = True,
+    ) -> dict:
+        """Restore partition quality after accumulated mutations.
+
+        A bucket has *drifted* when its live-member mean (in partition-
+        feature space) moved more than ``drift_threshold`` of the bucket's
+        own radius from the stored centroid.  Drifted buckets get one
+        restricted Lloyd step (centroid to the member mean) and their
+        members are re-routed through the capped assignment; then the
+        top-level index over the centroids (PQ, retrained on ``device``,
+        or kd) is rebuilt, every dirty bucket's tree is rebuilt and the
+        mutation counters are cleared.
+
+        Returns ``n_drifted``, ``n_moved``, ``n_rebuilt_buckets``,
+        ``max_drift``.
+        """
+        self._ensure_mutable()
+        K = self.k_clusters
+        feats = self.feats
+        drifted, max_drift = [], 0.0
+        means = {}
+        for b in range(K):
+            ids = self.bucket_ids[b][: self.bucket_counts[b]]
+            ids = ids[ids >= 0]
+            if ids.size == 0:
+                continue
+            fb = feats[ids]
+            mean = fb.mean(axis=0)
+            radius = float(
+                np.sqrt(((fb - self.centroids[b]) ** 2).sum(1).mean()))
+            drift = float(np.linalg.norm(mean - self.centroids[b]))
+            rel = drift / max(radius, 1e-12)
+            max_drift = max(max_drift, rel)
+            if rel > drift_threshold:
+                drifted.append(b)
+                means[b] = mean
+        moved_ids = []
+        if drifted and recenter:
+            if not self.centroids.flags.writeable:
+                self.centroids = np.array(self.centroids, np.float32)
+            for b in drifted:
+                self.centroids[b] = means[b]
+            # pull every member of a drifted bucket and re-route it
+            for b in drifted:
+                ids = self.bucket_ids[b][: self.bucket_counts[b]]
+                ids = ids[ids >= 0]
+                moved_ids.append(ids.astype(np.int64))
+                self.bucket_ids[b, :] = -1
+                self.bucket_counts[b] = 0
+                self.entity_bucket[ids] = -1
+                self.dirty[b] = True
+                self.delta_log.mark_buckets(b)
+            moved = np.concatenate(moved_ids) if moved_ids else \
+                np.zeros(0, np.int64)
+            if moved.size:
+                self._place(feats[moved], moved)
+            # centroids changed -> the top-level index over them is stale
+            if self.top_pq is not None:
+                self.top_pq = pq_train(
+                    self.centroids, m=self.config.pq_m,
+                    seed=self.config.seed, train_sample=None,
+                    device=self.device)
+            if self.top_kd is not None:
+                self.top_kd = build_kd_tree(self.centroids, leaf_size=4)
+        n_rebuilt = self.refresh_forest()
+        self.n_adds = 0
+        self.n_deletes = 0
+        self.mutation_version += 1
+        self._drop_placed()
+        return {
+            "n_drifted": len(drifted),
+            "n_moved": int(sum(x.size for x in moved_ids)),
+            "n_rebuilt_buckets": n_rebuilt,
+            "max_drift": max_drift,
+        }
+
+    def reboost(
+        self,
+        p: np.ndarray,
+        *,
+        frontier_depth: Optional[int] = None,
+        max_move: float = 0.3,
+    ) -> dict:
+        """Incremental likelihood re-boost for the forest bottom.
+
+        Stores ``p`` as the new traffic estimate and re-runs the boosted
+        top-level splits of every per-bucket tree via
+        :meth:`FlatTree.reboost` (subtrees below the frontier are reused),
+        always from the last fully built trees (``base_trees``).  Pending
+        dirty buckets are rebuilt first.  The rebuilt forest is swapped in
+        with one reference assignment.  No-op (beyond storing ``p``) for
+        brute/LSH bottoms.  Returns ``n_reboosted`` buckets re-split and
+        ``n_refreshed`` dirty buckets rebuilt from scratch.
+        """
+        self._ensure_mutable()
+        p = np.asarray(p, dtype=np.float64)
+        if p.shape[0] != self.n:
+            raise ValueError(
+                f"p has {p.shape[0]} entries for {self.n} entities")
+        self.p = p
+        if self.forest is None or self.forest.trees is None:
+            self.mutation_version += 1
+            return {"n_reboosted": 0, "n_refreshed": 0}
+        cfg = self.config
+        p_eff = np.where(self.alive, p, 0.0)
+        if self.base_trees is None:
+            self.base_trees = list(self.forest.trees)
+        n_ref = 0
+        refreshed = set()
+        for b in np.nonzero(self.dirty)[0]:
+            ids = self.bucket_ids[b][: self.bucket_counts[b]]
+            ids = ids[ids >= 0]
+            self.base_trees[b] = bucket_tree(
+                self.db, ids.astype(np.int64), cfg, self.p, int(b))
+            # self.dirty may predate the last pop_delta (deferred refresh):
+            # the rebuilt tree must re-enter the CURRENT log
+            self.delta_log.mark_buckets(b)
+            refreshed.add(int(b))
+            n_ref += 1
+        n_re = 0
+        trees = list(self.base_trees)
+        for b, t in enumerate(trees):
+            if t.n_nodes <= 1 or b in refreshed:
+                # freshly rebuilt buckets were built with the new p
+                continue
+            trees[b] = t.reboost(
+                self.db, p_eff,
+                boost_depth=cfg.qlbt_boost_depth,
+                frontier_depth=frontier_depth,
+                n_candidates=cfg.tree_candidates,
+                lam=cfg.qlbt_lambda,
+                max_move=max_move,
+                seed=cfg.seed + b)
+            self.delta_log.mark_buckets(b)
+            n_re += 1
+        self.forest = concat_forest(trees)   # one swap for readers
+        self.dirty[:] = False
+        self.mutation_version += 1
+        self._drop_placed()
+        return {"n_reboosted": n_re, "n_refreshed": n_ref}
 
     def footprint_bytes(self, include_db: bool = True) -> int:
         tot = self.centroids.nbytes + self.bucket_ids.nbytes

@@ -1,26 +1,29 @@
-"""Wrappers of the CUDA candidate-row top-k kernel: one probe step, or the
-whole probe chain.
+"""Wrappers of the CUDA candidate-row top-k kernel: one probe step, a
+tile of row ids, or the whole probe chain.
 
 Replaces ``repro/kernels/bucket_topk.py::candidate_topk_pallas``; the
 kernel is ``csrc/candidate_topk.cu`` (its header note gives the design
-and the bound).  Two entries share its device code and its launch count:
+and the bound).  Three entries share its device code and its launch count:
 
 * ``candidate_topk``: each query row scores its own ``(C, D)`` candidate
   tile and merges it into an optionally carried running best (the Pallas
   kernel's contract);
+* ``candidate_rows_topk``: each query row scores its own (C,) list of
+  row ids into one ``(N, D)`` table, the rows read inside the kernel (the
+  served forest's rerank, without the ``(B, C, D)`` gather);
 * ``bucket_probe_topk``: each query scores the slots of its probed buckets
   in one scan and one merge, the rows read inside the kernel, from
   ``bucket_vecs`` by (bucket, slot) or from ``db`` by entity id.  On
   disjoint buckets it equals the chain of ``candidate_topk`` steps bit for
   bit.
 
-Both check the operands, choose the split count, allocate the outputs and
-the per-block partial lists, launch on PyTorch's current stream and count
-one launch of ``candidate_topk`` per pass: one a call up to ``KMAX``, and
-``ceil(k / KMAX)`` above it (``common.topk_passes``).  CUDA tensors only;
-the plain versions are ``ref.candidate_topk_ref`` /
-``ref.bucket_probe_topk_ref`` and ``ops`` picks between kernel and plain
-version by device.
+Each checks the operands, chooses the split count, allocates the outputs
+and the per-block partial lists, launches on PyTorch's current stream and
+counts one launch of ``candidate_topk`` per pass: one a call up to
+``KMAX``, and ``ceil(k / KMAX)`` above it (``common.topk_passes``).  CUDA
+tensors only; the plain versions are ``ref.candidate_topk_ref`` /
+``ref.candidate_rows_topk_ref`` / ``ref.bucket_probe_topk_ref`` and
+``ops`` picks between kernel and plain version by device.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ from repro_torch.kernels.common import (KMAX, LaunchCounter, empty_result,
                                         list_len, topk_passes)
 from repro_torch.kernels.l2_topk import ptr
 
-__all__ = ["candidate_topk", "bucket_probe_topk", "splits_for", "LAUNCHES"]
+__all__ = ["candidate_topk", "candidate_rows_topk", "bucket_probe_topk",
+           "splits_for", "LAUNCHES"]
 
 LAUNCHES = LaunchCounter("candidate_topk")
 
@@ -49,6 +53,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "candidate_topk_launch": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 7 + [_P],
     "bucket_probe_topk_launch": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 7 + [_P],
+    "candidate_rows_topk_launch": [_P] * 2 + [_I] + [_P] * 7 + [_I] * 7
+    + [_P],
 }
 
 
@@ -146,6 +152,67 @@ def candidate_topk(queries: torch.Tensor, vecs: torch.Tensor,
         if rc != 0:
             raise RuntimeError(f"candidate_topk launch failed: CUDA error "
                                f"{rc}")
+        LAUNCHES.inc()
+        return out_d, out_i
+
+    return topk_passes(run, B, k, KMAX, dev)
+
+
+def candidate_rows_topk(queries: torch.Tensor, rows: torch.Tensor,
+                        ids: torch.Tensor, k: int = 10):
+    """Returns (dists (B, k) ascending fp32, ids (B, k) int32).
+
+    ``rows`` (N, D) float32 is one table and ``ids`` (B, C) int32 each
+    query's candidates in it, read inside the kernel; an id outside
+    ``[0, N)`` marks a dead slot.  ``k`` may exceed C, and any ``k`` is
+    served (above ``KMAX`` in passes).  A pair seen twice is emitted once.
+    Raises for a CPU tensor, a wrong dtype or shape, or a failed launch.
+    """
+    _check_cuda("candidate_rows_topk", "candidate_rows_topk_ref",
+                [queries, rows, ids])
+    if queries.dtype != torch.float32 or rows.dtype != torch.float32:
+        raise TypeError("candidate_rows_topk takes float32 queries and rows")
+    if ids.dtype != torch.int32:
+        raise TypeError("candidate_rows_topk takes int32 ids")
+    if rows.dim() != 2 or queries.dim() != 2 or ids.dim() != 2:
+        raise ValueError("queries, rows and ids must be 2-d")
+    B, D = queries.shape
+    N = rows.shape[0]
+    C = ids.shape[1]
+    if rows.shape[1] != D or ids.shape[0] != B:
+        raise ValueError(f"queries {tuple(queries.shape)} / rows "
+                         f"{tuple(rows.shape)} / ids {tuple(ids.shape)} do "
+                         "not match")
+    if D > MAX_D:
+        raise ValueError(f"D={D} exceeds the kernel's MAX_D={MAX_D}")
+    if N < 1 or N > torch.iinfo(torch.int32).max:
+        raise ValueError(f"rows holds {N} rows, not 1..2**31-1")
+    if k < 1:
+        raise ValueError(f"k={k} must be at least 1")
+    dev = queries.device
+    if B == 0:
+        return empty_result(B, k, dev)
+    q, r, i = queries.contiguous(), _rows_operand(rows), ids.contiguous()
+    splits = splits_for(
+        B, C, torch.cuda.get_device_properties(dev).multi_processor_count)
+    per = -(-C // splits)
+    fn = _launcher("candidate_rows_topk_launch")
+
+    def run(kr, after_d, after_i):
+        kt = list_len(kr)
+        part_d = torch.empty((B, splits, kt), dtype=torch.float32, device=dev)
+        part_i = torch.empty((B, splits, kt), dtype=torch.int32, device=dev)
+        out_d = torch.empty((B, kr), dtype=torch.float32, device=dev)
+        out_i = torch.empty((B, kr), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = fn(q.data_ptr(), r.data_ptr(), N, i.data_ptr(),
+                    ptr(after_d), ptr(after_i), part_d.data_ptr(),
+                    part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+                    B, C, D, kr, kt, splits, per,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"candidate_rows_topk launch failed: CUDA "
+                               f"error {rc}")
         LAUNCHES.inc()
         return out_d, out_i
 

@@ -10,7 +10,7 @@
 //   k <= 32; a larger k is taken in passes (kernels/common.py:
 //   topk_passes), each bounded by the last pair of the one before
 //   (after_d / after_i: rt::WarpTopK::beats), the carried best filtered by
-//   the same bound.  Two entries share the device code:
+//   the same bound.  Three entries share the device code:
 //   candidate_topk_launch     a per-query (B, C, D) tile, merged with an
 //                             optional carried best (the Pallas kernel's
 //                             contract);
@@ -21,6 +21,14 @@
 //                             (BucketRows, the served IVF layout) or from
 //                             db (N, D) by entity id (IndirectRows, the
 //                             index layout: no bucket-major copy).
+//   candidate_rows_topk_launch
+//                             a per-query (B, C) list of row ids into rows
+//                             (N, D), read inside the kernel (IndirectRows
+//                             on the tile's segments): the served forest's
+//                             rerank, whose candidates are bucket-slot ids
+//                             of the placed (Kloc cap, D) table, without
+//                             the (B, C, D) gather.  An id outside [0, N)
+//                             is a dead slot.
 //   On disjoint buckets the chain equals nprobe launches of the tile entry
 //   carrying the best, bit for bit: the same per-candidate arithmetic and
 //   the same order.
@@ -32,7 +40,10 @@
 //   the served chain (B 64, nprobe 32): about 250K (query, row) pairs, at
 //     most 128 MB, less where queries share buckets (L2 catches repeats);
 //   DEEP-10M (B 1,024, nprobe 32, cap 763): about 10M pairs, 3.9 GB read
-//     pair by pair, 1.2 ms; the distinct probed rows are fewer.
+//     pair by pair, 1.2 ms; the distinct probed rows are fewer;
+//   the served forest rerank (B 64, C = nprobe 32 x beam 8 x leaf 8 =
+//     2,048 ids a query, most live): at most 131K rows, 64 MiB, 20 us;
+//     the gather it replaces writes and reads that tile once more.
 // chip_smoke.py computes each bound from the run's operands.
 //
 // Design.
@@ -104,6 +115,7 @@ struct ScanArgs {
   int per;               // tile: slots per segment
   int n_buckets;         // chain: K
   int nprobe;            // chain: probes per query
+  int n_rows;            // rows by id: N, ids >= N dead (0: unchecked)
 };
 
 // The warp's running top-k: entry j of the sorted list in lane j (lanes
@@ -253,7 +265,7 @@ __global__ void __launch_bounds__(THREADS) candidate_scan(const ScanArgs a) {
     for (int r = 0; r < m; r += THREADS) {   // the same trip count in every warp
       const int c = c0 + r + tid;
       const int id = r + tid < m ? seg_ids[c] : -1;
-      const bool live = id >= 0;
+      const bool live = id >= 0 && (a.n_rows == 0 || id < a.n_rows);
       const unsigned mask = __ballot_sync(FULL, live);
       int base = 0;
       if (lane == 0 && mask) base = atomicAdd(&s_count, __popc(mask));
@@ -391,6 +403,18 @@ int bucket_probe_topk_launch(const float* q, const int* probe, const int* bucket
   ScanArgs a{q, rows, bucket_ids, probe, after_d, after_i, part_d, part_i, B, D, k, kt, nprobe,
              cap, 0, K, nprobe};
   return scan_and_merge(a, indirect != 0, nullptr, nullptr, 0, out_d, out_i, stream);
+}
+
+// The tile entry with rows read by id: query b's C candidates are rows
+// ids[b, c] of rows (n_rows, D), in `splits` segments of `per`.
+int candidate_rows_topk_launch(const float* q, const float* rows, int n_rows, const int* ids,
+                               const float* after_d, const int* after_i, float* part_d,
+                               int* part_i, float* out_d, int* out_i, int B, int C, int D, int k,
+                               int kt, int splits, int per, cudaStream_t stream) {
+  if (k < 1 || k > kt || kt > rt::KMAX || n_rows < 1) return (int)cudaErrorInvalidValue;
+  ScanArgs a{q,  rows, ids, nullptr, after_d, after_i, part_d, part_i, B, D, k, kt, splits,
+             C,  per,  0,   0,       n_rows};
+  return scan_and_merge(a, true, nullptr, nullptr, 0, out_d, out_i, stream);
 }
 
 }  // extern "C"

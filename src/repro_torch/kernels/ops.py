@@ -16,7 +16,7 @@ from repro_torch.kernels import (bm25, bucket_topk, hamming, l2_topk, pq_adc,
                                  ref)
 
 __all__ = ["l2_topk_op", "l2_topk_int8_op", "candidate_topk_op",
-           "bucket_probe_topk_op",
+           "candidate_rows_topk_op", "bucket_probe_topk_op",
            "bm25_topk_op", "hybrid_topk_op", "pq_adc_topk_op",
            "hamming_topk_op", "quantize_rows_int8"]
 
@@ -66,6 +66,14 @@ def candidate_topk_op(queries, vecs, ids, k: int = 10, *,
                                           best_d=best_d, best_i=best_i)
     return ref.candidate_topk_ref(queries, vecs, ids, k,
                                   best_d=best_d, best_i=best_i)
+
+
+def candidate_rows_topk_op(queries, rows, ids, k: int = 10):
+    """Per-query candidate row ids into one (N, d) table, the rows read by
+    id (the served forest's rerank): (dists ascending, ids)."""
+    if _on_card(queries):
+        return bucket_topk.candidate_rows_topk(queries, rows, ids, k)
+    return ref.candidate_rows_topk_ref(queries, rows, ids, k)
 
 
 def bucket_probe_topk_op(queries, probe, bucket_ids, k: int = 10, *,

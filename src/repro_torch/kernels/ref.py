@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the ported kernels (the ``ref.py`` contract).
 
 Port of ``repro/kernels/ref.py``: the l2, int8, candidate, BM25, hybrid,
-PQ-ADC and Hamming plain versions, and the probe chain over buckets
+PQ-ADC and Hamming plain versions, the candidate tile read by row id
+(``candidate_rows_topk_ref``, the served forest's rerank), and the probe
+chain over buckets
 (``bucket_probe_topk_ref``, the loops the IVF local and the two-level
 brute bottom ran before the chain had a kernel).  Each
 function computes its kernel's result with no tiling; ``ops`` runs it for
@@ -47,7 +49,7 @@ from repro_torch.kernels.common import (INF, pad_sentinel, popcount32,
                                         stable_topk)
 
 __all__ = ["l2_topk_ref", "l2_topk_int8_ref", "candidate_topk_ref",
-           "bucket_probe_topk_ref",
+           "candidate_rows_topk_ref", "bucket_probe_topk_ref",
            "bm25_dists_ref", "bm25_topk_ref", "hybrid_topk_ref",
            "pq_adc_scores_ref", "pq_adc_topk_ref", "hamming_dists_ref",
            "hamming_topk_ref"]
@@ -153,6 +155,16 @@ def candidate_topk_ref(queries, vecs, ids, k: int = 10, *,
         d, sel = stable_topk(d2, k_eff)
         d, out_i = pad_sentinel(d, torch.gather(ids, 1, sel), k, k_eff)
     return d, torch.where(torch.isinf(d), -1, out_i)
+
+
+def candidate_rows_topk_ref(queries, rows, ids, k: int = 10, *, after=None):
+    """The tile read by row id: each query's candidates are rows ``ids``
+    (B, C) of ``rows`` (N, d), an id outside ``[0, N)`` dead.  The gather
+    of the (B, C, d) tile followed by ``candidate_topk_ref``."""
+    ids = ids.to(torch.int32)
+    ids = torch.where((ids >= 0) & (ids < rows.shape[0]), ids, -1)
+    vecs = rows[torch.clamp(ids, min=0).long()]
+    return candidate_topk_ref(queries, vecs, ids, k, after=after)
 
 
 def bucket_probe_topk_ref(queries, probe, bucket_ids, k: int = 10, *,

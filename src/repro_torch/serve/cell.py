@@ -21,9 +21,14 @@ wraps one search function:
     as one dispatch per distinct option set, the lexical operands of its
     requests stacked and padded.
 
+  * online updates: :meth:`ServingCell.apply_updates` pops the target's
+    delta manifest and hands it to the backend, which scatters the dirty
+    slices in place under its lock while the cell keeps serving.
+
 The result cache (which must fold the option key into its own key),
-likelihood estimator, hedging, ``apply_updates`` and the fleet tier are
-later slices (ROADMAP.md).
+likelihood estimator, hedging (and with it the hedge replica's
+``apply_updates``) and the fleet tier are later slices (ROADMAP.md,
+module item 4).
 """
 from __future__ import annotations
 
@@ -142,19 +147,54 @@ class ServingCell:
 
     @classmethod
     def sharded(cls, target, *, kind: str = "auto", k: int = 10,
-                nprobe_local: int = 2, headroom: float = 1.0,
+                nprobe_local: int = 2, beam_width: int = 8,
+                headroom: float = 1.0, delta_updates: bool = True,
                 fused: bool = True, device=None,
                 **cell_kw) -> "ServingCell":
         """Cell over a :class:`repro_torch.distributed.backend.
         ShardedSearchBackend` (corpus or index placed once, on the card
-        unless ``device`` says otherwise); ``cell_kw`` passes through to
-        the cell (``max_batch``, ``max_wait_ms``, ``name``)."""
+        unless ``device`` says otherwise); ``headroom`` > 1 reserves room
+        for later ``apply_updates`` calls, ``beam_width`` and
+        ``delta_updates`` configure the forest kind.  ``cell_kw`` passes
+        through to the cell (``max_batch``, ``max_wait_ms``, ``name``)."""
         from repro_torch.distributed.backend import ShardedSearchBackend
 
         fn = ShardedSearchBackend(
             target, kind=kind, k=k, nprobe_local=nprobe_local,
-            headroom=headroom, fused=fused, device=device)
+            beam_width=beam_width, headroom=headroom,
+            delta_updates=delta_updates, fused=fused, device=device)
         return cls(fn, **cell_kw)
+
+    def apply_updates(self, target, *, delta="auto", **kw):
+        """Swap in a mutated corpus or index without stopping the cell.
+
+        Delegates to the backend's ``apply_updates``: placement happens
+        under the backend's lock, in-flight batches finish against the old
+        tables and later batches see the new ones.  ``delta="auto"`` pops
+        the target's :class:`repro_torch.core.delta.DeltaManifest`
+        (``pop_delta()``) once and hands it to the backend, which ships
+        only the dirty slices when it can; ``delta=None`` forces a full
+        re-place, and an explicit manifest lets the caller manage popping.
+        Returns the backend's republish stats (``mode`` / ``bytes`` /
+        ``full_bytes`` / ``reason``).  This cell serves one backend: the
+        hedge replica the reference also updates is ROADMAP.md's module
+        item 4.
+        """
+        if not hasattr(self.search_fn, "apply_updates"):
+            raise TypeError(
+                f"search_fn {type(self.search_fn).__name__} has no "
+                "apply_updates; only pre-placed backends support online "
+                "mutation")
+        if delta == "auto":
+            delta = (target.pop_delta()
+                     if hasattr(target, "pop_delta") else None)
+        dkw = {} if delta is None else {"delta": delta}
+        with get_tracer().span("republish", cell=self.name) as sp:
+            stats = self.search_fn.apply_updates(target, **dkw, **kw)
+            if isinstance(stats, dict):
+                sp.set(mode=stats.get("mode"),
+                       bytes=int(stats.get("bytes", 0)))
+        return stats if isinstance(stats, dict) else None
 
     @property
     def n_cancelled(self) -> int:

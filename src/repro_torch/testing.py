@@ -1,7 +1,7 @@
-"""Checks of the kernels shared by ``tests/test_torch_gpu.py``,
-``tests/test_torch_index_slice.py`` and ``chip_smoke.py``: the tables of
-edge shapes, the operands each edge is drawn from, and the by-parts check
-of a hybrid answer.
+"""Checks of the kernels shared by ``tests/test_torch_gpu.py``, the CPU
+tests and ``chip_smoke.py``: the tables of edge shapes, the operands each
+edge is drawn from, the kernels' answers computed plainly, and the
+by-parts check of a hybrid answer.
 
 The edge shapes are those ``tests/test_kernels.py`` pins for the int8,
 BM25 and hybrid kernels of the reference: B = 1, N not a multiple of the
@@ -29,9 +29,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.common import INF, merge_topk
 
 __all__ = ["OPTION_EDGES", "EDGE_ALPHAS", "PQ_EDGES", "HAMMING_EDGES",
-           "CHAIN_EDGES", "slab_rows", "option_edge_operands",
+           "CHAIN_EDGES", "ROWS_EDGES", "slab_rows", "option_edge_operands",
            "pq_edge_operands", "hamming_edge_operands",
            "chain_edge_operands", "chain_union_topk", "step_chain",
+           "rows_edge_operands", "rows_union_topk",
            "lexical_scores_f32", "hybrid_by_parts"]
 
 # (name, B, N, d, k, rows): rows "dead" = every row dead, "half" = about
@@ -153,15 +154,9 @@ def chain_union_topk(q, probe, bucket_ids, db, k: int):
     k smallest (distance, id) pairs of the union of each query's probed
     buckets, a pair seen twice kept once (``common.merge_topk`` over every
     probed slot).  Distances are ``batched_l2sq``'s."""
-    b = q.shape[0]
     cand = bucket_ids[probe.long()].reshape(
-        b, probe.shape[1] * bucket_ids.shape[1])           # (B, np cap)
-    vecs = db[torch.clamp(cand, min=0).long()]
-    d2 = torch.where(cand >= 0, batched_l2sq(vecs, q), INF)
-    sent_d = torch.full((b, k), INF, device=q.device)
-    sent_i = torch.full((b, k), -1, dtype=torch.int32, device=q.device)
-    d, i = merge_topk(sent_d, sent_i, d2, cand, k)
-    return d, torch.where(torch.isinf(d), -1, i)
+        q.shape[0], probe.shape[1] * bucket_ids.shape[1])  # (B, np cap)
+    return rows_union_topk(q, db, cand, k)
 
 
 def step_chain(q, probe, bucket_ids, bucket_vecs, k: int):
@@ -179,6 +174,57 @@ def step_chain(q, probe, bucket_ids, bucket_vecs, k: int):
             q, bucket_vecs[bsel], bucket_ids[bsel], k, best_d=best_d,
             best_i=best_i)
     return best_d, best_i
+
+
+# (name, B, N, d, C, k, ids) of the tile read by row id
+# (``candidate_rows_topk``): ids "dead" = about a third -1, "repeat" = the
+# second half of each query's list repeats the first, "oob" = some ids at
+# or past N (dead slots too), None = all live and distinct
+ROWS_EDGES = (
+    ("dead ids d=128", 5, 300, 128, 200, 10, "dead"),
+    ("repeated ids d=32", 4, 100, 32, 60, 8, "repeat"),
+    ("d=13", 3, 80, 13, 40, 7, "dead"),
+    ("C<k", 4, 50, 16, 6, 10, None),
+    ("ids out of range", 3, 40, 8, 30, 5, "oob"),
+    ("B=1 k=1", 1, 64, 16, 64, 1, None),
+    ("many segments d=96", 6, 5000, 96, 2048, 32, "dead"),
+    ("B=0", 0, 10, 8, 4, 3, None),
+)
+
+
+def rows_edge_operands(case, seed: int = 0) -> dict:
+    """numpy operands of one ``ROWS_EDGES`` case: ``q`` (B, d), ``rows``
+    (N, d), ``ids`` (B, C) int32 and ``k``.  Ids are distinct within a
+    query's list except where the case repeats them."""
+    _, b, n, d, c, k, kind = case
+    rng = np.random.default_rng([seed, b, n, d, c, k])
+    rows = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    ids = np.array([rng.choice(n, c, replace=False) for _ in range(b)],
+                   np.int32).reshape(b, c)
+    if kind == "dead":
+        ids[rng.random((b, c)) < 1 / 3] = -1
+    elif kind == "repeat":
+        h = c // 2
+        ids[:, h:2 * h] = ids[:, :h]
+    elif kind == "oob":
+        ids[:, ::3] = n + rng.integers(0, 5, size=ids[:, ::3].shape)
+    return {"q": q, "rows": rows, "ids": ids, "k": k}
+
+
+def rows_union_topk(q, rows, ids, k: int):
+    """The tile-by-id answer under the kernels' rule, computed plainly: the
+    k smallest (distance, id) pairs of each query's live ids, a pair seen
+    twice kept once (``common.merge_topk``).  Distances are
+    ``batched_l2sq``'s."""
+    b = q.shape[0]
+    ids = torch.where((ids >= 0) & (ids < rows.shape[0]), ids, -1)
+    vecs = rows[torch.clamp(ids, min=0).long()]
+    d2 = torch.where(ids >= 0, batched_l2sq(vecs, q), INF)
+    sent_d = torch.full((b, k), INF, device=q.device)
+    sent_i = torch.full((b, k), -1, dtype=torch.int32, device=q.device)
+    d, i = merge_topk(sent_d, sent_i, d2, ids.to(torch.int32), k)
+    return d, torch.where(torch.isinf(d), -1, i)
 
 
 def _edge_rows(rng, n: int, rows):

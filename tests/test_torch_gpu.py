@@ -5,7 +5,9 @@ fp32 tile at d = 960 and the int8 one at d = 13, 640 and 1,000 (and an
 int8 backend at d = 640), Hamming over every word count, batch shape and
 threshold edge, the probe chain's two
 row sources against each other and against the chain of single steps,
-one small IVF serve,
+the tile read by row id against its plain version and the gathered
+tile, one small IVF serve, one small forest serve (fused against
+unfused), the in-place delta applies of every kind,
 one small filtered / lexical / hybrid / int8 serve and one small run of
 the index layer (PQ top level, one-level LSH) through the kernels.
 
@@ -49,11 +51,12 @@ from repro_torch.kernels import (bm25, bucket_topk, hamming, l2_topk, ops,
 from repro_torch.kernels.common import merge_topk
 from repro_torch.serve.cell import ServingCell
 from repro_torch.testing import (CHAIN_EDGES, EDGE_ALPHAS, HAMMING_EDGES,
-                                 OPTION_EDGES, PQ_EDGES,
+                                 OPTION_EDGES, PQ_EDGES, ROWS_EDGES,
                                  chain_edge_operands, chain_union_topk,
                                  hamming_edge_operands, step_chain,
                                  hybrid_by_parts, lexical_scores_f32,
-                                 option_edge_operands, pq_edge_operands)
+                                 option_edge_operands, pq_edge_operands,
+                                 rows_edge_operands, rows_union_topk)
 
 pytestmark = pytest.mark.gpu
 REL = 1e-5
@@ -745,3 +748,127 @@ def test_hamming_topk_partial_group_and_equal_codes(dev, b, ties):
     for k in (10, 500, live + 7):
         _bitwise(*hamming.hamming_topk(q, codes, k, valid=valid),
                  *ref.hamming_topk_ref(q, codes, k, valid=valid))
+
+
+@pytest.mark.parametrize("k", [None, 33, 64, 100])
+@pytest.mark.parametrize("case", ROWS_EDGES, ids=[c[0] for c in ROWS_EDGES])
+def test_rows_entry_matches_plain(dev, case, k):
+    """The tile read by row id: against its plain version (the gathered
+    tile; the kernels' rule where a list repeats an id) and, bit for bit,
+    against the tile entry on the gathered rows (the same arithmetic)."""
+    o = rows_edge_operands(case)
+    k = o["k"] if k is None else k
+    q, rows, ids = (torch.as_tensor(o[n], device=dev)
+                    for n in ("q", "rows", "ids"))
+    kd, ki = bucket_topk.candidate_rows_topk(q, rows, ids, k)
+    if case[-1] == "repeat":
+        pd, pi = rows_union_topk(q, rows, ids, k)
+        for row in ki.cpu().numpy():
+            assert len(set(row[row >= 0].tolist())) == (row >= 0).sum()
+    else:
+        pd, pi = ref.candidate_rows_topk_ref(q, rows, ids, k)
+    scale = ((q.double() ** 2).sum(1)[:, None]
+             + float((rows.double() ** 2).sum(1).max())).cpu().numpy() \
+        if q.shape[0] else 1.0
+    _close(kd, ki, pd, pi, scale)
+    live = torch.where((ids >= 0) & (ids < rows.shape[0]), ids, -1)
+    td, ti = bucket_topk.candidate_topk(
+        q, rows[torch.clamp(live, min=0).long()].contiguous(), live, k)
+    assert torch.equal(ki, ti)
+    assert torch.equal(kd.view(torch.int32), td.view(torch.int32))
+
+
+def test_rows_entry_rejects_what_it_cannot_take(dev):
+    q = torch.zeros((2, 8), device=dev)
+    rows = torch.zeros((10, 8), device=dev)
+    ids = torch.zeros((2, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        bucket_topk.candidate_rows_topk(q.cpu(), rows.cpu(), ids.cpu(), 3)
+    with pytest.raises(TypeError):
+        bucket_topk.candidate_rows_topk(q, rows, ids.long(), 3)
+    with pytest.raises(ValueError):
+        bucket_topk.candidate_rows_topk(q, rows[:, :4], ids, 3)
+    with pytest.raises(ValueError):
+        bucket_topk.candidate_rows_topk(q, rows[:0], ids, 3)
+
+
+def _forest_index(dev, n=6000, d=32, k_clusters=48, seed=4):
+    rng = np.random.default_rng(seed)
+    db = rng.normal(size=(n, d)).astype(np.float32)
+    idx = build_two_level(db, TwoLevelConfig(
+        n_clusters=k_clusters, bottom="tree", kmeans_iters=4), device=dev)
+    q = (db[rng.choice(n, 40, replace=False)]
+         + 0.3 * rng.normal(size=(40, d))).astype(np.float32)
+    return idx, q, rng
+
+
+def test_small_forest_serve_fused_matches_unfused(dev):
+    """The forest kind on the card: its rerank through the rows-by-id
+    entry (one launch a call) against the unfused gather; a cell over it
+    answers as the backend does."""
+    idx, q, _ = _forest_index(dev)
+    fused = ShardedSearchBackend(idx, k=10, nprobe_local=8, beam_width=8)
+    plain = ShardedSearchBackend(idx, k=10, nprobe_local=8, beam_width=8,
+                                 fused=False)
+    assert fused.kind == "forest"
+    n0 = bucket_topk.LAUNCHES.count
+    a = fused(q)
+    assert bucket_topk.LAUNCHES.count == n0 + 1
+    b = plain(q)
+    assert (a[1] == b[1]).all()
+    qn = (q.astype(np.float64) ** 2).sum(1)[:, None]
+    xn = (idx.db.astype(np.float64) ** 2).sum(1)[a[1]]
+    assert (np.abs(a[0] - b[0]) <= REL * (qn + xn)).all()
+    d64 = ((q[:, None, :].astype(np.float64) - idx.db[a[1]]) ** 2).sum(-1)
+    assert (np.abs(d64 - a[0]) <= REL * (qn + xn)).all()
+    a50 = ShardedSearchBackend(idx, k=50, nprobe_local=8, beam_width=8)(q)
+    assert (a50[1][:, :10] == a[1]).all()
+    cell = ServingCell.sharded(idx, k=10, nprobe_local=8, beam_width=8)
+    try:
+        for r in range(3):
+            assert (cell.search(q[r], timeout=60)[1] == a[1][r]).all()
+    finally:
+        cell.close()
+
+
+@pytest.mark.parametrize("kind", ["forest", "ivf", "brute"])
+def test_delta_apply_keeps_the_placed_storage(dev, kind):
+    """A delta apply scatters into the placed tensors: every ``data_ptr``
+    stays, the tables equal a full re-place's bit for bit, an added
+    vector finds itself and a deleted id never returns."""
+    idx, q, rng = _forest_index(dev)
+    if kind == "ivf":
+        idx = dataclasses.replace(
+            idx, config=dataclasses.replace(idx.config, bottom="brute"),
+            forest=None)
+    target = idx.db if kind == "brute" else idx
+    be, full = (ShardedSearchBackend(target, kind=kind, k=10,
+                                     nprobe_local=8, headroom=1.5)
+                for _ in range(2))
+    ptrs = [t.data_ptr() for t in be._args]
+    b = int(np.argmax(idx.bucket_counts))
+    new = (idx.centroids[[b] * 6]
+           + 0.1 * rng.normal(size=(6, idx.db.shape[1]))).astype(np.float32)
+    ids = idx.add_entities(new)
+    gone = idx.bucket_ids[b][:5].astype(np.int64)
+    idx.delete_entities(gone)
+    man = idx.pop_delta()
+    if kind == "brute":
+        man = dataclasses.replace(man, dirty_buckets=man.dirty_buckets[:0])
+        target = idx.db
+    st = be.apply_updates(target, delta=man)
+    assert st["mode"] == "delta" and st["bytes"] < st["full_bytes"]
+    assert [t.data_ptr() for t in be._args] == ptrs
+    if kind == "brute":
+        full.apply_updates(target, alive=idx.alive)
+    else:
+        full.apply_updates(target)
+    for x, y in zip(be._args, full._args):
+        assert torch.equal(x, y)
+    got = be(new)[1][:, 0]
+    assert (got == ids).all()
+    assert not np.isin(be(idx.db[gone])[1], gone).any()
+    a, c = be(q), full(q)
+    assert (a[1] == c[1]).all()
+    assert np.array_equal(a[0].view(np.int32), c[0].view(np.int32))
+

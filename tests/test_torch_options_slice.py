@@ -527,8 +527,10 @@ def test_index_sidecars_are_checked_and_used(world):
             {"n_clusters": NB}, device="cpu", lexical=lexical_from_arrays(
                 {"terms": np.zeros((3, 2)), "tf_sat": np.zeros((3, 2)),
                  "idf": np.ones(4)}, {"k1": 1.2, "b": .75, "avg_len": 1.}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        world.idx.add_entities()
+    # add_entities checks its side inputs before it changes anything
+    with pytest.raises(ValueError, match="partition_features"):
+        world.idx.add_entities(world.db[:1], partition_features=world.db[:1])
+    assert world.idx.n == N and world.idx.metadata.n_rows == N
     # the backend takes the index's metadata when given none
     be = ShardedSearchBackend(world.idx, kind="ivf", k=K,
                               nprobe_local=NPROBE, device="cpu")

@@ -43,6 +43,7 @@ _REFERENCE = (
     "repro.data.synthetic", "repro.core.pq", "repro.core.lsh",
     "repro.core.tree", "repro.core.likelihood", "repro.core.protocol",
     "repro.core.index", "repro.kernels.pq_adc", "repro.kernels.hamming",
+    "repro.core.delta",
 )
 
 
@@ -288,9 +289,9 @@ def test_ops_send_cpu_tensors_to_the_plain_version():
 
 
 def test_two_level_refuses_unported_levels_and_mutation():
-    """Every top and bottom level is ported; mutation is not, and refuses
-    on the two-level index, the unified index and a tree, naming the
-    ROADMAP item."""
+    """Unknown top and bottom levels are refused.  Every level is ported,
+    and so is mutation: the methods that refused before the lifecycle was
+    ported (on the two-level index, the unified index and a tree) run."""
     from repro_torch.convert import index_from_arrays
     from repro_torch.core.index import SearchIndex
     from repro_torch.core.protocol import IndexSpec
@@ -310,15 +311,24 @@ def test_two_level_refuses_unported_levels_and_mutation():
         {"n_clusters": 4}, device="cpu")
     assert (idx.entity_bucket == np.repeat(np.arange(4), 16)).all()
     tree = build_rp_tree(db)
-    one = SearchIndex(spec=IndexSpec("tree"), db=db, tree=tree, device="cpu")
+    one = SearchIndex(spec=IndexSpec("tree"), db=db.copy(),
+                      tree=build_rp_tree(db), device="cpu")
     two = SearchIndex(spec=IndexSpec("two_level"), db=db, two_level=idx)
-    for obj, names in (
-            (idx, ("add_entities", "delete_entities", "refresh_forest",
-                   "rebalance", "reboost", "pop_delta")),
-            (one, ("add_entities", "delete_entities", "rebalance", "reboost",
-                   "pop_delta", "rebuild_with_likelihood")),
-            (two, ("add_entities", "delete_entities", "reboost")),
-            (tree, ("reboost", "drop_entities"))):
-        for name in names:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                getattr(obj, name)()
+    assert idx.pop_delta().empty and one.pop_delta().empty
+    new = two.add_entities(db[:2] + 0.5)
+    two.delete_entities(new[:1])
+    assert idx.refresh_forest() == 0            # brute bottom: no trees
+    assert two.reboost(np.ones(idx.n))["n_reboosted"] == 0
+    idx.rebalance()
+    man = two.pop_delta()
+    assert man.tombstones.tolist() == [64] and man.n == 66
+    one.delete_entities(np.array([5]))
+    assert not one.pop_delta().full
+    one.add_entities(db[:1])
+    one.reboost(np.ones(65))
+    one.rebalance()
+    one.rebuild_with_likelihood(np.ones(65))
+    assert one.pop_delta().full and one.spec.kind == "qlbt"
+    assert tree.drop_entities(np.array([0, 1])).size >= 1
+    assert not np.isin(tree.leaf_entities, [0, 1]).any()
+    assert tree.reboost(db, np.ones(64), seed=1).n_nodes >= 1
