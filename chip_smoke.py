@@ -83,7 +83,26 @@ each prints its wall time as ``[phase] <name> <s> s``):
              against a full re-place, the bucket-local steps required to
              ship a delta in place (same storage), no deleted id ever
              returned, every added vector its own rank 1;
-12. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
+12. sharded - the sharded search over a ``torch.distributed`` mesh at the
+             same width: under a world-size-1 NCCL group the brute, IVF
+             (nprobe 32) and forest backends built with a mesh, and one
+             served batch through ``ServingCell.sharded(mesh=...)``,
+             against the backends built without one, bit for bit (counts
+             reset just before and read just after each meshed run); the
+             all-gather timed by CUDA events; p50 of 1,024 requests
+             through a cell with and without the mesh.  Then four ranks
+             sharing the card under gloo (spawned; the parent builds the
+             kernels and hands the ranks its index arrays through a file):
+             brute, IVF and forest at 8 probes a shard on a ``(4,)`` mesh
+             over ``("data",)``, and on the same mesh the options (brute
+             filtered at 0.05, int8, lexical filtered at 0.5, hybrid, IVF
+             filtered at 0.5), brute on a ``(2, 2)`` mesh with
+             ``query_axes=("model",)`` at B = 37; every answer against the
+             parent's single-process shard loop on the card bit for bit,
+             each flat scan also against the one-shard backend; recall@10
+             and each rank's launches (counts reset just before and read
+             just after each case's run);
+13. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
 
 The serve phase also runs the brute and IVF backends at k = 50 (above the
 kernels' 32-pair lists) against their unfused plain paths.
@@ -94,11 +113,15 @@ go to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import os
+import pickle
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -143,7 +166,8 @@ from repro_torch.testing import (CHAIN_EDGES, EDGE_ALPHAS,  # noqa: E402
                                  chain_union_topk, hamming_edge_operands,
                                  hybrid_by_parts, option_edge_operands,
                                  pq_edge_operands, rows_edge_operands,
-                                 rows_union_topk, step_chain)
+                                 rows_union_topk, shard_backends,
+                                 shard_loop, step_chain)
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3, fp32 outside the
 # tensor cores, and dense TF32 on them.  Every kernel computes in fp32 FMA;
@@ -1033,8 +1057,16 @@ def serve(cell: ServingCell, queries: np.ndarray, options=None):
     return ids, dists, lat, wall
 
 
-def batched(fn, queries: np.ndarray):
-    outs = [fn(queries[s:s + BATCH]) for s in range(0, len(queries), BATCH)]
+def batched(fn, queries: np.ndarray, call=None, qt=None, qw=None):
+    """``fn`` over batches of BATCH queries, with the options ``call``; a
+    lexical or hybrid call takes each batch's rows of ``qt`` / ``qw``."""
+    def one(s):
+        kw = dict(call or {})
+        if kw.get("mode", "semantic") != "semantic":
+            kw["q_terms"], kw["q_weights"] = qt[s:s + BATCH], qw[s:s + BATCH]
+        return fn(queries[s:s + BATCH], **kw)
+
+    outs = [one(s) for s in range(0, len(queries), BATCH)]
     return (np.concatenate([o[0] for o in outs]),
             np.concatenate([o[1] for o in outs]))
 
@@ -1489,6 +1521,7 @@ def phase_options(dev, ctx) -> None:
                               replace=False)) + [int(extra[r])]
               for r, e in enumerate(truth[:, 0])]
     qt, qw = query_operands(q_docs, slabs, slots=Q_SLOTS)
+    ctx["qt"], ctx["qw"] = qt, qw           # the sharded phase's too
 
     t0 = time.perf_counter()
     int8_be = ShardedSearchBackend(corpus, kind="brute", k=K,
@@ -2860,6 +2893,342 @@ SOURCES = {
 }
 
 
+# -------------------------------------------------------------- phase 12
+SHARD_WORLD = 4          # ranks sharing the one card under gloo
+SHARD_NPROBE = 8         # probes a shard over four: 32 in all
+SHARD_QUERIES = 256      # queries each check runs, in batches of 64
+SHARD_ODD_B = 37         # a batch the (2, 2) mesh's query axis pads
+SHARD_SERVE = 1024       # requests through each cell for the p50s
+SHARD_LIMIT_S = 480      # the four ranks, joined together
+GATHER_ITERS = 200
+# the kernel each sharded kind's local launches
+KIND_KERNEL = {"brute": "l2_topk", "ivf": "candidate_topk",
+               "forest": "candidate_topk"}
+
+
+def mesh_kinds(ctx, nprobe: int):
+    """(name, target, backend kwargs) of the sharded phase's kinds: the
+    sift corpus (brute), the serve phase's IVF index and the index
+    phase's tree-bottom index (forest)."""
+    return (("brute", ctx["corpus"], dict(kind="brute")),
+            ("ivf", ctx["idx"], dict(kind="ivf", nprobe_local=nprobe)),
+            ("forest", ctx["tree_idx"], dict(kind="forest",
+                                             nprobe_local=nprobe,
+                                             beam_width=BEAM)))
+
+
+def mesh_options(ctx):
+    """(name, target, backend kwargs, call kwargs, kernel) of the option
+    cases the four ranks run besides the kinds: filters (the mask's
+    slice), int8, lexical and hybrid (the flat locals' row offsets)."""
+    meta = dict(metadata=ctx["meta"])
+    lex = dict(kind="brute", lexical=ctx["slabs"], **meta)
+    return (("brute_narrow", ctx["corpus"], dict(kind="brute", **meta),
+             {"filter_spec": NARROW}, "l2_topk"),
+            ("int8", ctx["corpus"], dict(kind="brute", precision="int8"),
+             {}, "l2_topk_int8"),
+            ("lexical_wide", ctx["corpus"], lex,
+             {"mode": "lexical", "filter_spec": WIDE}, "bm25_topk"),
+            ("hybrid", ctx["corpus"], lex, {"mode": "hybrid",
+                                            "alpha": ALPHA}, "hybrid_topk"),
+            ("ivf_wide", ctx["idx"], dict(kind="ivf",
+                                          nprobe_local=SHARD_NPROBE, **meta),
+             {"filter_spec": WIDE}, "candidate_topk"))
+
+
+def same_bits(name: str, a, b) -> None:
+    """Two numpy (dists, ids) answers equal bit for bit."""
+    require(a[1].shape == b[1].shape and np.array_equal(a[1], b[1]),
+            f"{name}: ids differ")
+    require(np.array_equal(a[0].view(np.int32), b[0].view(np.int32)),
+            f"{name}: distance bits differ")
+
+
+def sharded_world1(dev, ctx, label: str) -> dict:
+    """A world-size-1 NCCL group: each kind with and without the mesh bit
+    for bit, the all-gather's time, one served batch through a meshed
+    cell, and the p50 of a cell with and without the mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.sharding import MeshCollective, _all_gather
+
+    out = {"launches": {}}
+    q = ctx["queries"][:SHARD_QUERIES]
+    tmp = tempfile.mkdtemp(prefix="nccl1-", dir=OUT_DIR)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        for name, target, kw in mesh_kinds(ctx, SIFT_NPROBE):
+            meshed = ShardedSearchBackend(target, k=K, mesh=mesh,
+                                          axes=("data",), **kw)
+            plain = ShardedSearchBackend(target, k=K, **kw)
+            meshed(q[:BATCH])                   # warm-up, not counted
+            torch.cuda.synchronize()
+            reset_launches()
+            a = batched(meshed, q)
+            torch.cuda.synchronize()
+            out["launches"][name] = {n: v for n, v in read_launches().items()
+                                     if v}
+            require(out["launches"][name].get(KIND_KERNEL[name], 0) > 0,
+                    f"the world-1 {name} path never launched "
+                    f"{KIND_KERNEL[name]}")
+            b = batched(plain, q)
+            same_bits(f"world-1 NCCL {name} against no mesh", a, b)
+            out[f"{name}_recall_at_10"] = recall_at_k(
+                b[1], ctx["truth"][:SHARD_QUERIES])
+            del meshed, plain
+        coll = MeshCollective(mesh, ("data",))
+        ld = torch.rand(BATCH, K, device=dev)
+        li = torch.randint(0, SIFT_1M.n, (BATCH, K), dtype=torch.int32,
+                           device=dev)
+        gd, gi = coll.gather_corpus(ld, li)
+        require_bits("the world-1 gather", (gd[0], gi[0]), (ld, li))
+        packed = torch.cat([ld.view(torch.int32), li], dim=1)
+        buf = torch.empty_like(packed)
+        group = mesh.get_group("data")
+        out["all_gather_ms"] = time_ms(
+            lambda: _all_gather(buf, packed, group), GATHER_ITERS)
+        out["gather_corpus_ms"] = time_ms(
+            lambda: coll.gather_corpus(ld, li), GATHER_ITERS)
+        log(f"[sharded] world-1 NCCL on {label}: brute, IVF (nprobe 32) "
+            f"and forest (nprobe 32, beam 8) with a mesh equal the backends "
+            f"without one bit for bit on {SHARD_QUERIES} queries; "
+            f"all-gather of ({BATCH}, 2 x {K}) int32 "
+            f"{out['all_gather_ms']:.4f} ms, with packing "
+            f"{out['gather_corpus_ms']:.4f} ms (CUDA events, "
+            f"{GATHER_ITERS} calls); launches {out['launches']}")
+
+        ivf_kw = dict(kind="ivf", k=K, nprobe_local=SIFT_1M.nprobe,
+                      max_batch=BATCH)
+        cell = ServingCell.sharded(ctx["idx"], mesh=mesh, axes=("data",),
+                                   max_wait_ms=1000.0, **ivf_kw)
+        futs = [cell.submit(r) for r in q[:BATCH]]
+        got = [f.get(timeout=120) for f in futs]
+        batches = cell.stats().dispatches
+        cell.close()
+        require(batches == 1, f"the served batch was split in {batches}")
+        want = ctx["ivf"](q[:BATCH])
+        same_bits("one served batch through a meshed cell",
+                  (np.stack([g[0] for g in got]),
+                   np.stack([g[1] for g in got])), want)
+        reqs = ctx["queries"][:SHARD_SERVE]
+        for tag, m in (("mesh", mesh), ("no_mesh", None)):
+            cell = ServingCell.sharded(ctx["idx"], mesh=m, axes=("data",),
+                                       max_wait_ms=2.0, **ivf_kw)
+            cell.search_fn(q[:BATCH])
+            torch.cuda.synchronize()
+            ids, _, lat, wall = serve(cell, reqs)
+            cell.close()
+            out[tag] = {"p50_ms": float(np.percentile(lat * 1e3, 50)),
+                        "p99_ms": float(np.percentile(lat * 1e3, 99)),
+                        "qps": len(reqs) / wall,
+                        "recall_at_10": recall_at_k(
+                            ids, ctx["truth"][:SHARD_SERVE])}
+        log(f"[sharded] IVF cell, {SHARD_SERVE} requests, {N_CLIENTS} "
+            f"clients on {label}: with the world-1 mesh p50 "
+            f"{out['mesh']['p50_ms']:.3f} ms p99 {out['mesh']['p99_ms']:.3f}"
+            f" ms QPS {out['mesh']['qps']:.1f}; without p50 "
+            f"{out['no_mesh']['p50_ms']:.3f} ms p99 "
+            f"{out['no_mesh']['p99_ms']:.3f} ms QPS "
+            f"{out['no_mesh']['qps']:.1f}; one served batch bit for bit")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def handoff(idx):
+    """``idx`` as the ranks need it: no placed tables, no top level or
+    sidecars (the served locals read neither)."""
+    return dataclasses.replace(idx, top_pq=None, top_kd=None,
+                               bottom_lsh=None, base_trees=None,
+                               delta_log=None, metadata=None, lexical=None)
+
+
+def sharded_rank(rank: int, world: int, workdir: str) -> None:
+    """One of the ranks sharing the card under gloo (spawned by
+    ``sharded_four_ranks``): each kind and option case on the (4,) mesh,
+    brute on the (2, 2) mesh with a query axis; answers, launches and
+    walls pickled."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=60))
+    try:
+        with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
+            inp = pickle.load(f)
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+        mesh22 = init_device_mesh("cuda", (2, 2),
+                                  mesh_dim_names=("data", "model"))
+        out = {"launches": {}, "place_s": {}, "wall_s": {}}
+        ctx = {"corpus": inp["corpus"], "idx": inp["idx"],
+               "tree_idx": inp["tree"], "meta": inp["meta"],
+               "slabs": inp["slabs"]}
+        cases = [(name, target, kw, {}) for name, target, kw
+                 in mesh_kinds(ctx, SHARD_NPROBE)]
+        cases += [case[:4] for case in mesh_options(ctx)]
+        for name, target, kw, call in cases:
+            t0 = time.perf_counter()
+            be = ShardedSearchBackend(target, k=K, mesh=mesh,
+                                      axes=("data",), **kw)
+            torch.cuda.synchronize()
+            out["place_s"][name] = time.perf_counter() - t0
+            batched(be, inp["q"][:BATCH], call, inp["qt"], inp["qw"])
+            torch.cuda.synchronize()            # the warm-up, not counted
+            reset_launches()
+            t0 = time.perf_counter()
+            out[name] = batched(be, inp["q"], call, inp["qt"], inp["qw"])
+            torch.cuda.synchronize()
+            out["wall_s"][name] = time.perf_counter() - t0
+            out["launches"][name] = read_launches()
+            del be
+            torch.cuda.empty_cache()
+        be = ShardedSearchBackend(inp["corpus"], kind="brute", k=K,
+                                  mesh=mesh22, axes=("data",),
+                                  query_axes=("model",))
+        out["brute_b37"] = be(inp["q"][:SHARD_ODD_B])
+        out["slot_b37"] = be.slot
+        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_four_ranks(dev, ctx, label: str, one_shard: dict) -> dict:
+    """Four ranks on the one card under gloo against the parent's shard
+    loop, bit for bit; brute also against the one-shard backend."""
+    import torch.multiprocessing as mp
+
+    q = ctx["queries"][:SHARD_QUERIES]
+    qt, qw = ctx["qt"][:SHARD_QUERIES], ctx["qw"][:SHARD_QUERIES]
+    truth = ctx["truth"][:SHARD_QUERIES]
+    workdir = tempfile.mkdtemp(prefix="gloo4-", dir=OUT_DIR)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        with open(os.path.join(workdir, "inputs.pkl"), "wb") as f:
+            pickle.dump({"corpus": ctx["corpus"], "idx": handoff(ctx["idx"]),
+                         "tree": handoff(ctx["tree_idx"]), "q": q,
+                         "meta": ctx["meta"], "slabs": ctx["slabs"],
+                         "qt": qt, "qw": qw}, f,
+                        protocol=pickle.HIGHEST_PROTOCOL)
+        out["handoff_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        spawn = mp.get_context("spawn")
+        procs = [spawn.Process(target=sharded_rank,
+                               args=(r, SHARD_WORLD, workdir))
+                 for r in range(SHARD_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + SHARD_LIMIT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.perf_counter()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        require(not hung, f"ranks {hung} outlived {SHARD_LIMIT_S} s")
+        codes = [p.exitcode for p in procs]
+        require(all(c == 0 for c in codes), f"a rank failed: exit codes "
+                f"{codes}")
+        out["ranks_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(SHARD_WORLD):
+            with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    for name, target, kw in mesh_kinds(ctx, SHARD_NPROBE):
+        bes = shard_backends(target, SHARD_WORLD, k=K, **kw)
+        loop = batched(lambda qb: shard_loop(bes, qb), q)
+        del bes
+        for r, got in enumerate(ranks):
+            same_bits(f"gloo rank {r} {name} against the shard loop",
+                      got[name], loop)
+        out[name] = {"recall_at_10": recall_at_k(loop[1], truth),
+                     "launches": [rk["launches"][name] for rk in ranks],
+                     "place_s": [rk["place_s"][name] for rk in ranks],
+                     "wall_s": [rk["wall_s"][name] for rk in ranks]}
+    same_bits("four-rank brute against the one-shard backend",
+              ranks[0]["brute"], batched(ctx["brute"], q))
+    # the option cases: the shard loop, and for a flat scan the one-shard
+    # backend (no split changes a row's score)
+    one_int8 = ShardedSearchBackend(ctx["corpus"], kind="brute", k=K,
+                                    precision="int8")
+    for name, target, kw, call, kernel in mesh_options(ctx):
+        bes = shard_backends(target, SHARD_WORLD, k=K, **kw)
+        loop = batched(lambda qb, **c: shard_loop(bes, qb, **c), q, call,
+                       qt, qw)
+        del bes
+        for r, got in enumerate(ranks):
+            same_bits(f"gloo rank {r} {name} against the shard loop",
+                      got[name], loop)
+        if "filter_spec" in call:
+            require_admitted(f"four-rank {name}", loop[1],
+                             call["filter_spec"], ctx["meta"])
+        if target is ctx["corpus"]:
+            one = one_int8 if name == "int8" else ctx["brute"]
+            same_bits(f"four-rank {name} against the one-shard backend",
+                      loop, batched(one, q, call, qt, qw))
+        out[name] = {"launches": [rk["launches"][name] for rk in ranks],
+                     "place_s": [rk["place_s"][name] for rk in ranks],
+                     "wall_s": [rk["wall_s"][name] for rk in ranks]}
+        require(all(lc[kernel] > 0 for lc in out[name]["launches"]),
+                f"a {name} rank never launched {kernel}")
+    del one_int8
+    loop = shard_loop(shard_backends(ctx["corpus"], 2, k=K, kind="brute"),
+                      q[:SHARD_ODD_B], n_q=2)
+    for r, got in enumerate(ranks):
+        same_bits(f"gloo rank {r} brute on the (2, 2) mesh, B = "
+                  f"{SHARD_ODD_B}", got["brute_b37"], loop)
+    same_bits(f"(2, 2) brute, B = {SHARD_ODD_B}, against one shard",
+              loop, ctx["brute"](q[:SHARD_ODD_B]))
+    out["loop_s"] = time.perf_counter() - t0
+    for name, kernel in KIND_KERNEL.items():
+        require(all(lc[kernel] > 0 for lc in out[name]["launches"]),
+                f"a {name} rank never launched {kernel}")
+    log(f"[sharded] four gloo ranks on one card ({label}): every answer "
+        f"equals the shard loop bit for bit on {SHARD_QUERIES} queries "
+        f"(brute also the one-shard backend; the (2, 2) mesh with a query "
+        f"axis at B = {SHARD_ODD_B} too); recall@10 IVF "
+        f"{out['ivf']['recall_at_10']:.4f} (8 probes a shard, 32 in all; "
+        f"one shard at nprobe 32: {one_shard['ivf_recall_at_10']:.4f} here,"
+        f" {RESULTS['main']['recall_at_10']:.4f} on {N_REQUESTS}), forest "
+        f"{out['forest']['recall_at_10']:.4f} (one shard: "
+        f"{one_shard['forest_recall_at_10']:.4f} here, "
+        f"{RESULTS['forest']['recall_at_10']:.4f} on {N_REQUESTS}); the "
+        f"options {[c[0] for c in mesh_options(ctx)]} equal the shard loop "
+        f"bit for bit on every rank, the flat ones the one-shard backend "
+        f"too")
+    for name in [c[0] for c in mesh_kinds(ctx, SHARD_NPROBE)
+                 + mesh_options(ctx)]:
+        log(f"[sharded] {name} ranks: launches "
+            f"{[{n: v for n, v in lc.items() if v} for lc in out[name]['launches']]}"
+            f"; walls {[round(w, 3) for w in out[name]['wall_s']]} s for "
+            f"{SHARD_QUERIES // BATCH} batches; placed in "
+            f"{[round(w, 1) for w in out[name]['place_s']]} s")
+    log(f"[sharded] hand-off {out['handoff_s']:.1f} s, ranks "
+        f"{out['ranks_s']:.1f} s, shard loops {out['loop_s']:.1f} s")
+    return out
+
+
+def phase_sharded(dev, ctx) -> dict:
+    label = ctx["label"]
+    out = {"world1_nccl": sharded_world1(dev, ctx, label)}
+    out["gloo4"] = sharded_four_ranks(dev, ctx, label, out["world1_nccl"])
+    RESULTS["sharded"] = out
+    return out
+
+
 def kernel_line() -> dict:
     """Each kernel at its main path's shape (``candidate_topk``: the served
     chain, with its one-step, DEEP-10M and served forest rows-by-id
@@ -2924,6 +3293,8 @@ def main() -> int:
         phase_forest_serve(dev, ctx)
     with phase("lifecycle"):
         phase_lifecycle(dev, ctx)
+    with phase("sharded"):
+        phase_sharded(dev, ctx)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)

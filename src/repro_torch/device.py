@@ -2,7 +2,10 @@
 
 Every entry point takes ``device=None`` and means ``cuda:0`` by it.  Only
 an explicit ``device="cpu"`` (what the CPU tests pass) runs on the CPU;
-nothing falls back from the card to the CPU.
+nothing falls back from the card to the CPU.  A sharded entry point given
+a mesh runs on this rank's device instead: the card the launcher made
+current (``LOCAL_RANK``, torchrun's convention, which ``DeviceMesh``
+follows) on a CUDA mesh, the CPU on a CPU mesh.
 """
 from __future__ import annotations
 
@@ -19,10 +22,18 @@ def default_device() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def resolve(device=None) -> torch.device:
-    """``None`` -> the card; anything else is taken as the caller's
-    explicit choice."""
-    return default_device() if device is None else torch.device(device)
+def resolve(device=None, mesh=None) -> torch.device:
+    """``None`` -> the card (this rank's, given a CUDA ``mesh``; the CPU
+    on a CPU mesh); anything else is taken as the caller's explicit
+    choice."""
+    if device is not None:
+        return torch.device(device)
+    if mesh is None:
+        return default_device()
+    if mesh.device_type != "cuda":
+        return torch.device(mesh.device_type)
+    default_device()                     # raises without a card
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def require_fp32_matmul() -> None:

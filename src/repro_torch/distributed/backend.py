@@ -13,6 +13,16 @@ back to the host.
     backend(q, filter_spec=FilterSpec.range("pct", 0, 4))
     backend(q, mode="hybrid", alpha=0.5, q_terms=qt, q_weights=qw)
 
+Over a ``DeviceMesh`` (``mesh=``, one process a card) each rank places
+only its shard of the corpus or index (``axes``), scans its block of the
+batch (``query_axes``), and the shards' top-k meet in an all-gather
+(``sharding.MeshCollective``); every rank calls the backend with the same
+arguments and gets the whole answer.  A served cell runs on the mesh's
+root: the root's backend ``lead()``s, sending each call's header and
+queries to the other ranks, which ``follow()`` until
+``stop_followers()``.  Collectives are issued in one order on every rank:
+one thread, under the backend lock.
+
 Filters are data, not shapes: a ``FilterSpec`` compiles (once per
 ``key()``, until the next placement) to the brute kind's ``valid``
 operand ANDed with the entity mask, or to the IVF and forest kinds'
@@ -53,17 +63,24 @@ import torch
 
 from repro_torch.device import resolve
 from repro_torch.distributed.sharding import (
+    MeshCollective,
+    ShardSlot,
     _brute_device_arrays,
     _brute_int8_device_arrays,
+    _check_disjoint,
     _forest_device_arrays,
     _ivf_device_arrays,
+    _ivf_host_bids,
     _lexical_device_arrays,
+    _pad_batch,
+    _pad_terms,
     forest_shard_shapes,
     make_sharded_brute_fn,
     make_sharded_forest_fn,
     make_sharded_hybrid_fn,
     make_sharded_ivf_fn,
     make_sharded_lexical_fn,
+    search_blocks,
     slice_forest_delta,
     slice_ivf_delta,
 )
@@ -105,16 +122,37 @@ class ShardedSearchBackend:
     enables ``filter_spec=``; ``lexical`` (``LexicalSlabs``, default the
     target's; brute f32 only) enables the lexical and hybrid modes.  Runs
     on the card unless ``device`` says otherwise.
+
+    ``mesh`` (a ``DeviceMesh``) shards the target over its ``axes`` and
+    the batch over ``query_axes`` (disjoint; the reference's defaults),
+    one shard a rank, on this rank's device; every call is collective.
+    ``stats`` of ``apply_updates`` count the whole payload, as the
+    reference counts it at the same shard count.  ``shard`` (a
+    ``ShardSlot``, no mesh) places one shard of such a layout with no
+    collective: the single-process shard loop of ``repro_torch.testing``.
     """
 
     def __init__(self, target, *, kind: str = "auto", k: int = 10,
+                 mesh=None, axes=("data", "model"), query_axes=(),
                  nprobe_local: int = 2, beam_width: int = 8,
                  headroom: float = 1.0, alive=None,
                  delta_updates: bool = True,
                  delta_max_fraction: float = 0.5,
                  fused: bool = True, precision: str = "f32", metadata=None,
-                 lexical=None, device=None):
-        self.device = resolve(device)
+                 lexical=None, device=None, shard: Optional[ShardSlot] = None):
+        self.device = resolve(device, mesh)
+        self.mesh = mesh
+        self.axes, self.query_axes = tuple(axes), tuple(query_axes)
+        if mesh is not None:
+            self._coll = MeshCollective(mesh, self.axes, self.query_axes)
+            self.slot = self._coll.slot
+        else:
+            _check_disjoint(self.axes, self.query_axes)
+            self._coll = None
+            self.slot = shard if shard is not None else ShardSlot()
+        self.n_dev = self.slot.n_dev
+        self._leading = False            # root of a mesh with followers
+        self._stopped = False            # its followers were released
         self.k = k
         self.delta_updates = delta_updates
         self.delta_max_fraction = delta_max_fraction
@@ -164,18 +202,20 @@ class ShardedSearchBackend:
                 "precision='int8' is only supported for the brute kind")
         if kind == "brute":
             n = int(np.shape(getattr(target, "db", target))[0])
-            self._rows = int(np.ceil(n * headroom))
+            # rows a shard: the reservation split over the shards
+            self._rows = -(-int(np.ceil(n * headroom)) // self.n_dev)
             self._fn = make_sharded_brute_fn(k, self._rows, fused=fused,
                                              precision=precision)
         elif kind == "ivf":
             n_buckets, cap = target.bucket_ids.shape
             self._K = int(n_buckets)
             self._cap = int(np.ceil(cap * headroom))
-            self._fn = make_sharded_ivf_fn(k, nprobe_local, self._K,
-                                           fused=fused)
+            self._kloc = -(-self._K // self.n_dev)     # buckets a shard
+            self._fn = make_sharded_ivf_fn(k, nprobe_local, self._kloc,
+                                           self._K, fused=fused)
         elif kind == "forest":
             self._shapes = forest_shard_shapes(
-                target, 1, headroom,
+                target, self.n_dev, headroom,
                 layout="slab" if delta_updates else "packed")
             self._fn = make_sharded_forest_fn(
                 k, nprobe_local, beam_width, self._shapes.leaf_sz,
@@ -219,20 +259,24 @@ class ShardedSearchBackend:
         """Pad and place ``target`` (and its slabs) on the device in the
         recorded shapes; pin the metadata the next filters will see
         (caller holds the lock)."""
-        dev = self.device
+        dev, lin, S = self.device, self.slot.lin, self.n_dev
         if self.kind == "brute":
             db_host = np.asarray(getattr(target, "db", target), np.float32)
             self._n = n = db_host.shape[0]
+            rows_all = self._rows * S
             if self.precision == "int8":
-                self._args = _brute_int8_device_arrays(
-                    db_host, dev, rows=self._rows, alive=alive)
+                *self._args, valid = _brute_int8_device_arrays(
+                    db_host, dev, rows=self._rows, alive=alive, lin=lin,
+                    n_dev=S)
                 # int8 codes, fp32 scales, a one-byte liveness flag a row
-                self._full_bytes = self._rows * (db_host.shape[1] + 4 + 1)
+                self._full_bytes = rows_all * (db_host.shape[1] + 4 + 1)
             else:
-                self._args = _brute_device_arrays(
-                    db_host, dev, rows=self._rows, alive=alive)
-                self._full_bytes = self._rows * (4 * db_host.shape[1] + 1)
-            self._host_valid = self._args[-1].cpu().numpy() != 0
+                *self._args, valid = _brute_device_arrays(
+                    db_host, dev, rows=self._rows, alive=alive, lin=lin,
+                    n_dev=S)
+                self._full_bytes = rows_all * (4 * db_host.shape[1] + 1)
+            self._args = tuple(self._args)
+            self._host_valid = valid != 0        # every shard's rows
             if self.lexical_src is not None:
                 slabs = self.lexical_src
                 if slabs.n_docs != n:
@@ -242,26 +286,31 @@ class ShardedSearchBackend:
                         "add_entities")
                 self._lex_args = _lexical_device_arrays(
                     slabs.terms, slabs.tf_sat, dev, rows=self._rows,
-                    alive=alive)[:2]
-                self._full_bytes += sum(int(t.nbytes)
-                                        for t in self._lex_args)
+                    lin=lin, n_dev=S)
+                self._full_bytes += S * sum(int(t.nbytes)
+                                            for t in self._lex_args)
         elif self.kind == "ivf":
             if int(target.bucket_ids.shape[0]) != self._K:
                 raise ValueError(
                     f"cluster count changed ({target.bucket_ids.shape[0]} "
                     f"!= {self._K}); rebuild the backend")
             self._n = int(target.db.shape[0])
-            self._args = _ivf_device_arrays(target, dev, cap=self._cap)
-            self._full_bytes = sum(int(t.nbytes) for t in self._args)
-            self._host_bids = self._args[1].cpu().numpy()
+            *self._args, self._host_bids = _ivf_device_arrays(
+                target, dev, cap=self._cap, lin=lin, n_dev=S)
+            self._args = tuple(self._args)
+            self._full_bytes = S * sum(int(t.nbytes) for t in self._args)
         else:
             placed, host = _forest_device_arrays(target, dev,
-                                                 shapes=self._shapes)
+                                                 shapes=self._shapes,
+                                                 lin=lin, n_dev=S)
             self._n = int(target.db.shape[0])
             self._args = tuple(placed[name] for name in _FOREST_ARGS)
-            self._full_bytes = sum(int(host[name].nbytes)
-                                   for name in _FOREST_ARGS)
-            self._host_bids = host["bucket_ids"].copy()
+            # every shard's tables have this shard's shapes
+            self._full_bytes = S * sum(int(host[name].nbytes)
+                                       for name in _FOREST_ARGS)
+            sh = self._shapes
+            self._host_bids = _ivf_host_bids(target, sh.cap, S).reshape(
+                S, sh.kloc, sh.cap)
         self._version = getattr(target, "mutation_version", None)
         self._refresh_meta(target)
 
@@ -280,20 +329,25 @@ class ShardedSearchBackend:
         brute (and lexical / hybrid): the entity mask ANDed into the
         placed ``valid`` row operand.  ivf / forest: filtered entities'
         slots in ``bucket_ids`` set to -1, which the scan already skips.
-        Same shapes and dtypes as the unfiltered operands.
+        Same shapes and dtypes as the unfiltered operands.  The mask is
+        compiled over every shard and this rank's slice is placed.
         """
         key = filter_spec.key()
         hit = self._fmask_cache.get(key)
         if hit is not None:
             return hit
+        lin = self.slot.lin
         if self.kind == "brute":
             emask = filter_spec.mask(self._meta, self._host_valid.shape[0])
             host = (self._host_valid & emask).astype(np.int32)
+            host = host[lin * self._rows:(lin + 1) * self._rows]
         else:
             emask = filter_spec.mask(self._meta, max(self._n, 1))
             b = self._host_bids
             live = (b >= 0) & emask[np.clip(b, 0, emask.shape[0] - 1)]
             host = np.where(live, b, -1).astype(np.int32)
+            host = (host[lin * self._kloc:(lin + 1) * self._kloc]
+                    if self.kind == "ivf" else host[lin:lin + 1])
         dev = torch.as_tensor(host, device=self.device)
         if len(self._fmask_cache) >= _MASK_CACHE:
             self._fmask_cache.clear()
@@ -333,7 +387,7 @@ class ShardedSearchBackend:
                 return None, "version"
             db = np.asarray(getattr(target, "db", target), np.float32)
             n = db.shape[0]
-            if n > self._rows:
+            if n > self._rows * self.n_dev:
                 return None, "outgrew"        # the full place raises
             new = np.arange(delta.base_n, n, dtype=np.int32)
             vals = db[delta.base_n:n]
@@ -360,7 +414,7 @@ class ShardedSearchBackend:
             if alive is not None:
                 # the caller's complete liveness truth: the whole mask is
                 # the payload
-                valid = np.arange(self._rows) < n
+                valid = np.arange(self._rows * self.n_dev) < n
                 valid[:n] &= np.asarray(alive, bool)
                 if delta.tombstones.size:
                     valid[delta.tombstones] = False
@@ -393,47 +447,62 @@ class ShardedSearchBackend:
         t = torch.as_tensor(np.asarray(a), device=self.device)
         return t if dtype is None else t.to(dtype)
 
-    def _apply_lex_delta(self, pay) -> None:
+    def _mine(self, rows: np.ndarray, per_shard: int):
+        """(mask of ``rows`` on this rank's shard, their local indices as
+        a device tensor): global row or bucket ``r`` lives on shard
+        ``r // per_shard``."""
+        rows = np.asarray(rows)
+        mine = rows // per_shard == self.slot.lin
+        return mine, self._put(rows[mine] - self.slot.lin * per_shard,
+                               torch.long)
+
+    def _apply_lex_delta(self, pay, mine, rows) -> None:
         """Scatter appended postings-slab rows next to their vectors."""
         if self._lex_args is None or "lex_terms" not in pay:
             return
-        rows = self._put(pay["rows"], torch.long)
-        self._lex_args[0][rows] = self._put(pay["lex_terms"])
-        self._lex_args[1][rows] = self._put(pay["lex_tf"])
+        self._lex_args[0][rows] = self._put(pay["lex_terms"][mine])
+        self._lex_args[1][rows] = self._put(pay["lex_tf"][mine])
 
     def _apply_delta(self, pay) -> None:
-        """Scatter the payload into the placed tensors, in place (caller
-        holds the lock)."""
+        """Scatter this rank's part of the payload into the placed
+        tensors, in place (caller holds the lock); the host mirrors the
+        filters read cover every shard."""
         if self.kind == "brute":
-            rows = self._put(pay["rows"], torch.long)
+            R = self._rows
+            mine, rows = self._mine(pay["rows"], R)
             if self.precision == "int8":
                 codes, scales, valid = self._args
-                codes[rows] = self._put(pay["vals8"])
-                scales[rows] = self._put(pay["vscales"])
+                codes[rows] = self._put(pay["vals8"][mine])
+                scales[rows] = self._put(pay["vscales"][mine])
             else:
                 db, valid = self._args
-                db[rows] = self._put(pay["vals"])
-                self._apply_lex_delta(pay)
+                db[rows] = self._put(pay["vals"][mine])
+                self._apply_lex_delta(pay, mine, rows)
             if "valid" in pay:
-                valid.copy_(self._put(pay["valid"], torch.int32))
+                lo = self.slot.lin * R
+                valid.copy_(self._put(pay["valid"][lo:lo + R], torch.int32))
                 self._host_valid = np.asarray(pay["valid"], bool).copy()
             else:
                 # liveness is cumulative on the device: appended rows flip
                 # alive, tombstones dead, the rest keep their bits
                 valid[rows] = 1
-                valid[self._put(pay["tomb"], torch.long)] = 0
+                valid[self._mine(pay["tomb"], R)[1]] = 0
                 self._mirror_brute_liveness(pay)
         elif self.kind == "ivf":
-            rows = self._put(pay["rows"], torch.long)
+            mine, rows = self._mine(pay["rows"], self._kloc)
             cents, bids, bvecs = self._args
-            cents[rows] = self._put(pay["cents"])
-            bids[rows] = self._put(pay["bucket_ids"])
-            bvecs[rows] = self._put(pay["bvecs"])
+            cents[rows] = self._put(pay["cents"][mine])
+            bids[rows] = self._put(pay["bucket_ids"][mine])
+            bvecs[rows] = self._put(pay["bvecs"][mine])
             self._host_bids[pay["rows"]] = pay["bucket_ids"]
         else:
-            sh = self._put(pay["shard"], torch.long)
-            sl = self._put(pay["slot"], torch.long)
-            if sh.numel():
+            # a slab on another shard (or past the last) is not this
+            # rank's; the placed tables keep the shard dimension, length 1
+            shard = np.asarray(pay["shard"])
+            mine = shard == self.slot.lin
+            if mine.any():
+                sl = self._put(pay["slot"][mine], torch.long)
+                sh = torch.zeros_like(sl)
                 ns, ls = self._shapes.node_slab, self._shapes.leaf_slab
                 nrow = (sl[:, None] * ns
                         + torch.arange(ns, device=self.device)[None, :])
@@ -442,13 +511,15 @@ class ShardedSearchBackend:
                 t = dict(zip(_FOREST_ARGS, self._args))
                 for name in ("cents", "valid", "roots", "bucket_ids",
                              "bvecs"):
-                    t[name][sh, sl] = self._put(pay[name])
+                    t[name][sh, sl] = self._put(pay[name][mine])
                 for name in ("proj", "dims", "tau", "children", "leaf_row"):
-                    t[name][sh[:, None], nrow] = self._put(pay[name])
+                    t[name][sh[:, None], nrow] = self._put(pay[name][mine])
                 t["leaf_entities"][sh[:, None], lrow] = self._put(
-                    pay["leaf_entities"])
-                self._host_bids[pay["shard"], pay["slot"]] = \
-                    pay["bucket_ids"]
+                    pay["leaf_entities"][mine])
+            ok = shard < self.n_dev
+            if ok.any():
+                self._host_bids[shard[ok], pay["slot"][ok]] = \
+                    pay["bucket_ids"][ok]
         self._n = pay["n"]
 
     def _mirror_brute_liveness(self, pay) -> None:
@@ -530,15 +601,15 @@ class ShardedSearchBackend:
         ``"lexical"`` (BM25 over the postings slabs, ``queries`` unused) or
         ``"hybrid"`` (``alpha * l2sq - (1 - alpha) * bm25``).  The last two
         need a backend built with lexical slabs and per-query
-        ``q_terms`` / ``q_weights`` (``core.lexical.query_operands``)."""
-        tracer = get_tracer()
+        ``q_terms`` / ``q_weights`` (``core.lexical.query_operands``).
+        Over a mesh the call is collective (or, on a leading root, sent to
+        the followers first)."""
         if filter_spec is not None and filter_spec.empty:
             filter_spec = None
         if mode not in MODES:
             raise ValueError(
                 f"mode must be 'semantic', 'lexical', or 'hybrid', "
                 f"got {mode!r}")
-        dev = self.device
         if mode != "semantic":
             if self._fn_lex is None:
                 raise ValueError(
@@ -548,38 +619,70 @@ class ShardedSearchBackend:
                 raise ValueError(
                     f"mode={mode!r} requires q_terms/q_weights (see "
                     "repro_torch.core.lexical.query_operands)")
-            qt = torch.as_tensor(np.asarray(q_terms, np.int32), device=dev)
-            qw = torch.as_tensor(np.asarray(q_weights, np.float32),
-                                 device=dev)
-            B = int(qt.shape[0])
+        ops, B = self._operands(queries, q_terms, q_weights, mode,
+                                self.slot.n_q)
+        return self._search(ops, B, filter_spec, mode, alpha)
+
+    def _operands(self, queries, q_terms, q_weights, mode: str, n_q: int):
+        """The per-query operands of ``mode`` -- queries (float32), term
+        ids (int32, pads -1), term weights -- padded on the host to a
+        multiple of ``n_q`` rows and placed; and the batch size B."""
+        host = []
         if mode != "lexical":
-            q = torch.as_tensor(np.asarray(queries, np.float32), device=dev)
-            B = int(q.shape[0])
+            host.append(_pad_batch(queries, n_q))
+        if mode != "semantic":
+            host.extend(_pad_terms(q_terms, q_weights, n_q))
+        B = len(queries) if mode != "lexical" else len(q_terms)
+        return tuple(torch.as_tensor(h, device=self.device)
+                     for h in host), B
+
+    def _local(self, filter_spec, mode: str, alpha: float):
+        """This shard's local for one option set: ``call(*operand
+        block) -> (B, k)`` top-k with global ids (caller holds the lock,
+        or owns the backend)."""
+        args = self._args
+        if filter_spec is not None:
+            fdev = self._filter_operand(filter_spec)
+            if self.kind == "brute":             # valid is the last operand
+                args = args[:-1] + (fdev,)
+            elif self.kind == "ivf":             # bucket_ids
+                args = (args[0], fdev, args[2])
+            else:                                # forest: bucket_ids
+                args = args[:3] + (fdev,) + args[4:]
+        lin = self.slot.lin
+        if mode == "semantic":
+            return lambda q: self._fn(*args, q, lin=lin)
+        if mode == "lexical":
+            return lambda qt, qw: self._fn_lex(*self._lex_args, args[1], qt,
+                                               qw, lin=lin)
+        # the blend is a (1, 1) operand on the card, read by the kernel
+        a_dev = torch.full((1, 1), float(alpha), dtype=torch.float32,
+                           device=self.device)
+        return lambda q, qt, qw: self._fn_hyb(
+            args[0], *self._lex_args, args[1], q, qt, qw, a_dev, lin=lin)
+
+    def _search(self, ops, B: int, filter_spec, mode: str, alpha: float):
+        tracer = get_tracer()
+        dev = self.device
         t0 = time.perf_counter()
         # kernel: enqueue + device execution; the synchronise runs outside
         # the lock so the span measures device time, not the enqueue
         with tracer.span("kernel", kind=self.kind, b=B):
             with self._lock:
-                args = self._args
-                if filter_spec is not None:
-                    fdev = self._filter_operand(filter_spec)
-                    if self.kind == "brute":     # valid is the last operand
-                        args = args[:-1] + (fdev,)
-                    elif self.kind == "ivf":     # bucket_ids
-                        args = (args[0], fdev, args[2])
-                    else:                        # forest: bucket_ids
-                        args = args[:3] + (fdev,) + args[4:]
-                if mode == "semantic":
-                    d, i = self._fn(*args, q)
-                elif mode == "lexical":
-                    d, i = self._fn_lex(*self._lex_args, args[1], qt, qw)
-                else:
-                    # the blend is a (1, 1) operand on the card, read by
-                    # the kernel
-                    a_dev = torch.full((1, 1), float(alpha),
-                                       dtype=torch.float32, device=dev)
-                    d, i = self._fn_hyb(args[0], *self._lex_args, args[1],
-                                        q, qt, qw, a_dev)
+                if self._stopped:
+                    raise RuntimeError("this backend released its followers "
+                                       "(stop_followers); its collectives "
+                                       "would wait for them")
+                # compiled before the followers hear of the call: a
+                # request that fails to compile fails on the root alone
+                call = self._local(filter_spec, mode, alpha)
+                if self._leading:
+                    self._send({"stop": False, "B": B, "mode": mode,
+                                "alpha": alpha, "filter": filter_spec,
+                                "operands": [(tuple(o.shape), o.dtype)
+                                             for o in ops]}, ops)
+                d, i = search_blocks(call, ops, B, self.k, self.slot,
+                                     self._coll)
             if dev.type == "cuda":
                 torch.cuda.current_stream(dev).synchronize()
         t1 = time.perf_counter()
@@ -591,3 +694,60 @@ class ShardedSearchBackend:
         self._h_kernel.observe((t1 - t0) * 1e3)
         self._h_rerank.observe((t2 - t1) * 1e3)
         return out
+
+    # ------------------------------------------------------------------
+    # serving across ranks: the root leads, the other ranks follow
+    # ------------------------------------------------------------------
+    @property
+    def leads(self) -> bool:
+        """True while this root backend sends its calls to followers."""
+        return self._leading
+
+    def lead(self) -> "ShardedSearchBackend":
+        """Make this backend, on the mesh's root rank, send every call's
+        header (B, mode, alpha, filter) and operands to the other ranks,
+        which run :meth:`follow`.  A mesh of one rank has no followers."""
+        if self._coll is None or self._coll.size == 1:
+            return self
+        if not self._coll.root:
+            raise RuntimeError("only the mesh's root rank leads; the other "
+                               "ranks follow()")
+        self._leading = True
+        return self
+
+    def _send(self, header: dict, ops=()) -> None:
+        """Broadcast a call from the root (caller holds the lock)."""
+        self._coll.broadcast_object(header)
+        for o in ops:
+            self._coll.broadcast(o)
+
+    def follow(self) -> int:
+        """Serve the root's calls on a non-root rank: receive each call's
+        header and operands and join its collectives, until the root's
+        :meth:`stop_followers`.  Returns the calls served.  A follower
+        waits in a broadcast, so a root idle past the group's timeout
+        fails its followers."""
+        if self._coll is None or self._coll.root:
+            raise RuntimeError("follow() runs on the non-root ranks of a "
+                               "mesh")
+        served = 0
+        while True:
+            h = self._coll.broadcast_object(None)
+            if h["stop"]:
+                return served
+            ops = tuple(self._coll.broadcast(
+                torch.empty(shape, dtype=dtype, device=self.device))
+                for shape, dtype in h["operands"])
+            with self._lock:
+                search_blocks(self._local(h["filter"], h["mode"],
+                                          h["alpha"]),
+                              ops, h["B"], self.k, self.slot, self._coll)
+            served += 1
+
+    def stop_followers(self) -> None:
+        """End the followers' :meth:`follow` loops (a no-op unless this
+        backend leads)."""
+        with self._lock:
+            if self._leading:
+                self._send({"stop": True})
+                self._leading, self._stopped = False, True

@@ -1,21 +1,33 @@
-"""Sharded search: device arrays, the per-shard brute (fp32 / int8),
-lexical, hybrid, IVF and forest locals, the forest's shard layouts and
-delta slicers, and the merge of per-shard results.
+"""Sharded search: the role plans, device arrays, the per-shard brute
+(fp32 / int8), lexical, hybrid, IVF and forest locals, the forest's shard
+layouts and delta slicers, the collective over a mesh, and the merge of
+per-shard results.
 
-Port of the search half of ``repro/distributed/sharding.py``.  In the
-reference each chip of a mesh runs a local over its shard inside
+Port of ``repro/distributed/sharding.py``.  The reference is one
+controller over a mesh: each chip runs a local over its shard inside
 ``shard_map`` and an ``all_gather`` brings every shard's top-k together
-for ``_merge_gathered``.  Here one card holds one shard: a local's
-result is stacked as the single entry of the ``(S, B, k)`` tensor that
-``_merge_gathered`` takes, so a later slice can feed it from a
-``torch.distributed`` all-gather instead without touching the merge.
+for ``_merge_gathered``.  The port is SPMD, one process a card: a mesh is
+a ``torch.distributed.device_mesh.DeviceMesh`` whose dimension names are
+the reference's axis names (``"data"``, ``"model"``, ``"pod"``), each
+rank places one shard, and :class:`MeshCollective` all-gathers the
+shards' ``(B, k)`` results over the corpus axes, in the order of the
+shard's flat index ``lin`` (row-major over ``axes`` as given, what JAX's
+``axis_index`` over a tuple computes).  With ``query_axes`` each rank
+scans its block of the padded batch and the merged blocks are gathered
+over the query axes, so every rank returns the whole batch.  Without a
+mesh there is one shard and no collective.
+
+The locals are pure functions of the shard's tables, its ``lin`` and the
+queries, and return the shard's ``(B, k)`` top-k with global ids (brute
+kinds: ``li + lin * shard_rows``; IVF and forest: the bucket tables
+already hold global ids).  Bucket tables are padded to ``ceil(K / S) * S``
+buckets and the IVF local masks the pad centroids by global bucket index.
 
 The forest (tree/QLBT bottom) is sliced per shard into fixed shapes
 (``ForestShardShapes``): *packed* (buckets back to back) or *slab* (every
 bucket at a fixed node and leaf window, so one rebuilt bucket is a
 fixed-shape payload, ``slice_forest_delta``, scattered in place).  The
-slicers are numpy copies of the reference's; the tables keep the shard
-dimension (length 1 here), so more cards change no layout.
+slicers are numpy copies of the reference's.
 
 ``fused=True`` routes the per-shard scan through ``kernels.ops`` (the
 CUDA kernels on the card, their plain versions on the CPU);
@@ -25,20 +37,320 @@ the same ids, since the plain versions are built from the same ops.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.brute import batched_l2sq, pairwise_l2sq
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.common import INF, pad_sentinel, stable_topk
 from repro_torch.kernels.ref import bm25_dists_ref
 
-__all__ = ["make_sharded_brute_fn", "make_sharded_ivf_fn",
+__all__ = ["ShardPlan", "SINGLE_POD_PLAN", "MULTI_POD_PLAN", "LOCAL_PLAN",
+           "ShardSlot", "MeshCollective",
+           "sharded_brute_search", "sharded_ivf_search",
+           "sharded_forest_search",
+           "make_sharded_brute_fn", "make_sharded_ivf_fn",
            "make_sharded_lexical_fn", "make_sharded_hybrid_fn",
            "make_sharded_forest_fn", "shard_forest", "forest_shard_shapes",
            "ForestShardShapes", "slice_forest_delta", "slice_ivf_delta"]
+
+
+# ---------------------------------------------------------------------------
+# Role plans
+# ---------------------------------------------------------------------------
+
+
+def _mesh_shape(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh`` (or of anything with its
+    ``mesh_dim_names`` and ``mesh`` rank tensor)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """Roles -- ``dp`` (batch), ``fsdp`` (parameter gather), ``tp``
+    (tensor), ``ep`` (expert), ``pp`` (the pod remainder of ``dp``) --
+    bound to mesh axes.  ``p`` returns each dimension's axis tuple (the
+    content of the reference's ``PartitionSpec``); with no mesh bound
+    every axis counts 1.  The reference's ``constrain`` becomes DTensor
+    placements with the models (ROADMAP.md, module item 8)."""
+    dp: tuple = ()
+    fsdp: tuple = ()
+    tp: tuple = ()
+    ep: tuple = ()
+    pp: tuple = ()
+    mesh: Any = None
+
+    def resolve(self, sym) -> Optional[tuple]:
+        """role | tuple of roles | None -> tuple of mesh axes | None."""
+        if sym is None:
+            return None
+        if isinstance(sym, tuple):
+            axes: list = []
+            for s in sym:
+                r = self.resolve(s)
+                if r:
+                    axes.extend(r)
+            return tuple(dict.fromkeys(axes)) or None
+        return tuple(getattr(self, sym)) or None
+
+    def p(self, *dims) -> tuple:
+        return tuple(self.resolve(d) for d in dims)
+
+    def axis_size(self, role: str) -> int:
+        if self.mesh is None:
+            return 1
+        return _axes_size(self.mesh, getattr(self, role))
+
+    def size_of(self, sym) -> int:
+        """Device count along a role or a tuple of roles."""
+        if sym is None:
+            return 1
+        if isinstance(sym, tuple):
+            return math.prod(self.size_of(s) for s in sym)
+        return self.axis_size(sym)
+
+    def div_p(self, shape, *dims) -> tuple:
+        """``p`` with every role whose device count does not divide its
+        dimension dropped (that dimension stays replicated)."""
+        return self.p(*[d if d and size % max(self.size_of(d), 1) == 0
+                        else None for size, d in zip(shape, dims)])
+
+    def with_mesh(self, mesh) -> "ShardPlan":
+        return dataclasses.replace(self, mesh=mesh)
+
+
+LOCAL_PLAN = ShardPlan()
+
+SINGLE_POD_PLAN = ShardPlan(
+    dp=("data",), fsdp=("data",), tp=("model",), ep=("data", "model"))
+
+# experts stay inside a pod; pods meet only in the data-parallel reduction
+MULTI_POD_PLAN = ShardPlan(
+    dp=("pod", "data"), fsdp=("pod", "data"), tp=("model",),
+    ep=("data", "model"), pp=("pod",))
+
+
+# ---------------------------------------------------------------------------
+# Axes, query padding and the collective
+# ---------------------------------------------------------------------------
+
+
+def _axes_size(mesh, axes) -> int:
+    shape = _mesh_shape(mesh)
+    return math.prod(int(shape[a]) for a in axes)
+
+
+def _q_spec(query_axes) -> tuple:
+    """The queries' per-dimension axes: batch over ``query_axes``."""
+    return (tuple(query_axes), None) if query_axes else (None, None)
+
+
+def _check_disjoint(axes, query_axes):
+    """Corpus and query axes must not overlap: the merge gathers over the
+    corpus axes, and a shared axis would merge results that belong to
+    different queries."""
+    overlap = set(axes) & set(query_axes)
+    if overlap:
+        raise ValueError(
+            f"query_axes {tuple(query_axes)} overlap corpus axes "
+            f"{tuple(axes)} on {sorted(overlap)}; pass disjoint axes, e.g. "
+            "axes=('data',), query_axes=('model',)")
+
+
+def _query_grid(mesh, query_axes) -> int:
+    return _axes_size(mesh, query_axes) if mesh is not None and query_axes \
+        else 1
+
+
+def _grid_pad(a: np.ndarray, n_q: int, fill=0) -> np.ndarray:
+    """``a``'s rows padded with ``fill`` to a multiple of ``n_q``."""
+    B = a.shape[0]
+    Bp = -(-B // n_q) * n_q
+    if Bp == B:
+        return a
+    return np.pad(a, ((0, Bp - B),) + ((0, 0),) * (a.ndim - 1),
+                  constant_values=fill)
+
+
+def _pad_batch(queries, n_q: int) -> np.ndarray:
+    """Float32 queries zero-padded to a multiple of ``n_q`` rows."""
+    return _grid_pad(np.asarray(queries, np.float32), n_q)
+
+
+def _pad_terms(q_terms, q_weights, n_q: int):
+    """The lexical operands padded like ``_pad_batch``: pad rows get term
+    -1 (matches no slab slot) and weight 0, so they score nothing."""
+    return (_grid_pad(np.asarray(q_terms, np.int32), n_q, fill=-1),
+            _grid_pad(np.asarray(q_weights, np.float32), n_q))
+
+
+def _pad_queries(mesh, queries, query_axes):
+    """Zero-pad the batch to a multiple of the query axes' size: (padded
+    float32 queries, B)."""
+    return _pad_batch(queries, _query_grid(mesh, query_axes)), len(queries)
+
+
+def _pad_term_queries(mesh, q_terms, q_weights, query_axes):
+    """``_pad_terms`` to the query axes' size: (terms, weights, B)."""
+    return (*_pad_terms(q_terms, q_weights, _query_grid(mesh, query_axes)),
+            len(q_terms))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSlot:
+    """Where one process sits: corpus shard ``lin`` of ``n_dev`` and query
+    block ``qlin`` of ``n_q``."""
+    n_dev: int = 1
+    lin: int = 0
+    n_q: int = 1
+    qlin: int = 0
+
+
+def _row_major(coord: dict, shape: dict, axes) -> int:
+    lin = 0
+    for a in axes:
+        lin = lin * int(shape[a]) + int(coord[a])
+    return lin
+
+
+def _all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """``out`` = every member's ``inp`` concatenated on dim 0, in group
+    rank order.  ``all_gather_into_tensor`` is the one call form that
+    gloo and NCCL, CPU and CUDA tensors, and torch 2.11 and 2.13 all take
+    (2.13 deprecates it for ``all_gather_single``, which 2.11 lacks)."""
+    dist.all_gather_into_tensor(out, inp, group=group)
+
+
+class MeshCollective:
+    """The collectives of one rank of a ``DeviceMesh`` over ``axes``
+    (corpus) and ``query_axes`` (batch).
+
+    Only the mesh's own per-dimension groups are used, so nothing here
+    creates a process group.  A gather over several axes is one gather a
+    axis, innermost first: the result is row-major over the axes in the
+    order given, whatever the mesh's order.  A group's members are
+    reordered by their coordinate where the group's rank order differs.
+    The mesh broadcast runs from the root (every coordinate 0) along one
+    dimension after another."""
+
+    def __init__(self, mesh, axes=("data", "model"), query_axes=()):
+        axes, query_axes = tuple(axes), tuple(query_axes)
+        _check_disjoint(axes, query_axes)
+        self.mesh = mesh
+        self.names = tuple(mesh.mesh_dim_names)
+        shape = _mesh_shape(mesh)
+        for a in axes + query_axes:
+            if a not in shape:
+                raise KeyError(f"axis {a!r} is not a dimension of the mesh "
+                               f"{self.names}")
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError("this rank is not in the mesh")
+        self.coord = tuple(int(c) for c in coord)
+        c = dict(zip(self.names, self.coord))
+        self.slot = ShardSlot(
+            n_dev=_axes_size(mesh, axes), lin=_row_major(c, shape, axes),
+            n_q=_axes_size(mesh, query_axes) if query_axes else 1,
+            qlin=_row_major(c, shape, query_axes))
+        self.root = not any(self.coord)
+        self.size = int(mesh.mesh.numel())
+        self._corpus = [self._axis(a) for a in reversed(axes)]
+        self._query = [self._axis(a) for a in reversed(query_axes)]
+
+    def _axis(self, name: str):
+        """(group, size, order) of this rank's group along ``name``:
+        ``order`` puts the gathered blocks in coordinate order, or None."""
+        dim = self.names.index(name)
+        group = self.mesh.get_group(name)
+        ranks = dist.get_process_group_ranks(group)
+        flat = self.mesh.mesh
+        coords = [int((flat == r).nonzero()[0][dim]) for r in ranks]
+        order = None
+        if coords != list(range(len(ranks))):
+            order = torch.as_tensor(np.argsort(coords))
+        return group, len(ranks), order
+
+    @staticmethod
+    def _gather(x: torch.Tensor, chain) -> torch.Tensor:
+        out = x[None]
+        for group, n, order in chain:
+            buf = out.new_empty((n * out.shape[0],) + out.shape[1:])
+            _all_gather(buf, out.contiguous(), group)
+            buf = buf.view((n,) + tuple(out.shape))
+            if order is not None:
+                buf = buf[order.to(buf.device)]
+            out = buf.reshape((n * out.shape[0],) + tuple(out.shape[1:]))
+        return out
+
+    def _gather_pairs(self, d, i, chain):
+        """Distances and ids in one gather: the float32 distances travel
+        as their int32 bit patterns, so the bytes arrive unchanged."""
+        k = d.shape[1]
+        packed = torch.cat([d.contiguous().view(torch.int32),
+                            i.to(torch.int32)], dim=1)
+        g = self._gather(packed, chain)
+        return g[..., :k].view(torch.float32), g[..., k:]
+
+    def gather_corpus(self, ld, li):
+        """(B, k) per shard -> (S, B, k) in ``lin`` order."""
+        return self._gather_pairs(ld, li, self._corpus)
+
+    def gather_queries(self, d, i):
+        """Merged (b, k) per query block -> (n_q * b, k) in block order."""
+        gd, gi = self._gather_pairs(d, i, self._query)
+        return gd.reshape(-1, d.shape[1]), gi.reshape(-1, d.shape[1])
+
+    def _broadcast_steps(self):
+        """(group, source global rank) of each step of the root's
+        broadcast this rank takes part in."""
+        for dim, name in enumerate(self.names):
+            if any(self.coord[dim + 1:]):
+                continue
+            src = self.coord[:dim] + (0,) + self.coord[dim + 1:]
+            yield self.mesh.get_group(name), int(self.mesh.mesh[src])
+
+    def broadcast_object(self, obj):
+        """The root's ``obj`` on every rank of the mesh."""
+        box = [obj]
+        for group, src in self._broadcast_steps():
+            dist.broadcast_object_list(box, src=src, group=group)
+        return box[0]
+
+    def broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """The root's tensor into ``t`` (same shape and dtype) everywhere."""
+        for group, src in self._broadcast_steps():
+            dist.broadcast(t, src=src, group=group)
+        return t
+
+
+def search_blocks(call, operands, B: int, k: int, slot: ShardSlot,
+                  coll: Optional[MeshCollective] = None):
+    """One sharded search on this rank: take query block ``slot.qlin`` of
+    ``operands`` (per-query tensors padded to the query grid), run
+    ``call`` (the shard's local: (B, k) top-k, global ids), merge over
+    the corpus shards and gather the blocks.  Returns the merged (B, k),
+    the same on every rank.  Without ``coll`` the local is the only
+    shard."""
+    bq = operands[0].shape[0] // slot.n_q
+    block = tuple(o[slot.qlin * bq:(slot.qlin + 1) * bq] for o in operands)
+    ld, li = call(*block)
+    if coll is None:
+        d, i = _merge_gathered(ld[None], li[None], k)
+    else:
+        d, i = _merge_gathered(*coll.gather_corpus(ld, li), k)
+        if slot.n_q > 1:
+            d, i = coll.gather_queries(d, i)
+    return d[:B], i[:B]
+
+
+# ---------------------------------------------------------------------------
+# Device arrays: each rank places shard ``lin`` of ``n_dev``
+# ---------------------------------------------------------------------------
 
 
 def _row_valid(n: int, rows: int, alive=None) -> np.ndarray:
@@ -54,77 +366,101 @@ def _row_valid(n: int, rows: int, alive=None) -> np.ndarray:
     return valid.astype(np.int32)
 
 
-def _brute_device_arrays(db, device, rows=None, alive=None):
-    """Zero-pad db rows to the shard's row grid.  Pads (and tombstoned
-    rows, via ``alive``) are masked by an explicit int32 per-row ``valid``
-    operand, never by inf-valued vectors (whose distances would evaluate
-    to ``inf - inf = NaN``).  Returns (padded db, valid).
-    """
+def _shard_rows(a: np.ndarray, lin: int, rows: int, fill=0) -> np.ndarray:
+    """Rows ``[lin * rows, (lin + 1) * rows)`` of ``a``, padded with
+    ``fill`` past its end."""
+    part = a[lin * rows:(lin + 1) * rows]
+    if part.shape[0] == rows:
+        return part
+    pad = ((0, rows - part.shape[0]),) + ((0, 0),) * (a.ndim - 1)
+    return np.pad(part, pad, constant_values=fill)
+
+
+def _brute_device_arrays(db, device, rows=None, alive=None, lin=0, n_dev=1):
+    """Zero-pad db rows to the shard grid (``rows`` a shard) and place
+    shard ``lin``.  Pads (and tombstoned rows, via ``alive``) are masked
+    by an explicit int32 per-row ``valid`` operand, never by inf-valued
+    vectors (whose distances would evaluate to ``inf - inf = NaN``).
+    Returns (the shard's padded db, its valid, the whole grid's valid on
+    the host)."""
     db = np.asarray(db, np.float32)
     n = db.shape[0]
-    valid = _row_valid(n, n if rows is None else rows, alive)
-    dbp = torch.zeros((valid.size, db.shape[1]), dtype=torch.float32,
-                      device=device)
-    dbp[:n] = torch.as_tensor(db, device=device)
-    return dbp, torch.as_tensor(valid, device=device)
+    rows = -(-n // n_dev) if rows is None else rows
+    valid = _row_valid(n, rows * n_dev, alive)
+    return (torch.as_tensor(_shard_rows(db, lin, rows), device=device),
+            torch.as_tensor(_shard_rows(valid, lin, rows), device=device),
+            valid)
 
 
-def _brute_int8_device_arrays(db, device, rows=None, alive=None):
+def _brute_int8_device_arrays(db, device, rows=None, alive=None, lin=0,
+                              n_dev=1):
     """int8 counterpart of ``_brute_device_arrays``: per-row symmetric
-    quantization (``kernels.ops.quantize_rows_int8``) before padding, so
-    pad rows are zero codes with scale 1.0 (they dequantize to exact zero)
-    and are masked by ``valid`` like every other dead row.  Returns
-    (codes, scales, valid)."""
+    quantization (``kernels.ops.quantize_rows_int8``, row by row, so the
+    shard quantizes alone), pad rows zero codes with scale 1.0 (they
+    dequantize to exact zero), masked by ``valid`` like every other dead
+    row.  Returns (codes, scales, valid, the grid's valid on the host)."""
     db = np.asarray(db, np.float32)
     n = db.shape[0]
-    valid = _row_valid(n, n if rows is None else rows, alive)
-    codes, scales = kernel_ops.quantize_rows_int8(db)
-    pad = valid.size - n
+    rows = -(-n // n_dev) if rows is None else rows
+    valid = _row_valid(n, rows * n_dev, alive)
+    codes, scales = kernel_ops.quantize_rows_int8(db[lin * rows:
+                                                     (lin + 1) * rows])
+    pad = rows - codes.shape[0]
     codes = np.pad(codes, ((0, pad), (0, 0)))
     scales = np.pad(scales, (0, pad), constant_values=1.0)
     return (torch.as_tensor(codes, device=device),
             torch.as_tensor(scales, device=device),
-            torch.as_tensor(valid, device=device))
+            torch.as_tensor(_shard_rows(valid, lin, rows), device=device),
+            valid)
 
 
-def _lexical_device_arrays(terms, tf_sat, device, rows=None, alive=None):
+def _lexical_device_arrays(terms, tf_sat, device, rows=None, lin=0,
+                           n_dev=1):
     """Postings-slab counterpart of ``_brute_device_arrays``: term rows
     padded with -1 (no aliasing of term id 0), tf rows with zeros; pads
-    and tombstones are masked by the same ``valid`` operand.  Returns
-    (terms, tf_sat, valid)."""
+    and tombstones are masked by the brute scan's ``valid``.  Returns the
+    shard's (terms, tf_sat)."""
     t = np.asarray(terms, np.int32)
     f = np.asarray(tf_sat, np.float32)
-    n = t.shape[0]
-    valid = _row_valid(n, n if rows is None else rows, alive)
-    pad = valid.size - n
-    return (torch.as_tensor(np.pad(t, ((0, pad), (0, 0)),
-                                   constant_values=-1), device=device),
-            torch.as_tensor(np.pad(f, ((0, pad), (0, 0))), device=device),
-            torch.as_tensor(valid, device=device))
+    rows = -(-t.shape[0] // n_dev) if rows is None else rows
+    _row_valid(t.shape[0], rows * n_dev)
+    return (torch.as_tensor(_shard_rows(t, lin, rows, fill=-1),
+                            device=device),
+            torch.as_tensor(_shard_rows(f, lin, rows), device=device))
 
 
-def _ivf_device_arrays(index, device, cap=None):
-    """Place a built TwoLevelIndex's centroid and bucket tables, bucket
-    width padded to ``cap`` (update headroom): zero vectors and -1 ids in
-    the pad, masked by id.  Returns (centroids, bucket ids, bucket vectors
-    (K, cap, d)).  The bucket vectors are gathered once here, so a probe
-    step reads its tile without touching the corpus."""
+def _ivf_host_bids(index, cap: int, n_dev: int) -> np.ndarray:
+    """Every shard's bucket ids, the tables padded to ``ceil(K / S) * S``
+    buckets of width ``cap`` (-1 in the pads)."""
     K, cap_now = index.bucket_ids.shape
-    if cap is None:
-        cap = cap_now
     if cap < cap_now:
         raise ValueError(
             f"bucket cap grew to {cap_now} > reserved {cap}; rebuild the "
             "backend (or raise headroom)")
-    cents = torch.as_tensor(np.asarray(index.centroids, np.float32),
-                            device=device)
-    bids = torch.full((K, cap), -1, dtype=torch.int32, device=device)
-    bids[:, :cap_now] = torch.as_tensor(
-        np.asarray(index.bucket_ids, np.int32), device=device)
+    Kp = -(-K // n_dev) * n_dev
+    bids = np.full((Kp, cap), -1, np.int32)
+    bids[:K, :cap_now] = np.asarray(index.bucket_ids, np.int32)
+    return bids
+
+
+def _ivf_device_arrays(index, device, cap=None, lin=0, n_dev=1):
+    """Place shard ``lin`` of a built TwoLevelIndex's centroid and bucket
+    tables, padded to ``ceil(K / S) * S`` buckets of width ``cap`` (update
+    headroom): zero vectors and -1 ids in the pads, masked by id (and pad
+    centroids by global bucket index, in the local).  Returns (centroids,
+    bucket ids, bucket vectors (Kloc, cap, d), every shard's bucket ids on
+    the host).  The bucket vectors are gathered once here, so a probe
+    step reads its tile without touching the corpus."""
+    cap = index.bucket_ids.shape[1] if cap is None else cap
+    host = _ivf_host_bids(index, cap, n_dev)
+    kloc = host.shape[0] // n_dev
+    cents = _shard_rows(np.asarray(index.centroids, np.float32), lin, kloc)
+    cents = torch.as_tensor(cents, device=device)
+    bids = torch.as_tensor(host[lin * kloc:(lin + 1) * kloc], device=device)
     db = torch.as_tensor(np.asarray(index.db, np.float32), device=device)
     bvecs = db[torch.clamp(bids, min=0).long()]
     bvecs.masked_fill_((bids < 0)[..., None], 0.0)
-    return cents, bids, bvecs
+    return cents, bids, bvecs, host
 
 
 def _merge_gathered(gd: torch.Tensor, gi: torch.Tensor, k: int):
@@ -137,23 +473,19 @@ def _merge_gathered(gd: torch.Tensor, gi: torch.Tensor, k: int):
     return d, torch.where(torch.isinf(d), -1, ids)
 
 
-def _gather_shards(ld: torch.Tensor, li: torch.Tensor):
-    """All-gather over the corpus shards: with one card, the stack of its
-    own result."""
-    return ld[None], li[None]
-
-
-def _finish_local(ld, li, k: int):
-    """A row-sharded local's (B, k_loc) top-k -> the merged (B, k).  One
-    shard: its row ids are the global ids (more shards add the shard's
-    row offset here, keeping the -1 sentinel)."""
+def _finish_local(ld, li, k: int, lin: int, shard_rows: int):
+    """A row-sharded local's (B, k_loc) top-k -> (B, k) with global ids:
+    the shard's row offset added, the -1 sentinel kept, inf / -1 past
+    k_loc."""
     li = li.to(torch.int32)
+    if lin:
+        li = torch.where(li >= 0, li + lin * shard_rows, -1).to(torch.int32)
     k_loc = ld.shape[1]
     if k_loc < k:
         b = ld.shape[0]
         ld = torch.cat([ld, ld.new_full((b, k - k_loc), INF)], dim=1)
         li = torch.cat([li, li.new_full((b, k - k_loc), -1)], dim=1)
-    return _merge_gathered(*_gather_shards(ld, li), k)
+    return ld, li
 
 
 def _masked_topk(dist, valid_shard, k_loc: int):
@@ -164,9 +496,10 @@ def _masked_topk(dist, valid_shard, k_loc: int):
 
 def make_sharded_brute_fn(k: int, shard_rows: int, *, fused: bool = True,
                           precision: str = "f32"):
-    """Exact search over a row-sharded corpus: ``fn(db, valid, q)``, or
-    with ``precision="int8"`` (fused only) ``fn(codes, scales, valid, q)``
-    over per-row-scaled int8 codes.
+    """Exact search over a row-sharded corpus: ``fn(db, valid, q, lin=0)``,
+    or with ``precision="int8"`` (fused only) ``fn(codes, scales, valid,
+    q, lin=0)`` over per-row-scaled int8 codes; the shard's (B, k) top-k
+    with global row ids.
 
     Pad and tombstoned rows are masked by the ``valid`` operand, which is
     data, so a mutated corpus can be re-placed into the same shapes.
@@ -179,31 +512,31 @@ def make_sharded_brute_fn(k: int, shard_rows: int, *, fused: bool = True,
                          "pass fused=True")
     k_loc = min(k, shard_rows)   # a shard may hold fewer rows than k
 
-    def local(db_shard, valid_shard, q):
+    def local(db_shard, valid_shard, q, lin: int = 0):
         if fused:
             ld, li = kernel_ops.l2_topk_op(q, db_shard, k_loc,
                                            valid=valid_shard)
         else:
             ld, li = _masked_topk(pairwise_l2sq(q, db_shard), valid_shard,
                                   k_loc)
-        return _finish_local(ld, li, k)
+        return _finish_local(ld, li, k, lin, shard_rows)
 
-    def local_int8(codes_shard, scales_shard, valid_shard, q):
+    def local_int8(codes_shard, scales_shard, valid_shard, q, lin: int = 0):
         ld, li = kernel_ops.l2_topk_int8_op(q, codes_shard, scales_shard,
                                             k_loc, valid=valid_shard)
-        return _finish_local(ld, li, k)
+        return _finish_local(ld, li, k, lin, shard_rows)
 
     return local_int8 if precision == "int8" else local
 
 
 def make_sharded_lexical_fn(k: int, shard_rows: int, *, fused: bool = True):
-    """BM25 scan over row-sharded postings slabs — the brute layout with
+    """BM25 scan over row-sharded postings slabs -- the brute layout with
     term/tf slabs in place of vectors: ``fn(terms, tf_sat, valid,
-    q_terms, q_weights)``.  Filters and tombstones compose through
+    q_terms, q_weights, lin=0)``.  Filters and tombstones compose through
     ``valid`` as in the brute scan."""
     k_loc = min(k, shard_rows)
 
-    def local(terms_shard, tf_shard, valid_shard, qt, qw):
+    def local(terms_shard, tf_shard, valid_shard, qt, qw, lin: int = 0):
         if fused:
             ld, li = kernel_ops.bm25_topk_op(qt, qw, terms_shard, tf_shard,
                                              k_loc, valid=valid_shard)
@@ -211,7 +544,7 @@ def make_sharded_lexical_fn(k: int, shard_rows: int, *, fused: bool = True):
             ld, li = _masked_topk(
                 bm25_dists_ref(qt, qw, terms_shard, tf_shard), valid_shard,
                 k_loc)
-        return _finish_local(ld, li, k)
+        return _finish_local(ld, li, k, lin, shard_rows)
 
     return local
 
@@ -219,11 +552,11 @@ def make_sharded_lexical_fn(k: int, shard_rows: int, *, fused: bool = True):
 def make_sharded_hybrid_fn(k: int, shard_rows: int, *, fused: bool = True):
     """Semantic L2 and BM25 fused per shard as ``alpha * l2sq - (1 -
     alpha) * bm25``: ``fn(db, terms, tf_sat, valid, q, q_terms, q_weights,
-    alpha)``, ``alpha`` a (1, 1) float32 tensor on the device."""
+    alpha, lin=0)``, ``alpha`` a (1, 1) float32 tensor on the device."""
     k_loc = min(k, shard_rows)
 
     def local(db_shard, terms_shard, tf_shard, valid_shard, q, qt, qw,
-              alpha):
+              alpha, lin: int = 0):
         if fused:
             ld, li = kernel_ops.hybrid_topk_op(
                 q, db_shard, qt, qw, terms_shard, tf_shard, alpha, k_loc,
@@ -234,34 +567,36 @@ def make_sharded_hybrid_fn(k: int, shard_rows: int, *, fused: bool = True):
             a = alpha.reshape(1, 1)
             ld, li = _masked_topk(a * d2 - (1.0 - a) * score, valid_shard,
                                   k_loc)
-        return _finish_local(ld, li, k)
+        return _finish_local(ld, li, k, lin, shard_rows)
 
     return local
 
 
-def make_sharded_ivf_fn(k: int, nprobe_local: int, n_buckets: int, *,
-                        fused: bool = True):
+def make_sharded_ivf_fn(k: int, nprobe_local: int, buckets_per_shard: int,
+                        n_buckets: int, *, fused: bool = True):
     """Two-level, brute bottom, over a bucket-sharded index:
-    ``fn(cents, bucket_ids, bucket_vecs, q)``.
+    ``fn(cents, bucket_ids, bucket_vecs, q, lin=0)``.
 
-    The shard (1) scores its ``n_buckets`` centroids, (2) probes its
-    ``nprobe_local`` best buckets, and (3) contributes its top-k to the
-    merge.  Fused, step (2) is one ``bucket_probe_topk_op`` call (on the
-    card one scan and one merge launch, the bucket rows read inside the
-    kernel); unfused, it is the reference's step-by-step loop with a
-    carried running best.  (Sharded over more cards, the bucket tables are
-    padded to the shard grid and the pads are masked by global bucket
-    index, as in the reference.)
+    The shard (1) scores its ``buckets_per_shard`` centroids, the pads
+    past the ``n_buckets`` real ones (global bucket index) at +inf, (2)
+    probes its ``nprobe_local`` best buckets, and (3) returns its top-k
+    (the bucket tables hold global ids).  Fused, step (2) is one
+    ``bucket_probe_topk_op`` call (on the card one scan and one merge
+    launch, the bucket rows read inside the kernel); unfused, it is the
+    reference's step-by-step loop with a carried running best.
     """
-    nprobe_local = min(nprobe_local, n_buckets)
+    nprobe_local = min(nprobe_local, buckets_per_shard)
 
-    def local(cents, bucket_ids, bucket_vecs, q):
-        d2c = pairwise_l2sq(q, cents)                      # (B, K)
+    def local(cents, bucket_ids, bucket_vecs, q, lin: int = 0):
+        d2c = pairwise_l2sq(q, cents)                      # (B, Kloc)
+        if (lin + 1) * buckets_per_shard > n_buckets:      # pad centroids
+            gbucket = lin * buckets_per_shard + torch.arange(
+                buckets_per_shard, device=q.device)
+            d2c = torch.where(gbucket[None, :] < n_buckets, d2c, INF)
         _, probe = stable_topk(d2c, nprobe_local)          # (B, np)
         if fused:
-            best_d, best_i = kernel_ops.bucket_probe_topk_op(
+            return kernel_ops.bucket_probe_topk_op(
                 q, probe, bucket_ids, k, bucket_vecs=bucket_vecs)
-            return _merge_gathered(*_gather_shards(best_d, best_i), k)
         B = q.shape[0]
         best_d = q.new_full((B, k), INF)
         best_i = torch.full((B, k), -1, dtype=torch.int32, device=q.device)
@@ -274,7 +609,7 @@ def make_sharded_ivf_fn(k: int, nprobe_local: int, n_buckets: int, *,
             cat_i = torch.cat([best_i, ids], dim=1)
             best_d, sel = stable_topk(cat_d, k)
             best_i = torch.gather(cat_i, 1, sel)
-        return _merge_gathered(*_gather_shards(best_d, best_i), k)
+        return best_d, best_i
 
     return local
 
@@ -414,7 +749,8 @@ def forest_shard_shapes(index, n_dev: int, headroom: float = 1.0,
 
 
 def shard_forest(index, n_dev: int, *,
-                 shapes: Optional[ForestShardShapes] = None) -> dict:
+                 shapes: Optional[ForestShardShapes] = None,
+                 only: Optional[int] = None) -> dict:
     """Slice a built forest index into ``n_dev`` equal-shape shards.
 
     The two-level build concatenates per-bucket trees into one node table
@@ -437,9 +773,13 @@ def shard_forest(index, n_dev: int, *,
     (every bucket at a fixed per-slot window — the delta-shipping
     layout); the two layouts produce identical search results, they only
     differ in padding placement.
+
+    ``only`` slices shard ``only`` alone (leading dimension 1), the same
+    arrays as ``[only:only + 1]`` of the whole slicing: what one rank
+    places.
     """
     if shapes is not None and shapes.node_slab > 0:
-        return _shard_forest_slab(index, shapes)
+        return _shard_forest_slab(index, shapes, only)
     slices, Kloc = _forest_slices(index, n_dev)
     f = index.forest
     K, cap_now = index.bucket_ids.shape
@@ -475,24 +815,13 @@ def shard_forest(index, n_dev: int, *,
                 "forest outgrew the reserved shard shapes ("
                 + ", ".join(over)
                 + "); rebuild the backend (or raise headroom)")
-    Kloc, cap = shapes.kloc, shapes.cap
-    padN, padL, leaf_sz = shapes.nodes, shapes.leaves, shapes.leaf_sz
-    dead = padN                               # per-shard dead-leaf node id
-
-    out = {
-        "proj": np.zeros((n_dev, padN + 1, d), np.float32),
-        "dims": np.zeros((n_dev, padN + 1), arrays["dims"].dtype),
-        "tau": np.zeros((n_dev, padN + 1), np.float32),
-        "children": np.full((n_dev, padN + 1, 2), -1, np.int32),
-        "leaf_row": np.full((n_dev, padN + 1), -1, np.int32),
-        "leaf_entities": np.full((n_dev, padL, leaf_sz), -1, np.int32),
-        "roots": np.full((n_dev, Kloc), dead, np.int32),
-        "valid": np.zeros((n_dev, Kloc), bool),
-        "cents": np.zeros((n_dev, Kloc, d), np.float32),
-        "bucket_ids": np.full((n_dev, Kloc, cap), -1, np.int32),
-        "bvecs": np.zeros((n_dev, Kloc, cap, d), np.float32),
-    }
-    for s, (b0, b1, N0, N1, L0, L1) in enumerate(slices):
+    Kloc, cap, leaf_sz = shapes.kloc, shapes.cap, shapes.leaf_sz
+    out = _forest_tables(n_dev if only is None else 1, shapes, d,
+                         arrays["dims"].dtype)
+    for s_in, (b0, b1, N0, N1, L0, L1) in enumerate(slices):
+        if only is not None and s_in != only:
+            continue
+        s = s_in if only is None else 0
         nb, nn, nl = b1 - b0, N1 - N0, L1 - L0
         if nb == 0:
             continue
@@ -609,12 +938,36 @@ def _bucket_slab_payload(index, shapes: ForestShardShapes, b: int, j: int,
     }
 
 
-def _shard_forest_slab(index, shapes: ForestShardShapes) -> dict:
+def _forest_tables(n_out: int, shapes: ForestShardShapes, d: int,
+                   dims_dtype) -> dict:
+    """Empty stacked shard tables: pads, -1 links, roots at each shard's
+    dead node (row ``nodes``)."""
+    padN, padL, Kloc, cap = (shapes.nodes, shapes.leaves, shapes.kloc,
+                             shapes.cap)
+    return {
+        "proj": np.zeros((n_out, padN + 1, d), np.float32),
+        "dims": np.zeros((n_out, padN + 1), dims_dtype),
+        "tau": np.zeros((n_out, padN + 1), np.float32),
+        "children": np.full((n_out, padN + 1, 2), -1, np.int32),
+        "leaf_row": np.full((n_out, padN + 1), -1, np.int32),
+        "leaf_entities": np.full((n_out, padL, shapes.leaf_sz), -1,
+                                 np.int32),
+        "roots": np.full((n_out, Kloc), padN, np.int32),
+        "valid": np.zeros((n_out, Kloc), bool),
+        "cents": np.zeros((n_out, Kloc, d), np.float32),
+        "bucket_ids": np.full((n_out, Kloc, cap), -1, np.int32),
+        "bvecs": np.zeros((n_out, Kloc, cap, d), np.float32),
+    }
+
+
+def _shard_forest_slab(index, shapes: ForestShardShapes,
+                       only: Optional[int] = None) -> dict:
     """Slab-layout slicer: same output contract as the packed
     ``shard_forest`` (stacked host arrays + ``max_depth``), but bucket
     ``b`` always lands at slot ``b % kloc`` of shard ``b // kloc`` with
     fixed node/leaf windows — so a mutated bucket later re-ships as a
-    standalone slab (:func:`slice_forest_delta`)."""
+    standalone slab (:func:`slice_forest_delta`).  ``only``: that shard
+    alone."""
     f = index.forest
     K = index.bucket_ids.shape[0]
     n_dev, Kloc = shapes.n_dev, shapes.kloc
@@ -631,26 +984,15 @@ def _shard_forest_slab(index, shapes: ForestShardShapes) -> dict:
     roots = np.asarray(f.roots, dtype=np.int64)
     windows = _bucket_windows(index)
     d = index.db.shape[1]
-    padN, padL, cap = shapes.nodes, shapes.leaves, shapes.cap
-    dead = padN                               # per-shard dead-leaf node id
-    out = {
-        "proj": np.zeros((n_dev, padN + 1, d), np.float32),
-        "dims": np.zeros((n_dev, padN + 1), arrays["dims"].dtype),
-        "tau": np.zeros((n_dev, padN + 1), np.float32),
-        "children": np.full((n_dev, padN + 1, 2), -1, np.int32),
-        "leaf_row": np.full((n_dev, padN + 1), -1, np.int32),
-        "leaf_entities": np.full((n_dev, padL, shapes.leaf_sz), -1,
-                                 np.int32),
-        "roots": np.full((n_dev, Kloc), dead, np.int32),
-        "valid": np.zeros((n_dev, Kloc), bool),
-        "cents": np.zeros((n_dev, Kloc, d), np.float32),
-        "bucket_ids": np.full((n_dev, Kloc, cap), -1, np.int32),
-        "bvecs": np.zeros((n_dev, Kloc, cap, d), np.float32),
-    }
+    cap = shapes.cap
+    out = _forest_tables(n_dev if only is None else 1, shapes, d,
+                         arrays["dims"].dtype)
     ns, ls = shapes.node_slab, shapes.leaf_slab
     slot_of = _slab_slot_of(index, Kloc, cap)
-    for b in range(K):
-        s, j = b // Kloc, b % Kloc
+    first = 0 if only is None else only * Kloc
+    last = K if only is None else min((only + 1) * Kloc, K)
+    for b in range(first, last):
+        s, j = b // Kloc - first // Kloc, b % Kloc
         p = _bucket_slab_payload(index, shapes, b, j, arrays, roots,
                                  windows, slot_of)
         out["proj"][s, j * ns:(j + 1) * ns] = p["proj"]
@@ -738,8 +1080,9 @@ def make_sharded_forest_fn(k: int, nprobe_local: int, beam_width: int,
                            fused: bool = True):
     """Two-level, tree/QLBT bottom, over a bucket-sharded forest:
     ``fn(cents, valid, roots, bucket_ids, bvecs, proj, dims, tau, children,
-    leaf_row, leaf_entities, q)``, each table with its leading shard dim
-    (length 1 on one card).
+    leaf_row, leaf_entities, q, lin=0)``, each table with its leading
+    shard dim (length 1: the rank's shard); the shard's (B, k) top-k with
+    global ids (its ``bucket_ids`` map slot ids to them).
 
     The shard scores its centroids, descends its forest for the
     ``nprobe_local`` best buckets (one batched beam search over the
@@ -752,7 +1095,7 @@ def make_sharded_forest_fn(k: int, nprobe_local: int, beam_width: int,
     from repro_torch.core.tree import tree_search
 
     def local(cents, valid, roots, bids, bvecs, proj, dims, tau, children,
-              leaf_row, leaf_ents, q):
+              leaf_row, leaf_ents, q, lin: int = 0):
         cents, valid, roots = cents[0], valid[0], roots[0]
         bids, bvecs = bids[0], bvecs[0]
         arrays = dict(proj=proj[0], dims=dims[0], tau=tau[0],
@@ -789,15 +1132,103 @@ def make_sharded_forest_fn(k: int, nprobe_local: int, beam_width: int,
             gids = flat_bids[torch.clamp(slot, min=0).long()]
             li = torch.where((slot >= 0) & ~torch.isinf(ld), gids, -1)
             ld, li = pad_sentinel(ld, li, k, k_eff)
-        return _merge_gathered(*_gather_shards(ld, li.to(torch.int32)), k)
+        return ld, li.to(torch.int32)
 
     return local
 
 
-def _forest_device_arrays(index, device, shapes=None):
-    """Slice ``index``'s forest (one shard) and place every table on
-    ``device``.  Returns ({name: tensor}, {name: host array} with
-    ``max_depth``)."""
-    sh = shard_forest(index, 1, shapes=shapes)
+def _forest_device_arrays(index, device, shapes=None, lin=0, n_dev=1):
+    """Slice shard ``lin`` of ``n_dev`` of ``index``'s forest and place it
+    on ``device`` (its leading dimension kept, length 1).  Returns
+    ({name: tensor}, {name: the shard's host array} with ``max_depth``)."""
+    sh = shard_forest(index, n_dev, shapes=shapes, only=lin)
     return ({name: torch.as_tensor(v, device=device)
              for name, v in sh.items() if name != "max_depth"}, sh)
+
+
+# ---------------------------------------------------------------------------
+# Host entries: collective calls, every rank gets the numpy (B, k)
+# ---------------------------------------------------------------------------
+
+
+def _mesh_slot(mesh, axes, query_axes):
+    """(collective, slot) of this rank, or (None, one shard) without a
+    mesh."""
+    if mesh is None:
+        _check_disjoint(axes, query_axes)
+        return None, ShardSlot()
+    coll = MeshCollective(mesh, axes, query_axes)
+    return coll, coll.slot
+
+
+def _host_result(d, i):
+    return d.cpu().numpy(), i.cpu().numpy()
+
+
+def sharded_brute_search(mesh, db, queries, k=10, axes=("data", "model"),
+                         query_axes=(), fused=True, precision="f32",
+                         device=None):
+    """Exact search with the rows of ``db`` sharded over ``axes`` (one
+    shard a rank) and the batch over ``query_axes``, a disjoint axis set.
+    A collective call: every rank of ``mesh`` calls it with the same
+    arguments and gets the numpy (B, k).  ``mesh=None`` is one shard."""
+    from repro_torch.device import resolve
+
+    dev = resolve(device, mesh)
+    coll, slot = _mesh_slot(mesh, axes, query_axes)
+    db = np.asarray(db, np.float32)
+    rows = -(-db.shape[0] // slot.n_dev)
+    place = (_brute_int8_device_arrays if precision == "int8"
+             else _brute_device_arrays)
+    tables = place(db, dev, rows=rows, lin=slot.lin, n_dev=slot.n_dev)[:-1]
+    fn = make_sharded_brute_fn(k, rows, fused=fused, precision=precision)
+    q, B = _pad_queries(mesh, queries, query_axes)
+    return _host_result(*search_blocks(
+        lambda qb: fn(*tables, qb, lin=slot.lin),
+        (torch.as_tensor(q, device=dev),), B, k, slot, coll))
+
+
+def sharded_ivf_search(mesh, index, queries, k=10, nprobe_local=2,
+                       axes=("data", "model"), query_axes=(), fused=True,
+                       device=None):
+    """A built TwoLevelIndex (brute bottom) with its buckets sharded over
+    ``axes``: each shard probes its ``nprobe_local`` best buckets.  The
+    bucket tables hold global entity ids, so the merged ids compare with
+    the one-card index.  A collective call, as ``sharded_brute_search``."""
+    from repro_torch.device import resolve
+
+    dev = resolve(device, mesh)
+    coll, slot = _mesh_slot(mesh, axes, query_axes)
+    K = index.bucket_ids.shape[0]
+    tables = _ivf_device_arrays(index, dev, lin=slot.lin,
+                                n_dev=slot.n_dev)[:3]
+    fn = make_sharded_ivf_fn(k, nprobe_local, tables[0].shape[0], K,
+                             fused=fused)
+    q, B = _pad_queries(mesh, queries, query_axes)
+    return _host_result(*search_blocks(
+        lambda qb: fn(*tables, qb, lin=slot.lin),
+        (torch.as_tensor(q, device=dev),), B, k, slot, coll))
+
+
+def sharded_forest_search(mesh, index, queries, k=10, nprobe_local=2,
+                          beam_width=8, axes=("data", "model"),
+                          query_axes=(), fused=True, device=None):
+    """A built TwoLevelIndex with a tree / QLBT bottom, its forest sliced
+    over ``axes`` (the packed layout): each shard descends its own slice
+    before the merge.  A collective call, as ``sharded_brute_search``."""
+    from repro_torch.device import resolve
+
+    dev = resolve(device, mesh)
+    coll, slot = _mesh_slot(mesh, axes, query_axes)
+    placed, host = _forest_device_arrays(index, dev, lin=slot.lin,
+                                         n_dev=slot.n_dev)
+    fn = make_sharded_forest_fn(k, nprobe_local, beam_width,
+                                index.config.tree_leaf, host["max_depth"],
+                                fused=fused)
+    tables = tuple(placed[name] for name in (
+        "cents", "valid", "roots", "bucket_ids", "bvecs", "proj", "dims",
+        "tau", "children", "leaf_row", "leaf_entities"))
+    q, B = _pad_queries(mesh, queries, query_axes)
+    return _host_result(*search_blocks(
+        lambda qb: fn(*tables, qb, lin=slot.lin),
+        (torch.as_tensor(q, device=dev),), B, k, slot, coll))

@@ -23,7 +23,9 @@ wraps one search function:
 
   * online updates: :meth:`ServingCell.apply_updates` pops the target's
     delta manifest and hands it to the backend, which scatters the dirty
-    slices in place under its lock while the cell keeps serving.
+    slices in place under its lock while the cell keeps serving;
+  * across ranks: ``ServingCell.sharded(target, mesh=...)`` runs the cell
+    on the mesh's root rank; the other ranks follow its backend's calls.
 
 The result cache (which must fold the option key into its own key),
 likelihood estimator, hedging (and with it the hedge replica's
@@ -147,23 +149,34 @@ class ServingCell:
 
     @classmethod
     def sharded(cls, target, *, kind: str = "auto", k: int = 10,
+                mesh=None, axes=("data", "model"), query_axes=(),
                 nprobe_local: int = 2, beam_width: int = 8,
                 headroom: float = 1.0, delta_updates: bool = True,
                 fused: bool = True, device=None,
-                **cell_kw) -> "ServingCell":
+                **cell_kw) -> "Optional[ServingCell]":
         """Cell over a :class:`repro_torch.distributed.backend.
         ShardedSearchBackend` (corpus or index placed once, on the card
         unless ``device`` says otherwise); ``headroom`` > 1 reserves room
         for later ``apply_updates`` calls, ``beam_width`` and
         ``delta_updates`` configure the forest kind.  ``cell_kw`` passes
-        through to the cell (``max_batch``, ``max_wait_ms``, ``name``)."""
+        through to the cell (``max_batch``, ``max_wait_ms``, ``name``).
+
+        With a ``mesh`` (every rank calls this with the same arguments)
+        each rank places its shard over ``axes`` / ``query_axes``; the
+        mesh's root rank gets the cell, whose backend leads, and every
+        other rank follows the root's calls here until the cell is closed,
+        then gets None."""
         from repro_torch.distributed.backend import ShardedSearchBackend
 
         fn = ShardedSearchBackend(
-            target, kind=kind, k=k, nprobe_local=nprobe_local,
+            target, kind=kind, k=k, mesh=mesh, axes=axes,
+            query_axes=query_axes, nprobe_local=nprobe_local,
             beam_width=beam_width, headroom=headroom,
             delta_updates=delta_updates, fused=fused, device=device)
-        return cls(fn, **cell_kw)
+        if mesh is not None and not fn._coll.root:
+            fn.follow()
+            return None
+        return cls(fn.lead(), **cell_kw)
 
     def apply_updates(self, target, *, delta="auto", **kw):
         """Swap in a mutated corpus or index without stopping the cell.
@@ -177,9 +190,15 @@ class ServingCell:
         re-place, and an explicit manifest lets the caller manage popping.
         Returns the backend's republish stats (``mode`` / ``bytes`` /
         ``full_bytes`` / ``reason``).  This cell serves one backend: the
-        hedge replica the reference also updates is ROADMAP.md's module
-        item 4.
+        hedge replica the reference also updates, and a backend whose
+        followers would need the update too (the fleet's leader-driven
+        delta fan-out), are ROADMAP.md's module item 4.
         """
+        if getattr(self.search_fn, "leads", False):
+            raise NotImplementedError(
+                "apply_updates on a cell whose backend leads followers on "
+                "other ranks: the followers' update is the fleet tier's "
+                "delta fan-out (ROADMAP.md, module item 4)")
         if not hasattr(self.search_fn, "apply_updates"):
             raise TypeError(
                 f"search_fn {type(self.search_fn).__name__} has no "
@@ -280,6 +299,10 @@ class ServingCell:
     def close(self):
         self._stop.set()
         self._worker.join(timeout=5)
+        # a backend leading other ranks releases their follow() loops
+        stop = getattr(self.search_fn, "stop_followers", None)
+        if stop is not None:
+            stop()
         # a closed cell must not strand queued requests: fail them fast
         fail = CellFailure(cell=self.name,
                            error=RuntimeError(f"cell {self.name} closed"))

@@ -18,6 +18,12 @@ apart: the kernel's own ``d2`` of each returned pair comes from the fp32
 L2 scan (the same tile code, so the same bits), its score from
 :func:`lexical_scores_f32` (the kernels' float32 order), and the answer
 must then equal ``a * d2 - (1 - a) * score`` bit for bit.
+
+:func:`shard_loop` computes a sharded search in one process -- every
+shard's local with its own tables and its ``lin``, stacked and merged --
+which a search over a mesh of ranks must equal bit for bit on the same
+device: the collective only moves bytes.  Nothing on the main path calls
+it.
 """
 from __future__ import annotations
 
@@ -33,7 +39,8 @@ __all__ = ["OPTION_EDGES", "EDGE_ALPHAS", "PQ_EDGES", "HAMMING_EDGES",
            "pq_edge_operands", "hamming_edge_operands",
            "chain_edge_operands", "chain_union_topk", "step_chain",
            "rows_edge_operands", "rows_union_topk",
-           "lexical_scores_f32", "hybrid_by_parts"]
+           "lexical_scores_f32", "hybrid_by_parts", "shard_backends",
+           "shard_loop"]
 
 # (name, B, N, d, k, rows): rows "dead" = every row dead, "half" = about
 # half live, "dup" = the second half repeats the first; the BM25 lookup's
@@ -398,3 +405,43 @@ def hybrid_by_parts(q, x, qt, qw, terms, tf, alpha: float, kd, ki) -> dict:
             np.abs(score - score_64) / np.maximum(lex_abs, 1e-30))),
         "lex_bound": (terms.shape[1] + qt.shape[1]) * 2.0 ** -24,
     }
+
+
+def shard_backends(target, n_dev: int, **kw) -> list:
+    """One ``ShardedSearchBackend`` a shard of an ``n_dev``-shard layout,
+    all in this process and with no collective (``kw`` as the backend's:
+    ``kind``, ``k``, ``device``, ...)."""
+    from repro_torch.distributed.backend import ShardedSearchBackend
+    from repro_torch.distributed.sharding import ShardSlot
+
+    return [ShardedSearchBackend(target, shard=ShardSlot(n_dev=n_dev,
+                                                         lin=lin), **kw)
+            for lin in range(n_dev)]
+
+
+def shard_loop(backends, queries=None, *, n_q: int = 1, filter_spec=None,
+               mode: str = "semantic", alpha: float = 0.5, q_terms=None,
+               q_weights=None):
+    """The sharded search of ``backends`` (``shard_backends``, in shard
+    order) in one process: the batch padded to ``n_q`` query blocks, each
+    block through every shard's local, the (S, b, k) stack merged by
+    ``_merge_gathered``, the blocks joined.  Returns numpy (B, k), as a
+    mesh's ranks do."""
+    from repro_torch.distributed.sharding import _merge_gathered
+
+    if filter_spec is not None and filter_spec.empty:
+        filter_spec = None
+    be0 = backends[0]
+    ops_, B = be0._operands(queries, q_terms, q_weights, mode, n_q)
+    calls = [be._local(filter_spec, mode, alpha) for be in backends]
+    bq = ops_[0].shape[0] // n_q
+    ds, ids = [], []
+    for j in range(n_q):
+        block = tuple(o[j * bq:(j + 1) * bq] for o in ops_)
+        parts = [call(*block) for call in calls]
+        d, i = _merge_gathered(torch.stack([p[0] for p in parts]),
+                               torch.stack([p[1] for p in parts]), be0.k)
+        ds.append(d)
+        ids.append(i)
+    return (torch.cat(ds)[:B].cpu().numpy(),
+            torch.cat(ids)[:B].cpu().numpy())

@@ -9,7 +9,10 @@ the tile read by row id against its plain version and the gathered
 tile, one small IVF serve, one small forest serve (fused against
 unfused), the in-place delta applies of every kind,
 one small filtered / lexical / hybrid / int8 serve and one small run of
-the index layer (PQ top level, one-level LSH) through the kernels.
+the index layer (PQ top level, one-level LSH) through the kernels, and
+the sharded backends over a world-size-1 NCCL mesh and over four gloo
+ranks sharing the card (against the backends without a mesh and the
+single-process shard loop, bit for bit).
 
 Marked ``gpu``; each test decides inside itself whether a card is there
 and skips with the reason when not.  Run on the card with:
@@ -872,3 +875,131 @@ def test_delta_apply_keeps_the_placed_storage(dev, kind):
     assert (a[1] == c[1]).all()
     assert np.array_equal(a[0].view(np.int32), c[0].view(np.int32))
 
+
+
+# ------------------------------------------------------------- sharded
+def _sharded_data():
+    rng = np.random.default_rng(19)
+    c = rng.normal(size=(32, 32)) * 4
+    db = (c[rng.integers(0, 32, 3000)]
+          + rng.normal(size=(3000, 32))).astype(np.float32)
+    q = (db[rng.choice(3000, 96, replace=False)]
+         + 0.05 * rng.normal(size=(96, 32))).astype(np.float32)
+    return db, q
+
+
+def _sharded_kinds(db, ivf, tree):
+    return {"brute": (db, dict(kind="brute")),
+            "ivf": (ivf, dict(kind="ivf", nprobe_local=3)),
+            "forest": (tree, dict(kind="forest", nprobe_local=3,
+                                  beam_width=4))}
+
+
+@pytest.fixture(scope="module")
+def sharded_indexes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    db, q = _sharded_data()
+    ivf = build_two_level(db, TwoLevelConfig(n_clusters=50, kmeans_iters=4))
+    tree = build_two_level(db, TwoLevelConfig(n_clusters=50, kmeans_iters=4,
+                                              bottom="tree", tree_leaf=8))
+    return db, q, ivf, tree
+
+
+@pytest.mark.parametrize("kind", ["brute", "ivf", "forest"])
+def test_world1_nccl_backend_equals_no_mesh(dev, tmp_path, sharded_indexes,
+                                             kind):
+    """A backend over a world-size-1 NCCL mesh answers as the backend
+    without a mesh, bit for bit."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    db, q, ivf, tree = sharded_indexes
+    target, kw = _sharded_kinds(db, ivf, tree)[kind]
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        a = ShardedSearchBackend(target, k=10, mesh=mesh, axes=("data",),
+                                 **kw)(q)
+        b = ShardedSearchBackend(target, k=10, **kw)(q)
+    finally:
+        dist.destroy_process_group()
+    assert np.array_equal(a[1], b[1])
+    assert np.array_equal(a[0].view(np.int32), b[0].view(np.int32))
+
+
+def _gloo_rank(rank: int, world: int, workdir: str) -> None:
+    """One of four ranks sharing the card under gloo: each kind on a
+    (4,) mesh; answers pickled."""
+    import datetime
+    import os
+    import pickle
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=60))
+    try:
+        with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
+            db, q, ivf, tree = pickle.load(f)
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+        out = {name: ShardedSearchBackend(target, k=10, mesh=mesh,
+                                          axes=("data",), **kw)(q)
+               for name, (target, kw) in _sharded_kinds(db, ivf,
+                                                        tree).items()}
+        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_four_gloo_ranks_on_the_card_equal_the_shard_loop(
+        dev, tmp_path, sharded_indexes):
+    """Four ranks share the card under gloo (NCCL refuses two ranks on one
+    device): each kind equals the single-process shard loop on the card
+    bit for bit, on every rank."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    import textwrap
+
+    from repro_torch.testing import shard_backends, shard_loop
+
+    db, q, ivf, tree = sharded_indexes
+    with open(tmp_path / "inputs.pkl", "wb") as f:
+        pickle.dump(sharded_indexes, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(here), "src"), here]))
+    code = textwrap.dedent(f"""
+        import sys
+        from test_torch_gpu import _gloo_rank
+        _gloo_rank(int(sys.argv[1]), 4, {str(tmp_path)!r})
+    """)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], env=env)
+             for r in range(4)]
+    try:
+        for p in procs:
+            p.wait(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0] * 4
+    for name, (target, kw) in _sharded_kinds(db, ivf, tree).items():
+        loop = shard_loop(shard_backends(target, 4, k=10, **kw), q)
+        for r in range(4):
+            with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+                got = pickle.load(f)[name]
+            assert np.array_equal(got[1], loop[1]), (name, r)
+            assert np.array_equal(got[0].view(np.int32),
+                                  loop[0].view(np.int32)), (name, r)

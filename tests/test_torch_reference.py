@@ -158,6 +158,8 @@ def _modules_after(code: str) -> set:
     "repro_torch.core.likelihood, repro_torch.kernels.pq_adc, "
     "repro_torch.kernels.hamming, repro_torch.kernels.ops",
     "import chip_smoke",
+    "import repro_torch.launch.mesh, repro_torch.distributed, "
+    "repro_torch.core.distributed, repro_torch.kernels.ops",
 ])
 def test_port_imports_neither_jax_nor_reference(code):
     mods = _modules_after(code)
