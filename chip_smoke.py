@@ -101,8 +101,31 @@ each prints its wall time as ``[phase] <name> <s> s``):
              parent's single-process shard loop on the card bit for bit,
              each flat scan also against the one-shard backend; recall@10
              and each rank's launches (counts reset just before and read
-             just after each case's run);
-13. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
+             just after each case's run); an IVF cell over the ``(4,)``
+             mesh takes the lifecycle's add and delete through
+             ``ServingCell.apply_updates`` on the root (every rank's
+             tables and the answers against the parent's shard loop
+             after the same manifest, bit for bit; the bytes each rank
+             received beside its share), and a root sits idle past its
+             group's timeout, then answers a call with every rank;
+13. fleet   - four cells sharing the card (``build_fleet``, each its own
+             IVF placement of the serve phase's index, nprobe 32, k 10),
+             a TinyLFU cache each, one estimator with its sketch on the
+             card, 16 clients sending Zipf traffic over 2,048 queries:
+             steady windows (one cell; the fleet on its own streams and
+             on the default stream), a hedge window (one cell delayed),
+             a failure window (one cell raising: no request lost, only
+             its keys remapped), a maintenance window (the head rotates,
+             a copy of the index takes the lifecycle's add and delete,
+             ``MaintenanceScheduler`` leads one rolling fan-out under
+             load; every live cell then equals a fresh backend bit for
+             bit), the down cell's revive, every answer held bit for bit
+             against its backend's direct call on the same batch, the
+             sketch on the card against the CPU's, and the launcher
+             ``python -m repro_torch.launch.serve`` in a process of its
+             own; launch counts reset just before and read just after
+             each window;
+14. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
 
 The serve phase also runs the brute and IVF backends at k = 50 (above the
 kernels' 32-pair lists) against their unfused plain paths.
@@ -114,6 +137,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import hashlib
 import json
 import os
 import pickle
@@ -2717,6 +2741,52 @@ def life_copy(idx, metadata):
         metadata=metadata, lexical=None, base_trees=None, delta_log=None)
 
 
+def life_inputs(corpus, index, rng):
+    """The lifecycle's mutations of ``index``: LIFE_ADDS vectors, 100 near
+    each of LIFE_HOT buckets, and LIFE_DELETES ids, the members of whole
+    cold buckets.  Returns (new vectors, ids to delete)."""
+    counts = index.bucket_counts
+    # hot buckets at most the median size: 100 more entities still fit
+    # the pad width, and the rebuilt trees stay within the node slabs
+    hot = rng.choice(np.flatnonzero((counts > 0)
+                                    & (counts <= np.median(counts))),
+                     LIFE_HOT, replace=False)
+    per = LIFE_ADDS // LIFE_HOT
+    spread = np.stack([corpus[index.bucket_ids[b][:counts[b]]].std(0)
+                       for b in hot])
+    new = (np.repeat(index.centroids[hot], per, axis=0)
+           + 0.3 * np.repeat(spread, per, axis=0)
+           * rng.normal(size=(LIFE_ADDS, corpus.shape[1]))).astype(
+               np.float32)
+    hot_set = set(hot.tolist())
+    cold = [b for b in rng.permutation(index.k_clusters)
+            if b not in hot_set and counts[b] > 0]
+    gone, total = [], 0
+    for b in cold:
+        if total >= LIFE_DELETES:
+            break
+        members = index.bucket_ids[b][:counts[b]].astype(np.int64)
+        gone.append(members[:LIFE_DELETES - total])
+        total += gone[-1].size
+    return new, np.concatenate(gone)
+
+
+def ivf_copy(idx):
+    """A copy of the served IVF index whose mutations reach no other
+    index (the tables the lifecycle changes in place are copied; no top
+    level or sidecars, which the IVF backend never reads)."""
+    def cp(a):
+        return None if a is None else a.copy()
+
+    return dataclasses.replace(
+        idx, config=dataclasses.replace(idx.config, top="brute"),
+        top_pq=None, top_kd=None, bottom_lsh=None, base_trees=None,
+        centroids=idx.centroids.copy(), bucket_ids=idx.bucket_ids.copy(),
+        bucket_counts=idx.bucket_counts.copy(), alive=cp(idx.alive),
+        entity_bucket=cp(idx.entity_bucket), dirty=cp(idx.dirty),
+        delta_log=None, metadata=None, lexical=None)
+
+
 def in_chunks(fn, x: np.ndarray) -> np.ndarray:
     """``fn`` over ``x`` in calls of ``LIFE_CHUNK`` queries: the ids."""
     return np.concatenate([fn(x[s:s + LIFE_CHUNK])[1]
@@ -2754,30 +2824,7 @@ def phase_lifecycle(dev, ctx) -> dict:
     control = {kind: make(kind) for kind in kinds}
     torch.cuda.synchronize()
     out = {"place_s": time.perf_counter() - t0, "steps": {}}
-    counts = life.bucket_counts
-    # hot buckets at most the median size: 100 more entities still fit
-    # the pad width, and the rebuilt trees stay within the node slabs
-    hot = rng.choice(np.flatnonzero((counts > 0)
-                                    & (counts <= np.median(counts))),
-                     LIFE_HOT, replace=False)
-    per = LIFE_ADDS // LIFE_HOT
-    spread = np.stack([corpus[life.bucket_ids[b][:counts[b]]].std(0)
-                       for b in hot])
-    new = (np.repeat(life.centroids[hot], per, axis=0)
-           + 0.3 * np.repeat(spread, per, axis=0)
-           * rng.normal(size=(LIFE_ADDS, corpus.shape[1]))).astype(
-               np.float32)
-    hot_set = set(hot.tolist())
-    cold = [b for b in rng.permutation(life.k_clusters)
-            if b not in hot_set and counts[b] > 0]
-    gone, total = [], 0
-    for b in cold:
-        if total >= LIFE_DELETES:
-            break
-        members = life.bucket_ids[b][:counts[b]].astype(np.int64)
-        gone.append(members[:LIFE_DELETES - total])
-        total += gone[-1].size
-    gone = np.concatenate(gone)
+    new, gone = life_inputs(corpus, life, rng)
     _, unbalance, p_skew = beta_for_unbalance(RADIO_UNBALANCE,
                                               corpus.shape[0] + LIFE_ADDS)
     added = np.zeros(0, np.int64)
@@ -2900,6 +2947,9 @@ SHARD_QUERIES = 256      # queries each check runs, in batches of 64
 SHARD_ODD_B = 37         # a batch the (2, 2) mesh's query axis pads
 SHARD_SERVE = 1024       # requests through each cell for the p50s
 SHARD_LIMIT_S = 480      # the four ranks, joined together
+SHARD_BEAT_TIMEOUT_S = 10   # the heartbeat group's collective timeout
+SHARD_IDLE_S = 12           # the root's idle pause, past that timeout
+UPDATE_STEPS = ("add", "delete")
 GATHER_ITERS = 200
 # the kernel each sharded kind's local launches
 KIND_KERNEL = {"brute": "l2_topk", "ivf": "candidate_topk",
@@ -3094,10 +3144,140 @@ def sharded_rank(rank: int, world: int, workdir: str) -> None:
                                   query_axes=("model",))
         out["brute_b37"] = be(inp["q"][:SHARD_ODD_B])
         out["slot_b37"] = be.slot
-        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
-            pickle.dump(out, f)
+        del be
+        out["cell_updates"] = rank_cell_updates(inp, mesh, rank)
     finally:
         dist.destroy_process_group()
+    out["heartbeat"] = rank_heartbeat(inp, rank, world, workdir)
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def table_digest(tables) -> list:
+    """A digest of each placed table's bytes (to hold tables across
+    processes bit for bit)."""
+    return [hashlib.blake2b(t.contiguous().cpu().numpy().tobytes(),
+                            digest_size=16).hexdigest() for t in tables]
+
+
+def rank_cell_updates(inp, mesh, rank: int) -> dict:
+    """An IVF cell over the (4,) mesh whose root takes the lifecycle's add
+    and delete through ``ServingCell.apply_updates``: the root's stats,
+    answers, table digests and the bytes it sent each rank after each
+    step; each follower's table digests and the bytes it received."""
+    idx = inp["idx"]
+    be = ShardedSearchBackend(idx, kind="ivf", k=K, mesh=mesh,
+                              axes=("data",), nprobe_local=SHARD_NPROBE,
+                              headroom=FOREST_HEADROOM)
+    if rank != 0:
+        digests = []
+        be.follow(on_update=lambda b: digests.append(table_digest(b._args)))
+        return {"digests": digests, "updates": be.updates}
+    cell = ServingCell(be.lead(), max_batch=BATCH)
+    out = {}
+    try:
+        for step in UPDATE_STEPS:
+            t0 = time.perf_counter()
+            if step == "add":
+                idx.add_entities(inp["new"])
+            else:
+                idx.delete_entities(inp["gone"])
+            t1 = time.perf_counter()
+            st = cell.apply_updates(idx)
+            t2 = time.perf_counter()
+            out[step] = {"stats": st, "mutation_s": t1 - t0,
+                         "apply_s": t2 - t1, "fanout": be.last_fanout,
+                         "digests": table_digest(be._args),
+                         "answers": batched(be, inp["q"])}
+    finally:
+        cell.close()
+    return out
+
+
+def rank_heartbeat(inp, rank: int, world: int, workdir: str) -> dict:
+    """A group with a SHARD_BEAT_TIMEOUT_S timeout: a brute cell over the
+    (4,) mesh whose root sits idle SHARD_IDLE_S, then answers a call that
+    every rank joins."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(workdir, "store_beat"),
+                                     world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD_BEAT_TIMEOUT_S))
+    try:
+        # the mesh over this very group: its timeout is the followers'
+        mesh = DeviceMesh.from_group(dist.group.WORLD, "cuda",
+                                     mesh_dim_names=("data",))
+        be = ShardedSearchBackend(inp["corpus"], kind="brute", k=K,
+                                  mesh=mesh, axes=("data",))
+        if rank != 0:
+            return {"served": be.follow(), "beats": be.beats}
+        cell = ServingCell(be.lead(), max_batch=BATCH)
+        try:
+            time.sleep(SHARD_IDLE_S)
+            got = cell.search(inp["q"][0], timeout=60)
+        finally:
+            cell.close()                # joins the heartbeat thread
+        return {"after_idle": got, "beats": be.beats, "beat_s": be._beat_s}
+    finally:
+        dist.destroy_process_group()
+
+
+def check_cell_updates(ctx, ranks, q, label: str) -> dict:
+    """The parent's shard loop through the same add and delete as the
+    ranks' cell: each rank's tables (digests) and the root's answers and
+    stats after each step equal it bit for bit; each follower received
+    exactly its own part of the delta."""
+    from repro_torch.distributed.backend import _nbytes
+
+    x = ivf_copy(ctx["idx"])
+    bes = shard_backends(x, SHARD_WORLD, k=K, kind="ivf",
+                         nprobe_local=SHARD_NPROBE, headroom=FOREST_HEADROOM)
+    lead = ranks[0]["cell_updates"]
+    out = {}
+    for j, step in enumerate(UPDATE_STEPS):
+        if step == "add":
+            x.add_entities(ctx["life_new"])
+        else:
+            x.delete_entities(ctx["life_gone"])
+        man = x.pop_delta()
+        pay, reason = bes[0]._delta_payload(x, None, man)
+        require(reason is None, f"the {step} manifest has no delta payload")
+        parts = [_nbytes(bes[0]._cut(pay, lin)) for lin in range(SHARD_WORLD)]
+        stats = [be.apply_updates(x, delta=man) for be in bes]
+        loop = batched(lambda qb: shard_loop(bes, qb), q)
+        got = lead[step]
+        require(got["stats"] == stats[0] and got["stats"]["mode"] == "delta",
+                f"the cell's {step} stats {got['stats']} are not the shard "
+                f"loop's {stats[0]}")
+        same_bits(f"the cell's answers after {step} against the shard loop",
+                  got["answers"], loop)
+        want = [table_digest(be._args) for be in bes]
+        mine = [got["digests"]] + [r["cell_updates"]["digests"][j]
+                                   for r in ranks[1:]]
+        require(mine == want, f"a rank's tables after {step} differ from "
+                "its shard's in the loop")
+        sent = got["fanout"]["bytes_to_rank"]
+        took = [r["cell_updates"]["updates"][j] for r in ranks[1:]]
+        require([t["part_bytes"] for t in took] == [sent[r] for r in range(
+            1, SHARD_WORLD)] == parts[1:],
+            f"a follower's part of the {step} is not its share")
+        out[step] = {"stats": got["stats"], "mutation_s": got["mutation_s"],
+                     "apply_s": got["apply_s"], "part_bytes": parts,
+                     "header_bytes": [t["header_bytes"] for t in took]}
+        log(f"[sharded] cell update {step} on the (4,) mesh ({label}): "
+            f"mode {got['stats']['mode']} bytes {got['stats']['bytes']} of "
+            f"full {got['stats']['full_bytes']}; bytes each rank received "
+            f"(its rows, buckets or slabs of the delta) {parts[1:]} (the "
+            f"root's own part {parts[0]}; sum {sum(parts)} of the manifest's "
+            f"{got['stats']['bytes']}), header (index mirrors) "
+            f"{out[step]['header_bytes']}; apply {got['apply_s']:.3f} s; every "
+            "rank's tables and the answers equal the shard loop bit for bit")
+    del bes
+    torch.cuda.empty_cache()
+    return out
 
 
 def sharded_four_ranks(dev, ctx, label: str, one_shard: dict) -> dict:
@@ -3116,7 +3296,8 @@ def sharded_four_ranks(dev, ctx, label: str, one_shard: dict) -> dict:
             pickle.dump({"corpus": ctx["corpus"], "idx": handoff(ctx["idx"]),
                          "tree": handoff(ctx["tree_idx"]), "q": q,
                          "meta": ctx["meta"], "slabs": ctx["slabs"],
-                         "qt": qt, "qw": qw}, f,
+                         "qt": qt, "qw": qw, "new": ctx["life_new"],
+                         "gone": ctx["life_gone"]}, f,
                         protocol=pickle.HIGHEST_PROTOCOL)
         out["handoff_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -3193,6 +3374,27 @@ def sharded_four_ranks(dev, ctx, label: str, one_shard: dict) -> dict:
     same_bits(f"(2, 2) brute, B = {SHARD_ODD_B}, against one shard",
               loop, ctx["brute"](q[:SHARD_ODD_B]))
     out["loop_s"] = time.perf_counter() - t0
+    out["cell_updates"] = check_cell_updates(ctx, ranks, q, label)
+    beat = ranks[0]["heartbeat"]
+    same_bits(f"a call after the root sat idle {SHARD_IDLE_S} s (group "
+              f"timeout {SHARD_BEAT_TIMEOUT_S} s)", tuple(
+                  a[None] for a in beat["after_idle"]), ctx["brute"](q[:1]))
+    require(all(r["heartbeat"]["served"] == 1 for r in ranks[1:]),
+            "a follower did not answer the call after the idle pause")
+    require(beat["beat_s"] == 0.25 * SHARD_BEAT_TIMEOUT_S,
+            f"the root beats every {beat['beat_s']} s idle, not a quarter "
+            f"of the group's {SHARD_BEAT_TIMEOUT_S} s timeout")
+    require(all(r["heartbeat"]["beats"] == beat["beats"] > 0
+                for r in ranks[1:]),
+            f"the followers missed heartbeats: root sent {beat['beats']}, "
+            f"followers took {[r['heartbeat']['beats'] for r in ranks[1:]]}")
+    out["heartbeat"] = {"beats": beat["beats"], "beat_s": beat["beat_s"],
+                        "idle_s": SHARD_IDLE_S,
+                        "timeout_s": SHARD_BEAT_TIMEOUT_S}
+    log(f"[sharded] heartbeat: the root sat idle {SHARD_IDLE_S} s under a "
+        f"{SHARD_BEAT_TIMEOUT_S} s group timeout, sent {beat['beats']} "
+        f"heartbeats (every {beat['beat_s']:.1f} s idle), then a call every "
+        "rank answered, bit for bit the one-shard backend's")
     for name, kernel in KIND_KERNEL.items():
         require(all(lc[kernel] > 0 for lc in out[name]["launches"]),
                 f"a {name} rank never launched {kernel}")
@@ -3223,9 +3425,501 @@ def sharded_four_ranks(dev, ctx, label: str, one_shard: dict) -> dict:
 
 def phase_sharded(dev, ctx) -> dict:
     label = ctx["label"]
+    # the lifecycle's mutations of the served IVF index: the ranks' cell
+    # updates here and the fleet's maintenance window take them
+    ctx["life_new"], ctx["life_gone"] = life_inputs(
+        ctx["corpus"], ctx["idx"], np.random.default_rng(6))
     out = {"world1_nccl": sharded_world1(dev, ctx, label)}
     out["gloo4"] = sharded_four_ranks(dev, ctx, label, out["world1_nccl"])
     RESULTS["sharded"] = out
+    return out
+
+
+# -------------------------------------------------------------- phase 13
+FLEET_CELLS = 4
+FLEET_POOL = 2048           # distinct queries; Zipf-drawn traffic over them
+FLEET_ZIPF = 1.1
+FLEET_REQUESTS = 4096
+FLEET_CACHE = 1024
+FLEET_SKETCH_WIDTH = 4096
+FLEET_HALFLIFE = 4096
+FLEET_DELAY_S = 0.05        # the hedge window's injected straggler
+FLEET_HEDGE_MS = 10.0
+FLEET_HEDGE_REQUESTS = 1024
+FLEET_FAIL_REQUESTS = 2048
+FLEET_FAIL_AFTER = 256      # answered requests before a cell starts failing
+FLEET_REMAP_QUERIES = 512
+FLEET_CHECK_QUERIES = 256
+FLEET_MAINT_AFTER = 1024    # requests after the fan-out that end the window
+FLEET_CHECK_EVERY = 256     # rotated requests between two drift checks
+LAUNCHER_TIMEOUT_S = 300
+
+
+class Recorder:
+    """A cell's backend that keeps every batch it answered (queries and
+    answer) and delegates the rest; ``delay_s`` and ``fail`` inject a
+    straggler and a failure (fault injection in this script only)."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self.metrics = backend.metrics
+        self.calls: list = []
+        self.delay_s = 0.0
+        self.fail = threading.Event()
+        self._lock = threading.Lock()
+
+    def __call__(self, qs, **kw):
+        if self.fail.is_set():
+            raise RuntimeError("injected cell failure")
+        if self.delay_s:
+            time.sleep(self.delay_s)
+        out = self.backend(qs, **kw)
+        with self._lock:
+            self.calls.append((np.array(qs), out))
+        return out
+
+    def apply_updates(self, *args, **kw):
+        return self.backend.apply_updates(*args, **kw)
+
+
+def fleet_traffic(router, pool, order, during=None, stop=None) -> dict:
+    """N_CLIENTS threads, each sending its share of ``pool[order]`` one
+    blocking routed request at a time; ``during(done)`` runs in this thread
+    meanwhile (``done[0]``: requests answered); a set ``stop`` ends the
+    clients early.  Every request is accounted for: answered, or an error
+    (a lost request)."""
+    n = len(order)
+    ids = np.full((n, K), -2, np.int32)
+    dists = np.full((n, K), np.nan, np.float32)
+    lat = np.full(n, np.nan)
+    errors: list = []
+    done = [0]
+    lock = threading.Lock()
+
+    def client(rows):
+        for r in rows:
+            if stop is not None and stop.is_set():
+                return
+            t0 = time.perf_counter()
+            try:
+                d, i = router.search(pool[order[r]], timeout=120)
+            except Exception as e:  # a lost request: reported and failed
+                errors.append((int(r), repr(e)))
+                continue
+            lat[r] = time.perf_counter() - t0
+            ids[r], dists[r] = i, d
+            with lock:
+                done[0] += 1
+
+    threads = [threading.Thread(target=client,
+                                args=(range(c, n, N_CLIENTS),))
+               for c in range(N_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    extra = during(done) if during is not None else None
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    require(not any(th.is_alive() for th in threads), "a fleet client hung")
+    sent = ~np.isnan(lat)
+    return {"ids": ids, "dists": dists, "lat": lat, "wall": wall,
+            "errors": errors, "answered": sent, "extra": extra,
+            "p50_ms": float(np.percentile(lat[sent] * 1e3, 50)),
+            "p99_ms": float(np.percentile(lat[sent] * 1e3, 99)),
+            "qps": float(sent.sum() / wall)}
+
+
+def check_served(name, recorders, pool, order, res, since) -> int:
+    """Every answer (cache hits included) is a row of a batch its cell's
+    backend answered, bit for bit; every batch answered since ``since``
+    equals a direct call of that backend on the same batch, bit for bit.
+    Returns the batches replayed."""
+    seen: dict = {}
+    replayed = 0
+    for rec, s0 in zip(recorders, since):
+        for j, (qs, (d, i)) in enumerate(rec.calls):
+            if j >= s0:
+                same_bits(f"{name}: a served batch against a direct call",
+                          (d, i), rec.backend(qs))
+                replayed += 1
+            for row in range(len(d)):
+                seen.setdefault(qs[row].tobytes(), set()).add(
+                    (d[row].tobytes(), i[row].tobytes()))
+    ok = res["answered"]
+    for r in np.flatnonzero(ok):
+        key = pool[order[r]].tobytes()
+        require((res["dists"][r].tobytes(), res["ids"][r].tobytes())
+                in seen.get(key, ()),
+                f"{name}: request {r}'s answer is no backend's answer")
+    return replayed
+
+
+def cell_counts(router) -> dict:
+    """Per cell: requests its worker served and its cache hits, so far."""
+    return {c.name: (c.stats().n,
+                     c.cache.hits if c.cache is not None else 0)
+            for c in router.cells}
+
+
+def window_report(name, router, res, before, truth_rows, label) -> dict:
+    after = cell_counts(router)
+    per_cell = {c: (after[c][0] - before[c][0]) + (after[c][1] - before[c][1])
+                for c in after}
+    hits = sum(after[c][1] - before[c][1] for c in after)
+    ok = res["answered"]
+    out = {"p50_ms": res["p50_ms"], "p99_ms": res["p99_ms"],
+           "qps": res["qps"], "wall_s": res["wall"],
+           "requests": int(ok.sum()), "lost": len(res["errors"]),
+           "cache_hit_rate": hits / max(int(ok.sum()), 1),
+           "requests_per_cell": per_cell}
+    if truth_rows is not None:
+        out["recall_at_10"] = recall_at_k(res["ids"][ok], truth_rows[ok])
+    log(f"[fleet] {name} on {label}: {out['requests']} requests, "
+        f"{N_CLIENTS} clients, p50 {out['p50_ms']:.3f} ms p99 "
+        f"{out['p99_ms']:.3f} ms QPS {out['qps']:.1f}, cache hit rate "
+        f"{out['cache_hit_rate']:.4f}, requests per cell {per_cell}"
+        + (f", recall@10 {out['recall_at_10']:.4f}"
+           if "recall_at_10" in out else "")
+        + f", lost {out['lost']}")
+    return out
+
+
+def phase_fleet(dev, ctx) -> dict:
+    """The fleet tier and the adaptive loop at sift-1m width: four cells
+    sharing the card, each its own IVF placement (nprobe 32, k 10), a
+    TinyLFU cache each, one estimator (sketch on the card) and a
+    MaintenanceScheduler leading the fleet."""
+    from repro_torch.adaptive import (CountMinSketch,
+                                      FrequencyAdmissionCache,
+                                      MaintenanceScheduler,
+                                      OnlineLikelihoodEstimator)
+    from repro_torch.serve.fleet import CellRouter, build_fleet
+
+    label, idx = ctx["label"], ctx["idx"]
+    out: dict = {}
+    rng = np.random.default_rng(7)
+    pool = make_queries(ctx["corpus"], FLEET_POOL, seed=7)
+    zipf = 1.0 / np.arange(1, FLEET_POOL + 1) ** FLEET_ZIPF
+    zipf /= zipf.sum()
+    order = rng.choice(FLEET_POOL, FLEET_REQUESTS, p=zipf)
+    truth = batched(ctx["brute"], pool)[1]
+
+    t0 = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated(dev)
+    est = OnlineLikelihoodEstimator(SIFT_1M.n, width=FLEET_SKETCH_WIDTH,
+                                    halflife=FLEET_HALFLIFE)
+    router = build_fleet(
+        [dev] * FLEET_CELLS, idx, kind="ivf", k=K,
+        cache_capacity=FLEET_CACHE, estimator=est,
+        backend_kw=dict(nprobe_local=SIFT_1M.nprobe,
+                        headroom=FOREST_HEADROOM),
+        cell_kw=dict(max_batch=BATCH, max_wait_ms=2.0))
+    torch.cuda.synchronize()
+    recs = []
+    for c in router.cells:
+        c.search_fn = Recorder(c.search_fn)
+        recs.append(c.search_fn)
+    out["build_s"] = time.perf_counter() - t0
+    out["placed_bytes"] = int(torch.cuda.memory_allocated(dev) - mem0)
+    log(f"[fleet] {FLEET_CELLS} cells on one card ({label}): each its own IVF "
+        f"placement of {SIFT_1M.n} x {SIFT_1M.d} ({idx.k_clusters} buckets, "
+        f"nprobe {SIFT_1M.nprobe}, headroom {FOREST_HEADROOM}), "
+        f"{out['placed_bytes']} bytes in all, built in {out['build_s']:.1f} s")
+    try:
+        for rec in recs:                      # warm-up, not recorded
+            rec.backend(pool[:BATCH])
+        torch.cuda.synchronize()
+
+        # -- steady: one cell (its own cache and estimator, as a fleet
+        #    cell has), then the fleet on own / default streams
+        one = CellRouter([ServingCell(
+            recs[0].backend, name="one", max_batch=BATCH, max_wait_ms=2.0,
+            cache=FrequencyAdmissionCache(FLEET_CACHE),
+            estimator=OnlineLikelihoodEstimator(
+                SIFT_1M.n, width=FLEET_SKETCH_WIDTH,
+                halflife=FLEET_HALFLIFE))])
+        before = cell_counts(one)
+        res = fleet_traffic(one, pool, order)
+        require(not res["errors"], f"one cell lost requests {res['errors'][:3]}")
+        out["one_cell"] = window_report("one cell", one, res, before,
+                                        truth[order], label)
+        one.cells[0].close()
+        windows = []
+        own = [r.backend._stream for r in recs]
+        for w, streams in enumerate(("own", "default", "own")):
+            # each backend's own stream, or the card's default stream (the
+            # backend's synchronise then waits for every cell's kernels)
+            for c, s_own in zip(router.cells, own):
+                c.cache.invalidate_all()
+                c.search_fn.backend._stream = (None if streams == "default"
+                                               else s_own)
+            since = [len(r.calls) for r in recs]
+            before = cell_counts(router)
+            rc0 = router.stats()
+            reset_launches()
+            res = fleet_traffic(router, pool, order)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            require(not res["errors"], f"the fleet lost requests "
+                    f"{res['errors'][:3]}")
+            rep = window_report(f"steady {w} ({streams} streams)", router,
+                                res, before, truth[order], label)
+            rep["launches"] = {n: v for n, v in launches.items() if v}
+            require(launches["candidate_topk"] > 0,
+                    "the fleet's path never launched bucket_probe_topk")
+            rep["replayed"] = check_served(f"steady {w}", recs, pool, order,
+                                           res, since)
+            rep["route"] = router.stats().stages.get("route")
+            rep["shed"] = router.shed - rc0.shed
+            windows.append((streams, rep))
+            log(f"[fleet] steady {w}: launches {rep['launches']}; every "
+                f"answer, hits included, is its cell backend's answer bit for "
+                f"bit ({rep['replayed']} served batches replayed directly)")
+            if w == 0:
+                steady_res = res
+        out["steady"] = windows
+        steady = windows[0][1]
+        log(f"[fleet] recall@10 {steady['recall_at_10']:.4f} (one cell on the "
+            f"same traffic {out['one_cell']['recall_at_10']:.4f}; the serve "
+            f"phase's cell {RESULTS['main']['recall_at_10']:.4f})")
+
+        # -- hedge: cell0 straggles FLEET_DELAY_S a batch
+        for c in router.cells:
+            c.cache.invalidate_all()
+        recs[0].delay_s = FLEET_DELAY_S
+        router.hedge_ms = FLEET_HEDGE_MS
+        h0 = router.hedge_cell
+        since = [len(r.calls) for r in recs]
+        hedge_order = order[:FLEET_HEDGE_REQUESTS]
+        before = cell_counts(router)
+        reset_launches()
+        res = fleet_traffic(router, pool, hedge_order)
+        out["hedge_launches"] = read_launches()["candidate_topk"]
+        recs[0].delay_s = 0.0
+        router.hedge_ms = None
+        require(not res["errors"], f"the hedge window lost requests "
+                f"{res['errors'][:3]}")
+        out["hedge"] = window_report("hedge window", router, res, before,
+                                     truth[hedge_order], label)
+        out["hedge"]["hedge_cell"] = router.hedge_cell - h0
+        require(out["hedge"]["hedge_cell"] > 0, "no request was hedged")
+        check_served("hedge", recs, pool, hedge_order, res, since)
+        same = float((res["ids"] == steady_res["ids"][:FLEET_HEDGE_REQUESTS])
+                     .all(1).mean())
+        out["hedge"]["same_as_steady"] = same
+        log(f"[fleet] hedge: cell0 delayed {FLEET_DELAY_S * 1e3:.0f} ms a "
+            f"batch, hedge_ms {FLEET_HEDGE_MS}: hedge_cell "
+            f"{out['hedge']['hedge_cell']}; every answer a backend's bit for "
+            f"bit; {same:.4f} of answers equal the steady window's")
+
+        # -- fail: cell3 starts raising mid-window
+        remap = pool[:FLEET_REMAP_QUERIES]
+        pref0 = [router.preferred_cell(x).name for x in remap]
+        r0 = router.rerouted
+        since = [len(r.calls) for r in recs]
+        fail_order = order[:FLEET_FAIL_REQUESTS]
+
+        def fail_mid(done):
+            while done[0] < FLEET_FAIL_AFTER:
+                time.sleep(0.001)
+            recs[3].fail.set()
+
+        before = cell_counts(router)
+        res = fleet_traffic(router, pool, fail_order, during=fail_mid)
+        require(not res["errors"], f"a cell failure lost requests "
+                f"{res['errors'][:3]}")
+        require(res["answered"].all(), "a request went unanswered")
+        out["fail"] = window_report("fail window", router, res, before,
+                                    truth[fail_order], label)
+        out["fail"]["rerouted"] = router.rerouted - r0
+        require(out["fail"]["rerouted"] > 0, "no request was rerouted")
+        require(set(router.down_cells()) == {"cell3"},
+                f"down cells {router.down_cells()}")
+        check_served("fail", recs, pool, fail_order, res, since)
+        pref1 = [router.preferred_cell(x).name for x in remap]
+        moved = [(a, b) for a, b in zip(pref0, pref1) if a != b]
+        require(all(a == "cell3" for a, _ in moved)
+                and all(b != "cell3" for b in pref1),
+                "a live cell's key moved when cell3 went down")
+        out["fail"]["remapped"] = len(moved)
+        out["fail"]["cell3_keys"] = pref0.count("cell3")
+        log(f"[fleet] fail: cell3 raised after {FLEET_FAIL_AFTER} answers: "
+            f"0 lost of {len(fail_order)}, rerouted {out['fail']['rerouted']}; "
+            f"of {FLEET_REMAP_QUERIES} queries {len(moved)} remapped, all "
+            f"cell3's ({out['fail']['cell3_keys']})")
+
+        # -- maintenance: the head rotates, the index takes the lifecycle's
+        #    add and delete, the leader fans one manifest out while the
+        #    clients keep going
+        life = ivf_copy(idx)
+        t0 = time.perf_counter()
+        added = np.asarray(life.add_entities(ctx["life_new"]), np.int64)
+        life.delete_entities(ctx["life_gone"])
+        out["mutation_s"] = time.perf_counter() - t0
+        est.set_reference(est.current_raw())
+        rot = rng.permutation(FLEET_POOL)
+        rot_order = rot[rng.choice(FLEET_POOL, 4 * FLEET_REQUESTS, p=zipf)]
+        sched = MaintenanceScheduler(est, life, engine=router, interval_s=None)
+        live = [c for c in router.cells if c.name != "cell3"]
+        gens = {c.name: c.cache.generation for c in router.cells}
+        stop = threading.Event()
+
+        def lead(done):
+            ev, checks, t_fan = None, 0, None
+            mark = 0
+            while ev is None and done[0] < len(rot_order) - FLEET_CHECK_EVERY:
+                if done[0] >= mark + FLEET_CHECK_EVERY:
+                    mark = done[0]
+                    checks += 1
+                    t1 = time.perf_counter()
+                    ev = sched.check_now()
+                    t_fan = time.perf_counter() - t1
+                else:
+                    time.sleep(0.002)
+            at = done[0]
+            while done[0] < at + FLEET_MAINT_AFTER and not stop.is_set():
+                time.sleep(0.002)
+            stop.set()
+            return {"event": ev, "checks": checks, "maintenance_s": t_fan,
+                    "answered_at_trigger": mark, "answered_after": at}
+
+        rc0 = router.rerouted
+        before = cell_counts(router)
+        res = fleet_traffic(router, pool, rot_order, during=lead, stop=stop)
+        info = res["extra"]
+        ev = info["event"]
+        require(ev is not None, "the leader never triggered")
+        require(sched.n_reboosts == 1, "the leader triggered more than once")
+        require(not res["errors"], f"the maintenance window lost requests "
+                f"{res['errors'][:3]}")
+        maint = window_report("maintenance window", router, res, before,
+                              None, label)
+        rep = ev["republish"]
+        modes = {name: st["mode"] for name, st in rep["cells"].items()}
+        require(modes == {"cell0": "delta", "cell1": "delta",
+                          "cell2": "delta", "cell3": "skipped"},
+                f"the fan-out's modes {modes}: {rep['cells']}; rebalance "
+                f"{ev['rebalance']}")
+        maint.update(
+            drift=ev["drift"], checks=info["checks"],
+            maintenance_s=info["maintenance_s"], modes=modes,
+            bytes=rep["bytes"], full_bytes=rep["full_bytes"],
+            reboost=ev["reboost"], rebalance=ev["rebalance"],
+            p99_over_steady=maint["p99_ms"] / steady["p99_ms"],
+            rerouted=router.rerouted - rc0)
+        out["maintenance"] = maint
+        log(f"[fleet] maintenance: drift tv {ev['drift']['tv']:.4f} after "
+            f"{info['answered_at_trigger']} rotated requests ({info['checks']} "
+            f"checks); reboost {ev['reboost']}, rebalance {ev['rebalance']}; "
+            f"one pop_delta, rolling fan-out {modes}, bytes {rep['bytes']} of "
+            f"full {rep['full_bytes']}, {info['maintenance_s']:.2f} s while "
+            f"the clients kept going; window p99 {maint['p99_ms']:.3f} ms, "
+            f"{maint['p99_over_steady']:.3f}x the steady window's "
+            f"{steady['p99_ms']:.3f} ms (the reference's fig8 bar: 2x; "
+            "reported only)")
+        qc = ctx["queries"][:FLEET_CHECK_QUERIES]
+        fresh = ShardedSearchBackend(life, kind="ivf", k=K,
+                                     nprobe_local=SIFT_1M.nprobe,
+                                     headroom=FOREST_HEADROOM)
+        want = batched(fresh, qc)
+        gone = ctx["life_gone"]
+        for c in live:
+            same_bits(f"{c.name} after the fan-out against a fresh backend",
+                      batched(c.search_fn.backend, qc), want)
+            require(not np.isin(in_chunks(c.search_fn.backend,
+                                          life.db[gone]), gone).any(),
+                    f"{c.name} returned a deleted id")
+            require(c.cache.generation == gens[c.name] + 1,
+                    f"{c.name}'s cache was not invalidated once")
+        got = in_chunks(fresh, life.db[added])[:, 0]
+        out["maintenance"]["added_found_at_rank_1"] = float(
+            (got == added).mean())
+        log(f"[fleet] after the fan-out: every live cell equals a fresh "
+            f"backend on the mutated index bit for bit on "
+            f"{FLEET_CHECK_QUERIES} queries, no deleted id of {gone.size} "
+            f"returned, every live cache's generation +1")
+
+        # -- revive: cell3 is repaired and replays what it missed
+        recs[3].fail.clear()
+        st = router.revive("cell3")
+        require(st is not None and st["mode"] == "delta",
+                f"cell3's replay {st}")
+        require(router.stats().resyncs == 1, "resyncs != 1")
+        same_bits("cell3 after revive against a fresh backend",
+                  batched(recs[3].backend, qc), want)
+        require(router.cells[3].cache.generation == gens["cell3"] + 1,
+                "cell3's cache was not invalidated at its replay")
+        require("cell3" not in router.down_cells(), "cell3 is still down")
+        out["revive"] = st
+        log(f"[fleet] revive: cell3 replayed the merged manifest ({st}), "
+            f"equals a fresh backend bit for bit; resyncs 1")
+        del fresh
+
+        # -- the sketch on the card against the same sketch on the CPU
+        ids_seen = steady_res["ids"][:, 0]
+        t0 = time.perf_counter()
+        drift = est.drift()
+        out["drift_query_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for j in range(200):                 # what a cache hit adds
+            est.observe(ids_seen[j:j + 1])
+        torch.cuda.synchronize()
+        out["observe_one_ms"] = (time.perf_counter() - t0) * 1e3 / 200
+        sk = {}
+        for weighted in (False, True):
+            card, cpu = (CountMinSketch(width=FLEET_SKETCH_WIDTH, depth=4,
+                                        topk=64, halflife=FLEET_HALFLIFE,
+                                        seed=0, device=d)
+                         for d in (dev, "cpu"))
+            wrng = np.random.default_rng(9)
+            for lo in range(0, ids_seen.size, ids_seen.size // 20):
+                b = ids_seen[lo:lo + ids_seen.size // 20]
+                w = (wrng.random(b.size).astype(np.float32) * 3
+                     if weighted else None)
+                card.update(b, w)
+                cpu.update(b, w)
+            cols = np.arange(0, SIFT_1M.n, 7)
+            sk["weighted" if weighted else "unit"] = {
+                "columns": bool(np.array_equal(card.columns(cols),
+                                               cpu.columns(cols))),
+                "table": bool(np.array_equal(
+                    card.table.cpu().numpy().view(np.int32),
+                    cpu.table.numpy().view(np.int32))),
+                "heavy_hitters": all(np.array_equal(a, b) for a, b in zip(
+                    card.heavy_hitters(), cpu.heavy_hitters()))}
+        require(all(all(v.values()) for v in sk.values()),
+                f"the card sketch differs from the CPU sketch: {sk}")
+        out["sketch"] = sk
+        log(f"[fleet] sketch on the card against the CPU over 20 batches of "
+            f"served top-1 ids: {sk}; the estimator's drift over all "
+            f"{est.n} ids {out['drift_query_ms']:.2f} ms (tv "
+            f"{drift['tv']:.4f}); one observed id (a cache hit's) "
+            f"{out['observe_one_ms']:.4f} ms on the host clock")
+        st = router.stats()
+        out["stats"] = {k_: getattr(st, k_) for k_ in (
+            "n", "p50_ms", "p99_ms", "hedges", "cache_hits", "cache_misses",
+            "drift", "republished_bytes", "delta_fraction", "cancelled",
+            "shed", "rerouted", "hedge_cell", "resyncs")}
+        log(f"[fleet] router stats {out['stats']}")
+    finally:
+        router.close()
+
+    # -- the launcher, on the card, in a process of its own
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "sift-1m", "--n-requests", "256"], capture_output=True, text=True,
+        timeout=LAUNCHER_TIMEOUT_S, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    require(r.returncode == 0, f"the launcher failed: {r.stderr[-2000:]}")
+    lines = r.stdout.strip().splitlines()
+    require(any(x.startswith("paper bars:") for x in lines),
+            "the launcher printed no paper bar line")
+    out["launcher"] = {"s": time.perf_counter() - t0, "lines": lines}
+    for x in lines:
+        log(f"[fleet] launcher: {x}")
+    RESULTS["fleet"] = out
     return out
 
 
@@ -3295,6 +3989,8 @@ def main() -> int:
         phase_lifecycle(dev, ctx)
     with phase("sharded"):
         phase_sharded(dev, ctx)
+    with phase("fleet"):
+        phase_fleet(dev, ctx)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)

@@ -21,7 +21,10 @@ arguments and gets the whole answer.  A served cell runs on the mesh's
 root: the root's backend ``lead()``s, sending each call's header and
 queries to the other ranks, which ``follow()`` until
 ``stop_followers()``.  Collectives are issued in one order on every rank:
-one thread, under the backend lock.
+under the backend lock.  An update on a leading root sends each follower
+its share (below), and a root that has made no call for a quarter of its
+groups' timeout sends a heartbeat the followers skip, so an idle root
+does not fail them; a dead one still does, after the timeout.
 
 Filters are data, not shapes: a ``FilterSpec`` compiles (once per
 ``key()``, until the next placement) to the brute kind's ``valid``
@@ -46,7 +49,16 @@ full re-place (``threshold``).  Every apply returns ``{"mode", "bytes",
 "full_bytes", "reason"}``, counted as the reference counts them (a
 liveness flag is one byte), and feeds the ``republished_bytes`` /
 ``republish_full_bytes`` / ``delta_applies`` / ``full_applies`` counters
-and a ``republish.place`` span.
+and a ``republish.place`` span.  Across ranks the root cuts every rank's
+part: a follower receives only its rows, buckets or slabs of the delta
+(or its shard, for a full re-place), point to point, with the index
+mirrors the filter compiler reads and the appended metadata rows in the
+broadcast header; a rank that fails its part fails the update on every
+rank, and the backend then refuses to serve.
+
+On the card each backend runs on a CUDA stream of its own, searches and
+scatters alike (under its lock), so that one backend's synchronise does
+not wait for another's kernels when several share a card.
 
 Telemetry: ``kernel_ms`` (queue and device execution of the search, up
 to the stream synchronise) and ``rerank_ms`` (copy back to the host)
@@ -54,13 +66,16 @@ histograms, a ``dispatches`` counter, and ``kernel``/``rerank`` spans.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.metadata import MetadataTable
 from repro_torch.device import resolve
 from repro_torch.distributed.sharding import (
     MeshCollective,
@@ -92,6 +107,10 @@ __all__ = ["ShardedSearchBackend", "MODES"]
 
 MODES = ("semantic", "lexical", "hybrid")
 _MASK_CACHE = 64     # compiled filter operands kept per placement
+# a leading root idle for this share of its groups' timeout sends a
+# heartbeat (every second where the timeout cannot be read)
+_HEARTBEAT_SHARE = 0.25
+_HEARTBEAT_UNKNOWN_S = 1.0
 
 # order of the forest kind's placed tables (the local's arguments before
 # the queries)
@@ -102,6 +121,30 @@ _FOREST_ARGS = ("cents", "valid", "roots", "bucket_ids", "bvecs",
 
 def _pow2(n: int) -> int:
     return max(1, 1 << (max(n, 1) - 1).bit_length())
+
+
+def _nbytes(obj) -> int:
+    """Bytes of the arrays in a (nested) update message."""
+    if isinstance(obj, dict):
+        return sum(_nbytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_nbytes(v) for v in obj)
+    return int(obj.nbytes) if isinstance(obj, np.ndarray) else 0
+
+
+def _meta_message(old, new):
+    """What a follower needs to turn its metadata snapshot (equal to
+    ``old``) into ``new``: the appended rows when ``new`` extends ``old``
+    (the table is append-only), else the whole table; None without one."""
+    if new is None:
+        return None
+    cols = {c: new.column(c) for c in new.column_names}
+    if (old is not None and old.column_names == new.column_names
+            and old.n_rows <= new.n_rows
+            and all(np.array_equal(cols[c][:old.n_rows], old.column(c))
+                    for c in cols)):
+        return {"append": {c: v[old.n_rows:] for c, v in cols.items()}}
+    return {"table": cols}
 
 
 class ShardedSearchBackend:
@@ -184,6 +227,20 @@ class ShardedSearchBackend:
         self._version: Optional[int] = None
         self._full_bytes = 0             # bytes of a full re-place
         self.last_republish: Optional[dict] = None
+        # the card: one stream a backend, for searches and scatters alike
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        # across ranks: the root's heartbeat, the bytes its last update
+        # sent each follower, a follower's record of the updates it took,
+        # and the reason this backend refuses to serve after a failed one
+        self._beat: Optional[threading.Thread] = None
+        self._beat_stop = threading.Event()
+        self._beat_s: Optional[float] = None
+        self._last_send = time.monotonic()
+        self.beats = 0                   # heartbeats sent or skipped
+        self.last_fanout: Optional[dict] = None
+        self.updates: list = []
+        self._failed: Optional[str] = None
 
         if kind == "auto":
             if isinstance(target, np.ndarray) or not hasattr(
@@ -232,8 +289,9 @@ class ShardedSearchBackend:
             self._fn_lex = make_sharded_lexical_fn(k, self._rows,
                                                    fused=fused)
             self._fn_hyb = make_sharded_hybrid_fn(k, self._rows, fused=fused)
-        with self._lock:
+        with self._lock, self._on_stream():
             self._place(target, alive=alive)
+            self._sync()
 
     # -- counters ------------------------------------------------------
     @property
@@ -255,28 +313,44 @@ class ShardedSearchBackend:
         return self._c_full.value
 
     # ------------------------------------------------------------------
-    def _place(self, target, alive=None) -> None:
-        """Pad and place ``target`` (and its slabs) on the device in the
-        recorded shapes; pin the metadata the next filters will see
-        (caller holds the lock)."""
-        dev, lin, S = self.device, self.slot.lin, self.n_dev
+    def _on_stream(self):
+        """This backend's stream as the current one (the card), or
+        nothing (the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _sync(self) -> None:
+        """Wait for this backend's device work."""
+        if self._stream is not None:
+            self._stream.synchronize()
+        elif self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _tables(self, target, alive, lin: int, device) -> dict:
+        """Shard ``lin`` of ``target`` padded into the recorded shapes and
+        placed on ``device``: ``{"args", "lex", "mirror", "n",
+        "full_bytes"}``, ``mirror`` the host copy of every shard's
+        ``valid`` (brute) or bucket ids (ivf / forest) that filters
+        compile against."""
+        S = self.n_dev
+        lex = None
         if self.kind == "brute":
             db_host = np.asarray(getattr(target, "db", target), np.float32)
-            self._n = n = db_host.shape[0]
+            n = db_host.shape[0]
             rows_all = self._rows * S
             if self.precision == "int8":
-                *self._args, valid = _brute_int8_device_arrays(
-                    db_host, dev, rows=self._rows, alive=alive, lin=lin,
+                *args, valid = _brute_int8_device_arrays(
+                    db_host, device, rows=self._rows, alive=alive, lin=lin,
                     n_dev=S)
                 # int8 codes, fp32 scales, a one-byte liveness flag a row
-                self._full_bytes = rows_all * (db_host.shape[1] + 4 + 1)
+                full = rows_all * (db_host.shape[1] + 4 + 1)
             else:
-                *self._args, valid = _brute_device_arrays(
-                    db_host, dev, rows=self._rows, alive=alive, lin=lin,
+                *args, valid = _brute_device_arrays(
+                    db_host, device, rows=self._rows, alive=alive, lin=lin,
                     n_dev=S)
-                self._full_bytes = rows_all * (4 * db_host.shape[1] + 1)
-            self._args = tuple(self._args)
-            self._host_valid = valid != 0        # every shard's rows
+                full = rows_all * (4 * db_host.shape[1] + 1)
+            mirror = valid != 0                  # every shard's rows
             if self.lexical_src is not None:
                 slabs = self.lexical_src
                 if slabs.n_docs != n:
@@ -284,33 +358,51 @@ class ShardedSearchBackend:
                         f"lexical slabs hold {slabs.n_docs} rows for a "
                         f"{n}-row corpus; append_docs must track "
                         "add_entities")
-                self._lex_args = _lexical_device_arrays(
-                    slabs.terms, slabs.tf_sat, dev, rows=self._rows,
+                lex = _lexical_device_arrays(
+                    slabs.terms, slabs.tf_sat, device, rows=self._rows,
                     lin=lin, n_dev=S)
-                self._full_bytes += S * sum(int(t.nbytes)
-                                            for t in self._lex_args)
+                full += S * sum(int(t.nbytes) for t in lex)
         elif self.kind == "ivf":
             if int(target.bucket_ids.shape[0]) != self._K:
                 raise ValueError(
                     f"cluster count changed ({target.bucket_ids.shape[0]} "
                     f"!= {self._K}); rebuild the backend")
-            self._n = int(target.db.shape[0])
-            *self._args, self._host_bids = _ivf_device_arrays(
-                target, dev, cap=self._cap, lin=lin, n_dev=S)
-            self._args = tuple(self._args)
-            self._full_bytes = S * sum(int(t.nbytes) for t in self._args)
+            n = int(target.db.shape[0])
+            *args, mirror = _ivf_device_arrays(target, device, cap=self._cap,
+                                               lin=lin, n_dev=S)
+            full = S * sum(int(t.nbytes) for t in args)
         else:
-            placed, host = _forest_device_arrays(target, dev,
+            placed, host = _forest_device_arrays(target, device,
                                                  shapes=self._shapes,
                                                  lin=lin, n_dev=S)
-            self._n = int(target.db.shape[0])
-            self._args = tuple(placed[name] for name in _FOREST_ARGS)
+            n = int(target.db.shape[0])
+            args = [placed[name] for name in _FOREST_ARGS]
             # every shard's tables have this shard's shapes
-            self._full_bytes = S * sum(int(host[name].nbytes)
-                                       for name in _FOREST_ARGS)
+            full = S * sum(int(host[name].nbytes) for name in _FOREST_ARGS)
             sh = self._shapes
-            self._host_bids = _ivf_host_bids(target, sh.cap, S).reshape(
+            mirror = _ivf_host_bids(target, sh.cap, S).reshape(
                 S, sh.kloc, sh.cap)
+        return {"args": tuple(args), "lex": lex, "mirror": mirror, "n": n,
+                "full_bytes": full}
+
+    def _install(self, t: dict) -> None:
+        """Make ``t`` (``_tables``' result; host arrays as a follower
+        receives them) the placed tables (caller holds the lock)."""
+        self._args = tuple(self._put(a) for a in t["args"])
+        self._lex_args = (None if t["lex"] is None
+                          else tuple(self._put(a) for a in t["lex"]))
+        if self.kind == "brute":
+            self._host_valid = t["mirror"]
+        else:
+            self._host_bids = t["mirror"]
+        self._n, self._full_bytes = t["n"], t["full_bytes"]
+
+    def _place(self, target, alive=None) -> None:
+        """Pad and place ``target`` (and its slabs) on the device in the
+        recorded shapes; pin the metadata the next filters will see
+        (caller holds the lock)."""
+        self._install(self._tables(target, alive, self.slot.lin,
+                                   self.device))
         self._version = getattr(target, "mutation_version", None)
         self._refresh_meta(target)
 
@@ -444,89 +536,121 @@ class ShardedSearchBackend:
         return pay, None
 
     def _put(self, a, dtype=None) -> torch.Tensor:
-        t = torch.as_tensor(np.asarray(a), device=self.device)
+        a = a if isinstance(a, torch.Tensor) else np.asarray(a)
+        t = torch.as_tensor(a, device=self.device)
         return t if dtype is None else t.to(dtype)
 
-    def _mine(self, rows: np.ndarray, per_shard: int):
-        """(mask of ``rows`` on this rank's shard, their local indices as
-        a device tensor): global row or bucket ``r`` lives on shard
-        ``r // per_shard``."""
-        rows = np.asarray(rows)
-        mine = rows // per_shard == self.slot.lin
-        return mine, self._put(rows[mine] - self.slot.lin * per_shard,
-                               torch.long)
-
-    def _apply_lex_delta(self, pay, mine, rows) -> None:
-        """Scatter appended postings-slab rows next to their vectors."""
-        if self._lex_args is None or "lex_terms" not in pay:
-            return
-        self._lex_args[0][rows] = self._put(pay["lex_terms"][mine])
-        self._lex_args[1][rows] = self._put(pay["lex_tf"][mine])
-
-    def _apply_delta(self, pay) -> None:
-        """Scatter this rank's part of the payload into the placed
-        tensors, in place (caller holds the lock); the host mirrors the
-        filters read cover every shard."""
+    def _cut(self, pay: dict, lin: int) -> dict:
+        """Shard ``lin``'s part of a delta payload: its rows, buckets or
+        slabs, at local indices (what that rank scatters, and all it is
+        sent)."""
         if self.kind == "brute":
             R = self._rows
-            mine, rows = self._mine(pay["rows"], R)
+            rows = np.asarray(pay["rows"])
+            mine = rows // R == lin
+            out = {"rows": rows[mine] - lin * R}
+            for key in ("vals", "vals8", "vscales", "lex_terms", "lex_tf"):
+                if key in pay:
+                    out[key] = pay[key][mine]
+            if "valid" in pay:
+                out["valid"] = pay["valid"][lin * R:(lin + 1) * R]
+            else:
+                tomb = np.asarray(pay["tomb"])
+                out["tomb"] = tomb[tomb // R == lin] - lin * R
+            return out
+        if self.kind == "ivf":
+            rows = np.asarray(pay["rows"])
+            mine = rows // self._kloc == lin
+            out = {name: pay[name][mine]
+                   for name in ("cents", "bucket_ids", "bvecs")}
+            out["rows"] = rows[mine] - lin * self._kloc
+            return out
+        mine = np.asarray(pay["shard"]) == lin
+        return {name: np.asarray(pay[name])[mine]
+                for name in ("slot",) + _FOREST_ARGS}
+
+    def _mirror_part(self, pay: dict) -> dict:
+        """The payload's index vectors over every shard, which the host
+        mirrors the filter compiler reads need."""
+        if self.kind == "brute":
+            if "valid" in pay:
+                return {"valid": pay["valid"]}
+            return {"rows": pay["rows"], "tomb": pay["tomb"]}
+        if self.kind == "ivf":
+            return {"rows": pay["rows"], "bucket_ids": pay["bucket_ids"]}
+        return {"shard": pay["shard"], "slot": pay["slot"],
+                "bucket_ids": pay["bucket_ids"]}
+
+    def _scatter(self, part: dict) -> None:
+        """Scatter this rank's part (``_cut``) into the placed tensors, in
+        place (caller holds the lock, on this backend's stream)."""
+        if self.kind == "brute":
+            rows = self._put(part["rows"], torch.long)
             if self.precision == "int8":
                 codes, scales, valid = self._args
-                codes[rows] = self._put(pay["vals8"][mine])
-                scales[rows] = self._put(pay["vscales"][mine])
+                codes[rows] = self._put(part["vals8"])
+                scales[rows] = self._put(part["vscales"])
             else:
                 db, valid = self._args
-                db[rows] = self._put(pay["vals"][mine])
-                self._apply_lex_delta(pay, mine, rows)
-            if "valid" in pay:
-                lo = self.slot.lin * R
-                valid.copy_(self._put(pay["valid"][lo:lo + R], torch.int32))
-                self._host_valid = np.asarray(pay["valid"], bool).copy()
+                db[rows] = self._put(part["vals"])
+                if self._lex_args is not None and "lex_terms" in part:
+                    self._lex_args[0][rows] = self._put(part["lex_terms"])
+                    self._lex_args[1][rows] = self._put(part["lex_tf"])
+            if "valid" in part:
+                valid.copy_(self._put(part["valid"], torch.int32))
             else:
                 # liveness is cumulative on the device: appended rows flip
                 # alive, tombstones dead, the rest keep their bits
                 valid[rows] = 1
-                valid[self._mine(pay["tomb"], R)[1]] = 0
-                self._mirror_brute_liveness(pay)
+                valid[self._put(part["tomb"], torch.long)] = 0
         elif self.kind == "ivf":
-            mine, rows = self._mine(pay["rows"], self._kloc)
+            rows = self._put(part["rows"], torch.long)
             cents, bids, bvecs = self._args
-            cents[rows] = self._put(pay["cents"][mine])
-            bids[rows] = self._put(pay["bucket_ids"][mine])
-            bvecs[rows] = self._put(pay["bvecs"][mine])
-            self._host_bids[pay["rows"]] = pay["bucket_ids"]
-        else:
-            # a slab on another shard (or past the last) is not this
-            # rank's; the placed tables keep the shard dimension, length 1
-            shard = np.asarray(pay["shard"])
-            mine = shard == self.slot.lin
-            if mine.any():
-                sl = self._put(pay["slot"][mine], torch.long)
-                sh = torch.zeros_like(sl)
-                ns, ls = self._shapes.node_slab, self._shapes.leaf_slab
-                nrow = (sl[:, None] * ns
-                        + torch.arange(ns, device=self.device)[None, :])
-                lrow = (sl[:, None] * ls
-                        + torch.arange(ls, device=self.device)[None, :])
-                t = dict(zip(_FOREST_ARGS, self._args))
-                for name in ("cents", "valid", "roots", "bucket_ids",
-                             "bvecs"):
-                    t[name][sh, sl] = self._put(pay[name][mine])
-                for name in ("proj", "dims", "tau", "children", "leaf_row"):
-                    t[name][sh[:, None], nrow] = self._put(pay[name][mine])
-                t["leaf_entities"][sh[:, None], lrow] = self._put(
-                    pay["leaf_entities"][mine])
-            ok = shard < self.n_dev
-            if ok.any():
-                self._host_bids[shard[ok], pay["slot"][ok]] = \
-                    pay["bucket_ids"][ok]
-        self._n = pay["n"]
+            cents[rows] = self._put(part["cents"])
+            bids[rows] = self._put(part["bucket_ids"])
+            bvecs[rows] = self._put(part["bvecs"])
+        elif part["slot"].size:
+            # the placed tables keep the shard dimension, length 1
+            sl = self._put(part["slot"], torch.long)
+            sh = torch.zeros_like(sl)
+            ns, ls = self._shapes.node_slab, self._shapes.leaf_slab
+            nrow = (sl[:, None] * ns
+                    + torch.arange(ns, device=self.device)[None, :])
+            lrow = (sl[:, None] * ls
+                    + torch.arange(ls, device=self.device)[None, :])
+            t = dict(zip(_FOREST_ARGS, self._args))
+            for name in ("cents", "valid", "roots", "bucket_ids", "bvecs"):
+                t[name][sh, sl] = self._put(part[name])
+            for name in ("proj", "dims", "tau", "children", "leaf_row"):
+                t[name][sh[:, None], nrow] = self._put(part[name])
+            t["leaf_entities"][sh[:, None], lrow] = self._put(
+                part["leaf_entities"])
 
-    def _mirror_brute_liveness(self, pay) -> None:
-        """Replay the device liveness flips on the host mirror the filter
-        compiler reads (appends flip alive, tombstones flip dead)."""
-        self._host_valid[pay["rows"]] = True
-        self._host_valid[pay["tomb"]] = False
+    def _mirror_update(self, m: dict) -> None:
+        """Replay a payload's index vectors (``_mirror_part``) on the host
+        mirrors of every shard."""
+        if self.kind == "brute":
+            if "valid" in m:
+                self._host_valid = np.asarray(m["valid"], bool).copy()
+            else:
+                self._host_valid[m["rows"]] = True
+                self._host_valid[m["tomb"]] = False
+        elif self.kind == "ivf":
+            self._host_bids[m["rows"]] = m["bucket_ids"]
+        else:
+            shard, slot = np.asarray(m["shard"]), np.asarray(m["slot"])
+            ok = shard < self.n_dev          # past the last shard: no slab
+            if ok.any():
+                self._host_bids[shard[ok], slot[ok]] = \
+                    np.asarray(m["bucket_ids"])[ok]
+
+    def _apply_delta(self, pay) -> None:
+        """This rank's part of the payload into the placed tensors, every
+        shard's index vectors into the host mirrors (caller holds the
+        lock)."""
+        self._scatter(self._cut(pay, self.slot.lin))
+        self._mirror_update(self._mirror_part(pay))
+        self._n = pay["n"]
 
     # ------------------------------------------------------------------
     def apply_updates(self, target, alive=None, delta=None) -> dict:
@@ -542,12 +666,21 @@ class ShardedSearchBackend:
         reservation (rebuild the backend with more ``headroom``).
         ``alive`` (brute kind only) marks tombstoned corpus rows.
 
+        On a leading root (:meth:`lead`) the followers take the same
+        update under the same lock hold: each receives its own part (its
+        rows, buckets or slabs of the delta, or its shard of a full
+        re-place); their tables then equal what a backend built with
+        ``shard=`` on the mutated target holds.  If any rank fails its
+        part, every rank raises and this backend refuses to serve.
+
         Returns ``{"mode", "bytes", "full_bytes", "reason"}``: ``mode`` is
         ``"delta"``, ``"full"`` or ``"noop"``; ``bytes`` is what was
-        shipped; ``full_bytes`` is what a full re-place ships.
+        shipped; ``full_bytes`` is what a full re-place ships (both over
+        every shard, as the reference counts them).
         """
         with get_tracer().span("republish.place", kind=self.kind) as sp:
-            with self._lock:
+            with self._lock, self._on_stream():
+                self._check_serving()
                 stats = self._apply_locked(target, alive, delta)
                 self.last_republish = stats
             self._c_repub.inc(stats["bytes"])
@@ -559,40 +692,153 @@ class ShardedSearchBackend:
             sp.set(mode=stats["mode"], bytes=stats["bytes"])
         return stats
 
-    def _apply_locked(self, target, alive, delta) -> dict:
-        reason = None
+    def _plan(self, target, alive, delta):
+        """(mode, delta payload or None, fallback reason) of an update."""
         if delta is None:
-            reason = "no-manifest"
-        elif delta.full:
-            reason = "manifest-full"
+            return "full", None, "no-manifest"
+        if delta.full:
+            return "full", None, "manifest-full"
+        covered = (self._version is not None
+                   and delta.base_version <= self._version)
+        if delta.empty and (covered or self.kind == "brute"):
+            return "noop", None, None
+        if (self.kind in ("ivf", "forest") and self.delta_updates
+                and delta.dirty_buckets.size * self._bucket_payload_bytes()
+                > self.delta_max_fraction * self._full_bytes):
+            # the payload size is exact up front: don't cut the slices of
+            # a delta that can't win
+            return "full", None, "threshold"
+        pay, reason = self._delta_payload(target, alive, delta)
+        if reason is None and (pay["bytes"]
+                               > self.delta_max_fraction * self._full_bytes):
+            reason = "threshold"
+        if reason is not None:
+            return "full", None, reason
+        return "delta", pay, None
+
+    def _apply_locked(self, target, alive, delta) -> dict:
+        """Apply on this rank first: a payload or placement that fails here
+        fails before any follower hears of it; then the followers'
+        parts."""
+        old_meta = self._meta
+        mode, pay, reason = self._plan(target, alive, delta)
+        if mode == "full":
+            self._place(target, alive=alive)
         else:
-            covered = (self._version is not None
-                       and delta.base_version <= self._version)
-            if delta.empty and (covered or self.kind == "brute"):
-                self._version = delta.version
-                self._refresh_meta(target)
-                return {"mode": "noop", "bytes": 0,
-                        "full_bytes": self._full_bytes, "reason": None}
-            if (self.kind in ("ivf", "forest") and self.delta_updates
-                    and delta.dirty_buckets.size * self._bucket_payload_bytes()
-                    > self.delta_max_fraction * self._full_bytes):
-                # the payload size is exact up front: don't cut the slices
-                # of a delta that can't win
-                reason = "threshold"
-            else:
-                pay, reason = self._delta_payload(target, alive, delta)
-            if reason is None:
-                if pay["bytes"] > self.delta_max_fraction * self._full_bytes:
-                    reason = "threshold"
-                else:
-                    self._apply_delta(pay)
-                    self._version = delta.version
-                    self._refresh_meta(target)
-                    return {"mode": "delta", "bytes": pay["bytes"],
-                            "full_bytes": self._full_bytes, "reason": None}
-        self._place(target, alive=alive)
-        return {"mode": "full", "bytes": self._full_bytes,
+            if mode == "delta":
+                self._apply_delta(pay)
+            self._version = delta.version
+            self._refresh_meta(target)
+        self._sync()
+        if self._leading:
+            self._update_followers(mode, pay, target, alive, old_meta)
+        if mode == "noop":
+            return {"mode": "noop", "bytes": 0,
+                    "full_bytes": self._full_bytes, "reason": None}
+        return {"mode": mode,
+                "bytes": pay["bytes"] if mode == "delta" else self._full_bytes,
                 "full_bytes": self._full_bytes, "reason": reason}
+
+    def _update_followers(self, mode: str, pay, target, alive,
+                          old_meta) -> None:
+        """Send every follower its part of the update this root just
+        applied, then count the ranks that failed theirs (caller holds the
+        lock).  The header (broadcast) carries the shared state: every
+        shard's index vectors for the host mirrors and the appended
+        metadata rows; each follower's part goes to it alone."""
+        if mode == "full":
+            mirror = (self._host_valid if self.kind == "brute"
+                      else self._host_bids)
+        else:
+            mirror = None if mode == "noop" else self._mirror_part(pay)
+        self._send({"stop": False, "update": mode, "n": self._n,
+                    "version": self._version, "full_bytes": self._full_bytes,
+                    "mirror": mirror,
+                    "meta": _meta_message(old_meta, self._meta)})
+        sent, error = {}, None
+        for rank, lin in self._coll.followers():
+            if error is None:
+                try:
+                    if mode == "full":
+                        t = self._tables(target, alive, lin,
+                                         torch.device("cpu"))
+                        part = {"args": [a.numpy() for a in t["args"]],
+                                "lex": (None if t["lex"] is None else
+                                        [a.numpy() for a in t["lex"]])}
+                    elif mode == "delta":
+                        part = self._cut(pay, lin)
+                    else:
+                        part = {}
+                except Exception as e:
+                    error = f"{type(e).__name__}: {e}"
+            msg = {"error": error} if error is not None else part
+            dist.send_object_list([msg], dst=rank)
+            sent[rank] = _nbytes(msg)
+        self.last_fanout = {"mode": mode, "bytes_to_rank": sent}
+        failed = self._coll.total(error is not None, self.device)
+        if failed:
+            self._fail(f"an update failed on {failed} rank(s) of the mesh"
+                       + (f" ({error})" if error else ""))
+            raise RuntimeError(self._failed)
+
+    def _take_update(self, h: dict) -> None:
+        """A follower's side of :meth:`_update_followers` (caller holds the
+        lock, on this backend's stream)."""
+        error = None
+        try:
+            box = [None]
+            dist.recv_object_list(box, src=self._coll.root_rank)
+            part = box[0]
+            if "error" in part:
+                raise RuntimeError("the root could not cut this rank's "
+                                   f"part: {part['error']}")
+            if h["update"] == "full":
+                self._install(dict(part, mirror=h["mirror"], n=h["n"],
+                                   full_bytes=h["full_bytes"]))
+            elif h["update"] == "delta":
+                self._scatter(part)
+                self._mirror_update(h["mirror"])
+            self._n, self._version = h["n"], h["version"]
+            self._set_meta(h["meta"])
+            self._sync()
+            self.updates.append({"mode": h["update"],
+                                 "part_bytes": _nbytes(part),
+                                 "header_bytes": _nbytes(h)})
+        except Exception as e:
+            error = e
+        failed = self._coll.total(error is not None, self.device)
+        if failed:
+            self._fail(f"an update failed on {failed} rank(s) of the mesh")
+            raise RuntimeError(self._failed) from error
+
+    def _set_meta(self, msg) -> None:
+        """Install a ``_meta_message`` on this follower's snapshot and drop
+        every compiled mask."""
+        if msg is None:
+            self._meta = None
+        elif "append" in msg:
+            self._meta = MetadataTable(
+                {c: np.concatenate([self._meta.column(c), v])
+                 for c, v in msg["append"].items()})
+        else:
+            self._meta = MetadataTable(msg["table"])
+        self._fmask_cache.clear()
+
+    def _fail(self, why: str) -> None:
+        """Refuse to serve from now on: some rank's tables are not this
+        update's (caller holds the lock)."""
+        self._failed = why
+        self._leading = False
+        self._beat_stop.set()
+
+    def _check_serving(self) -> None:
+        if self._failed is not None:
+            raise RuntimeError(f"this backend no longer serves: {self._failed};"
+                               " rebuild it")
+        if self._stopped:
+            raise RuntimeError("this backend released its followers "
+                               "(stop_followers); its collectives would "
+                               "wait for them")
 
     def __call__(self, queries, *, filter_spec=None, mode: str = "semantic",
                  alpha: float = 0.5, q_terms=None, q_weights=None):
@@ -626,15 +872,15 @@ class ShardedSearchBackend:
     def _operands(self, queries, q_terms, q_weights, mode: str, n_q: int):
         """The per-query operands of ``mode`` -- queries (float32), term
         ids (int32, pads -1), term weights -- padded on the host to a
-        multiple of ``n_q`` rows and placed; and the batch size B."""
+        multiple of ``n_q`` rows (placed by the search, on this backend's
+        stream); and the batch size B."""
         host = []
         if mode != "lexical":
             host.append(_pad_batch(queries, n_q))
         if mode != "semantic":
             host.extend(_pad_terms(q_terms, q_weights, n_q))
         B = len(queries) if mode != "lexical" else len(q_terms)
-        return tuple(torch.as_tensor(h, device=self.device)
-                     for h in host), B
+        return tuple(host), B
 
     def _local(self, filter_spec, mode: str, alpha: float):
         """This shard's local for one option set: ``call(*operand
@@ -663,19 +909,16 @@ class ShardedSearchBackend:
 
     def _search(self, ops, B: int, filter_spec, mode: str, alpha: float):
         tracer = get_tracer()
-        dev = self.device
         t0 = time.perf_counter()
         # kernel: enqueue + device execution; the synchronise runs outside
         # the lock so the span measures device time, not the enqueue
         with tracer.span("kernel", kind=self.kind, b=B):
-            with self._lock:
-                if self._stopped:
-                    raise RuntimeError("this backend released its followers "
-                                       "(stop_followers); its collectives "
-                                       "would wait for them")
+            with self._lock, self._on_stream():
+                self._check_serving()
                 # compiled before the followers hear of the call: a
                 # request that fails to compile fails on the root alone
                 call = self._local(filter_spec, mode, alpha)
+                ops = tuple(self._put(o) for o in ops)
                 if self._leading:
                     self._send({"stop": False, "B": B, "mode": mode,
                                 "alpha": alpha, "filter": filter_spec,
@@ -683,8 +926,7 @@ class ShardedSearchBackend:
                                              for o in ops]}, ops)
                 d, i = search_blocks(call, ops, B, self.k, self.slot,
                                      self._coll)
-            if dev.type == "cuda":
-                torch.cuda.current_stream(dev).synchronize()
+            self._sync()
         t1 = time.perf_counter()
         # rerank: pull the merged top-k back to the host
         with tracer.span("rerank", kind=self.kind):
@@ -705,28 +947,53 @@ class ShardedSearchBackend:
 
     def lead(self) -> "ShardedSearchBackend":
         """Make this backend, on the mesh's root rank, send every call's
-        header (B, mode, alpha, filter) and operands to the other ranks,
-        which run :meth:`follow`.  A mesh of one rank has no followers."""
+        header (B, mode, alpha, filter) and operands, and every update's
+        parts, to the other ranks, which run :meth:`follow`.  While no call
+        has been sent for a quarter of the shortest timeout of the mesh's
+        groups a heartbeat is sent, so a root idle past the timeout does
+        not fail its followers.  A mesh of one rank has no followers."""
         if self._coll is None or self._coll.size == 1:
             return self
         if not self._coll.root:
             raise RuntimeError("only the mesh's root rank leads; the other "
                                "ranks follow()")
+        if self._leading:
+            return self
+        timeout = self._coll.timeout_s(self.device)
+        self._beat_s = (_HEARTBEAT_SHARE * timeout if timeout is not None
+                        else _HEARTBEAT_UNKNOWN_S)
         self._leading = True
+        self._last_send = time.monotonic()
+        self._beat = threading.Thread(target=self._heartbeat, daemon=True)
+        self._beat.start()
         return self
+
+    def _heartbeat(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while not self._beat_stop.wait(self._beat_s / 2):
+            with self._lock:
+                if (self._leading and time.monotonic() - self._last_send
+                        >= self._beat_s):
+                    self._send({"stop": False, "beat": True})
+                    self.beats += 1
 
     def _send(self, header: dict, ops=()) -> None:
         """Broadcast a call from the root (caller holds the lock)."""
         self._coll.broadcast_object(header)
         for o in ops:
             self._coll.broadcast(o)
+        self._last_send = time.monotonic()
 
-    def follow(self) -> int:
+    def follow(self, on_update=None) -> int:
         """Serve the root's calls on a non-root rank: receive each call's
-        header and operands and join its collectives, until the root's
-        :meth:`stop_followers`.  Returns the calls served.  A follower
-        waits in a broadcast, so a root idle past the group's timeout
-        fails its followers."""
+        header and operands and join its collectives, and take each
+        update's part, until the root's :meth:`stop_followers`.  Heartbeats
+        are skipped (and counted in ``beats``).  ``on_update(self)`` runs
+        after each update this rank took.  Returns the calls served.
+        Raises when an update failed on any rank; a root silent past the
+        groups' timeout (dead: a live root sends heartbeats) fails the
+        wait."""
         if self._coll is None or self._coll.root:
             raise RuntimeError("follow() runs on the non-root ranks of a "
                                "mesh")
@@ -735,14 +1002,22 @@ class ShardedSearchBackend:
             h = self._coll.broadcast_object(None)
             if h["stop"]:
                 return served
-            ops = tuple(self._coll.broadcast(
-                torch.empty(shape, dtype=dtype, device=self.device))
-                for shape, dtype in h["operands"])
-            with self._lock:
-                search_blocks(self._local(h["filter"], h["mode"],
-                                          h["alpha"]),
-                              ops, h["B"], self.k, self.slot, self._coll)
-            served += 1
+            if h.get("beat"):
+                self.beats += 1
+                continue
+            with self._lock, self._on_stream():
+                if "update" in h:
+                    self._take_update(h)
+                else:
+                    ops = tuple(self._coll.broadcast(
+                        torch.empty(shape, dtype=dtype, device=self.device))
+                        for shape, dtype in h["operands"])
+                    search_blocks(self._local(h["filter"], h["mode"],
+                                              h["alpha"]),
+                                  ops, h["B"], self.k, self.slot, self._coll)
+                    served += 1
+            if "update" in h and on_update is not None:
+                on_update(self)
 
     def stop_followers(self) -> None:
         """End the followers' :meth:`follow` loops (a no-op unless this
@@ -751,3 +1026,6 @@ class ShardedSearchBackend:
             if self._leading:
                 self._send({"stop": True})
                 self._leading, self._stopped = False, True
+        self._beat_stop.set()
+        if self._beat is not None and self._beat is not threading.current_thread():
+            self._beat.join(timeout=5)

@@ -242,6 +242,7 @@ class MeshCollective:
         axes, query_axes = tuple(axes), tuple(query_axes)
         _check_disjoint(axes, query_axes)
         self.mesh = mesh
+        self.axes = axes
         self.names = tuple(mesh.mesh_dim_names)
         shape = _mesh_shape(mesh)
         for a in axes + query_axes:
@@ -326,6 +327,48 @@ class MeshCollective:
         for group, src in self._broadcast_steps():
             dist.broadcast(t, src=src, group=group)
         return t
+
+    @property
+    def root_rank(self) -> int:
+        """Global rank of the mesh's root (every coordinate 0)."""
+        return int(self.mesh.mesh.reshape(-1)[0])
+
+    def followers(self) -> "list[tuple[int, int]]":
+        """(global rank, corpus shard ``lin``) of every rank of the mesh
+        but the root, in the mesh's row-major order."""
+        shape = _mesh_shape(self.mesh)
+        flat = self.mesh.mesh
+        out = []
+        for coord in np.ndindex(*flat.shape):
+            if not any(coord):
+                continue
+            c = dict(zip(self.names, coord))
+            out.append((int(flat[coord]), _row_major(c, shape, self.axes)))
+        return out
+
+    def total(self, value: int, device) -> int:
+        """Sum of every rank's ``value`` over the whole mesh (one
+        all-reduce a dimension)."""
+        t = torch.tensor([int(value)], dtype=torch.int64, device=device)
+        for name in self.names:
+            dist.all_reduce(t, group=self.mesh.get_group(name))
+        return int(t.item())
+
+    def timeout_s(self, device) -> Optional[float]:
+        """The shortest collective timeout among the mesh's groups (what
+        bounds a follower's wait for the root's next call), or None where
+        this torch does not expose it."""
+        out = []
+        for name in self.names:
+            group = self.mesh.get_group(name)
+            for dev in (torch.device(device), torch.device("cpu")):
+                try:
+                    out.append(group._get_backend(
+                        dev).options._timeout.total_seconds())
+                    break
+                except (AttributeError, RuntimeError):
+                    continue
+        return min(out) if out else None
 
 
 def search_blocks(call, operands, B: int, k: int, slot: ShardSlot,

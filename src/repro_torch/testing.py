@@ -433,6 +433,7 @@ def shard_loop(backends, queries=None, *, n_q: int = 1, filter_spec=None,
         filter_spec = None
     be0 = backends[0]
     ops_, B = be0._operands(queries, q_terms, q_weights, mode, n_q)
+    ops_ = tuple(be0._put(o) for o in ops_)
     calls = [be._local(filter_spec, mode, alpha) for be in backends]
     bq = ops_[0].shape[0] // n_q
     ds, ids = [], []

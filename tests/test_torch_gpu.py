@@ -12,7 +12,10 @@ one small filtered / lexical / hybrid / int8 serve and one small run of
 the index layer (PQ top level, one-level LSH) through the kernels, and
 the sharded backends over a world-size-1 NCCL mesh and over four gloo
 ranks sharing the card (against the backends without a mesh and the
-single-process shard loop, bit for bit).
+single-process shard loop, bit for bit), the count-min sketch on the card
+against the CPU's (bit for bit, weighted too), and a two-cell fleet on
+``cuda:0`` whose routed answers equal its backends' before and after a
+fan-out.
 
 Marked ``gpu``; each test decides inside itself whether a card is there
 and skips with the reason when not.  Run on the card with:
@@ -1003,3 +1006,85 @@ def test_four_gloo_ranks_on_the_card_equal_the_shard_loop(
             assert np.array_equal(got[1], loop[1]), (name, r)
             assert np.array_equal(got[0].view(np.int32),
                                   loop[0].view(np.int32)), (name, r)
+
+
+# ------------------------------------------------------- fleet, sketch
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sketch_on_the_card_equals_the_cpu(dev, weighted):
+    """The count-min sketch's columns, table and heavy hitters on the card
+    equal the same sketch's on the CPU bit for bit (the adds to a cell run
+    in batch order on both)."""
+    from repro_torch.adaptive import CountMinSketch
+
+    rng = np.random.default_rng(3)
+    card, cpu = (CountMinSketch(width=1024, depth=4, topk=32, halflife=300.0,
+                                seed=5, device=d) for d in (dev, "cpu"))
+    ids = np.arange(2**31 - 100, 2**31)
+    assert np.array_equal(card.columns(ids), cpu.columns(ids))
+    p = 1.0 / np.arange(1, 501) ** 1.1
+    for t in range(20):
+        ids = rng.choice(500, 13 + 11 * t, p=p / p.sum())
+        w = rng.random(ids.size).astype(np.float32) if weighted else None
+        card.update(ids, w)
+        cpu.update(ids, w)
+    assert np.array_equal(card.table.cpu().numpy().view(np.int32),
+                          cpu.table.numpy().view(np.int32))
+    for a, b in zip(card.heavy_hitters(), cpu.heavy_hitters()):
+        assert np.array_equal(a, b)
+    q = np.arange(-1, 600)
+    assert np.array_equal(card.query(q), cpu.query(q))
+
+
+def test_two_cell_fleet_on_the_card_answers_as_its_backends(dev):
+    """Two cells on ``cuda:0``, each its own IVF placement (and stream):
+    every routed answer equals its cell backend's direct answer bit for
+    bit, before and after an add / delete fan-out; no deleted id returns
+    and every cache was invalidated once."""
+    from repro_torch.adaptive import OnlineLikelihoodEstimator
+    from repro_torch.serve.fleet import build_fleet
+
+    db = make_corpus("sift", scale=0.016, seed=0)
+    q = make_queries(db, 48, seed=1)
+    idx = build_two_level(db, TwoLevelConfig(n_clusters=64, seed=0),
+                          device=dev)
+    est = OnlineLikelihoodEstimator(idx.n + 16, device=dev)
+    router = build_fleet([dev, dev], idx, kind="ivf", k=10,
+                         cache_capacity=64, estimator=est,
+                         backend_kw=dict(nprobe_local=8, headroom=1.5),
+                         cell_kw=dict(max_wait_ms=0.5))
+    try:
+        bes = [c.search_fn for c in router.cells]
+        assert bes[0]._stream is not None and bes[0]._stream != bes[1]._stream
+
+        def check():
+            for x in q:
+                d, i = router.search(x, timeout=60)
+                wd, wi = router.preferred_cell(x).search_fn(x[None])
+                assert np.array_equal(i, wi[0])
+                assert np.array_equal(d.view(np.int32),
+                                      wd[0].view(np.int32))
+
+        before = bucket_topk.LAUNCHES.count
+        check()
+        check()                          # the second pass hits the caches
+        assert bucket_topk.LAUNCHES.count > before
+        assert router.stats().cache_hits >= len(q)
+        gens = [c.cache.generation for c in router.cells]
+        b = int(np.argmax(idx.bucket_counts))
+        new = (idx.centroids[[b] * 16] + 0.1 * np.random.default_rng(2)
+               .normal(size=(16, db.shape[1]))).astype(np.float32)
+        added = idx.add_entities(new)
+        gone = idx.bucket_ids[b][:8].astype(np.int64)
+        idx.delete_entities(gone)
+        agg = router.apply_updates(idx)
+        assert agg["mode"] == "delta"
+        assert [c.cache.generation for c in router.cells] == [g + 1
+                                                              for g in gens]
+        check()
+        got = np.stack([router.search(x, timeout=60)[1] for x in new])
+        assert (got[:, 0] == added).all()
+        assert not np.isin(np.stack([router.search(x, timeout=60)[1]
+                                     for x in db[gone]]), gone).any()
+        assert est.n_total > 0
+    finally:
+        router.close()

@@ -43,7 +43,9 @@ _REFERENCE = (
     "repro.data.synthetic", "repro.core.pq", "repro.core.lsh",
     "repro.core.tree", "repro.core.likelihood", "repro.core.protocol",
     "repro.core.index", "repro.kernels.pq_adc", "repro.kernels.hamming",
-    "repro.core.delta",
+    "repro.core.delta", "repro.serve.fleet", "repro.serve.engine",
+    "repro.adaptive.cache", "repro.adaptive.sketch",
+    "repro.adaptive.estimator", "repro.adaptive.maintenance",
 )
 
 
@@ -160,6 +162,12 @@ def _modules_after(code: str) -> set:
     "import chip_smoke",
     "import repro_torch.launch.mesh, repro_torch.distributed, "
     "repro_torch.core.distributed, repro_torch.kernels.ops",
+    "import repro_torch.serve, repro_torch.serve.fleet, "
+    "repro_torch.serve.engine, repro_torch.adaptive, "
+    "repro_torch.adaptive.cache, repro_torch.adaptive.sketch, "
+    "repro_torch.adaptive.estimator, repro_torch.adaptive.maintenance, "
+    "repro_torch.launch.serve, repro_torch.analysis.annotations, "
+    "repro_torch.kernels.ops",
 ])
 def test_port_imports_neither_jax_nor_reference(code):
     mods = _modules_after(code)

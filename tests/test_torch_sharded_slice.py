@@ -30,7 +30,15 @@ Three layers, from the inside out:
    a delete through ``pop_delta``) must equal a full re-place bit for bit
    with the reference's ``bytes`` / ``full_bytes`` on a 4-device mesh;
    and a rank-0 ``ServingCell`` with three followers must answer 64
-   requests as direct calls do, ``close()`` ending the followers.
+   requests as direct calls do and take a full re-place, ``close()``
+   ending the followers; a cell over the ``(4,)`` mesh of each kind takes
+   an add, a delete and a full re-place through
+   ``ServingCell.apply_updates`` on the root, after which every rank's
+   tables equal the shard loop's bit for bit (and the answers, filtered
+   ones too), with the reference's stats, each follower having received
+   only its part; a follower that fails its part fails every rank; and
+   in a second group (6 s timeout) a root idle 15 s still serves, while
+   a root that sends nothing fails its followers after the timeout.
 
 The ranks and the reference run in subprocesses; a rank that fails or
 outlives its limit fails the tests that read it.
@@ -44,6 +52,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+import time
 import types
 
 import numpy as np
@@ -526,10 +535,13 @@ def _rank_main(rank: int, world: int, workdir: str) -> None:
             inp["q"], K, nprobe=NB, beam_width=8)[:2]
         out["lifecycle"] = _lifecycle(inp, meshes["flat4"])
         out["cell"] = _cell(inp, meshes["flat4"], rank)
-        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
-            pickle.dump(out, f)
+        out["cell_updates"] = _cell_updates(inp, meshes["flat4"], rank)
+        out["failed_update"] = _failed_update(inp, meshes["flat4"], rank)
     finally:
         dist.destroy_process_group()
+    out["heartbeat"] = _heartbeat(inp, rank, world, workdir)
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
 
 
 def _bad_request(inp, mesh, rank: int) -> dict:
@@ -679,16 +691,178 @@ def _cell(inp, mesh, rank: int) -> dict:
             cell.search(reqs[0], timeout=120,
                         filter=FilterSpec.range("pct", *NARROW))
         after = cell.search(reqs[1], timeout=120)
-        with pytest.raises(NotImplementedError, match="item 4"):
-            cell.apply_updates(inp["db"])
+        # a full re-place on a cell that leads: every rank takes its shard
+        replaced = cell.apply_updates(inp["db"])
+        after_update = cell.search(reqs[2], timeout=120)
         stats = cell.stats()
     finally:
         cell.close()
     return {"direct": direct,
             "served": (np.stack([g[0] for g in got]),
                        np.stack([g[1] for g in got])),
-            "after": after, "dispatches": stats.dispatches,
+            "after": after, "replaced": replaced,
+            "after_update": after_update, "dispatches": stats.dispatches,
             "leads_after_close": cell.search_fn.leads}
+
+
+# the kinds a cell over the (4,) mesh updates (index of the inputs, backend
+# kind) and the steps: the lifecycle's add and delete, then a full re-place
+UPDATE_KINDS = {"ivf": ("ivf", "ivf"), "forest": ("tree", "forest"),
+                "brute": ("ivf", "brute")}
+UPDATE_STEPS = ("add", "delete", "full")
+GROUP_TIMEOUT_S = 6          # the heartbeat spawn's group timeout
+IDLE_S = 15                  # a root idle past it, still served after
+SILENT_S = 10                # a root that sends nothing (dead) this long
+
+
+def _update_backend(inp, kind, **kw):
+    """(mutable copy of the kind's index, its backend) for the updates."""
+    from repro_torch.distributed.backend import ShardedSearchBackend
+
+    src, bkind = UPDATE_KINDS[kind]
+    x = copy.deepcopy(inp[src])
+    target = np.asarray(x.db) if kind == "brute" else x
+    return x, ShardedSearchBackend(target, kind=bkind, k=K,
+                                   nprobe_local=NPROBE, beam_width=BEAM,
+                                   headroom=1.5, device="cpu", **kw)
+
+
+def _update_step(x, inp, kind, step) -> tuple:
+    """Mutate ``x`` by one step and pop its manifest: (target, apply
+    kwargs) of the kind's update (the flat part of the manifest for the
+    brute kind; no manifest for a full re-place)."""
+    if step == "add":
+        x.add_entities(inp["new"], metadata={"pct": np.arange(len(inp["new"]))})
+    elif step == "delete":
+        x.delete_entities(inp["gone"])
+    man = x.pop_delta() if step != "full" else None
+    if kind != "brute":
+        return x, {"delta": man}
+    if man is None:
+        return np.asarray(x.db), {"delta": None,
+                                  "alive": np.asarray(x.alive)}
+    return np.asarray(x.db), {"delta": dataclasses.replace(
+        man, dirty_buckets=np.zeros(0, np.int64))}
+
+
+def _cell_updates(inp, mesh, rank: int) -> dict:
+    """A cell over the mesh for each kind, taking the steps through
+    ``ServingCell.apply_updates`` on the root; every rank's tables after
+    each step, the root's answers (a direct collective call), stats and
+    the bytes it sent each rank."""
+    from repro_torch.core.metadata import FilterSpec
+    from repro_torch.serve.cell import ServingCell
+
+    out = {}
+    for kind in UPDATE_KINDS:
+        x, be = _update_backend(inp, kind, mesh=mesh, axes=("data",))
+        if rank != 0:
+            tables = []
+            be.follow(on_update=lambda b: tables.append(
+                [t.clone() for t in b._args]))
+            out[kind] = {"tables": tables, "updates": be.updates}
+            continue
+        cell = ServingCell(be.lead(), max_wait_ms=5.0)
+        got = {}
+        try:
+            for step in UPDATE_STEPS:
+                target, kw = _update_step(x, inp, kind, step)
+                st = cell.apply_updates(target, **kw)
+                got[step] = {"stats": st, "answers": be(inp["q"]),
+                             "filtered": (None if kind == "brute" else be(
+                                 inp["q"], filter_spec=FilterSpec.range(
+                                     "pct", *WIDE))),
+                             "served": cell.search(inp["q"][0], timeout=120),
+                             "tables": [t.clone() for t in be._args],
+                             "fanout": be.last_fanout}
+        finally:
+            cell.close()
+        out[kind] = got
+    return out
+
+
+def _failed_update(inp, mesh, rank: int) -> dict:
+    """Rank 2 fails its part of a delta: every rank raises, and the root's
+    backend refuses to serve after it."""
+    from repro_torch.serve.cell import ServingCell
+
+    x, be = _update_backend(inp, "ivf", mesh=mesh, axes=("data",))
+    if rank != 0:
+        if rank == 2:
+            def broken(part):
+                raise MemoryError("injected")
+            be._scatter = broken
+        try:
+            be.follow()
+            return {"raised": None}
+        except RuntimeError as e:
+            return {"raised": str(e), "cause": repr(e.__cause__)}
+    cell = ServingCell(be.lead(), max_wait_ms=5.0)
+    try:
+        target, kw = _update_step(x, inp, "ivf", "add")
+        try:
+            cell.apply_updates(target, **kw)
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        try:
+            cell.search(inp["q"][0], timeout=60)
+            served = True
+        except RuntimeError as e:
+            served = repr(e.__cause__)
+    finally:
+        cell.close()
+    return {"raised": raised, "served_after": served}
+
+
+def _heartbeat(inp, rank: int, world: int, workdir: str) -> dict:
+    """A new group with a GROUP_TIMEOUT_S timeout: a cell whose root sits
+    idle IDLE_S, then answers a call with every rank; then a root that
+    sends nothing for SILENT_S (no heartbeat: a dead root) fails its
+    followers after the timeout."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.backend import ShardedSearchBackend
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve.cell import ServingCell
+
+    store = dist.FileStore(os.path.join(workdir, "store_beat"), world)
+    dist.init_process_group(
+        "gloo", store=store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        mesh = make_test_mesh((world,), ("data",), device_type="cpu")
+        kw = dict(kind="brute", k=K, mesh=mesh, axes=("data",),
+                  device="cpu")
+        be = ShardedSearchBackend(inp["db"], **kw)
+        out = {}
+        if rank == 0:
+            cell = ServingCell(be.lead(), max_wait_ms=5.0)
+            try:
+                time.sleep(IDLE_S)
+                out["after_idle"] = cell.search(inp["q"][3], timeout=60)
+            finally:
+                cell.close()                # joins the heartbeat thread
+            out["beats"] = be.beats
+            out["beat_s"] = be._beat_s
+        else:
+            out["served"] = be.follow()
+            out["beats"] = be.beats
+        silent = ShardedSearchBackend(inp["db"], **kw)
+        if rank == 0:
+            time.sleep(SILENT_S)            # never leads: sends nothing
+        else:
+            t0 = time.perf_counter()
+            try:
+                silent.follow()
+                out["silent"] = None
+            except RuntimeError as e:
+                out["silent"] = (str(e)[:300], time.perf_counter() - t0)
+        return out
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.fixture(scope="module")
@@ -924,3 +1098,125 @@ def test_cell_with_followers_answers_as_direct_calls(ranks):
     assert lead["dispatches"] >= 4 and not lead["leads_after_close"]
     for r in ranks[1:]:
         _bits(r["cell"]["direct"], lead["direct"])
+    # the cell that leads took a full re-place (no manifest) on every rank
+    assert lead["replaced"]["mode"] == "full"
+    assert lead["replaced"]["reason"] == "no-manifest"
+    assert np.array_equal(lead["after_update"][1], i[2])
+    np.testing.assert_allclose(lead["after_update"][0], d[2], rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.fixture(scope="module")
+def update_loop(port_inputs):
+    """The single-process shard loop through the same steps as the cells
+    over the mesh: stats, every shard's tables, answers, and the bytes of
+    each shard's part of the update."""
+    from repro_torch.core.metadata import FilterSpec
+    from repro_torch.distributed.backend import _nbytes
+    from repro_torch.distributed.sharding import ShardSlot
+
+    inp = port_inputs
+    out = {}
+    for kind in UPDATE_KINDS:
+        src, bkind = UPDATE_KINDS[kind]
+        x = copy.deepcopy(inp[src])
+        bes = [_update_backend(inp, kind, shard=ShardSlot(n_dev=WORLD,
+                                                          lin=lin))[1]
+               for lin in range(WORLD)]
+        for step in UPDATE_STEPS:
+            target, kw = _update_step(x, inp, kind, step)
+            be0 = bes[0]
+            if kw["delta"] is not None:
+                pay, reason = be0._delta_payload(target, kw.get("alive"),
+                                                 kw["delta"])
+                assert reason is None
+                parts = [_nbytes(be0._cut(pay, lin)) for lin in range(WORLD)]
+            else:
+                parts = []
+                for lin in range(WORLD):
+                    t = be0._tables(target, kw.get("alive"), lin,
+                                    torch.device("cpu"))
+                    parts.append(sum(int(a.nbytes) for a in t["args"]))
+            stats = [be.apply_updates(target, **kw) for be in bes]
+            assert all(st == stats[0] for st in stats)
+            out[(kind, step)] = {
+                "stats": stats[0], "parts": parts,
+                "tables": [[t.clone() for t in be._args] for be in bes],
+                "answers": shard_loop(bes, inp["q"]),
+                "filtered": (None if kind == "brute" else shard_loop(
+                    bes, inp["q"], filter_spec=FilterSpec.range(
+                        "pct", *WIDE)))}
+    return out
+
+
+@pytest.mark.parametrize("kind", list(UPDATE_KINDS))
+@pytest.mark.parametrize("step", UPDATE_STEPS)
+def test_cell_updates_reach_every_rank(ranks, update_loop, ref_run, kind,
+                                       step):
+    """``ServingCell.apply_updates`` on the root of a (4,) mesh: every
+    rank's tables equal the shard loop's after the same update, bit for
+    bit, and so do the answers, filtered ones too; a delta's stats are the
+    reference's mesh backend's; each follower received its own part of
+    the update, no more."""
+    want = update_loop[(kind, step)]
+    lead = ranks[0]["cell_updates"][kind][step]
+    assert lead["stats"] == want["stats"]
+    if step == "full":
+        assert lead["stats"]["mode"] == "full"
+    else:
+        assert lead["stats"] == ref_run[("stats", kind, step)]
+        assert lead["stats"]["mode"] == "delta"
+    _bits(lead["answers"], want["answers"])
+    if kind != "brute":
+        # filters compile on every rank from the mirrors and metadata rows
+        # the update's header carried
+        _bits(lead["filtered"], want["filtered"])
+    assert np.array_equal(lead["served"][1], want["answers"][1][0])
+    j = UPDATE_STEPS.index(step)
+    tables = [lead["tables"]] + [r["cell_updates"][kind]["tables"][j]
+                                 for r in ranks[1:]]
+    for lin, got in enumerate(tables):
+        assert len(got) == len(want["tables"][lin])
+        assert all(torch.equal(a, b) for a, b in zip(got, want["tables"][lin]))
+    sent = lead["fanout"]["bytes_to_rank"]
+    assert lead["fanout"]["mode"] == lead["stats"]["mode"]
+    for r in range(1, WORLD):
+        took = ranks[r]["cell_updates"][kind]["updates"][j]
+        assert took["mode"] == lead["stats"]["mode"]
+        assert took["part_bytes"] == sent[r] == want["parts"][r]
+    if step != "full":
+        assert sum(want["parts"]) <= lead["stats"]["bytes"]
+
+
+def test_a_failed_follower_update_fails_every_rank(ranks):
+    """Rank 2 fails its part: the root's apply raises, every follower's
+    ``follow`` raises, and the root's backend refuses to serve after."""
+    lead = ranks[0]["failed_update"]
+    assert "an update failed on 1 rank(s)" in lead["raised"]
+    assert "no longer serves" in lead["served_after"]
+    for r in ranks[1:]:
+        assert "an update failed on 1 rank(s)" in r["failed_update"]["raised"]
+    assert "injected" in ranks[2]["failed_update"]["cause"]
+
+
+def test_an_idle_root_keeps_its_followers(ranks):
+    """Group timeout 6 s, the root idle 15 s: heartbeats keep the
+    followers waiting, and the next call is answered by every rank."""
+    lead = ranks[0]["heartbeat"]
+    want = ranks[0][("one", "brute")]
+    assert np.array_equal(lead["after_idle"][1], want[1][3])
+    np.testing.assert_allclose(lead["after_idle"][0], want[0][3], rtol=RTOL,
+                               atol=ATOL)
+    assert lead["beat_s"] == 0.25 * GROUP_TIMEOUT_S
+    assert lead["beats"] >= IDLE_S / lead["beat_s"] - 2
+    for r in ranks[1:]:
+        assert r["heartbeat"]["served"] == 1
+        assert r["heartbeat"]["beats"] == lead["beats"]
+
+
+def test_a_silent_root_fails_its_followers(ranks):
+    """A root that sends nothing past the group's timeout (no heartbeat,
+    as a dead root) fails every follower's wait, after the timeout."""
+    for r in ranks[1:]:
+        msg, waited = r["heartbeat"]["silent"]
+        assert GROUP_TIMEOUT_S - 1 <= waited < SILENT_S + GROUP_TIMEOUT_S
