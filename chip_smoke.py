@@ -123,9 +123,23 @@ each prints its wall time as ``[phase] <name> <s> s``):
              against its backend's direct call on the same batch, the
              sketch on the card against the CPU's, and the launcher
              ``python -m repro_torch.launch.serve`` in a process of its
-             own; launch counts reset just before and read just after
-             each window;
-14. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
+             own (its first-calls line, ``compile_signatures`` and
+             ``first_call_ms``, beside its P90); launch counts reset just
+             before and read just after each window;
+14. analysis - the static gate of ``repro_torch.analysis`` over
+             ``src/repro_torch`` (0 findings), the recompile gate over the
+             seven registered entry points on the card (0 findings; each
+             step's wall ms and compiled variants; launch counts reset
+             just before and read just after: the five on-path kernels
+             > 0), one seeded plan whose second step brings a new batch
+             shape (exactly one ``recompile``), ``profile_entry_points``,
+             ``roofline_report`` of the serve phase's brute and IVF
+             backends at B = 64 (a measured share above 1.05 of the
+             H100's 3.35 TB/s fails), the serve phase's first calls
+             beside its steady p50, each library's ``kernel_build_ms``
+             from the build phase, and ``repro_torch.obs.smoke`` on the
+             card;
+15. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
 
 The serve phase also runs the brute and IVF backends at k = 50 (above the
 kernels' 32-pair lists) against their unfused plain paths.
@@ -182,6 +196,15 @@ from repro_torch.kernels import (_build, bm25, bucket_topk,  # noqa: E402
                                  hamming, l2_topk, ops, pq_adc, ref)
 from repro_torch.kernels.common import (LAUNCH_COUNTERS,  # noqa: E402
                                         merge_topk, stable_topk)
+from repro_torch.analysis import run_static_analysis  # noqa: E402
+from repro_torch.analysis.recompile import (Plan,  # noqa: E402
+                                            run_entry_point,
+                                            run_recompile_gate)
+from repro_torch.analysis.registry import ENTRY_POINTS  # noqa: E402
+from repro_torch.obs import smoke as obs_smoke  # noqa: E402
+from repro_torch.obs.profile import (PROFILE,  # noqa: E402
+                                     install_compile_hooks,
+                                     profile_entry_points)
 from repro_torch.obs.trace import Tracer, set_tracer  # noqa: E402
 from repro_torch.serve.cell import ServingCell  # noqa: E402
 from repro_torch.testing import (CHAIN_EDGES, EDGE_ALPHAS,  # noqa: E402
@@ -1160,6 +1183,7 @@ def phase_main(dev, card) -> dict:
     launches = read_launches()
     stats = cell.stats()
     cell.close()
+    first_calls = first_call_snapshot(ivf)
     log(f"[serve] launches {launches}")
     require(launches["candidate_topk"] > 0,
             "a kernel of the main path was never launched")
@@ -1238,6 +1262,7 @@ def phase_main(dev, card) -> dict:
     main["fused_unfused_max_gap"] = gap
     main["served_direct_agree"] = served_agree
     main["k50"] = backends_k50(idx, corpus, queries[:4 * BATCH], qn, xn)
+    main["first_calls"] = first_calls
     RESULTS["main"] = main
     RESULTS["kernels"]["candidate_topk"]["launches"] = launches[
         "candidate_topk"]
@@ -1245,6 +1270,17 @@ def phase_main(dev, card) -> dict:
             "truth": truth, "idx": idx, "ivf": ivf, "brute": brute,
             "meta": meta, "slabs": slabs, "tokens": tokens,
             "offsets": offsets, "p_term": p_term}
+
+
+def first_call_snapshot(backend) -> dict:
+    """A backend's first calls (one a dispatch signature) beside its
+    kernel time over every call so far."""
+    m = backend.metrics
+    first, kern = m.get("first_call_ms"), m.get("kernel_ms")
+    return {"compile_signatures": m.counter("compile_signatures").value,
+            "first_call_ms_n": first.count, "first_call_ms_sum": first.sum,
+            "first_call_ms_mean": first.mean(),
+            "kernel_ms_p50": kern.quantile(0.5), "dispatches": kern.count}
 
 
 def backends_k50(idx, corpus, queries, qn, xn) -> dict:
@@ -3916,10 +3952,162 @@ def phase_fleet(dev, ctx) -> dict:
     lines = r.stdout.strip().splitlines()
     require(any(x.startswith("paper bars:") for x in lines),
             "the launcher printed no paper bar line")
+    require(any(x.startswith("first calls: compile_signatures")
+                for x in lines), "the launcher printed no first-calls line")
     out["launcher"] = {"s": time.perf_counter() - t0, "lines": lines}
     for x in lines:
         log(f"[fleet] launcher: {x}")
     RESULTS["fleet"] = out
+    return out
+
+
+# ------------------------------------------------------------ phase 14
+# the five kernels the registered entry points reach (PQ-ADC and Hamming
+# serve the index layer, which no entry point drives)
+GATE_KERNELS = ("l2_topk", "candidate_topk", "l2_topk_int8", "bm25_topk",
+                "hybrid_topk")
+ANALYSIS_LIMIT_S = 60.0      # this phase's share of the command's time
+
+
+def gate_steps(tracer: Tracer) -> dict:
+    """Entry point -> [(step, wall ms)] from the gate's spans, and the
+    compiled variants each entry point ended with."""
+    steps: dict = {}
+    for e in tracer.events("gate.step"):
+        a = e["args"]
+        steps.setdefault(a["entry"], []).append(
+            (a["step"], round(e["dur"] / 1e3, 3)))
+    variants = {e["args"]["entry"]: e["args"].get("variants")
+                for e in tracer.events("gate.entry-point")}
+    return {"steps": steps, "variants": variants}
+
+
+def phase_analysis(ctx) -> dict:
+    t_phase = time.perf_counter()
+    out: dict = {}
+    # 1. the static gate over the port's sources
+    t0 = time.perf_counter()
+    active, suppressed = run_static_analysis(
+        [os.path.join(ROOT, "src", "repro_torch")])
+    for f in active:
+        log(f"[analysis] {f.format()}")
+    require(active == [], f"the static gate found {len(active)} finding(s)")
+    out["static"] = {"findings": 0, "suppressed": len(suppressed),
+                     "s": time.perf_counter() - t0}
+    log(f"[analysis] static gate over src/repro_torch: 0 findings, "
+        f"{len(suppressed)} suppressed, {out['static']['s']:.2f} s")
+
+    # 2. the recompile gate on the card: the main path of this phase
+    tracer = Tracer()
+    old = set_tracer(tracer)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        found = run_recompile_gate()
+        torch.cuda.synchronize()
+        gate_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        set_tracer(old)
+    for f in found:
+        log(f"[analysis] {f.format()}")
+    require(found == [], f"the recompile gate found {len(found)} finding(s) "
+            "on the card")
+    spans = gate_steps(tracer)
+    require(sorted(spans["steps"]) == sorted(ENTRY_POINTS),
+            "the gate did not run every registered entry point")
+    for name in sorted(spans["steps"]):
+        log(f"[analysis] gate {name}: steps {spans['steps'][name]} "
+            f"(label, wall ms); jit_cache_size {spans['variants'][name]}")
+    log(f"[analysis] gate on the card: 0 findings over "
+        f"{len(ENTRY_POINTS)} entry points in {gate_s:.2f} s; "
+        f"gate_step_ms p50 "
+        f"{PROFILE.get('gate_step_ms').quantile(0.5):.3f}")
+    log(f"[analysis] launches {launches}")
+    for name in GATE_KERNELS:
+        require(launches[name] > 0,
+                f"the gate's entry points never launched {name}")
+    out["gate"] = {"s": gate_s, "findings": 0, "launches": launches,
+                   **spans}
+
+    # 3. a seeded plan: a new batch shape after the warm-up is exactly one
+    # recompile on the card
+    rng = np.random.default_rng(11)
+    seed_be = ShardedSearchBackend(
+        rng.normal(size=(4096, 32)).astype(np.float32), kind="brute", k=K)
+
+    def seeded():
+        q = rng.normal(size=(9, 32)).astype(np.float32)
+        return Plan(steps=[("warmup-b8", lambda: seed_be(q[:8])),
+                           ("new-batch-shape-b9", lambda: seed_be(q))],
+                    cache_size=seed_be.jit_cache_size)
+
+    seeded_found = run_entry_point("seeded-new-batch-shape", seeded)
+    log(f"[analysis] seeded plan: {[f.format() for f in seeded_found]}")
+    require([f.rule for f in seeded_found] == ["recompile"],
+            "the seeded new batch shape is not exactly one recompile")
+    out["seeded"] = [f.message for f in seeded_found]
+
+    # 4. the per-entry-point replay
+    t0 = time.perf_counter()
+    prof = profile_entry_points()
+    out["profile"] = {"s": time.perf_counter() - t0, "entries": prof}
+    for name, r in sorted(prof.items()):
+        require("error" not in r, f"profile of {name} failed: {r}")
+        log(f"[analysis] profile {name}: "
+            f"{[(st['label'], st['wall_ms']) for st in r['steps']]} "
+            f"compiles {r['compiles']} wall {r['wall_ms']:.1f} ms")
+
+    # 5. the roofline of the serve phase's backends after their traffic
+    out["roofline"] = {}
+    for kind in ("brute", "ivf"):
+        rep = ctx[kind].roofline_report(b=BATCH,
+                                        peak_bw=HBM_BYTES_PER_S)
+        out["roofline"][kind] = rep
+        log(f"[analysis] roofline {kind} B={BATCH}: analytic_frac "
+            f"{rep['analytic_frac']:.6f} achieved_gbps "
+            f"{rep['achieved_gbps']:.2f} measured_frac "
+            f"{rep['measured_frac']:.6f} (useful bytes "
+            f"{rep['useful_bytes']:.0f}, kernel_ms p50 "
+            f"{rep['measured_kernel_ms_p50']:.4f} over "
+            f"{ctx[kind].metrics.get('kernel_ms').count} dispatches, bound "
+            f"{rep['bound_ms']:.4f} ms by {rep['bound_by']}; "
+            f"{ctx['label']})")
+        require(0 < rep["measured_frac"] <= 1.05,
+                f"{kind}: measured_frac {rep['measured_frac']} is not a "
+                "possible reading")
+
+    # 6. the serve phase's first calls beside its steady p50
+    fc = RESULTS["main"]["first_calls"]
+    log(f"[analysis] serve first calls: compile_signatures "
+        f"{fc['compile_signatures']} first_call_ms n {fc['first_call_ms_n']}"
+        f" sum {fc['first_call_ms_sum']:.3f} mean "
+        f"{fc['first_call_ms_mean']:.3f}; steady kernel_ms p50 "
+        f"{fc['kernel_ms_p50']:.4f} over {fc['dispatches']} dispatches; "
+        f"request p50 {RESULTS['main']['p50_ms']:.3f} ms")
+
+    # 7. each library's build in the build phase
+    builds = {}
+    for name in _build.SOURCES:
+        h = PROFILE.get(f"kernel_build_ms.{name}")
+        require(h is not None and h.count >= 1,
+                f"PROFILE holds no kernel_build_ms for {name}")
+        builds[name] = h.sum
+    out["kernel_build_ms"] = builds
+    log(f"[analysis] PROFILE kernel_build_ms by library (build phase): "
+        f"{ {n: round(v, 1) for n, v in builds.items()} }; "
+        f"kernel_builds {PROFILE.counter('kernel_builds').value}")
+
+    # 8. the observability smoke on the card
+    t0 = time.perf_counter()
+    require(obs_smoke.main(["--out", os.path.join(OUT_DIR,
+                                                  "obs_trace.json")]) == 0,
+            "the observability smoke failed")
+    out["obs_smoke_s"] = time.perf_counter() - t0
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[analysis] phase {out['s']:.1f} s (budget {ANALYSIS_LIMIT_S:.0f} s;"
+        f" obs smoke {out['obs_smoke_s']:.1f} s)")
+    RESULTS["analysis"] = out
     return out
 
 
@@ -3970,6 +4158,7 @@ def main() -> int:
     with phase("card"):
         card = phase_card()
     dev = torch.device("cuda", 0)
+    install_compile_hooks()
     with phase("build"):
         phase_build()
     with phase("edges"):
@@ -3991,6 +4180,8 @@ def main() -> int:
         phase_sharded(dev, ctx)
     with phase("fleet"):
         phase_fleet(dev, ctx)
+    with phase("analysis"):
+        phase_analysis(ctx)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)

@@ -63,6 +63,13 @@ not wait for another's kernels when several share a card.
 Telemetry: ``kernel_ms`` (queue and device execution of the search, up
 to the stream synchronise) and ``rerank_ms`` (copy back to the host)
 histograms, a ``dispatches`` counter, and ``kernel``/``rerank`` spans.
+The first call of each dispatch signature (mode, padded operand shape,
+dtype) pays the one-time costs: it feeds the ``compile_signatures``
+counter, the ``first_call_ms`` histogram and a ``compile-signature``
+instant.  ``jit_cache_size`` and ``delta_cache_size`` count the compiled
+variants the recompile gate (``repro_torch.analysis``) watches, and
+``roofline_report`` puts the measured kernel time beside the analytic
+bytes of one dispatch.
 """
 from __future__ import annotations
 
@@ -75,6 +82,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis.annotations import guarded_by
 from repro_torch.core.metadata import MetadataTable
 from repro_torch.device import resolve
 from repro_torch.distributed.sharding import (
@@ -99,6 +107,7 @@ from repro_torch.distributed.sharding import (
     slice_forest_delta,
     slice_ivf_delta,
 )
+from repro_torch.kernels import _build
 from repro_torch.kernels.ops import quantize_rows_int8
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import get_tracer
@@ -121,6 +130,18 @@ _FOREST_ARGS = ("cents", "valid", "roots", "bucket_ids", "bvecs",
 
 def _pow2(n: int) -> int:
     return max(1, 1 << (max(n, 1) - 1).bit_length())
+
+
+def _scatter_signature(kind: str, part: dict) -> tuple:
+    """The shape bucket of one delta scatter, as the reference's jitted
+    scatter pads it: each index vector's length to a power of two (the
+    brute kind's whole-mask liveness is one fixed shape)."""
+    if kind == "brute":
+        live = ("valid" if "valid" in part
+                else _pow2(np.asarray(part["tomb"]).size))
+        return kind, _pow2(np.asarray(part["rows"]).size), live
+    key = "rows" if kind == "ivf" else "slot"
+    return kind, _pow2(np.asarray(part[key]).size)
 
 
 def _nbytes(obj) -> int:
@@ -207,7 +228,10 @@ class ShardedSearchBackend:
         self.metrics = MetricsRegistry()
         self._h_kernel = self.metrics.histogram("kernel_ms")
         self._h_rerank = self.metrics.histogram("rerank_ms")
+        self._h_first = self.metrics.histogram("first_call_ms", lo=1e-2,
+                                               hi=1e7)
         self._c_dispatches = self.metrics.counter("dispatches")
+        self._c_sigs = self.metrics.counter("compile_signatures")
         self._c_repub = self.metrics.counter("republished_bytes")
         self._c_repub_full = self.metrics.counter("republish_full_bytes")
         self._c_delta = self.metrics.counter("delta_applies")
@@ -227,6 +251,16 @@ class ShardedSearchBackend:
         self._version: Optional[int] = None
         self._full_bytes = 0             # bytes of a full re-place
         self.last_republish: Optional[dict] = None
+        # compiled variants: the dispatch signatures already served (the
+        # first call of each paid the one-time costs), the placements that
+        # changed the device tables' shapes, the pow2-bucketed scatter
+        # shapes of the deltas applied, and the kernel libraries loaded
+        # before this backend existed
+        self._seen_sigs: set = set()
+        self._table_shapes: Optional[tuple] = None
+        self._reshapes = 0
+        self._delta_sigs: set = set()
+        self._libs0 = _build.loaded()
         # the card: one stream a backend, for searches and scatters alike
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -385,18 +419,25 @@ class ShardedSearchBackend:
         return {"args": tuple(args), "lex": lex, "mirror": mirror, "n": n,
                 "full_bytes": full}
 
+    @guarded_by("_lock")
     def _install(self, t: dict) -> None:
         """Make ``t`` (``_tables``' result; host arrays as a follower
         receives them) the placed tables (caller holds the lock)."""
         self._args = tuple(self._put(a) for a in t["args"])
         self._lex_args = (None if t["lex"] is None
                           else tuple(self._put(a) for a in t["lex"]))
+        shapes = tuple((tuple(a.shape), str(a.dtype))
+                       for a in self._args + (self._lex_args or ()))
+        if self._table_shapes is not None and shapes != self._table_shapes:
+            self._reshapes += 1
+        self._table_shapes = shapes
         if self.kind == "brute":
             self._host_valid = t["mirror"]
         else:
             self._host_bids = t["mirror"]
         self._n, self._full_bytes = t["n"], t["full_bytes"]
 
+    @guarded_by("_lock")
     def _place(self, target, alive=None) -> None:
         """Pad and place ``target`` (and its slabs) on the device in the
         recorded shapes; pin the metadata the next filters will see
@@ -581,9 +622,11 @@ class ShardedSearchBackend:
         return {"shard": pay["shard"], "slot": pay["slot"],
                 "bucket_ids": pay["bucket_ids"]}
 
+    @guarded_by("_lock")
     def _scatter(self, part: dict) -> None:
         """Scatter this rank's part (``_cut``) into the placed tensors, in
         place (caller holds the lock, on this backend's stream)."""
+        self._delta_sigs.add(_scatter_signature(self.kind, part))
         if self.kind == "brute":
             rows = self._put(part["rows"], torch.long)
             if self.precision == "int8":
@@ -626,6 +669,7 @@ class ShardedSearchBackend:
             t["leaf_entities"][sh[:, None], lrow] = self._put(
                 part["leaf_entities"])
 
+    @guarded_by("_lock")
     def _mirror_update(self, m: dict) -> None:
         """Replay a payload's index vectors (``_mirror_part``) on the host
         mirrors of every shard."""
@@ -644,6 +688,7 @@ class ShardedSearchBackend:
                 self._host_bids[shard[ok], slot[ok]] = \
                     np.asarray(m["bucket_ids"])[ok]
 
+    @guarded_by("_lock")
     def _apply_delta(self, pay) -> None:
         """This rank's part of the payload into the placed tensors, every
         shard's index vectors into the host mirrors (caller holds the
@@ -716,6 +761,7 @@ class ShardedSearchBackend:
             return "full", None, reason
         return "delta", pay, None
 
+    @guarded_by("_lock")
     def _apply_locked(self, target, alive, delta) -> dict:
         """Apply on this rank first: a payload or placement that fails here
         fails before any follower hears of it; then the followers'
@@ -739,6 +785,7 @@ class ShardedSearchBackend:
                 "bytes": pay["bytes"] if mode == "delta" else self._full_bytes,
                 "full_bytes": self._full_bytes, "reason": reason}
 
+    @guarded_by("_lock")
     def _update_followers(self, mode: str, pay, target, alive,
                           old_meta) -> None:
         """Send every follower its part of the update this root just
@@ -781,6 +828,7 @@ class ShardedSearchBackend:
                        + (f" ({error})" if error else ""))
             raise RuntimeError(self._failed)
 
+    @guarded_by("_lock")
     def _take_update(self, h: dict) -> None:
         """A follower's side of :meth:`_update_followers` (caller holds the
         lock, on this backend's stream)."""
@@ -824,6 +872,7 @@ class ShardedSearchBackend:
             self._meta = MetadataTable(msg["table"])
         self._fmask_cache.clear()
 
+    @guarded_by("_lock")
     def _fail(self, why: str) -> None:
         """Refuse to serve from now on: some rank's tables are not this
         update's (caller holds the lock)."""
@@ -915,6 +964,10 @@ class ShardedSearchBackend:
         with tracer.span("kernel", kind=self.kind, b=B):
             with self._lock, self._on_stream():
                 self._check_serving()
+                sig = (mode, tuple(ops[0].shape), str(ops[0].dtype))
+                first = sig not in self._seen_sigs
+                if first:
+                    self._seen_sigs.add(sig)
                 # compiled before the followers hear of the call: a
                 # request that fails to compile fails on the root alone
                 call = self._local(filter_spec, mode, alpha)
@@ -935,7 +988,87 @@ class ShardedSearchBackend:
         self._c_dispatches.inc()
         self._h_kernel.observe((t1 - t0) * 1e3)
         self._h_rerank.observe((t2 - t1) * 1e3)
+        if first:
+            # the first dispatch of this signature paid the one-time
+            # costs; record it with the signature that caused it
+            self._c_sigs.inc()
+            self._h_first.observe((t1 - t0) * 1e3)
+            tracer.instant("compile-signature", kind=self.kind,
+                           shape=str(list(sig[1])), dtype=sig[2],
+                           ms=round((t1 - t0) * 1e3, 3))
         return out
+
+    # ------------------------------------------------------------------
+    # compiled variants and the roofline
+    # ------------------------------------------------------------------
+    def jit_cache_size(self) -> int:
+        """Compiled variants of this backend: the port's meaning of the
+        reference's jit cache size, which the recompile gate watches.
+        The sum of three counts:
+
+        * the distinct dispatch signatures (mode, padded operand shape,
+          dtype) served;
+        * the placements whose device-table shapes differ from the
+          previous placement's: a re-place within the headroom keeps its
+          shapes and does not count, tables of another shape (another
+          width, or an outgrown reservation) do;
+        * the kernel libraries loaded since construction.
+        """
+        return (len(self._seen_sigs) + self._reshapes
+                + _build.loaded() - self._libs0)
+
+    def delta_cache_size(self) -> int:
+        """Distinct power-of-two-bucketed scatter shapes that
+        ``apply_updates`` has used: the counterpart of the size of the
+        reference's jitted delta scatter's cache."""
+        return len(self._delta_sigs)
+
+    def roofline_report(self, b: int = 1, *, peak_bw: float = 0.0) -> dict:
+        """Analytic bytes/FLOPs of one dispatch of ``b`` queries
+        (``obs.profile.backend_cost``) beside the *measured* kernel time
+        (the p50 of ``kernel_ms``).
+
+        ``analytic_frac`` is the model's useful-byte fraction;
+        ``achieved_gbps`` divides the moved bytes by the measured time;
+        with ``peak_bw`` (bytes/s) ``measured_frac`` is the useful bytes
+        a second over that peak.  ``bound_ms`` is the least time the
+        H100 (``obs.profile.H100_*``) could take for the moved bytes and
+        the FLOPs, and ``bound_by`` says which of the two sets it.
+        """
+        from repro_torch.obs.profile import (H100_FP32_FLOPS_PER_S,
+                                             H100_HBM_BYTES_PER_S, H100_NAME,
+                                             backend_cost)
+
+        common = dict(fused=self.fused, precision=self.precision,
+                      n_rows=self._n, b=b, k=self.k)
+        if self.kind == "brute":
+            cost = backend_cost("brute", d=int(self._args[0].shape[1]),
+                                **common)
+        elif self.kind == "ivf":
+            cost = backend_cost(
+                "ivf", d=int(self._args[0].shape[1]),
+                n_probe_rows=self.nprobe_local * self.n_dev * self._cap,
+                n_centroids=self._kloc * self.n_dev, **common)
+        else:
+            cents = self._args[0]                 # (1, Kloc, d)
+            cost = backend_cost(
+                "forest", d=int(cents.shape[2]),
+                n_probe_rows=(self.nprobe_local * self.n_dev
+                              * self._shapes.cap),
+                n_centroids=self.n_dev * int(cents.shape[1]), **common)
+        t_bytes = cost["bytes_moved"] / H100_HBM_BYTES_PER_S
+        t_ops = cost["flops"] / H100_FP32_FLOPS_PER_S
+        cost.update(card=H100_NAME, bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        med_ms = self._h_kernel.quantile(0.5) if self._h_kernel.count else 0.0
+        cost["measured_kernel_ms_p50"] = med_ms
+        if med_ms > 0:
+            bps = cost["bytes_moved"] / (med_ms / 1e3)
+            cost["achieved_gbps"] = bps / 1e9
+            if peak_bw > 0:
+                cost["measured_frac"] = (
+                    cost["useful_bytes"] / (med_ms / 1e3)) / peak_bw
+        return cost
 
     # ------------------------------------------------------------------
     # serving across ranks: the root leads, the other ranks follow
@@ -962,8 +1095,9 @@ class ShardedSearchBackend:
         timeout = self._coll.timeout_s(self.device)
         self._beat_s = (_HEARTBEAT_SHARE * timeout if timeout is not None
                         else _HEARTBEAT_UNKNOWN_S)
-        self._leading = True
-        self._last_send = time.monotonic()
+        with self._lock:
+            self._leading = True
+            self._last_send = time.monotonic()
         self._beat = threading.Thread(target=self._heartbeat, daemon=True)
         self._beat.start()
         return self
@@ -978,6 +1112,7 @@ class ShardedSearchBackend:
                     self._send({"stop": False, "beat": True})
                     self.beats += 1
 
+    @guarded_by("_lock")
     def _send(self, header: dict, ops=()) -> None:
         """Broadcast a call from the root (caller holds the lock)."""
         self._coll.broadcast_object(header)
@@ -1003,7 +1138,8 @@ class ShardedSearchBackend:
             if h["stop"]:
                 return served
             if h.get("beat"):
-                self.beats += 1
+                with self._lock:
+                    self.beats += 1
                 continue
             with self._lock, self._on_stream():
                 if "update" in h:

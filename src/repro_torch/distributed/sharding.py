@@ -44,6 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis.annotations import hot_path
 from repro_torch.core.brute import batched_l2sq, pairwise_l2sq
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.common import INF, pad_sentinel, stable_topk
@@ -371,6 +372,7 @@ class MeshCollective:
         return min(out) if out else None
 
 
+@hot_path
 def search_blocks(call, operands, B: int, k: int, slot: ShardSlot,
                   coll: Optional[MeshCollective] = None):
     """One sharded search on this rank: take query block ``slot.qlin`` of
@@ -555,6 +557,7 @@ def make_sharded_brute_fn(k: int, shard_rows: int, *, fused: bool = True,
                          "pass fused=True")
     k_loc = min(k, shard_rows)   # a shard may hold fewer rows than k
 
+    @hot_path
     def local(db_shard, valid_shard, q, lin: int = 0):
         if fused:
             ld, li = kernel_ops.l2_topk_op(q, db_shard, k_loc,
@@ -564,6 +567,7 @@ def make_sharded_brute_fn(k: int, shard_rows: int, *, fused: bool = True,
                                   k_loc)
         return _finish_local(ld, li, k, lin, shard_rows)
 
+    @hot_path
     def local_int8(codes_shard, scales_shard, valid_shard, q, lin: int = 0):
         ld, li = kernel_ops.l2_topk_int8_op(q, codes_shard, scales_shard,
                                             k_loc, valid=valid_shard)
@@ -579,6 +583,7 @@ def make_sharded_lexical_fn(k: int, shard_rows: int, *, fused: bool = True):
     ``valid`` as in the brute scan."""
     k_loc = min(k, shard_rows)
 
+    @hot_path
     def local(terms_shard, tf_shard, valid_shard, qt, qw, lin: int = 0):
         if fused:
             ld, li = kernel_ops.bm25_topk_op(qt, qw, terms_shard, tf_shard,
@@ -598,6 +603,7 @@ def make_sharded_hybrid_fn(k: int, shard_rows: int, *, fused: bool = True):
     alpha, lin=0)``, ``alpha`` a (1, 1) float32 tensor on the device."""
     k_loc = min(k, shard_rows)
 
+    @hot_path
     def local(db_shard, terms_shard, tf_shard, valid_shard, q, qt, qw,
               alpha, lin: int = 0):
         if fused:
@@ -630,11 +636,12 @@ def make_sharded_ivf_fn(k: int, nprobe_local: int, buckets_per_shard: int,
     """
     nprobe_local = min(nprobe_local, buckets_per_shard)
 
+    @hot_path
     def local(cents, bucket_ids, bucket_vecs, q, lin: int = 0):
         d2c = pairwise_l2sq(q, cents)                      # (B, Kloc)
         if (lin + 1) * buckets_per_shard > n_buckets:      # pad centroids
             gbucket = lin * buckets_per_shard + torch.arange(
-                buckets_per_shard, device=q.device)
+                buckets_per_shard, dtype=torch.int64, device=q.device)
             d2c = torch.where(gbucket[None, :] < n_buckets, d2c, INF)
         _, probe = stable_topk(d2c, nprobe_local)          # (B, np)
         if fused:
@@ -1137,6 +1144,7 @@ def make_sharded_forest_fn(k: int, nprobe_local: int, beam_width: int,
     """
     from repro_torch.core.tree import tree_search
 
+    @hot_path
     def local(cents, valid, roots, bids, bvecs, proj, dims, tau, children,
               leaf_row, leaf_ents, q, lin: int = 0):
         cents, valid, roots = cents[0], valid[0], roots[0]

@@ -9,6 +9,12 @@ checkout and a changed one is never loaded stale.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine has no ``nvcc``.  A missing compiler or a failed build raises.
+
+A listener added with :func:`add_listener` hears of every library as it
+is loaded: ``listener(name, ms, built)``, ``ms`` the ``nvcc`` wall time
+(0 for a library an earlier process built), ``built`` whether this call
+compiled it.  ``repro_torch.obs.profile.install_compile_hooks`` mirrors
+these one-time costs into the profiling registry.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "library"]
+__all__ = ["SOURCES", "add_listener", "build_all", "library", "loaded"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -34,6 +40,20 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _libs: dict = {}
 _logs: dict = {}
+_listeners: list = []
+
+
+def add_listener(fn) -> None:
+    """Call ``fn(name, ms, built)`` for every library loaded from now on
+    (once per process: adding the same listener again does nothing)."""
+    with _lock:
+        if fn not in _listeners:
+            _listeners.append(fn)
+
+
+def loaded() -> int:
+    """How many kernel libraries this process has loaded."""
+    return len(_libs)
 
 
 def _nvcc() -> str:
@@ -86,6 +106,8 @@ def build_all() -> dict:
             raise RuntimeError("\n".join(failed))
         for name in todo:
             _libs[name] = ctypes.CDLL(str(_target(name)))
+            for fn in _listeners:
+                fn(name, _logs[name]["seconds"] * 1e3, name in procs)
         return {n: dict(_logs[n]) for n in SOURCES}
 
 

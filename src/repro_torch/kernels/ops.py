@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.analysis.annotations import hot_path
 from repro_torch.kernels import (bm25, bucket_topk, hamming, l2_topk, pq_adc,
                                  ref)
 
@@ -21,12 +22,12 @@ __all__ = ["l2_topk_op", "l2_topk_int8_op", "candidate_topk_op",
            "hamming_topk_op", "quantize_rows_int8"]
 
 
-def _on_card(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
+def _on_card(device: torch.device) -> bool:
+    if device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if device.type == "cpu":
         return False
-    raise ValueError(f"no kernel path for device {t.device}")
+    raise ValueError(f"no kernel path for device {device}")
 
 
 def quantize_rows_int8(db) -> tuple[np.ndarray, np.ndarray]:
@@ -43,82 +44,91 @@ def quantize_rows_int8(db) -> tuple[np.ndarray, np.ndarray]:
     return codes, scales
 
 
+@hot_path
 def l2_topk_op(queries, db, k: int = 10, *, valid=None):
     """Fused brute-force L2 top-k: (dists ascending, ids)."""
-    if _on_card(queries):
+    if _on_card(queries.device):
         return l2_topk.l2_topk(queries, db, k, valid=valid)
     return ref.l2_topk_ref(queries, db, k, valid=valid)
 
 
+@hot_path
 def l2_topk_int8_op(queries, codes, scales, k: int = 10, *, valid=None):
     """int8-footprint brute scan (rows as per-row-scaled int8 codes)."""
-    if _on_card(queries):
+    if _on_card(queries.device):
         return l2_topk.l2_topk_int8(queries, codes, scales, k, valid=valid)
     return ref.l2_topk_int8_ref(queries, codes, scales, k, valid=valid)
 
 
+@hot_path
 def candidate_topk_op(queries, vecs, ids, k: int = 10, *,
                       best_d=None, best_i=None):
     """Per-query candidate-tile L2 top-k with optional carried best (IVF
     probe chains): (dists ascending, ids)."""
-    if _on_card(queries):
+    if _on_card(queries.device):
         return bucket_topk.candidate_topk(queries, vecs, ids, k,
                                           best_d=best_d, best_i=best_i)
     return ref.candidate_topk_ref(queries, vecs, ids, k,
                                   best_d=best_d, best_i=best_i)
 
 
+@hot_path
 def candidate_rows_topk_op(queries, rows, ids, k: int = 10):
     """Per-query candidate row ids into one (N, d) table, the rows read by
     id (the served forest's rerank): (dists ascending, ids)."""
-    if _on_card(queries):
+    if _on_card(queries.device):
         return bucket_topk.candidate_rows_topk(queries, rows, ids, k)
     return ref.candidate_rows_topk_ref(queries, rows, ids, k)
 
 
+@hot_path
 def bucket_probe_topk_op(queries, probe, bucket_ids, k: int = 10, *,
                          bucket_vecs=None, db=None):
     """The whole IVF probe chain: the top-k of each query's probed buckets,
     rows from ``bucket_vecs`` (K, cap, d) or ``db`` (N, d): (dists
     ascending, ids).  On the card one scan and one merge launch a pass."""
-    if _on_card(queries):
+    if _on_card(queries.device):
         return bucket_topk.bucket_probe_topk(queries, probe, bucket_ids, k,
                                              bucket_vecs=bucket_vecs, db=db)
     return ref.bucket_probe_topk_ref(queries, probe, bucket_ids, k,
                                      bucket_vecs=bucket_vecs, db=db)
 
 
+@hot_path
 def bm25_topk_op(q_terms, q_weights, terms, tf_sat, k: int = 10, *,
                  valid=None):
     """Fused BM25 scan over postings slabs: (-score ascending, ids)."""
-    if _on_card(q_terms):
+    if _on_card(q_terms.device):
         return bm25.bm25_topk(q_terms, q_weights, terms, tf_sat, k,
                               valid=valid)
     return ref.bm25_topk_ref(q_terms, q_weights, terms, tf_sat, k,
                              valid=valid)
 
 
+@hot_path
 def hybrid_topk_op(queries, db, q_terms, q_weights, terms, tf_sat, alpha,
                    k: int = 10, *, valid=None):
     """Fused ``alpha * l2sq - (1 - alpha) * bm25`` top-k; ``alpha`` is a
     (1, 1) operand on the queries' device."""
-    if _on_card(queries):
+    if _on_card(queries.device):
         return bm25.hybrid_topk(queries, db, q_terms, q_weights, terms,
                                 tf_sat, alpha, k, valid=valid)
     return ref.hybrid_topk_ref(queries, db, q_terms, q_weights, terms,
                                tf_sat, alpha, k, valid=valid)
 
 
+@hot_path
 def pq_adc_topk_op(lut, codes, k: int = 10, *, valid=None):
     """PQ ADC scan + top-k from a per-query (B, M, 256) LUT: (adc dists
     ascending, ids)."""
-    if _on_card(lut):
+    if _on_card(lut.device):
         return pq_adc.pq_adc_topk(lut, codes, k, valid=valid)
     return ref.pq_adc_topk_ref(lut, codes, k, valid=valid)
 
 
+@hot_path
 def hamming_topk_op(qcodes, codes, k: int = 10, *, valid=None):
     """Packed-bit Hamming scan + top-k: (dists ascending, ids)."""
-    if _on_card(qcodes):
+    if _on_card(qcodes.device):
         return hamming.hamming_topk(qcodes, codes, k, valid=valid)
     return ref.hamming_topk_ref(qcodes, codes, k, valid=valid)

@@ -15,7 +15,8 @@ ranks sharing the card (against the backends without a mesh and the
 single-process shard loop, bit for bit), the count-min sketch on the card
 against the CPU's (bit for bit, weighted too), and a two-cell fleet on
 ``cuda:0`` whose routed answers equal its backends' before and after a
-fan-out.
+fan-out; the recompile gate over the seven registered entry points on
+the card, and ``roofline_report`` after a served batch.
 
 Marked ``gpu``; each test decides inside itself whether a card is there
 and skips with the reason when not.  Run on the card with:
@@ -1088,3 +1089,35 @@ def test_two_cell_fleet_on_the_card_answers_as_its_backends(dev):
         assert est.n_total > 0
     finally:
         router.close()
+
+
+def test_recompile_gate_on_the_card_finds_nothing(dev):
+    """The seven registered entry points, their backends on the card:
+    no step after the warm-up mints a compiled variant, and none fails."""
+    from repro_torch.analysis.recompile import run_recompile_gate
+    from repro_torch.analysis.registry import ENTRY_POINTS
+
+    assert len(ENTRY_POINTS) == 7
+    found = run_recompile_gate(device=dev)
+    assert found == [], "\n".join(f.format() for f in found)
+
+
+def test_roofline_report_after_a_served_batch(dev):
+    """A brute backend on the card answers one served batch of 64; its
+    report's measured useful-byte share of the H100's 3.35 TB/s is a
+    possible reading: above 0, at most 1.05."""
+    db = make_corpus("sift", scale=0.2, seed=0)
+    q = make_queries(db, 64, seed=1)
+    be = ShardedSearchBackend(db, kind="brute", k=10, device=dev)
+    cell = ServingCell(be, max_batch=64, max_wait_ms=5.0)
+    try:
+        futs = [cell.submit(x) for x in q]
+        for f in futs:
+            f.get(timeout=60)
+    finally:
+        cell.close()
+    rep = be.roofline_report(b=64, peak_bw=3.35e12)
+    assert rep["useful_bytes"] == db.shape[0] * db.shape[1] * 4.0
+    assert 0 < rep["measured_frac"] <= 1.05, rep
+    assert be.metrics.counter("compile_signatures").value >= 1
+    assert be.metrics.get("first_call_ms").count >= 1
