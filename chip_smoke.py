@@ -139,7 +139,19 @@ each prints its wall time as ``[phase] <name> <s> s``):
              beside its steady p50, each library's ``kernel_build_ms``
              from the build phase, and ``repro_torch.obs.smoke`` on the
              card;
-15. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
+15. lm      - the language models' serving path (plain torch; the
+             reference's LM path reaches no Pallas kernel): qwen3-0.6b at
+             full width and depth, card against CPU at the fp32 policy on
+             the same weights (prefill and decode logits and cache,
+             ``loss_fn``; decode after prefill(S) against prefill(S + 1));
+             then served at bf16 (the registry's ``prefill_32k`` with the
+             batch cut to 2: 2 x 32,736 prompt tokens, 32 greedy decode
+             steps to a 32,768 context), timed, profiled and its memory
+             read; deepseek-v3-671b and kimi-k2 at ``reduced()`` (MoE and
+             MLA, MTP) card against CPU; deepseek-v3-671b at full width
+             with its depth cut to 1 dense + 1 MoE layer, bf16 prefill of
+             2 x 512 and 8 decode steps;
+16. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
 
 The serve phase also runs the brute and IVF backends at k = 50 (above the
 kernels' 32-pair lists) against their unfused plain paths.
@@ -151,6 +163,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import hashlib
 import json
 import os
@@ -173,6 +186,7 @@ import torch  # noqa: E402
 
 from repro_torch.configs.ann_corpora import (DEEP_10M,  # noqa: E402
                                              RADIO_STATION, SIFT_1M)
+from repro_torch.configs.registry import get_arch, get_shape  # noqa: E402
 from repro_torch.core.brute import batched_l2sq, pairwise_l2sq  # noqa: E402
 from repro_torch.core.index import (auto_build_index,  # noqa: E402
                                     build_index)
@@ -190,7 +204,9 @@ from repro_torch.core.metadata import FilterSpec, MetadataTable  # noqa: E402
 from repro_torch.core.metrics import LatencyTimer, recall_at_k  # noqa: E402
 from repro_torch.core.two_level import (TwoLevelConfig,  # noqa: E402
                                         build_forest, build_two_level)
+from repro_torch.data.lm import LMStream  # noqa: E402
 from repro_torch.data.synthetic import make_corpus, make_queries  # noqa: E402
+from repro_torch.device import require_fp32_matmul  # noqa: E402
 from repro_torch.distributed.backend import ShardedSearchBackend  # noqa: E402
 from repro_torch.kernels import (_build, bm25, bucket_topk,  # noqa: E402
                                  hamming, l2_topk, ops, pq_adc, ref)
@@ -201,6 +217,9 @@ from repro_torch.analysis.recompile import (Plan,  # noqa: E402
                                             run_entry_point,
                                             run_recompile_gate)
 from repro_torch.analysis.registry import ENTRY_POINTS  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.base import (cast_tree, count_params,  # noqa: E402
+                                     tree_bytes, tree_map)
 from repro_torch.obs import smoke as obs_smoke  # noqa: E402
 from repro_torch.obs.profile import (PROFILE,  # noqa: E402
                                      install_compile_hooks,
@@ -4111,6 +4130,297 @@ def phase_analysis(ctx) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 15
+# The language models' serving path (plain torch; no kernel of its own).
+# Tolerances, stated before the run: card against CPU at the fp32 policy
+# (no TF32) on the same weights; decode after prefill(S) against
+# prefill(S + 1), the reference's own invariant (tests/test_models.py).
+LM_PARITY_TOL = dict(rtol=1e-4, atol=1e-4)
+LM_CONSIST_TOL = dict(rtol=2e-3, atol=2e-3)
+LM_BATCH = 2
+LM_PARITY_SEQ = 16
+# registry shape prefill_32k with its batch cut from 32 to 2 (memory: the
+# bf16 cache alone is 7.5 GB at batch 2, 120 GB at 32); the prompt leaves
+# room for LM_DECODE_STEPS greedy steps, so decode ends at decode_32k's
+# context
+LM_SERVE_SHAPE = "prefill_32k"
+LM_DECODE_STEPS = 32
+LM_WARM_SEQ = 2048
+LM_PROFILE_SEQ = 8192
+# deepseek-v3-671b at full width, depth cut to 1 dense + 1 MoE layer
+LM_DEEP_DEPTH = dict(n_layers=2, n_dense_layers=1)
+LM_DEEP_SEQ = 512
+LM_DEEP_STEPS = 8
+
+
+def _lm_close(name: str, a, b, tol: dict, argmax: bool = False) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    ok = bool(torch.allclose(a, b, **tol))
+    require(ok, f"[lm] {name}: max abs err {err} beyond {tol}")
+    if argmax:
+        require(torch.equal(a.argmax(-1), b.argmax(-1)),
+                f"[lm] {name}: argmax differs")
+    return err
+
+
+def _lm_parity(name, cfg, params) -> dict:
+    """``cfg`` at the fp32 policy on the card and on the CPU (the same
+    weights, copied): prefill logits and cache, one decode step's logits
+    and cache, ``loss_fn`` (MTP included where the config has it), and
+    decode after prefill(S) against prefill(S + 1) on the card."""
+    cpu = tree_map(lambda t: t.cpu(), params)
+    batch = LMStream(cfg.vocab, LM_PARITY_SEQ + 1, LM_BATCH,
+                     seed=0).batch_at(0)
+    toks = batch["tokens"]
+    prompt, nxt = toks[:, :LM_PARITY_SEQ], toks[:, LM_PARITY_SEQ:]
+    max_len = LM_PARITY_SEQ + 8
+    out, errs = {}, {}
+    for side, p in (("card", params), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        logits, cache = transformer.prefill(p, prompt, cfg,
+                                            max_len=max_len)
+        pre = {k: v.cpu().clone() for k, v in cache.items()}
+        dlog, cache = transformer.decode_step(p, cache, nxt, cfg)
+        loss = transformer.loss_fn(
+            p, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, cfg)[0]
+        out[side] = (logits.cpu(), pre, dlog.cpu(),
+                     {k: v.cpu() for k, v in cache.items()}, loss.cpu())
+        errs[f"{side}_s"] = time.perf_counter() - t0
+    (lc, pc, dc, cc, sc), (lp, pp, dp, cp, sp) = out["card"], out["cpu"]
+    errs["prefill_logits"] = _lm_close(f"{name} prefill", lc, lp,
+                                       LM_PARITY_TOL, argmax=True)
+    errs["decode_logits"] = _lm_close(f"{name} decode", dc, dp,
+                                      LM_PARITY_TOL, argmax=True)
+    for k in cc:
+        errs[f"prefill_{k}"] = _lm_close(f"{name} prefill cache {k}",
+                                         pc[k], pp[k], LM_PARITY_TOL)
+        errs[f"decode_{k}"] = _lm_close(f"{name} decode cache {k}",
+                                        cc[k], cp[k], LM_PARITY_TOL)
+    errs["loss"] = _lm_close(f"{name} loss", sc, sp, LM_PARITY_TOL)
+    whole, _ = transformer.prefill(params, toks, cfg, max_len=max_len)
+    errs["decode_vs_prefill_s1"] = _lm_close(
+        f"{name} decode after prefill(S) vs prefill(S+1)", dc, whole,
+        LM_CONSIST_TOL)
+    require(cc["lengths"].tolist() == [LM_PARITY_SEQ + 1] * LM_BATCH,
+            f"[lm] {name}: lengths {cc['lengths'].tolist()}")
+    return errs
+
+
+def _greedy(params, cfg, logits, cache, steps: int):
+    """``steps`` greedy decode steps; per-step CUDA-event ms, the tokens
+    and whether every logit stayed finite."""
+    ms, toks, finite = [], [], torch.isfinite(logits).all()
+    for _ in range(steps):
+        tok = logits.argmax(-1)[:, None]
+        toks.append(tok)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, cache = transformer.decode_step(params, cache, tok, cfg)
+        b.record()
+        finite = finite & torch.isfinite(logits).all()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return logits, cache, ms, torch.cat(toks, 1), bool(finite)
+
+
+def phase_lm(dev, card) -> dict:
+    """qwen3-0.6b (full width and depth) card against CPU at the fp32
+    policy, then served at bf16 over a 32,736-token prompt with 32 greedy
+    decode steps; deepseek-v3-671b and kimi-k2 at ``reduced()`` (MoE and
+    MLA) card against CPU; deepseek-v3-671b at full width with its depth
+    cut, bf16."""
+    smi = card["nvidia_smi"]
+    out = {"card": smi}
+    require_fp32_matmul()
+
+    # 1. qwen3-0.6b at full width and depth, fp32 policy, card vs CPU
+    cfg = get_arch("qwen3-0.6b")[0]
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.d_head, cfg.d_ff, cfg.vocab, cfg.qk_norm,
+             cfg.tie_embeddings) == (28, 1024, 16, 8, 128, 3072, 151936,
+                                     True, True), "qwen3-0.6b config")
+    t0 = time.perf_counter()
+    params = transformer.init(cfg, seed=0, device=dev)
+    init_s = time.perf_counter() - t0
+    transformer.set_precision(torch.float32, torch.float32)
+    try:
+        errs = _lm_parity("qwen3-0.6b", cfg, params)
+    finally:
+        transformer.set_precision()
+    out["qwen_parity"] = errs
+    log(f"[lm] qwen3-0.6b full width, fp32 policy, card vs CPU "
+        f"(B {LM_BATCH} x {LM_PARITY_SEQ} from LMStream, same weights): "
+        f"max abs err prefill logits {errs['prefill_logits']:.3e}, decode "
+        f"{errs['decode_logits']:.3e}, cache k/v {errs['decode_k']:.3e} / "
+        f"{errs['decode_v']:.3e}, loss {errs['loss']:.3e} (tol "
+        f"{LM_PARITY_TOL}); argmax equal; decode after prefill(S) vs "
+        f"prefill(S+1) {errs['decode_vs_prefill_s1']:.3e} (tol "
+        f"{LM_CONSIST_TOL}); {count_params(params)} params, init "
+        f"{init_s:.2f} s; {smi}")
+
+    # 2. qwen3-0.6b served at bf16: prefill_32k's prompt, 32 decode steps
+    shape = get_shape("lm", LM_SERVE_SHAPE)
+    max_len = shape["seq"]
+    s = max_len - LM_DECODE_STEPS
+    # the reference's serving binding (launch/cells.py, lm_config_for_mesh
+    # and _lm_decode_cell): bf16 weights, KV blocks of min(1024, seq / 4)
+    scfg = dataclasses.replace(cfg, param_dtype="bfloat16",
+                               attn_chunk=min(1024, max_len // 4),
+                               remat=False)
+    sparams = cast_tree(params, torch.bfloat16)
+    del params
+    torch.cuda.empty_cache()
+    prompt = torch.as_tensor(LMStream(cfg.vocab, s, LM_BATCH,
+                                      seed=1).batch_at(0)["tokens"],
+                             device=dev)
+    t0 = time.perf_counter()
+    transformer.prefill(sparams, prompt[:, :LM_WARM_SEQ], scfg)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(sparams, prompt, scfg,
+                                        max_len=max_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    require(bool(torch.isfinite(logits).all()), "[lm] prefill logits")
+    logits, cache, ms, gen, finite = _greedy(sparams, scfg, logits, cache,
+                                             LM_DECODE_STEPS)
+    require(finite, "[lm] qwen3-0.6b decode logits are not finite")
+    require(cache["lengths"].tolist() == [max_len] * LM_BATCH,
+            f"[lm] lengths {cache['lengths'].tolist()} != {max_len}")
+    require(bool(((gen >= 0) & (gen < cfg.vocab)).all()),
+            "[lm] generated tokens out of the vocabulary")
+    # where a step's time goes: two decode steps at the full context (the
+    # last two slots written again), and a prefill of 2 x 8,192 (8 KV
+    # blocks of the 32 above)
+    last = logits
+
+    def two_steps():
+        c = {**cache, "lengths": torch.full_like(cache["lengths"],
+                                                 max_len - 2)}
+        lg = last
+        for _ in range(2):
+            lg, c = transformer.decode_step(sparams, c,
+                                            lg.argmax(-1)[:, None], scfg)
+
+    prof_decode = profile_window("lm decode", f"qwen3-0.6b bf16 at "
+                                 f"{max_len}", two_steps, 2, LM_BATCH)
+    prof_prefill = profile_window(
+        "lm prefill", f"qwen3-0.6b bf16 {LM_BATCH} x {LM_PROFILE_SEQ}",
+        lambda: transformer.prefill(sparams, prompt[:, :LM_PROFILE_SEQ],
+                                    scfg), 1, LM_BATCH)
+    p_bytes = tree_bytes(sparams)
+    c_bytes = tree_bytes(cache)
+    ms_sorted = sorted(ms)
+    serve = {"batch": LM_BATCH, "prompt": s, "max_len": max_len,
+             "attn_chunk": scfg.attn_chunk, "warm_prefill_s": warm_s,
+             "prefill_s": prefill_s,
+             "prefill_tokens_per_s": LM_BATCH * s / prefill_s,
+             "decode_ms": ms, "decode_ms_mean": sum(ms) / len(ms),
+             "decode_ms_p50": ms_sorted[len(ms) // 2],
+             "decode_tokens_per_s": LM_BATCH * 1000.0 * len(ms) / sum(ms),
+             "prefill_peak_bytes": prefill_peak,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "param_bytes": p_bytes, "cache_bytes": c_bytes,
+             "decode_bytes_bound_ms": (p_bytes + c_bytes)
+             / HBM_BYTES_PER_S * 1e3,
+             "profile_decode": prof_decode, "profile_prefill": prof_prefill}
+    out["qwen_serve"] = serve
+    log(f"[lm] qwen3-0.6b bf16 serve ({LM_SERVE_SHAPE}, batch cut 32 -> "
+        f"{LM_BATCH}): prefill {LM_BATCH} x {s} tokens in {prefill_s:.3f} s"
+        f" ({serve['prefill_tokens_per_s']:.0f} tokens/s; warm-up "
+        f"{LM_BATCH} x {LM_WARM_SEQ} {warm_s:.2f} s), attn_chunk "
+        f"{scfg.attn_chunk}; {LM_DECODE_STEPS} greedy decode steps to "
+        f"{max_len}: mean {serve['decode_ms_mean']:.3f} ms, p50 "
+        f"{serve['decode_ms_p50']:.3f} ms a step (CUDA events; "
+        f"{serve['decode_tokens_per_s']:.1f} tokens/s; bytes bound "
+        f"{serve['decode_bytes_bound_ms']:.3f} ms: params + cache read "
+        f"once at 3.35 TB/s); params {p_bytes} B, cache {c_bytes} B, "
+        f"max_memory_allocated {serve['peak_bytes']} B (prefill "
+        f"{prefill_peak} B); {smi}")
+    del sparams, cache, logits, prompt
+    torch.cuda.empty_cache()
+
+    # 3. MoE + MLA at reduced(), fp32 policy, card vs CPU
+    out["reduced"] = {}
+    transformer.set_precision(torch.float32, torch.float32)
+    try:
+        for arch in ("deepseek-v3-671b", "kimi-k2-1t-a32b"):
+            rc = get_arch(arch)[0].reduced()
+            rc = dataclasses.replace(
+                rc, residual_dtype="float32", remat=False,
+                moe=dataclasses.replace(rc.moe, capacity_factor=8.0))
+            rp = transformer.init(rc, seed=0, device=dev)
+            errs = _lm_parity(arch, rc, rp)
+            out["reduced"][arch] = errs
+            log(f"[lm] {arch} reduced (MoE {rc.moe.n_experts}e top-"
+                f"{rc.moe.top_k}, MLA, capacity factor 8, fp32 policy, "
+                f"fp32 residual; MTP {rc.mtp}): card vs CPU max abs err "
+                f"prefill {errs['prefill_logits']:.3e}, decode "
+                f"{errs['decode_logits']:.3e}, cache ckv "
+                f"{errs['decode_ckv']:.3e}, loss {errs['loss']:.3e}; "
+                f"decode vs prefill(S+1) "
+                f"{errs['decode_vs_prefill_s1']:.3e}")
+    finally:
+        transformer.set_precision()
+
+    # 4. deepseek-v3-671b at full width, depth cut, bf16
+    dcfg = dataclasses.replace(get_arch("deepseek-v3-671b")[0],
+                               **LM_DEEP_DEPTH, remat=False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dparams = transformer.init(dcfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    dinit_s = time.perf_counter() - t0
+    toks = torch.as_tensor(LMStream(dcfg.vocab, LM_DEEP_SEQ, LM_BATCH,
+                                    seed=2).batch_at(0)["tokens"],
+                           device=dev)
+    dmax = LM_DEEP_SEQ + LM_DEEP_STEPS
+    transformer.prefill(dparams, toks[:, :64], dcfg)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(dparams, toks, dcfg,
+                                        max_len=dmax)
+    torch.cuda.synchronize()
+    dprefill_s = time.perf_counter() - t0
+    require(bool(torch.isfinite(logits).all()), "[lm] deepseek prefill")
+    m = dcfg.mla
+    want = {"ckv": (2, LM_BATCH, dmax, m.kv_lora_rank),
+            "krope": (2, LM_BATCH, dmax, m.qk_rope_head_dim),
+            "lengths": (LM_BATCH,)}
+    got = {k: tuple(v.shape) for k, v in cache.items()}
+    require(got == want, f"[lm] deepseek cache shapes {got} != {want}")
+    logits, cache, dms, _, finite = _greedy(dparams, dcfg, logits, cache,
+                                            LM_DEEP_STEPS)
+    require(finite, "[lm] deepseek decode logits are not finite")
+    require(cache["lengths"].tolist() == [dmax] * LM_BATCH, "[lm] lengths")
+    deep = {"params": count_params(dparams),
+            "param_bytes": tree_bytes(dparams), "init_s": dinit_s,
+            "prefill_s": dprefill_s,
+            "prefill_tokens_per_s": LM_BATCH * LM_DEEP_SEQ / dprefill_s,
+            "decode_ms": dms, "decode_ms_mean": sum(dms) / len(dms),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    out["deepseek_cut"] = deep
+    log(f"[lm] deepseek-v3-671b full width, depth cut to "
+        f"{dcfg.n_dense_layers} dense + {dcfg.n_moe_layers} MoE layer "
+        f"({dcfg.moe.n_experts} experts top-{dcfg.moe.top_k}, MLA latent "
+        f"{m.kv_lora_rank}) + MTP, bf16: {deep['params']} params "
+        f"({deep['param_bytes']} B, init {dinit_s:.2f} s); prefill "
+        f"{LM_BATCH} x {LM_DEEP_SEQ} in {dprefill_s:.3f} s "
+        f"({deep['prefill_tokens_per_s']:.0f} tokens/s); "
+        f"{LM_DEEP_STEPS} decode steps mean {deep['decode_ms_mean']:.3f} "
+        f"ms; max_memory_allocated {deep['peak_bytes']} B; {smi}")
+    del dparams, cache, logits
+    torch.cuda.empty_cache()
+    RESULTS["lm"] = out
+    return out
+
+
+
 def kernel_line() -> dict:
     """Each kernel at its main path's shape (``candidate_topk``: the served
     chain, with its one-step, DEEP-10M and served forest rows-by-id
@@ -4182,6 +4492,13 @@ def main() -> int:
         phase_fleet(dev, ctx)
     with phase("analysis"):
         phase_analysis(ctx)
+    ctx.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lm] before the phase: memory_allocated "
+        f"{torch.cuda.memory_allocated()} B")
+    with phase("lm"):
+        phase_lm(dev, card)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)

@@ -12,6 +12,7 @@ object of the reference.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.lexical import LexicalSlabs
 from repro_torch.core.lsh import LSHIndex
@@ -22,9 +23,10 @@ from repro_torch.core.two_level import (TwoLevelConfig, TwoLevelIndex,
                                         check_levels, check_sidecars,
                                         concat_forest, entity_buckets)
 from repro_torch.device import resolve
+from repro_torch.models import transformer
 
 __all__ = ["index_from_arrays", "tree_from_arrays", "metadata_from_arrays",
-           "lexical_from_arrays"]
+           "lexical_from_arrays", "lm_params_from_arrays"]
 
 TREE_ARRAYS = ("proj", "dims", "tau", "children", "leaf_row",
                "leaf_entities", "depth", "entity_depth")
@@ -127,3 +129,51 @@ def index_from_arrays(arrays: dict, config: dict, device=None, *,
             idx.base_trees = [tree_from_arrays(t)
                               for t in arrays["base_trees"]]
     return idx
+
+
+def _leaf_tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
+    """One leaf on ``device`` in ``dtype``; a bf16 array (``ml_dtypes``'
+    type, as JAX hands it over) is carried bit for bit."""
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype)
+
+
+def lm_params_from_arrays(tree: dict, cfg, device=None) -> dict:
+    """The port's parameter tree from the reference's (nested dicts of
+    numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``).
+
+    The layout mapping is the identity, leaf for leaf: the port keeps the
+    reference's key paths and shapes (``embed`` (V, D), ``unembed``
+    (D, V) unless tied, ``final_norm`` (D,); per stack ``dense_layers`` /
+    ``moe_layers`` every leaf stacked ``(L, ...)``: ``ln1`` / ``ln2``
+    (L, D); GQA ``w_q`` (L, D, H, dh), ``w_k`` / ``w_v`` (L, D, Hkv, dh),
+    ``w_o`` (L, H, dh, D), ``q_norm`` / ``k_norm`` (L, dh); MLA ``w_dq``
+    (L, D, q_lora), ``q_ln``, ``w_uq`` (L, q_lora, H, nope + rope),
+    ``w_dkv`` (L, D, kv_lora), ``kv_ln``, ``w_kr`` (L, D, rope), ``w_uk`` /
+    ``w_uv`` (L, kv_lora, H, nope / v), ``w_o`` (L, H, v, D); MLP
+    ``w_gate`` / ``w_up`` (L, D, F), ``w_down`` (L, F, D); MoE ``router``
+    (L, D, E) and ``router_bias`` (L, E) in fp32, experts ``w_gate`` /
+    ``w_up`` (L, E_pad, D, F), ``w_down`` (L, E_pad, F, D), the shared
+    expert ``sh_*``; ``mtp``: ``proj`` (2D, D), ``norm_h``, ``norm_e`` and
+    one layer stacked ``(1, ...)``).  Each leaf is checked against
+    ``transformer.param_shapes(cfg)`` and cast to its dtype; a missing,
+    extra or misshapen leaf raises ``ValueError``."""
+    dev = resolve(device)
+
+    def walk(want, got, path: str):
+        if isinstance(want, dict):
+            have = sorted(got) if isinstance(got, dict) else type(got)
+            if have != sorted(want):
+                raise ValueError(f"{path or '/'}: keys {have} are not the "
+                                 f"config's {sorted(want)}")
+            return {k: walk(want[k], got[k], f"{path}/{k}") for k in want}
+        a = np.asarray(got)
+        if tuple(a.shape) != tuple(want.shape):
+            raise ValueError(f"{path}: shape {a.shape} is not the config's "
+                             f"{tuple(want.shape)}")
+        return _leaf_tensor(a, want.dtype, dev)
+
+    return walk(transformer.param_shapes(cfg), tree, "")

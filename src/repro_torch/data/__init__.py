@@ -1,1 +1,2 @@
-"""Synthetic corpora (``synthetic``)."""
+"""Synthetic data: ANN corpora (``synthetic``) and the LM token stream
+(``lm``)."""

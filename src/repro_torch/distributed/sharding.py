@@ -77,8 +77,9 @@ class ShardPlan:
     (tensor), ``ep`` (expert), ``pp`` (the pod remainder of ``dp``) --
     bound to mesh axes.  ``p`` returns each dimension's axis tuple (the
     content of the reference's ``PartitionSpec``); with no mesh bound
-    every axis counts 1.  The reference's ``constrain`` becomes DTensor
-    placements with the models (ROADMAP.md, module item 8)."""
+    every axis counts 1.  ``constrain`` is the identity with no mesh bound
+    and raises with one: the DTensor placements of a model sharded over
+    cards come with training (ROADMAP.md, module item 3)."""
     dp: tuple = ()
     fsdp: tuple = ()
     tp: tuple = ()
@@ -101,6 +102,19 @@ class ShardPlan:
 
     def p(self, *dims) -> tuple:
         return tuple(self.resolve(d) for d in dims)
+
+    def constrain(self, x, *dims):
+        """``x`` itself when no mesh is bound, as the reference's
+        ``with_sharding_constraint`` is then skipped.  With a mesh bound
+        it raises ``NotImplementedError``: the port does not shard a model
+        over cards yet (DTensor placements, ROADMAP.md module item 3),
+        and returning ``x`` there would silently replicate it."""
+        if self.mesh is None:
+            return x
+        raise NotImplementedError(
+            f"ShardPlan.constrain{self.p(*dims)} under a bound mesh: "
+            "sharding a model over cards (DTensor placements) is ROADMAP.md "
+            "module item 3, training; serve on one card with no mesh")
 
     def axis_size(self, role: str) -> int:
         if self.mesh is None:

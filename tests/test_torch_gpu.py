@@ -1121,3 +1121,108 @@ def test_roofline_report_after_a_served_batch(dev):
     assert 0 < rep["measured_frac"] <= 1.05, rep
     assert be.metrics.counter("compile_signatures").value >= 1
     assert be.metrics.get("first_call_ms").count >= 1
+
+
+# ---------------------------------------------------------------------------
+# the language models (plain torch on the card; no kernel of their own)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ["qwen3-0.6b", "qwen3-14b", "granite-34b", "deepseek-v3-671b",
+            "kimi-k2-1t-a32b"]
+LM_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _lm_cfg(arch):
+    from repro_torch.configs.registry import get_arch
+
+    cfg = dataclasses.replace(get_arch(arch)[0].reduced(),
+                              residual_dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    return cfg
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_card_equals_cpu(dev, arch):
+    """Each reduced arch at the fp32 policy (no TF32): ``loss_fn``,
+    ``prefill`` and one ``decode_step`` on the card against the CPU on the
+    same weights, rtol / atol 1e-4, argmax equal; the decode cache too."""
+    from repro_torch.data.lm import LMStream
+    from repro_torch.device import require_fp32_matmul
+    from repro_torch.models import transformer as T
+    from repro_torch.models.base import tree_map
+
+    cfg = _lm_cfg(arch)
+    require_fp32_matmul()
+    T.set_precision(torch.float32, torch.float32)
+    try:
+        pc = T.init(cfg, seed=0, device=dev)
+        pcpu = tree_map(lambda t: t.cpu(), pc)
+        batch = LMStream(cfg.vocab, 16, 2, seed=0).batch_at(0)
+        toks = batch["tokens"]
+        res = {}
+        for name, p in (("card", pc), ("cpu", pcpu)):
+            loss, _ = T.loss_fn(p, batch, cfg)
+            logits, cache = T.prefill(p, toks[:, :8], cfg, max_len=12)
+            pre = {k: v.cpu().clone() for k, v in cache.items()}
+            dlog, cache = T.decode_step(p, cache, toks[:, 8:9], cfg)
+            res[name] = (loss.cpu(), logits.cpu(), pre, dlog.cpu(),
+                         {k: v.cpu() for k, v in cache.items()})
+        (lc, gc, pc_, dc, cc), (lp, gp, pp_, dp, cp) = res["card"], res["cpu"]
+        torch.testing.assert_close(lc, lp, **LM_TOL)
+        for a, b in ((gc, gp), (dc, dp)):
+            torch.testing.assert_close(a, b, **LM_TOL)
+            assert torch.equal(a.argmax(-1), b.argmax(-1))
+        for k in cc:
+            torch.testing.assert_close(pc_[k], pp_[k], **LM_TOL)
+            torch.testing.assert_close(cc[k], cp[k], **LM_TOL)
+    finally:
+        T.set_precision()
+
+
+def test_lm_decode_cache_write_equals_one_hot(dev):
+    """The decode step's indexed cache write against the reference's
+    one-hot select over the whole cache (``jnp.where(arange(S) ==
+    lengths, new, cache)``), bit for bit, rows of different lengths."""
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(_lm_cfg("qwen3-0.6b"), moe=None)
+    p = T.init(cfg, seed=3, device=dev)
+    toks = torch.randint(0, cfg.vocab, (3, 6), device=dev)
+    _, cache = T.prefill(p, toks, cfg, max_len=9)
+    cache["lengths"] = torch.tensor([6, 2, 8], dtype=torch.int32,
+                                    device=dev)
+    before = {k: v.clone() for k, v in cache.items()}
+    _, after = T.decode_step(p, cache, toks[:, :1], cfg)
+    pos = (torch.arange(9, device=dev)[None, :]
+           == before["lengths"][:, None].long())          # (B, S)
+    for k in ("k", "v"):
+        new = after[k][:, torch.arange(3, device=dev),
+                       before["lengths"].long()]          # (L, B, H, dh)
+        want = torch.where(pos[None, :, :, None, None], new[:, :, None],
+                           before[k])
+        assert torch.equal(after[k], want)
+    assert after["lengths"].tolist() == [7, 3, 9]
+
+
+def test_constrain_raises_under_a_bound_mesh(dev, tmp_path):
+    """``ShardPlan.constrain`` is the identity with no mesh and raises
+    ``NotImplementedError`` under a real (world-1 NCCL) mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.sharding import SINGLE_POD_PLAN
+
+    x = torch.ones(4, 4, device=dev)
+    assert SINGLE_POD_PLAN.constrain(x, "dp", "tp") is x
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        with pytest.raises(NotImplementedError, match="module item 3"):
+            SINGLE_POD_PLAN.with_mesh(mesh).constrain(x, "dp", "tp")
+    finally:
+        dist.destroy_process_group()

@@ -46,7 +46,21 @@ _REFERENCE = (
     "repro.core.delta", "repro.serve.fleet", "repro.serve.engine",
     "repro.adaptive.cache", "repro.adaptive.sketch",
     "repro.adaptive.estimator", "repro.adaptive.maintenance",
+    "repro.configs.base", "repro.configs.registry", "repro.data.lm",
+    "repro.models.base", "repro.models.layers", "repro.models.embedding",
+    "repro.models.attention", "repro.models.moe",
+    "repro.models.transformer",
 )
+
+
+def _short(name: str) -> str:
+    """A module's name in the namespace: its last component, or its last
+    two joined by ``_`` where two modules share the last
+    (``configs_base``, ``models_base``)."""
+    parts = name.split(".")
+    if sum(n.rsplit(".", 1)[1] == parts[-1] for n in _REFERENCE) == 1:
+        return parts[-1]
+    return "_".join(parts[-2:])
 
 
 def _is_reference(name: str) -> bool:
@@ -75,7 +89,8 @@ def _ndarray_safe(orig):
 @contextlib.contextmanager
 def reference_modules():
     """Yields a namespace of the reference modules (short names, e.g.
-    ``ns.ref``, ``ns.two_level``), loaded fresh; restores ``sys.modules``
+    ``ns.ref``, ``ns.two_level``, ``ns.models_base``; see ``_short``),
+    loaded fresh; restores ``sys.modules``
     and ``dataclasses.dataclass`` afterwards."""
     saved = {n: m for n, m in sys.modules.items() if _is_reference(n)}
     for n in saved:
@@ -83,7 +98,7 @@ def reference_modules():
     orig = dataclasses.dataclass
     dataclasses.dataclass = _ndarray_safe(orig)
     try:
-        mods = {name.rsplit(".", 1)[1]: importlib.import_module(name)
+        mods = {_short(name): importlib.import_module(name)
                 for name in _REFERENCE}
     finally:
         dataclasses.dataclass = orig
@@ -167,6 +182,10 @@ def _modules_after(code: str) -> set:
     "repro_torch.adaptive.cache, repro_torch.adaptive.sketch, "
     "repro_torch.adaptive.estimator, repro_torch.adaptive.maintenance, "
     "repro_torch.launch.serve, repro_torch.analysis.annotations, "
+    "repro_torch.kernels.ops",
+    "import repro_torch.configs, repro_torch.configs.registry, "
+    "repro_torch.data.lm, repro_torch.models.transformer, "
+    "repro_torch.models.embedding, repro_torch.convert, "
     "repro_torch.kernels.ops",
 ])
 def test_port_imports_neither_jax_nor_reference(code):
