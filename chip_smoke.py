@@ -151,7 +151,25 @@ each prints its wall time as ``[phase] <name> <s> s``):
              MLA, MTP) card against CPU; deepseek-v3-671b at full width
              with its depth cut to 1 dense + 1 MoE layer, bf16 prefill of
              2 x 512 and 8 decode steps;
-16. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
+16. models  - the recsys and GNN models' serving path (plain torch, as the
+             reference's plain jnp): DLRM, DCN-v2, DIN and SASRec at full
+             width card against CPU in fp32 (DLRM and DCN-v2 with each
+             table capped at 65,536 rows): ``serve_logits`` on 512 rows,
+             ``loss_fn``, ``retrieval_logits`` over 4,096 candidates; SchNet
+             at full width on ``full_graph_sm`` and ``molecule``, fp32 and
+             bf16 messages; the four archs served at the registry's
+             ``serve_p99``, ``serve_bulk`` and ``retrieval_cand`` (1M
+             candidates; DLRM in bf16, its 187.8M-row table kept whole),
+             profiles of DLRM ``serve_p99`` and DIN ``retrieval_cand``;
+             SASRec's 1M items MIPS-augmented to d 51 through
+             ``build_two_level`` (brute top and bottom, 1,024 buckets;
+             nprobe 16-1,024, exact at full probing; launch counts reset
+             just before and read just after: ``candidate_topk`` > 0);
+             SchNet at ``full_graph_sm``, ``minibatch_lg`` (the 114.6M-edge
+             graph and the (15, 10) sampler) and ``molecule`` with bf16
+             messages; ``radius_graph`` over 16,384 points, two-level on the
+             card against brute;
+17. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
 
 The serve phase also runs the brute and IVF backends at k = 50 (above the
 kernels' 32-pair lists) against their unfused plain paths.
@@ -197,6 +215,7 @@ from repro_torch.core.lsh import (lsh_build, lsh_search,  # noqa: E402
 from repro_torch.core.pq import adc_lut  # noqa: E402
 from repro_torch.core.protocol import (IndexSpec,  # noqa: E402
                                        select_index_spec)
+from repro_torch.core.graph_build import radius_graph  # noqa: E402
 from repro_torch.core.tree import tree_search  # noqa: E402
 from repro_torch.core.lexical import (build_lexical_slabs_flat,  # noqa: E402
                                       query_operands)
@@ -204,7 +223,11 @@ from repro_torch.core.metadata import FilterSpec, MetadataTable  # noqa: E402
 from repro_torch.core.metrics import LatencyTimer, recall_at_k  # noqa: E402
 from repro_torch.core.two_level import (TwoLevelConfig,  # noqa: E402
                                         build_forest, build_two_level)
+from repro_torch.data.graph import (NeighborSampler,  # noqa: E402
+                                    make_graph, molecule_batch, pad_edges)
 from repro_torch.data.lm import LMStream  # noqa: E402
+from repro_torch.data.recsys import (batch_for,  # noqa: E402
+                                     retrieval_batch, serve_batch)
 from repro_torch.data.synthetic import make_corpus, make_queries  # noqa: E402
 from repro_torch.device import require_fp32_matmul  # noqa: E402
 from repro_torch.distributed.backend import ShardedSearchBackend  # noqa: E402
@@ -217,7 +240,7 @@ from repro_torch.analysis.recompile import (Plan,  # noqa: E402
                                             run_entry_point,
                                             run_recompile_gate)
 from repro_torch.analysis.registry import ENTRY_POINTS  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import recsys, schnet, transformer  # noqa: E402
 from repro_torch.models.base import (cast_tree, count_params,  # noqa: E402
                                      tree_bytes, tree_map)
 from repro_torch.obs import smoke as obs_smoke  # noqa: E402
@@ -230,10 +253,11 @@ from repro_torch.testing import (CHAIN_EDGES, EDGE_ALPHAS,  # noqa: E402
                                  HAMMING_EDGES, OPTION_EDGES, PQ_EDGES,
                                  ROWS_EDGES, chain_edge_operands,
                                  chain_union_topk, hamming_edge_operands,
-                                 hybrid_by_parts, option_edge_operands,
+                                 hybrid_by_parts, message_dtypes,
+                                 mips_parity, option_edge_operands,
                                  pq_edge_operands, rows_edge_operands,
-                                 rows_union_topk, shard_backends,
-                                 shard_loop, step_chain)
+                                 rows_union_topk, sasrec_mips_truth,
+                                 shard_backends, shard_loop, step_chain)
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3, fp32 outside the
 # tensor cores, and dense TF32 on them.  Every kernel computes in fp32 FMA;
@@ -4420,6 +4444,559 @@ def phase_lm(dev, card) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 16
+# The recsys and GNN models' serving path (plain torch, as the reference's
+# plain jnp; the SASRec retrieval through the two-level index runs the
+# probe chain's kernel, candidate_topk).  Tolerances, stated before the
+# run: card against CPU in fp32 on the same weights (no TF32) to rtol /
+# atol 1e-4, top ids equal except at near-ties (their two candidates
+# rescored in float64 on the CPU within that tolerance); SchNet's bf16
+# messages (the card's index_add_ atomics accumulate in bf16) to a
+# relative L2 error of 2**-4 on the node states, the loss to rtol 1e-2.
+MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
+MODEL_BF16_REL_L2 = 2 ** -4
+MODEL_BF16_LOSS_TOL = dict(rtol=1e-2, atol=1e-2)
+RECSYS_ARCHS = ("dlrm-mlperf", "dcn-v2", "din", "sasrec")
+# DLRM's fp32 table (187,767,399 x 128) is 96.1 GB: the fp32 parity runs
+# with each table's rows capped (widths unchanged); DCN-v2 too, so both
+# CPU copies stay small.  Serving keeps every row: DLRM in bf16 (48.07 GB),
+# the other three in fp32.
+PARITY_TABLE_ROWS = 65_536
+PARITY_ROWS = 512
+PARITY_CANDIDATES = 4096
+RETRIEVAL_K = 100
+SERVE_DTYPES = {"dlrm-mlperf": torch.bfloat16}
+SERVE_P99_CALLS = 100
+SERVE_P99_BATCHES = 16          # distinct request batches, cycled
+SERVE_BULK_CALLS = 3
+RETRIEVAL_CALLS = 3
+PROFILE_BATCHES = 8
+# retrieval through the paper's index (examples/retrieval_recsys.py at
+# full width): 64 users, 1,024 buckets, brute top and bottom
+INDEX_USERS = 64
+INDEX_CLUSTERS = 1024
+INDEX_NPROBES = (16, 64, 256, 1024)
+INDEX_FLOOR = 0.99
+# SchNet at the gnn shapes, bf16 messages as _gnn_cell binds them
+GNN_ITERS = 5
+GNN_SEEDS = 1024
+# radius_graph on the card: 16,384 points at the density of the reference
+# test's (500 points, normal x 3, cutoff 1.5)
+RADIUS_POINTS = 16_384
+RADIUS_CUTOFF = 1.5
+RADIUS_RECALL = 0.95
+
+
+def _pad_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _model_close(name: str, a, b, tol: dict = MODEL_TOL) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    require(bool(torch.allclose(a, b, **tol)),
+            f"[models] {name}: max abs err {err} beyond {tol}")
+    return err
+
+
+def _rel_l2(name: str, a, b, bound: float) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    err = float((a - b).norm() / b.norm().clamp(min=1e-30))
+    require(err <= bound, f"[models] {name}: relative L2 error {err} > "
+            f"{bound}")
+    return err
+
+
+def _retrieval_parity(name, cfg, rb, card, cpu, cpu_params) -> dict:
+    """Card (scores, ids) against CPU: scores to ``MODEL_TOL``; a slot whose
+    ids differ is a near-tie when its two candidates' float64 scores (the
+    CPU tree in float64) lie within the same tolerance."""
+    (cs, ci), (ps, pi) = ((s.cpu(), i.cpu()) for s, i in (card, cpu))
+    err = _model_close(f"{name} retrieval scores", cs, ps)
+    diff = (ci != pi).nonzero().flatten().tolist()
+    if diff:
+        p64 = cast_tree(cpu_params, torch.float64)
+        for j in diff:
+            ids = np.array([int(ci[j]), int(pi[j])], np.int32)
+            b2 = dict(rb, candidates=ids)
+            if "cand_cates" in rb:
+                b2["cand_cates"] = (ids % cfg.n_cates).astype(np.int32)
+            s64, i64 = recsys.retrieval_logits(p64, b2, cfg, k=2)
+            gap = float((s64[0] - s64[1]).abs())
+            require(gap <= MODEL_TOL["atol"] + MODEL_TOL["rtol"]
+                    * float(s64.abs().max()),
+                    f"[models] {name}: ids {ids.tolist()} differ at slot "
+                    f"{j}, float64 score gap {gap}")
+    return {"max_abs_err": err, "near_ties": len(diff)}
+
+
+def recsys_parity(dev, arch: str) -> dict:
+    """``arch`` at full width in fp32 (DLRM / DCN-v2 tables capped at
+    ``PARITY_TABLE_ROWS`` rows each), card against CPU on the same
+    weights: ``serve_logits`` on ``PARITY_ROWS`` rows, ``loss_fn`` and
+    ``retrieval_logits`` over ``PARITY_CANDIDATES`` candidates."""
+    cfg = get_arch(arch)[0]
+    if hasattr(cfg, "table_sizes"):
+        cfg = dataclasses.replace(cfg, table_sizes=tuple(
+            min(s, PARITY_TABLE_ROWS) for s in cfg.table_sizes))
+    params = recsys.init(cfg, seed=0, device=dev)
+    cpu = tree_map(lambda t: t.cpu(), params)
+    batch = batch_for(cfg, PARITY_ROWS, 0)
+    serve = serve_batch(cfg, batch)
+    rb = retrieval_batch(cfg, batch, PARITY_CANDIDATES)
+    out = {}
+    for side, p in (("card", params), ("cpu", cpu)):
+        loss, aux = recsys.loss_fn(p, batch, cfg)
+        out[side] = (recsys.serve_logits(p, serve, cfg), loss, aux,
+                     recsys.retrieval_logits(p, rb, cfg, k=RETRIEVAL_K))
+    (sc, lc, ac, rc), (sp, lp, ap, rp) = out["card"], out["cpu"]
+    require(tuple(sc.shape) == (PARITY_ROWS,) and bool(
+        torch.isfinite(sc).all()), f"[models] {arch} serve logits")
+    errs = {"serve": _model_close(f"{arch} serve", sc, sp),
+            "loss": _model_close(f"{arch} loss", lc, lp)}
+    for k in ap:
+        errs[f"aux_{k}"] = _model_close(f"{arch} aux {k}", ac[k], ap[k])
+    errs["retrieval"] = _retrieval_parity(arch, cfg, rb, rc, rp, cpu)
+    errs["params"] = count_params(params)
+    del params, cpu
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _events_ms(fn, calls: int, warmup: int = 1) -> list:
+    """CUDA-event ms of each of ``calls`` calls of ``fn(i)``."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    ms = []
+    for i in range(calls):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(i)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return ms
+
+
+def _pct(ms: list, q: float) -> float:
+    s = sorted(ms)
+    return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
+
+
+def recsys_serve(dev, arch: str, smi: str, keep: bool = False) -> dict:
+    """``arch`` at full width served at the registry's three shapes:
+    ``serve_p99`` (p50 / p99 over ``SERVE_P99_CALLS`` calls),
+    ``serve_bulk`` (rows/s) and ``retrieval_cand`` (ms a call over 1M
+    candidates, k 100); parameter bytes and ``max_memory_allocated``.
+    DLRM serves in bf16 (its fp32 table does not fit), the others in fp32.
+    Returns the results (and the parameters when ``keep``)."""
+    cfg = get_arch(arch)[0]
+    dtype = SERVE_DTYPES.get(arch, torch.float32)
+    p99 = get_shape("recsys", "serve_p99")["batch"]
+    bulk = get_shape("recsys", "serve_bulk")["batch"]
+    n_cand = get_shape("recsys", "retrieval_cand")["n_candidates"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = recsys.init(cfg, seed=0, dtype=dtype, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p_bytes = tree_bytes(params)
+    small = [serve_batch(cfg, batch_for(cfg, p99, s))
+             for s in range(SERVE_P99_BATCHES)]
+    ms_p99 = _events_ms(lambda i: recsys.serve_logits(
+        params, small[i % len(small)], cfg), SERVE_P99_CALLS)
+    t0 = time.perf_counter()
+    batch = batch_for(cfg, bulk, 1)
+    big, rb = serve_batch(cfg, batch), retrieval_batch(cfg, batch, n_cand)
+    data_s = time.perf_counter() - t0
+    logits = recsys.serve_logits(params, big, cfg)
+    require(tuple(logits.shape) == (bulk,) and bool(
+        torch.isfinite(logits).all()), f"[models] {arch} bulk logits")
+    ms_bulk = _events_ms(lambda i: recsys.serve_logits(params, big, cfg),
+                         SERVE_BULK_CALLS)
+    top, ids = recsys.retrieval_logits(params, rb, cfg, k=RETRIEVAL_K)
+    require(bool(torch.isfinite(top).all()) and bool((top[:-1] >= top[1:])
+                                                     .all()),
+            f"[models] {arch} retrieval scores not finite and descending")
+    require(len(set(ids.tolist())) == RETRIEVAL_K and int(ids.min()) >= 0
+            and int(ids.max()) < n_cand, f"[models] {arch} retrieval ids")
+    ms_ret = _events_ms(lambda i: recsys.retrieval_logits(
+        params, rb, cfg, k=RETRIEVAL_K), RETRIEVAL_CALLS)
+    out = {"dtype": str(dtype).split(".")[-1], "params": count_params(params),
+           "param_bytes": p_bytes, "init_s": init_s,
+           "serve_p99": {"batch": p99, "calls": len(ms_p99),
+                         "p50_ms": _pct(ms_p99, 0.5),
+                         "p99_ms": _pct(ms_p99, 0.99),
+                         "mean_ms": sum(ms_p99) / len(ms_p99)},
+           "serve_bulk": {"batch": bulk, "ms": ms_bulk,
+                          "rows_per_s": bulk * 1e3 / (sum(ms_bulk)
+                                                      / len(ms_bulk)),
+                          "host_batch_s": data_s},
+           "retrieval_cand": {"candidates": n_cand, "k": RETRIEVAL_K,
+                              "ms": ms_ret,
+                              "ms_mean": sum(ms_ret) / len(ms_ret)},
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    if arch == "dlrm-mlperf":
+        out["profile_serve_p99"] = profile_window(
+            "models dlrm serve_p99", f"dlrm-mlperf bf16 B {p99}",
+            lambda: [recsys.serve_logits(params, small[i], cfg)
+                     for i in range(PROFILE_BATCHES)], PROFILE_BATCHES, p99)
+    if arch == "din":
+        out["profile_retrieval_cand"] = profile_window(
+            "models din retrieval_cand", f"din fp32 1 x {n_cand}",
+            lambda: recsys.retrieval_logits(params, rb, cfg,
+                                            k=RETRIEVAL_K), 1, 1)
+    for key in ("profile_serve_p99", "profile_retrieval_cand"):
+        if key in out:
+            pr = out[key]
+            pr["launches_per_call"] = pr["launched"] / pr["batches"]
+            log(f"[models] {arch} {key[8:]}: device busy "
+                f"{pr['device_busy_share']:.3f}, "
+                f"{pr['launches_per_call']:.1f} launches a call")
+    s, b, r = out["serve_p99"], out["serve_bulk"], out["retrieval_cand"]
+    log(f"[models] {arch} {out['dtype']} full width: serve_p99 B {p99} p50 "
+        f"{s['p50_ms']:.3f} ms p99 {s['p99_ms']:.3f} ms ({len(ms_p99)} "
+        f"calls, CUDA events); serve_bulk B {bulk} "
+        f"{b['rows_per_s']:.0f} rows/s ({min(ms_bulk):.1f}-"
+        f"{max(ms_bulk):.1f} ms a call); retrieval_cand 1 x {n_cand} k "
+        f"{RETRIEVAL_K} {r['ms_mean']:.2f} ms a call; {out['params']} "
+        f"params {p_bytes} B (init {init_s:.2f} s); max_memory_allocated "
+        f"{out['peak_bytes']} B; {smi}")
+    if keep:
+        return out, params
+    del params, small, big, batch
+    torch.cuda.empty_cache()
+    return out, None
+
+
+def sasrec_index(dev, params, smi: str) -> dict:
+    """SASRec at full size through the paper's index: ``INDEX_USERS``
+    users' vectors, the exact ``retrieval_logits`` top-10 over all items as
+    the truth, the items MIPS-augmented (d 51) into ``build_two_level``
+    (brute top and bottom), searched at ``INDEX_NPROBES`` and at full
+    probing.  Launch counts are reset just before the searches and read
+    just after: ``candidate_topk`` > 0.  After that window each search's
+    own answer (the probe chain's kernel) is held against the plain chain
+    on the same probe lists (``compare``, each id's distance recomputed in
+    float64), and the full-probing answer must equal the exact top-10
+    (``testing.mips_parity``)."""
+    cfg = get_arch("sasrec")[0]
+    seq = batch_for(cfg, INDEX_USERS, 7)["seq"]
+    t0 = time.perf_counter()
+    users, exact, items = sasrec_mips_truth(params, seq, cfg, K)
+    exact_s = time.perf_counter() - t0
+    aug_items, aug_users, m2 = recsys.mips_augment(items, users)
+    require(aug_items.shape == (cfg.n_items, cfg.embed_dim + 1),
+            f"[models] augmented items {aug_items.shape}")
+    icfg = TwoLevelConfig(n_clusters=INDEX_CLUSTERS, top="brute",
+                          bottom="brute", kmeans_iters=8,
+                          kmeans_minibatch=50_000)
+    t0 = time.perf_counter()
+    index = build_two_level(aug_items, icfg, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    out = {"users": INDEX_USERS, "d": int(aug_items.shape[1]),
+           "clusters": INDEX_CLUSTERS,
+           "cap": int(index.bucket_ids.shape[1]), "build_s": build_s,
+           "exact_s": exact_s, "nprobe": {}}
+    runs = {}
+    reset_launches()
+    for nprobe in sorted(set(INDEX_NPROBES) | {INDEX_CLUSTERS}):
+        index.search(aug_users[:8], K, nprobe=nprobe)        # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist, ann, work = index.search(aug_users, K, nprobe=nprobe)
+        runs[nprobe] = (dist, ann, work, (time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    out["launches"] = launches
+    require(launches["candidate_topk"] > 0,
+            f"[models] the index search launched no candidate_topk: "
+            f"{launches}")
+    RESULTS["kernels"]["candidate_topk"]["models_launches"] = \
+        launches["candidate_topk"]
+    t = index._tables(dev)
+    q = torch.as_tensor(aug_users, device=dev)
+    xh = aug_items
+    scale = (_norms(q).cpu().numpy() + float(_norms(t["db"]).max()))[
+        :, None] * np.ones((1, K))
+    for nprobe, (dist, ann, work, ms) in runs.items():
+        probe, _ = index._top_probe(t, q, nprobe)
+        t0 = time.perf_counter()
+        pd, pi = ref.bucket_probe_topk_ref(q, probe, t["bucket_ids"], K,
+                                           db=t["db"])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        chain = compare(f"models sasrec chain nprobe {nprobe}",
+                        torch.from_numpy(dist), torch.from_numpy(ann), pd,
+                        pi, scale, vec_of=lambda b, i: xh[i], q=q)
+        row = {"recall_at_10": recall_at_k(ann, exact), "ms": ms,
+               "plain_ms": plain_ms,
+               "candidates_per_query": work["candidates"] / INDEX_USERS,
+               "chain_vs_plain": chain}
+        out["nprobe"][nprobe] = row
+        log(f"[models] sasrec index nprobe {nprobe}: recall@10 "
+            f"{row['recall_at_10']:.4f}, {ms:.2f} ms a batch of "
+            f"{INDEX_USERS} (host clock; the plain chain {plain_ms:.2f} "
+            f"ms), {row['candidates_per_query']:.0f} candidates a query; "
+            f"chain vs plain max abs err {chain['max_abs_err']:.3e}, ids "
+            f"match {chain['ids_match']:.4f}")
+    par = mips_parity(runs[INDEX_CLUSTERS][1], exact, users, items, m2)
+    out["full_probe"] = par
+    require(par["match"] >= INDEX_FLOOR and par["bad"] == 0
+            and par["repeats"] == 0,
+            f"[models] full probing is not the exact MIPS top-10: {par}")
+    log(f"[models] sasrec index: {cfg.n_items} items at d {out['d']} "
+        f"(MIPS-augmented),"
+        f" {INDEX_CLUSTERS} buckets of cap {out['cap']}, build "
+        f"{build_s:.2f} s; exact top-10 of {INDEX_USERS} users by "
+        f"retrieval_logits {exact_s:.2f} s; full probing vs exact: {par}; "
+        f"launches {launches}; {smi}")
+    return out
+
+
+def _gnn_batch_full_graph(shape, seed: int = 0) -> tuple:
+    """The ``full_graph_sm`` shape: ``make_graph`` at its node count and
+    width (it gives more edges than asked: every node keeps one), a
+    seeded choice of the shape's edge count, padded to the cell's."""
+    d = shape.dims
+    t0 = time.perf_counter()
+    g = make_graph(d["n_nodes"], d["n_edges"], d["d_feat"], seed=seed)
+    snd, rcv = g.edge_list()
+    keep = np.sort(np.random.default_rng(seed).choice(
+        snd.size, size=min(d["n_edges"], snd.size), replace=False))
+    batch = pad_edges({"feats": g.feats, "pos": g.pos,
+                       "senders": snd[keep], "receivers": rcv[keep],
+                       "labels": g.labels}, d["n_nodes"],
+                      _pad_to(d["n_edges"], 256))
+    return batch, {"graph_edges": g.n_edges, "kept": int(keep.size),
+                   "host_s": time.perf_counter() - t0}
+
+
+def _gnn_batch_minibatch(shape, seed: int = 0) -> tuple:
+    """``minibatch_lg``: the whole graph (232,965 nodes, 114,615,892
+    edges, d 602), ``NeighborSampler`` fanout (15, 10) over 1,024 seeds,
+    padded to the cell's 169,984 nodes and 168,960 edges; returns the
+    padded batch, the host times and the unpadded sample."""
+    d = shape.dims
+    t0 = time.perf_counter()
+    g = make_graph(d["n_nodes"], d["n_edges"], d["d_feat"], seed=seed)
+    graph_s = time.perf_counter() - t0
+    bn = d["batch_nodes"]
+    f1, f2 = d["fanout"]
+    seeds = np.random.default_rng(seed).choice(g.n_nodes, size=bn,
+                                               replace=False)
+    t0 = time.perf_counter()
+    sub = NeighborSampler(g, d["fanout"], seed=seed).sample(seeds)
+    batch = pad_edges(sub, _pad_to(bn * (1 + f1) + bn * f1 * f2, 256),
+                      _pad_to(bn * f1 + bn * f1 * f2, 256))
+    info = {"graph_edges": g.n_edges, "graph_s": graph_s,
+            "sample_s": time.perf_counter() - t0,
+            "sampled_nodes": int(sub["feats"].shape[0]),
+            "sampled_edges": int(sub["senders"].size)}
+    del g
+    keys = ("feats", "pos", "senders", "receivers", "labels")
+    return ({k: batch[k] for k in keys + ("node_mask",)}, info,
+            {k: sub[k] for k in keys})
+
+
+def _gnn_cfg(shape, message_dtype: str):
+    """``_gnn_cell``'s binding: the shape's width, 16 classes (1 energy
+    output for a batch of molecules), the message dtype."""
+    return dataclasses.replace(
+        get_arch("schnet")[0], d_feat=shape.dims["d_feat"],
+        n_out=16 if "batch" not in shape.dims else 1,
+        message_dtype=message_dtype)
+
+
+def _molecule(shape, step: int = 0) -> dict:
+    d = shape.dims
+    return molecule_batch(d["batch"], d["n_nodes"], d["n_edges"],
+                          d["d_feat"], step=step)
+
+
+def schnet_parity(dev) -> dict:
+    """SchNet at full width on ``full_graph_sm`` and ``molecule``, card
+    against CPU on the same weights, fp32 and bf16 messages: ``forward``
+    and ``loss_fn``.  The bf16 bound holds rounding noise and cannot tell
+    the dtype (card fp32 messages against CPU bf16 ones, read beside it,
+    land as close), so each interaction's message sum on the card must be
+    taken in the message dtype (``testing.message_dtypes``)."""
+    out = {}
+    for name in ("full_graph_sm", "molecule"):
+        shape = get_shape("gnn", name)
+        batch = (_gnn_batch_full_graph(shape)[0] if name == "full_graph_sm"
+                 else _molecule(shape))
+        states = {}
+        for mdt in ("float32", "bfloat16"):
+            cfg = _gnn_cfg(shape, mdt)
+            params = schnet.init(cfg, seed=0, device=dev)
+            cpu = tree_map(lambda t: t.cpu(), params)
+            with message_dtypes() as sums:
+                hc = schnet.forward(params, batch, cfg)
+            hp = schnet.forward(cpu, batch, cfg)
+            lc = schnet.loss_fn(params, batch, cfg)[0]
+            lp = schnet.loss_fn(cpu, batch, cfg)[0]
+            tag = f"schnet {name} {mdt}"
+            require(hc.dtype == torch.float32 and bool(
+                torch.isfinite(hc).all()), f"[models] {tag}")
+            want = [getattr(torch, mdt)] * cfg.n_interactions
+            require(sums == want, f"[models] {tag}: message sums taken in "
+                    f"{sums}, not {want}")
+            states[mdt] = (hc, hp)
+            if mdt == "float32":
+                errs = {"h": _model_close(f"{tag} forward", hc, hp),
+                        "loss": _model_close(f"{tag} loss", lc, lp)}
+            else:
+                errs = {"h_rel_l2": _rel_l2(f"{tag} forward", hc, hp,
+                                            MODEL_BF16_REL_L2),
+                        "loss": _model_close(f"{tag} loss", lc, lp,
+                                             MODEL_BF16_LOSS_TOL)}
+                # the reading beside it: card fp32 messages against the
+                # CPU's bf16 ones
+                fc, bp = states["float32"][0].cpu(), hp.cpu()
+                errs["h_rel_l2_fp32_vs_bf16"] = float(
+                    (fc - bp).norm() / bp.norm())
+            errs["loss_value"] = float(lp)
+            errs["loss_rel"] = float((lc.cpu() - lp).abs() / lp.abs())
+            out[f"{name}_{mdt}"] = errs
+        del states
+    return out
+
+
+def schnet_shapes(dev, smi: str) -> dict:
+    """SchNet at the gnn shapes with bf16 messages: ``forward`` and
+    ``loss_fn`` ms (CUDA events) and ``max_memory_allocated`` on
+    ``full_graph_sm``, ``minibatch_lg`` and ``molecule``."""
+    out = {}
+    for name in ("full_graph_sm", "minibatch_lg", "molecule"):
+        shape = get_shape("gnn", name)
+        raw = None
+        if name == "full_graph_sm":
+            batch, info = _gnn_batch_full_graph(shape)
+        elif name == "minibatch_lg":
+            batch, info, raw = _gnn_batch_minibatch(shape)
+        else:
+            t0 = time.perf_counter()
+            batch = _molecule(shape)
+            info = {"host_s": time.perf_counter() - t0}
+        cfg = _gnn_cfg(shape, "bfloat16")
+        params = schnet.init(cfg, seed=0, device=dev)
+        # the batch on the card once, as a training step's input would be
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fwd = _events_ms(lambda i: schnet.forward(params, tb, cfg),
+                         GNN_ITERS)
+        loss_ms = _events_ms(lambda i: schnet.loss_fn(params, tb, cfg),
+                             GNN_ITERS)
+        loss, aux = schnet.loss_fn(params, tb, cfg)
+        require(bool(torch.isfinite(loss)), f"[models] schnet {name} loss")
+        row = {"nodes": int(batch["feats"].shape[0]),
+               "edges": int(batch["senders"].shape[0]),
+               "d_feat": cfg.d_feat, "n_out": cfg.n_out,
+               "forward_ms": sum(fwd) / len(fwd),
+               "loss_ms": sum(loss_ms) / len(loss_ms),
+               "loss": float(loss),
+               "peak_bytes": torch.cuda.max_memory_allocated(), **info}
+        if raw is not None:
+            # every pad edge adds its zero message into node 0: the
+            # unpadded sample's forward reads the work without that
+            # contention
+            tr = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+            unp = _events_ms(lambda i: schnet.forward(params, tr, cfg),
+                             GNN_ITERS)
+            row["forward_unpadded_ms"] = sum(unp) / len(unp)
+            log(f"[models] schnet {name} bf16 messages, the sample "
+                f"unpadded ({row['sampled_nodes']} nodes, "
+                f"{row['sampled_edges']} edges): forward "
+                f"{row['forward_unpadded_ms']:.3f} ms (CUDA events, mean of "
+                f"{GNN_ITERS}); {smi}")
+            del tr
+        out[name] = row
+        log(f"[models] schnet {name} bf16 messages: {row['nodes']} nodes, "
+            f"{row['edges']} edges (padded), d_feat {cfg.d_feat}: forward "
+            f"{row['forward_ms']:.3f} ms, forward + loss_fn "
+            f"{row['loss_ms']:.3f} ms (CUDA events, mean of {GNN_ITERS}); "
+            f"max_memory_allocated {row['peak_bytes']} B; host "
+            f"{ {k: v for k, v in info.items()} }; {smi}")
+        del params, tb, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def radius_on_card(dev, smi: str) -> dict:
+    """``radius_graph`` over ``RADIUS_POINTS`` points: ``method="auto"``
+    (two-level above 4,096 points: k-means and the bucket probe on the
+    card) against ``method="brute"`` (host numpy) on the same points; edge
+    recall at least the reference test's 0.95."""
+    scale = 3.0 * (RADIUS_POINTS / 500) ** (1 / 3)
+    pos = (np.random.default_rng(9).normal(size=(RADIUS_POINTS, 3))
+           * scale).astype(np.float32)
+    t0 = time.perf_counter()
+    s2, d2 = radius_graph(pos, RADIUS_CUTOFF, method="auto", device=dev)
+    auto_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s1, d1 = radius_graph(pos, RADIUS_CUTOFF, method="brute")
+    brute_s = time.perf_counter() - t0
+    e1 = set(zip(s1.tolist(), d1.tolist()))
+    e2 = set(zip(s2.tolist(), d2.tolist()))
+    recall = len(e2 & e1) / max(len(e1), 1)
+    out = {"points": RADIUS_POINTS, "cutoff": RADIUS_CUTOFF,
+           "brute_edges": len(e1), "auto_edges": len(e2),
+           "false_edges": len(e2 - e1), "recall": recall,
+           "auto_s": auto_s, "brute_s": brute_s}
+    require(recall >= RADIUS_RECALL and not out["false_edges"],
+            f"[models] radius_graph two-level vs brute: {out}")
+    log(f"[models] radius_graph {RADIUS_POINTS} points (normal x "
+        f"{scale:.2f}, cutoff {RADIUS_CUTOFF}): auto (two-level, "
+        f"{max(8, RADIUS_POINTS // 128)} buckets, nprobe 8, on the card) "
+        f"{auto_s:.2f} s, {len(e2)} edges; brute (host numpy) "
+        f"{brute_s:.2f} s, {len(e1)} edges; edge recall {recall:.4f} "
+        f"(bar {RADIUS_RECALL}); {smi}")
+    return out
+
+
+def phase_models(dev, card) -> dict:
+    """The recsys and GNN models at full width: card-against-CPU parity,
+    the four recsys archs at the registry's serving shapes (profiles of
+    DLRM ``serve_p99`` and DIN ``retrieval_cand``), SASRec's candidates
+    through the two-level index, SchNet at the gnn shapes, and
+    ``radius_graph`` on the card."""
+    smi = card["nvidia_smi"]
+    require_fp32_matmul()
+    out = {"card": smi, "parity": {}}
+    for arch in RECSYS_ARCHS:
+        errs = recsys_parity(dev, arch)
+        out["parity"][arch] = errs
+        log(f"[models] {arch} full width fp32"
+            f"{' (tables capped at %d rows)' % PARITY_TABLE_ROWS if arch in ('dlrm-mlperf', 'dcn-v2') else ''}"
+            f", card vs CPU: max abs err serve {errs['serve']:.3e} "
+            f"({PARITY_ROWS} rows), loss {errs['loss']:.3e}, retrieval "
+            f"{PARITY_CANDIDATES} candidates k {RETRIEVAL_K} "
+            f"{errs['retrieval']} (tol {MODEL_TOL}); {errs['params']} "
+            f"params")
+    out["parity"]["schnet"] = schnet_parity(dev)
+    log(f"[models] schnet full width (3 interactions, d_hidden 64, 300 "
+        f"RBFs) card vs CPU: {out['parity']['schnet']} (fp32 tol "
+        f"{MODEL_TOL}; bf16 relative L2 <= {MODEL_BF16_REL_L2}, loss "
+        f"{MODEL_BF16_LOSS_TOL})")
+    out["serve"] = {}
+    sparams = None
+    for arch in RECSYS_ARCHS:
+        res, kept = recsys_serve(dev, arch, smi, keep=arch == "sasrec")
+        out["serve"][arch] = res
+        sparams = kept if kept is not None else sparams
+    out["index"] = sasrec_index(dev, sparams, smi)
+    del sparams
+    torch.cuda.empty_cache()
+    out["gnn"] = schnet_shapes(dev, smi)
+    out["radius"] = radius_on_card(dev, smi)
+    RESULTS["models"] = out
+    return out
+
 
 def kernel_line() -> dict:
     """Each kernel at its main path's shape (``candidate_topk``: the served
@@ -4439,7 +5016,8 @@ def kernel_line() -> dict:
             row.update(ms_k64=r["ms_k64"], library_ms_k64=r["library_ms_k64"])
         for extra in ("lookup_ms", "bytes_ms", "compare_loop_ops_ms",
                       "matched_slots", "tc_bound_ms", "popc_ms", "int_ms",
-                      "popc_each_word_ms", "fp32_rate_bound_ms"):
+                      "popc_each_word_ms", "fp32_rate_bound_ms",
+                      "models_launches"):
             if extra in r:
                 row[extra] = r[extra]
         if "eight_terms" in r:
@@ -4499,6 +5077,12 @@ def main() -> int:
         f"{torch.cuda.memory_allocated()} B")
     with phase("lm"):
         phase_lm(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[models] before the phase: memory_allocated "
+        f"{torch.cuda.memory_allocated()} B")
+    with phase("models"):
+        phase_models(dev, card)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)

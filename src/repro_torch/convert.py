@@ -6,8 +6,11 @@ packages search the *same* buckets, PQ codes, kd tree, LSH codes and
 per-bucket trees; ``tree_from_arrays`` does the same for one
 :class:`FlatTree` (a one-level index's tree); ``metadata_from_arrays``
 and ``lexical_from_arrays`` for the metadata table and the postings
-slabs.  They see numpy arrays, scalars and a config dict only, never an
-object of the reference.
+slabs; ``lm_params_from_arrays``, ``recsys_params_from_arrays`` and
+``schnet_params_from_arrays`` for a model's parameter tree (one walker,
+``_tree_from_arrays``, checks every leaf against the port's
+``param_shapes``).  They see numpy arrays, scalars and a config dict
+only, never an object of the reference.
 """
 from __future__ import annotations
 
@@ -23,10 +26,11 @@ from repro_torch.core.two_level import (TwoLevelConfig, TwoLevelIndex,
                                         check_levels, check_sidecars,
                                         concat_forest, entity_buckets)
 from repro_torch.device import resolve
-from repro_torch.models import transformer
+from repro_torch.models import recsys, schnet, transformer
 
 __all__ = ["index_from_arrays", "tree_from_arrays", "metadata_from_arrays",
-           "lexical_from_arrays", "lm_params_from_arrays"]
+           "lexical_from_arrays", "lm_params_from_arrays",
+           "recsys_params_from_arrays", "schnet_params_from_arrays"]
 
 TREE_ARRAYS = ("proj", "dims", "tau", "children", "leaf_row",
                "leaf_entities", "depth", "entity_depth")
@@ -141,6 +145,27 @@ def _leaf_tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+def _tree_from_arrays(want: dict, tree: dict, dev) -> dict:
+    """The reference's parameter tree (nested dicts of numpy arrays) as
+    the port's, walked against ``want`` (the port's ``param_shapes``):
+    each leaf checked against its shape and cast to its dtype; a missing,
+    extra or misshapen leaf raises ``ValueError``."""
+    def walk(want, got, path: str):
+        if isinstance(want, dict):
+            have = sorted(got) if isinstance(got, dict) else type(got)
+            if have != sorted(want):
+                raise ValueError(f"{path or '/'}: keys {have} are not the "
+                                 f"config's {sorted(want)}")
+            return {k: walk(want[k], got[k], f"{path}/{k}") for k in want}
+        a = np.asarray(got)
+        if tuple(a.shape) != tuple(want.shape):
+            raise ValueError(f"{path}: shape {a.shape} is not the config's "
+                             f"{tuple(want.shape)}")
+        return _leaf_tensor(a, want.dtype, dev)
+
+    return walk(want, tree, "")
+
+
 def lm_params_from_arrays(tree: dict, cfg, device=None) -> dict:
     """The port's parameter tree from the reference's (nested dicts of
     numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``).
@@ -161,19 +186,27 @@ def lm_params_from_arrays(tree: dict, cfg, device=None) -> dict:
     one layer stacked ``(1, ...)``).  Each leaf is checked against
     ``transformer.param_shapes(cfg)`` and cast to its dtype; a missing,
     extra or misshapen leaf raises ``ValueError``."""
-    dev = resolve(device)
+    return _tree_from_arrays(transformer.param_shapes(cfg), tree,
+                             resolve(device))
 
-    def walk(want, got, path: str):
-        if isinstance(want, dict):
-            have = sorted(got) if isinstance(got, dict) else type(got)
-            if have != sorted(want):
-                raise ValueError(f"{path or '/'}: keys {have} are not the "
-                                 f"config's {sorted(want)}")
-            return {k: walk(want[k], got[k], f"{path}/{k}") for k in want}
-        a = np.asarray(got)
-        if tuple(a.shape) != tuple(want.shape):
-            raise ValueError(f"{path}: shape {a.shape} is not the config's "
-                             f"{tuple(want.shape)}")
-        return _leaf_tensor(a, want.dtype, dev)
 
-    return walk(transformer.param_shapes(cfg), tree, "")
+def recsys_params_from_arrays(tree: dict, cfg, device=None) -> dict:
+    """The port's DLRM / DCN-v2 / DIN / SASRec tree from the reference's
+    (nested dicts of numpy arrays), the identity leaf for leaf: DLRM
+    ``table`` (sum of rows, D), ``bot`` / ``top`` MLPs ``w{i}`` (in, out)
+    and ``b{i}``; DCN-v2 ``table``, ``cross_w{i}`` / ``cross_b{i}`` and
+    ``mlp``; DIN ``item_table``, ``cate_table``, ``att`` and ``mlp``;
+    SASRec ``item_table`` (rows rounded up from n_items + 1), ``pos_table``,
+    ``blocks`` (every leaf stacked ``(n_blocks, ...)``) and ``final_ln``.
+    Checked against ``recsys.param_shapes(cfg)``; a missing, extra or
+    misshapen leaf raises ``ValueError``."""
+    return _tree_from_arrays(recsys.param_shapes(cfg), tree, resolve(device))
+
+
+def schnet_params_from_arrays(tree: dict, cfg, device=None) -> dict:
+    """The port's SchNet tree from the reference's, the identity leaf for
+    leaf: ``embed_in`` (d_feat, h), ``inter`` (every leaf stacked
+    ``(n_interactions, ...)``), ``head_w1`` / ``head_b1`` / ``head_w2``.
+    Checked against ``schnet.param_shapes(cfg)``; a missing, extra or
+    misshapen leaf raises ``ValueError``."""
+    return _tree_from_arrays(schnet.param_shapes(cfg), tree, resolve(device))

@@ -1,2 +1,2 @@
-"""Synthetic data: ANN corpora (``synthetic``) and the LM token stream
-(``lm``)."""
+"""Synthetic data: ANN corpora (``synthetic``), the LM token stream
+(``lm``), recsys batches (``recsys``) and graphs (``graph``)."""

@@ -19,6 +19,12 @@ L2 scan (the same tile code, so the same bits), its score from
 :func:`lexical_scores_f32` (the kernels' float32 order), and the answer
 must then equal ``a * d2 - (1 - a) * score`` bit for bit.
 
+:func:`mips_parity` holds a maximum-inner-product answer served through
+the two-level index (``models.recsys.mips_augment``) against the exact
+top-k, near-ties rescored in float64; :func:`sasrec_mips_truth` gives it
+SASRec's users, their exact top-k and the items.  :func:`message_dtypes`
+records the dtype SchNet's message sums are taken in.
+
 :func:`shard_loop` computes a sharded search in one process -- every
 shard's local with its own tables and its ``lin``, stacked and merged --
 which a search over a mesh of ranks must equal bit for bit on the same
@@ -26,6 +32,8 @@ device: the collective only moves bytes.  Nothing on the main path calls
 it.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -40,7 +48,8 @@ __all__ = ["OPTION_EDGES", "EDGE_ALPHAS", "PQ_EDGES", "HAMMING_EDGES",
            "chain_edge_operands", "chain_union_topk", "step_chain",
            "rows_edge_operands", "rows_union_topk",
            "lexical_scores_f32", "hybrid_by_parts", "shard_backends",
-           "shard_loop"]
+           "shard_loop", "mips_parity", "sasrec_mips_truth",
+           "message_dtypes"]
 
 # (name, B, N, d, k, rows): rows "dead" = every row dead, "half" = about
 # half live, "dup" = the second half repeats the first; the BM25 lookup's
@@ -446,3 +455,65 @@ def shard_loop(backends, queries=None, *, n_q: int = 1, filter_spec=None,
         ids.append(i)
     return (torch.cat(ds)[:B].cpu().numpy(),
             torch.cat(ids)[:B].cpu().numpy())
+
+
+def mips_parity(ann_ids, exact_ids, users, items, m2: float) -> dict:
+    """A maximum-inner-product answer through the two-level index (L2 over
+    ``recsys.mips_augment``'s rows) against the exact top-k by score.
+    ``match`` is the share of (query, slot) pairs with the same id; every
+    other slot must be a near-tie: the float64 scores of its two ids within
+    1e-5 * (||u||^2 + M^2), the fp32 rounding of the augmented L2
+    distance.  ``bad`` counts the slots that are neither, ``repeats`` the
+    ids an answer holds twice."""
+    ann_ids, exact_ids = np.asarray(ann_ids), np.asarray(exact_ids)
+    u = np.asarray(users, np.float64)
+    items = np.asarray(items)
+    diff = ann_ids != exact_ids
+    bad, worst = 0, 0.0
+    for b, j in zip(*np.nonzero(diff)):
+        s_ann = float(u[b] @ items[ann_ids[b, j]].astype(np.float64)) \
+            if ann_ids[b, j] >= 0 else -np.inf
+        s_ex = float(u[b] @ items[exact_ids[b, j]].astype(np.float64))
+        gap = abs(s_ann - s_ex)
+        worst = max(worst, gap)
+        if not gap <= 1e-5 * (float(u[b] @ u[b]) + m2):
+            bad += 1
+    repeats = sum(len(r) - len(set(r.tolist())) for r in ann_ids)
+    return {"match": float((~diff).mean()), "near_ties": int(diff.sum())
+            - bad, "bad": bad, "max_gap": worst, "repeats": int(repeats)}
+
+
+def sasrec_mips_truth(params, seq, cfg, k: int = 10) -> tuple:
+    """SASRec's retrieval as the index sees it: the users' vectors
+    (``recsys.user_vectors``, (B, D)), each user's exact top-``k`` over
+    every item by ``retrieval_logits`` (one user a call, as it serves;
+    (B, k)) and the item rows (N, D), all numpy on the host."""
+    from repro_torch.models import recsys
+
+    cand = np.arange(cfg.n_items, dtype=np.int32)
+    users = recsys.user_vectors(params, seq, cfg).cpu().numpy()
+    exact = np.stack([recsys.retrieval_logits(
+        params, {"seq": seq[b:b + 1], "candidates": cand}, cfg,
+        k=k)[1].cpu().numpy() for b in range(seq.shape[0])])
+    items = params["item_table"][:cfg.n_items].cpu().numpy()
+    return users, exact, items
+
+
+@contextlib.contextmanager
+def message_dtypes():
+    """Within the block, the dtype of every sum ``models.schnet`` takes
+    with its ``_segment_sum`` (the interactions' message aggregates, then
+    the energy head's pool), in call order."""
+    from repro_torch.models import schnet
+
+    seen, orig = [], schnet._segment_sum
+
+    def spy(x, seg, n):
+        seen.append(x.dtype)
+        return orig(x, seg, n)
+
+    schnet._segment_sum = spy
+    try:
+        yield seen
+    finally:
+        schnet._segment_sum = orig

@@ -16,7 +16,10 @@ single-process shard loop, bit for bit), the count-min sketch on the card
 against the CPU's (bit for bit, weighted too), and a two-cell fleet on
 ``cuda:0`` whose routed answers equal its backends' before and after a
 fan-out; the recompile gate over the seven registered entry points on
-the card, and ``roofline_report`` after a served batch.
+the card, and ``roofline_report`` after a served batch; the language
+models, and the recsys archs and SchNet at ``reduced()`` card against
+CPU (SchNet's bf16 scatter-add within its bound), with SASRec's items
+through a small two-level index at d 51, exact at full probing.
 
 Marked ``gpu``; each test decides inside itself whether a card is there
 and skips with the reason when not.  Run on the card with:
@@ -1226,3 +1229,142 @@ def test_constrain_raises_under_a_bound_mesh(dev, tmp_path):
             SINGLE_POD_PLAN.with_mesh(mesh).constrain(x, "dp", "tp")
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the recsys and GNN models (plain torch on the card; the SASRec retrieval
+# through the two-level index runs the probe chain's kernel)
+# ---------------------------------------------------------------------------
+
+RECSYS_ARCHS = ["dlrm-mlperf", "dcn-v2", "din", "sasrec"]
+MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_REL_L2 = 2 ** -4
+
+
+@pytest.mark.parametrize("arch", RECSYS_ARCHS)
+def test_recsys_card_equals_cpu(dev, arch, monkeypatch):
+    """Each recsys arch at ``reduced()`` on the card against the CPU on the
+    same weights (no TF32): ``serve_logits``, ``loss_fn`` and
+    ``retrieval_logits`` (k 16 of 256 in chunks of 100, ids equal), rtol /
+    atol 1e-4."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.recsys import batch_for, retrieval_batch, serve_batch
+    from repro_torch.device import require_fp32_matmul
+    from repro_torch.models import recsys as R
+    from repro_torch.models.base import tree_map
+
+    cfg = get_arch(arch)[0].reduced()
+    require_fp32_matmul()
+    monkeypatch.setattr(R, "RETRIEVAL_CHUNK", 100)
+    pc = R.init(cfg, seed=0, device=dev)
+    pcpu = tree_map(lambda t: t.cpu(), pc)
+    batch = batch_for(cfg, 16, 0)
+    serve, rb = serve_batch(cfg, batch), retrieval_batch(cfg, batch, 256)
+    res = {}
+    for name, p in (("card", pc), ("cpu", pcpu)):
+        s = R.serve_logits(p, serve, cfg)
+        loss, aux = R.loss_fn(p, batch, cfg)
+        top, ids = R.retrieval_logits(p, rb, cfg, k=16)
+        res[name] = [t.cpu() for t in (s, loss, aux["loss"], top, ids)]
+    (sc, lc, ac, tc, ic), (sp, lp, ap, tp, ip) = res["card"], res["cpu"]
+    assert sc.device.type == "cpu" and tuple(sc.shape) == (16,)
+    for a, b in ((sc, sp), (lc, lp), (ac, ap), (tc, tp)):
+        torch.testing.assert_close(a, b, **MODEL_TOL)
+    assert torch.equal(ic, ip)
+
+
+def _schnet_batches():
+    from repro_torch.data.graph import (NeighborSampler, make_graph,
+                                        molecule_batch, pad_edges)
+
+    g = make_graph(600, 4000, 12, n_classes=4, seed=0)
+    snd, rcv = g.edge_list()
+    full = {"feats": g.feats, "pos": g.pos, "senders": snd,
+            "receivers": rcv, "labels": g.labels}
+    sub = pad_edges(NeighborSampler(g, (4, 3), seed=0).sample(
+        np.arange(32)), 800, 2048)
+    sampled = {k: sub[k] for k in ("feats", "pos", "senders", "receivers",
+                                   "labels", "node_mask")}
+    return {"full": full, "sampled": sampled,
+            "molecule": molecule_batch(8, 12, 40, 12, step=0)}
+
+
+@pytest.mark.parametrize("message_dtype", ["float32", "bfloat16"])
+def test_schnet_card_equals_cpu(dev, message_dtype):
+    """SchNet at ``reduced()`` on the three batch kinds, card against CPU on
+    the same weights.  fp32 messages: ``forward`` and ``loss_fn`` to rtol /
+    atol 1e-4 (the card's ``index_add_`` adds in no fixed order).  bf16
+    messages: the scatter-add's atomics accumulate in bf16, so the node
+    states are held to a relative L2 error of 2**-4 (the CPU tests' bf16
+    bound) and the loss to rtol 1e-2."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.device import require_fp32_matmul
+    from repro_torch.models import schnet as S
+    from repro_torch.models.base import tree_map
+    from repro_torch.testing import message_dtypes
+
+    cfg = dataclasses.replace(get_arch("schnet")[0].reduced(), d_feat=12,
+                              n_out=4, message_dtype=message_dtype)
+    require_fp32_matmul()
+    pc = S.init(cfg, seed=0, device=dev)
+    pcpu = tree_map(lambda t: t.cpu(), pc)
+    for kind, batch in _schnet_batches().items():
+        with message_dtypes() as sums:
+            hc = S.forward(pc, batch, cfg).cpu()
+        # the bound below holds bf16 noise, not the dtype: pin the dtype
+        assert sums == [getattr(torch, message_dtype)] * cfg.n_interactions
+        hp = S.forward(pcpu, batch, cfg)
+        lc = S.loss_fn(pc, batch, cfg)[0].cpu()
+        lp = S.loss_fn(pcpu, batch, cfg)[0]
+        assert hc.dtype == hp.dtype == torch.float32, kind
+        assert torch.isfinite(hc).all(), kind
+        if message_dtype == "float32":
+            torch.testing.assert_close(hc, hp, **MODEL_TOL)
+            torch.testing.assert_close(lc, lp, **MODEL_TOL)
+        else:
+            err = float((hc - hp).norm() / hp.norm())
+            assert err <= BF16_REL_L2, (kind, err)
+            torch.testing.assert_close(lc, lp, rtol=1e-2, atol=1e-2)
+
+
+def test_sasrec_retrieval_through_two_level_index_d51(dev):
+    """SASRec's items at full width (d 50, MIPS-augmented to 51, a width
+    that is not a multiple of four) through ``build_two_level`` (brute top,
+    brute bottom: the probe chain's kernel), held against the plain chain
+    on the same probe lists; probing every bucket, the answers equal the
+    exact ``retrieval_logits`` top-10 on at least 0.99 of the slots and
+    every other slot is a float64 near-tie."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.recsys import sasrec_batch
+    from repro_torch.device import require_fp32_matmul
+    from repro_torch.kernels.common import LAUNCH_COUNTERS
+    from repro_torch.models import recsys as R
+    from repro_torch.testing import mips_parity, sasrec_mips_truth
+
+    cfg = dataclasses.replace(get_arch("sasrec")[0], n_items=20_000)
+    require_fp32_matmul()
+    params = R.init(cfg, seed=0, device=dev)
+    seq = sasrec_batch(cfg, 16, 0)["seq"]
+    users, exact, items = sasrec_mips_truth(params, seq, cfg)
+    aug_items, aug_users, m2 = R.mips_augment(items, users)
+    assert aug_items.shape[1] == 51
+    idx = build_two_level(aug_items, TwoLevelConfig(
+        n_clusters=64, top="brute", bottom="brute", kmeans_iters=4),
+        device=dev)
+    counter = LAUNCH_COUNTERS["candidate_topk"]
+    n0 = counter.count
+    dist, ann, work = idx.search(aug_users, 10, nprobe=64)
+    assert counter.count > n0
+    assert work["candidates"] == seq.shape[0] * cfg.n_items
+    # the search's own answer against the plain chain on its probe lists
+    t = idx._tables(dev)
+    q = torch.as_tensor(aug_users, device=dev)
+    probe, _ = idx._top_probe(t, q, 64)
+    pd, pi = ref.bucket_probe_topk_ref(q, probe, t["bucket_ids"], 10,
+                                       db=t["db"])
+    scale = ((q * q).sum(1) + (t["db"] * t["db"]).sum(1).max())[:, None]
+    _close_near_ties(torch.as_tensor(dist), torch.as_tensor(ann), pd, pi,
+                     scale.cpu().numpy())
+    res = mips_parity(ann, exact, users, items, m2)
+    assert res["match"] >= 0.99 and res["bad"] == 0, res
+    assert res["repeats"] == 0, res

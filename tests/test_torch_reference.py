@@ -49,7 +49,9 @@ _REFERENCE = (
     "repro.configs.base", "repro.configs.registry", "repro.data.lm",
     "repro.models.base", "repro.models.layers", "repro.models.embedding",
     "repro.models.attention", "repro.models.moe",
-    "repro.models.transformer",
+    "repro.models.transformer", "repro.models.recsys",
+    "repro.models.schnet", "repro.data.recsys", "repro.data.graph",
+    "repro.core.graph_build",
 )
 
 
@@ -186,6 +188,10 @@ def _modules_after(code: str) -> set:
     "import repro_torch.configs, repro_torch.configs.registry, "
     "repro_torch.data.lm, repro_torch.models.transformer, "
     "repro_torch.models.embedding, repro_torch.convert, "
+    "repro_torch.kernels.ops",
+    "import repro_torch.models.recsys, repro_torch.models.schnet, "
+    "repro_torch.data.recsys, repro_torch.data.graph, "
+    "repro_torch.core.graph_build, repro_torch.convert, "
     "repro_torch.kernels.ops",
 ])
 def test_port_imports_neither_jax_nor_reference(code):
