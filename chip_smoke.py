@@ -169,7 +169,25 @@ each prints its wall time as ``[phase] <name> <s> s``):
              graph and the (15, 10) sampler) and ``molecule`` with bf16
              messages; ``radius_graph`` over 16,384 points, two-level on the
              card against brute;
-17. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
+17. train   - training (plain torch, as the reference's training path;
+             no kernel on it): qwen3-0.6b at full width and depth bound
+             as the reference's ``train_4k`` cell (remat, KV blocks of
+             1,024, AdamW warmup_cosine(3e-4, 2000, 100000), fp32 params,
+             bf16 compute) at seq 4,096 with the batch cut from 256 to 8
+             (4 microbatches of 2 through ``accum``): 2 warm-up and 4
+             timed steps (ms, tokens/s, peak memory, each step's loss and
+             grad_norm), one microbatch's step profiled; its fp32 gradient
+             and one AdamW step card against CPU on the ``lm`` phase's
+             inputs; a restart on the card (depth cut to 2, seq 512: 4
+             steps, a checkpoint at 2, restored and replayed) bit for bit;
+             the CTR sparse step (``make_ctr_sparse_train_step``) at
+             ``train_batch`` (65,536 rows) for DCN-v2 (fp32, whole) and
+             DLRM (its 48 GB table in bf16), with one fp32 step card
+             against CPU on tables capped at 65,536 rows, each side held
+             against the step in float64; SchNet (``molecule``,
+             ``full_graph_sm``, bf16 messages), DIN and SASRec
+             (``train_batch``) through ``make_train_step``;
+18. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
 
 The serve phase also runs the brute and IVF backends at k = 50 (above the
 kernels' 32-pair lists) against their unfused plain paths.
@@ -249,6 +267,14 @@ from repro_torch.obs.profile import (PROFILE,  # noqa: E402
                                      profile_entry_points)
 from repro_torch.obs.trace import Tracer, set_tracer  # noqa: E402
 from repro_torch.serve.cell import ServingCell  # noqa: E402
+from repro_torch.distributed.sharding import LOCAL_PLAN  # noqa: E402
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train import optim  # noqa: E402
+from repro_torch.train.loop import (init_state,  # noqa: E402
+                                    make_train_step, train, value_and_grad)
+from repro_torch.train.sparse_embed import \
+    make_ctr_sparse_train_step  # noqa: E402
+from repro_torch.train.tree import leaves as tree_leaves_sorted  # noqa: E402
 from repro_torch.testing import (CHAIN_EDGES, EDGE_ALPHAS,  # noqa: E402
                                  HAMMING_EDGES, OPTION_EDGES, PQ_EDGES,
                                  ROWS_EDGES, chain_edge_operands,
@@ -4998,6 +5024,492 @@ def phase_models(dev, card) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 17
+# Training (plain torch, as the reference's training path: its
+# jax.value_and_grad runs over loss_fns that reach no Pallas kernel).
+# Tolerances, stated before the run: card against CPU at the fp32 policy
+# (no TF32) on the same weights, every gradient leaf, and after one AdamW
+# step every param, m and v, to rtol 1e-4 and an atol of 1e-4 of the
+# leaf's max abs; the CTR sparse step (fp32), each leaf against the step in
+# float64, the card's error within twice the CPU's fp32 error plus rtol /
+# atol 1e-5 of the leaf's max (DLRM's fp32 gradient at init is itself off
+# by up to 3.4e-3 of a leaf's max: its deep ReLU MLPs cancel); the
+# restart bit for bit.
+TRAIN_TOL = dict(rtol=1e-4, atol_of_max=1e-4)
+SPARSE_TOL = dict(rtol=1e-5, atol_of_max=1e-5)
+# the registry's train_4k (seq 4,096, batch 256) with the batch cut to 8,
+# four microbatches of 2 through accum (the run's time limit forces it)
+TRAIN_LM_SHAPE = "train_4k"
+TRAIN_MICRO = 2
+TRAIN_ACCUM = 4
+TRAIN_WARM = 2
+TRAIN_STEPS = 4
+# the restart: qwen3-0.6b at full width, depth cut to 2, seq 512, KV
+# blocks of 128 (four: the chunked backward runs)
+RESTART_DEPTH = 2
+RESTART_SEQ = 512
+RESTART_CHUNK = 128
+RESTART_STEPS = 4
+RESTART_AT = 2
+# the CTR sparse step at the registry's train_batch; its card-vs-CPU
+# check on tables capped at PARITY_TABLE_ROWS rows (widths kept) and
+# SPARSE_PARITY_ROWS rows of batch
+SPARSE_STEPS = 3
+SPARSE_PARITY_ROWS = 4096
+TRAIN_DTYPES = {"dlrm-mlperf": torch.bfloat16}    # the table's
+DENSE_STEPS = 3
+TRAIN_LIMIT_S = 200.0           # this phase's share of the command's time
+
+
+def _leaf_err(name, a_tree, b_tree, rtol, atol_of_max) -> float:
+    """Every leaf of ``a_tree`` (card) against ``b_tree`` (CPU): the worst
+    |a - b| over the leaf's max abs; fails beyond the tolerance."""
+    b = dict(ckpt.leaf_paths(b_tree))
+    worst = 0.0
+    for path, x in ckpt.leaf_paths(a_tree):
+        x = x.detach().float().cpu()
+        y = b[path].detach().float().cpu()
+        m = float(y.abs().max()) if y.numel() else 0.0
+        err = float((x - y).abs().max()) if y.numel() else 0.0
+        ok = bool(torch.allclose(x, y, rtol=rtol, atol=atol_of_max * m))
+        require(ok, f"[train] {name} {path}: max abs err {err} beyond "
+                f"rtol {rtol} + {atol_of_max} x max {m}")
+        worst = max(worst, err / max(m, 1e-30))
+    return worst
+
+
+def _lm_train_cfg(cfg, seq: int):
+    """``lm_config_for_mesh`` for a train shape on one card
+    (``launch/cells.py``): KV blocks of min(1024, seq / 4) from seq 4,096,
+    the residual sequence-sharded (a no-op without a mesh), remat on."""
+    return dataclasses.replace(
+        cfg, moe_groups=1, attn_chunk=min(1024, seq // 4) if seq >= 4096
+        else 0, attn_shard="seq", scan_layers=True, remat=True)
+
+
+def _lm_optimizer(cfg):
+    """``_lm_optimizer``: AdamW for fp32 params, Adafactor for bf16."""
+    if cfg.param_dtype == "bfloat16":
+        return optim.adafactor(optim.warmup_cosine(1e-4, 2000, 100_000))
+    return optim.adamw(optim.warmup_cosine(3e-4, 2000, 100_000))
+
+
+def _step_ms(step, state, batch_at, n: int, start: int = 0):
+    """``n`` steps from ``state``: each one's wall ms (ending in a
+    synchronise), its aux as floats, and the state after them."""
+    ms, auxs = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = step(state, batch_at(start + i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        auxs.append({k: float(v) for k, v in aux.items()})
+    return ms, auxs, state
+
+
+def train_qwen(dev, smi: str) -> dict:
+    """qwen3-0.6b at full width and depth, bound as the reference's
+    ``train_4k`` cell, seq 4,096, batch 8 as 4 microbatches of 2."""
+    shape = get_shape("lm", TRAIN_LM_SHAPE)
+    seq = shape["seq"]
+    cfg = _lm_train_cfg(get_arch("qwen3-0.6b")[0], seq)
+    require((cfg.n_layers, cfg.d_model, cfg.vocab, cfg.attn_chunk,
+             cfg.remat, cfg.param_dtype) == (28, 1024, 151936, 1024, True,
+                                             "float32"), "train config")
+    batch = TRAIN_MICRO * TRAIN_ACCUM
+    stream = LMStream(cfg.vocab, seq, batch, seed=0)
+
+    def batch_at(i):
+        b = stream.batch_at(i)
+        return {k: torch.as_tensor(v.reshape(TRAIN_ACCUM, TRAIN_MICRO, seq),
+                                   device=dev) for k, v in b.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init(cfg, seed=0, device=dev)
+    opt = _lm_optimizer(cfg)
+    step = make_train_step(lambda p, b: transformer.loss_fn(p, b, cfg), opt,
+                           accum=TRAIN_ACCUM)
+    state = init_state(params, opt)
+    del params
+    warm_ms, warm_aux, state = _step_ms(step, state, batch_at, TRAIN_WARM)
+    torch.cuda.reset_peak_memory_stats()
+    ms, auxs, state = _step_ms(step, state, batch_at, TRAIN_STEPS,
+                               start=TRAIN_WARM)
+    peak = torch.cuda.max_memory_allocated()
+    for a in warm_aux + auxs:
+        require(all(np.isfinite(a[k]) for k in ("loss", "grad_norm")),
+                f"[train] qwen3-0.6b loss / grad_norm not finite: {a}")
+    require(int(state.step) == TRAIN_WARM + TRAIN_STEPS, "[train] step")
+    tokens = batch * seq
+    mean = sum(ms) / len(ms)
+    # where a step's time goes: one step of one microbatch (the four of a
+    # step run the same kernels; a window of all four traces 88K launches
+    # and takes a minute to read back)
+    one = make_train_step(lambda p, b: transformer.loss_fn(p, b, cfg), opt)
+    nxt = {k: v[0] for k, v in batch_at(TRAIN_WARM + TRAIN_STEPS).items()}
+    one(state, nxt)
+    prof = profile_window(
+        "train qwen3 step", f"qwen3-0.6b, one microbatch {TRAIN_MICRO} x "
+        f"{seq}, remat, KV blocks {cfg.attn_chunk}",
+        lambda: one(state, nxt), 1, TRAIN_MICRO * seq)
+    out = {"seq": seq, "batch": batch, "micro": TRAIN_MICRO,
+           "accum": TRAIN_ACCUM, "attn_chunk": cfg.attn_chunk,
+           "params": count_params(state.params),
+           "warm_ms": warm_ms, "step_ms": ms, "step_ms_mean": mean,
+           "tokens_per_s": tokens / (mean / 1e3),
+           "loss": [a["loss"] for a in warm_aux + auxs],
+           "grad_norm": [a["grad_norm"] for a in warm_aux + auxs],
+           "peak_bytes": peak, "state_bytes": tree_bytes(state.params)
+           + tree_bytes(state.opt_state), "profile": prof, "card": smi}
+    log(f"[train] qwen3-0.6b full width and depth ({out['params']} params, "
+        f"fp32 params, bf16 compute, AdamW warmup_cosine(3e-4, 2000, "
+        f"100000)), {TRAIN_LM_SHAPE} with the batch cut 256 -> {batch} "
+        f"({TRAIN_ACCUM} microbatches of {TRAIN_MICRO} through accum), seq "
+        f"{seq}, remat, KV blocks {cfg.attn_chunk}: {TRAIN_STEPS} steps "
+        f"after {TRAIN_WARM} warm-up: mean {mean:.1f} ms a step "
+        f"(each {[round(x, 1) for x in ms]}; warm-up "
+        f"{[round(x, 1) for x in warm_ms]}), {out['tokens_per_s']:.0f} "
+        f"tokens/s; loss {[round(x, 4) for x in out['loss']]}, grad_norm "
+        f"{[round(x, 4) for x in out['grad_norm']]}; max_memory_allocated "
+        f"{peak} B (params + AdamW state {out['state_bytes']} B); {smi}")
+    del state, step, one, nxt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_qwen_parity(dev) -> dict:
+    """qwen3-0.6b (full width, depth and vocabulary) at the fp32 policy on
+    the ``lm`` phase's parity inputs (B 2 x 16 tokens): ``loss_fn``'s
+    gradient card against CPU, then the train step's rest on each side's
+    gradient, ``clip_by_norm`` and one AdamW update (constant lr 3e-4, so
+    the step moves the params; the cell's warm-up gives 0 at step 0)."""
+    cfg = get_arch("qwen3-0.6b")[0]
+    toks = LMStream(cfg.vocab, LM_PARITY_SEQ + 1, LM_BATCH,
+                    seed=0).batch_at(0)["tokens"]
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    params = transformer.init(cfg, seed=0, device=dev)
+    cpu = tree_map(lambda t: t.to("cpu", copy=True), params)
+    opt = optim.adamw(optim.constant_lr(3e-4))
+    out = {}
+    transformer.set_precision(torch.float32, torch.float32)
+    try:
+        (lc, _), gc_ = value_and_grad(
+            lambda p, b: transformer.loss_fn(p, b, cfg), params, batch)
+        t0 = time.perf_counter()
+        (lp, _), gp = value_and_grad(
+            lambda p, b: transformer.loss_fn(p, b, cfg), cpu, batch)
+        out["cpu_grad_s"] = time.perf_counter() - t0
+        out["loss"] = _lm_close("train qwen3-0.6b loss", lc, lp,
+                                LM_PARITY_TOL)
+        out["grad"] = _leaf_err("qwen3-0.6b gradient", gc_, gp, **TRAIN_TOL)
+    finally:
+        transformer.set_precision()
+    # the rest of the train step on those gradients: clip, then AdamW
+    stepped = {}
+    for side, p, g in (("card", params, gc_), ("cpu", cpu, gp)):
+        t0 = time.perf_counter()
+        g, norm = optim.clip_by_norm(g, 1.0)
+        state = init_state(p, opt)
+        stepped[side] = (opt.update(g, state.opt_state, p, state.step),
+                         norm)
+        out[f"{side}_update_s"] = time.perf_counter() - t0
+    del gc_, gp
+    ((pc, sc), nc), ((pp, sp), np_) = stepped["card"], stepped["cpu"]
+    out["grad_norm"] = _lm_close("train qwen3-0.6b grad_norm", nc, np_,
+                                 LM_PARITY_TOL)
+    out["params"] = _leaf_err("qwen3-0.6b AdamW step params", pc, pp,
+                              **TRAIN_TOL)
+    out["opt_state"] = _leaf_err("qwen3-0.6b AdamW step m / v", sc, sp,
+                                 **TRAIN_TOL)
+    moved = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves_sorted(pp), tree_leaves_sorted(cpu)))
+    require(moved > 0, "[train] the AdamW step moved no param")
+    out["moved"] = moved
+    del params, cpu, stepped, pc, sc, pp, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_restart(dev) -> dict:
+    """qwen3-0.6b at full width, depth cut to 2, seq 512 (KV blocks of
+    128), the cell's binding otherwise: 4 steps with a checkpoint at 2,
+    then step 2 restored and replayed; every param and the optimizer
+    state equal the uninterrupted run's bit for bit."""
+    cfg = dataclasses.replace(_lm_train_cfg(get_arch("qwen3-0.6b")[0],
+                                            RESTART_SEQ),
+                              n_layers=RESTART_DEPTH,
+                              attn_chunk=RESTART_CHUNK)
+    stream = LMStream(cfg.vocab, RESTART_SEQ, LM_BATCH, seed=3)
+    opt = _lm_optimizer(cfg)
+    step = make_train_step(lambda p, b: transformer.loss_fn(p, b, cfg), opt)
+
+    def fresh():
+        return init_state(transformer.init(cfg, seed=0, device=dev), opt)
+
+    d = os.path.join(OUT_DIR, "train_restart")
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        full = train(fresh(), step, stream.batch_at, RESTART_STEPS,
+                     ckpt_dir=d, ckpt_every=RESTART_AT, ckpt_async=False)
+        full_s = time.perf_counter() - t0
+        require(ckpt.latest_step(d) == RESTART_STEPS, "[train] ckpt")
+        t0 = time.perf_counter()
+        resumed = ckpt.restore(d, RESTART_AT, fresh())
+        again = train(resumed, step, stream.batch_at, RESTART_STEPS)
+        again_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    diff = [n for (n, a), (_, b) in zip(
+        ckpt.leaf_paths(full.state), ckpt.leaf_paths(again.state))
+        if not torch.equal(a, b)]
+    require(not diff, f"[train] restart on the card differs in {diff}")
+    out = {"leaves": len(ckpt.leaf_paths(full.state)),
+           "params": count_params(full.state.params), "full_s": full_s,
+           "restored_s": again_s,
+           "losses": [h["loss"] for h in full.history]}
+    del full, again, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ctr_cfg(arch: str, rows=None):
+    cfg = get_arch(arch)[0]
+    if rows is not None:
+        cfg = dataclasses.replace(cfg, table_sizes=tuple(
+            min(s, rows) for s in cfg.table_sizes))
+    return cfg
+
+
+def _recsys_opt():
+    """``_recsys_train_cell``'s optimizer (the dense params of the sparse
+    step; the whole tree for DIN and SASRec)."""
+    return optim.adamw(optim.warmup_cosine(1e-3, 1000, 100_000))
+
+
+def _truth_err(name, card, cpu, truth) -> dict:
+    """Each leaf's worst error against the float64 ``truth``, card and
+    CPU, over the leaf's max abs; the card's may be at most twice the
+    CPU's plus ``SPARSE_TOL`` (the fp32 card as accurate as the fp32
+    CPU)."""
+    want = dict(ckpt.leaf_paths(truth))
+    mine = dict(ckpt.leaf_paths(cpu))
+    worst = {"card": 0.0, "cpu": 0.0, "card_vs_cpu": 0.0}
+    for path, x in ckpt.leaf_paths(card):
+        t = want[path].detach().double().cpu()
+        m = float(t.abs().max()) if t.numel() else 0.0
+        if not m:
+            continue
+        x = x.detach().double().cpu()
+        y = mine[path].detach().double()
+        ec = float((x - t).abs().max())
+        ep = float((y - t).abs().max())
+        worst["card_vs_cpu"] = max(worst["card_vs_cpu"],
+                                   float((x - y).abs().max()) / m)
+        bound = 2 * ep + SPARSE_TOL["rtol"] * float(t.abs().max()) \
+            + SPARSE_TOL["atol_of_max"] * m
+        require(ec <= bound, f"[train] {name} {path}: card err {ec} against "
+                f"float64 beyond 2 x the CPU's {ep} + {SPARSE_TOL}")
+        worst["card"] = max(worst["card"], ec / m)
+        worst["cpu"] = max(worst["cpu"], ep / m)
+    return worst
+
+
+def sparse_parity(dev, arch: str) -> dict:
+    """One fp32 sparse step card against CPU, each table capped at
+    ``PARITY_TABLE_ROWS`` rows (widths kept), ``SPARSE_PARITY_ROWS`` rows
+    of batch: table, AdaGrad accumulator, dense params and AdamW state,
+    each held against the same step in float64 on the CPU.  DLRM's fp32
+    gradient at its init is itself off by up to 3.4e-3 of a leaf's max
+    (the deep ReLU MLPs cancel; DCN-v2's 1.8e-7), so the card is held to
+    the CPU's own fp32 error, not to a fixed bound."""
+    cfg = _ctr_cfg(arch, PARITY_TABLE_ROWS)
+    init, step = make_ctr_sparse_train_step(cfg, LOCAL_PLAN, _recsys_opt())
+    params = recsys.init(cfg, seed=0, device=dev)
+    cpu = init(tree_map(lambda t: t.to("cpu", copy=True), params))
+    truth = init(tree_map(lambda t: t.to("cpu", torch.float64), params))
+    card = init(params)
+    batch = batch_for(cfg, SPARSE_PARITY_ROWS, 0)
+    card, ac = step(card, batch)
+    cpu, ap = step(cpu, batch)
+    truth, _ = step(truth, batch)
+    out = {"params": _truth_err(f"{arch} sparse step", card.params,
+                                cpu.params, truth.params),
+           "opt_state": _truth_err(f"{arch} sparse step state",
+                                   card.opt_state, cpu.opt_state,
+                                   truth.opt_state),
+           "loss": _model_close(f"{arch} sparse loss", ac["loss"],
+                                ap["loss"]),
+           "touched_rows": int((cpu.opt_state["embed_acc"] > 0).sum())}
+    del params, cpu, card, truth
+    torch.cuda.empty_cache()
+    return out
+
+
+def sparse_train(dev, arch: str, smi: str) -> dict:
+    """``arch``'s sparse step at the registry's ``train_batch`` on the
+    whole table (DLRM's in bf16, its dense params in fp32): ms a step,
+    rows/s and ``max_memory_allocated``."""
+    cfg = _ctr_cfg(arch)
+    rows = get_shape("recsys", "train_batch")["batch"]
+    tdt = TRAIN_DTYPES.get(arch, torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = recsys.init(cfg, seed=0, dtype=tdt, device=dev)
+    params = {k: (v if k == "table" else cast_tree(v, torch.float32))
+              for k, v in params.items()}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init, step = make_ctr_sparse_train_step(cfg, LOCAL_PLAN, _recsys_opt())
+    state = init(params)
+    del params
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                batch_for(cfg, rows, i).items()}
+               for i in range(SPARSE_STEPS + 1)]
+    ms, auxs, state = _step_ms(step, state, batches.__getitem__,
+                               SPARSE_STEPS + 1)
+    for a in auxs:
+        require(all(np.isfinite(v) for v in a.values()),
+                f"[train] {arch} sparse aux {a}")
+    touched = int((state.opt_state["embed_acc"] > 0).sum())
+    steady = ms[1:]
+    out = {"rows": rows, "table_rows": int(state.params["table"].shape[0]),
+           "table_dtype": str(tdt).replace("torch.", ""),
+           "table_bytes": tree_bytes(state.params["table"]),
+           "init_s": init_s, "first_ms": ms[0], "step_ms": steady,
+           "step_ms_mean": sum(steady) / len(steady),
+           "rows_per_s": rows / (sum(steady) / len(steady) / 1e3),
+           "touched_rows": touched, "loss": [a["loss"] for a in auxs],
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[train] {arch} sparse step (row-wise AdaGrad on the table, AdamW "
+        f"on the dense params) at train_batch {rows} rows: table "
+        f"{out['table_rows']} x {state.params['table'].shape[1]} "
+        f"{out['table_dtype']} ({out['table_bytes']} B, init {init_s:.1f} "
+        f"s); {SPARSE_STEPS} steps after the first ({ms[0]:.1f} ms): mean "
+        f"{out['step_ms_mean']:.2f} ms ({[round(x, 2) for x in steady]}), "
+        f"{out['rows_per_s']:.0f} rows/s; {touched} rows touched; "
+        f"loss {[round(x, 4) for x in out['loss']]}; max_memory_allocated "
+        f"{out['peak_bytes']} B; {smi}")
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_train(dev, name: str, params, loss_fn, opt, batch, smi: str,
+                what: str) -> dict:
+    """``make_train_step`` on one batch held on the card: the first step,
+    then ``DENSE_STEPS`` timed ones."""
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(loss_fn, opt)
+    state = init_state(params, opt)
+    ms, auxs, state = _step_ms(step, state, lambda i: batch,
+                               DENSE_STEPS + 1)
+    for a in auxs:
+        require(all(np.isfinite(v) for v in a.values()),
+                f"[train] {name} aux {a}")
+    steady = ms[1:]
+    out = {"first_ms": ms[0], "step_ms": steady,
+           "step_ms_mean": sum(steady) / len(steady),
+           "loss": [a["loss"] for a in auxs],
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[train] {name} ({what}): {DENSE_STEPS} steps after the first "
+        f"({ms[0]:.1f} ms): mean {out['step_ms_mean']:.2f} ms "
+        f"({[round(x, 2) for x in steady]}); loss "
+        f"{[round(x, 4) for x in out['loss']]}; max_memory_allocated "
+        f"{out['peak_bytes']} B; {smi}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(dev, card) -> dict:
+    """Training on the card: qwen3-0.6b at full width and depth
+    (``train_4k``, batch cut to 8 by accumulation; profiled), its fp32
+    gradient and one AdamW step card against CPU, a restart bit for bit,
+    the CTR sparse step at ``train_batch`` (DCN-v2 fp32, DLRM's 48 GB bf16
+    table) with a capped fp32 check against the CPU, and SchNet, DIN and
+    SASRec steps."""
+    smi = card["nvidia_smi"]
+    t_phase = time.perf_counter()
+    require_fp32_matmul()
+    out = {"card": smi, "part_s": {}}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        out["part_s"][name] = time.perf_counter() - t0
+        return res
+
+    out["qwen"] = part("qwen", train_qwen, dev, smi)
+    out["qwen_parity"] = part("qwen_parity", train_qwen_parity, dev)
+    p = out["qwen_parity"]
+    log(f"[train] qwen3-0.6b full width fp32 policy, B {LM_BATCH} x "
+        f"{LM_PARITY_SEQ} (the lm phase's inputs), card vs CPU: loss max "
+        f"abs err {p['loss']:.3e}; gradient worst leaf err / leaf max "
+        f"{p['grad']:.3e}; one AdamW step (constant lr 3e-4): params "
+        f"{p['params']:.3e}, m / v {p['opt_state']:.3e}, grad_norm "
+        f"{p['grad_norm']:.3e} (tol rtol {TRAIN_TOL['rtol']} + "
+        f"{TRAIN_TOL['atol_of_max']} x leaf max); params moved up to "
+        f"{p['moved']:.3e}; CPU gradient {p['cpu_grad_s']:.1f} s, CPU update "
+        f"{p['cpu_update_s']:.1f} s")
+    out["restart"] = part("restart", train_restart, dev)
+    r = out["restart"]
+    log(f"[train] restart on the card: qwen3-0.6b full width, depth "
+        f"{RESTART_DEPTH}, seq {RESTART_SEQ}, KV blocks {RESTART_CHUNK}, "
+        f"remat, bf16 compute: {RESTART_STEPS} steps with a checkpoint at "
+        f"{RESTART_AT} ({r['full_s']:.1f} s), restored and replayed "
+        f"({r['restored_s']:.1f} s): all {r['leaves']} leaves (params, "
+        f"AdamW m / v, step) bit for bit; losses "
+        f"{[round(x, 4) for x in r['losses']]}")
+    out["sparse_parity"] = {a: part(f"sparse_parity {a}", sparse_parity,
+                                    dev, a)
+                            for a in ("dlrm-mlperf", "dcn-v2")}
+    log(f"[train] sparse step fp32 card vs CPU (tables capped at "
+        f"{PARITY_TABLE_ROWS} rows, {SPARSE_PARITY_ROWS} rows of batch), "
+        f"each against the step in float64 (worst err / leaf max; the "
+        f"card within 2 x the CPU's error + rtol {SPARSE_TOL['rtol']} + "
+        f"{SPARSE_TOL['atol_of_max']} x leaf max): {out['sparse_parity']}")
+    out["sparse"] = {a: part(f"sparse {a}", sparse_train, dev, a, smi)
+                     for a in ("dcn-v2", "dlrm-mlperf")}
+    out["dense"] = {}
+    for name in ("molecule", "full_graph_sm"):
+        shape = get_shape("gnn", name)
+        batch = (_molecule(shape) if name == "molecule"
+                 else _gnn_batch_full_graph(shape)[0])
+        cfg = _gnn_cfg(shape, "bfloat16")
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        out["dense"][f"schnet {name}"] = part(
+            f"schnet {name}", dense_train, dev, f"schnet {name}",
+            schnet.init(cfg, seed=0, device=dev),
+            lambda p, b, c=cfg: schnet.loss_fn(p, b, c),
+            optim.adamw(optim.warmup_cosine(1e-3, 100, 10_000)), tb, smi,
+            f"{int(batch['feats'].shape[0])} nodes, "
+            f"{int(batch['senders'].shape[0])} edges padded, bf16 messages, "
+            f"AdamW warmup_cosine(1e-3, 100, 10000)")
+    rows = get_shape("recsys", "train_batch")["batch"]
+    for arch in ("din", "sasrec"):
+        cfg = get_arch(arch)[0]
+        tb = {k: torch.as_tensor(v, device=dev)
+              for k, v in batch_for(cfg, rows, 0).items()}
+        out["dense"][arch] = part(
+            arch, dense_train, dev, arch,
+            recsys.init(cfg, seed=0, device=dev),
+            lambda p, b, c=cfg: recsys.loss_fn(p, b, c), _recsys_opt(), tb,
+            smi, f"train_batch {rows} rows, fp32, AdamW on every leaf "
+            f"(tables included) warmup_cosine(1e-3, 1000, 100000)")
+        del tb
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[train] phase {out['s']:.1f} s (budget {TRAIN_LIMIT_S:.0f} s); "
+        f"by part: { {k: round(v, 1) for k, v in out['part_s'].items()} }")
+    RESULTS["train"] = out
+    return out
+
+
 def kernel_line() -> dict:
     """Each kernel at its main path's shape (``candidate_topk``: the served
     chain, with its one-step, DEEP-10M and served forest rows-by-id
@@ -5083,6 +5595,12 @@ def main() -> int:
         f"{torch.cuda.memory_allocated()} B")
     with phase("models"):
         phase_models(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] before the phase: memory_allocated "
+        f"{torch.cuda.memory_allocated()} B")
+    with phase("train"):
+        phase_train(dev, card)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)

@@ -20,8 +20,9 @@ meaning carries over:
     A Python ``if`` / ``while`` / ``assert`` (or conditional expression)
     on a tensor's *value* in hot code: ``bool()`` of a tensor, a hidden
     sync on the card.  ``.shape`` / ``.ndim`` / ``.dtype`` / ``.device``,
-    ``.numel()`` / ``.dim()`` / ``.size()``, ``len()`` and an identity
-    test (``is None``) are static.
+    ``.requires_grad``, ``.numel()`` / ``.dim()`` / ``.size()``,
+    ``len()``, ``torch.is_grad_enabled()`` (autograd's mode) and an
+    identity test (``is None``) are static.
 ``implicit-dtype``
     ``torch.tensor`` / ``as_tensor`` / ``zeros`` / ``ones`` / ``full`` /
     ``empty`` / ``arange`` without a ``dtype`` in hot code.  The default
@@ -79,12 +80,14 @@ NO_COUNTERPART = {
         "on a hot function's tensor parameter is a traced-branch",
 }
 
-_STATIC_ATTRS = {"shape", "ndim", "dtype", "device", "is_cuda", "layout"}
+_STATIC_ATTRS = {"shape", "ndim", "dtype", "device", "is_cuda", "layout",
+                 "requires_grad"}
 _STATIC_METHODS = {"numel", "dim", "size", "element_size", "data_ptr",
                    "stride", "is_contiguous", "get_device", "bit_length"}
 _STATIC_CALLS = {"len", "isinstance", "type", "range", "enumerate", "zip",
                  "getattr", "hasattr", "torch.device", "torch.Size",
-                 "torch.finfo", "torch.iinfo", "torch.is_tensor"}
+                 "torch.finfo", "torch.iinfo", "torch.is_tensor",
+                 "torch.is_grad_enabled"}
 _SYNC_METHODS = {"item", "tolist", "cpu", "numpy"}
 _CAST_FUNCS = {"float", "int", "bool", "complex"}
 # creation calls and the positional index at which their dtype may come

@@ -9,14 +9,17 @@ and ``lexical_from_arrays`` for the metadata table and the postings
 slabs; ``lm_params_from_arrays``, ``recsys_params_from_arrays`` and
 ``schnet_params_from_arrays`` for a model's parameter tree (one walker,
 ``_tree_from_arrays``, checks every leaf against the port's
-``param_shapes``).  They see numpy arrays, scalars and a config dict
-only, never an object of the reference.
+``param_shapes``), and ``train_state_from_arrays`` for a train state
+(parameters, optimizer state, error-feedback buffer).  They see numpy
+arrays, scalars and a config dict only, never an object of the
+reference.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import LMConfig, SchNetConfig
 from repro_torch.core.lexical import LexicalSlabs
 from repro_torch.core.lsh import LSHIndex
 from repro_torch.core.metadata import MetadataTable
@@ -27,10 +30,13 @@ from repro_torch.core.two_level import (TwoLevelConfig, TwoLevelIndex,
                                         concat_forest, entity_buckets)
 from repro_torch.device import resolve
 from repro_torch.models import recsys, schnet, transformer
+from repro_torch.train.compression import make_ef_transform
+from repro_torch.train.loop import TrainState
 
 __all__ = ["index_from_arrays", "tree_from_arrays", "metadata_from_arrays",
            "lexical_from_arrays", "lm_params_from_arrays",
-           "recsys_params_from_arrays", "schnet_params_from_arrays"]
+           "recsys_params_from_arrays", "schnet_params_from_arrays",
+           "train_state_from_arrays"]
 
 TREE_ARRAYS = ("proj", "dims", "tau", "children", "leaf_row",
                "leaf_entities", "depth", "entity_depth")
@@ -210,3 +216,35 @@ def schnet_params_from_arrays(tree: dict, cfg, device=None) -> dict:
     Checked against ``schnet.param_shapes(cfg)``; a missing, extra or
     misshapen leaf raises ``ValueError``."""
     return _tree_from_arrays(schnet.param_shapes(cfg), tree, resolve(device))
+
+
+def _param_shapes(cfg):
+    if isinstance(cfg, LMConfig):
+        return transformer.param_shapes(cfg)
+    if isinstance(cfg, SchNetConfig):
+        return schnet.param_shapes(cfg)
+    return recsys.param_shapes(cfg)
+
+
+def train_state_from_arrays(tree: dict, cfg, opt, device=None):
+    """The port's ``TrainState`` from the reference's, given as numpy
+    arrays: ``tree`` holds ``step`` (an int32 scalar), ``params`` (the
+    model's tree, as the ``*_params_from_arrays`` take it), ``opt_state``
+    (``opt.init``'s structure: AdamW ``m`` / ``v``, SGD ``mu``, Adafactor
+    ``stats`` with ``vr`` / ``vc`` or ``v`` a leaf) and optionally
+    ``ef_buf`` (fp32, the parameters' shapes).  Every leaf is checked
+    against the port's shapes (``param_shapes(cfg)`` and ``opt.init`` of
+    them) and cast to their dtypes; a missing, extra or misshapen leaf
+    raises ``ValueError``."""
+    dev = resolve(device)
+    shapes = _param_shapes(cfg)
+    opt_shapes = opt.init(shapes)
+    ef = tree.get("ef_buf")
+    if ef is not None:
+        ef = _tree_from_arrays(make_ef_transform()[0](shapes), ef, dev)
+    return TrainState(
+        step=torch.as_tensor(np.asarray(tree["step"], dtype=np.int32),
+                             device=dev),
+        params=_tree_from_arrays(shapes, tree["params"], dev),
+        opt_state=_tree_from_arrays(opt_shapes, tree["opt_state"], dev),
+        ef_buf=ef)

@@ -79,7 +79,7 @@ class ShardPlan:
     content of the reference's ``PartitionSpec``); with no mesh bound
     every axis counts 1.  ``constrain`` is the identity with no mesh bound
     and raises with one: the DTensor placements of a model sharded over
-    cards come with training (ROADMAP.md, module item 3)."""
+    cards are ROADMAP.md's module item 4, sharded training."""
     dp: tuple = ()
     fsdp: tuple = ()
     tp: tuple = ()
@@ -107,14 +107,16 @@ class ShardPlan:
         """``x`` itself when no mesh is bound, as the reference's
         ``with_sharding_constraint`` is then skipped.  With a mesh bound
         it raises ``NotImplementedError``: the port does not shard a model
-        over cards yet (DTensor placements, ROADMAP.md module item 3),
-        and returning ``x`` there would silently replicate it."""
+        over cards yet (DTensor placements, ROADMAP.md module item 4,
+        sharded training), and returning ``x`` there would silently
+        replicate it."""
         if self.mesh is None:
             return x
         raise NotImplementedError(
             f"ShardPlan.constrain{self.p(*dims)} under a bound mesh: "
-            "sharding a model over cards (DTensor placements) is ROADMAP.md "
-            "module item 3, training; serve on one card with no mesh")
+            "sharding a model over cards (DTensor placements: FSDP, TP, EP) "
+            "is ROADMAP.md module item 4, sharded training; serve or train "
+            "on one card with no mesh")
 
     def axis_size(self, role: str) -> int:
         if self.mesh is None:

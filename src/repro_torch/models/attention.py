@@ -14,6 +14,15 @@ Masked scores are ``-1e30``, not ``-inf``: a fully masked row gives a
 uniform softmax, as in the reference, never NaN.  The chunked path pads
 the last block as the reference does, so such a row counts the padded
 slots too.
+
+The chunked path's block step (``_block_step``) runs in one of two
+modes, with the same numbers.  Serving (no gradient wanted) updates each
+block's score tile in place, so a 32K prefill holds one tile.  When a
+gradient is wanted the step is out of place and runs under
+``torch.utils.checkpoint``, as the reference wraps its scan step in
+``jax.checkpoint``: the backward recomputes each block's probabilities
+from the carried (max, denominator, accumulator) instead of saving every
+block's tile, which would rebuild the whole (Sq, Sk) matrix in fp32.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.analysis.annotations import hot_path
 
@@ -88,28 +98,50 @@ def attention(
     m = torch.full((b, g, r, sq), _NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((b, g, r, sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, g, r, sq, dv), dtype=torch.float32, device=dev)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     for blk in range(n_blk):
         lo = blk * chunk
         kc = kpad[:, lo:lo + chunk].permute(0, 2, 3, 1).to(cdt)  # B,G,dh,C
         vc = vpad[:, lo:lo + chunk].permute(0, 2, 1, 3).to(pdt)  # B,G,C,dv
-        mc = kvm[:, lo:lo + chunk]
-        kpos = lo + torch.arange(chunk, dtype=torch.int64, device=dev)
-        s = torch.matmul(qh, kc).view(b, g, r, sq, chunk)
-        s = s.float().mul_(scale)
+        mask = ~kvm[:, lo:lo + chunk][:, None, None, None, :]
         if causal:
-            s.masked_fill_(~(qp[:, None] >= kpos[None, :]), _NEG)
-        s.masked_fill_(~mc[:, None, None, None, :], _NEG)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = s.sub_(m_new[..., None]).exp_()
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        pv = torch.matmul(p.to(q.dtype).to(pdt).view(b, g, r * sq, chunk),
-                          vc).view(b, g, r, sq, dv)
-        acc = acc * corr[..., None] + pv.float()
-        m = m_new
+            kpos = lo + torch.arange(chunk, dtype=torch.int64, device=dev)
+            mask = mask | ~(qp[:, None] >= kpos[None, :])
+        if grad:
+            m, l, acc = checkpoint(_block_step, qh, kc, vc, mask, m, l, acc,
+                                   scale, q.dtype, False, use_reentrant=False)
+        else:
+            m, l, acc = _block_step(qh, kc, vc, mask, m, l, acc, scale,
+                                    q.dtype, True)
     o = acc / torch.clamp(l[..., None], min=1e-30)
     o = o.permute(0, 3, 1, 2, 4)                           # (B,Sq,G,R,dv)
     return o.reshape(b, sq, hq, dv).to(q.dtype)
+
+
+def _block_step(qh, kc, vc, mask, m, l, acc, scale: float, qdt,
+                inplace: bool):
+    """One KV block of the online softmax: scores (B, G, R, Sq, C) in
+    fp32, ``mask`` True where a slot is masked; returns the carried (max,
+    denominator, accumulator).  ``inplace`` (no autograd: serving) updates
+    the score tile in place; the same numbers either way."""
+    b, g, r, sq = m.shape
+    chunk = kc.shape[-1]
+    s = torch.matmul(qh, kc).view(b, g, r, sq, chunk).float()
+    if inplace:
+        s = s.mul_(scale).masked_fill_(mask, _NEG)
+    else:
+        s = (s * scale).masked_fill(mask, _NEG)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    if inplace:
+        p = s.sub_(m_new[..., None]).exp_()
+    else:
+        p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    pv = torch.matmul(p.to(qdt).to(vc.dtype).view(b, g, r * sq, chunk),
+                      vc).view(b, g, r, sq, -1)
+    return m_new, l, acc * corr[..., None] + pv.float()
 
 
 @hot_path

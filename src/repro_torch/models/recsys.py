@@ -392,8 +392,7 @@ def serve_logits(params, batch, cfg, plan: ShardPlan = LOCAL_PLAN):
 
 @hot_path
 def loss_fn(params, batch, cfg, plan: ShardPlan = LOCAL_PLAN):
-    """BCE with logits against batch['label'] (SASRec: in-sequence BCE).
-    A forward only; training is not ported yet."""
+    """BCE with logits against batch['label'] (SASRec: in-sequence BCE)."""
     if isinstance(cfg, SASRecConfig):
         return _sasrec_loss(params, batch, cfg, plan)
     logits = serve_logits(params, batch, cfg, plan)

@@ -163,8 +163,7 @@ def graph_energy(params, h, graph_ids, n_graphs: int):
 def loss_fn(params, batch: dict, cfg: SchNetConfig,
             plan: ShardPlan = LOCAL_PLAN):
     """Node-classification CE when batch has 'labels'; energy MSE when it
-    has 'energy' (+ graph_ids/n_graphs).  A forward only; training is not
-    ported yet."""
+    has 'energy' (+ graph_ids/n_graphs)."""
     dev = params["embed_in"].device
     h = forward(params, batch, cfg, plan)
     if "labels" in batch:

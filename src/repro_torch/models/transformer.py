@@ -27,7 +27,18 @@ uses the absorbed-latent path, so the cache holds (kv_lora + rope) per
 token.
 
 ``plan.constrain`` marks the reference's sharding constraints; with no
-mesh bound it is the identity, and the port serves a model on one card.
+mesh bound it is the identity, and the port serves and trains a model on
+one card.
+
+``loss_fn`` is differentiable (``repro_torch.train`` takes its gradient
+with ``torch.autograd``).  ``cfg.remat`` is read as the reference reads it:
+when it is set and a gradient is wanted, each layer (and the MTP layer)
+runs under ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``,
+the counterpart of ``jax.checkpoint``, so the backward recomputes a
+layer's activations from its input; the recompute gives the same forward
+(MoE routing is a deterministic top-k).  ``cfg.scan_layers`` has no
+counterpart: the reference chooses between ``lax.scan`` and an unrolled
+loop, and here a loop over the stack is a loop.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ from functools import partial
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.analysis.annotations import hot_path
 from repro_torch.configs.base import LMConfig
@@ -307,6 +319,17 @@ def _layer(p, x, cfg: LMConfig, plan: ShardPlan, cos, sin, *, moe: bool):
     return _res_constrain(x, cfg, plan)
 
 
+def _run_layer(p, x, cfg: LMConfig, plan: ShardPlan, cos, sin, *,
+               moe: bool):
+    """``_layer``, under ``checkpoint`` when ``cfg.remat`` is set and a
+    gradient is wanted (the residual stream carries one whenever the
+    parameters do)."""
+    if cfg.remat and torch.is_grad_enabled() and x.requires_grad:
+        return checkpoint(_layer, p, x, cfg, plan, cos, sin, moe=moe,
+                          use_reentrant=False)
+    return _layer(p, x, cfg, plan, cos, sin, moe=moe)
+
+
 def _res_dtype(cfg: LMConfig):
     return torch.bfloat16 if cfg.residual_dtype == "bfloat16" \
         else torch.float32
@@ -338,8 +361,8 @@ def _backbone(params: dict, tokens, cfg: LMConfig, plan: ShardPlan):
         _rope_dim(cfg), cfg.rope_theta)
     for stack, moe, n in _stacks(params):
         for i in range(n):
-            x = _layer(_layer_slice(stack, i), x, cfg, plan, cos, sin,
-                       moe=moe)
+            x = _run_layer(_layer_slice(stack, i), x, cfg, plan, cos, sin,
+                           moe=moe)
     return rms_norm(x, params["final_norm"])
 
 
@@ -355,8 +378,7 @@ def _logits(params: dict, h, cfg: LMConfig, plan: ShardPlan):
 @hot_path
 def loss_fn(params: dict, batch: dict, cfg: LMConfig,
             plan: ShardPlan = LOCAL_PLAN):
-    """batch: {tokens (B,S), labels (B,S), mask optional} -> (loss, aux).
-    A forward only here; training is not ported yet."""
+    """batch: {tokens (B,S), labels (B,S), mask optional} -> (loss, aux)."""
     dev = params["embed"].device
     tokens = _tokens(batch["tokens"], dev)
     labels = _tokens(batch["labels"], dev)
@@ -391,7 +413,7 @@ def _mtp_loss(params: dict, h, tokens, labels, cfg: LMConfig,
         _rope_dim(cfg), cfg.rope_theta)
     lp = {k: v[0] for k, v in p.items()
           if k not in ("proj", "norm_h", "norm_e")}
-    x = _layer(lp, x, cfg, plan, cos, sin, moe=False)
+    x = _run_layer(lp, x, cfg, plan, cos, sin, moe=False)
     logits = _logits(params, rms_norm(x, params["final_norm"]), cfg, plan)
     # labels for t+2: shift labels left by one
     l2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)

@@ -349,6 +349,22 @@ LINT_CASES = [
                 return x[valid]
             return x if x.numel() else valid
      """, False),
+    ("traced-branch", """
+        @hot_path
+        def f(x, w):
+            grad = torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, w))
+            if grad:
+                return x * w
+            return x
+     """, False),
+    ("traced-branch", """
+        @hot_path
+        def f(x, w):
+            if torch.is_grad_enabled() and (x * w).sum() > 0:
+                return x * w
+            return x
+     """, True),
     ("implicit-dtype", """
         @hot_path
         def f(x):

@@ -19,7 +19,10 @@ fan-out; the recompile gate over the seven registered entry points on
 the card, and ``roofline_report`` after a served batch; the language
 models, and the recsys archs and SchNet at ``reduced()`` card against
 CPU (SchNet's bf16 scatter-add within its bound), with SASRec's items
-through a small two-level index at d 51, exact at full probing.
+through a small two-level index at d 51, exact at full probing; one
+train step of a reduced arch of each family and one CTR sparse step card
+against CPU, ``save_async`` of card tensors, and a restart on the card
+bit for bit.
 
 Marked ``gpu``; each test decides inside itself whether a card is there
 and skips with the reason when not.  Run on the card with:
@@ -1225,7 +1228,7 @@ def test_constrain_raises_under_a_bound_mesh(dev, tmp_path):
     try:
         mesh = init_device_mesh("cuda", (1, 1),
                                 mesh_dim_names=("data", "model"))
-        with pytest.raises(NotImplementedError, match="module item 3"):
+        with pytest.raises(NotImplementedError, match="module item 4"):
             SINGLE_POD_PLAN.with_mesh(mesh).constrain(x, "dp", "tp")
     finally:
         dist.destroy_process_group()
@@ -1368,3 +1371,185 @@ def test_sasrec_retrieval_through_two_level_index_d51(dev):
     res = mips_parity(ann, exact, users, items, m2)
     assert res["match"] >= 0.99 and res["bad"] == 0, res
     assert res["repeats"] == 0, res
+
+
+# ---------------------------------------------------------------------------
+# training (plain torch on the card: the reference's training path reaches
+# no Pallas kernel)
+# ---------------------------------------------------------------------------
+
+# a train step card against CPU: rtol 1e-4 and an atol of 1e-4 of each
+# leaf's max abs, never below 1e-9 (DIN's attention-MLP output bias has a
+# gradient of exactly zero, softmax being shift invariant: both sides
+# return rounding noise there)
+TRAIN_TOL = dict(rtol=1e-4, atol_of_max=1e-4, atol_floor=1e-9)
+
+
+def _train_family(arch):
+    """(cfg, params on the CPU, loss_fn, batch_at) of a reduced arch of
+    ``arch``'s family at the fp32 policy."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.lm import LMStream
+    from repro_torch.data.recsys import batch_for
+    from repro_torch.models import recsys as R
+    from repro_torch.models import schnet as S
+    from repro_torch.models import transformer as T
+
+    cfg, family = get_arch(arch)
+    if family == "lm":
+        cfg = _lm_cfg(arch)
+        stream = LMStream(cfg.vocab, 16, 2, seed=0)
+        return (T.init(cfg, seed=0, device="cpu"),
+                lambda p, b: T.loss_fn(p, b, cfg), stream.batch_at)
+    if family == "recsys":
+        cfg = cfg.reduced()
+        return (R.init(cfg, seed=0, device="cpu"),
+                lambda p, b: R.loss_fn(p, b, cfg),
+                lambda i: batch_for(cfg, 16, i))
+    cfg = dataclasses.replace(cfg.reduced(), d_feat=12, n_out=4)
+    batch = _schnet_batches()["full"]
+    return (S.init(cfg, seed=0, device="cpu"),
+            lambda p, b: S.loss_fn(p, b, cfg), lambda i: batch)
+
+
+def _close_leaves(a_tree, b_tree, rtol, atol_of_max, atol_floor=0.0):
+    from repro_torch.train.checkpoint import leaf_paths
+
+    b = dict(leaf_paths(b_tree))
+    for name, x in leaf_paths(a_tree):
+        y = b[name].cpu().float()
+        atol = max(atol_of_max * float(y.abs().max()) if y.numel() else 0.0,
+                   atol_floor)
+        torch.testing.assert_close(x.cpu().float(), y, rtol=rtol, atol=atol,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v3-671b", "din",
+                                  "schnet"])
+def test_train_step_card_equals_cpu(dev, arch):
+    """A reduced arch of each family (and the MoE + MLA + MTP LM) at the
+    fp32 policy: two SGD-M steps on the CPU, the state copied to the card,
+    then one step on each side from it: params, momentum and the aux
+    values to ``TRAIN_TOL`` (the CPU tests' gradient tolerance).  SGD is
+    linear in the gradient; AdamW would turn the rounding noise of DIN's
+    zero gradient into a full step of either sign (its card step is held
+    in the smoke's ``train`` phase)."""
+    from repro_torch.device import require_fp32_matmul
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optim
+    from repro_torch.models.base import tree_map
+    from repro_torch.train.loop import TrainState, init_state, make_train_step
+
+    require_fp32_matmul()
+    T.set_precision(torch.float32, torch.float32)
+    try:
+        params, loss, batch_at = _train_family(arch)
+        opt = optim.sgd(optim.constant_lr(1e-2))
+        step = make_train_step(loss, opt)
+        st = init_state(params, opt)
+        for i in range(2):
+            st, _ = step(st, batch_at(i))
+        card = TrainState(step=st.step.to(dev),
+                          params=tree_map(lambda t: t.to(dev), st.params),
+                          opt_state=tree_map(lambda t: t.to(dev),
+                                             st.opt_state))
+        cpu_new, cpu_aux = step(st, batch_at(2))
+        card_new, card_aux = step(card, batch_at(2))
+    finally:
+        T.set_precision()
+    from repro_torch.train.tree import leaves
+
+    assert all(t.device.type == "cuda" for t in leaves(card_new.params))
+    assert int(card_new.step) == 3 and card_new.step.device.type == "cuda"
+    for k in cpu_aux:
+        torch.testing.assert_close(card_aux[k].cpu(), cpu_aux[k],
+                                   rtol=1e-4, atol=1e-6, msg=k)
+    _close_leaves(card_new.params, cpu_new.params, **TRAIN_TOL)
+    _close_leaves(card_new.opt_state, cpu_new.opt_state, **TRAIN_TOL)
+
+
+def test_sparse_step_card_equals_cpu(dev):
+    """DLRM at ``reduced()`` in fp32: one sparse step (row-wise AdaGrad
+    through ``index_add_``, atomics on the card) from the same state on
+    both sides; the table, the accumulator and the dense params to rtol /
+    atol 1e-5 of each leaf's max."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.recsys import batch_for
+    from repro_torch.device import require_fp32_matmul
+    from repro_torch.distributed.sharding import LOCAL_PLAN
+    from repro_torch.models import recsys as R
+    from repro_torch.models.base import tree_map
+    from repro_torch.train import optim
+    from repro_torch.train.sparse_embed import make_ctr_sparse_train_step
+
+    require_fp32_matmul()
+    cfg = get_arch("dlrm-mlperf")[0].reduced()
+    init, step = make_ctr_sparse_train_step(
+        cfg, LOCAL_PLAN, optim.adamw(optim.constant_lr(1e-3)))
+    params = R.init(cfg, seed=0, device="cpu")
+    cpu = init(params)
+    card = init(tree_map(lambda t: t.to(dev), params))
+    batch = batch_for(cfg, 64, 0)
+    cpu, _ = step(cpu, batch)
+    card, _ = step(card, batch)
+    assert card.params["table"].device.type == "cuda"
+    _close_leaves(card.params, cpu.params, rtol=1e-5, atol_of_max=1e-5)
+    _close_leaves(card.opt_state, cpu.opt_state, rtol=1e-5,
+                  atol_of_max=1e-5)
+
+
+def test_save_async_on_the_card_snapshots_at_the_call(dev, tmp_path):
+    """``save_async`` copies the card's tensors to the host before it
+    returns: the next sparse step updates the table in place, and the
+    checkpoint still holds the table of the call, bit for bit."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.recsys import batch_for
+    from repro_torch.distributed.sharding import LOCAL_PLAN
+    from repro_torch.models import recsys as R
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train import optim
+    from repro_torch.train.sparse_embed import make_ctr_sparse_train_step
+
+    cfg = get_arch("dcn-v2")[0].reduced()
+    init, step = make_ctr_sparse_train_step(
+        cfg, LOCAL_PLAN, optim.sgd(optim.constant_lr(1e-2)))
+    st = init(R.init(cfg, seed=0, device=dev))
+    st, _ = step(st, batch_for(cfg, 64, 0))
+    at_call = st.params["table"].clone()
+    C.save_async(str(tmp_path), 1, st)
+    st2, _ = step(st, batch_for(cfg, 64, 1))
+    assert st2.params["table"] is st.params["table"]        # in place
+    assert not torch.equal(st2.params["table"], at_call)
+    C.wait_pending()
+    got = C.restore(str(tmp_path), 1, st)
+    assert got.params["table"].device.type == "cuda"
+    assert torch.equal(got.params["table"], at_call)
+
+
+def test_restart_on_the_card_is_bit_for_bit(dev, tmp_path):
+    """qwen3-0.6b at ``reduced()`` with remat and the chunked attention
+    (bf16 policy): 4 steps with a checkpoint at 2, then step 2 restored
+    and replayed; every param equals the uninterrupted run's bit for
+    bit."""
+    from repro_torch.data.lm import LMStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train import optim
+    from repro_torch.train.loop import init_state, make_train_step, train
+    from repro_torch.train.tree import leaves
+
+    cfg = dataclasses.replace(_lm_cfg("qwen3-0.6b"), remat=True,
+                              attn_chunk=8)
+    stream = LMStream(cfg.vocab, 32, 2, seed=0)
+    opt = optim.adamw(optim.constant_lr(1e-3))
+    step = make_train_step(lambda p, b: T.loss_fn(p, b, cfg), opt)
+
+    def fresh():
+        return init_state(T.init(cfg, seed=0, device=dev), opt)
+
+    d = str(tmp_path)
+    full = train(fresh(), step, stream.batch_at, 4, ckpt_dir=d,
+                 ckpt_every=2, ckpt_async=False)
+    again = train(C.restore(d, 2, fresh()), step, stream.batch_at, 4)
+    for a, b in zip(leaves(full.state.params), leaves(again.state.params)):
+        assert torch.equal(a, b)

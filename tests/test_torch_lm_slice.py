@@ -590,7 +590,7 @@ def test_constrain_is_identity_without_mesh_and_raises_with_one():
     assert SINGLE_POD_PLAN.constrain(x, "dp", "tp") is x
     mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
                                  mesh=torch.zeros((1, 1)))
-    with pytest.raises(NotImplementedError, match="module item 3"):
+    with pytest.raises(NotImplementedError, match="module item 4"):
         SINGLE_POD_PLAN.with_mesh(mesh).constrain(x, "dp", "tp")
 
 

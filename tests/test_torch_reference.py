@@ -51,7 +51,10 @@ _REFERENCE = (
     "repro.models.attention", "repro.models.moe",
     "repro.models.transformer", "repro.models.recsys",
     "repro.models.schnet", "repro.data.recsys", "repro.data.graph",
-    "repro.core.graph_build",
+    "repro.core.graph_build", "repro.train.optim",
+    "repro.train.compression", "repro.train.fault",
+    "repro.train.checkpoint", "repro.train.loop",
+    "repro.train.sparse_embed",
 )
 
 
@@ -192,6 +195,12 @@ def _modules_after(code: str) -> set:
     "import repro_torch.models.recsys, repro_torch.models.schnet, "
     "repro_torch.data.recsys, repro_torch.data.graph, "
     "repro_torch.core.graph_build, repro_torch.convert, "
+    "repro_torch.kernels.ops",
+    "import repro_torch.train, repro_torch.train.optim, "
+    "repro_torch.train.compression, repro_torch.train.fault, "
+    "repro_torch.train.checkpoint, repro_torch.train.loop, "
+    "repro_torch.train.sparse_embed, repro_torch.launch.train, "
+    "examples.train_lm_torch, repro_torch.convert, "
     "repro_torch.kernels.ops",
 ])
 def test_port_imports_neither_jax_nor_reference(code):

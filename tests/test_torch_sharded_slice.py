@@ -537,6 +537,7 @@ def _rank_main(rank: int, world: int, workdir: str) -> None:
         out["cell"] = _cell(inp, meshes["flat4"], rank)
         out["cell_updates"] = _cell_updates(inp, meshes["flat4"], rank)
         out["failed_update"] = _failed_update(inp, meshes["flat4"], rank)
+        out["compressed_psum"] = _compressed_psum(rank)
     finally:
         dist.destroy_process_group()
     out["heartbeat"] = _heartbeat(inp, rank, world, workdir)
@@ -813,6 +814,25 @@ def _failed_update(inp, mesh, rank: int) -> dict:
     finally:
         cell.close()
     return {"raised": raised, "served_after": served}
+
+
+def _psum_inputs(rank: int) -> dict:
+    """Each rank's operands of the compressed mean (numpy-seeded by rank):
+    a matrix, a vector with one outlier, an all-zero tensor."""
+    rng = np.random.default_rng((7, rank))
+    vec = rng.standard_normal(9).astype(np.float32)
+    vec[rank] = 40.0
+    return {"mat": rng.standard_normal((6, 5)).astype(np.float32),
+            "vec": vec, "zero": np.zeros((3,), np.float32)}
+
+
+def _compressed_psum(rank: int) -> dict:
+    """``train.compression.compressed_psum`` over the world (gloo): the
+    int8 all-gather and the local mean of every operand."""
+    from repro_torch.train.compression import compressed_psum
+
+    return {k: compressed_psum(torch.from_numpy(x)).numpy()
+            for k, x in _psum_inputs(rank).items()}
 
 
 def _heartbeat(inp, rank: int, world: int, workdir: str) -> dict:
@@ -1220,3 +1240,26 @@ def test_a_silent_root_fails_its_followers(ranks):
     for r in ranks[1:]:
         msg, waited = r["heartbeat"]["silent"]
         assert GROUP_TIMEOUT_S - 1 <= waited < SILENT_S + GROUP_TIMEOUT_S
+
+
+def test_compressed_psum_equals_the_reference(ranks, reference):
+    """Every rank's compressed mean equals the reference's
+    ``compressed_psum`` run over a named axis of the four ranks' operands
+    (``jax.vmap`` with ``axis_name``: its ``all_gather`` sees the four
+    rows as the axis); the same on every rank."""
+    jax = pytest.importorskip("jax")
+    rc = reference.compression
+    for k in _psum_inputs(0):
+        xs = np.stack([_psum_inputs(r)[k] for r in range(WORLD)])
+        want = np.asarray(jax.vmap(lambda x: rc.compressed_psum(x, "i"),
+                                   axis_name="i")(jax.numpy.asarray(xs)))
+        for rank, r in enumerate(ranks):
+            got = r["compressed_psum"][k]
+            assert got.dtype == np.float32 and got.shape == xs.shape[1:]
+            np.testing.assert_allclose(got, want[rank], rtol=1e-6,
+                                       atol=1e-7, err_msg=(k, rank))
+            assert np.array_equal(got, ranks[0]["compressed_psum"][k])
+        # 4x fewer bytes on the wire, and within half an int8 step of
+        # the exact mean
+        step = np.abs(xs).max(axis=tuple(range(1, xs.ndim))) / 127.0
+        assert (np.abs(want[0] - xs.mean(0)) <= step.max() / 2 + 1e-7).all()
