@@ -187,7 +187,26 @@ each prints its wall time as ``[phase] <name> <s> s``):
              against the step in float64; SchNet (``molecule``,
              ``full_graph_sm``, bf16 messages), DIN and SASRec
              (``train_batch``) through ``make_train_step``;
-18. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
+18. sharded models - the models over a ``torch.distributed`` mesh through
+             the port's copy of the reference's cells
+             (``repro_torch.launch.cells``; plain torch, no kernel on
+             it): under a world-size-1 NCCL group on a ``(1, 1)`` mesh,
+             qwen3-0.6b at full width and depth through
+             ``_lm_decode_cell`` (prefill 2 x 4,096, 8 decode steps; bit
+             for bit against the same steps with no mesh) and one step of
+             ``_lm_train_cell`` at the ``train_4k`` binding (one
+             microbatch of 2 x 4,096, fp32 policy; within 1e-4 of each
+             leaf's max of the no-mesh step), deepseek-v3-671b at full
+             width cut to 1 dense + 1 MoE layer (decode cell 2 x 512 and
+             8 steps, one Adafactor step at 1 x 512, its peak memory);
+             then four gloo ranks sharing the card on a ``(2, 2)`` mesh
+             (spawned; the parent computes the one-card steps first):
+             qwen3-0.6b at full width and depth and deepseek-v3 at
+             ``reduced()`` through the prefill cell, 4 decode steps and a
+             train step at the fp32 policy, every rank's gathered
+             logits, loss, grad_norm and updated parameters within 1e-4
+             of each leaf's max of the one-card step;
+19. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
 
 The serve phase also runs the brute and IVF backends at k = 50 (above the
 kernels' 32-pair lists) against their unfused plain paths.
@@ -200,6 +219,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import gc
+from functools import partial
 import hashlib
 import json
 import os
@@ -5510,6 +5530,692 @@ def phase_train(dev, card) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 18
+# Models sharded over a mesh (plain torch; no kernel lies on this path):
+# the port's copy of the reference's cells (launch/cells.py) over a
+# DeviceMesh.  Stated before the run: on a world-1 NCCL (1, 1) mesh every
+# placement is over size-1 axes, so qwen3-0.6b's decode cell and train_4k
+# cell must equal the same step with no mesh (max abs err printed, bit
+# for bit expected); deepseek-v3-671b at full width (1 dense + 1 MoE
+# layer) serves and takes one Adafactor step, its peak memory logged.
+# Four gloo ranks sharing the card on a (2, 2) mesh must give, on every
+# rank, the one-card step's logits, loss, grad_norm and updated
+# parameters within 1e-4 of each leaf's max (ROADMAP fault 21: the
+# optimizer starts from trained-looking moments, so an update is a smooth
+# function of the gradient).
+SM_SERVE_SEQ = 4096             # world-1 qwen3: prefill 2 x 4,096
+SM_DECODE_STEPS = 8
+SM_BATCH = 2
+SM_TRAIN_SEQ = 4096             # the train_4k binding, one microbatch of 2
+SM_DEEP_SEQ = 512               # deepseek: prefill 2 x 512, 8 steps
+SM_DEEP_TRAIN = (1, 512)        # one Adafactor step at 1 x 512 (cut ladder)
+SM_DEEP_CUTS = (512, 256, 128)  # tokens tried in order when memory runs out
+SM_GLOO_SEQ = 512               # four ranks: prefill 2 x 512, 4 steps
+SM_GLOO_DECODE_STEPS = 4
+SM_GLOO_TRAIN_BATCH = 4         # one train step of 4 x 512
+SM_DEEP_REDUCED = dict(prefill=(4, 16), train=(8, 16))   # (batch, seq)
+SM_TOL = 1e-4                   # of each leaf's max
+# the four ranks' updated params, of each leaf's max: one AdamW update
+# from step 1000 moves a weight leaf by about 1.25e-4 of its max, so 1e-4
+# would pass a wrong or skipped update; sound runs read <= 5.9e-8
+SM_PARAM_TOL = 1e-6
+SM_START_STEP = 1000            # warmup_cosine's lr is 0 at step 0
+SM_LIMIT_S = 420.0              # the four ranks, joined together
+SM_WORLD = 4
+
+
+def _sm_plan(mesh):
+    from repro_torch.distributed.sharding import SINGLE_POD_PLAN
+
+    return SINGLE_POD_PLAN.with_mesh(mesh)
+
+
+def _sm_local(tree):
+    """A world-1 DTensor tree's local tensors (the whole values, shared
+    storage): the same weights with no mesh."""
+    return tree_map(lambda t: t.to_local() if hasattr(t, "to_local")
+                    else t, tree)
+
+
+def _sm_rewrap(tree, plan, specs):
+    """A world-1 DTensor tree re-wrapped with other specs' placements
+    (the same local storage: on size-1 axes every placement holds the
+    whole value)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: _sm_rewrap(v, plan, specs[k]) for k, v in tree.items()}
+    return DTensor.from_local(tree.to_local(), plan.mesh,
+                              plan.spec_placements(specs), run_check=False)
+
+
+def _sm_moments(params, seed: int):
+    """AdamW moments away from zero, drawn on the parameters' device with
+    a seeded generator (the same values in every process), placed as the
+    parameters are."""
+    from repro_torch.distributed.sharding import place_on
+
+    gen = torch.Generator(device=tree_leaves_sorted(params)[0].device)
+    gen.manual_seed(seed)
+
+    def one(p, kind):
+        full = torch.empty(p.shape, dtype=torch.float32,
+                           device=p.device if not hasattr(p, "to_local")
+                           else p.to_local().device)
+        if kind == "m":
+            full.normal_(generator=gen).mul_(1e-3)
+        else:
+            full.uniform_(generator=gen).add_(1.0).mul_(1e-4)
+        if hasattr(p, "device_mesh"):
+            return place_on(full, p.device_mesh, p.placements)
+        return full
+
+    return {"m": tree_map(lambda p: one(p, "m"), params),
+            "v": tree_map(lambda p: one(p, "v"), params)}
+
+
+def _sm_leaf_errs(got, want) -> dict:
+    """Per leaf of two trees (``got`` DTensors or tensors, gathered whole;
+    ``want`` tensors, any device): max abs err over the leaf's max."""
+    from repro_torch.distributed.sharding import whole
+
+    out = {}
+
+    def walk(a, b, path):
+        if isinstance(b, dict):
+            for k in sorted(b):
+                walk(a[k], b[k], f"{path}/{k}")
+            return
+        x = whole(a).float()
+        y = b.to(x.device).float()
+        scale = max(float(y.abs().max()), 1e-6)
+        out[path] = float((x - y).abs().max()) / scale
+    walk(got, want, "")
+    return out
+
+
+def sm_world1(dev, smi: str) -> dict:
+    """The cells over a world-1 NCCL (1, 1) mesh on the card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import cells
+
+    require(dev.type == "cuda", f"[sharded models] world-1 NCCL mesh "
+            f"needs the card, got {dev}")
+    out = {}
+    workdir = tempfile.mkdtemp(prefix="world1-", dir=OUT_DIR)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(workdir, "store"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(dev.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        plan = _sm_plan(mesh)
+        qcfg = get_arch("qwen3-0.6b")[0]
+        # 1. the decode cell: a prefill of 2 x 4,096, then 8 steps
+        total = SM_SERVE_SEQ + SM_DECODE_STEPS
+        dcell = cells.build_cell(qcfg, "lm", plan, ShapeSpec(
+            "decode_4k", "decode", dict(seq=total, batch=SM_BATCH)))
+        toks = torch.as_tensor(LMStream(qcfg.vocab, total, SM_BATCH,
+                                        seed=2).batch_at(0)["tokens"],
+                               device=dev)
+        sharding.REDISTRIBUTES.clear()
+        torch.cuda.reset_peak_memory_stats()
+        p = transformer.init(dcell.cfg, seed=0, plan=dcell.plan, device=dev)
+        tk = dcell.plan.distribute(toks[:, :SM_SERVE_SEQ], "dp", None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = transformer.prefill(p, tk, dcell.cfg, dcell.plan,
+                                        max_len=total)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        mesh_logits, step_ms = [sharding.whole(lg)], []
+        for i in range(SM_DECODE_STEPS):
+            t1 = dcell.plan.distribute(
+                toks[:, SM_SERVE_SEQ + i:SM_SERVE_SEQ + i + 1], "dp", None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = dcell.step_fn(p, cache, t1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            mesh_logits.append(sharding.whole(lg))
+        moves = dict(sharding.REDISTRIBUTES)
+        peak = torch.cuda.max_memory_allocated()
+        del cache
+        lp = _sm_local(p)
+        lg, cache = transformer.prefill(lp, toks[:, :SM_SERVE_SEQ],
+                                        dcell.cfg, LOCAL_PLAN, max_len=total)
+        plain_logits = [lg]
+        for i in range(SM_DECODE_STEPS):
+            lg, cache = transformer.decode_step(
+                lp, cache, toks[:, SM_SERVE_SEQ + i:SM_SERVE_SEQ + i + 1],
+                dcell.cfg, LOCAL_PLAN)
+            plain_logits.append(lg)
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(mesh_logits, plain_logits)]
+        bits = all(torch.equal(a, b) for a, b in zip(mesh_logits,
+                                                     plain_logits))
+        require(all(bool(torch.isfinite(a).all()) for a in mesh_logits),
+                "[sharded models] world-1 qwen3 decode logits not finite")
+        out["qwen_decode"] = {"prefill_s": prefill_s, "step_ms": step_ms,
+                              "max_abs_err": errs, "bit_for_bit": bits,
+                              "peak_bytes": peak, "moves": moves}
+        log(f"[sharded models] world-1 NCCL (1, 1) mesh, qwen3-0.6b full "
+            f"width and depth through _lm_decode_cell (bf16 weights, no "
+            f"FSDP): prefill {SM_BATCH} x {SM_SERVE_SEQ} in {prefill_s:.3f} "
+            f"s, {SM_DECODE_STEPS} decode steps mean "
+            f"{sum(step_ms) / len(step_ms):.2f} ms; against the same steps "
+            f"with no mesh: max abs err {max(errs):.3e} (bit for bit "
+            f"{bits}); peak {peak} B; moves {moves}; {smi}")
+        del p, lp, cache, lg, mesh_logits, plain_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["qwen_train"] = _sm_world1_train(dev, plan, qcfg, smi)
+        out["deepseek"] = _sm_world1_deepseek(dev, plan, smi)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+def _sm_world1_train(dev, plan, qcfg, smi: str) -> dict:
+    """One step of the train_4k cell (one microbatch of 2 x 4,096) over
+    the world-1 mesh against the same cell's step with no mesh, at the
+    fp32 policy: the forward is the same code on the same tensors, but
+    autograd adds a tensor's gradient contributions in another order
+    where a use goes through a shard's view (the residual feeds RMSNorm's
+    two products directly on one card, through the region's view under
+    a mesh), so the gradients agree to fp32 rounding; at bf16 compute that
+    rounding flips bf16 ulps of the cotangents."""
+    transformer.set_precision(torch.float32, torch.float32)
+    try:
+        return _sm_world1_train_fp32(
+            dev, plan, dataclasses.replace(qcfg, residual_dtype="float32"),
+            smi)
+    finally:
+        transformer.set_precision()
+
+
+def _sm_world1_train_fp32(dev, plan, qcfg, smi: str) -> dict:
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.sharding import SINGLE_POD_PLAN
+    from repro_torch.launch import cells
+    from repro_torch.train.loop import TrainState
+
+    shape = ShapeSpec("train_4k", "train", dict(seq=SM_TRAIN_SEQ,
+                                                batch=SM_BATCH))
+    cell = cells.build_cell(qcfg, "lm", plan, shape)
+    one = cells.build_cell(qcfg, "lm", SINGLE_POD_PLAN, shape)
+    require(dataclasses.asdict(cell.cfg) == dataclasses.asdict(one.cfg),
+            "[sharded models] the cells bind one config")
+    opt = _lm_optimizer(cell.cfg)
+    b = LMStream(qcfg.vocab, SM_TRAIN_SEQ, SM_BATCH, seed=0).batch_at(0)
+    # no mesh first: its new state stays for the comparison
+    p1 = transformer.init(one.cfg, seed=0, device=dev)
+    s1 = TrainState(step=torch.tensor(SM_START_STEP, dtype=torch.int32,
+                                      device=dev), params=p1,
+                    opt_state=_sm_moments(p1, 5), ef_buf=None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s1, a1 = one.step_fn(s1, {k: torch.as_tensor(v, device=dev)
+                              for k, v in b.items()})
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    sharding.REDISTRIBUTES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    p2 = transformer.init(cell.cfg, seed=0, plan=cell.plan, device=dev)
+    s2 = TrainState(step=cell.plan.place(torch.tensor(
+        SM_START_STEP, dtype=torch.int32, device=dev), ()), params=p2,
+        opt_state=_sm_moments(p2, 5), ef_buf=None)
+    bd = cell.place((None, b), dev)[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s2, a2 = cell.step_fn(s2, bd)
+    torch.cuda.synchronize()
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    moves = dict(sharding.REDISTRIBUTES)
+    aux_err = {k: float((a2[k].float() - a1[k].float()).abs().max())
+               for k in a1}
+    perr = _sm_leaf_errs(s2.params, s1.params)
+    oerr = _sm_leaf_errs(s2.opt_state, s1.opt_state)
+    bits = all(v == 0.0 for v in list(perr.values()) + list(oerr.values())
+               + list(aux_err.values()))
+    require(all(np.isfinite(float(a2[k])) for k in a2),
+            "[sharded models] world-1 qwen3 train aux not finite")
+    require(max(perr.values()) <= SM_TOL and max(oerr.values()) <= SM_TOL,
+            f"[sharded models] world-1 qwen3 train step against no mesh: "
+            f"params {max(perr.values()):.3e}, m / v "
+            f"{max(oerr.values()):.3e} of the leaf max (tol {SM_TOL})")
+    out = {"plain_ms": plain_ms, "mesh_ms": mesh_ms, "aux_err": aux_err,
+           "params_err": max(perr.values()), "opt_err": max(oerr.values()),
+           "bit_for_bit": bits, "peak_bytes": peak, "moves": moves,
+           "loss": float(a2["loss"]), "grad_norm": float(a2["grad_norm"])}
+    log(f"[sharded models] world-1 qwen3-0.6b _lm_train_cell (train_4k "
+        f"binding: remat, KV blocks {cell.cfg.attn_chunk}, seq-sharded "
+        f"residual; one microbatch {SM_BATCH} x {SM_TRAIN_SEQ}, fp32 "
+        f"policy, AdamW from step {SM_START_STEP}): {mesh_ms:.1f} ms (no mesh {plain_ms:.1f} "
+        f"ms); loss {out['loss']:.4f}, grad_norm {out['grad_norm']:.4f}; "
+        f"against no mesh: aux max abs err {max(aux_err.values()):.3e}, "
+        f"params {out['params_err']:.3e}, m / v {out['opt_err']:.3e} of "
+        f"the leaf max (bit for bit {bits}); peak {peak} B; moves {moves}; "
+        f"{smi}")
+    del s1, s2, p1, p2, bd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sm_world1_deepseek(dev, plan, smi: str) -> dict:
+    """deepseek-v3-671b at full width, depth cut to 1 dense + 1 MoE layer:
+    the decode cell (prefill 2 x 512, 8 steps), then one train-cell step
+    under its Adafactor over the same bf16 weights."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import cells
+    from repro_torch.train.loop import TrainState
+
+    cfg = dataclasses.replace(get_arch("deepseek-v3-671b")[0],
+                              **LM_DEEP_DEPTH)
+    total = SM_DEEP_SEQ + SM_DECODE_STEPS
+    dcell = cells.build_cell(cfg, "lm", plan, ShapeSpec(
+        "decode_512", "decode", dict(seq=total, batch=SM_BATCH)))
+    toks = torch.as_tensor(LMStream(cfg.vocab, total, SM_BATCH,
+                                    seed=2).batch_at(0)["tokens"],
+                           device=dev)
+    sharding.REDISTRIBUTES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p = transformer.init(dcell.cfg, seed=0, plan=dcell.plan, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = count_params(p)
+    lg, cache = transformer.prefill(
+        p, dcell.plan.distribute(toks[:, :SM_DEEP_SEQ], "dp", None),
+        dcell.cfg, dcell.plan, max_len=total)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = transformer.prefill(
+        p, dcell.plan.distribute(toks[:, :SM_DEEP_SEQ], "dp", None),
+        dcell.cfg, dcell.plan, max_len=total)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    finite = bool(torch.isfinite(sharding.whole(lg)).all())
+    step_ms = []
+    for i in range(SM_DECODE_STEPS):
+        t1 = dcell.plan.distribute(
+            toks[:, SM_DEEP_SEQ + i:SM_DEEP_SEQ + i + 1], "dp", None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = dcell.step_fn(p, cache, t1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        finite = finite and bool(torch.isfinite(sharding.whole(lg)).all())
+    require(finite, "[sharded models] deepseek decode logits not finite")
+    serve_peak = torch.cuda.max_memory_allocated()
+    serve_moves = dict(sharding.REDISTRIBUTES)
+    del cache, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one train step: accumulation off (one microbatch), the same weights
+    # re-wrapped with the train cell's (FSDP) placements
+    out = {"params": n_params, "init_s": init_s, "prefill_s": prefill_s,
+           "decode_ms": step_ms, "serve_peak_bytes": serve_peak,
+           "serve_moves": serve_moves}
+    for tokens in SM_DEEP_CUTS:
+        try:
+            out["train"] = _sm_deep_step(dev, plan, cfg, p, tokens)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"[sharded models] deepseek train step at 1 x {tokens} "
+                f"ran out of memory ({str(e)[:120]}); cutting the tokens")
+            gc.collect()
+            torch.cuda.empty_cache()
+    require("train" in out, "[sharded models] deepseek train step did not "
+            f"fit at any of {SM_DEEP_CUTS} tokens")
+    t = out["train"]
+    log(f"[sharded models] world-1 deepseek-v3-671b full width, depth cut "
+        f"to {cfg.n_dense_layers} dense + {cfg.n_moe_layers} MoE layer + "
+        f"MTP ({n_params} params, bf16, init {init_s:.1f} s): decode cell "
+        f"prefill {SM_BATCH} x {SM_DEEP_SEQ} in {prefill_s:.3f} s, "
+        f"{SM_DECODE_STEPS} steps mean {sum(step_ms) / len(step_ms):.2f} ms, "
+        f"peak {serve_peak} B; _lm_train_cell one step at 1 x "
+        f"{t['tokens']} (accumulation off; Adafactor over the bf16 "
+        f"weights, leaf by leaf in place, expert leaves in chunks): "
+        f"{t['ms']:.1f} ms, loss {t['loss']:.4f}, grad_norm "
+        f"{t['grad_norm']:.4f}, params moved {t['moved']:.3e}, peak "
+        f"{t['peak_bytes']} B; {smi}")
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sm_deep_step(dev, plan, cfg, p, tokens: int) -> dict:
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import cells
+    from repro_torch.train.loop import TrainState
+
+    tcell = cells.build_cell(dataclasses.replace(cfg, grad_accum=1), "lm",
+                             plan, ShapeSpec("train_512", "train", dict(
+                                 seq=tokens, batch=SM_DEEP_TRAIN[0])))
+    specs = transformer.param_specs(tcell.cfg, tcell.plan)
+    params = _sm_rewrap(p, tcell.plan, specs)
+    opt = _lm_optimizer(tcell.cfg)
+    require(opt.name == "adafactor", "[sharded models] deepseek optimizer")
+    probe = {k: v.to_local()[0, :4].clone() for k, v in
+             params["moe_layers"].items() if k == "w_gate"}
+    state = TrainState(step=tcell.plan.place(torch.tensor(
+        SM_START_STEP, dtype=torch.int32, device=dev), ()), params=params,
+        opt_state=opt.init(params), ef_buf=None)
+    b = LMStream(cfg.vocab, tokens, SM_DEEP_TRAIN[0], seed=0).batch_at(0)
+    bd = tcell.place((None, b), dev)[1]
+    sharding.REDISTRIBUTES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, aux = tcell.step_fn(state, bd)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    moved = float((state.params["moe_layers"]["w_gate"].to_local()[0, :4]
+                   .float() - probe["w_gate"].float()).abs().max())
+    require(all(np.isfinite(float(aux[k])) for k in aux),
+            "[sharded models] deepseek train aux not finite")
+    require(moved > 0, "[sharded models] the deepseek step moved nothing")
+    return {"tokens": tokens, "ms": ms, "loss": float(aux["loss"]),
+            "grad_norm": float(aux["grad_norm"]), "moved": moved,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "moves": dict(sharding.REDISTRIBUTES)}
+
+
+def _sm_cases(plan, qcfg, dcfg):
+    """The four-rank cases' cells under ``plan`` (a (2, 2) mesh, or its
+    shape alone for the one-card reference): qwen3-0.6b at full width and
+    depth, deepseek-v3-671b at ``reduced()``."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import cells
+
+    out = {}
+    for name, cfg, pre, train in (
+            ("qwen", qcfg, (SM_BATCH, SM_GLOO_SEQ),
+             (SM_GLOO_TRAIN_BATCH, SM_GLOO_SEQ)),
+            ("deepseek", dcfg, SM_DEEP_REDUCED["prefill"],
+             SM_DEEP_REDUCED["train"])):
+        total = pre[1] + SM_GLOO_DECODE_STEPS
+        out[name] = {
+            "prefill": cells.build_cell(cfg, "lm", plan, ShapeSpec(
+                "prefill", "prefill", dict(seq=pre[1], batch=pre[0]))),
+            "decode": cells.build_cell(cfg, "lm", plan, ShapeSpec(
+                "decode", "decode", dict(seq=total, batch=pre[0]))),
+            "train": cells.build_cell(cfg, "lm", plan, ShapeSpec(
+                "train", "train", dict(seq=train[1], batch=train[0]))),
+            "pre": pre, "total": total}
+    return out
+
+
+def _sm_cfgs():
+    qcfg = dataclasses.replace(get_arch("qwen3-0.6b")[0],
+                               residual_dtype="float32")
+    d = get_arch("deepseek-v3-671b")[0].reduced()
+    dcfg = dataclasses.replace(d, residual_dtype="float32", moe=dataclasses
+                               .replace(d.moe, capacity_factor=8.0))
+    return qcfg, dcfg
+
+
+def _sm_run(cs: dict, dev, one_card: bool) -> dict:
+    """Each case's prefill cell, decode steps and train step at the fp32
+    policy: the values (gathered whole) and times."""
+    from repro_torch.distributed import sharding
+    from repro_torch.train.loop import TrainState
+
+    out = {}
+    for name, c in cs.items():
+        res = {"ms": {}}
+        pc, dc, tc = c["prefill"], c["decode"], c["train"]
+        plan = LOCAL_PLAN if one_card else pc.plan
+        b, s = c["pre"]
+        toks = torch.as_tensor(LMStream(pc.cfg.vocab, c["total"], b,
+                                        seed=2).batch_at(0)["tokens"],
+                               device=dev)
+        p = transformer.init(pc.cfg, seed=0, plan=plan, device=dev)
+        tk = toks[:, :s] if one_card else plan.distribute(toks[:, :s], "dp",
+                                                          None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = transformer.prefill(p, tk, pc.cfg, plan,
+                                        max_len=c["total"])
+        torch.cuda.synchronize()
+        res["ms"]["prefill"] = (time.perf_counter() - t0) * 1e3
+        logits = [sharding.whole(lg).float()]
+        del p
+        dplan = LOCAL_PLAN if one_card else dc.plan
+        dp = transformer.init(dc.cfg, seed=0, plan=dplan, device=dev)
+        res["ms"]["decode"] = []
+        for i in range(SM_GLOO_DECODE_STEPS):
+            t1 = toks[:, s + i:s + i + 1]
+            if not one_card:
+                t1 = dplan.distribute(t1, "dp", None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = transformer.decode_step(dp, cache, t1, dc.cfg, dplan)
+            torch.cuda.synchronize()
+            res["ms"]["decode"].append((time.perf_counter() - t0) * 1e3)
+            logits.append(sharding.whole(lg).float())
+        res["logits"] = logits
+        del dp, cache
+        tplan = LOCAL_PLAN if one_card else tc.plan
+        params = transformer.init(tc.cfg, seed=0, plan=tplan, device=dev)
+        step0 = torch.tensor(SM_START_STEP, dtype=torch.int32, device=dev)
+        state = TrainState(step=step0 if one_card else tplan.place(step0, ()),
+                           params=params, opt_state=_sm_moments(params, 5),
+                           ef_buf=None)
+        shp = tuple(tc.args[1]["tokens"].shape)
+        n_rows = int(np.prod(shp[:-1]))
+        tb = LMStream(tc.cfg.vocab, shp[-1], n_rows, seed=0).batch_at(0)
+        tb = {k: v.reshape(shp) for k, v in tb.items()}
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in tb.items()} \
+            if one_card else tc.place((None, tb), dev)[1]
+        step = tc.step_fn
+        if one_card:
+            step = make_train_step(
+                partial(transformer.loss_fn, cfg=tc.cfg, plan=LOCAL_PLAN),
+                _lm_optimizer(tc.cfg), accum=shp[0] if len(shp) == 3
+                else 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = step(state, tb)
+        torch.cuda.synchronize()
+        res["ms"]["train"] = (time.perf_counter() - t0) * 1e3
+        res["aux"] = {k: float(v) for k, v in aux.items()}
+        res["params"] = state.params
+        res["opt_state"] = state.opt_state
+        out[name] = res
+    return out
+
+
+def sm_gloo_rank(rank: int, world: int, workdir: str, device: str) -> None:
+    """One of the four ranks sharing the card (``device``, the parent's)
+    under gloo on a (2, 2) mesh: every case through the port's cells, each
+    value gathered whole on this rank and held against the one-card
+    reference."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import sharding
+
+    dev = torch.device(device)
+    require(dev.type == "cuda", f"[sharded models] gloo rank {rank} needs "
+            f"the card, got {dev}")
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
+    t_all = time.perf_counter()
+    transformer.set_precision(torch.float32, torch.float32)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(world).reshape(2, 2),
+                          mesh_dim_names=("data", "model"))
+        qcfg, dcfg = _sm_cfgs()
+        cs = _sm_cases(_sm_plan(mesh), qcfg, dcfg)
+        ref = torch.load(os.path.join(workdir, "one_card.pt"),
+                         map_location="cpu", mmap=True)
+        sharding.REDISTRIBUTES.clear()
+        torch.cuda.reset_peak_memory_stats()
+        got = _sm_run(cs, dev, one_card=False)
+        out = {"rank": rank, "moves": dict(sharding.REDISTRIBUTES),
+               "peak_bytes": torch.cuda.max_memory_allocated(), "cases": {}}
+        for name, r in got.items():
+            want = ref[name]
+            logits = [float((a.cpu() - b).abs().max()) / max(
+                float(b.abs().max()), 1e-6)
+                for a, b in zip(r["logits"], want["logits"])]
+            argmax = [bool(torch.equal(a.cpu().argmax(-1), b.argmax(-1)))
+                      for a, b in zip(r["logits"], want["logits"])]
+            perr = _sm_leaf_errs(r["params"], want["params"])
+            oerr = _sm_leaf_errs(r["opt_state"], want["opt_state"])
+            worst = max(perr, key=perr.get)
+            worst_o = max(oerr, key=oerr.get)
+            out["cases"][name] = {
+                "logits_err": logits, "argmax_equal": argmax,
+                "aux_err": {k: abs(r["aux"][k] - want["aux"][k]) / max(
+                    abs(want["aux"][k]), 1e-6) for k in want["aux"]},
+                "worst_leaf": worst, "worst_err": perr[worst],
+                "worst_state": worst_o, "worst_state_err": oerr[worst_o],
+                "ms": r["ms"]}
+        out["wall_s"] = time.perf_counter() - t_all
+    finally:
+        transformer.set_precision()
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def sm_gloo4(dev, smi: str) -> dict:
+    """The one-card reference on the card, then four gloo ranks sharing
+    it (spawned), each held against it."""
+    import torch.multiprocessing as mp
+    from types import SimpleNamespace
+
+    qcfg, dcfg = _sm_cfgs()
+    shape_only = SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 mesh=torch.zeros((2, 2)))
+    cs = _sm_cases(_sm_plan(shape_only), qcfg, dcfg)
+    workdir = tempfile.mkdtemp(prefix="gloo4-models-", dir=OUT_DIR)
+    out = {}
+    try:
+        transformer.set_precision(torch.float32, torch.float32)
+        try:
+            t0 = time.perf_counter()
+            ref = _sm_run(cs, dev, one_card=True)
+            out["one_card_s"] = time.perf_counter() - t0
+        finally:
+            transformer.set_precision()
+        out["one_card_ms"] = {k: v["ms"] for k, v in ref.items()}
+        torch.save({k: {"logits": [x.cpu() for x in v["logits"]],
+                        "aux": v["aux"],
+                        "params": tree_map(lambda t: t.detach().cpu(),
+                                           v["params"]),
+                        "opt_state": tree_map(lambda t: t.detach().cpu(),
+                                              v["opt_state"])}
+                    for k, v in ref.items()},
+                   os.path.join(workdir, "one_card.pt"))
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        spawn = mp.get_context("spawn")
+        procs = [spawn.Process(target=sm_gloo_rank,
+                               args=(r, SM_WORLD, workdir, str(dev)))
+                 for r in range(SM_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + SM_LIMIT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.perf_counter()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        require(not hung, f"[sharded models] ranks {hung} outlived "
+                f"{SM_LIMIT_S} s")
+        codes = [p.exitcode for p in procs]
+        require(all(c == 0 for c in codes), f"[sharded models] a rank "
+                f"failed: exit codes {codes}")
+        out["ranks_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(SM_WORLD):
+            with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["ranks"] = ranks
+    for r in ranks:
+        for name, c in r["cases"].items():
+            require(c["worst_err"] <= SM_PARAM_TOL
+                    and c["worst_state_err"] <= SM_TOL
+                    and max(c["logits_err"]) <= SM_TOL
+                    and max(c["aux_err"].values()) <= SM_TOL,
+                    f"[sharded models] gloo rank {r['rank']} {name}: worst "
+                    f"leaf {c['worst_leaf']} {c['worst_err']:.3e} (tol "
+                    f"{SM_PARAM_TOL}), worst m / v {c['worst_state']} "
+                    f"{c['worst_state_err']:.3e}, logits "
+                    f"{max(c['logits_err']):.3e}, aux {c['aux_err']} (tol "
+                    f"{SM_TOL} of each leaf's max)")
+    for name in ranks[0]["cases"]:
+        cs_ = [r["cases"][name] for r in ranks]
+        worst = max(cs_, key=lambda c: c["worst_err"])
+        ms = ranks[0]["cases"][name]["ms"]
+        log(f"[sharded models] four gloo ranks on one card, (2, 2) mesh, "
+            f"{name} ({'full width and depth' if name == 'qwen' else 'reduced()'}"
+            f", fp32 policy): every rank's params within {SM_PARAM_TOL} and "
+            f"m / v within {SM_TOL} of each leaf's max of the one-card "
+            f"step: worst leaf {worst['worst_leaf']} "
+            f"{worst['worst_err']:.3e}, worst m / v "
+            f"{max(c['worst_state_err'] for c in cs_):.3e}, logits "
+            f"{max(max(c['logits_err']) for c in cs_):.3e} (argmax equal "
+            f"{all(all(c['argmax_equal']) for c in cs_)}), loss / "
+            f"grad_norm rel err {max(max(c['aux_err'].values()) for c in cs_):.3e}; "
+            f"rank 0: prefill {ms['prefill']:.1f} ms, decode "
+            f"{[round(x, 1) for x in ms['decode']]} ms, train "
+            f"{ms['train']:.1f} ms (one card "
+            f"{out['one_card_ms'][name]['train']:.1f} ms)")
+    log(f"[sharded models] four gloo ranks: wall {out['ranks_s']:.1f} s "
+        f"(one-card reference {out['one_card_s']:.1f} s); per rank wall "
+        f"{[round(r['wall_s'], 1) for r in ranks]} s, max_memory_allocated "
+        f"{[r['peak_bytes'] for r in ranks]} B; rank 0 moves by kind "
+        f"{ranks[0]['moves']}; {smi}")
+    return out
+
+
+def phase_sharded_models(dev, card) -> dict:
+    """Models sharded over a mesh: the world-1 NCCL mesh (qwen3-0.6b's
+    decode and train_4k cells against no mesh; deepseek-v3-671b at full
+    width serving and taking an Adafactor step), then four gloo ranks
+    sharing the card on a (2, 2) mesh against the one-card steps."""
+    smi = card["nvidia_smi"]
+    t0 = time.perf_counter()
+    out = {"card": smi, "part_s": {}}
+    t = time.perf_counter()
+    out["world1"] = sm_world1(dev, smi)
+    out["part_s"]["world1"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["gloo4"] = sm_gloo4(dev, smi)
+    out["part_s"]["gloo4"] = time.perf_counter() - t
+    out["s"] = time.perf_counter() - t0
+    log(f"[sharded models] phase {out['s']:.1f} s; by part "
+        f"{ {k: round(v, 1) for k, v in out['part_s'].items()} }")
+    RESULTS["sharded_models"] = out
+    return out
+
+
 def kernel_line() -> dict:
     """Each kernel at its main path's shape (``candidate_topk``: the served
     chain, with its one-step, DEEP-10M and served forest rows-by-id
@@ -5601,6 +6307,12 @@ def main() -> int:
         f"{torch.cuda.memory_allocated()} B")
     with phase("train"):
         phase_train(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[sharded models] before the phase: memory_allocated "
+        f"{torch.cuda.memory_allocated()} B")
+    with phase("sharded models"):
+        phase_sharded_models(dev, card)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)

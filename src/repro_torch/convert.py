@@ -29,9 +29,11 @@ from repro_torch.core.two_level import (TwoLevelConfig, TwoLevelIndex,
                                         check_levels, check_sidecars,
                                         concat_forest, entity_buckets)
 from repro_torch.device import resolve
+from repro_torch.distributed.sharding import LOCAL_PLAN
 from repro_torch.models import recsys, schnet, transformer
 from repro_torch.train.compression import make_ef_transform
 from repro_torch.train.loop import TrainState
+from repro_torch.train.optim import state_specs
 
 __all__ = ["index_from_arrays", "tree_from_arrays", "metadata_from_arrays",
            "lexical_from_arrays", "lm_params_from_arrays",
@@ -172,7 +174,17 @@ def _tree_from_arrays(want: dict, tree: dict, dev) -> dict:
     return walk(want, tree, "")
 
 
-def lm_params_from_arrays(tree: dict, cfg, device=None) -> dict:
+def _placed(tree, specs, plan):
+    """``tree``'s leaves placed over ``plan``'s mesh by ``specs`` (the
+    same structure); ``tree`` itself with no plan or no mesh."""
+    if plan is None or plan.mesh is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _placed(v, specs[k], plan) for k, v in tree.items()}
+    return plan.place(tree, specs)
+
+
+def lm_params_from_arrays(tree: dict, cfg, device=None, plan=None) -> dict:
     """The port's parameter tree from the reference's (nested dicts of
     numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``).
 
@@ -191,12 +203,16 @@ def lm_params_from_arrays(tree: dict, cfg, device=None) -> dict:
     expert ``sh_*``; ``mtp``: ``proj`` (2D, D), ``norm_h``, ``norm_e`` and
     one layer stacked ``(1, ...)``).  Each leaf is checked against
     ``transformer.param_shapes(cfg)`` and cast to its dtype; a missing,
-    extra or misshapen leaf raises ``ValueError``."""
-    return _tree_from_arrays(transformer.param_shapes(cfg), tree,
-                             resolve(device))
+    extra or misshapen leaf raises ``ValueError``.  Under ``plan``'s
+    bound mesh each leaf is placed by ``transformer.param_specs(cfg,
+    plan)`` (every rank passes the whole arrays)."""
+    return _placed(_tree_from_arrays(transformer.param_shapes(cfg), tree,
+                                     resolve(device)),
+                   transformer.param_specs(cfg, plan or LOCAL_PLAN), plan)
 
 
-def recsys_params_from_arrays(tree: dict, cfg, device=None) -> dict:
+def recsys_params_from_arrays(tree: dict, cfg, device=None,
+                              plan=None) -> dict:
     """The port's DLRM / DCN-v2 / DIN / SASRec tree from the reference's
     (nested dicts of numpy arrays), the identity leaf for leaf: DLRM
     ``table`` (sum of rows, D), ``bot`` / ``top`` MLPs ``w{i}`` (in, out)
@@ -205,28 +221,39 @@ def recsys_params_from_arrays(tree: dict, cfg, device=None) -> dict:
     SASRec ``item_table`` (rows rounded up from n_items + 1), ``pos_table``,
     ``blocks`` (every leaf stacked ``(n_blocks, ...)``) and ``final_ln``.
     Checked against ``recsys.param_shapes(cfg)``; a missing, extra or
-    misshapen leaf raises ``ValueError``."""
-    return _tree_from_arrays(recsys.param_shapes(cfg), tree, resolve(device))
+    misshapen leaf raises ``ValueError``.  Placed by ``param_specs``
+    under ``plan``'s bound mesh."""
+    return _placed(_tree_from_arrays(recsys.param_shapes(cfg), tree,
+                                     resolve(device)),
+                   recsys.param_specs(cfg, plan or LOCAL_PLAN), plan)
 
 
-def schnet_params_from_arrays(tree: dict, cfg, device=None) -> dict:
+def schnet_params_from_arrays(tree: dict, cfg, device=None,
+                              plan=None) -> dict:
     """The port's SchNet tree from the reference's, the identity leaf for
     leaf: ``embed_in`` (d_feat, h), ``inter`` (every leaf stacked
     ``(n_interactions, ...)``), ``head_w1`` / ``head_b1`` / ``head_w2``.
     Checked against ``schnet.param_shapes(cfg)``; a missing, extra or
-    misshapen leaf raises ``ValueError``."""
-    return _tree_from_arrays(schnet.param_shapes(cfg), tree, resolve(device))
+    misshapen leaf raises ``ValueError``.  Placed by ``param_specs``
+    under ``plan``'s bound mesh."""
+    return _placed(_tree_from_arrays(schnet.param_shapes(cfg), tree,
+                                     resolve(device)),
+                   schnet.param_specs(cfg, plan or LOCAL_PLAN), plan)
+
+
+def _model(cfg):
+    if isinstance(cfg, LMConfig):
+        return transformer
+    if isinstance(cfg, SchNetConfig):
+        return schnet
+    return recsys
 
 
 def _param_shapes(cfg):
-    if isinstance(cfg, LMConfig):
-        return transformer.param_shapes(cfg)
-    if isinstance(cfg, SchNetConfig):
-        return schnet.param_shapes(cfg)
-    return recsys.param_shapes(cfg)
+    return _model(cfg).param_shapes(cfg)
 
 
-def train_state_from_arrays(tree: dict, cfg, opt, device=None):
+def train_state_from_arrays(tree: dict, cfg, opt, device=None, plan=None):
     """The port's ``TrainState`` from the reference's, given as numpy
     arrays: ``tree`` holds ``step`` (an int32 scalar), ``params`` (the
     model's tree, as the ``*_params_from_arrays`` take it), ``opt_state``
@@ -235,16 +262,28 @@ def train_state_from_arrays(tree: dict, cfg, opt, device=None):
     ``ef_buf`` (fp32, the parameters' shapes).  Every leaf is checked
     against the port's shapes (``param_shapes(cfg)`` and ``opt.init`` of
     them) and cast to their dtypes; a missing, extra or misshapen leaf
-    raises ``ValueError``."""
+    raises ``ValueError``.  Under ``plan``'s bound mesh the state is placed
+    as the reference's train cells shard it: the parameters by
+    ``param_specs``, the optimizer state by ``optim.state_specs``, the
+    step replicated (the error-feedback buffer like the parameters)."""
     dev = resolve(device)
     shapes = _param_shapes(cfg)
     opt_shapes = opt.init(shapes)
     ef = tree.get("ef_buf")
     if ef is not None:
         ef = _tree_from_arrays(make_ef_transform()[0](shapes), ef, dev)
-    return TrainState(
+    state = TrainState(
         step=torch.as_tensor(np.asarray(tree["step"], dtype=np.int32),
                              device=dev),
         params=_tree_from_arrays(shapes, tree["params"], dev),
         opt_state=_tree_from_arrays(opt_shapes, tree["opt_state"], dev),
         ef_buf=ef)
+    if plan is None or plan.mesh is None:
+        return state
+    specs = _model(cfg).param_specs(cfg, plan)
+    return TrainState(
+        step=plan.place(state.step, ()),
+        params=_placed(state.params, specs, plan),
+        opt_state=_placed(state.opt_state,
+                          state_specs(opt, specs, shapes), plan),
+        ef_buf=None if ef is None else _placed(ef, specs, plan))

@@ -38,11 +38,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections import Counter
 from typing import Any, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.analysis.annotations import hot_path
 from repro_torch.core.brute import batched_l2sq, pairwise_l2sq
@@ -51,6 +54,8 @@ from repro_torch.kernels.common import INF, pad_sentinel, stable_topk
 from repro_torch.kernels.ref import bm25_dists_ref
 
 __all__ = ["ShardPlan", "SINGLE_POD_PLAN", "MULTI_POD_PLAN", "LOCAL_PLAN",
+           "REDISTRIBUTES", "move", "local_region", "place_on", "whole",
+           "local", "local_offset", "layer_of",
            "ShardSlot", "MeshCollective",
            "sharded_brute_search", "sharded_ivf_search",
            "sharded_forest_search",
@@ -77,9 +82,12 @@ class ShardPlan:
     (tensor), ``ep`` (expert), ``pp`` (the pod remainder of ``dp``) --
     bound to mesh axes.  ``p`` returns each dimension's axis tuple (the
     content of the reference's ``PartitionSpec``); with no mesh bound
-    every axis counts 1.  ``constrain`` is the identity with no mesh bound
-    and raises with one: the DTensor placements of a model sharded over
-    cards are ROADMAP.md's module item 4, sharded training."""
+    every axis counts 1.  ``placements`` turns those tuples into DTensor
+    placements over the bound ``DeviceMesh``; ``distribute`` places a
+    tensor every rank holds whole, and ``constrain`` redistributes a
+    DTensor (the reference's ``with_sharding_constraint``).  With no mesh
+    bound ``constrain`` is the identity, and the model runs on plain
+    tensors on one card."""
     dp: tuple = ()
     fsdp: tuple = ()
     tp: tuple = ()
@@ -103,20 +111,74 @@ class ShardPlan:
     def p(self, *dims) -> tuple:
         return tuple(self.resolve(d) for d in dims)
 
+    def placements(self, *dims) -> tuple:
+        """The DTensor placements of ``p(*dims)`` over the bound mesh: one
+        a mesh dimension, ``Shard(d)`` where that mesh axis is in dim
+        ``d``'s tuple, else ``Replicate()``.  A dim over several axes
+        (``ep`` = ("data", "model")) gets a ``Shard`` on each, which
+        DTensor splits with the first mesh dimension outermost: the
+        reference's ``P(("data", "model"))`` when the tuple lists its axes
+        in mesh order, as every role of the three plans does.  A tuple
+        against mesh order has no plain-``Shard`` layout and raises."""
+        return self.spec_placements(self.p(*dims))
+
+    def layout(self, *dims):
+        """``placements(*dims)`` under a bound mesh, ``None`` with none:
+        what ``local_region`` and ``move`` take (no mesh, no move)."""
+        return None if self.mesh is None else self.placements(*dims)
+
+    def spec_placements(self, spec) -> tuple:
+        """``placements`` of an already resolved spec (``p``'s tuples, as
+        ``param_specs`` holds them)."""
+        if self.mesh is None:
+            raise ValueError("placements need a bound mesh (with_mesh)")
+        names = tuple(self.mesh.mesh_dim_names)
+        out = [Replicate()] * len(names)
+        for d, axes in enumerate(spec):
+            if not axes:
+                continue
+            at = [names.index(a) for a in axes]
+            if at != sorted(at):
+                raise ValueError(
+                    f"dim {d} lists mesh axes {axes} against the mesh's "
+                    f"order {names}: no plain Shard layout equals it")
+            for i in at:
+                if out[i] != Replicate():
+                    raise ValueError(f"mesh axis {names[i]!r} shards two "
+                                     f"dims of {spec}")
+                out[i] = Shard(d)
+        return tuple(out)
+
     def constrain(self, x, *dims):
         """``x`` itself when no mesh is bound, as the reference's
-        ``with_sharding_constraint`` is then skipped.  With a mesh bound
-        it raises ``NotImplementedError``: the port does not shard a model
-        over cards yet (DTensor placements, ROADMAP.md module item 4,
-        sharded training), and returning ``x`` there would silently
-        replicate it."""
+        ``with_sharding_constraint`` is then skipped.  Under a bound mesh
+        ``x`` must be a DTensor and comes back redistributed to
+        ``placements(*dims)``; a plain tensor raises ``TypeError`` (taking
+        it as replicated would hide a value that never reached the
+        mesh)."""
         if self.mesh is None:
             return x
-        raise NotImplementedError(
-            f"ShardPlan.constrain{self.p(*dims)} under a bound mesh: "
-            "sharding a model over cards (DTensor placements: FSDP, TP, EP) "
-            "is ROADMAP.md module item 4, sharded training; serve or train "
-            "on one card with no mesh")
+        if not isinstance(x, DTensor):
+            raise TypeError(
+                f"ShardPlan.constrain{self.p(*dims)} under a bound mesh got "
+                f"a plain {type(x).__name__}: place it first "
+                "(ShardPlan.distribute, or a DTensor parameter)")
+        return move(x, self.placements(*dims))
+
+    def distribute(self, x, *dims):
+        """``x`` (the whole value, the same on every rank) placed over the
+        bound mesh as ``placements(*dims)``: each rank keeps its own shard,
+        copied out of ``x``, with no communication.  No mesh: ``x``."""
+        if self.mesh is None or isinstance(x, DTensor):
+            return self.constrain(x, *dims)
+        return self.place(x, self.p(*dims))
+
+    def place(self, x, spec):
+        """``distribute`` by a resolved spec (a parameter's)."""
+        if self.mesh is None:
+            return x
+        return place_on(torch.as_tensor(x), self.mesh,
+                        self.spec_placements(spec))
 
     def axis_size(self, role: str) -> int:
         if self.mesh is None:
@@ -150,6 +212,204 @@ SINGLE_POD_PLAN = ShardPlan(
 MULTI_POD_PLAN = ShardPlan(
     dp=("pod", "data"), fsdp=("pod", "data"), tp=("model",),
     ep=("data", "model"), pp=("pod",))
+
+
+# ---------------------------------------------------------------------------
+# Placements and moves of a model over a mesh
+# ---------------------------------------------------------------------------
+
+
+def _move(x, want):
+    """``x.redistribute(want)``, made here with the process groups' own
+    ``all_gather_into_tensor`` and ``all_reduce`` (the collectives that
+    NCCL and gloo both run on card tensors; gloo has no all-to-all or
+    reduce-scatter there, and DTensor's functional collectives are not
+    used): every mesh dim that changes, and every later one sharding the
+    same tensor dim, is gathered (last mesh dim first) or reduced to
+    replicated, then ``want``'s shards are cut (first mesh dim first), as
+    DTensor nests them."""
+    want = tuple(want)
+    have = tuple(x.placements)
+    if have == want:
+        return x
+    mesh = x.device_mesh
+    if all(mesh.size(m) == 1 for m in range(len(have))
+           if have[m] != want[m]):
+        # every changing mesh dim holds one rank: the local tensor already
+        # is the value in either layout (no copy, the same strides)
+        return DTensor.from_local(x.to_local(), mesh, want, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+    n = len(have)
+    widen = {m for m in range(n) if have[m] != want[m]}
+    for m in sorted(widen):
+        # a later mesh dim cutting a tensor dim that this one gives up or
+        # takes sits inside it: it is cut again
+        dims = {q.dim for q in (have[m], want[m]) if isinstance(q, Shard)}
+        widen |= {j for j in range(m + 1, n)
+                  if isinstance(have[j], Shard) and have[j].dim in dims}
+    loc = x.to_local()
+    cur = list(have)
+    for m in sorted(widen, reverse=True):
+        group = mesh.get_group(m)
+        if isinstance(cur[m], Partial):
+            loc = loc.contiguous().clone()
+            dist.all_reduce(loc, group=group)
+        elif isinstance(cur[m], Shard):
+            d = cur[m].dim
+            k = mesh.size(m)
+            part = loc.movedim(d, 0).contiguous()
+            out = part.new_empty((k * part.shape[0],) + part.shape[1:])
+            dist.all_gather_into_tensor(out, part, group=group)
+            loc = out.movedim(0, d)
+        cur[m] = Replicate()
+    for m in sorted(widen):
+        if isinstance(want[m], Shard):
+            d = want[m].dim
+            k = mesh.size(m)
+            loc = loc.tensor_split(k, dim=d)[mesh.get_local_rank(m)]
+            cur[m] = want[m]
+        elif isinstance(want[m], Partial):
+            raise ValueError(f"no move makes a partial sum: {want}")
+    return DTensor.from_local(loc.contiguous(), mesh, want,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+class _Move(torch.autograd.Function):
+    """``_move`` with its backward through ``_move`` too: the gradient
+    goes back to the input's placements (a partial sum's gradient is
+    replicated), never through DTensor's own backward collectives."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.src = tuple(Replicate() if isinstance(q, Partial) else q
+                        for q in x.placements)
+        return _move(x.detach(), want)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _move(g, ctx.src), None
+
+
+def move(x, want):
+    """A DTensor to the placements ``want`` (differentiable), counted in
+    ``REDISTRIBUTES``; ``want`` ``None`` (``ShardPlan.layout`` with no
+    mesh bound): ``x`` as it is."""
+    if want is None:
+        return x
+    _count_redistribute(x.placements, want)
+    if tuple(x.placements) == tuple(want):
+        return x
+    return _Move.apply(x, tuple(want))
+
+
+def local_region(mesh, fn, ins, outs):
+    """``fn`` on each rank's shards: every ``(value, placements)`` of
+    ``ins`` moved to its placements and handed to ``fn`` as the local
+    tensor (``placements`` ``None``: a plain value, passed as is); each
+    of ``fn``'s outputs wrapped with its placements from ``outs`` (one
+    placement tuple, or a list of them).  A mesh dim over which any input
+    is sharded is one the work is split over: an input replicated there
+    gets its gradient as a partial sum, so every output must be sharded
+    or a partial sum on such a dim.  Shards are even (the callers pad to
+    divisibility, as the reference does).  With no mesh (``mesh``
+    ``None``) ``fn`` runs on the values as they are, so the one-card and
+    the sharded model are one code path.  The port's counterpart of
+    ``local_map``, which it does not use: its gradients and its input
+    moves go through DTensor's own collectives."""
+    if mesh is None:
+        return fn(*(x for x, _ in ins))
+    active = {m for _, pl in ins if pl is not None
+              for m, q in enumerate(pl) if isinstance(q, Shard)}
+    loc = []
+    for x, pl in ins:
+        if pl is None:
+            loc.append(x)
+            continue
+        gpl = tuple(Partial() if isinstance(q, Replicate) and m in active
+                    else q for m, q in enumerate(pl))
+        loc.append(move(x, pl).to_local(grad_placements=gpl))
+    out = fn(*loc)
+    if isinstance(outs, list):
+        return tuple(DTensor.from_local(o, mesh, tuple(pl), run_check=False)
+                     for o, pl in zip(out, outs))
+    return DTensor.from_local(out, mesh, tuple(outs), run_check=False)
+
+
+def place_on(x, mesh, placements):
+    """``x`` (the whole value, the same on every rank) as a DTensor on
+    ``mesh``: each rank keeps its own shard, copied out of ``x`` (no
+    communication, and no view keeping the whole value alive)."""
+    pl = tuple(placements)
+    dt = distribute_tensor(x, mesh, pl, src_data_rank=None)
+    loc = dt.to_local()
+    if loc.untyped_storage().nbytes() > loc.numel() * loc.element_size():
+        dt = DTensor.from_local(loc.clone(), mesh, pl, run_check=False,
+                                shape=x.shape, stride=x.stride())
+    return dt
+
+
+def layer_of(w, i: int):
+    """Layer ``i`` of a stacked parameter (a DTensor's leading layer dim
+    never sharded): a view of the local shard, re-wrapped, so the
+    gradient flows back into the stack; a plain tensor's ``w[i]``."""
+    if not isinstance(w, DTensor):
+        return w[i]
+    pl = tuple(Shard(q.dim - 1) if isinstance(q, Shard) else q
+               for q in w.placements)
+    return DTensor.from_local(w.to_local()[i], w.device_mesh, pl,
+                              run_check=False)
+
+
+def local(x):
+    """A DTensor's local shard; any other value as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def local_offset(x) -> tuple:
+    """Where ``x``'s local shard starts in the whole value, per dim (all 0
+    for a plain tensor)."""
+    if not isinstance(x, DTensor):
+        return (0,) * x.dim()
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    return tuple(compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements)[1])
+
+
+def whole(x):
+    """A DTensor's whole value on every rank (a plain tensor; gathered
+    as ``move`` gathers); any other value as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return move(x, [Replicate()] * x.device_mesh.ndim).to_local()
+
+
+# what ``move`` (and so ``constrain``) asked of the mesh, by the kind of
+# each mesh dimension's move (``all_gather`` Shard -> Replicate,
+# ``all_to_all`` Shard(a) -> Shard(b), ``all_reduce`` / ``reduce_scatter``
+# from Partial, ``slice`` Replicate -> Shard, no communication); a move
+# already met counts ``none``.  Read and reset by whoever drives a
+# sharded step.
+REDISTRIBUTES: Counter = Counter()
+
+
+def _count_redistribute(have, want) -> None:
+    kinds = []
+    for a, b in zip(have, want):
+        if a == b:
+            continue
+        if isinstance(a, Partial):
+            kinds.append("all_reduce" if isinstance(b, Replicate)
+                         else "reduce_scatter")
+        elif isinstance(b, Replicate):
+            kinds.append("all_gather")
+        elif isinstance(a, Replicate):
+            kinds.append("slice")
+        else:
+            kinds.append("all_to_all")
+    for k in kinds or ["none"]:
+        REDISTRIBUTES[k] += 1
 
 
 # ---------------------------------------------------------------------------

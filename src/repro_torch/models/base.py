@@ -98,15 +98,19 @@ def _init_array(seed: int, name: str, shape, init, dtype, device):
 
 
 def build_params(fn: Callable, cfg, seed: int = 0, dtype=torch.float32,
-                 device=None):
+                 device=None, plan=None):
     """The description's tensors, initialised on ``device`` (``None``:
-    the card)."""
+    the card).  Under ``plan``'s bound mesh each rank draws the same
+    whole array and keeps its shard of the parameter's spec (a DTensor,
+    ``ShardPlan.place``), so sharded and unsharded parameters are equal."""
     dev = resolve(device)
 
     def mk(name, shape, spec, init="fanin", param_dtype=None):
-        del spec
-        return _init_array(seed, name, tuple(shape), init,
-                           param_dtype or dtype, dev)
+        x = _init_array(seed, name, tuple(shape), init,
+                        param_dtype or dtype, dev)
+        if plan is None or plan.mesh is None:
+            return x
+        return plan.place(x, spec if spec is not None else ())
 
     with torch.no_grad():
         return fn(cfg, mk)

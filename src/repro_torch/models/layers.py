@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["rms_norm", "rope", "rope_tables", "swiglu", "gelu_mlp",
-           "softmax_xent", "shifted_softplus"]
+           "softmax_xent", "xent_terms", "xent_reduce", "shifted_softplus"]
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -66,22 +66,33 @@ def shifted_softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x)) - math.log(2.0)
 
 
-def softmax_xent(logits, labels, *, z_loss: float = 0.0, mask=None):
-    """Token-mean cross entropy in fp32 with optional z-loss.
-
-    logits (..., V) any float dtype; labels integer (...); mask
-    broadcastable to labels (1 = count).  Returns (loss_scalar, aux dict).
-    """
+def xent_terms(logits, labels, *, z_loss: float = 0.0):
+    """Per-token (nll with z-loss, argmax == label) of ``softmax_xent``."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     nll = lse - ll
     if z_loss:
         nll = nll + z_loss * lse ** 2
+    return nll, lf.argmax(dim=-1) == labels
+
+
+def xent_reduce(nll, hit, mask=None):
+    """``softmax_xent``'s masked token means of ``xent_terms``."""
     if mask is None:
         mask = torch.ones_like(nll)
     mask = mask.float()
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = (nll * mask).sum() / denom
-    acc = ((lf.argmax(dim=-1) == labels) * mask).sum() / denom
+    acc = (hit * mask).sum() / denom
     return loss, {"nll": loss, "accuracy": acc}
+
+
+def softmax_xent(logits, labels, *, z_loss: float = 0.0, mask=None):
+    """Token-mean cross entropy in fp32 with optional z-loss.
+
+    logits (..., V) any float dtype; labels integer (...); mask
+    broadcastable to labels (1 = count).  Returns (loss_scalar, aux dict).
+    """
+    nll, hit = xent_terms(logits, labels, z_loss=z_loss)
+    return xent_reduce(nll, hit, mask)

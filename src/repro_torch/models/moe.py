@@ -22,10 +22,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial
 
 from repro_torch.analysis.annotations import hot_path
 from repro_torch.configs.base import LMConfig, MoEConfig
-from repro_torch.distributed.sharding import ShardPlan
+from repro_torch.distributed.sharding import ShardPlan, local_region
 from repro_torch.kernels.common import stable_topk
 from repro_torch.models.layers import swiglu
 
@@ -112,10 +113,60 @@ def _slot(ranks, capacity: int):
     return torch.clamp(ranks.long(), max=capacity)
 
 
+def _dispatch(xt, router_w, router_bias, moe_cfg: MoEConfig, cap: int):
+    """Route every group of ``xt`` (G, T, D): the expert tiles (G, E, C,
+    D), their gates (G, E, C) fp32 and the token-slot table (G, E, C)."""
+    g, t, d = xt.shape
+    dev = xt.device
+    xs, gs, ds = [], [], []
+    for x_g in xt:
+        top_i, gates = _route(x_g, router_w, router_bias, moe_cfg)
+        dispatch, (sorted_e, ranks, order) = _dispatch_indices(
+            top_i, moe_cfg.e_pad, cap)
+        x_pad = torch.cat([x_g, torch.zeros((1, d), dtype=x_g.dtype,
+                                            device=dev)], dim=0)
+        gate_flat = gates.reshape(-1)[order.long()]
+        g_e = torch.zeros((moe_cfg.e_pad, cap + 1), dtype=torch.float32,
+                          device=dev)
+        g_e[sorted_e.long(), _slot(ranks, cap)] = gate_flat
+        xs.append(x_pad[dispatch.long()])                   # (E, C, D)
+        gs.append(g_e[:, :cap])
+        ds.append(dispatch)
+    return torch.stack(xs), torch.stack(gs), torch.stack(ds)
+
+
+def _combine(y_e, g_e, dispatch, t: int):
+    """The gated expert outputs (G, E, C, D) scattered back to each
+    group's ``t`` tokens (G, t, D); slot-table entries equal to ``t`` (the
+    dummy row) land in a spare row that is cut off."""
+    d = y_e.shape[-1]
+    ys = []
+    for y_g, g_g, d_g in zip(y_e, g_e, dispatch):
+        w = (y_g * g_g[..., None].to(y_g.dtype)).reshape(-1, d)
+        out = torch.zeros((t + 1, d), dtype=y_g.dtype, device=y_g.device)
+        out.index_add_(0, d_g.reshape(-1).long(), w)
+        ys.append(out[:t])
+    return torch.stack(ys)
+
+
 @hot_path
-def moe_ffn(p: dict, x, cfg: LMConfig, plan: ShardPlan):
+def moe_ffn(p: dict, x, cfg: LMConfig, plan: ShardPlan, *, cast=None,
+            out_dtype=None):
     """x: (B, S, D) -> (B, S, D).  p: one layer's slice of
-    ``moe_params``."""
+    ``moe_params``, its weights cast to ``cast`` (default: ``x``'s
+    dtype) where they are used; the output in ``out_dtype`` (default:
+    ``x``'s).
+
+    Each stretch between two of the reference's constraints is a
+    ``sharding.local_region`` (with no mesh bound, the plain call).  Under
+    a bound mesh ``x`` is a DTensor over the batch's shards and ``p``
+    holds the DTensor parameters.  The dispatch groups lie over ``dp``
+    where ``dp`` divides both the batch and the groups (a rank's batch
+    rows are then its groups' tokens; else every rank routes every group)
+    and each rank routes and combines its own groups.  The constraint pair
+    ("dp", "tp") -> ("pp", "ep") is the expert all-to-all, the experts run
+    where their weights lie, and the mirror pair brings the outputs
+    back."""
     m = cfg.moe
     b, s, d = x.shape
     g = max(1, cfg.moe_groups)
@@ -124,47 +175,53 @@ def moe_ffn(p: dict, x, cfg: LMConfig, plan: ShardPlan):
         raise ValueError(f"{t_all} tokens do not split into {g} groups")
     tg = t_all // g
     cap = moe_capacity(cfg, tg)
-    xt = x.reshape(g, tg, d)
-    dev = x.device
+    mesh = plan.mesh
+    dp_n = plan.axis_size("dp")
+    even = b % dp_n == 0 and g % dp_n == 0
+    gp = plan.layout(*(("dp",) if even else (None,)), None, None)
+    rep = plan.layout(None, None)
+    cdt = cast or x.dtype
+    odt = out_dtype or x.dtype
 
-    xs, gs, ds = [], [], []
-    for x_g in xt:
-        top_i, gates = _route(x_g, p["router"], p["router_bias"], m)
-        dispatch, (sorted_e, ranks, order) = _dispatch_indices(
-            top_i, m.e_pad, cap)
-        x_pad = torch.cat([x_g, torch.zeros((1, d), dtype=x_g.dtype,
-                                            device=dev)], dim=0)
-        gate_flat = gates.reshape(-1)[order.long()]
-        g_e = torch.zeros((m.e_pad, cap + 1), dtype=torch.float32,
-                          device=dev)
-        g_e[sorted_e.long(), _slot(ranks, cap)] = gate_flat
-        xs.append(x_pad[dispatch.long()])                   # (E, C, D)
-        gs.append(g_e[:, :cap])
-        ds.append(dispatch)
-    x_e = torch.stack(xs)                                   # (G, E, C, D)
-    g_e = torch.stack(gs)
-    dispatch = torch.stack(ds)
+    def c(w):
+        return w.to(cdt) if w.dtype.is_floating_point else w
 
+    def route(x_, router_w, router_bias):
+        return _dispatch(x_.reshape(-1, tg, d), c(router_w),
+                         c(router_bias), m, cap)
+
+    x_e, g_e, dispatch = local_region(
+        mesh, route, [(x, gp), (p["router"], rep),
+                      (p["router_bias"], plan.layout(None))],
+        [gp, gp, gp])
     x_e = plan.constrain(x_e, "dp", "tp", None, None)
     x_e = plan.constrain(x_e, "pp", "ep", None, None)
-    h = F.silu(torch.einsum("gecd,edf->gecf", x_e, p["w_gate"]))
-    h = h * torch.einsum("gecd,edf->gecf", x_e, p["w_up"])
-    y_e = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+    e_pl = plan.layout("ep", None, None)
+    y_e = local_region(
+        mesh, lambda xe, a, u, w: _experts(xe, c(a), c(u), c(w)),
+        [(x_e, plan.layout("pp", "ep", None, None)), (p["w_gate"], e_pl),
+         (p["w_up"], e_pl), (p["w_down"], e_pl)],
+        plan.layout("pp", "ep", None, None))
     y_e = plan.constrain(y_e, "pp", "ep", None, None)
     y_e = plan.constrain(y_e, "dp", "tp", None, None)
+    y = local_region(
+        mesh, lambda ye, ge, dg: _combine(ye, ge, dg, tg).reshape(-1, s, d),
+        [(y_e, gp), (g_e, gp), (dispatch, gp)], gp)
+    # the always-on shared expert: its hidden units over tp
+    bp = plan.layout("dp", None, None)
+    sh = local_region(
+        mesh, lambda x_, a, u, w: swiglu(x_, c(a), c(u), c(w)),
+        [(x, bp), (p["sh_gate"], plan.layout(None, "tp")),
+         (p["sh_up"], plan.layout(None, "tp")),
+         (p["sh_down"], plan.layout("tp", None))],
+        None if bp is None else tuple(
+            Partial() if n in (plan.resolve("tp") or ()) else q
+            for n, q in zip(mesh.mesh_dim_names, bp)))
+    return local_region(mesh, lambda a, b_: (a + b_).to(odt),
+                        [(y, bp), (sh, bp)], bp)
 
-    ys = []
-    for y_g, g_g, d_g in zip(y_e, g_e, dispatch):
-        w = (y_g * g_g[..., None].to(y_g.dtype)).reshape(-1, d)
-        out = torch.zeros((tg + 1, d), dtype=y_g.dtype, device=dev)
-        out.index_add_(0, d_g.reshape(-1).long(), w)
-        ys.append(out[:tg])
-    y = torch.stack(ys).reshape(b, s, d)
 
-    # the always-on shared expert
-    return y + swiglu(
-        x,
-        plan.constrain(p["sh_gate"], None, "tp"),
-        plan.constrain(p["sh_up"], None, "tp"),
-        plan.constrain(p["sh_down"], "tp", None),
-    )
+def _experts(x_e, w_gate, w_up, w_down):
+    h = F.silu(torch.einsum("gecd,edf->gecf", x_e, w_gate))
+    h = h * torch.einsum("gecd,edf->gecf", x_e, w_up)
+    return torch.einsum("gecf,efd->gecd", h, w_down)

@@ -34,11 +34,13 @@ from functools import partial
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.analysis.annotations import hot_path
 from repro_torch.configs.base import (DCNConfig, DINConfig, DLRMConfig,
                                       SASRecConfig)
-from repro_torch.distributed.sharding import LOCAL_PLAN, ShardPlan
+from repro_torch.distributed.sharding import (LOCAL_PLAN, ShardPlan, local,
+                                              local_region, whole)
 from repro_torch.kernels.common import stable_topk
 from repro_torch.models import base
 from repro_torch.models.attention import _ein, attention
@@ -320,8 +322,9 @@ def user_vectors(params, seq, cfg: SASRecConfig,
     return _sasrec_hidden(params, seq, cfg, plan)[:, -1]
 
 
-def _sasrec_loss(params, batch, cfg: SASRecConfig, plan):
-    """BCE over (positive next item, sampled negative) per position."""
+def _sasrec_terms(params, batch, cfg: SASRecConfig, plan):
+    """Per-position BCE over (positive next item, sampled negative), and
+    the positions' mask."""
     dev = _device(params)
     h = _sasrec_hidden(params, batch["seq"], cfg, plan)     # (B, L, D)
     pos = _ids(batch["pos"], dev)
@@ -330,9 +333,21 @@ def _sasrec_loss(params, batch, cfg: SASRecConfig, plan):
     pos_s = (h * pos_e).sum(-1)
     neg_s = (h * neg_e).sum(-1)
     mask = (pos >= 0).float()
-    loss = -(F.logsigmoid(pos_s) + F.logsigmoid(-neg_s))
+    return -(F.logsigmoid(pos_s) + F.logsigmoid(-neg_s)), mask
+
+
+def _sasrec_reduce(loss, mask):
     loss = (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return loss, {"loss": loss}
+
+
+def _ctr_reduce(logits, y):
+    loss = torch.mean(
+        torch.clamp(logits, min=0) - logits * y
+        + torch.log1p(torch.exp(-torch.abs(logits)))
+    )
+    acc = torch.mean(((logits > 0) == (y > 0.5)).float())
+    return loss, {"loss": loss, "accuracy": acc}
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +373,7 @@ def init(cfg, seed: int = 0, plan: ShardPlan = LOCAL_PLAN, *,
     by default; bf16 draws in fp32 chunks, so a 48 GB bf16 table needs no
     96 GB fp32 copy)."""
     return base.build_params(partial(_param_fn, plan=plan), cfg, seed,
-                             dtype=dtype, device=device)
+                             dtype=dtype, device=device, plan=plan)
 
 
 def param_specs(cfg, plan: ShardPlan):
@@ -372,7 +387,14 @@ def param_shapes(cfg, plan: ShardPlan = LOCAL_PLAN):
 
 @hot_path
 def serve_logits(params, batch, cfg, plan: ShardPlan = LOCAL_PLAN):
-    """Pointwise CTR logits for a request batch."""
+    """Pointwise CTR logits for a request batch (under a bound mesh, each
+    rank's shard of the rows: ``_rows``)."""
+    return _rows(_serve_logits, params, batch, cfg, plan,
+                 out=plan.layout("dp"))
+
+
+@hot_path
+def _serve_logits(params, batch, cfg, plan: ShardPlan):
     dev = _device(params)
     if isinstance(cfg, DLRMConfig):
         return _dlrm_forward(params, _dense(batch["dense"], dev),
@@ -392,28 +414,31 @@ def serve_logits(params, batch, cfg, plan: ShardPlan = LOCAL_PLAN):
 
 @hot_path
 def loss_fn(params, batch, cfg, plan: ShardPlan = LOCAL_PLAN):
-    """BCE with logits against batch['label'] (SASRec: in-sequence BCE)."""
+    """BCE with logits against batch['label'] (SASRec: in-sequence BCE).
+    Under a bound mesh the per-row terms come from each batch shard and
+    are gathered and reduced as on one card."""
     if isinstance(cfg, SASRecConfig):
-        return _sasrec_loss(params, batch, cfg, plan)
-    logits = serve_logits(params, batch, cfg, plan)
-    y = _dense(batch["label"], logits.device)
-    loss = torch.mean(
-        torch.clamp(logits, min=0) - logits * y
-        + torch.log1p(torch.exp(-torch.abs(logits)))
-    )
-    acc = torch.mean(((logits > 0) == (y > 0.5)).float())
-    return loss, {"loss": loss, "accuracy": acc}
+        terms = _rows(_sasrec_terms, params, batch, cfg, plan,
+                      out=[plan.layout("dp", None)] * 2)
+        return _reduce(_sasrec_reduce, terms, ["loss"], plan)
+    return loss_from_logits(serve_logits(params, batch, cfg, plan),
+                            batch["label"], plan)
 
 
 @hot_path
 def ctr_forward_gathered(rest, e, batch, cfg, plan: ShardPlan = LOCAL_PLAN):
     """DLRM/DCN forward with pre-gathered embeddings (sparse-update path).
 
-    ``rest`` is the param tree minus the table (table may be absent)."""
+    ``rest`` is the param tree minus the table (table may be absent).
+    Under a bound mesh ``e`` (B, F, D) lies over the batch's shards (and
+    its columns over tp, as the table's): each batch shard's logits, the
+    whole gathered rows and MLPs on every rank."""
     fwd = _dlrm_forward if isinstance(cfg, DLRMConfig) else _dcn_forward
-    dev = e.device
-    return fwd(rest, _dense(batch["dense"], dev), _ids(batch["sparse"], dev),
-               cfg, plan, e=e)
+    return _rows(
+        lambda r, b, c, p, e_: fwd(r, _dense(b["dense"], e_.device),
+                                   _ids(b["sparse"], e_.device), c, p,
+                                   e=e_),
+        rest, batch, cfg, plan, extra=e, out=plan.layout("dp"))
 
 
 @hot_path
@@ -425,8 +450,26 @@ def retrieval_logits(params, batch, cfg, plan: ShardPlan = LOCAL_PLAN,
     paper's exact ANN problem (swap in the two-level index at serve time).
     Joint models (DLRM/DCN): full forward over candidate-expanded rows.
     The candidates are scored ``RETRIEVAL_CHUNK`` at a time (each on its
-    own, so any chunk gives the same scores up to the products' rounding).
+    own, so any chunk gives the same scores up to the products' rounding);
+    under a bound mesh each rank scores its shard of them, over
+    ("dp", "tp"), and every rank takes the top k of all of them (the
+    reference's replicated output).
     """
+    spec = plan.p(("dp", "tp"))
+    scores = _rows(
+        lambda p, b, c, pl: _retrieval_scores(p, b, c, pl)[0], params,
+        batch, cfg, plan, specs={"candidates": spec, "cand_cates": spec},
+        out=plan.layout(("dp", "tp")))
+    cand = batch["candidates"]
+    cand = whole(cand) if isinstance(cand, DTensor) else \
+        torch.as_tensor(cand, dtype=torch.int32, device=local(scores).device)
+    neg, ids = stable_topk(-whole(scores).float()[None], k)
+    # highest-scoring candidates, descending
+    return -neg[0], cand.to(torch.int32)[ids[0]]
+
+
+def _retrieval_scores(params, batch, cfg, plan: ShardPlan):
+    """Every candidate's score, and the candidates (int32)."""
     dev = _device(params)
     cand = torch.as_tensor(batch["candidates"], dtype=torch.int32,
                            device=dev)                       # (C,) item ids
@@ -472,8 +515,82 @@ def retrieval_logits(params, batch, cfg, plan: ShardPlan = LOCAL_PLAN,
     step = RETRIEVAL_CHUNK
     scores = torch.cat([score(slice(s, s + step))
                         for s in range(0, cand.shape[0], step)])
-    neg, ids = stable_topk(-scores.float()[None], k)
-    return -neg[0], cand[ids[0]]   # highest-scoring candidates, descending
+    return scores, cand
+
+
+# ---------------------------------------------------------------------------
+# rows over the mesh: each rank scores its shard of the rows
+# ---------------------------------------------------------------------------
+
+
+def _place(x, plan: ShardPlan, spec, dev):
+    """A batch leaf (numpy, tensor or DTensor) placed by ``spec`` (no
+    mesh: a tensor on ``dev``)."""
+    if isinstance(x, DTensor):
+        return x
+    return plan.place(torch.as_tensor(x, device=dev), spec)
+
+
+def _rows(fn, params, batch, cfg, plan: ShardPlan, *, out, extra=None,
+          specs=None):
+    """``fn(params, batch, cfg, plan[, extra])``, with no mesh bound the
+    plain call.  Under a bound mesh ``fn(..., LOCAL_PLAN[, extra])`` runs
+    on every rank's shard of the rows: each batch leaf over dp (or by
+    ``specs``, where a leaf it does not name is replicated), the
+    parameters gathered whole, ``extra`` over dp; ``out``: the output's
+    placements (a list of them for several outputs)."""
+    if plan.mesh is None:
+        return fn(params, batch, cfg, plan,
+                  *(() if extra is None else (extra,)))
+    p_leaves = base.tree_leaves(params)
+    dev = p_leaves[0].device
+    keys = list(batch)
+    ins = []
+    for k in keys:
+        nd = np.ndim(batch[k]) if not isinstance(batch[k], torch.Tensor) \
+            else batch[k].dim()
+        spec = plan.p("dp", *([None] * (nd - 1))) if specs is None else \
+            specs.get(k, plan.p(*([None] * nd)))
+        ins.append((_place(batch[k], plan, spec, dev),
+                    plan.spec_placements(spec)))
+    ins += [(w, plan.placements(*([None] * w.dim()))) for w in p_leaves]
+    if extra is not None:
+        ins.append((extra, plan.placements("dp", *([None] *
+                                                    (extra.dim() - 1)))))
+    n_b, n_p = len(keys), len(p_leaves)
+
+    def on_rank(*xs):
+        it = iter(xs[n_b:n_b + n_p])
+        args = (base.tree_map(lambda _: next(it), params),
+                dict(zip(keys, xs[:n_b])), cfg, LOCAL_PLAN)
+        return fn(*args, *xs[n_b + n_p:])
+
+    return local_region(plan.mesh, on_rank, ins, out)
+
+
+def loss_from_logits(logits, label, plan: ShardPlan = LOCAL_PLAN):
+    """The CTR loss and its aux from the logits (over dp under a mesh)
+    and the labels (numpy, a tensor or a DTensor over dp), reduced as on
+    one card."""
+    y = _place(label, plan, plan.p("dp"), local(logits).device)
+    y = local_region(plan.mesh, lambda t: t.float(),
+                     [(y, plan.layout("dp"))], plan.layout("dp"))
+    return _reduce(_ctr_reduce, (logits, y), ["accuracy", "loss"], plan)
+
+
+def _reduce(fn, parts, names, plan: ShardPlan):
+    """``fn`` of the row terms gathered whole on every rank: the loss and
+    its aux (``names``, sorted) as on one card, replicated; the aux as
+    local tensors."""
+    ins = [(t, plan.layout(*([None] * t.dim()))) for t in parts]
+
+    def on_rank(*ts):
+        loss, aux = fn(*ts)
+        return (loss,) + tuple(aux[k] for k in names)
+
+    out = local_region(plan.mesh, on_rank, ins,
+                       [plan.layout()] * (1 + len(names)))
+    return out[0], {k: local(v) for k, v in zip(names, out[1:])}
 
 
 def mips_augment(items: np.ndarray, users: np.ndarray):

@@ -26,9 +26,18 @@ same) and returns the same cache tensors with ``lengths + 1``.  MLA decode
 uses the absorbed-latent path, so the cache holds (kv_lora + rope) per
 token.
 
-``plan.constrain`` marks the reference's sharding constraints; with no
-mesh bound it is the identity, and the port serves and trains a model on
-one card.
+One code path serves one card and a mesh.  Each stretch of a layer
+between two of the reference's ``with_sharding_constraint`` calls is a
+``sharding.local_region``: with no mesh bound (``LOCAL_PLAN``) it is the
+plain call on plain tensors.  Under a bound mesh (``plan.with_mesh``;
+``launch.cells`` binds the reference's cells) the parameters are DTensors
+placed by ``param_specs``, the tokens are placed over ``dp``, and each
+region's inputs are moved to the constraint's placements first: the FSDP
+gathers, the heads over ``tp``, the sequence-sharded residual
+(``_res_constrain``), the MoE all-to-all (``moe.py``) and the
+vocabulary-sharded logits.  DTensor's own sharding propagation is not
+relied on (its rules for these ops differ between torch releases and
+several are missing).
 
 ``loss_fn`` is differentiable (``repro_torch.train`` takes its gradient
 with ``torch.autograd``).  ``cfg.remat`` is read as the reference reads it:
@@ -46,15 +55,19 @@ from functools import partial
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.analysis.annotations import hot_path
 from repro_torch.configs.base import LMConfig
-from repro_torch.distributed.sharding import LOCAL_PLAN, ShardPlan
+from repro_torch.distributed.sharding import (LOCAL_PLAN, ShardPlan,
+                                              layer_of, local, local_offset,
+                                              local_region, move)
 from repro_torch.models import base
 from repro_torch.models.attention import _ein, attention, decode_attention
 from repro_torch.models.layers import (gelu_mlp, rms_norm, rope, rope_tables,
-                                       softmax_xent, swiglu)
+                                       swiglu, xent_reduce, xent_terms)
 from repro_torch.models.moe import moe_ffn, moe_params
 
 __all__ = ["init", "param_specs", "param_shapes", "loss_fn", "prefill",
@@ -202,7 +215,8 @@ def init(cfg: LMConfig, seed: int = 0, plan: ShardPlan = LOCAL_PLAN,
     """The parameter tree, initialised from ``seed`` on ``device``
     (``None``: the card)."""
     return base.build_params(partial(_param_fn, plan=plan), cfg, seed,
-                             dtype=_param_dtype(cfg), device=device)
+                             dtype=_param_dtype(cfg), device=device,
+                             plan=plan)
 
 
 def param_specs(cfg: LMConfig, plan: ShardPlan):
@@ -218,12 +232,32 @@ def param_shapes(cfg: LMConfig, plan: ShardPlan = LOCAL_PLAN):
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+#
+# Each stretch of a layer between two of the reference's constraints is one
+# ``sharding.local_region``: with no mesh bound it calls its function on the
+# tensors as they are; under a mesh it first moves every input to the
+# placements of the reference's constraint (``plan.layout``: the FSDP
+# gathers, the heads over tp, the sequence-sharded residual, the vocabulary
+# over tp) and runs the function on each rank's shards.  A stretch whose
+# heads or hidden units lie over tp returns a partial sum over tp, reduced
+# where it meets the residual.  The functions below the regions take plain
+# tensors.
+
+
+def _res_dims(cfg: LMConfig) -> tuple:
+    return ("dp", "tp", None) if cfg.attn_shard == "seq" \
+        else ("dp", None, None)
 
 
 def _res_constrain(x, cfg: LMConfig, plan: ShardPlan):
-    if cfg.attn_shard == "seq":
-        return plan.constrain(x, "dp", "tp", None)
-    return plan.constrain(x, "dp", None, None)
+    return plan.constrain(x, *_res_dims(cfg))
+
+
+def _residual_add(x, y, cfg: LMConfig, plan: ShardPlan):
+    """``x + y`` in the residual's placements (``y`` may be a partial
+    sum over tp)."""
+    pl = plan.layout(*_res_dims(cfg))
+    return local_region(plan.mesh, torch.add, [(x, pl), (y, pl)], pl)
 
 
 def _head_roles(cfg: LMConfig, plan: ShardPlan):
@@ -233,15 +267,54 @@ def _head_roles(cfg: LMConfig, plan: ShardPlan):
     return q_tp, kv_tp
 
 
-def _gather_fsdp(plan: ShardPlan, w, *dims):
-    """The reference's FSDP weight gather before use (a constraint that
-    replicates the fsdp axes)."""
-    return plan.constrain(w, *dims)
+def _heads_role(cfg: LMConfig, plan: ShardPlan):
+    """"tp" when the heads split over it (queries and, for GQA, the KV
+    heads too), else None: every rank then takes every head."""
+    q_tp, kv_tp = _head_roles(cfg, plan)
+    if q_tp and (cfg.attn_kind == "mla" or kv_tp):
+        return "tp"
+    return None
 
 
-def _tokens(tokens, device) -> torch.Tensor:
-    """Token ids (numpy or tensor) as int64 on the parameters' device."""
-    return torch.as_tensor(tokens, device=device).long()
+def _partial_over(pl, plan: ShardPlan, role: str):
+    """``pl`` with a partial sum on the mesh dims of ``role`` (no mesh:
+    ``None``)."""
+    if pl is None:
+        return None
+    axes = plan.resolve(role) or ()
+    names = tuple(plan.mesh.mesh_dim_names)
+    return tuple(Partial() if names[m] in axes else q
+                 for m, q in enumerate(pl))
+
+
+def _weights(p: dict, roles: dict, plan: ShardPlan) -> list:
+    return [(p[k], plan.layout(*r)) for k, r in roles.items()]
+
+
+def _attn_roles(cfg: LMConfig, hr) -> dict:
+    """The layer-sliced attention weights and their roles where the
+    reference's ``_gather_fsdp`` / head constraints put them (``hr``: the
+    heads' role, "tp" or None)."""
+    if cfg.attn_kind == "mla":
+        return {"w_dq": (None, None), "q_ln": (None,),
+                "w_uq": (None, hr, None), "w_dkv": (None, None),
+                "kv_ln": (None,), "w_kr": (None, None),
+                "w_uk": (None, hr, None), "w_uv": (None, hr, None),
+                "w_o": (hr, None, None)}
+    roles = {"w_q": (None, hr, None), "w_k": (None, hr, None),
+             "w_v": (None, hr, None), "w_o": (hr, None, None)}
+    if cfg.qk_norm:
+        roles.update(q_norm=(None,), k_norm=(None,))
+    return roles
+
+
+def _batch(x, plan: ShardPlan, dtype, dev):
+    """A batch leaf (numpy or tensor) as ``dtype`` on ``dev``, placed over
+    dp under a mesh (a DTensor as it is)."""
+    if isinstance(x, DTensor):
+        return x.to(dtype)
+    t = torch.as_tensor(x, device=dev).to(dtype)
+    return plan.distribute(t, "dp", *([None] * (t.dim() - 1)))
 
 
 def _rope_dim(cfg: LMConfig) -> int:
@@ -249,74 +322,130 @@ def _rope_dim(cfg: LMConfig) -> int:
         else cfg.d_head
 
 
-def _attention_block(p, h, cfg: LMConfig, plan: ShardPlan, cos, sin):
+def _positions(s: int, cfg: LMConfig, dev):
+    return rope_tables(torch.arange(s, dtype=torch.int64, device=dev),
+                       _rope_dim(cfg), cfg.rope_theta)
+
+
+# the layer math, on plain tensors ----------------------------------------
+
+
+def _mla_query(h, w_dq, q_ln, w_uq, cfg: LMConfig, cos, sin):
+    """MLA's query of hidden ``h``: (no-rope part, roped part)."""
+    m = cfg.mla
+    cq = rms_norm(h @ w_dq, q_ln)
+    q = torch.einsum("bsr,rhk->bshk", cq, w_uq)
+    return q[..., : m.qk_nope_head_dim], \
+        rope(q[..., m.qk_nope_head_dim:], cos, sin)
+
+
+def _mla_latent(h, w_dkv, w_kr, kv_ln, cos, sin):
+    """MLA's cache entries of hidden ``h``: the normed kv latent and the
+    roped key shared by every head (B, S, rope)."""
+    ckv = rms_norm(h @ w_dkv, kv_ln)
+    return ckv, rope((h @ w_kr)[:, :, None], cos, sin)[:, :, 0]
+
+
+def _gqa_q(h, w_q, q_norm, cos, sin):
+    q = torch.einsum("bsd,dhk->bshk", h, w_q)
+    if q_norm is not None:
+        q = rms_norm(q, q_norm)
+    return rope(q, cos, sin)
+
+
+def _gqa_kv(h, w_k, w_v, k_norm, cos, sin):
+    """GQA's cache entries of hidden ``h``: the roped keys and the
+    values."""
+    k = torch.einsum("bsd,dhk->bshk", h, w_k)
+    v = torch.einsum("bsd,dhk->bshk", h, w_v)
+    if k_norm is not None:
+        k = rms_norm(k, k_norm)
+    return rope(k, cos, sin), v
+
+
+def _attention_block(p, h, cfg: LMConfig, cos, sin):
     """h: post-ln1 hidden (B, S, D) -> attn output (B, S, D).  ``p`` is
-    the layer's slice cast to the compute dtype."""
+    the layer's attention weights cast to the compute dtype."""
     chunk = cfg.attn_chunk or None
-    q_tp, kv_tp = _head_roles(cfg, plan)
     if cfg.attn_kind == "mla":
         m = cfg.mla
-        w_dq = _gather_fsdp(plan, p["w_dq"], None, None)
-        w_dkv = _gather_fsdp(plan, p["w_dkv"], None, None)
-        w_kr = _gather_fsdp(plan, p["w_kr"], None, None)
-        w_o = _gather_fsdp(plan, p["w_o"], q_tp, None, None)
-        cq = rms_norm(h @ w_dq, p["q_ln"])
-        q = torch.einsum("bsr,rhk->bshk", cq, p["w_uq"])
-        q_nope = q[..., : m.qk_nope_head_dim]
-        q_rope = rope(q[..., m.qk_nope_head_dim:], cos, sin)
-        ckv = rms_norm(h @ w_dkv, p["kv_ln"])
-        k_rope = rope((h @ w_kr)[:, :, None, :], cos, sin)   # (B,S,1,rope)
+        q_nope, q_rope = _mla_query(h, p["w_dq"], p["q_ln"], p["w_uq"], cfg,
+                                    cos, sin)
+        ckv, k_rope = _mla_latent(h, p["w_dkv"], p["w_kr"], p["kv_ln"],
+                                  cos, sin)
         k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"])
         v = torch.einsum("bsr,rhk->bshk", ckv, p["w_uv"])
         k = torch.cat(
-            [k_nope, k_rope.expand(*k_nope.shape[:3], k_rope.shape[-1])],
-            dim=-1)
+            [k_nope, k_rope[:, :, None].expand(*k_nope.shape[:3],
+                                               k_rope.shape[-1])], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
-        q = plan.constrain(q, "dp", None, q_tp, None)
-        k = plan.constrain(k, "dp", None, q_tp, None)
-        v = plan.constrain(v, "dp", None, q_tp, None)
         scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
         o = attention(q, k, v, causal=True, chunk=chunk, scale=scale)
-        return torch.einsum("bshk,hkd->bsd", o, w_o)
-    w_q = _gather_fsdp(plan, p["w_q"], None, q_tp, None)
-    w_k = _gather_fsdp(plan, p["w_k"], None, kv_tp, None)
-    w_v = _gather_fsdp(plan, p["w_v"], None, kv_tp, None)
-    w_o = _gather_fsdp(plan, p["w_o"], q_tp, None, None)
-    q = torch.einsum("bsd,dhk->bshk", h, w_q)
-    k = torch.einsum("bsd,dhk->bshk", h, w_k)
-    v = torch.einsum("bsd,dhk->bshk", h, w_v)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
-    q = rope(q, cos, sin)
-    k = rope(k, cos, sin)
-    q = plan.constrain(q, "dp", None, q_tp, None)
-    k = plan.constrain(k, "dp", None, kv_tp, None)
-    v = plan.constrain(v, "dp", None, kv_tp, None)
-    o = attention(q, k, v, causal=True, chunk=chunk)
-    return torch.einsum("bshk,hkd->bsd", o, w_o)
+    else:
+        q = _gqa_q(h, p["w_q"], p.get("q_norm"), cos, sin)
+        k, v = _gqa_kv(h, p["w_k"], p["w_v"], p.get("k_norm"), cos, sin)
+        o = attention(q, k, v, causal=True, chunk=chunk)
+    return torch.einsum("bshk,hkd->bsd", o, p["w_o"])
 
 
-def _mlp_block(p, h, cfg: LMConfig, plan: ShardPlan, *, moe: bool):
-    if moe:
-        return moe_ffn(p, h, cfg, plan)
+def _mlp_block(p, h, cfg: LMConfig):
     if cfg.mlp_kind == "gelu":
-        return gelu_mlp(h, _gather_fsdp(plan, p["w_up"], None, "tp"),
-                        _gather_fsdp(plan, p["w_down"], "tp", None))
-    return swiglu(h, _gather_fsdp(plan, p["w_gate"], None, "tp"),
-                  _gather_fsdp(plan, p["w_up"], None, "tp"),
-                  _gather_fsdp(plan, p["w_down"], "tp", None))
+        return gelu_mlp(h, p["w_up"], p["w_down"])
+    return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+
+
+# the regions ------------------------------------------------------------
+
+
+def _attention(p, x, cfg: LMConfig, plan: ShardPlan, cos, sin):
+    """ln1 and the attention block of one layer, over the batch's shards
+    and the heads' (a partial sum over tp where the heads split)."""
+    hr = _heads_role(cfg, plan)
+    roles = {"ln1": (None,), **_attn_roles(cfg, hr)}
+    names = list(roles)
+    cdt, xdt = COMPUTE_DTYPE, x.dtype
+
+    def fn(x_, *ws):
+        w = dict(zip(names, ws))
+        h = rms_norm(x_, w["ln1"]).to(cdt)
+        return _attention_block(base.cast_tree(w, cdt), h, cfg, cos,
+                                sin).to(xdt)
+
+    flat = plan.layout("dp", None, None)
+    return local_region(plan.mesh, fn,
+                        [(x, flat)] + _weights(p, roles, plan),
+                        _partial_over(flat, plan, "tp") if hr else flat)
+
+
+def _mlp(p, x, cfg: LMConfig, plan: ShardPlan, *, moe: bool):
+    """ln2 and the MLP of one layer (dense: the hidden units over tp, a
+    partial sum; MoE: ``moe_ffn``'s regions and all-to-all)."""
+    cdt, xdt = COMPUTE_DTYPE, x.dtype
+    flat = plan.layout("dp", None, None)
+    ln2 = [(x, flat), (p["ln2"], plan.layout(None))]
+    if moe:
+        h = local_region(plan.mesh, lambda x_, ln: rms_norm(x_, ln).to(cdt),
+                         ln2, flat)
+        return moe_ffn(p, h, cfg, plan, cast=cdt, out_dtype=xdt)
+    if cfg.mlp_kind == "gelu":
+        roles = {"w_up": (None, "tp"), "w_down": ("tp", None)}
+    else:
+        roles = {"w_gate": (None, "tp"), "w_up": (None, "tp"),
+                 "w_down": ("tp", None)}
+    names = list(roles)
+
+    def fn(x_, ln, *ws):
+        h = rms_norm(x_, ln).to(cdt)
+        return _mlp_block(base.cast_tree(dict(zip(names, ws)), cdt), h,
+                          cfg).to(xdt)
+
+    return local_region(plan.mesh, fn, ln2 + _weights(p, roles, plan),
+                        _partial_over(flat, plan, "tp"))
 
 
 def _layer(p, x, cfg: LMConfig, plan: ShardPlan, cos, sin, *, moe: bool):
-    cdt = COMPUTE_DTYPE
-    pc = base.cast_tree(p, cdt)
-    h = rms_norm(x, p["ln1"]).to(cdt)
-    x = x + _attention_block(pc, h, cfg, plan, cos, sin).to(x.dtype)
-    x = _res_constrain(x, cfg, plan)
-    h = rms_norm(x, p["ln2"]).to(cdt)
-    x = x + _mlp_block(pc, h, cfg, plan, moe=moe).to(x.dtype)
-    return _res_constrain(x, cfg, plan)
+    x = _residual_add(x, _attention(p, x, cfg, plan, cos, sin), cfg, plan)
+    return _residual_add(x, _mlp(p, x, cfg, plan, moe=moe), cfg, plan)
 
 
 def _run_layer(p, x, cfg: LMConfig, plan: ShardPlan, cos, sin, *,
@@ -343,36 +472,85 @@ def _stacks(params: dict):
             for name in ("dense_layers", "moe_layers") if name in params]
 
 
-def _layer_slice(stack: dict, i: int) -> dict:
-    return {k: v[i] for k, v in stack.items()}
+def _layer_params(stack: dict, i: int) -> dict:
+    return {k: layer_of(v, i) for k, v in stack.items()}
 
 
 def _embed(params: dict, tokens, cfg: LMConfig, plan: ShardPlan):
-    x = params["embed"][tokens].to(_res_dtype(cfg))
+    """The token rows of the (gathered) table over the batch's shards."""
+    rdt = _res_dtype(cfg)
+    x = local_region(plan.mesh, lambda e, t: e[t].to(rdt),
+                     [(params["embed"], plan.layout(None, None)),
+                      (tokens, plan.layout("dp", None))],
+                     plan.layout("dp", None, None))
     return _res_constrain(x, cfg, plan)
 
 
-def _backbone(params: dict, tokens, cfg: LMConfig, plan: ShardPlan):
+def _final(params: dict, x, plan: ShardPlan):
+    """The final norm over the batch's shards (the whole sequence)."""
+    flat = plan.layout("dp", None, None)
+    return local_region(plan.mesh, rms_norm,
+                        [(x, flat), (params["final_norm"], plan.layout(None))],
+                        flat)
+
+
+def _backbone(params: dict, tokens, cfg: LMConfig, plan: ShardPlan, cos,
+              sin):
     """tokens (B, S) -> final-norm hidden (B, S, D)."""
-    s = tokens.shape[1]
     x = _embed(params, tokens, cfg, plan)
-    cos, sin = rope_tables(
-        torch.arange(s, dtype=torch.int64, device=tokens.device),
-        _rope_dim(cfg), cfg.rope_theta)
     for stack, moe, n in _stacks(params):
         for i in range(n):
-            x = _run_layer(_layer_slice(stack, i), x, cfg, plan, cos, sin,
+            x = _run_layer(_layer_params(stack, i), x, cfg, plan, cos, sin,
                            moe=moe)
-    return rms_norm(x, params["final_norm"])
+    return _final(params, x, plan)
 
 
-def _logits(params: dict, h, cfg: LMConfig, plan: ShardPlan):
+def _logits(params: dict, h, cfg: LMConfig, plan: ShardPlan, last=False):
+    """The logits, the vocabulary over tp; ``last``: the last position
+    only, (B, V)."""
     if cfg.tie_embeddings:
-        w = plan.constrain(params["embed"], "tp", None).T
+        w, wdims, tied = params["embed"], ("tp", None), True
     else:
-        w = _gather_fsdp(plan, params["unembed"], None, "tp")
-    logits = h.to(COMPUTE_DTYPE) @ w.to(COMPUTE_DTYPE)
-    return plan.constrain(logits, "dp", None, "tp")
+        w, wdims, tied = params["unembed"], (None, "tp"), False
+    cdt = COMPUTE_DTYPE
+
+    def fn(h_, w_):
+        if last:
+            h_ = h_[:, -1:, :]
+        w_ = w_.T if tied else w_
+        lg = h_.to(cdt) @ w_.to(cdt)
+        return lg[:, 0] if last else lg
+
+    out = plan.layout("dp", "tp") if last else plan.layout("dp", None, "tp")
+    return local_region(plan.mesh, fn,
+                        [(h, plan.layout("dp", None, None)),
+                         (w, plan.layout(*wdims))], out)
+
+
+def _xent(logits, labels, mask, plan: ShardPlan, z_loss: float):
+    """``softmax_xent``: each batch shard's per-token terms on the whole
+    vocabulary, gathered and reduced as on one card."""
+    row = plan.layout("dp", None)
+
+    def terms(lg, lb):
+        nll, hit = xent_terms(lg, lb, z_loss=z_loss)
+        return nll, hit.float()
+
+    nll, hit = local_region(plan.mesh, terms,
+                            [(logits, plan.layout("dp", None, None)),
+                             (labels, row)], [row, row])
+    rep = plan.layout(None, None)
+    ins = [(nll, rep), (hit, rep)]
+    if mask is not None:
+        ins.append((mask, rep))
+    loss, acc = local_region(plan.mesh, lambda *t: _pair(xent_reduce(*t)),
+                             ins, [plan.layout(), plan.layout()])
+    return loss, {"nll": loss, "accuracy": acc}
+
+
+def _pair(out):
+    loss, aux = out
+    return loss, aux["accuracy"]
 
 
 @hot_path
@@ -380,48 +558,67 @@ def loss_fn(params: dict, batch: dict, cfg: LMConfig,
             plan: ShardPlan = LOCAL_PLAN):
     """batch: {tokens (B,S), labels (B,S), mask optional} -> (loss, aux)."""
     dev = params["embed"].device
-    tokens = _tokens(batch["tokens"], dev)
-    labels = _tokens(batch["labels"], dev)
+    tokens = _batch(batch["tokens"], plan, torch.int64, dev)
+    labels = _batch(batch["labels"], plan, torch.int64, dev)
     mask = batch.get("mask")
     if mask is not None:
-        mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
-    h = _backbone(params, tokens, cfg, plan)
-    logits = _logits(params, h, cfg, plan)
-    loss, aux = softmax_xent(logits, labels, z_loss=1e-4, mask=mask)
+        mask = plan.constrain(_batch(mask, plan, torch.float32, dev), None,
+                              None)
+    cos, sin = _positions(tokens.shape[1], cfg, dev)
+    h = _backbone(params, tokens, cfg, plan, cos, sin)
+    logits = plan.constrain(_logits(params, h, cfg, plan), "dp", None, None)
+    loss, aux = _xent(logits, labels, mask, plan, 1e-4)
     if cfg.mtp and "mtp" in params:
-        mtp_loss = _mtp_loss(params, h, tokens, labels, cfg, plan, mask)
+        mtp_loss = _mtp_loss(params, h, tokens, labels, cfg, plan, mask,
+                             cos, sin)
         aux["mtp_nll"] = mtp_loss
         loss = loss + MTP_WEIGHT * mtp_loss
     aux["loss"] = loss
-    return loss, aux
+    return loss, {k: local(v) for k, v in aux.items()}
+
+
+def _shift(t):
+    """``t`` shifted left by one position, its last entry repeated."""
+    return torch.cat([t[:, 1:], t[:, -1:]], dim=1)
 
 
 def _mtp_loss(params: dict, h, tokens, labels, cfg: LMConfig,
-              plan: ShardPlan, mask):
+              plan: ShardPlan, mask, cos, sin):
     """DeepSeek-V3 MTP (depth 1): predict token t+2 from h_t ++ emb_{t+1}."""
     p = params["mtp"]
-    s = tokens.shape[1]
-    # shift: condition on the next token's embedding
-    nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
-    e = params["embed"][nxt].to(_res_dtype(cfg))
-    hin = torch.cat([rms_norm(h, p["norm_h"]), rms_norm(e, p["norm_e"])],
-                    dim=-1)
-    x = _ein("bse,ed->bsd", hin, _gather_fsdp(plan, p["proj"], None, None))
+    rdt = _res_dtype(cfg)
+    row = plan.layout("dp", None)
+
+    def inp(h_, tok, e, nh, ne, proj):
+        # condition on the next token's embedding
+        e_ = e[_shift(tok)].to(rdt)
+        hin = torch.cat([rms_norm(h_, nh), rms_norm(e_, ne)], dim=-1)
+        return _ein("bse,ed->bsd", hin, proj)
+
+    x = local_region(plan.mesh, inp,
+                     [(h, plan.layout("dp", None, None)), (tokens, row),
+                      (params["embed"], plan.layout(None, None)),
+                      (p["norm_h"], plan.layout(None)),
+                      (p["norm_e"], plan.layout(None)),
+                      (p["proj"], plan.layout(None, None))],
+                     plan.layout("dp", None, None))
     x = _res_constrain(x, cfg, plan)
-    cos, sin = rope_tables(
-        torch.arange(s, dtype=torch.int64, device=tokens.device),
-        _rope_dim(cfg), cfg.rope_theta)
-    lp = {k: v[0] for k, v in p.items()
+    lp = {k: layer_of(v, 0) for k, v in p.items()
           if k not in ("proj", "norm_h", "norm_e")}
     x = _run_layer(lp, x, cfg, plan, cos, sin, moe=False)
-    logits = _logits(params, rms_norm(x, params["final_norm"]), cfg, plan)
+    logits = _logits(params, _final(params, x, plan), cfg, plan)
+    logits = plan.constrain(logits, "dp", None, None)
     # labels for t+2: shift labels left by one
-    l2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
-    m2 = torch.ones(l2.shape, dtype=torch.float32, device=l2.device)
+    l2 = local_region(plan.mesh, _shift, [(labels, row)], row)
+    m2 = torch.ones(tuple(tokens.shape), dtype=torch.float32,
+                    device=local(tokens).device)
     m2[:, -2:] = 0.0
+    m2 = plan.distribute(m2, None, None)
     if mask is not None:
-        m2 = m2 * mask
-    loss, _ = softmax_xent(logits, l2, mask=m2)
+        rep = plan.layout(None, None)
+        m2 = local_region(plan.mesh, torch.mul, [(m2, rep), (mask, rep)],
+                          rep)
+    loss, _ = _xent(logits, l2, m2, plan, 0.0)
     return loss
 
 
@@ -451,19 +648,62 @@ def cache_shapes(cfg: LMConfig, batch: int, max_len: int):
             for k, (shape, dt) in _cache_layout(cfg, batch, max_len).items()}
 
 
-def cache_specs(cfg: LMConfig, plan: ShardPlan):
+def _cache_roles(cfg: LMConfig) -> dict:
     """Cache sharding: batch over dp, sequence over tp."""
     if cfg.attn_kind == "mla":
-        return {
-            "ckv": plan.p(None, "dp", "tp", None),
-            "krope": plan.p(None, "dp", "tp", None),
-            "lengths": plan.p("dp"),
-        }
-    return {
-        "k": plan.p(None, "dp", "tp", None, None),
-        "v": plan.p(None, "dp", "tp", None, None),
-        "lengths": plan.p("dp"),
-    }
+        return {"ckv": (None, "dp", "tp", None),
+                "krope": (None, "dp", "tp", None), "lengths": ("dp",)}
+    return {"k": (None, "dp", "tp", None, None),
+            "v": (None, "dp", "tp", None, None), "lengths": ("dp",)}
+
+
+def _cache_names(cfg: LMConfig) -> tuple:
+    return ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
+
+
+def cache_specs(cfg: LMConfig, plan: ShardPlan):
+    return {k: plan.p(*r) for k, r in _cache_roles(cfg).items()}
+
+
+def _kv(p, x, cfg: LMConfig, plan: ShardPlan, cos, sin, max_len: int):
+    """The cache entries of one prefill layer in the cache dtype, zeros
+    past the prompt to ``max_len``: GQA's roped K and V (heads over tp
+    where they split), MLA's latent and rope key."""
+    cdt = COMPUTE_DTYPE
+    if cfg.attn_kind == "mla":
+        roles = {"ln1": (None,), "w_dkv": (None, None), "kv_ln": (None,),
+                 "w_kr": (None, None)}
+        out = plan.layout("dp", None, None)
+    else:
+        hr = _heads_role(cfg, plan)
+        roles = {"ln1": (None,), "w_k": (None, hr, None),
+                 "w_v": (None, hr, None)}
+        if cfg.qk_norm:
+            roles["k_norm"] = (None,)
+        out = plan.layout("dp", None, hr, None)
+    names = list(roles)
+
+    def pad(t):
+        t = t.to(CACHE_DTYPE)
+        if t.shape[1] == max_len:
+            return t
+        return F.pad(t, [0, 0] * (t.dim() - 2) + [0, max_len - t.shape[1]])
+
+    def fn(x_, *ws):
+        w = dict(zip(names, ws))
+        pc = base.cast_tree(w, cdt)
+        h = rms_norm(x_, w["ln1"]).to(cdt)
+        if cfg.attn_kind == "mla":
+            a, c = _mla_latent(h, pc["w_dkv"], pc["w_kr"], w["kv_ln"], cos,
+                               sin)
+        else:
+            a, c = _gqa_kv(h, pc["w_k"], pc["w_v"], w.get("k_norm"), cos,
+                           sin)
+        return pad(a), pad(c)
+
+    return local_region(plan.mesh, fn,
+                        [(x, plan.layout("dp", None, None))]
+                        + _weights(p, roles, plan), [out, out])
 
 
 @hot_path
@@ -475,114 +715,158 @@ def prefill(params: dict, tokens, cfg: LMConfig,
     ``max_len`` long (defaults to S), zeros past S.
     """
     dev = params["embed"].device
-    tokens = _tokens(tokens, dev)
+    tokens = _batch(tokens, plan, torch.int64, dev)
     b, s = tokens.shape
     max_len = max_len or s
     if max_len < s:
         raise ValueError(f"max_len {max_len} is shorter than the prompt {s}")
+    cos, sin = _positions(s, cfg, dev)
     x = _embed(params, tokens, cfg, plan)
-    cos, sin = rope_tables(torch.arange(s, dtype=torch.int64, device=dev),
-                           _rope_dim(cfg), cfg.rope_theta)
-    cache = {k: torch.zeros(shape, dtype=dt, device=dev)
+    roles = _cache_roles(cfg)
+    cache = {k: plan.distribute(torch.zeros(shape, dtype=dt, device=dev),
+                                *roles[k])
              for k, (shape, dt) in _cache_layout(cfg, b, max_len).items()}
-    names = ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
-    _, kv_tp = _head_roles(cfg, plan)
+    names = _cache_names(cfg)
     layer = 0
     for stack, moe, n in _stacks(params):
         for i in range(n):
-            lp = _layer_slice(stack, i)
-            cdt = COMPUTE_DTYPE
-            h = rms_norm(x, lp["ln1"]).to(cdt)
-            lpc = base.cast_tree(lp, cdt)
-            if cfg.attn_kind == "mla":
-                a = rms_norm(
-                    h @ _gather_fsdp(plan, lpc["w_dkv"], None, None),
-                    lp["kv_ln"])
-                c = rope((h @ _gather_fsdp(plan, lpc["w_kr"], None, None)
-                          )[:, :, None], cos, sin)[:, :, 0]
-            x_new = _layer(lp, x, cfg, plan, cos, sin, moe=moe)
-            if cfg.attn_kind != "mla":
-                w_k = _gather_fsdp(plan, lpc["w_k"], None, kv_tp, None)
-                w_v = _gather_fsdp(plan, lpc["w_v"], None, kv_tp, None)
-                a = torch.einsum("bsd,dhk->bshk", h, w_k)
-                c = torch.einsum("bsd,dhk->bshk", h, w_v)
-                if cfg.qk_norm:
-                    a = rms_norm(a, lp["k_norm"])
-                a = rope(a, cos, sin)
-            cache[names[0]][layer, :, :s] = a
-            cache[names[1]][layer, :, :s] = c
-            x = x_new
+            lp = _layer_params(stack, i)
+            for name, part in zip(names, _kv(lp, x, cfg, plan, cos, sin,
+                                             max_len)):
+                part = move(part, plan.layout(*roles[name][1:]))
+                local(cache[name])[layer].copy_(local(part))
+            x = _layer(lp, x, cfg, plan, cos, sin, moe=moe)
             layer += 1
-    h = rms_norm(x, params["final_norm"])
-    logits = _logits(params, h[:, -1:, :], cfg, plan)[:, 0]
-    cache["lengths"].fill_(s)
+    logits = _logits(params, _final(params, x, plan), cfg, plan, last=True)
+    local(cache["lengths"]).fill_(s)
     return logits, cache
 
 
-def _write_slot(buf, lengths, new):
-    """``buf[b, lengths[b]] = new[b, 0]`` for every row, in place; a row
-    whose length is past the cache keeps its slots, as the reference's
-    one-hot write does.  No host sync."""
-    b, s = buf.shape[0], buf.shape[1]
-    rows = torch.arange(b, dtype=torch.int64, device=buf.device)
-    idx = torch.clamp(lengths.long(), max=s - 1)
-    keep = (lengths < s).view((b,) + (1,) * (buf.dim() - 2))
+def _slots(lengths, s: int, offset: int = 0, total=None):
+    """Where each row's new entry lands in a cache block of ``s`` slots
+    that starts at ``offset`` of a ``total``-slot cache (default: the
+    block is the cache): (rows, the clamped slot, whether to write).  A
+    row whose length is past the cache, or whose slot lies outside the
+    block, keeps its slots, as the reference's one-hot write does.  No
+    host sync; computed once a decode step for every layer's writes."""
+    total = s if total is None else total
+    rows = torch.arange(lengths.shape[0], dtype=torch.int64,
+                        device=lengths.device)
+    pos = lengths.long()
+    keep = lengths < total
+    if offset or s < total:
+        pos = pos - offset
+        keep = keep & (pos >= 0) & (pos < s)
+    return rows, torch.clamp(pos, min=0, max=s - 1), keep
+
+
+def _write_slot(buf, slots, new):
+    """``buf[b, slot[b]] = new[b, 0]`` for every row to write, in place
+    (``slots``: ``_slots`` of ``buf``'s sequence)."""
+    rows, idx, keep = slots
+    keep = keep.view((buf.shape[0],) + (1,) * (buf.dim() - 2))
     buf[rows, idx] = torch.where(keep, new[:, 0].to(buf.dtype),
                                  buf[rows, idx])
 
 
-def _decode_layer(lp: dict, cache: dict, layer: int, x, cfg: LMConfig,
-                  plan: ShardPlan, cos, sin, lengths, moe: bool):
-    cdt = COMPUTE_DTYPE
-    h = rms_norm(x, lp["ln1"]).to(cdt)
-    lpc = base.cast_tree(lp, cdt)
-    q_tp, kv_tp = _head_roles(cfg, plan)
-    w_o = _gather_fsdp(plan, lpc["w_o"], q_tp, None, None)
+def _write(buf, layer: int, slots, new, plan: ShardPlan):
+    """``_write_slot`` of ``new`` (B, 1, ...) into layer ``layer`` of a
+    stacked cache (L, B, S, ...), in place: into this rank's block, the
+    cache sharded as its specs shard it."""
+    new = move(new, plan.layout("dp", *([None] * (buf.dim() - 2))))
+    _write_slot(local(buf)[layer], slots, local(new))
+
+
+def _cache_layer(buf, layer: int, plan: ShardPlan, *dims):
+    """One layer of a stacked cache (a view of its shards), moved to
+    ``dims``."""
+    return move(layer_of(buf, layer), plan.layout(*dims))
+
+
+def _decode_attention(lp, cache, layer: int, x, lengths, slots, cos, sin,
+                      cfg: LMConfig, plan: ShardPlan):
+    """The attention of one decode layer: the new slot's entries over the
+    batch's (and heads') shards, written into each rank's cache block,
+    then the attention over the whole cached sequence with the heads over
+    tp (a partial sum there).  GQA: standard cached attention.  MLA:
+    absorbed-latent attention -- the query is projected into the
+    kv-latent space (q @ W_uk), so the cache holds only (kv_lora + rope)
+    per token and W_uv is applied to the attended latent."""
+    cdt, xdt = COMPUTE_DTYPE, x.dtype
+    hr = _heads_role(cfg, plan)
+    flat = plan.layout("dp", None, None)
+    heads = plan.layout("dp", None, hr, None)
+    row = (lengths, plan.layout("dp"))
+    ins = [(x, flat), (cos, flat), (sin, flat), row]
+    names = _cache_names(cfg)
     if cfg.attn_kind == "mla":
         m = cfg.mla
-        ckv, krope = cache["ckv"][layer], cache["krope"][layer]
-        w_dq = _gather_fsdp(plan, lpc["w_dq"], None, None)
-        w_dkv = _gather_fsdp(plan, lpc["w_dkv"], None, None)
-        w_kr = _gather_fsdp(plan, lpc["w_kr"], None, None)
-        cq = rms_norm(h @ w_dq, lp["q_ln"])
-        q = torch.einsum("bsr,rhk->bshk", cq, lpc["w_uq"])
-        q_nope = q[..., : m.qk_nope_head_dim]
-        q_rope = rope(q[..., m.qk_nope_head_dim:], cos, sin)
-        _write_slot(ckv, lengths, rms_norm(h @ w_dkv, lp["kv_ln"]))
-        _write_slot(krope, lengths,
-                    rope((h @ w_kr)[:, :, None], cos, sin)[:, :, 0])
-        # absorbed: q_lat = q_nope @ W_uk -> score in latent space
-        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, lpc["w_uk"])
-        s1 = _ein("bshr,btr->bhst", q_lat, ckv)
-        s2 = _ein("bshk,btk->bhst", q_rope, krope)
-        scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-        sc = (s1 + s2).float() * scale
-        valid = torch.arange(ckv.shape[1], dtype=torch.int64,
-                             device=x.device)[None, :] <= lengths[:, None]
-        sc = sc.masked_fill(~valid[:, None, None, :], -1e30)
-        pr = torch.softmax(sc, dim=-1).to(cdt)
-        ctx_lat = _ein("bhst,btr->bshr", pr, ckv)
-        o = _ein("bshr,rhk->bshk", ctx_lat, lpc["w_uv"])
+        roles = {"ln1": (None,), "w_dq": (None, None), "q_ln": (None,),
+                 "w_uq": (None, hr, None), "w_uk": (None, hr, None),
+                 "w_dkv": (None, None), "kv_ln": (None,),
+                 "w_kr": (None, None)}
+        outs = [heads, heads, flat, flat]
     else:
-        kc, vc = cache["k"][layer], cache["v"][layer]
-        q = torch.einsum("bsd,dhk->bshk", h,
-                         _gather_fsdp(plan, lpc["w_q"], None, q_tp, None))
-        k1 = torch.einsum("bsd,dhk->bshk", h,
-                          _gather_fsdp(plan, lpc["w_k"], None, kv_tp, None))
-        v1 = torch.einsum("bsd,dhk->bshk", h,
-                          _gather_fsdp(plan, lpc["w_v"], None, kv_tp, None))
+        roles = {"ln1": (None,), "w_q": (None, hr, None),
+                 "w_k": (None, hr, None), "w_v": (None, hr, None)}
         if cfg.qk_norm:
-            q = rms_norm(q, lp["q_norm"])
-            k1 = rms_norm(k1, lp["k_norm"])
-        q = rope(q, cos, sin)
-        k1 = rope(k1, cos, sin)
-        _write_slot(kc, lengths, k1)
-        _write_slot(vc, lengths, v1)
-        o = decode_attention(q, kc, vc, lengths + 1)
-    attn_out = _ein("bshk,hkd->bsd", o, w_o)
-    x = x + attn_out.to(x.dtype)
-    h2 = rms_norm(x, lp["ln2"]).to(cdt)
-    return x + _mlp_block(lpc, h2, cfg, plan, moe=moe).to(x.dtype)
+            roles.update(q_norm=(None,), k_norm=(None,))
+        outs = [heads, heads, heads]
+    qn = list(roles)
+
+    def new_fn(x_, cos_, sin_, len_, *ws):
+        w = dict(zip(qn, ws))
+        pc = base.cast_tree(w, cdt)
+        h = rms_norm(x_, w["ln1"]).to(cdt)
+        if cfg.attn_kind == "mla":
+            q_nope, q_rope = _mla_query(h, pc["w_dq"], w["q_ln"],
+                                        pc["w_uq"], cfg, cos_, sin_)
+            # absorbed: q_lat = q_nope @ W_uk -> score in latent space
+            q_lat = torch.einsum("bshk,rhk->bshr", q_nope, pc["w_uk"])
+            return (q_lat, q_rope) + _mla_latent(
+                h, pc["w_dkv"], pc["w_kr"], w["kv_ln"], cos_, sin_)
+        q = _gqa_q(h, pc["w_q"], w.get("q_norm"), cos_, sin_)
+        return (q,) + _gqa_kv(h, pc["w_k"], pc["w_v"], w.get("k_norm"),
+                              cos_, sin_)
+
+    new = local_region(plan.mesh, new_fn, ins + _weights(lp, roles, plan),
+                       outs)
+    _write(cache[names[0]], layer, slots, new[-2], plan)
+    _write(cache[names[1]], layer, slots, new[-1], plan)
+    if cfg.attn_kind == "mla":
+        scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+
+        def att(q_lat, q_rope, ckv, krope, len_, w_uv, w_o):
+            s1 = _ein("bshr,btr->bhst", q_lat, ckv)
+            s2 = _ein("bshk,btk->bhst", q_rope, krope)
+            sc = (s1 + s2).float() * scale
+            valid = torch.arange(ckv.shape[1], dtype=torch.int64,
+                                 device=ckv.device)[None, :] <= len_[:, None]
+            sc = sc.masked_fill(~valid[:, None, None, :], -1e30)
+            pr = torch.softmax(sc, dim=-1).to(cdt)
+            ctx_lat = _ein("bhst,btr->bshr", pr, ckv)
+            o = _ein("bshr,rhk->bshk", ctx_lat, w_uv.to(cdt))
+            return _ein("bshk,hkd->bsd", o, w_o.to(cdt)).to(xdt)
+
+        ins = [(new[0], heads), (new[1], heads),
+               (_cache_layer(cache[names[0]], layer, plan, "dp", None, None),
+                flat),
+               (_cache_layer(cache[names[1]], layer, plan, "dp", None, None),
+                flat),
+               row, (lp["w_uv"], plan.layout(None, hr, None)),
+               (lp["w_o"], plan.layout(hr, None, None))]
+    else:
+        def att(q, kc, vc, len_, w_o):
+            o = decode_attention(q, kc, vc, len_ + 1)
+            return _ein("bshk,hkd->bsd", o, w_o.to(cdt)).to(xdt)
+
+        kv = ("dp", None, hr, None)
+        ins = [(new[0], heads),
+               (_cache_layer(cache[names[0]], layer, plan, *kv), heads),
+               (_cache_layer(cache[names[1]], layer, plan, *kv), heads),
+               row, (lp["w_o"], plan.layout(hr, None, None))]
+    return local_region(plan.mesh, att, ins,
+                        _partial_over(flat, plan, "tp") if hr else flat)
 
 
 @hot_path
@@ -590,24 +874,32 @@ def decode_step(params: dict, cache: dict, tokens, cfg: LMConfig,
                 plan: ShardPlan = LOCAL_PLAN):
     """One decode step: tokens (B, 1) + cache -> (logits (B, V), cache').
 
-    GQA: standard cached attention.  MLA: absorbed-latent attention -- the
-    query is projected into the kv-latent space (q @ W_uk), so the cache
-    holds only (kv_lora + rope) per token and W_uv is applied to the
-    attended latent.  ``cache``'s tensors take the new slot in place;
-    the returned cache shares them, with ``lengths + 1``.
-    """
+    ``cache``'s tensors take the new slot in place; the returned cache
+    shares them, with ``lengths + 1`` (``_decode_attention``)."""
     dev = params["embed"].device
-    tokens = _tokens(tokens, dev)
+    tokens = _batch(tokens, plan, torch.int64, dev)
     lengths = cache["lengths"]
-    x = _embed(params, tokens, cfg, plan)                     # (B, 1, D)
+    rows = plan.layout("dp")
     # (B, 1, rope/2) tables at each row's position, broadcast over heads
-    cos, sin = rope_tables(lengths[:, None], _rope_dim(cfg), cfg.rope_theta)
+    flat = plan.layout("dp", None, None)
+    cos, sin = local_region(
+        plan.mesh,
+        lambda n: rope_tables(n[:, None], _rope_dim(cfg), cfg.rope_theta),
+        [(lengths, rows)], [flat, flat])
+    x = _embed(params, tokens, cfg, plan)                      # (B, 1, D)
+    # every layer's cache block lies as the first's
+    blk = cache[_cache_names(cfg)[0]]
+    slots = _slots(local(lengths), local(blk).shape[2],
+                   local_offset(blk)[2], blk.shape[2])
     layer = 0
     for stack, moe, n in _stacks(params):
         for i in range(n):
-            x = _decode_layer(_layer_slice(stack, i), cache, layer, x, cfg,
-                              plan, cos, sin, lengths, moe)
+            lp = _layer_params(stack, i)
+            a = _decode_attention(lp, cache, layer, x, lengths, slots, cos,
+                                  sin, cfg, plan)
+            x = _residual_add(x, a, cfg, plan)
+            x = _residual_add(x, _mlp(lp, x, cfg, plan, moe=moe), cfg, plan)
             layer += 1
-    h = rms_norm(x, params["final_norm"])
-    logits = _logits(params, h, cfg, plan)[:, 0]
-    return logits, {**cache, "lengths": lengths + 1}
+    logits = _logits(params, _final(params, x, plan), cfg, plan, last=True)
+    nxt = local_region(plan.mesh, lambda n: n + 1, [(lengths, rows)], rows)
+    return logits, {**cache, "lengths": nxt}

@@ -35,6 +35,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import place_on, whole
 
 __all__ = ["save", "save_async", "restore", "latest_step", "wait_pending",
            "leaf_paths"]
@@ -87,11 +91,11 @@ def _rebuild(tree, fn, prefix: str = ""):
 
 def _to_host(leaf) -> tuple:
     """(a numpy copy of ``leaf``, its manifest dtype); bf16 as raw ``V2``
-    elements under ``bfloat16``."""
+    elements under ``bfloat16``; a DTensor gathered whole first."""
     if not isinstance(leaf, torch.Tensor):
         arr = np.array(leaf)
         return arr, str(arr.dtype)
-    t = leaf.detach().to("cpu", copy=True)
+    t = whole(leaf.detach()).to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("V2")), "bfloat16"
     arr = t.numpy()
@@ -102,16 +106,41 @@ def _snapshot(tree) -> list:
     return [(name, *_to_host(leaf)) for name, leaf in leaf_paths(tree)]
 
 
+def _mesh_of(tree):
+    """The mesh of the first DTensor leaf (a sharded state), or None."""
+    for _, leaf in leaf_paths(tree):
+        if isinstance(leaf, DTensor):
+            return leaf.device_mesh
+    return None
+
+
+def _writer(tree) -> bool:
+    """Whether this process writes: always for a one-card state; for a
+    sharded one (every rank calls ``save``, a collective: each leaf is
+    gathered whole) the mesh's first rank alone."""
+    mesh = _mesh_of(tree)
+    return mesh is None or dist.get_rank() == int(mesh.mesh.flatten()[0])
+
+
 def save(dirpath: str, step: int, tree, meta: Optional[dict] = None,
          keep_last: int = 3):
-    """Synchronous atomic checkpoint of a tree."""
-    _write(dirpath, step, _snapshot(tree), meta or {}, keep_last)
+    """Synchronous atomic checkpoint of a tree, in the reference's layout
+    (whole arrays under its leaf names) also for a sharded state; every
+    rank of a sharded state returns once the file is committed."""
+    host = _snapshot(tree)
+    if _writer(tree):
+        _write(dirpath, step, host, meta or {}, keep_last)
+    if _mesh_of(tree) is not None:
+        dist.barrier()
 
 
 def save_async(dirpath: str, step: int, tree, meta: Optional[dict] = None,
                keep_last: int = 3):
-    """Copy to host now, write on a background thread."""
+    """Copy to host now (a sharded state's leaves gathered whole, on
+    every rank), write on a background thread (the writer's)."""
     host = _snapshot(tree)
+    if not _writer(tree):
+        return None
     t = threading.Thread(target=_write,
                          args=(dirpath, step, host, meta or {}, keep_last),
                          daemon=True)
@@ -181,7 +210,9 @@ def _from_host(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
 
 def restore(dirpath: str, step: int, template, verify: bool = True) -> Any:
     """Load a checkpoint into ``template``'s structure, each leaf in the
-    file's dtype on its template leaf's device."""
+    file's dtype on its template leaf's device; where the template leaf is
+    a DTensor, placed again as it is (each rank reads the whole array and
+    keeps its shard)."""
     d = os.path.join(dirpath, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -201,6 +232,9 @@ def restore(dirpath: str, step: int, template, verify: bool = True) -> Any:
                 f"shape mismatch for {name}: ckpt {arr.shape} vs template "
                 f"{tuple(leaf.shape)}")
         dev = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
-        return _from_host(arr, dtype, dev)
+        t = _from_host(arr, dtype, dev)
+        if isinstance(leaf, DTensor):
+            return place_on(t, leaf.device_mesh, leaf.placements)
+        return t
 
     return _rebuild(template, load)

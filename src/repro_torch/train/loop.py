@@ -8,7 +8,7 @@ gives).  Under ``accum > 1`` every batch leaf has a leading microbatch
 axis; the step loops over it and accumulates ``g / accum`` into fp32
 zeros, as the reference's ``lax.scan`` does, so memory holds one
 microbatch's activations.  Then, in the reference's order: error-feedback
-compression, ``clip_by_norm``, the optimizer.  There is no ``jit``: the
+compression, the clip to the global norm, the optimizer (in place).  There is no ``jit``: the
 step runs eagerly, and ``train`` synchronises the card before it reads a
 step's time (on log steps and under a watchdog), where the reference
 blocks on ``jax.block_until_ready``.  When the last step is also a
@@ -23,11 +23,13 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train.compression import make_ef_transform
 from repro_torch.train.fault import Watchdog
-from repro_torch.train.optim import Optimizer, clip_by_norm
+from repro_torch.distributed.sharding import move
+from repro_torch.train.optim import Optimizer, apply_in_place
 from repro_torch.train.tree import leaves, map_trees
 
 __all__ = ["TrainState", "init_state", "make_train_step", "train",
@@ -82,9 +84,18 @@ def value_and_grad(loss_fn: Callable, params, *args):
     grads = []
     for p in flat:
         g = next(gs) if p.requires_grad else None
-        grads.append(torch.zeros_like(p) if g is None else g)
+        if g is None:
+            g = torch.zeros_like(p)
+        elif isinstance(g, DTensor):
+            # a partial sum over the batch's shards reduced (scattered
+            # over an FSDP-sharded parameter) to the parameter's layout
+            g = move(g, p.placements)
+        grads.append(g)
     aux = {k: v.detach() for k, v in aux.items()}
-    return (loss.detach(), aux), _unflatten(params, grads)
+    loss = loss.detach()
+    if isinstance(loss, DTensor):          # replicated: every rank's value
+        loss = loss.to_local()
+    return (loss, aux), _unflatten(params, grads)
 
 
 def _microbatch(batch: dict, i: int) -> dict:
@@ -99,15 +110,21 @@ def make_train_step(loss_fn: Callable, opt: Optimizer, *,
 
     ``accum`` > 1: batch leaves have leading dims (accum, micro, ...);
     gradients average over the microbatches (memory stays at one
-    microbatch)."""
+    microbatch).  As the reference's step, jitted with its state donated,
+    the step consumes the state passed in: it clips the gradients and
+    applies the optimizer leaf by leaf into the state's own tensors,
+    freeing each gradient as it goes (``optim.apply_in_place``), so no
+    second copy of the parameters is ever held.  The parameters,
+    gradients and optimizer state may be DTensors; ``grad_norm`` is then
+    the norm over the whole mesh."""
     _, ef_apply = make_ef_transform()
 
     def grads_of(params, batch):
         if accum == 1:
             (loss, aux), g = value_and_grad(loss_fn, params, batch)
             return loss, aux, g
-        acc = map_trees(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device), params)
+        acc = map_trees(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                        params)
         losses, auxs = [], []
         for i in range(accum):
             (loss, aux), g = value_and_grad(loss_fn, params,
@@ -125,13 +142,12 @@ def make_train_step(loss_fn: Callable, opt: Optimizer, *,
             grads, ef = ef_apply(grads, state.ef_buf)
         else:
             ef = state.ef_buf
-        grads, gnorm = clip_by_norm(grads, grad_clip)
-        new_params, new_opt = opt.update(
-            grads, state.opt_state, state.params, state.step)
         aux = dict(aux)
-        aux["grad_norm"] = gnorm
-        return TrainState(step=state.step + 1, params=new_params,
-                          opt_state=new_opt, ef_buf=ef), aux
+        aux["grad_norm"] = apply_in_place(opt, grads, state.opt_state,
+                                          state.params, state.step,
+                                          max_norm=grad_clip)
+        return TrainState(step=state.step + 1, params=state.params,
+                          opt_state=state.opt_state, ef_buf=ef), aux
 
     return train_step
 

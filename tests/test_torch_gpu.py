@@ -1213,14 +1213,17 @@ def test_lm_decode_cache_write_equals_one_hot(dev):
 
 
 def test_constrain_raises_under_a_bound_mesh(dev, tmp_path):
-    """``ShardPlan.constrain`` is the identity with no mesh and raises
-    ``NotImplementedError`` under a real (world-1 NCCL) mesh."""
+    """``ShardPlan.constrain`` is the identity with no mesh; under a real
+    (world-1 NCCL) mesh it raises ``TypeError`` on a plain tensor and
+    returns a DTensor with the requested placements and the same whole
+    value."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    from repro_torch.distributed.sharding import SINGLE_POD_PLAN
+    from repro_torch.distributed.sharding import SINGLE_POD_PLAN, whole
 
-    x = torch.ones(4, 4, device=dev)
+    x = torch.arange(16.0, device=dev).reshape(4, 4)
     assert SINGLE_POD_PLAN.constrain(x, "dp", "tp") is x
     dist.init_process_group(
         "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
@@ -1228,10 +1231,73 @@ def test_constrain_raises_under_a_bound_mesh(dev, tmp_path):
     try:
         mesh = init_device_mesh("cuda", (1, 1),
                                 mesh_dim_names=("data", "model"))
-        with pytest.raises(NotImplementedError, match="module item 4"):
-            SINGLE_POD_PLAN.with_mesh(mesh).constrain(x, "dp", "tp")
+        plan = SINGLE_POD_PLAN.with_mesh(mesh)
+        with pytest.raises(TypeError, match="plain"):
+            plan.constrain(x, "dp", "tp")
+        d = plan.distribute(x, None, None)
+        for dims, want in (((("dp", "tp"), None), (Shard(0), Shard(0))),
+                           (("tp", "dp"), (Shard(1), Shard(0))),
+                           ((None, None), (Replicate(), Replicate()))):
+            y = plan.constrain(d, *dims)
+            assert isinstance(y, DTensor) and y.placements == want
+            assert y.to_local().device.type == "cuda"
+            assert torch.equal(whole(y), x)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def world1_cells(tmp_path_factory):
+    """Every case of ``test_torch_sharded_models`` through the port's
+    cells on a world-1 NCCL ``(1, 1)`` mesh on the card, and with no mesh
+    on the CPU (a sharded checkpoint saved and restored on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the world-1 mesh is an NCCL group")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.sharding import LOCAL_PLAN, SINGLE_POD_PLAN
+    from test_torch_sharded_models import _run_cases
+
+    d = tmp_path_factory.mktemp("world1")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(d / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        card = _run_cases(SINGLE_POD_PLAN.with_mesh(mesh), "cuda",
+                          str(d / "ckpt"))
+    finally:
+        dist.destroy_process_group()
+    return card, _run_cases(LOCAL_PLAN, "cpu")
+
+
+@pytest.mark.parametrize("name", ["qwen3", "deepseek", "dlrm", "dcn",
+                                  "schnet_molecule", "schnet_graph"])
+def test_sharded_cells_on_a_world1_mesh_equal_the_cpu(world1_cells, name):
+    """The cells at ``reduced()`` over a world-1 mesh on the card against
+    the same cells with no mesh on the CPU (fp32; 1e-4 of each leaf's
+    max, argmax equal)."""
+    from test_torch_sharded_models import _close_leaves, _leaves
+
+    card, cpu = world1_cells
+    a, b = card[name], cpu[name]
+    if name.startswith("schnet"):
+        a, b = a["float32"], b["float32"]
+    for (path, x), (_, y) in zip(_leaves(a), _leaves(b)):
+        if "restored" in path or "saved" in path:
+            continue
+        if "logits" in path:
+            assert np.array_equal(np.asarray(x).argmax(-1),
+                                  np.asarray(y).argmax(-1)), path
+    _close_leaves({k: v for k, v in a.items()
+                   if k not in ("restored", "saved")},
+                  {k: v for k, v in b.items()
+                   if k not in ("restored", "saved")})
+    if name == "qwen3":
+        from test_torch_sharded_models import _bits
+        _bits(a["restored"], a["saved"])
 
 
 # ---------------------------------------------------------------------------

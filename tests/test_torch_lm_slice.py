@@ -585,12 +585,15 @@ def test_init_needs_a_card_unless_asked_for_the_cpu():
 
 
 def test_constrain_is_identity_without_mesh_and_raises_with_one():
+    """No mesh: the identity.  A bound mesh: a plain tensor raises
+    ``TypeError`` (a DTensor is redistributed, as
+    ``test_torch_sharded_models.py`` holds over four ranks)."""
     x = torch.ones(3, 4)
     assert LOCAL_PLAN.constrain(x, "dp", None) is x
     assert SINGLE_POD_PLAN.constrain(x, "dp", "tp") is x
     mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
                                  mesh=torch.zeros((1, 1)))
-    with pytest.raises(NotImplementedError, match="module item 4"):
+    with pytest.raises(TypeError, match="plain"):
         SINGLE_POD_PLAN.with_mesh(mesh).constrain(x, "dp", "tp")
 
 
@@ -598,7 +601,8 @@ def test_write_slot_keeps_rows_past_the_cache():
     buf = torch.arange(2 * 4 * 3, dtype=torch.float32).reshape(2, 4, 3)
     ref = buf.clone()
     new = torch.full((2, 1, 3), -1.0)
-    PT._write_slot(buf, torch.tensor([1, 4], dtype=torch.int32), new)
+    lengths = torch.tensor([1, 4], dtype=torch.int32)
+    PT._write_slot(buf, PT._slots(lengths, 4), new)
     ref[0, 1] = -1.0                         # row 1 is full: unchanged
     assert torch.equal(buf, ref)
 

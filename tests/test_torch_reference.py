@@ -54,7 +54,7 @@ _REFERENCE = (
     "repro.core.graph_build", "repro.train.optim",
     "repro.train.compression", "repro.train.fault",
     "repro.train.checkpoint", "repro.train.loop",
-    "repro.train.sparse_embed",
+    "repro.train.sparse_embed", "repro.launch.cells",
 )
 
 

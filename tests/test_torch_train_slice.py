@@ -742,3 +742,43 @@ def test_restore_places_leaves_on_the_template_device(tmp_path):
     assert got["w"].device.type == "meta" and got["n"]["s"].dtype == \
         torch.int32
     assert got["n"]["s"].shape == ()            # a scalar stays 0-d
+
+
+@pytest.mark.parametrize("opt_name", ["adamw", "adafactor", "sgd"])
+def test_update_keeps_its_inputs_and_the_step_consumes_the_state(opt_name):
+    """One in-place rule a leaf: ``opt.update`` runs it on copies (the
+    inputs kept, as the reference's update) and the train step on the
+    state itself (as the reference's donated step), to the same values;
+    a broadcast gradient (no storage of its own) is taken as any other."""
+    opt = {"adamw": optim.adamw(optim.constant_lr(1e-2)),
+           "adafactor": optim.adafactor(optim.constant_lr(1e-2),
+                                        min_dim_factored=4),
+           "sgd": optim.sgd(optim.constant_lr(1e-2))}[opt_name]
+    gen = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn(8, 6, generator=gen),
+              "b": torch.randn(6, generator=gen)}
+    grads = {"w": torch.randn(8, 6, generator=gen),
+             "b": torch.ones(()).expand(6)}
+    state = opt.init(params)
+    def flat(*trees):
+        return [x for t in trees for x in leaves(t)]
+
+    before = [x.clone() for x in flat(params, state, grads)]
+    new_p, new_s = opt.update(grads, state, params, torch.tensor(3))
+    for x, y in zip(flat(params, state, grads), before, strict=True):
+        assert torch.equal(x, y)
+    assert not torch.equal(new_p["w"], params["w"])
+
+    def loss(p, b):
+        out = (p["w"] * grads["w"]).sum() + (p["b"] * grads["b"]).sum()
+        return out, {"loss": out}
+
+    st = TrainState(step=torch.tensor(3, dtype=torch.int32), params=params,
+                    opt_state=state)
+    got, aux = make_train_step(loss, opt, grad_clip=1e9)(st, None)
+    assert got.params["w"] is params["w"]
+    for x, y in zip(flat(got.params, got.opt_state), flat(new_p, new_s),
+                    strict=True):
+        assert torch.equal(x, y)
+    np.testing.assert_allclose(float(aux["grad_norm"]), float(
+        optim.global_norm(grads)), rtol=1e-6)
