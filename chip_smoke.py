@@ -139,7 +139,29 @@ each prints its wall time as ``[phase] <name> <s> s``):
              beside its steady p50, each library's ``kernel_build_ms``
              from the build phase, and ``repro_torch.obs.smoke`` on the
              card;
-15. lm      - the language models' serving path (plain torch; the
+15. cells and dry run - the cells no earlier phase ran over a mesh,
+             before the serve phase's index is freed: under a world-size-1
+             NCCL group on a ``(1, 1)`` mesh the sift-1m ANN cell
+             (``serve_batch``: B 1,024, k 10, nprobe 32; the serve phase's
+             1M x 128 corpus and 8,192 buckets packed into the cell's
+             (8,192, 312) layout, rows over the cap counted) bit for bit
+             against the same cell with no mesh, its ids against the
+             unfused plain loop (near-ties recomputed in float64), its
+             recall@10 against the exact top-10 and its time by CUDA
+             events (counts reset just before and read just after its
+             first call: ``candidate_topk`` > 0); DIN's and SASRec's
+             ``retrieval_cand`` cells (1M candidates, full width) against
+             the unsharded ``retrieval_logits``; then four gloo ranks
+             sharing the card on a ``(2, 2)`` mesh (spawned): the ANN cell
+             (2,048 buckets and 8 probes a rank) and the two retrieval
+             cells bit for bit against the four shards run on one card
+             and merged; meanwhile ``launch/dryrun.py``'s ``run_cell`` in a
+             subprocess on this machine's torch (the fake process group):
+             qwen3-0.6b ``train_4k`` and sift-1m ``serve_batch`` at
+             ``(16, 16)`` ``ok``, and the world-1 ANN and DIN cells, whose
+             dry-run ``peak_bytes`` must lie within 0.5-2x of the card's
+             ``max_memory_allocated`` above the same step's arguments;
+16. lm      - the language models' serving path (plain torch; the
              reference's LM path reaches no Pallas kernel): qwen3-0.6b at
              full width and depth, card against CPU at the fp32 policy on
              the same weights (prefill and decode logits and cache,
@@ -151,7 +173,7 @@ each prints its wall time as ``[phase] <name> <s> s``):
              MLA, MTP) card against CPU; deepseek-v3-671b at full width
              with its depth cut to 1 dense + 1 MoE layer, bf16 prefill of
              2 x 512 and 8 decode steps;
-16. models  - the recsys and GNN models' serving path (plain torch, as the
+17. models  - the recsys and GNN models' serving path (plain torch, as the
              reference's plain jnp): DLRM, DCN-v2, DIN and SASRec at full
              width card against CPU in fp32 (DLRM and DCN-v2 with each
              table capped at 65,536 rows): ``serve_logits`` on 512 rows,
@@ -169,7 +191,7 @@ each prints its wall time as ``[phase] <name> <s> s``):
              graph and the (15, 10) sampler) and ``molecule`` with bf16
              messages; ``radius_graph`` over 16,384 points, two-level on the
              card against brute;
-17. train   - training (plain torch, as the reference's training path;
+18. train   - training (plain torch, as the reference's training path;
              no kernel on it): qwen3-0.6b at full width and depth bound
              as the reference's ``train_4k`` cell (remat, KV blocks of
              1,024, AdamW warmup_cosine(3e-4, 2000, 100000), fp32 params,
@@ -187,7 +209,7 @@ each prints its wall time as ``[phase] <name> <s> s``):
              against the step in float64; SchNet (``molecule``,
              ``full_graph_sm``, bf16 messages), DIN and SASRec
              (``train_batch``) through ``make_train_step``;
-18. sharded models - the models over a ``torch.distributed`` mesh through
+19. sharded models - the models over a ``torch.distributed`` mesh through
              the port's copy of the reference's cells
              (``repro_torch.launch.cells``; plain torch, no kernel on
              it): under a world-size-1 NCCL group on a ``(1, 1)`` mesh,
@@ -206,7 +228,7 @@ each prints its wall time as ``[phase] <name> <s> s``):
              train step at the fp32 policy, every rank's gathered
              logits, loss, grad_norm and updated parameters within 1e-4
              of each leaf's max of the one-card step;
-19. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
+20. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
 
 The serve phase also runs the brute and IVF backends at k = 50 (above the
 kernels' 32-pair lists) against their unfused plain paths.
@@ -6216,6 +6238,441 @@ def phase_sharded_models(dev, card) -> dict:
     return out
 
 
+# ------------------------------------------------------ cells and dry run
+CELLS_B = 1024              # the ANN cell's batch: the registry's serve_batch
+K_ANN = 10                  # and its k
+CELLS_ARCHS = ("din", "sasrec")          # the retrieval cells at 1M candidates
+CELLS_WORLD = 4             # gloo ranks sharing the card on a (2, 2) mesh
+CELLS_LIMIT_S = 240         # the four ranks, joined together
+CELLS_ITERS = 20            # CUDA-event calls timing the world-1 cells
+CELLS_DRYRUN_LIMIT_S = 300  # the dry run's subprocess
+PEAK_RATIO = (0.5, 2.0)     # dry-run peak_bytes over the card's, allowed
+CELLS_DRYRUN = (("qwen3-0.6b", "train_4k", None),
+                ("sift-1m", "serve_batch", None),
+                ("sift-1m", "serve_batch", (1, 1)),
+                ("din", "retrieval_cand", (1, 1)))
+_CELLS_DRYRUN = r"""
+import json, sys, torch
+from repro_torch.launch.dryrun import run_cell
+out = {"torch": torch.__version__, "cells": []}
+for arch, shape, mesh in json.loads(sys.argv[1]):
+    rec = run_cell(arch, shape, mesh_shape=mesh, verbose=False)
+    a = rec.get("analysis", {})
+    out["cells"].append({
+        "arch": arch, "shape": shape, "mesh": rec["mesh"],
+        "status": rec["status"], "error": rec.get("error"),
+        "memory": rec.get("memory"), "times": rec.get("times"),
+        "matmul_flops": a.get("matmul_flops"),
+        "collective_bytes": a.get("collective_bytes")})
+print(json.dumps(out))
+"""
+
+
+def _cells_pack(ctx, dev, K: int, cap: int):
+    """The serve phase's index packed into the ANN cell's (K, cap) layout
+    on the card: (centroids, bucket ids, bucket vectors), and how many
+    rows lay past ``cap`` (dropped)."""
+    idx = ctx["idx"]
+    bids = np.full((K, cap), -1, np.int32)
+    have = np.asarray(idx.bucket_ids, np.int32)[:, :cap]
+    bids[:have.shape[0], :have.shape[1]] = have
+    over = int(np.maximum(np.asarray(idx.bucket_counts) - cap, 0).sum())
+    cents = np.zeros((K, SIFT_1M.d), np.float32)
+    cents[:SIFT_1M.n_clusters] = np.asarray(idx.centroids, np.float32)
+    b = torch.as_tensor(bids, device=dev)
+    db = torch.as_tensor(ctx["corpus"], device=dev)
+    vecs = db[torch.clamp(b, min=0).long()]
+    vecs.masked_fill_((b < 0)[..., None], 0.0)
+    del db
+    return (torch.as_tensor(cents, device=dev), b, vecs), over
+
+
+def _cells_merged(tabs, q, n: int):
+    """The ANN cell over ``n`` shards computed in one process on the card:
+    each shard's local on its rows of the tables, merged."""
+    from repro_torch.distributed.sharding import (_merge_gathered,
+                                                  make_sharded_ivf_fn)
+
+    K = tabs[1].shape[0]
+    kl = K // n
+    local = make_sharded_ivf_fn(K_ANN, max(1, SIFT_1M.nprobe // n), kl,
+                                SIFT_1M.n_clusters)
+    parts = [local(*(t[s * kl:(s + 1) * kl] for t in tabs), q, lin=s)
+             for s in range(n)]
+    return _merge_gathered(torch.stack([p[0] for p in parts]),
+                           torch.stack([p[1] for p in parts]), K_ANN)
+
+
+def _cells_retrieval_merged(params, rb, cfg, n: int):
+    """``retrieval_logits`` over ``n`` candidate shards in one process:
+    each shard scored on its own (what a rank does), the scores joined
+    and the top k taken, as the sharded step does."""
+    cand = rb["candidates"]
+    per = len(cand) // n
+    scores = []
+    for s in range(n):
+        part = {k: (v[s * per:(s + 1) * per]
+                    if k in ("candidates", "cand_cates") else v)
+                for k, v in rb.items()}
+        scores.append(recsys._retrieval_scores(params, part, cfg,
+                                               LOCAL_PLAN)[0])
+    neg, ids = stable_topk(-torch.cat(scores).float()[None], RETRIEVAL_K)
+    c = torch.as_tensor(cand, dtype=torch.int32, device=neg.device)
+    return -neg[0], c[ids[0]]
+
+
+def _near_ties(name, q, corpus, a, b) -> dict:
+    """Two (B, k) id answers: every slot where they differ holds two ids
+    whose float64 distances to the query lie within ``REL`` of
+    ``|q|^2 + |x|^2`` (ROADMAP fault 7)."""
+    q64 = q.astype(np.float64)
+    differ = np.argwhere(a != b)
+    for r, c in differ:
+        d = [float(((q64[r] - corpus[j].astype(np.float64)) ** 2).sum())
+             for j in (a[r, c], b[r, c])]
+        scale = float((q64[r] ** 2).sum() + max(
+            (corpus[j].astype(np.float64) ** 2).sum()
+            for j in (a[r, c], b[r, c])))
+        require(abs(d[0] - d[1]) <= REL * scale,
+                f"[cells] {name}: ids {a[r, c]} / {b[r, c]} differ off a "
+                f"near-tie at ({r}, {c})")
+    return {"agree": float((a == b).mean()), "near_ties": len(differ)}
+
+
+def cells_world1(dev, ctx, smi: str) -> dict:
+    """The ANN cell (sift-1m serve_batch) and the DIN and SASRec retrieval
+    cells over a world-1 NCCL (1, 1) mesh: against the same cells with no
+    mesh, the ANN cell against its unfused plain loop too; times and the
+    steps' peak memory."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.sharding import make_sharded_ivf_fn
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_plan
+
+    out = {}
+    workdir = tempfile.mkdtemp(prefix="cells-world1-", dir=OUT_DIR)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(workdir, "store"), 1),
+        rank=0, world_size=1)
+    try:
+        plan = make_plan(init_device_mesh("cuda", (1, 1),
+                                          mesh_dim_names=("data", "model")))
+        shape = get_shape("ann", "serve_batch")
+        require(shape["batch"] == CELLS_B and shape["k"] == K_ANN,
+                "[cells] serve_batch is not B 1024, k 10")
+        cell = cells.build_cell(SIFT_1M, "ann", plan, shape)
+        one = cells.build_cell(SIFT_1M, "ann", LOCAL_PLAN, shape)
+        K, cap = cell.args[1].shape
+        tabs, over = _cells_pack(ctx, dev, K, cap)
+        qn = ctx["queries"][:CELLS_B]
+        q = torch.as_tensor(qn, device=dev)
+        args = cell.place(tabs + (q,), dev)
+        reset_launches()
+        d, i = cell.step_fn(*args)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        require(launches["candidate_topk"] > 0,
+                "[cells] the ANN cell launched no candidate_topk")
+        require_bits("[cells] world-1 ANN cell vs no mesh", (d, i),
+                     one.step_fn(*tabs, q))
+        ud, ui = make_sharded_ivf_fn(K_ANN, SIFT_1M.nprobe, K,
+                                     SIFT_1M.n_clusters, fused=False)(
+            *tabs, q, lin=0)
+        ids = i.cpu().numpy()
+        ties = _near_ties("world-1 ANN cell vs unfused", qn, ctx["corpus"],
+                          ids, ui.cpu().numpy())
+        recall = recall_at_k(ids, ctx["truth"][:CELLS_B])
+        ms = time_ms(lambda: cell.step_fn(*args), CELLS_ITERS)
+        ms_one = time_ms(lambda: one.step_fn(*tabs, q), CELLS_ITERS)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cell.step_fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        out["ann"] = {"K": int(K), "cap": int(cap), "rows_over_cap": over,
+                      "launches": launches, "unfused": ties,
+                      "recall_at_10": recall, "ms": ms, "ms_no_mesh": ms_one,
+                      "step_peak_bytes": peak, "bit_for_bit": True}
+        log(f"[cells] world-1 NCCL (1, 1) mesh, sift-1m ANN cell "
+            f"(serve_batch: B {CELLS_B}, k {K_ANN}, {K} buckets x cap "
+            f"{cap}, nprobe_local {SIFT_1M.nprobe}): {over} rows over cap "
+            f"dropped of {SIFT_1M.n}; bit for bit against the same cell "
+            f"with no mesh; ids against the unfused plain loop agree on "
+            f"{ties['agree']:.6f} of slots ({ties['near_ties']} near-ties, "
+            f"float64); recall@10 {recall:.4f} against the exact top-10; "
+            f"{ms:.3f} ms a call by CUDA events (no mesh {ms_one:.3f} ms); "
+            f"step peak {peak} B above its arguments; launches {launches}; "
+            f"{smi}")
+        RESULTS["kernels"]["candidate_topk"]["cells_launches"] = launches[
+            "candidate_topk"]
+        out["tables"] = tabs
+        for arch in CELLS_ARCHS:
+            cfg = get_arch(arch)[0]
+            params = recsys.init(cfg, seed=0, device=dev)
+            n_cand = get_shape("recsys", "retrieval_cand")["n_candidates"]
+            rb = retrieval_batch(cfg, batch_for(cfg, 1, 0), n_cand)
+            rcell = cells.build_cell(cfg, "recsys", plan,
+                                     get_shape("recsys", "retrieval_cand"))
+            placed = rcell.place((params, rb), dev)
+            s, c = rcell.step_fn(*placed)
+            ps, pc = recsys.retrieval_logits(params, rb, cfg, LOCAL_PLAN,
+                                             k=RETRIEVAL_K)
+            torch.cuda.synchronize()
+            require(torch.equal(c, pc), f"[cells] world-1 {arch} retrieval "
+                    "ids differ from the unsharded step")
+            err = float((s - ps).abs().max())
+            bound = 1e-5 * max(float(ps.abs().max()), 1.0)
+            require(err <= bound, f"[cells] world-1 {arch} retrieval "
+                    f"scores off by {err} (bound {bound})")
+            ms = time_ms(lambda: rcell.step_fn(*placed), 3, warmup=1)
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            rcell.step_fn(*placed)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            bits = bool(torch.equal(s.view(torch.int32),
+                                    ps.view(torch.int32)))
+            out[arch] = {"max_abs_err": err, "bit_for_bit": bits, "ms": ms,
+                         "step_peak_bytes": peak}
+            log(f"[cells] world-1 {arch} retrieval_cand (1 x {n_cand} "
+                f"candidates at full width, k {RETRIEVAL_K}): ids equal to "
+                f"the unsharded retrieval_logits, scores max abs err "
+                f"{err:.3e} (bit for bit {bits}); {ms:.1f} ms a call; step "
+                f"peak {peak} B above its arguments")
+            del params, placed, s, ps
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+def _cells_padded(params, shapes):
+    """``params`` with every leaf zero-padded to the (2, 2) cell's shape
+    (SASRec's item table rounds its rows up to a multiple of tp; the rows
+    past the items are never read)."""
+    if isinstance(params, dict):
+        return {k: _cells_padded(v, shapes[k]) for k, v in params.items()}
+    pad = tuple(shapes.shape)
+    if tuple(params.shape) == pad:
+        return params
+    out = params.new_zeros(pad)
+    out[tuple(slice(0, n) for n in params.shape)] = params
+    return out
+
+
+def cells_rank(rank: int, world: int, workdir: str, device: str) -> None:
+    """One of the four ranks sharing the card under gloo on a (2, 2) mesh:
+    the ANN cell and the DIN and SASRec retrieval cells through the
+    port's cells, each answer written for the parent."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_plan
+
+    dev = torch.device(device)
+    require(dev.type == "cuda", f"[cells] gloo rank {rank} needs the card")
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
+    t_all = time.perf_counter()
+    try:
+        plan = make_plan(DeviceMesh("cuda", torch.arange(world).reshape(2, 2),
+                                    mesh_dim_names=("data", "model")))
+        cell = cells.build_cell(SIFT_1M, "ann", plan,
+                                get_shape("ann", "serve_batch"))
+        host = {k: np.load(os.path.join(workdir, f"{k}.npy"), mmap_mode="r")
+                for k in ("corpus", "cents", "bids", "q")}
+        b = torch.as_tensor(np.array(host["bids"]), device=dev)
+        db = torch.as_tensor(np.array(host["corpus"]), device=dev)
+        vecs = db[torch.clamp(b, min=0).long()]
+        vecs.masked_fill_((b < 0)[..., None], 0.0)
+        del db
+        args = cell.place((np.array(host["cents"]), b, vecs,
+                           np.array(host["q"])), dev)
+        del b, vecs
+        torch.cuda.empty_cache()
+        reset_launches()
+        d, i = cell.step_fn(*args)
+        torch.cuda.synchronize()
+        out = {"rank": rank, "launches": read_launches(),
+               "ann": (d.cpu().numpy(), i.cpu().numpy()),
+               "ann_ms": time_ms(lambda: cell.step_fn(*args), 5, warmup=1)}
+        del args
+        for arch in CELLS_ARCHS:
+            cfg = get_arch(arch)[0]
+            saved = torch.load(os.path.join(workdir, f"{arch}.pt"),
+                               map_location="cpu")
+            rcell = cells.build_cell(cfg, "recsys", plan,
+                                     get_shape("recsys", "retrieval_cand"))
+            placed = rcell.place((saved["params"], saved["batch"]), dev)
+            s, c = rcell.step_fn(*placed)
+            torch.cuda.synchronize()
+            out[arch] = (s.cpu().numpy(), c.cpu().numpy())
+            del placed, saved
+        out["wall_s"] = time.perf_counter() - t_all
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def cells_gloo4(dev, ctx, tabs, smi: str) -> dict:
+    """The one-process merges on the card, then four gloo ranks sharing it
+    (spawned), each held against them bit for bit."""
+    import torch.multiprocessing as mp
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.sharding import SINGLE_POD_PLAN
+
+    workdir = tempfile.mkdtemp(prefix="cells-gloo4-", dir=OUT_DIR)
+    shape_plan = SINGLE_POD_PLAN.with_mesh(SimpleNamespace(
+        mesh_dim_names=("data", "model"), mesh=torch.zeros((2, 2))))
+    out = {}
+    try:
+        q = torch.as_tensor(ctx["queries"][:CELLS_B], device=dev)
+        want = {"ann": tuple(t.cpu().numpy() for t in _cells_merged(
+            tabs, q, CELLS_WORLD))}
+        for name, a in (("corpus", ctx["corpus"]),
+                        ("cents", tabs[0].cpu().numpy()),
+                        ("bids", tabs[1].cpu().numpy()),
+                        ("q", ctx["queries"][:CELLS_B])):
+            np.save(os.path.join(workdir, f"{name}.npy"), a)
+        n_cand = get_shape("recsys", "retrieval_cand")["n_candidates"]
+        for arch in CELLS_ARCHS:
+            cfg = get_arch(arch)[0]
+            params = _cells_padded(recsys.init(cfg, seed=0, device=dev),
+                                   recsys.param_shapes(cfg, shape_plan))
+            rb = retrieval_batch(cfg, batch_for(cfg, 1, 0), n_cand)
+            want[arch] = tuple(t.cpu().numpy() for t in
+                               _cells_retrieval_merged(params, rb, cfg,
+                                                       CELLS_WORLD))
+            torch.save({"params": tree_map(lambda t: t.cpu(), params),
+                        "batch": {k: torch.as_tensor(v)
+                                  for k, v in rb.items()}},
+                       os.path.join(workdir, f"{arch}.pt"))
+            del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        spawn = mp.get_context("spawn")
+        procs = [spawn.Process(target=cells_rank,
+                               args=(r, CELLS_WORLD, workdir, str(dev)))
+                 for r in range(CELLS_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + CELLS_LIMIT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.perf_counter()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        require(not hung, f"[cells] ranks {hung} outlived {CELLS_LIMIT_S} s")
+        codes = [p.exitcode for p in procs]
+        require(all(c == 0 for c in codes),
+                f"[cells] a rank failed: exit codes {codes}")
+        out["ranks_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(CELLS_WORLD):
+            with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for r in ranks:
+        require(r["launches"]["candidate_topk"] > 0,
+                f"[cells] gloo rank {r['rank']} launched no candidate_topk")
+        for name in ("ann",) + CELLS_ARCHS:
+            for got, exp in zip(r[name], want[name]):
+                require(got.dtype == exp.dtype and np.array_equal(
+                    got.view(np.uint8), exp.view(np.uint8)),
+                    f"[cells] gloo rank {r['rank']} {name} differs from the "
+                    "one-process merge")
+    recall = recall_at_k(ranks[0]["ann"][1], ctx["truth"][:CELLS_B])
+    n_cand = get_shape("recsys", "retrieval_cand")["n_candidates"]
+    out.update(recall_at_10=recall,
+               ann_ms=[r["ann_ms"] for r in ranks],
+               wall_s=[r["wall_s"] for r in ranks],
+               peak_bytes=[r["peak_bytes"] for r in ranks],
+               launches=[r["launches"] for r in ranks])
+    log(f"[cells] four gloo ranks on one card, (2, 2) mesh: the sift-1m ANN "
+        f"cell ({SIFT_1M.n_clusters // CELLS_WORLD} buckets a rank, "
+        f"nprobe_local {SIFT_1M.nprobe // CELLS_WORLD}, B {CELLS_B}) and "
+        f"DIN and SASRec retrieval_cand ({n_cand} candidates, "
+        f"{n_cand // CELLS_WORLD} a rank) "
+        f"bit for bit against the four shards run on one card and merged "
+        f"(_merge_gathered / the joined scores' top {RETRIEVAL_K}), on "
+        f"every rank; ANN recall@10 {recall:.4f}; rank ANN ms "
+        f"{[round(x, 2) for x in out['ann_ms']]}; launches "
+        f"{out['launches']}; wall {out['ranks_s']:.1f} s; {smi}")
+    return out
+
+
+def phase_cells(dev, ctx, card) -> dict:
+    """The cells never run over a mesh before (the ANN cell, the DIN and
+    SASRec retrieval cells), on a world-1 NCCL mesh and on four gloo
+    ranks sharing the card, and the dry run of ``launch/dryrun.py`` in a
+    subprocess on this machine's torch, its peaks held against the
+    card's."""
+    smi = card["nvidia_smi"]
+    t0 = time.perf_counter()
+    dry = subprocess.Popen(
+        [sys.executable, "-c", _CELLS_DRYRUN, json.dumps(CELLS_DRYRUN)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    try:
+        world1 = cells_world1(dev, ctx, smi)
+        tabs = world1.pop("tables")
+        gloo = cells_gloo4(dev, ctx, tabs, smi)
+        del tabs
+        gc.collect()
+        torch.cuda.empty_cache()
+        out_s, err_s = dry.communicate(timeout=max(
+            1.0, CELLS_DRYRUN_LIMIT_S - (time.perf_counter() - t0)))
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+    require(dry.returncode == 0, f"[cells] the dry run failed: "
+            f"{err_s[-3000:]}")
+    res = json.loads(out_s.strip().splitlines()[-1])
+    for c in res["cells"]:
+        require(c["status"] == "ok", f"[cells] dry run {c['arch']} "
+                f"{c['shape']} {c['mesh']}: {c['status']} {c['error']}")
+        log(f"[cells] dry run (meta counts, torch {res['torch']} on this "
+            f"machine's CPU) {c['arch']} {c['shape']} {c['mesh']}: ok; "
+            f"argument_bytes {c['memory']['argument_bytes']} peak_bytes "
+            f"{c['memory']['peak_bytes']}, matmul_flops "
+            f"{c['matmul_flops']:.4e}, collective bytes "
+            f"{c['collective_bytes']['total']}; step {c['times']['step_s']} s")
+    ratios = {}
+    for c in res["cells"]:
+        if c["mesh"] != "1x1":
+            continue
+        name = "ann" if c["arch"] == "sift-1m" else c["arch"]
+        card_peak = world1[name]["step_peak_bytes"]
+        ratios[name] = c["memory"]["peak_bytes"] / max(card_peak, 1)
+        log(f"[cells] memory, world-1 {c['arch']} {c['shape']}: dry-run "
+            f"peak_bytes {c['memory']['peak_bytes']} against the card's "
+            f"max_memory_allocated above the step's arguments {card_peak} "
+            f"B: ratio {ratios[name]:.3f}")
+        require(PEAK_RATIO[0] <= ratios[name] <= PEAK_RATIO[1],
+                f"[cells] {name}: dry-run peak over the card's "
+                f"{ratios[name]:.3f} outside {PEAK_RATIO}")
+    out = {"world1": world1, "gloo4": gloo, "dry_run": res,
+           "peak_ratio": ratios, "s": time.perf_counter() - t0}
+    log(f"[cells] phase {out['s']:.1f} s; {smi}")
+    RESULTS["cells"] = out
+    return out
+
+
 def kernel_line() -> dict:
     """Each kernel at its main path's shape (``candidate_topk``: the served
     chain, with its one-step, DEEP-10M and served forest rows-by-id
@@ -6235,7 +6692,7 @@ def kernel_line() -> dict:
         for extra in ("lookup_ms", "bytes_ms", "compare_loop_ops_ms",
                       "matched_slots", "tc_bound_ms", "popc_ms", "int_ms",
                       "popc_each_word_ms", "fp32_rate_bound_ms",
-                      "models_launches"):
+                      "models_launches", "cells_launches"):
             if extra in r:
                 row[extra] = r[extra]
         if "eight_terms" in r:
@@ -6288,6 +6745,8 @@ def main() -> int:
         phase_fleet(dev, ctx)
     with phase("analysis"):
         phase_analysis(ctx)
+    with phase("cells and dry run"):
+        phase_cells(dev, ctx, card)
     ctx.clear()
     gc.collect()
     torch.cuda.empty_cache()

@@ -46,6 +46,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.analysis.annotations import hot_path
 from repro_torch.core.brute import batched_l2sq, pairwise_l2sq
@@ -54,7 +56,8 @@ from repro_torch.kernels.common import INF, pad_sentinel, stable_topk
 from repro_torch.kernels.ref import bm25_dists_ref
 
 __all__ = ["ShardPlan", "SINGLE_POD_PLAN", "MULTI_POD_PLAN", "LOCAL_PLAN",
-           "REDISTRIBUTES", "move", "local_region", "place_on", "whole",
+           "REDISTRIBUTES", "COLLECTIVE_BYTES", "COLLECTIVE_COUNTS",
+           "EXCHANGE_BYTES", "move", "local_region", "place_on", "whole",
            "local", "local_offset", "layer_of",
            "ShardSlot", "MeshCollective",
            "sharded_brute_search", "sharded_ivf_search",
@@ -227,7 +230,9 @@ def _move(x, want):
     used): every mesh dim that changes, and every later one sharding the
     same tensor dim, is gathered (last mesh dim first) or reduced to
     replicated, then ``want``'s shards are cut (first mesh dim first), as
-    DTensor nests them."""
+    DTensor nests and sizes them (a dim that does not divide keeps
+    DTensor's chunks, the counterpart of the reference's padded
+    layout)."""
     want = tuple(want)
     have = tuple(x.placements)
     if have == want:
@@ -251,22 +256,40 @@ def _move(x, want):
     cur = list(have)
     for m in sorted(widen, reverse=True):
         group = mesh.get_group(m)
+        kind = _move_kind(have[m], want[m])
+        if kind == "none":                 # gathered only to be cut again
+            kind = "all_to_all"
         if isinstance(cur[m], Partial):
             loc = loc.contiguous().clone()
             dist.all_reduce(loc, group=group)
+            _sent(kind, loc, 2)
         elif isinstance(cur[m], Shard):
             d = cur[m].dim
             k = mesh.size(m)
-            part = loc.movedim(d, 0).contiguous()
-            out = part.new_empty((k * part.shape[0],) + part.shape[1:])
+            # the length along d once gathered; uneven shards (DTensor's
+            # chunks: ceil-sized, the last shorter, trailing ones empty)
+            # travel padded to the chunk size and are trimmed after
+            full = compute_local_shape_and_global_offset(
+                x.shape, mesh, cur[:m] + [Replicate()] + cur[m + 1:])[0][d]
+            part = loc.movedim(d, 0)
+            c = -(-full // k)
+            if part.shape[0] < c:
+                part = torch.cat([part, part.new_zeros(
+                    (c - part.shape[0],) + part.shape[1:])])
+            part = part.contiguous()
+            out = part.new_empty((k * c,) + part.shape[1:])
             dist.all_gather_into_tensor(out, part, group=group)
-            loc = out.movedim(0, d)
+            _sent(kind, out)
+            loc = out[:full].movedim(0, d)
+            if kind == "all_to_all":
+                EXCHANGE_BYTES[kind] += part.numel() * part.element_size()
         cur[m] = Replicate()
     for m in sorted(widen):
         if isinstance(want[m], Shard):
             d = want[m].dim
-            k = mesh.size(m)
-            loc = loc.tensor_split(k, dim=d)[mesh.get_local_rank(m)]
+            c = -(-loc.shape[d] // mesh.size(m))
+            start = min(mesh.get_local_rank(m) * c, loc.shape[d])
+            loc = loc.narrow(d, start, min(c, loc.shape[d] - start))
             cur[m] = want[m]
         elif isinstance(want[m], Partial):
             raise ValueError(f"no move makes a partial sum: {want}")
@@ -371,8 +394,6 @@ def local_offset(x) -> tuple:
     for a plain tensor)."""
     if not isinstance(x, DTensor):
         return (0,) * x.dim()
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     return tuple(compute_local_shape_and_global_offset(
         x.shape, x.device_mesh, x.placements)[1])
 
@@ -393,23 +414,45 @@ def whole(x):
 # sharded step.
 REDISTRIBUTES: Counter = Counter()
 
+# the bytes a rank receives from each collective the port issues (``move``
+# and ``MeshCollective``), and how many it issues, by kind, at the
+# reference's rule (``hlo_analysis.analyze_hlo``: the result's bytes, an
+# all-reduce doubled).  The kind is the move's on that mesh dim (as in
+# ``REDISTRIBUTES``), the bytes what the port sends for it: a
+# ``Shard -> Shard`` dim, and a dim gathered only to be cut again,
+# gather the whole (ROADMAP fault 22) and count that gather under
+# ``all_to_all``; a ``Partial -> Shard`` dim all-reduces before its cut
+# and counts that under ``reduce_scatter``.  ``EXCHANGE_BYTES`` holds, for
+# the same ``all_to_all`` dims, the result a true all-to-all would have
+# (the local shard).  Read and reset with ``REDISTRIBUTES``.
+COLLECTIVE_BYTES: Counter = Counter()
+COLLECTIVE_COUNTS: Counter = Counter()
+EXCHANGE_BYTES: Counter = Counter()
+
+
+def _move_kind(a, b) -> str:
+    """The kind of one mesh dim's move from placement ``a`` to ``b``."""
+    if a == b:
+        return "none"
+    if isinstance(a, Partial):
+        return "all_reduce" if isinstance(b, Replicate) else "reduce_scatter"
+    if isinstance(b, Replicate):
+        return "all_gather"
+    if isinstance(a, Replicate):
+        return "slice"
+    return "all_to_all"
+
 
 def _count_redistribute(have, want) -> None:
-    kinds = []
-    for a, b in zip(have, want):
-        if a == b:
-            continue
-        if isinstance(a, Partial):
-            kinds.append("all_reduce" if isinstance(b, Replicate)
-                         else "reduce_scatter")
-        elif isinstance(b, Replicate):
-            kinds.append("all_gather")
-        elif isinstance(a, Replicate):
-            kinds.append("slice")
-        else:
-            kinds.append("all_to_all")
+    kinds = [k for k in map(_move_kind, have, want) if k != "none"]
     for k in kinds or ["none"]:
         REDISTRIBUTES[k] += 1
+
+
+def _sent(kind: str, t: torch.Tensor, factor: int = 1) -> None:
+    """Count one collective of ``kind`` whose result is ``t``."""
+    COLLECTIVE_BYTES[kind] += factor * t.numel() * t.element_size()
+    COLLECTIVE_COUNTS[kind] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -501,6 +544,7 @@ def _all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     gloo and NCCL, CPU and CUDA tensors, and torch 2.11 and 2.13 all take
     (2.13 deprecates it for ``all_gather_single``, which 2.11 lacks)."""
     dist.all_gather_into_tensor(out, inp, group=group)
+    _sent("all_gather", out)
 
 
 class MeshCollective:

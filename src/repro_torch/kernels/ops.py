@@ -2,7 +2,12 @@
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the plain version in ``ref``.  There is no fallback
-from one to the other and no switch that forces either.  Both answer any
+from one to the other and no switch that forces either.  A ``meta``
+tensor (the dry run, ``launch/dryrun.py``) reaches neither: it gets empty
+``meta`` tensors of the kernel's result contract, (B, k) float32
+distances and int32 ids, ``k`` clamped inside and the slots past the
+candidates padded back to ``k`` as the kernel pads them (the counterpart
+of XLA's abstract evaluation of a Pallas call).  Both answer any
 ``k``, as the reference does: the kernels whose lists hold at most
 ``common.KMAX`` (``KMAX_PQ``) pairs take a larger ``k`` in passes
 (``common.topk_passes``).
@@ -30,6 +35,24 @@ def _on_card(device: torch.device) -> bool:
     raise ValueError(f"no kernel path for device {device}")
 
 
+def _shape_only(x: torch.Tensor, k: int, dots=None):
+    """The result contract on ``meta``: (B, k) float32 and int32, no
+    storage, where B is ``x``'s leading dim; ``None`` off ``meta``.
+    ``dots`` (batch, m, n, depth): the candidate dot products the plain
+    version computes, dispatched as one ``meta`` ``bmm`` so that a FLOP
+    counter sees the kernel's products (the reference's dry run counts
+    them in its plain lowering)."""
+    if x.device.type != "meta":
+        return None
+    if dots is not None:
+        b, m, n, depth = (int(v) for v in dots)
+        torch.bmm(torch.empty((b, m, depth), device="meta"),
+                  torch.empty((b, depth, n), device="meta"))
+    b = x.shape[0]
+    return (torch.empty((b, k), dtype=torch.float32, device="meta"),
+            torch.empty((b, k), dtype=torch.int32, device="meta"))
+
+
 def quantize_rows_int8(db) -> tuple[np.ndarray, np.ndarray]:
     """Per-row symmetric int8 quantization: ``row ~= scale * codes``.
 
@@ -47,6 +70,10 @@ def quantize_rows_int8(db) -> tuple[np.ndarray, np.ndarray]:
 @hot_path
 def l2_topk_op(queries, db, k: int = 10, *, valid=None):
     """Fused brute-force L2 top-k: (dists ascending, ids)."""
+    meta = _shape_only(queries, k, (1, queries.shape[0], db.shape[0],
+                                    queries.shape[1]))
+    if meta is not None:
+        return meta
     if _on_card(queries.device):
         return l2_topk.l2_topk(queries, db, k, valid=valid)
     return ref.l2_topk_ref(queries, db, k, valid=valid)
@@ -55,6 +82,10 @@ def l2_topk_op(queries, db, k: int = 10, *, valid=None):
 @hot_path
 def l2_topk_int8_op(queries, codes, scales, k: int = 10, *, valid=None):
     """int8-footprint brute scan (rows as per-row-scaled int8 codes)."""
+    meta = _shape_only(queries, k, (1, queries.shape[0], codes.shape[0],
+                                    queries.shape[1]))
+    if meta is not None:
+        return meta
     if _on_card(queries.device):
         return l2_topk.l2_topk_int8(queries, codes, scales, k, valid=valid)
     return ref.l2_topk_int8_ref(queries, codes, scales, k, valid=valid)
@@ -65,6 +96,10 @@ def candidate_topk_op(queries, vecs, ids, k: int = 10, *,
                       best_d=None, best_i=None):
     """Per-query candidate-tile L2 top-k with optional carried best (IVF
     probe chains): (dists ascending, ids)."""
+    meta = _shape_only(queries, k, (vecs.shape[0], 1, vecs.shape[1],
+                                    vecs.shape[2]))
+    if meta is not None:
+        return meta
     if _on_card(queries.device):
         return bucket_topk.candidate_topk(queries, vecs, ids, k,
                                           best_d=best_d, best_i=best_i)
@@ -76,6 +111,10 @@ def candidate_topk_op(queries, vecs, ids, k: int = 10, *,
 def candidate_rows_topk_op(queries, rows, ids, k: int = 10):
     """Per-query candidate row ids into one (N, d) table, the rows read by
     id (the served forest's rerank): (dists ascending, ids)."""
+    meta = _shape_only(queries, k, (ids.shape[0], 1, ids.shape[1],
+                                    rows.shape[1]))
+    if meta is not None:
+        return meta
     if _on_card(queries.device):
         return bucket_topk.candidate_rows_topk(queries, rows, ids, k)
     return ref.candidate_rows_topk_ref(queries, rows, ids, k)
@@ -87,6 +126,11 @@ def bucket_probe_topk_op(queries, probe, bucket_ids, k: int = 10, *,
     """The whole IVF probe chain: the top-k of each query's probed buckets,
     rows from ``bucket_vecs`` (K, cap, d) or ``db`` (N, d): (dists
     ascending, ids).  On the card one scan and one merge launch a pass."""
+    meta = _shape_only(queries, k, (
+        queries.shape[0], 1, probe.shape[1] * bucket_ids.shape[1],
+        queries.shape[1]))
+    if meta is not None:
+        return meta
     if _on_card(queries.device):
         return bucket_topk.bucket_probe_topk(queries, probe, bucket_ids, k,
                                              bucket_vecs=bucket_vecs, db=db)
@@ -98,6 +142,9 @@ def bucket_probe_topk_op(queries, probe, bucket_ids, k: int = 10, *,
 def bm25_topk_op(q_terms, q_weights, terms, tf_sat, k: int = 10, *,
                  valid=None):
     """Fused BM25 scan over postings slabs: (-score ascending, ids)."""
+    meta = _shape_only(q_terms, k)
+    if meta is not None:
+        return meta
     if _on_card(q_terms.device):
         return bm25.bm25_topk(q_terms, q_weights, terms, tf_sat, k,
                               valid=valid)
@@ -110,6 +157,10 @@ def hybrid_topk_op(queries, db, q_terms, q_weights, terms, tf_sat, alpha,
                    k: int = 10, *, valid=None):
     """Fused ``alpha * l2sq - (1 - alpha) * bm25`` top-k; ``alpha`` is a
     (1, 1) operand on the queries' device."""
+    meta = _shape_only(queries, k, (1, queries.shape[0], db.shape[0],
+                                    queries.shape[1]))
+    if meta is not None:
+        return meta
     if _on_card(queries.device):
         return bm25.hybrid_topk(queries, db, q_terms, q_weights, terms,
                                 tf_sat, alpha, k, valid=valid)
@@ -121,6 +172,9 @@ def hybrid_topk_op(queries, db, q_terms, q_weights, terms, tf_sat, alpha,
 def pq_adc_topk_op(lut, codes, k: int = 10, *, valid=None):
     """PQ ADC scan + top-k from a per-query (B, M, 256) LUT: (adc dists
     ascending, ids)."""
+    meta = _shape_only(lut, k)
+    if meta is not None:
+        return meta
     if _on_card(lut.device):
         return pq_adc.pq_adc_topk(lut, codes, k, valid=valid)
     return ref.pq_adc_topk_ref(lut, codes, k, valid=valid)
@@ -129,6 +183,9 @@ def pq_adc_topk_op(lut, codes, k: int = 10, *, valid=None):
 @hot_path
 def hamming_topk_op(qcodes, codes, k: int = 10, *, valid=None):
     """Packed-bit Hamming scan + top-k: (dists ascending, ids)."""
+    meta = _shape_only(qcodes, k)
+    if meta is not None:
+        return meta
     if _on_card(qcodes.device):
         return hamming.hamming_topk(qcodes, codes, k, valid=valid)
     return ref.hamming_topk_ref(qcodes, codes, k, valid=valid)

@@ -22,9 +22,10 @@ unplaced to the device.
 
 Where the reference hands ``jit`` its ``donate`` arguments, the port's
 train steps update the state in place (``make_train_step``): the state
-passed in is consumed.  The lowering, the compile and the
-collective-byte accounting of ``launch/dryrun.py`` and ``hlo_analysis.py``
-are not ported here (ROADMAP module item 5).
+passed in is consumed.  ``launch/dryrun.py`` runs every cell's step on
+its ``meta`` arguments as one rank of a fake process group, and
+``launch/step_analysis.py`` accounts for it: the counterparts of the
+reference's lowering and compile and of ``hlo_analysis.py``.
 """
 from __future__ import annotations
 

@@ -244,19 +244,25 @@ def param_shapes(cfg: LMConfig, plan: ShardPlan = LOCAL_PLAN):
 # tensors.
 
 
-def _res_dims(cfg: LMConfig) -> tuple:
-    return ("dp", "tp", None) if cfg.attn_shard == "seq" \
-        else ("dp", None, None)
+def _res_dims(x, cfg: LMConfig, plan: ShardPlan) -> tuple:
+    """The residual's roles: its sequence over tp for ``attn_shard``
+    "seq", where the sequence divides tp.  A decode step's one token does
+    not: the reference pads it to tp rows, and here it stays whole over
+    tp, since a region's shards are even (``local_region``)."""
+    if cfg.attn_shard == "seq" and \
+            x.shape[1] % max(plan.axis_size("tp"), 1) == 0:
+        return ("dp", "tp", None)
+    return ("dp", None, None)
 
 
 def _res_constrain(x, cfg: LMConfig, plan: ShardPlan):
-    return plan.constrain(x, *_res_dims(cfg))
+    return plan.constrain(x, *_res_dims(x, cfg, plan))
 
 
 def _residual_add(x, y, cfg: LMConfig, plan: ShardPlan):
     """``x + y`` in the residual's placements (``y`` may be a partial
     sum over tp)."""
-    pl = plan.layout(*_res_dims(cfg))
+    pl = plan.layout(*_res_dims(x, cfg, plan))
     return local_region(plan.mesh, torch.add, [(x, pl), (y, pl)], pl)
 
 
