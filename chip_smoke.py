@@ -222,12 +222,25 @@ each prints its wall time as ``[phase] <name> <s> s``):
              width cut to 1 dense + 1 MoE layer (decode cell 2 x 512 and
              8 steps, one Adafactor step at 1 x 512, its peak memory);
              then four gloo ranks sharing the card on a ``(2, 2)`` mesh
-             (spawned; the parent computes the one-card steps first):
-             qwen3-0.6b at full width and depth and deepseek-v3 at
-             ``reduced()`` through the prefill cell, 4 decode steps and a
-             train step at the fp32 policy, every rank's gathered
-             logits, loss, grad_norm and updated parameters within 1e-4
-             of each leaf's max of the one-card step;
+             (spawned; the parent computes the one-card steps first and
+             hands them over on the host): qwen3-0.6b at full width
+             and depth, deepseek-v3 at ``reduced()`` and granite-34b at
+             full width with its depth cut to 2 layers (its 48 query heads
+             over tp, its one KV head whole on each rank; the attention
+             projections at their true fan-in, ROADMAP fault 27) through
+             the prefill cell (2 x 512), 4 decode steps and a train step
+             (4 x 512) at the fp32 policy, every rank's logits, loss,
+             grad_norm, updated parameters and moments (its own shards)
+             within 1e-4 of each leaf's max of the one-card step (the
+             parameters within 1e-6); DCN-v2 at full width with its whole
+             12.0 GB fp32 table (columns over tp, drawn one rank at a
+             time) and DLRM with its full-width MLPs (tables capped at
+             65,536 rows), each through ``serve_p99`` and one sparse
+             ``train_batch`` step: logits, dense leaves and moments, the
+             AdaGrad sums, the table's touched rows and its float64
+             column sums within 1e-4 of the one-card step's; each
+             check's error, the ranks' wall time and rank 0's collective
+             bytes by kind printed before the checks run;
 20. the ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
 
 The serve phase also runs the brute and IVF backends at k = 50 (above the
@@ -319,7 +332,8 @@ from repro_torch.train.sparse_embed import \
 from repro_torch.train.tree import leaves as tree_leaves_sorted  # noqa: E402
 from repro_torch.testing import (CHAIN_EDGES, EDGE_ALPHAS,  # noqa: E402
                                  HAMMING_EDGES, OPTION_EDGES, PQ_EDGES,
-                                 ROWS_EDGES, chain_edge_operands,
+                                 ROWS_EDGES, attention_at_true_fan_in,
+                                 chain_edge_operands,
                                  chain_union_topk, hamming_edge_operands,
                                  hybrid_by_parts, message_dtypes,
                                  mips_parity, option_edge_operands,
@@ -5576,6 +5590,11 @@ SM_GLOO_SEQ = 512               # four ranks: prefill 2 x 512, 4 steps
 SM_GLOO_DECODE_STEPS = 4
 SM_GLOO_TRAIN_BATCH = 4         # one train step of 4 x 512
 SM_DEEP_REDUCED = dict(prefill=(4, 16), train=(8, 16))   # (batch, seq)
+SM_GRANITE_LAYERS = 2           # granite-34b at full width, depth cut 88 -> 2
+# the CTR cases on the four ranks: (arch, each table's rows capped at, or
+# None for the whole table); DCN-v2's 12.0 GB fp32 table lies with its
+# columns over tp, DLRM's capped as the train phase caps it
+SM_CTR = {"dcn": ("dcn-v2", None), "dlrm": ("dlrm-mlperf", 65_536)}
 SM_TOL = 1e-4                   # of each leaf's max
 # the four ranks' updated params, of each leaf's max: one AdamW update
 # from step 1000 moves a weight leaf by about 1.25e-4 of its max, so 1e-4
@@ -5637,9 +5656,12 @@ def _sm_moments(params, seed: int):
 
 
 def _sm_leaf_errs(got, want) -> dict:
-    """Per leaf of two trees (``got`` DTensors or tensors, gathered whole;
-    ``want`` tensors, any device): max abs err over the leaf's max."""
-    from repro_torch.distributed.sharding import whole
+    """Per leaf of two trees (``got`` DTensors or tensors; ``want`` whole
+    tensors, any device): the max abs err of this rank's shard against
+    the same slice of ``want``, over the whole leaf's max.  Over every
+    rank that is the whole leaf's error, and no leaf travels between
+    ranks to find it."""
+    from repro_torch.distributed.sharding import local, local_offset
 
     out = {}
 
@@ -5648,10 +5670,12 @@ def _sm_leaf_errs(got, want) -> dict:
             for k in sorted(b):
                 walk(a[k], b[k], f"{path}/{k}")
             return
-        x = whole(a).float()
-        y = b.to(x.device).float()
-        scale = max(float(y.abs().max()), 1e-6)
-        out[path] = float((x - y).abs().max()) / scale
+        x = local(a).float()
+        at = tuple(slice(o, o + n) for o, n in zip(local_offset(a),
+                                                    x.shape))
+        y = b[at].to(x.device).float()
+        scale = max(float(b.abs().max()), 1e-6)
+        out[path] = float((x - y).abs().max()) / scale if x.numel() else 0.0
     walk(got, want, "")
     return out
 
@@ -5955,19 +5979,22 @@ def _sm_deep_step(dev, plan, cfg, p, tokens: int) -> dict:
             "moves": dict(sharding.REDISTRIBUTES)}
 
 
-def _sm_cases(plan, qcfg, dcfg):
-    """The four-rank cases' cells under ``plan`` (a (2, 2) mesh, or its
-    shape alone for the one-card reference): qwen3-0.6b at full width and
-    depth, deepseek-v3-671b at ``reduced()``."""
+def _sm_cases(plan, qcfg, dcfg, gcfg):
+    """The four-rank LM cases' cells under ``plan`` (a (2, 2) mesh, or its
+    shape alone for the one-card reference): qwen3-0.6b at full width
+    and depth, deepseek-v3-671b at ``reduced()``, granite-34b at full
+    width with ``SM_GRANITE_LAYERS`` layers (one KV head: its 48 query
+    heads split over tp, K and V whole on each rank)."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import cells
 
     out = {}
+    gloo = ((SM_BATCH, SM_GLOO_SEQ), (SM_GLOO_TRAIN_BATCH, SM_GLOO_SEQ))
     for name, cfg, pre, train in (
-            ("qwen", qcfg, (SM_BATCH, SM_GLOO_SEQ),
-             (SM_GLOO_TRAIN_BATCH, SM_GLOO_SEQ)),
+            ("qwen", qcfg) + gloo,
             ("deepseek", dcfg, SM_DEEP_REDUCED["prefill"],
-             SM_DEEP_REDUCED["train"])):
+             SM_DEEP_REDUCED["train"]),
+            ("granite", gcfg) + gloo):
         total = pre[1] + SM_GLOO_DECODE_STEPS
         out[name] = {
             "prefill": cells.build_cell(cfg, "lm", plan, ShapeSpec(
@@ -5986,7 +6013,153 @@ def _sm_cfgs():
     d = get_arch("deepseek-v3-671b")[0].reduced()
     dcfg = dataclasses.replace(d, residual_dtype="float32", moe=dataclasses
                                .replace(d.moe, capacity_factor=8.0))
-    return qcfg, dcfg
+    gcfg = dataclasses.replace(get_arch("granite-34b")[0],
+                               n_layers=SM_GRANITE_LAYERS,
+                               residual_dtype="float32")
+    return qcfg, dcfg, gcfg
+
+
+def _sm_ctr_cases(plan) -> dict:
+    """The CTR cases' serve and train cells under ``plan`` (their widths
+    in full, the registry's ``serve_p99`` and ``train_batch``)."""
+    from repro_torch.launch import cells
+
+    return {name: {kind: cells.build_cell(
+        _ctr_cfg(arch, rows), "recsys", plan, get_shape("recsys", shape))
+        for kind, shape in (("serve", "serve_p99"),
+                            ("train", "train_batch"))}
+        for name, (arch, rows) in SM_CTR.items()}
+
+
+def _sm_ctr_run(cs: dict, dev, one_card: bool, turn=None) -> dict:
+    """Each CTR case's serve cell and one sparse train step (AdamW from
+    trained-looking moments at ``SM_START_STEP``, the AdaGrad sums
+    positive), fp32: the logits, the step's aux and dense leaves (and
+    their moments), the table's rows the batch touched with the float64
+    sums of every column and of its squares (a sparse step changes no
+    other row), and the AdaGrad sums.  ``turn(fn)`` runs ``fn`` on one
+    rank at a time (each rank draws the whole table before it keeps its
+    columns)."""
+    from repro_torch.distributed.sharding import (local, local_offset,
+                                                  place_on, whole)
+    from repro_torch.train.loop import TrainState
+
+    out = {}
+    for name, c in cs.items():
+        sc, tc = c["serve"], c["train"]
+        cfg, plan = sc.cfg, LOCAL_PLAN if one_card else sc.plan
+        res = {"ms": {}}
+        params = (turn or (lambda f: f()))(
+            lambda: recsys.init(cfg, seed=0, plan=plan, device=dev))
+        sb = serve_batch(cfg, batch_for(cfg, sc.args[1]["dense"].shape[0],
+                                        0))
+        sb = {k: torch.as_tensor(v, device=dev) for k, v in sb.items()} \
+            if one_card else sc.place((None, sb), dev)[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = recsys.serve_logits(params, sb, cfg, plan) if one_card \
+            else sc.step_fn(params, sb)
+        torch.cuda.synchronize()
+        res["ms"]["serve"] = (time.perf_counter() - t0) * 1e3
+        res["logits"] = [whole(lg).detach().float().cpu()]
+        rest = {k: v for k, v in params.items() if k != "table"}
+        rows = params["table"].shape[0]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        acc = torch.empty(rows, device=dev).uniform_(generator=gen)
+        acc = acc.add_(1.0).mul_(1e-4)
+        if not one_card:
+            acc = place_on(acc, plan.mesh, plan.spec_placements(
+                tc.in_specs[0].opt_state["embed_acc"]))
+        step0 = torch.tensor(SM_START_STEP, dtype=torch.int32, device=dev)
+        state = TrainState(
+            step=step0 if one_card else plan.place(step0, ()),
+            params=params, ef_buf=None,
+            opt_state={"dense": _sm_moments(rest, 5), "embed_acc": acc})
+        tb = batch_for(cfg, tc.args[1]["dense"].shape[0], 1)
+        ids = np.unique(tb["sparse"])
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in tb.items()} \
+            if one_card else tc.place((None, tb), dev)[1]
+        step = make_ctr_sparse_train_step(cfg, LOCAL_PLAN,
+                                          _recsys_opt())[1] \
+            if one_card else tc.step_fn
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = step(state, tb)
+        torch.cuda.synchronize()
+        res["ms"]["train"] = (time.perf_counter() - t0) * 1e3
+        res["aux"] = {k: float(v) for k, v in aux.items()}
+        table = state.params["table"]
+        t = local(table)
+        c0, nc = local_offset(table)[1], t.shape[1]
+        at = torch.as_tensor(ids, device=t.device)
+        res["table"] = {"touched": t[at].float(), "cols": (c0, nc),
+                        **_col_sums(t)}
+        res["params"] = {k: v for k, v in state.params.items()
+                         if k != "table"}
+        res["opt_state"] = state.opt_state
+        out[name] = res
+        del params, state, table, t
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _col_sums(t, block: int = 1 << 22) -> dict:
+    """Float64 sums of every column of ``t`` and of its squares, a block
+    of rows at a time (a 6 GB shard never copied whole in float64)."""
+    sums = torch.zeros(t.shape[1], dtype=torch.float64, device=t.device)
+    squares = torch.zeros_like(sums)
+    for i in range(0, t.shape[0], block):
+        b = t[i:i + block].double()
+        sums += b.sum(0)
+        squares += (b * b).sum(0)
+    return {"sums": sums, "squares": squares}
+
+
+def _to_host(x):
+    """Every tensor of a result tree detached onto the host."""
+    if isinstance(x, dict):
+        return {k: _to_host(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_host(v) for v in x)
+    return x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+
+def _sm_ctr_errs(got: dict, want: dict) -> dict:
+    """A CTR case's errors, each over the leaf's max of the one-card
+    step: logits, this rank's shard of each dense leaf and moment and of
+    the AdaGrad sums, its columns of the touched rows, and the float64
+    column sums (and sums of squares) over the sums' max."""
+    c0, nc = got["table"]["cols"]
+    tw = want["table"]
+
+    def rel(a, b):
+        return float((a.cpu().double() - b.double()).abs().max()) / max(
+            float(b.abs().max()), 1e-6)
+
+    return {"logits": max(rel(a, b) for a, b in zip(got["logits"],
+                                                     want["logits"])),
+            "params": max(_sm_leaf_errs(got["params"],
+                                        want["params"]).values()),
+            "opt_state": max(_sm_leaf_errs(got["opt_state"],
+                                           want["opt_state"]).values()),
+            "touched_rows": rel(got["table"]["touched"],
+                                tw["touched"][:, c0:c0 + nc]),
+            "column_sums": max(rel(got["table"][k], tw[k][c0:c0 + nc])
+                               for k in ("sums", "squares")),
+            "aux": max(abs(got["aux"][k] - want["aux"][k]) / max(
+                abs(want["aux"][k]), 1e-6) for k in want["aux"])}
+
+
+def _sm_init(name: str, cfg, plan, dev):
+    """``transformer.init`` of a case's cell; granite-34b's attention at
+    its true fan-in (``testing.attention_at_true_fan_in``: at ``init``'s
+    scale its first attention is a hard max, and the one-card step alone
+    moves by more than 1e-4 of the logits' max under another fp32
+    summation order, ROADMAP fault 27)."""
+    p = transformer.init(cfg, seed=0, plan=plan, device=dev)
+    return attention_at_true_fan_in(p, cfg) if name == "granite" else p
 
 
 def _sm_run(cs: dict, dev, one_card: bool) -> dict:
@@ -6004,7 +6177,7 @@ def _sm_run(cs: dict, dev, one_card: bool) -> dict:
         toks = torch.as_tensor(LMStream(pc.cfg.vocab, c["total"], b,
                                         seed=2).batch_at(0)["tokens"],
                                device=dev)
-        p = transformer.init(pc.cfg, seed=0, plan=plan, device=dev)
+        p = _sm_init(name, pc.cfg, plan, dev)
         tk = toks[:, :s] if one_card else plan.distribute(toks[:, :s], "dp",
                                                           None)
         torch.cuda.synchronize()
@@ -6016,7 +6189,7 @@ def _sm_run(cs: dict, dev, one_card: bool) -> dict:
         logits = [sharding.whole(lg).float()]
         del p
         dplan = LOCAL_PLAN if one_card else dc.plan
-        dp = transformer.init(dc.cfg, seed=0, plan=dplan, device=dev)
+        dp = _sm_init(name, dc.cfg, dplan, dev)
         res["ms"]["decode"] = []
         for i in range(SM_GLOO_DECODE_STEPS):
             t1 = toks[:, s + i:s + i + 1]
@@ -6031,7 +6204,7 @@ def _sm_run(cs: dict, dev, one_card: bool) -> dict:
         res["logits"] = logits
         del dp, cache
         tplan = LOCAL_PLAN if one_card else tc.plan
-        params = transformer.init(tc.cfg, seed=0, plan=tplan, device=dev)
+        params = _sm_init(name, tc.cfg, tplan, dev)
         step0 = torch.tensor(SM_START_STEP, dtype=torch.int32, device=dev)
         state = TrainState(step=step0 if one_card else tplan.place(step0, ()),
                            params=params, opt_state=_sm_moments(params, 5),
@@ -6079,18 +6252,42 @@ def sm_gloo_rank(rank: int, world: int, workdir: str, device: str) -> None:
         rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
     t_all = time.perf_counter()
     transformer.set_precision(torch.float32, torch.float32)
+
+    def turn(fn):
+        """``fn()`` on one rank at a time, the others waiting."""
+        got = None
+        for r in range(world):
+            if r == rank:
+                got = fn()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return got
+
     try:
         mesh = DeviceMesh("cuda", torch.arange(world).reshape(2, 2),
                           mesh_dim_names=("data", "model"))
-        qcfg, dcfg = _sm_cfgs()
-        cs = _sm_cases(_sm_plan(mesh), qcfg, dcfg)
+        qcfg, dcfg, gcfg = _sm_cfgs()
+        cs = _sm_cases(_sm_plan(mesh), qcfg, dcfg, gcfg)
+        ctr = _sm_ctr_cases(_sm_plan(mesh))
         ref = torch.load(os.path.join(workdir, "one_card.pt"),
                          map_location="cpu", mmap=True)
-        sharding.REDISTRIBUTES.clear()
+        for counter in (sharding.REDISTRIBUTES, sharding.COLLECTIVE_BYTES,
+                        sharding.COLLECTIVE_COUNTS):
+            counter.clear()
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         got = _sm_run(cs, dev, one_card=False)
+        t1 = time.perf_counter()
+        ctr_got = _sm_ctr_run(ctr, dev, one_card=False, turn=turn)
+        part_s = {"lm": t1 - t0, "ctr": time.perf_counter() - t1}
         out = {"rank": rank, "moves": dict(sharding.REDISTRIBUTES),
-               "peak_bytes": torch.cuda.max_memory_allocated(), "cases": {}}
+               "part_s": part_s,
+               "bytes": dict(sharding.COLLECTIVE_BYTES),
+               "peak_bytes": torch.cuda.max_memory_allocated(), "cases": {},
+               "ctr": {name: {"errs": _sm_ctr_errs(r, ref["ctr"][name]),
+                              "ms": r["ms"]}
+                       for name, r in ctr_got.items()}}
         for name, r in got.items():
             want = ref[name]
             logits = [float((a.cpu() - b).abs().max()) / max(
@@ -6123,29 +6320,34 @@ def sm_gloo4(dev, smi: str) -> dict:
     import torch.multiprocessing as mp
     from types import SimpleNamespace
 
-    qcfg, dcfg = _sm_cfgs()
+    qcfg, dcfg, gcfg = _sm_cfgs()
     shape_only = SimpleNamespace(mesh_dim_names=("data", "model"),
                                  mesh=torch.zeros((2, 2)))
-    cs = _sm_cases(_sm_plan(shape_only), qcfg, dcfg)
+    cs = _sm_cases(_sm_plan(shape_only), qcfg, dcfg, gcfg)
+    ctr = _sm_ctr_cases(_sm_plan(shape_only))
     workdir = tempfile.mkdtemp(prefix="gloo4-models-", dir=OUT_DIR)
     out = {}
     try:
         transformer.set_precision(torch.float32, torch.float32)
         try:
             t0 = time.perf_counter()
-            ref = _sm_run(cs, dev, one_card=True)
+            ref = _to_host({k: {f: v[f] for f in ("logits", "aux", "params",
+                                                  "opt_state", "ms")}
+                            for k, v in _sm_run(cs, dev,
+                                                one_card=True).items()})
+            gc.collect()
+            torch.cuda.empty_cache()
+            ref["ctr"] = _to_host(_sm_ctr_run(ctr, dev, one_card=True))
             out["one_card_s"] = time.perf_counter() - t0
         finally:
             transformer.set_precision()
-        out["one_card_ms"] = {k: v["ms"] for k, v in ref.items()}
-        torch.save({k: {"logits": [x.cpu() for x in v["logits"]],
-                        "aux": v["aux"],
-                        "params": tree_map(lambda t: t.detach().cpu(),
-                                           v["params"]),
-                        "opt_state": tree_map(lambda t: t.detach().cpu(),
-                                              v["opt_state"])}
-                    for k, v in ref.items()},
-                   os.path.join(workdir, "one_card.pt"))
+        out["one_card_ms"] = {k: v["ms"] for k, v in ref.items()
+                              if k != "ctr"}
+        out["one_card_ms"]["ctr"] = {k: v["ms"]
+                                     for k, v in ref["ctr"].items()}
+        t0 = time.perf_counter()
+        torch.save(ref, os.path.join(workdir, "one_card.pt"))
+        out["save_s"] = time.perf_counter() - t0
         del ref
         gc.collect()
         torch.cuda.empty_cache()
@@ -6177,24 +6379,16 @@ def sm_gloo4(dev, smi: str) -> dict:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     out["ranks"] = ranks
-    for r in ranks:
-        for name, c in r["cases"].items():
-            require(c["worst_err"] <= SM_PARAM_TOL
-                    and c["worst_state_err"] <= SM_TOL
-                    and max(c["logits_err"]) <= SM_TOL
-                    and max(c["aux_err"].values()) <= SM_TOL,
-                    f"[sharded models] gloo rank {r['rank']} {name}: worst "
-                    f"leaf {c['worst_leaf']} {c['worst_err']:.3e} (tol "
-                    f"{SM_PARAM_TOL}), worst m / v {c['worst_state']} "
-                    f"{c['worst_state_err']:.3e}, logits "
-                    f"{max(c['logits_err']):.3e}, aux {c['aux_err']} (tol "
-                    f"{SM_TOL} of each leaf's max)")
+    scope = {"qwen": "full width and depth",
+             "deepseek": "reduced()",
+             "granite": f"full width, depth cut to {SM_GRANITE_LAYERS} "
+                        f"layers"}
     for name in ranks[0]["cases"]:
         cs_ = [r["cases"][name] for r in ranks]
         worst = max(cs_, key=lambda c: c["worst_err"])
         ms = ranks[0]["cases"][name]["ms"]
         log(f"[sharded models] four gloo ranks on one card, (2, 2) mesh, "
-            f"{name} ({'full width and depth' if name == 'qwen' else 'reduced()'}"
+            f"{name} ({scope[name]}"
             f", fp32 policy): every rank's params within {SM_PARAM_TOL} and "
             f"m / v within {SM_TOL} of each leaf's max of the one-card "
             f"step: worst leaf {worst['worst_leaf']} "
@@ -6207,11 +6401,46 @@ def sm_gloo4(dev, smi: str) -> dict:
             f"{[round(x, 1) for x in ms['decode']]} ms, train "
             f"{ms['train']:.1f} ms (one card "
             f"{out['one_card_ms'][name]['train']:.1f} ms)")
+    for name, (arch, rows) in SM_CTR.items():
+        errs = {k: max(r["ctr"][name]["errs"][k] for r in ranks)
+                for k in ranks[0]["ctr"][name]["errs"]}
+        ms = ranks[0]["ctr"][name]["ms"]
+        table = "the whole table" if rows is None else \
+            f"tables capped at {rows} rows"
+        log(f"[sharded models] four gloo ranks on one card, (2, 2) mesh, "
+            f"{arch} (full width, {table}, fp32; serve_p99 and one sparse "
+            f"train_batch step): worst rank's error of each leaf's max of "
+            f"the one-card step "
+            f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tol "
+            f"{SM_TOL}); rank 0: serve {ms['serve']:.1f} ms, train "
+            f"{ms['train']:.1f} ms (one card "
+            f"{out['one_card_ms']['ctr'][name]['train']:.1f} ms)")
+    log(f"[sharded models] four gloo ranks: rank 0's collective bytes by "
+        f"kind {ranks[0]['bytes']}")
     log(f"[sharded models] four gloo ranks: wall {out['ranks_s']:.1f} s "
-        f"(one-card reference {out['one_card_s']:.1f} s); per rank wall "
-        f"{[round(r['wall_s'], 1) for r in ranks]} s, max_memory_allocated "
+        f"(one-card reference {out['one_card_s']:.1f} s, saved in "
+        f"{out['save_s']:.1f} s); per rank wall "
+        f"{[round(r['wall_s'], 1) for r in ranks]} s (rank 0 by part "
+        f"{ {k: round(v, 1) for k, v in ranks[0]['part_s'].items()} }), "
+        f"max_memory_allocated "
         f"{[r['peak_bytes'] for r in ranks]} B; rank 0 moves by kind "
         f"{ranks[0]['moves']}; {smi}")
+    for r in ranks:
+        for name, c in r["cases"].items():
+            require(c["worst_err"] <= SM_PARAM_TOL
+                    and c["worst_state_err"] <= SM_TOL
+                    and max(c["logits_err"]) <= SM_TOL
+                    and max(c["aux_err"].values()) <= SM_TOL,
+                    f"[sharded models] gloo rank {r['rank']} {name}: worst "
+                    f"leaf {c['worst_leaf']} {c['worst_err']:.3e} (tol "
+                    f"{SM_PARAM_TOL}), worst m / v {c['worst_state']} "
+                    f"{c['worst_state_err']:.3e}, logits "
+                    f"{max(c['logits_err']):.3e}, aux {c['aux_err']} (tol "
+                    f"{SM_TOL} of each leaf's max)")
+        for name, c in r["ctr"].items():
+            require(max(c["errs"].values()) <= SM_TOL,
+                    f"[sharded models] gloo rank {r['rank']} {name}: "
+                    f"{c['errs']} (tol {SM_TOL} of each leaf's max)")
     return out
 
 

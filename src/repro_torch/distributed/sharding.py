@@ -202,6 +202,36 @@ class ShardPlan:
         return self.p(*[d if d and size % max(self.size_of(d), 1) == 0
                         else None for size, d in zip(shape, dims)])
 
+    def chunk(self, n: int, role: str) -> tuple:
+        """``(start, length)`` of this rank's chunk of a dim of ``n``
+        placed over ``role``, as DTensor chunks it (ceil-sized, the last
+        shorter); with no mesh bound, ``(0, n)``."""
+        if self.mesh is None:
+            return 0, n
+        shape, off = compute_local_shape_and_global_offset(
+            (n,), self.mesh, self.placements(role))
+        return int(off[0]), int(shape[0])
+
+    def partial(self, pl, role: str, op: str = "sum"):
+        """Placements ``pl`` with a partial value (``op``: "sum", "max"
+        or "min") on the mesh dims of ``role``: a region's output that
+        each rank holds a part of.  ``None`` (no mesh) stays ``None``."""
+        if pl is None:
+            return None
+        axes = self.resolve(role) or ()
+        names = tuple(self.mesh.mesh_dim_names)
+        return tuple(Partial(op) if names[m] in axes else q
+                     for m, q in enumerate(pl))
+
+    def sharded_dims(self, x, role: str) -> set:
+        """The dims of ``x`` that lie over ``role``'s mesh axes (none for
+        a plain tensor)."""
+        if not isinstance(x, DTensor):
+            return set()
+        names, axes = x.device_mesh.mesh_dim_names, self.resolve(role) or ()
+        return {q.dim for m, q in enumerate(x.placements)
+                if isinstance(q, Shard) and names[m] in axes}
+
     def with_mesh(self, mesh) -> "ShardPlan":
         return dataclasses.replace(self, mesh=mesh)
 
@@ -220,6 +250,12 @@ MULTI_POD_PLAN = ShardPlan(
 # ---------------------------------------------------------------------------
 # Placements and moves of a model over a mesh
 # ---------------------------------------------------------------------------
+
+
+# a partial value's reduction: ``Partial()`` sums, ``Partial("max")`` /
+# ``Partial("min")`` take the extreme (the vocabulary-parallel loss)
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}
 
 
 def _move(x, want):
@@ -261,7 +297,8 @@ def _move(x, want):
             kind = "all_to_all"
         if isinstance(cur[m], Partial):
             loc = loc.contiguous().clone()
-            dist.all_reduce(loc, group=group)
+            dist.all_reduce(loc, op=_REDUCE_OPS[cur[m].reduce_op],
+                            group=group)
             _sent(kind, loc, 2)
         elif isinstance(cur[m], Shard):
             d = cur[m].dim

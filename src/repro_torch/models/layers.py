@@ -12,7 +12,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["rms_norm", "rope", "rope_tables", "swiglu", "gelu_mlp",
-           "softmax_xent", "xent_terms", "xent_reduce", "shifted_softplus"]
+           "softmax_xent", "xent_shard_max", "xent_shard_terms",
+           "xent_token", "xent_terms", "xent_reduce", "shifted_softplus"]
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -66,15 +67,50 @@ def shifted_softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x)) - math.log(2.0)
 
 
-def xent_terms(logits, labels, *, z_loss: float = 0.0):
-    """Per-token (nll with z-loss, argmax == label) of ``softmax_xent``."""
+def xent_shard_max(logits):
+    """The largest logit of each token over a vocabulary shard, in fp32: a
+    constant for the gradient."""
+    return logits.detach().float().amax(dim=-1)
+
+
+def xent_shard_terms(logits, labels, m, v0: int, vocab: int):
+    """``softmax_xent``'s per-token terms over one vocabulary shard (the
+    columns ``v0`` .. of a ``vocab``-wide row), given ``m``, the largest
+    logit over the whole vocabulary: the sum of ``exp(logit - m)``, the
+    label's logit where the label falls in the shard (else 0), and the
+    smallest index in the shard that attains ``m`` (else ``vocab``).
+    Summed (the first two) and min-reduced (the third) over the shards,
+    they are the whole row's; one shard of the whole row is that row."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    n = lf.shape[-1]
+    se = torch.exp(lf - m[..., None]).sum(dim=-1)
+    at = labels.long() - v0
+    mine = (at >= 0) & (at < n)
+    ll = torch.gather(lf, -1, at.clamp(0, n - 1)[..., None])[..., 0]
+    ll = torch.where(mine, ll, torch.zeros((), device=lf.device))
+    lo = lf.detach()
+    top = torch.where(lo.amax(dim=-1) == m, lo.argmax(dim=-1) + v0, vocab)
+    return se, ll, top
+
+
+def xent_token(m, se, ll, top, labels, z_loss: float = 0.0):
+    """Per-token (nll with z-loss, argmax == label as 0 / 1) from the
+    whole row's terms of ``xent_shard_terms``; the log-sum-exp is
+    ``log(se) + m``."""
+    lse = torch.log(se) + m
     nll = lse - ll
     if z_loss:
         nll = nll + z_loss * lse ** 2
-    return nll, lf.argmax(dim=-1) == labels
+    return nll, (top == labels).float()
+
+
+def xent_terms(logits, labels, *, z_loss: float = 0.0):
+    """Per-token (nll with z-loss, argmax == label) of ``softmax_xent``:
+    the whole row as one shard.  The argmax is the smallest index that
+    attains the max (``jnp.argmax``'s ties)."""
+    m = xent_shard_max(logits)
+    se, ll, top = xent_shard_terms(logits, labels, m, 0, logits.shape[-1])
+    return xent_token(m, se, ll, top, labels, z_loss)
 
 
 def xent_reduce(nll, hit, mask=None):

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Partial
 
 from repro_torch.analysis.annotations import hot_path
 from repro_torch.configs.base import LMConfig, MoEConfig
@@ -213,10 +212,7 @@ def moe_ffn(p: dict, x, cfg: LMConfig, plan: ShardPlan, *, cast=None,
         mesh, lambda x_, a, u, w: swiglu(x_, c(a), c(u), c(w)),
         [(x, bp), (p["sh_gate"], plan.layout(None, "tp")),
          (p["sh_up"], plan.layout(None, "tp")),
-         (p["sh_down"], plan.layout("tp", None))],
-        None if bp is None else tuple(
-            Partial() if n in (plan.resolve("tp") or ()) else q
-            for n, q in zip(mesh.mesh_dim_names, bp)))
+         (p["sh_down"], plan.layout("tp", None))], plan.partial(bp, "tp"))
     return local_region(mesh, lambda a, b_: (a + b_).to(odt),
                         [(y, bp), (sh, bp)], bp)
 

@@ -40,7 +40,7 @@ from repro_torch.analysis.annotations import hot_path
 from repro_torch.configs.base import (DCNConfig, DINConfig, DLRMConfig,
                                       SASRecConfig)
 from repro_torch.distributed.sharding import (LOCAL_PLAN, ShardPlan, local,
-                                              local_region, whole)
+                                              local_region, move, whole)
 from repro_torch.kernels.common import stable_topk
 from repro_torch.models import base
 from repro_torch.models.attention import _ein, attention
@@ -86,6 +86,47 @@ def _dense(x, dev) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
 
+def _leaf(x, plan: ShardPlan, dev, dtype=torch.int64):
+    """A batch leaf in ``dtype``: under a bound mesh a DTensor over dp
+    (placed first unless it is one), else a tensor on ``dev``."""
+    if plan.mesh is None:
+        return torch.as_tensor(x, device=dev).to(dtype)
+    nd = x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
+    return _place(x, plan, plan.p("dp", *[None] * (nd - 1)), dev).to(dtype)
+
+
+def _take(table, ids, plan: ShardPlan):
+    """``take_embeddings`` of ``ids`` (over dp) from a table at its
+    reference placement, each rank looking up its own rows locally: a
+    table whose columns lie over tp (DLRM, DCN-v2) gives each rank its
+    columns of its rows (the embedding dim stays over tp); one whose rows
+    lie over tp (DIN's items) gives the rows it holds, zeros elsewhere,
+    all-reduced over tp; a whole one its rows.  ``-1`` pads, as
+    ``take_embeddings``."""
+    if plan.mesh is None:
+        return take_embeddings(table, ids)
+    lead = [None] * (ids.dim() - 1)
+    ip, out = plan.layout("dp", *lead), plan.layout("dp", *lead, None)
+    dims = plan.sharded_dims(table, "tp")
+    if 1 in dims:
+        return local_region(plan.mesh, take_embeddings,
+                            [(table, plan.layout(None, "tp")), (ids, ip)],
+                            plan.layout("dp", *lead, "tp"))
+    if 0 in dims:
+        r0, n = plan.chunk(table.shape[0], "tp")
+
+        def mine(t, i):
+            at = i - r0
+            return take_embeddings(t, torch.where((i >= 0) & (at >= 0)
+                                                  & (at < n), at, -1))
+
+        return move(local_region(plan.mesh, mine,
+                                 [(table, plan.layout("tp", None)),
+                                  (ids, ip)], plan.partial(out, "tp")), out)
+    return local_region(plan.mesh, take_embeddings,
+                        [(table, plan.layout(None, None)), (ids, ip)], out)
+
+
 def _mlp_params(mk, plan, prefix, dims):
     p = {}
     for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
@@ -102,15 +143,84 @@ def _mlp_params(mk, plan, prefix, dims):
     return p
 
 
-def _mlp_apply(p, x, *, act=torch.relu, final_act=None):
-    n = len([k for k in p if k.startswith("w")])
-    for i in range(n):
-        x = _mm(x, p[f"w{i}"]) + p[f"b{i}"]
+def _n_layers(p) -> int:
+    return len([k for k in p if k.startswith("w")])
+
+
+def _run(p, x, lo: int, hi: int, n: int, act, final_act,
+         pending: bool = False):
+    """Layers ``lo`` .. ``hi - 1`` of an ``n``-layer MLP on ``x``
+    (``pending``: ``x`` is layer ``lo``'s product, its bias and activation
+    still to come)."""
+    for i in range(lo, hi):
+        if not (pending and i == lo):
+            x = _mm(x, p[f"w{i}"])
+        x = x + p[f"b{i}"]
         if i < n - 1:
             x = act(x)
         elif final_act is not None:
             x = final_act(x)
     return x
+
+
+def _mlp_apply(p, x, *, act=torch.relu, final_act=None):
+    n = _n_layers(p)
+    return _run(p, x, 0, n, n, act, final_act)
+
+
+def _mlp(p, x, plan: ShardPlan, *, act=torch.relu, final_act=None,
+         pending: bool = False, cols_out: bool = False):
+    """``_mlp_apply`` on the rows' shards (``x`` over dp, whole over tp),
+    each layer at the reference's placement.  A run of whole layers is one
+    region in which tp is idle (every rank of a model row does the same
+    work).  A layer whose columns lie over tp (``_mlp_params`` splits the
+    large ones over ``("fsdp", "tp")``) computes its shard of the output
+    columns after the FSDP gather, and the next layer reads that shard by
+    its rows: a partial sum over tp, all-reduced before its bias
+    (Megatron's pairing; the activations move over tp, never the weight).
+    ``pending``: ``x`` is layer 0's product, its bias and activation still
+    to come; ``cols_out``: the last layer's columns stay over tp (DLRM's
+    bottom MLP, whose output meets the table's columns).  With no mesh,
+    ``_mlp_apply``."""
+    n = _n_layers(p)
+    if plan.mesh is None:
+        return _run(p, x, 0, n, n, act, final_act, pending)
+    row, cols = plan.layout("dp", None), plan.layout("dp", "tp")
+
+    def split(j):
+        return 1 in plan.sharded_dims(p[f"w{j}"], "tp") or \
+            (cols_out and j == n - 1)
+
+    i = 0
+    while True:
+        j = i + pending
+        while j < n and not split(j):
+            j += 1
+        # layers i .. j - 1 whole; layer j (if any) by its columns' shard
+        keys = {f"b{q}": plan.layout(None) for q in range(i, min(j + 1, n))}
+        keys.update({f"w{q}": plan.layout(None, None)
+                     for q in range(i + pending, min(j + 1, n))})
+        if j < n:
+            keys.update({f"w{j}": plan.layout(None, "tp"),
+                         f"b{j}": plan.layout("tp")})
+        names = list(keys)
+
+        def fn(x_, *ws, i=i, j=j, pend=pending, names=names):
+            return _run(dict(zip(names, ws)), x_, i, min(j + 1, n), n, act,
+                        final_act, pend)
+
+        x = local_region(plan.mesh, fn,
+                         [(x, row)] + [(p[k], pl) for k, pl in keys.items()],
+                         row if j == n else cols)
+        if j >= n - 1:
+            # the end: a last split layer's columns gathered (or kept)
+            return x if j == n or cols_out else move(x, row)
+        # layer j + 1 reads the columns' shard by its rows
+        w = p[f"w{j + 1}"]
+        x = local_region(plan.mesh, _mm,
+                         [(x, cols), (w, plan.layout("tp", None))],
+                         plan.partial(row, "tp"))
+        x, i, pending = move(x, row), j + 1, True
 
 
 # ---------------------------------------------------------------------------
@@ -142,19 +252,52 @@ def _dlrm_forward(params, dense, sparse, cfg: DLRMConfig, plan, e=None):
     ``e`` optionally carries pre-gathered embeddings — the sparse-update
     training path differentiates w.r.t. the gathered rows instead of the
     whole table (train/sparse_embed.py).
+
+    Under a bound mesh the rows lie over dp and, where the table's columns
+    lie over tp, so do the embeddings' (``_take``): the bottom MLP's last
+    layer gives each rank the same columns of ``z0``, the ``bfd,bgd``
+    interaction is a partial sum over tp, and the top MLP's first layer
+    reads each rank's shard of its input (its columns of ``z0`` and its
+    chunk of the interaction's pairs) by its rows, a partial sum too.
+    With no mesh every shard is the whole and this is the plain forward.
     """
     if e is None:
-        e = take_embeddings(params["table"], sparse)       # (B, 26, D)
-    z0 = _mlp_apply(params["bot"], dense, act=torch.relu,
-                    final_act=torch.relu)                  # (B, D)
-    z = _cat([z0[:, None, :], e], 1)                       # (B, 27, D)
-    inter = torch.einsum("bfd,bgd->bfg", z, z)             # (B, 27, 27)
-    f = z.shape[1]
+        e = _take(params["table"], sparse, plan)           # (B, 26, D)
+    cols = 2 in plan.sharded_dims(e, "tp")
+    d = "tp" if cols else None
+    z0 = _mlp(params["bot"], dense, plan, act=torch.relu,
+              final_act=torch.relu, cols_out=cols)         # (B, D)
+    zl, row, row3 = (plan.layout("dp", d), plan.layout("dp", None),
+                     plan.layout("dp", None, None))
+
+    def partial(pl):
+        return plan.partial(pl, "tp") if cols else pl
+
+    def interact(z0_, e_):
+        z = _cat([z0_[:, None, :], e_], 1)                 # (B, 27, D)
+        return torch.einsum("bfd,bgd->bfg", z, z)          # (B, 27, 27)
+
+    inter = move(local_region(plan.mesh, interact,
+                              [(z0, zl), (e, plan.layout("dp", None, d))],
+                              partial(row3)), row3)
+    f = cfg.n_sparse + 1
     iu, ju = np.triu_indices(f, k=1)
-    flat = inter[:, torch.as_tensor(iu, device=z.device),
-                 torch.as_tensor(ju, device=z.device)]     # (B, 351)
-    x = _cat([z0, flat], 1)
-    return _mlp_apply(params["top"], x)[:, 0]
+    c0, nc = plan.chunk(cfg.embed_dim, "tp") if cols else (0, cfg.embed_dim)
+    f0, nf = plan.chunk(len(iu), "tp") if cols else (0, len(iu))
+    iu, ju = iu[f0:f0 + nf], ju[f0:f0 + nf]
+
+    def first(z0_, inter_, w0):
+        flat = inter_[:, torch.as_tensor(iu, device=z0_.device),
+                      torch.as_tensor(ju, device=z0_.device)]   # (B, 351)
+        top = cfg.embed_dim + f0
+        return _mm(_cat([z0_, flat], 1),
+                   torch.cat([w0[c0:c0 + nc], w0[top:top + nf]]))
+
+    h0 = local_region(plan.mesh, first,
+                      [(z0, zl), (inter, row3),
+                       (params["top"]["w0"], plan.layout(None, None))],
+                      partial(row))
+    return _mlp(params["top"], move(h0, row), plan, pending=True)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -180,14 +323,29 @@ def _dcn_params(cfg: DCNConfig, mk, plan):
 
 
 def _dcn_forward(params, dense, sparse, cfg: DCNConfig, plan, e=None):
+    """The cross layers need each row's whole ``x0``: under a bound mesh
+    the looked-up rows (not the table) are gathered over tp where the
+    table's columns lie, the cross layers run whole on every rank of a
+    model row, and the MLP splits as ``_mlp``."""
     if e is None:
-        e = take_embeddings(params["table"], sparse)       # (B, 26, D)
-    x0 = _cat([dense, e.reshape(e.shape[0], -1)], 1)
-    x = x0
-    for i in range(cfg.n_cross_layers):
-        xw = _mm(x, params[f"cross_w{i}"]) + params[f"cross_b{i}"]
-        x = x0 * xw + x                                     # DCN-v2 cross
-    return _mlp_apply(params["mlp"], x)[:, 0]
+        e = _take(params["table"], sparse, plan)           # (B, 26, D)
+    row = plan.layout("dp", None)
+    names = [k for k in params if k.startswith("cross_")]
+
+    def cross(dense_, e_, *ws):
+        w = dict(zip(names, ws))
+        x0 = _cat([dense_, e_.reshape(e_.shape[0], -1)], 1)
+        x = x0
+        for i in range(cfg.n_cross_layers):
+            xw = _mm(x, w[f"cross_w{i}"]) + w[f"cross_b{i}"]
+            x = x0 * xw + x                                 # DCN-v2 cross
+        return x
+
+    x = local_region(plan.mesh, cross,
+                     [(dense, row), (e, plan.layout("dp", None, None))]
+                     + [(params[k], plan.layout(*[None] * params[k].dim()))
+                        for k in names], row)
+    return _mlp(params["mlp"], x, plan)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -238,18 +396,29 @@ def _din_user_embed(params, hist_items, eh, target_e):
 
 
 def _din_forward(params, batch, cfg: DINConfig, plan):
+    """The item rows looked up from the table at its placement
+    (``_take``: over tp's rows, a masked local lookup and an all-reduce),
+    then the target attention and the MLP on each rank's rows with the
+    small leaves gathered whole (``_rows``)."""
     dev = _device(params)
-    et = _cat(
-        [take_embeddings(params["item_table"],
-                         _ids(batch["target_item"], dev)),
-         take_embeddings(params["cate_table"],
-                         _ids(batch["target_cate"], dev))], -1,
-    )                                                       # (B, 2D)
-    hist_items = _ids(batch["hist_items"], dev)
-    eh = _din_history(params, hist_items, _ids(batch["hist_cates"], dev))
-    user = _din_user_embed(params, hist_items, eh, et)
-    x = _cat([user, et], -1)
-    return _mlp_apply(params["mlp"], x)[:, 0]
+    ids = {k: _leaf(batch[k], plan, dev) for k in
+           ("target_item", "target_cate", "hist_items", "hist_cates")}
+    rows = {"ti": _take(params["item_table"], ids["target_item"], plan),
+            "hi": _take(params["item_table"], ids["hist_items"], plan),
+            "hist_items": ids["hist_items"]}
+    rest = {k: v for k, v in params.items() if k != "item_table"}
+
+    def fn(p, b, c, pl):
+        et = _cat([b["ti"], take_embeddings(p["cate_table"],
+                                            b["target_cate"])], -1)
+        eh = _cat([b["hi"], take_embeddings(p["cate_table"],
+                                            b["hist_cates"])], -1)
+        user = _din_user_embed(p, b["hist_items"], eh, et)
+        return _mlp_apply(p["mlp"], _cat([user, et], -1))[:, 0]
+
+    return _rows(fn, rest, {**rows, "target_cate": ids["target_cate"],
+                            "hist_cates": ids["hist_cates"]}, cfg, plan,
+                 out=plan.layout("dp"))
 
 
 # ---------------------------------------------------------------------------
@@ -387,29 +556,28 @@ def param_shapes(cfg, plan: ShardPlan = LOCAL_PLAN):
 
 @hot_path
 def serve_logits(params, batch, cfg, plan: ShardPlan = LOCAL_PLAN):
-    """Pointwise CTR logits for a request batch (under a bound mesh, each
-    rank's shard of the rows: ``_rows``)."""
-    return _rows(_serve_logits, params, batch, cfg, plan,
-                 out=plan.layout("dp"))
-
-
-@hot_path
-def _serve_logits(params, batch, cfg, plan: ShardPlan):
+    """Pointwise CTR logits for a request batch; under a bound mesh over
+    the rows' shards (dp), the tables and the large MLP layers at their
+    reference placements (``_take``, ``_mlp``; SASRec: ``_rows``)."""
     dev = _device(params)
-    if isinstance(cfg, DLRMConfig):
-        return _dlrm_forward(params, _dense(batch["dense"], dev),
-                             _ids(batch["sparse"], dev), cfg, plan)
-    if isinstance(cfg, DCNConfig):
-        return _dcn_forward(params, _dense(batch["dense"], dev),
-                            _ids(batch["sparse"], dev), cfg, plan)
+    if isinstance(cfg, (DLRMConfig, DCNConfig)):
+        fwd = _dlrm_forward if isinstance(cfg, DLRMConfig) else _dcn_forward
+        return fwd(params, _leaf(batch["dense"], plan, dev, torch.float32),
+                   _leaf(batch["sparse"], plan, dev), cfg, plan)
     if isinstance(cfg, DINConfig):
         return _din_forward(params, batch, cfg, plan)
     if isinstance(cfg, SASRecConfig):
-        h = _sasrec_hidden(params, batch["seq"], cfg, plan)
-        e = take_embeddings(params["item_table"],
-                            _ids(batch["target_item"], dev))
-        return (h[:, -1] * e).sum(-1)
+        return _rows(_sasrec_serve, params, batch, cfg, plan,
+                     out=plan.layout("dp"))
     raise TypeError(type(cfg))
+
+
+@hot_path
+def _sasrec_serve(params, batch, cfg, plan: ShardPlan):
+    h = _sasrec_hidden(params, batch["seq"], cfg, plan)
+    e = take_embeddings(params["item_table"],
+                        _ids(batch["target_item"], _device(params)))
+    return (h[:, -1] * e).sum(-1)
 
 
 @hot_path
@@ -430,15 +598,14 @@ def ctr_forward_gathered(rest, e, batch, cfg, plan: ShardPlan = LOCAL_PLAN):
     """DLRM/DCN forward with pre-gathered embeddings (sparse-update path).
 
     ``rest`` is the param tree minus the table (table may be absent).
-    Under a bound mesh ``e`` (B, F, D) lies over the batch's shards (and
-    its columns over tp, as the table's): each batch shard's logits, the
-    whole gathered rows and MLPs on every rank."""
+    Under a bound mesh ``e`` (B, F, D) lies over the batch's shards and
+    its columns over tp, as the table's (``_take``), and stays there:
+    DLRM's interaction reads it as a partial sum, DCN-v2 gathers the rows
+    whole; the large MLP layers keep their columns over tp (``_mlp``)."""
     fwd = _dlrm_forward if isinstance(cfg, DLRMConfig) else _dcn_forward
-    return _rows(
-        lambda r, b, c, p, e_: fwd(r, _dense(b["dense"], e_.device),
-                                   _ids(b["sparse"], e_.device), c, p,
-                                   e=e_),
-        rest, batch, cfg, plan, extra=e, out=plan.layout("dp"))
+    dev = local(e).device
+    return fwd(rest, _leaf(batch["dense"], plan, dev, torch.float32), None,
+               cfg, plan, e=e)
 
 
 @hot_path
@@ -531,17 +698,19 @@ def _place(x, plan: ShardPlan, spec, dev):
     return plan.place(torch.as_tensor(x, device=dev), spec)
 
 
-def _rows(fn, params, batch, cfg, plan: ShardPlan, *, out, extra=None,
-          specs=None):
-    """``fn(params, batch, cfg, plan[, extra])``, with no mesh bound the
-    plain call.  Under a bound mesh ``fn(..., LOCAL_PLAN[, extra])`` runs
-    on every rank's shard of the rows: each batch leaf over dp (or by
-    ``specs``, where a leaf it does not name is replicated), the
-    parameters gathered whole, ``extra`` over dp; ``out``: the output's
-    placements (a list of them for several outputs)."""
+def _rows(fn, params, batch, cfg, plan: ShardPlan, *, out, specs=None):
+    """``fn(params, batch, cfg, plan)``, with no mesh bound the plain
+    call.  Under a bound mesh ``fn(..., LOCAL_PLAN)`` runs on every rank's
+    shard of the rows: each batch leaf over dp (or by ``specs``, where a
+    leaf it does not name is replicated), every leaf of ``params`` whole
+    on each rank.  The callers pass the small leaves: DIN looks its item
+    rows up first (``_take``); SASRec's table and the retrieval path's
+    tables are gathered whole (SASRec's lookups of every position would
+    move more bytes than its table; the retrieval's candidates lie over
+    dp and tp).  ``out``: the output's placements (a list of them for
+    several outputs)."""
     if plan.mesh is None:
-        return fn(params, batch, cfg, plan,
-                  *(() if extra is None else (extra,)))
+        return fn(params, batch, cfg, plan)
     p_leaves = base.tree_leaves(params)
     dev = p_leaves[0].device
     keys = list(batch)
@@ -554,16 +723,13 @@ def _rows(fn, params, batch, cfg, plan: ShardPlan, *, out, extra=None,
         ins.append((_place(batch[k], plan, spec, dev),
                     plan.spec_placements(spec)))
     ins += [(w, plan.placements(*([None] * w.dim()))) for w in p_leaves]
-    if extra is not None:
-        ins.append((extra, plan.placements("dp", *([None] *
-                                                    (extra.dim() - 1)))))
     n_b, n_p = len(keys), len(p_leaves)
 
     def on_rank(*xs):
         it = iter(xs[n_b:n_b + n_p])
         args = (base.tree_map(lambda _: next(it), params),
                 dict(zip(keys, xs[:n_b])), cfg, LOCAL_PLAN)
-        return fn(*args, *xs[n_b + n_p:])
+        return fn(*args)
 
     return local_region(plan.mesh, on_rank, ins, out)
 

@@ -33,11 +33,19 @@ plain call on plain tensors.  Under a bound mesh (``plan.with_mesh``;
 ``launch.cells`` binds the reference's cells) the parameters are DTensors
 placed by ``param_specs``, the tokens are placed over ``dp``, and each
 region's inputs are moved to the constraint's placements first: the FSDP
-gathers, the heads over ``tp``, the sequence-sharded residual
-(``_res_constrain``), the MoE all-to-all (``moe.py``) and the
-vocabulary-sharded logits.  DTensor's own sharding propagation is not
-relied on (its rules for these ops differ between torch releases and
-several are missing).
+gathers, the sequence-sharded residual (``_res_constrain``), the MoE
+all-to-all (``moe.py``) and the vocabulary-sharded logits.  Attention
+splits over ``tp`` by two head rules (``_attn_split``): where the query
+heads divide tp they split, with the KV heads split too where those
+divide it, else the whole K and V weights on each rank and the KV heads
+its query heads read taken from them (``_kv_select``); where the query
+heads do not divide tp and the residual's sequence lies over it, each
+rank attends with its own sequence shard of the queries against the
+gathered K and V (``_attention_seq``).  The loss is vocabulary-parallel
+(``_xent``): the logits stay sharded over tp and only per-token terms
+are all-reduced.  DTensor's own sharding propagation is not relied on
+(its rules for these ops differ between torch releases and several are
+missing).
 
 ``loss_fn`` is differentiable (``repro_torch.train`` takes its gradient
 with ``torch.autograd``).  ``cfg.remat`` is read as the reference reads it:
@@ -56,7 +64,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.analysis.annotations import hot_path
@@ -67,7 +75,8 @@ from repro_torch.distributed.sharding import (LOCAL_PLAN, ShardPlan,
 from repro_torch.models import base
 from repro_torch.models.attention import _ein, attention, decode_attention
 from repro_torch.models.layers import (gelu_mlp, rms_norm, rope, rope_tables,
-                                       swiglu, xent_reduce, xent_terms)
+                                       swiglu, xent_reduce, xent_shard_max,
+                                       xent_shard_terms, xent_token)
 from repro_torch.models.moe import moe_ffn, moe_params
 
 __all__ = ["init", "param_specs", "param_shapes", "loss_fn", "prefill",
@@ -267,48 +276,73 @@ def _residual_add(x, y, cfg: LMConfig, plan: ShardPlan):
 
 
 def _head_roles(cfg: LMConfig, plan: ShardPlan):
+    """The reference's ``(q_tp, kv_tp)``: "tp" where the query (KV)
+    heads divide tp, else None."""
     tp_n = max(plan.axis_size("tp"), 1)
     q_tp = "tp" if cfg.n_heads % tp_n == 0 else None
     kv_tp = "tp" if cfg.n_kv_heads % tp_n == 0 else None
     return q_tp, kv_tp
 
 
-def _heads_role(cfg: LMConfig, plan: ShardPlan):
-    """"tp" when the heads split over it (queries and, for GQA, the KV
-    heads too), else None: every rank then takes every head."""
+def _attn_split(x, cfg: LMConfig, plan: ShardPlan) -> str:
+    """How one layer's attention splits its work over tp, as the
+    reference's constraints place it: "heads" where the query heads
+    divide tp (their projections and attention over tp; MLA's heads too),
+    "seq" where they do not and the residual's sequence lies over tp
+    (GQA under ``attn_shard`` "seq": each rank attends with its own
+    sequence shard of the queries), else "whole" (every head on every
+    rank: a decode step's one token)."""
+    if _head_roles(cfg, plan)[0]:
+        return "heads"
+    if cfg.attn_kind != "mla" and _res_dims(x, cfg, plan)[1] == "tp":
+        return "seq"
+    return "whole"
+
+
+def _kv_select(cfg: LMConfig, plan: ShardPlan):
+    """Where the query heads split over tp and the KV heads do not
+    (qwen3-0.6b's 8 over 16, granite's one): the KV heads this rank's
+    query heads read under GQA's map ``h -> h // (H / n_kv)``, out of the
+    whole ``w_k`` / ``w_v`` each rank holds (the reference's replicated K
+    and V).  A slice where they all read one head (tp a multiple of
+    n_kv), else one index a query head; None where nothing is
+    selected."""
     q_tp, kv_tp = _head_roles(cfg, plan)
-    if q_tp and (cfg.attn_kind == "mla" or kv_tp):
-        return "tp"
-    return None
-
-
-def _partial_over(pl, plan: ShardPlan, role: str):
-    """``pl`` with a partial sum on the mesh dims of ``role`` (no mesh:
-    ``None``)."""
-    if pl is None:
+    if cfg.attn_kind == "mla" or not q_tp or kv_tp:
         return None
-    axes = plan.resolve(role) or ()
-    names = tuple(plan.mesh.mesh_dim_names)
-    return tuple(Partial() if names[m] in axes else q
-                 for m, q in enumerate(pl))
+    h0, hq = plan.chunk(cfg.n_heads, "tp")
+    group = cfg.n_heads // cfg.n_kv_heads
+    idx = [(h0 + j) // group for j in range(hq)]
+    if len(set(idx)) == 1:
+        return slice(idx[0], idx[0] + 1)
+    return idx
+
+
+def _head_tp(cfg: LMConfig, plan: ShardPlan, split: str) -> tuple:
+    """The roles of the query heads and of the KV heads under ``split``
+    (MLA's per-head K and V follow its query heads)."""
+    if split != "heads":
+        return None, None
+    q_tp, kv_tp = _head_roles(cfg, plan)
+    return q_tp, q_tp if cfg.attn_kind == "mla" else kv_tp
 
 
 def _weights(p: dict, roles: dict, plan: ShardPlan) -> list:
     return [(p[k], plan.layout(*r)) for k, r in roles.items()]
 
 
-def _attn_roles(cfg: LMConfig, hr) -> dict:
+def _attn_roles(cfg: LMConfig, q, kv) -> dict:
     """The layer-sliced attention weights and their roles where the
-    reference's ``_gather_fsdp`` / head constraints put them (``hr``: the
-    heads' role, "tp" or None)."""
+    reference's ``_gather_fsdp`` / head constraints put them (``q`` /
+    ``kv``: the query and KV heads' roles, "tp" or None)."""
     if cfg.attn_kind == "mla":
         return {"w_dq": (None, None), "q_ln": (None,),
-                "w_uq": (None, hr, None), "w_dkv": (None, None),
+                "w_uq": (None, q, None), "w_dkv": (None, None),
                 "kv_ln": (None,), "w_kr": (None, None),
-                "w_uk": (None, hr, None), "w_uv": (None, hr, None),
-                "w_o": (hr, None, None)}
-    roles = {"w_q": (None, hr, None), "w_k": (None, hr, None),
-             "w_v": (None, hr, None), "w_o": (hr, None, None)}
+                "w_uk": (None, q, None), "w_uv": (None, q, None),
+                "w_o": (q, None, None)}
+    roles = {"w_q": (None, q, None), "w_k": (None, kv, None),
+             "w_v": (None, kv, None), "w_o": (q, None, None)}
     if cfg.qk_norm:
         roles.update(q_norm=(None,), k_norm=(None,))
     return roles
@@ -369,9 +403,11 @@ def _gqa_kv(h, w_k, w_v, k_norm, cos, sin):
     return rope(k, cos, sin), v
 
 
-def _attention_block(p, h, cfg: LMConfig, cos, sin):
+def _attention_block(p, h, cfg: LMConfig, cos, sin, kv_sel=None):
     """h: post-ln1 hidden (B, S, D) -> attn output (B, S, D).  ``p`` is
-    the layer's attention weights cast to the compute dtype."""
+    the layer's attention weights cast to the compute dtype; ``kv_sel``
+    (``_kv_select``): the KV heads the query heads read, the only ones
+    projected (their slice of the whole ``w_k`` / ``w_v``)."""
     chunk = cfg.attn_chunk or None
     if cfg.attn_kind == "mla":
         m = cfg.mla
@@ -389,7 +425,10 @@ def _attention_block(p, h, cfg: LMConfig, cos, sin):
         o = attention(q, k, v, causal=True, chunk=chunk, scale=scale)
     else:
         q = _gqa_q(h, p["w_q"], p.get("q_norm"), cos, sin)
-        k, v = _gqa_kv(h, p["w_k"], p["w_v"], p.get("k_norm"), cos, sin)
+        w_k, w_v = p["w_k"], p["w_v"]
+        if kv_sel is not None:
+            w_k, w_v = w_k[:, kv_sel], w_v[:, kv_sel]
+        k, v = _gqa_kv(h, w_k, w_v, p.get("k_norm"), cos, sin)
         o = attention(q, k, v, causal=True, chunk=chunk)
     return torch.einsum("bshk,hkd->bsd", o, p["w_o"])
 
@@ -405,22 +444,71 @@ def _mlp_block(p, h, cfg: LMConfig):
 
 def _attention(p, x, cfg: LMConfig, plan: ShardPlan, cos, sin):
     """ln1 and the attention block of one layer, over the batch's shards
-    and the heads' (a partial sum over tp where the heads split)."""
-    hr = _heads_role(cfg, plan)
-    roles = {"ln1": (None,), **_attn_roles(cfg, hr)}
+    and as ``_attn_split`` splits it: the heads' shard (a partial sum over
+    tp), the queries' sequence shard (``_attention_seq``) or every head."""
+    split = _attn_split(x, cfg, plan)
+    if split == "seq":
+        return _attention_seq(p, x, cfg, plan, cos, sin)
+    q_tp, kv_tp = _head_tp(cfg, plan, split)
+    roles = {"ln1": (None,), **_attn_roles(cfg, q_tp, kv_tp)}
     names = list(roles)
     cdt, xdt = COMPUTE_DTYPE, x.dtype
+    kv_sel = _kv_select(cfg, plan)
 
     def fn(x_, *ws):
         w = dict(zip(names, ws))
         h = rms_norm(x_, w["ln1"]).to(cdt)
-        return _attention_block(base.cast_tree(w, cdt), h, cfg, cos,
-                                sin).to(xdt)
+        return _attention_block(base.cast_tree(w, cdt), h, cfg, cos, sin,
+                                kv_sel).to(xdt)
 
     flat = plan.layout("dp", None, None)
     return local_region(plan.mesh, fn,
                         [(x, flat)] + _weights(p, roles, plan),
-                        _partial_over(flat, plan, "tp") if hr else flat)
+                        plan.partial(flat, "tp") if q_tp else flat)
+
+
+def _seq_shard(s: int, plan: ShardPlan, cos, sin):
+    """This rank's sequence shard over tp: its global positions and
+    their rope tables."""
+    s0, n = plan.chunk(s, "tp")
+    pos = torch.arange(s0, s0 + n, dtype=torch.int64, device=cos.device)
+    return pos, cos[s0:s0 + n], sin[s0:s0 + n]
+
+
+def _attention_seq(p, x, cfg: LMConfig, plan: ShardPlan, cos, sin):
+    """GQA attention with the queries over their sequence shard (the
+    query heads do not divide tp; the residual's sequence lies over it):
+    each rank projects Q, K and V of its own tokens with the whole
+    weights, K and V of the whole sequence are gathered over tp, and each
+    rank attends with its queries, the causal mask at their global
+    positions.  The output stays on the residual's sequence shard."""
+    pos, cl, sl = _seq_shard(x.shape[1], plan, cos, sin)
+    roles = {"ln1": (None,), **_attn_roles(cfg, None, None)}
+    w_o = roles.pop("w_o")
+    names = list(roles)
+    cdt, xdt = COMPUTE_DTYPE, x.dtype
+    chunk = cfg.attn_chunk or None
+
+    def qkv(x_, *ws):
+        w = dict(zip(names, ws))
+        pc = base.cast_tree(w, cdt)
+        h = rms_norm(x_, w["ln1"]).to(cdt)
+        return (_gqa_q(h, pc["w_q"], pc.get("q_norm"), cl, sl),) + _gqa_kv(
+            h, pc["w_k"], pc["w_v"], pc.get("k_norm"), cl, sl)
+
+    def att(q, k, v, w_o_):
+        o = attention(q, k, v, causal=True, chunk=chunk, q_pos=pos)
+        return torch.einsum("bshk,hkd->bsd", o, w_o_.to(cdt)).to(xdt)
+
+    seq, heads = plan.layout("dp", "tp", None), plan.layout("dp", "tp",
+                                                            None, None)
+    q, k, v = local_region(plan.mesh, qkv,
+                           [(x, seq)] + _weights(p, roles, plan),
+                           [heads] * 3)
+    whole = plan.layout("dp", None, None, None)
+    return local_region(plan.mesh, att,
+                        [(q, heads), (k, whole), (v, whole),
+                         (p["w_o"], plan.layout(*w_o))], seq)
 
 
 def _mlp(p, x, cfg: LMConfig, plan: ShardPlan, *, moe: bool):
@@ -446,7 +534,7 @@ def _mlp(p, x, cfg: LMConfig, plan: ShardPlan, *, moe: bool):
                           cfg).to(xdt)
 
     return local_region(plan.mesh, fn, ln2 + _weights(p, roles, plan),
-                        _partial_over(flat, plan, "tp"))
+                        plan.partial(flat, "tp"))
 
 
 def _layer(p, x, cfg: LMConfig, plan: ShardPlan, cos, sin, *, moe: bool):
@@ -534,17 +622,31 @@ def _logits(params: dict, h, cfg: LMConfig, plan: ShardPlan, last=False):
 
 
 def _xent(logits, labels, mask, plan: ShardPlan, z_loss: float):
-    """``softmax_xent``: each batch shard's per-token terms on the whole
-    vocabulary, gathered and reduced as on one card."""
-    row = plan.layout("dp", None)
-
-    def terms(lg, lb):
-        nll, hit = xent_terms(lg, lb, z_loss=z_loss)
-        return nll, hit.float()
-
-    nll, hit = local_region(plan.mesh, terms,
-                            [(logits, plan.layout("dp", None, None)),
-                             (labels, row)], [row, row])
+    """``softmax_xent`` over vocabulary-parallel logits (dp, None, tp), as
+    the reference reduces them: each rank's terms on its vocabulary shard,
+    joined by all-reduces over tp of the max, of the sum of ``exp`` and
+    of the label's logit (taken where the label falls in the shard); the
+    log-sum-exp and the z-loss come from the reduced terms.  The
+    prediction is the smallest global index that attains the global max
+    (``jnp.argmax``'s ties), by an all-reduce min.  The max is a constant
+    for the gradient and a sum's gradient comes back whole on every rank,
+    so the backward is exact.  Then the masked token means, as on one
+    card."""
+    v = logits.shape[-1]
+    v0, _ = plan.chunk(v, "tp")
+    vocab, row = plan.layout("dp", None, "tp"), plan.layout("dp", None)
+    m = move(local_region(plan.mesh, xent_shard_max, [(logits, vocab)],
+                          plan.partial(row, "tp", "max")), row)
+    parts = local_region(plan.mesh,
+                         lambda lg, lb, m_: xent_shard_terms(lg, lb, m_, v0,
+                                                             v),
+                         [(logits, vocab), (labels, row), (m, row)],
+                         [plan.partial(row, "tp", op)
+                          for op in ("sum", "sum", "min")])
+    nll, hit = local_region(plan.mesh,
+                            lambda *t: xent_token(*t, z_loss),
+                            [(m, row)] + [(move(t, row), row) for t in parts]
+                            + [(labels, row)], [row, row])
     rep = plan.layout(None, None)
     ins = [(nll, rep), (hit, rep)]
     if mask is not None:
@@ -572,8 +674,8 @@ def loss_fn(params: dict, batch: dict, cfg: LMConfig,
                               None)
     cos, sin = _positions(tokens.shape[1], cfg, dev)
     h = _backbone(params, tokens, cfg, plan, cos, sin)
-    logits = plan.constrain(_logits(params, h, cfg, plan), "dp", None, None)
-    loss, aux = _xent(logits, labels, mask, plan, 1e-4)
+    loss, aux = _xent(_logits(params, h, cfg, plan), labels, mask, plan,
+                      1e-4)
     if cfg.mtp and "mtp" in params:
         mtp_loss = _mtp_loss(params, h, tokens, labels, cfg, plan, mask,
                              cos, sin)
@@ -613,7 +715,6 @@ def _mtp_loss(params: dict, h, tokens, labels, cfg: LMConfig,
           if k not in ("proj", "norm_h", "norm_e")}
     x = _run_layer(lp, x, cfg, plan, cos, sin, moe=False)
     logits = _logits(params, _final(params, x, plan), cfg, plan)
-    logits = plan.constrain(logits, "dp", None, None)
     # labels for t+2: shift labels left by one
     l2 = local_region(plan.mesh, _shift, [(labels, row)], row)
     m2 = torch.ones(tuple(tokens.shape), dtype=torch.float32,
@@ -673,25 +774,33 @@ def cache_specs(cfg: LMConfig, plan: ShardPlan):
 
 def _kv(p, x, cfg: LMConfig, plan: ShardPlan, cos, sin, max_len: int):
     """The cache entries of one prefill layer in the cache dtype, zeros
-    past the prompt to ``max_len``: GQA's roped K and V (heads over tp
-    where they split), MLA's latent and rope key."""
+    past the prompt to ``max_len``: GQA's roped K and V of every KV head,
+    MLA's latent and rope key.  Where the residual's sequence lies over tp
+    and the prompt fills the cache, each rank computes its own tokens'
+    entries, already in the cache's placement (as the reference's K and V
+    of the sequence-sharded hidden); else the whole sequence, GQA's KV
+    heads over tp where they divide it."""
     cdt = COMPUTE_DTYPE
+    s = x.shape[1]
+    seq = _res_dims(x, cfg, plan)[1] == "tp" and s == max_len
+    if seq:
+        _, cos, sin = _seq_shard(s, plan, cos, sin)
+    kv = None if seq else _head_roles(cfg, plan)[1]
     if cfg.attn_kind == "mla":
         roles = {"ln1": (None,), "w_dkv": (None, None), "kv_ln": (None,),
                  "w_kr": (None, None)}
-        out = plan.layout("dp", None, None)
+        out = plan.layout("dp", "tp" if seq else None, None)
     else:
-        hr = _heads_role(cfg, plan)
-        roles = {"ln1": (None,), "w_k": (None, hr, None),
-                 "w_v": (None, hr, None)}
+        roles = {"ln1": (None,), "w_k": (None, kv, None),
+                 "w_v": (None, kv, None)}
         if cfg.qk_norm:
             roles["k_norm"] = (None,)
-        out = plan.layout("dp", None, hr, None)
+        out = plan.layout("dp", "tp" if seq else None, kv, None)
     names = list(roles)
 
     def pad(t):
         t = t.to(CACHE_DTYPE)
-        if t.shape[1] == max_len:
+        if seq or t.shape[1] == max_len:
             return t
         return F.pad(t, [0, 0] * (t.dim() - 2) + [0, max_len - t.shape[1]])
 
@@ -707,9 +816,10 @@ def _kv(p, x, cfg: LMConfig, plan: ShardPlan, cos, sin, max_len: int):
                            sin)
         return pad(a), pad(c)
 
-    return local_region(plan.mesh, fn,
-                        [(x, plan.layout("dp", None, None))]
-                        + _weights(p, roles, plan), [out, out])
+    x_pl = plan.layout(*_res_dims(x, cfg, plan)) if seq else \
+        plan.layout("dp", None, None)
+    return local_region(plan.mesh, fn, [(x, x_pl)] + _weights(p, roles, plan),
+                        [out, out])
 
 
 @hot_path
@@ -793,31 +903,35 @@ def _decode_attention(lp, cache, layer: int, x, lengths, slots, cos, sin,
                       cfg: LMConfig, plan: ShardPlan):
     """The attention of one decode layer: the new slot's entries over the
     batch's (and heads') shards, written into each rank's cache block,
-    then the attention over the whole cached sequence with the heads over
-    tp (a partial sum there).  GQA: standard cached attention.  MLA:
+    then the attention over the whole cached sequence with the query heads
+    over tp where they divide it (a partial sum there; where the KV heads
+    do not divide tp each rank computes the new entries of every KV head,
+    the same on every rank, and reads the ones its query heads need:
+    ``_kv_select``).  GQA: standard cached attention.  MLA:
     absorbed-latent attention -- the query is projected into the
     kv-latent space (q @ W_uk), so the cache holds only (kv_lora + rope)
     per token and W_uv is applied to the attended latent."""
     cdt, xdt = COMPUTE_DTYPE, x.dtype
-    hr = _heads_role(cfg, plan)
+    q_tp, kv_tp = _head_tp(cfg, plan, _attn_split(x, cfg, plan))
     flat = plan.layout("dp", None, None)
-    heads = plan.layout("dp", None, hr, None)
+    heads = plan.layout("dp", None, q_tp, None)
+    kv_heads = plan.layout("dp", None, kv_tp, None)
     row = (lengths, plan.layout("dp"))
     ins = [(x, flat), (cos, flat), (sin, flat), row]
     names = _cache_names(cfg)
     if cfg.attn_kind == "mla":
         m = cfg.mla
         roles = {"ln1": (None,), "w_dq": (None, None), "q_ln": (None,),
-                 "w_uq": (None, hr, None), "w_uk": (None, hr, None),
+                 "w_uq": (None, q_tp, None), "w_uk": (None, q_tp, None),
                  "w_dkv": (None, None), "kv_ln": (None,),
                  "w_kr": (None, None)}
         outs = [heads, heads, flat, flat]
     else:
-        roles = {"ln1": (None,), "w_q": (None, hr, None),
-                 "w_k": (None, hr, None), "w_v": (None, hr, None)}
+        roles = {"ln1": (None,), "w_q": (None, q_tp, None),
+                 "w_k": (None, kv_tp, None), "w_v": (None, kv_tp, None)}
         if cfg.qk_norm:
             roles.update(q_norm=(None,), k_norm=(None,))
-        outs = [heads, heads, heads]
+        outs = [heads, kv_heads, kv_heads]
     qn = list(roles)
 
     def new_fn(x_, cos_, sin_, len_, *ws):
@@ -859,20 +973,24 @@ def _decode_attention(lp, cache, layer: int, x, lengths, slots, cos, sin,
                 flat),
                (_cache_layer(cache[names[1]], layer, plan, "dp", None, None),
                 flat),
-               row, (lp["w_uv"], plan.layout(None, hr, None)),
-               (lp["w_o"], plan.layout(hr, None, None))]
+               row, (lp["w_uv"], plan.layout(None, q_tp, None)),
+               (lp["w_o"], plan.layout(q_tp, None, None))]
     else:
+        kv_sel = _kv_select(cfg, plan)
+
         def att(q, kc, vc, len_, w_o):
+            if kv_sel is not None:
+                kc, vc = kc[:, :, kv_sel], vc[:, :, kv_sel]
             o = decode_attention(q, kc, vc, len_ + 1)
             return _ein("bshk,hkd->bsd", o, w_o.to(cdt)).to(xdt)
 
-        kv = ("dp", None, hr, None)
+        kv = ("dp", None, kv_tp, None)
         ins = [(new[0], heads),
-               (_cache_layer(cache[names[0]], layer, plan, *kv), heads),
-               (_cache_layer(cache[names[1]], layer, plan, *kv), heads),
-               row, (lp["w_o"], plan.layout(hr, None, None))]
+               (_cache_layer(cache[names[0]], layer, plan, *kv), kv_heads),
+               (_cache_layer(cache[names[1]], layer, plan, *kv), kv_heads),
+               row, (lp["w_o"], plan.layout(q_tp, None, None))]
     return local_region(plan.mesh, att, ins,
-                        _partial_over(flat, plan, "tp") if hr else flat)
+                        plan.partial(flat, "tp") if q_tp else flat)
 
 
 @hot_path

@@ -24,6 +24,8 @@ the two-level index (``models.recsys.mips_augment``) against the exact
 top-k, near-ties rescored in float64; :func:`sasrec_mips_truth` gives it
 SASRec's users, their exact top-k and the items.  :func:`message_dtypes`
 records the dtype SchNet's message sums are taken in.
+:func:`attention_at_true_fan_in` rescales an LM's attention projections
+to the fan-in the CPU tests draw them at.
 
 :func:`shard_loop` computes a sharded search in one process -- every
 shard's local with its own tables and its ``lin``, stacked and merged --
@@ -49,7 +51,7 @@ __all__ = ["OPTION_EDGES", "EDGE_ALPHAS", "PQ_EDGES", "HAMMING_EDGES",
            "rows_edge_operands", "rows_union_topk",
            "lexical_scores_f32", "hybrid_by_parts", "shard_backends",
            "shard_loop", "mips_parity", "sasrec_mips_truth",
-           "message_dtypes"]
+           "message_dtypes", "attention_at_true_fan_in"]
 
 # (name, B, N, d, k, rows): rows "dead" = every row dead, "half" = about
 # half live, "dup" = the second half repeats the first; the BM25 lookup's
@@ -517,3 +519,28 @@ def message_dtypes():
         yield seen
     finally:
         schnet._segment_sum = orig
+
+
+def attention_at_true_fan_in(params: dict, cfg) -> dict:
+    """A GQA LM's ``w_q`` / ``w_k`` / ``w_v`` / ``w_o`` (a parameter tree
+    of ``models.transformer``, plain tensors or DTensors) rescaled in
+    place from ``init``'s fan-in to their true one (``d_model``; heads x
+    head width for ``w_o``), as the CPU tests draw them.  ``init`` (the
+    reference's rule) reads a weight's fan-in from its second-to-last
+    dim: the heads of ``w_q`` (L, d, heads, width), the head width of
+    ``w_o``.  Without qk-norm (granite-34b) the first attention is then a
+    hard max at init, its scores' std near the head width, and two fp32
+    summation orders of one step pick other keys (ROADMAP fault 27;
+    ``tools/fan_in_conditioning_torch.py``).  Elementwise, so a sharded
+    tree scales each rank's own shards."""
+    from repro_torch.distributed.sharding import local
+
+    fan = {"w_q": cfg.d_model, "w_k": cfg.d_model, "w_v": cfg.d_model,
+           "w_o": cfg.n_heads * cfg.d_head}
+    with torch.no_grad():
+        for stack in ("dense_layers", "moe_layers"):
+            for k, f in fan.items():
+                if stack in params:
+                    w = params[stack][k]
+                    local(w).mul_((w.shape[-2] / f) ** 0.5)
+    return params

@@ -29,7 +29,7 @@ counts from the end of the table, as ``jnp`` indexing does.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import Shard
 
 from repro_torch.distributed.sharding import local_region, move
 from repro_torch.models import recsys as R
@@ -59,50 +59,62 @@ def rowwise_adagrad_update(table, acc, ids, g_rows, *, lr: float,
 
 def _sharded_adagrad(plan, table, acc, ids, g_rows, *, lr: float):
     """``rowwise_adagrad_update`` of a DTensor table whose rows are whole
-    on every rank (DLRM / DCN shard its columns over tp): each rank adds
-    every row's ``mean(g^2)`` into a whole copy of ``acc`` (the same sums
-    in the same order everywhere) and updates its own columns of the
-    table in place; ``acc`` goes back to its own placements."""
+    on every rank (DLRM / DCN shard its columns over tp), in place, each
+    rank on its own shards: every row's ``mean(g^2)`` is a partial sum
+    over the ranks holding its columns, all-reduced, and gathered over dp
+    with the ids (every dp rank holds the same rows and applies every
+    row's update); each rank adds them into its own rows of ``acc`` in the
+    ids' order, and updates its columns of every touched row.  Only the
+    per-row terms and the gradient's own columns move."""
     tp = tuple(table.placements)
     if any(isinstance(q, Shard) and q.dim == 0 for q in tp):
         raise NotImplementedError(
             f"a row-sharded table {tp}: the sparse step updates whole rows")
-    gd = g_rows.dim()
-    cols = tuple(Shard(gd - 1) if isinstance(q, Shard) else Replicate()
-                 for q in tp)
-    rep = tuple(Replicate() for _ in tp)
+    rows, width = table.shape
+    cols = "tp" if g_rows.dim() - 1 in plan.sharded_dims(g_rows, "tp") \
+        else None
+    acc_tp = 0 in plan.sharded_dims(acc, "tp")
+    a0, na = plan.chunk(rows, "tp") if acc_tp else (0, rows)
+    row, rep = plan.layout("dp", None), plan.layout(None, None)
 
-    def local(table_l, acc_l, ids_l, g_full, g_cols):
-        acc_l = acc_l.clone()
-        flat_ids = ids_l.reshape(-1).long()
-        flat_ids = torch.where(flat_ids < 0, flat_ids + table_l.shape[0],
-                               flat_ids)
-        flat_g = g_full.reshape(-1, g_full.shape[-1]).float()
-        acc_l.index_add_(0, flat_ids, torch.mean(flat_g * flat_g, dim=-1))
-        scale = lr * torch.rsqrt(acc_l[flat_ids] + 1e-8)
-        g_c = g_cols.reshape(-1, g_cols.shape[-1]).float()
-        table_l.index_add_(0, flat_ids,
+    def over_tp(pl, split):
+        return plan.partial(pl, "tp") if split else pl
+
+    def flat(i):
+        i = i.reshape(-1).long()
+        return torch.where(i < 0, i + rows, i)
+
+    def add(acc_l, ids_l, g2):
+        # acc's own rows only: another rank's ids add +0.0 to a clamped row
+        at = flat(ids_l) - a0
+        mine = (at >= 0) & (at < na)
+        at = at.clamp(0, na - 1)
+        acc_l.index_add_(0, at, torch.where(mine, g2.reshape(-1), 0.0))
+        return acc_l, torch.where(mine, acc_l[at], 0.0)
+
+    def update(table_l, ids_l, acc_at, g_l):
+        scale = lr * torch.rsqrt(acc_at + 1e-8)
+        g_c = g_l.reshape(-1, g_l.shape[-1]).float()
+        table_l.index_add_(0, flat(ids_l),
                            -(scale[:, None] * g_c).to(table_l.dtype))
-        return table_l, acc_l
+        return table_l
 
     with torch.no_grad():
-        new_table, new_acc = local_region(
-            plan.mesh, local,
-            [(table, tp), (acc, rep), (ids, rep), (g_rows, rep),
-             (g_rows, cols)], [tp, rep])
-    return new_table, move(new_acc, acc.placements)
-
-
-def _sharded_gather(plan, table, ids):
-    """The rows of ``ids`` (over dp) from a column-sharded table, over
-    the batch's shards and the table's columns."""
-    tp = tuple(table.placements)
-    nd = ids.dim() + 1
-    ip = plan.placements("dp", *([None] * (ids.dim() - 1)))
-    out = tuple(Shard(nd - 1) if isinstance(q, Shard) else p
-                for q, p in zip(tp, ip))
-    return local_region(plan.mesh, take_embeddings, [(table, tp), (ids, ip)],
-                        out)
+        g2 = local_region(plan.mesh,
+                          lambda g: (g.float() * g.float()).sum(-1) / width,
+                          [(g_rows, plan.layout("dp", None, cols))],
+                          over_tp(row, cols))
+        g2, ids_all = move(move(g2, row), rep), move(ids, rep)
+        new_acc, acc_at = local_region(
+            plan.mesh, add, [(acc, tuple(acc.placements)), (ids_all, rep),
+                             (g2, rep)],
+            [tuple(acc.placements), over_tp(plan.layout(None), acc_tp)])
+        acc_at = move(acc_at, plan.layout(None))
+        new_table = local_region(
+            plan.mesh, update,
+            [(table, tp), (ids_all, rep), (acc_at, plan.layout(None)),
+             (g_rows, plan.layout(None, None, cols))], tp)
+    return new_table, new_acc
 
 
 def make_ctr_sparse_train_step(cfg, plan, opt_dense: Optimizer,
@@ -137,7 +149,7 @@ def make_ctr_sparse_train_step(cfg, plan, opt_dense: Optimizer,
             e = take_embeddings(table, ids)
         else:
             ids = plan.distribute(ids, "dp", None)
-            e = _sharded_gather(plan, table, ids)
+            e = R._take(table, ids, plan)
 
         def loss_of(p, b):
             logits = R.ctr_forward_gathered(p["rest"], p["e"], b, cfg, plan)

@@ -20,11 +20,23 @@
    ``in_shardings`` of ``shard_shape(arg.shape)`` x itemsize, built on
    512 fake XLA devices without lowering);
 4. beside each case, printed, the reference's compiled program at the
-   production mesh (FLOPs, collective bytes, temp bytes);
+   production mesh (FLOPs, collective bytes, temp bytes), and bounded:
+   the cells whose work the port splits over tp as the reference does
+   (qwen3-0.6b ``train_4k``: the query heads with K and V whole and the
+   vocabulary-parallel loss, at most 1.15x the reference's matmul FLOPs
+   and a peak of 4.0e10 bytes; qwen3-14b ``prefill_32k``: the queries
+   over their sequence shard, 1.10x; DLRM ``train_batch`` and DCN-v2
+   ``serve_p99``: the tables and large MLP layers at their placements,
+   1.10x, DCN-v2's all-gather at most 1.2e8 bytes, DLRM's collective
+   bytes at most the reference's with its tuple-typed collectives
+   counted), each of these at least the reference's count less the work
+   its compiled program repeats on every rank of a model row, and every
+   other case within 2 % of its ratio in PERF.md §6;
 5. at ``(2, 2)`` on ``reduced()`` configs, the port's ``matmul_flops``
    against the reference's ``analyze_hlo(compiled.as_text())`` on 4 fake
-   XLA devices: the forward cells within 2 %; the train cells' ratios
-   printed (PERF.md §6 explains each, ROADMAP fault 24).
+   XLA devices: the forward cells within 2 %, DLRM's train cell at most
+   1.05x; the other train cells' ratios printed (ROADMAP fault 24:
+   torch's checkpoint recomputes a whole layer).
 """
 from __future__ import annotations
 
@@ -359,6 +371,28 @@ import jax
 from test_torch_reference import reference_modules
 from test_dryrun_lowering import CASES
 
+
+def tuple_collective_bytes(hlo, txt, trips):
+    # the collectives with a tuple-typed result (XLA's combiners merge
+    # several into one), which analyze_hlo reads as 0 bytes: weighted and
+    # the all-reduce doubled as it weighs the others
+    comps, entry = hlo._split_computations(txt)
+    n = 0.0
+    for cname, w in {entry: 1.0, **trips}.items():
+        for s in comps[cname]:
+            mi = hlo._INSTR_RE.match(s)
+            if not mi or not mi.group(2).startswith("("):
+                continue
+            head, _, rest = mi.group(2).partition(") ")
+            op = rest.split("(", 1)[0].strip()
+            base = op.replace("-start", "")
+            if base in hlo._COLLECTIVES and not op.endswith("-done"):
+                n += (2.0 if base == "all-reduce" else 1.0) * w * sum(
+                    hlo._shape_elems(g.group(2)) * hlo._DTYPE_BYTES[g.group(1)]
+                    for g in hlo._SHAPE_RE.finditer(head))
+    return n
+
+
 out = {}
 with reference_modules() as ref:
     mesh_mod = importlib.import_module("repro.launch.mesh")
@@ -382,6 +416,8 @@ with reference_modules() as ref:
                            donate_argnums=cell.donate).lower(
                 *cell.args).compile()
         prod = hlo.analyze_hlo(comp.as_text())
+        tup = tuple_collective_bytes(hlo, comp.as_text(),
+                                     prod["while_trip_multipliers"])
         c4 = ref.cells.build_cell(cfg.reduced(), fam,
                                   mesh_mod.make_plan(m4), sh)
         with m4:
@@ -393,6 +429,7 @@ with reference_modules() as ref:
             "argument_bytes": nb,
             "matmul_flops": prod["matmul_flops"],
             "collective_bytes": prod["collective_bytes"]["total"],
+            "tuple_collective_bytes": tup,
             "temp_bytes": int(comp.memory_analysis().temp_size_in_bytes),
             "matmul_flops_22": hlo.analyze_hlo(txt)["matmul_flops"]}
 print(json.dumps(out))
@@ -410,7 +447,9 @@ print(json.dumps({"status": rec["status"], "error": rec.get("error"),
                   "memory": rec.get("memory"),
                   "matmul_flops": a.get("matmul_flops"),
                   "collective_bytes": a.get("collective_bytes", {}).get(
-                      "total")}))
+                      "total"),
+                  "all_gather_bytes": a.get("collective_bytes", {}).get(
+                      "all-gather")}))
 """
 
 _CELLS_22 = """
@@ -492,23 +531,72 @@ def test_argument_bytes_equal_the_reference(cells, case):
         cells["ref"][_key(case)]["argument_bytes"]
 
 
+# at the production mesh, rank 0 against the reference's compiled
+# program: the matmul FLOPs ratio's floor and ceiling and, where set, the
+# port's peak, all-gather bytes and collective bytes against the
+# reference's.  The cells whose work the port splits over tp as the
+# reference does carry their own ceilings and floors.  A floor is the
+# reference's count less the work its compiled program repeats on every
+# rank of a model row (``tools/dryrun_vs_reference.py``, PERF.md §6),
+# less 1 %: qwen3-0.6b 0.840 (it projects K for all eight KV heads where
+# a rank's query head reads one), qwen3-14b 0.895 (it projects one of K
+# and V over the whole gathered sequence), DLRM 0.712 (the top MLP's
+# first layer and the bottom MLP's last input gradient whole on every
+# rank).  Every other case keeps within 2 % of its ratio in PERF.md §6,
+# either way (kimi-k2's 1.266: its experts' all-to-all, ROADMAP fault
+# 22; DIN's 1.003).  DLRM's collective bytes may not pass the
+# reference's with its tuple-typed collectives counted (its table's
+# update all-reduced over dp).
+def _near(r):
+    return dict(flops=r * 1.02, flops_min=r * 0.98)
+
+
+PRODUCTION_BOUNDS = {
+    "qwen3-0.6b|train_4k|single": dict(flops=1.15, flops_min=0.840 * 0.99,
+                                       peak=4.0e10),
+    "qwen3-14b|prefill_32k|single": dict(flops=1.10, flops_min=0.895 * 0.99),
+    "dlrm-mlperf|train_batch|single": dict(flops=1.10, flops_min=0.712 * 0.99,
+                                           collectives=1.0),
+    "dcn-v2|serve_p99|multi": dict(flops=1.10, flops_min=0.98,
+                                   all_gather=1.2e8),
+    "deepseek-v3-671b|decode_32k|single": _near(1.000),
+    "kimi-k2-1t-a32b|train_4k|multi": _near(1.266),
+    "schnet|ogb_products|multi": _near(1.000),
+    "schnet|minibatch_lg|single": _near(1.000),
+    "din|retrieval_cand|multi": _near(1.003),
+    "sasrec|serve_bulk|single": _near(1.000),
+    "sift-1m|serve_batch|single": _near(1.000),
+}
+
+
 @pytest.mark.parametrize("case", CASES, ids=_key)
 def test_production_counts_beside_the_reference(cells, case):
-    """Printed, not bounded: rank 0's matmul FLOPs, collective bytes and
-    peak beside the reference's compiled program at the production mesh
-    (its ``analyze_hlo`` and ``memory_analysis().temp_size_in_bytes``);
-    PERF.md §6 reads these lines (ROADMAP faults 22 and 25 explain the
-    gaps)."""
+    """Rank 0's matmul FLOPs, collective bytes and peak beside the
+    reference's compiled program at the production mesh (its
+    ``analyze_hlo``, the bytes of its tuple-typed collectives, which
+    ``analyze_hlo`` counts as 0, and ``memory_analysis()``'s temp bytes),
+    printed (PERF.md §6 reads these lines) and held to
+    ``PRODUCTION_BOUNDS``."""
     mine, theirs = cells["port"][_key(case)], cells["ref"][_key(case)]
     assert mine["status"] == "ok", mine.get("error")
     assert theirs["matmul_flops"] > 0
+    ratio = mine["matmul_flops"] / theirs["matmul_flops"]
+    ref_coll = theirs["collective_bytes"] + theirs["tuple_collective_bytes"]
     print(f"{_key(case)} production: matmul_flops port "
           f"{mine['matmul_flops']:.4e} reference {theirs['matmul_flops']:.4e}"
-          f" (x{mine['matmul_flops'] / theirs['matmul_flops']:.3f}); "
+          f" (x{ratio:.3f}); "
           f"collective bytes port {mine['collective_bytes']} reference "
-          f"{int(theirs['collective_bytes'])}; peak port "
+          f"{int(theirs['collective_bytes'])} (with its tuple-typed "
+          f"collectives {int(ref_coll)}); all-gather port "
+          f"{mine['all_gather_bytes']}; peak port "
           f"{mine['memory']['peak_bytes']} reference temp "
           f"{theirs['temp_bytes']}")
+    bound = PRODUCTION_BOUNDS[_key(case)]
+    assert bound["flops_min"] <= ratio <= bound["flops"], (ratio, bound)
+    assert mine["memory"]["peak_bytes"] <= bound.get("peak", float("inf"))
+    assert mine["all_gather_bytes"] <= bound.get("all_gather", float("inf"))
+    assert mine["collective_bytes"] <= bound.get("collectives",
+                                                 float("inf")) * ref_coll
 
 
 FORWARD = [c for c in CASES
@@ -527,18 +615,24 @@ def test_forward_flops_match_the_reference_at_2x2(cells, case):
     assert abs(ratio - 1.0) <= FORWARD_TOL
 
 
+# the train cells at (2, 2) whose ratio is bounded: DLRM's step splits
+# its table's columns, its interaction and the MLP layers over tp as the
+# reference does
+TRAIN_BOUNDS = {"dlrm-mlperf|train_batch|single": 1.05}
+
+
 @pytest.mark.parametrize("case", TRAIN, ids=_key)
 def test_train_flops_ratio_at_2x2(cells, case):
-    """Printed, not bounded: PERF.md §6 explains each ratio (torch's
-    checkpoint recomputes a whole layer where XLA's remat drops what the
-    backward never reads; the recsys step keeps the MLPs whole on a rank
-    where the reference splits their columns over tp)."""
+    """Printed, and bounded where ``TRAIN_BOUNDS`` says: the LM train
+    cells' excess is torch's checkpoint recomputing a whole layer where
+    XLA's remat drops what the backward never reads (ROADMAP fault 24);
+    PERF.md §6 reads each ratio."""
     mine = cells["port22"][_key(case)]
     assert mine["status"] == "ok", mine["error"]
     theirs = cells["ref"][_key(case)]["matmul_flops_22"]
     ratio = mine["matmul_flops_22"] / theirs
     print(f"{_key(case)} (2, 2) matmul_flops port / reference {ratio:.4f}")
-    assert ratio > 0
+    assert 0 < ratio <= TRAIN_BOUNDS.get(_key(case), float("inf"))
 
 
 def test_cli_writes_records_and_serves_the_cache(tmp_path):
