@@ -5759,11 +5759,49 @@ def sm_world1(dev, smi: str) -> dict:
         del p, lp, cache, lg, mesh_logits, plain_logits
         gc.collect()
         torch.cuda.empty_cache()
+        out["collectives"] = _sm_world1_collectives(dev, mesh)
         out["qwen_train"] = _sm_world1_train(dev, plan, qcfg, smi)
         out["deepseek"] = _sm_world1_deepseek(dev, plan, smi)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+def _sm_world1_collectives(dev, mesh) -> dict:
+    """The exchange and the reduce-scatter that ``sharding.move`` issues
+    (``_swap`` of an ``_exchange_plan``, ``_reduce_scatter``), called once
+    each over the world-1 NCCL mesh's group: over one rank each returns
+    its input (a move over size-1 dims issues neither)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed import sharding
+
+    x = torch.randn((6, 5, 3), generator=torch.Generator().manual_seed(3))
+    x = x.to(dev)
+    group = mesh.get_group(0)
+    for c in (sharding.COLLECTIVE_BYTES, sharding.COLLECTIVE_COUNTS):
+        c.clear()
+    plan = sharding._exchange_plan(mesh, tuple(x.shape),
+                                   [Shard(0), Replicate()],
+                                   [Shard(1), Replicate()], (0,), group)
+    swapped = sharding._swap(x, plan, group)
+    reduced = sharding._reduce_scatter(x, 1, mesh, (0,), dist.ReduceOp.SUM,
+                                       group)
+    torch.cuda.synchronize()
+    out = {"backend": dist.get_backend(group),
+           "exchange_equal": bool(torch.equal(swapped, x)),
+           "reduce_scatter_equal": bool(torch.equal(reduced, x)),
+           "counts": dict(sharding.COLLECTIVE_COUNTS)}
+    log(f"[sharded models] world-1 {out['backend']} mesh: one all-to-all "
+        f"(all_to_all_single with split sizes) and one reduce-scatter "
+        f"(reduce_scatter_tensor) through the moves' own code return their "
+        f"input: {out['exchange_equal']} / {out['reduce_scatter_equal']}; "
+        f"counts {out['counts']}")
+    require(out["exchange_equal"] and out["reduce_scatter_equal"]
+            and out["counts"] == {"all_to_all": 1, "reduce_scatter": 1},
+            f"[sharded models] world-1 collectives: {out}")
     return out
 
 
@@ -6239,9 +6277,10 @@ def sm_gloo_rank(rank: int, world: int, workdir: str, device: str) -> None:
     value gathered whole on this rank and held against the one-card
     reference."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.testing import MOVE_MESHES, run_move_cases
 
     dev = torch.device(device)
     require(dev.type == "cuda", f"[sharded models] gloo rank {rank} needs "
@@ -6265,15 +6304,28 @@ def sm_gloo_rank(rank: int, world: int, workdir: str, device: str) -> None:
         return got
 
     try:
-        mesh = DeviceMesh("cuda", torch.arange(world).reshape(2, 2),
-                          mesh_dim_names=("data", "model"))
+        mesh = make_test_mesh((2, 2), ("data", "model"), device_type="cuda")
+        # the moves' cases on card tensors, against the whole value cut
+        t0 = time.perf_counter()
+        moves = run_move_cases(
+            {k: make_test_mesh(shape, axes, device_type="cuda")
+             for k, (shape, axes) in MOVE_MESHES.items()}, dev)
+        move_cases = {
+            c["name"]: {"bit_for_bit": c["placements_ok"] and torch.equal(
+                c["out"], c["oracle"]) and ("grad" not in c or (
+                    c["grad_placements_ok"]
+                    and torch.equal(c["grad"], c["grad_oracle"]))),
+                "bytes_ok": c["bytes"] == c["expected_bytes"],
+                "bytes": c["bytes"], "routes": c["routes"]}
+            for c in moves}
+        move_s = time.perf_counter() - t0
         qcfg, dcfg, gcfg = _sm_cfgs()
         cs = _sm_cases(_sm_plan(mesh), qcfg, dcfg, gcfg)
         ctr = _sm_ctr_cases(_sm_plan(mesh))
         ref = torch.load(os.path.join(workdir, "one_card.pt"),
                          map_location="cpu", mmap=True)
         for counter in (sharding.REDISTRIBUTES, sharding.COLLECTIVE_BYTES,
-                        sharding.COLLECTIVE_COUNTS):
+                        sharding.COLLECTIVE_COUNTS, sharding.MOVE_ROUTES):
             counter.clear()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -6281,8 +6333,10 @@ def sm_gloo_rank(rank: int, world: int, workdir: str, device: str) -> None:
         t1 = time.perf_counter()
         ctr_got = _sm_ctr_run(ctr, dev, one_card=False, turn=turn)
         part_s = {"lm": t1 - t0, "ctr": time.perf_counter() - t1}
+        part_s["move cases"] = move_s
         out = {"rank": rank, "moves": dict(sharding.REDISTRIBUTES),
-               "part_s": part_s,
+               "part_s": part_s, "move_cases": move_cases,
+               "routes": dict(sharding.MOVE_ROUTES),
                "bytes": dict(sharding.COLLECTIVE_BYTES),
                "peak_bytes": torch.cuda.max_memory_allocated(), "cases": {},
                "ctr": {name: {"errs": _sm_ctr_errs(r, ref["ctr"][name]),
@@ -6416,7 +6470,28 @@ def sm_gloo4(dev, smi: str) -> dict:
             f"{ms['train']:.1f} ms (one card "
             f"{out['one_card_ms']['ctr'][name]['train']:.1f} ms)")
     log(f"[sharded models] four gloo ranks: rank 0's collective bytes by "
-        f"kind {ranks[0]['bytes']}")
+        f"kind {ranks[0]['bytes']}; each mesh dim's move by kind and the "
+        f"collectives it took {ranks[0]['routes']}")
+    mc = {name: all(r["move_cases"][name]["bit_for_bit"]
+                    and r["move_cases"][name]["bytes_ok"] for r in ranks)
+          for name in ranks[0]["move_cases"]}
+    log(f"[sharded models] four gloo ranks, the moves' {len(mc)} cases on "
+        f"card tensors ((2, 2) and (1, 2, 2) meshes; all-to-all and "
+        f"reduce-scatter staged through host memory under gloo) bit for "
+        f"bit against the whole value cut, with the reference's "
+        f"collectives and bytes: {sum(mc.values())} of {len(mc)} "
+        f"({ {k: v for k, v in mc.items() if not v} or 'all'}); rank 0 "
+        f"{ranks[0]['part_s']['move cases']:.1f} s")
+    require(all(mc.values()), f"[sharded models] move cases failed on the "
+            f"card: {[k for k, v in mc.items() if not v]}")
+    for r in ranks:
+        bad = {k: v for k, v in r["routes"].items()
+               if k.split("->")[0] in ("all_to_all", "none",
+                                       "reduce_scatter")
+               and "all_gather" in k.split("->")[1]}
+        require(not bad, f"[sharded models] gloo rank {r['rank']}: a "
+                f"Shard -> Shard or Partial -> Shard dim all-gathered: "
+                f"{bad}")
     log(f"[sharded models] four gloo ranks: wall {out['ranks_s']:.1f} s "
         f"(one-card reference {out['one_card_s']:.1f} s, saved in "
         f"{out['save_s']:.1f} s); per rank wall "
@@ -6698,10 +6773,9 @@ def cells_rank(rank: int, world: int, workdir: str, device: str) -> None:
     the ANN cell and the DIN and SASRec retrieval cells through the
     port's cells, each answer written for the parent."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.launch import cells
-    from repro_torch.launch.mesh import make_plan
+    from repro_torch.launch.mesh import make_plan, make_test_mesh
 
     dev = torch.device(device)
     require(dev.type == "cuda", f"[cells] gloo rank {rank} needs the card")
@@ -6711,8 +6785,8 @@ def cells_rank(rank: int, world: int, workdir: str, device: str) -> None:
         rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
     t_all = time.perf_counter()
     try:
-        plan = make_plan(DeviceMesh("cuda", torch.arange(world).reshape(2, 2),
-                                    mesh_dim_names=("data", "model")))
+        plan = make_plan(make_test_mesh((2, 2), ("data", "model"),
+                                        device_type="cuda"))
         cell = cells.build_cell(SIFT_1M, "ann", plan,
                                 get_shape("ann", "serve_batch"))
         host = {k: np.load(os.path.join(workdir, f"{k}.npy"), mmap_mode="r")

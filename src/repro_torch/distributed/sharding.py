@@ -37,6 +37,7 @@ the same ids, since the plain versions are built from the same ops.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from collections import Counter
 from typing import Any, Optional
@@ -57,8 +58,8 @@ from repro_torch.kernels.ref import bm25_dists_ref
 
 __all__ = ["ShardPlan", "SINGLE_POD_PLAN", "MULTI_POD_PLAN", "LOCAL_PLAN",
            "REDISTRIBUTES", "COLLECTIVE_BYTES", "COLLECTIVE_COUNTS",
-           "EXCHANGE_BYTES", "move", "local_region", "place_on", "whole",
-           "local", "local_offset", "layer_of",
+           "MOVE_ROUTES", "exchange_groups", "move", "local_region",
+           "place_on", "whole", "local", "local_offset", "layer_of",
            "ShardSlot", "MeshCollective",
            "sharded_brute_search", "sharded_ivf_search",
            "sharded_forest_search",
@@ -259,86 +260,360 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
 
 
 def _move(x, want):
-    """``x.redistribute(want)``, made here with the process groups' own
-    ``all_gather_into_tensor`` and ``all_reduce`` (the collectives that
-    NCCL and gloo both run on card tensors; gloo has no all-to-all or
-    reduce-scatter there, and DTensor's functional collectives are not
-    used): every mesh dim that changes, and every later one sharding the
-    same tensor dim, is gathered (last mesh dim first) or reduced to
-    replicated, then ``want``'s shards are cut (first mesh dim first), as
-    DTensor nests and sizes them (a dim that does not divide keeps
-    DTensor's chunks, the counterpart of the reference's padded
-    layout)."""
+    """``x.redistribute(want)`` by the collectives the reference's
+    lowering issues, each a process group's own (DTensor's functional
+    collectives are not used).  The partial mesh dims are reduced first:
+    those that ``want`` cuts along one tensor dim ``d`` by one
+    reduce-scatter over their ranks, then the rest by an all-reduce each
+    (a partial dim whose ``d`` a later mesh dim cuts already is
+    all-reduced and cut after, which no plan's move asks).  Then the mesh
+    dims that change, with every later one cutting a tensor dim that one
+    of them gives up or takes (it is re-nested), are split in three:
+
+    * the exchange set, every ``Shard -> Shard`` or re-nested dim and
+      every dim sharing a tensor dim with one of them: one all-to-all over
+      the ranks of those mesh dims (``_exchange``);
+    * the other ``Shard -> Replicate`` dims: all-gathered, last first;
+    * the other ``Replicate -> Shard`` dims: cut, first first.
+
+    Shards are DTensor's chunks (ceil-sized, the last shorter, trailing
+    ones empty), the counterpart of the reference's padded layout."""
     want = tuple(want)
     have = tuple(x.placements)
     if have == want:
         return x
     mesh = x.device_mesh
-    if all(mesh.size(m) == 1 for m in range(len(have))
-           if have[m] != want[m]):
+    n = len(have)
+    if all(mesh.size(m) == 1 for m in range(n) if have[m] != want[m]):
         # every changing mesh dim holds one rank: the local tensor already
         # is the value in either layout (no copy, the same strides)
         return DTensor.from_local(x.to_local(), mesh, want, run_check=False,
                                   shape=x.shape, stride=x.stride())
-    n = len(have)
-    widen = {m for m in range(n) if have[m] != want[m]}
-    for m in sorted(widen):
-        # a later mesh dim cutting a tensor dim that this one gives up or
-        # takes sits inside it: it is cut again
-        dims = {q.dim for q in (have[m], want[m]) if isinstance(q, Shard)}
-        widen |= {j for j in range(m + 1, n)
-                  if isinstance(have[j], Shard) and have[j].dim in dims}
+    for m in range(n):
+        if have[m] != want[m] and isinstance(want[m], Partial):
+            raise ValueError(f"no move makes a partial sum: {want}")
+    shape = tuple(x.shape)
     loc = x.to_local()
     cur = list(have)
-    for m in sorted(widen, reverse=True):
-        group = mesh.get_group(m)
-        kind = _move_kind(have[m], want[m])
-        if kind == "none":                 # gathered only to be cut again
-            kind = "all_to_all"
+    route = {}                     # mesh dim -> the collectives it took
+    part = [m for m in range(n)
+            if isinstance(cur[m], Partial) and cur[m] != want[m]]
+    for d in sorted({want[m].dim for m in part
+                     if isinstance(want[m], Shard)}):
+        # the partial mesh dims that cut tensor dim d, in one group,
+        # where no other later mesh dim cuts d already
+        cut = [m for m in part if want[m] == Shard(d)]
+        if any(isinstance(cur[j], Shard) and cur[j].dim == d
+               for j in range(cut[0] + 1, n)):
+            continue
+        ops = {cur[m].reduce_op for m in cut}
+        if len(ops) > 1:
+            continue
+        big = tuple(m for m in cut if mesh.size(m) > 1)
+        if big:
+            loc = _reduce_scatter(loc, d, mesh, big,
+                                  _REDUCE_OPS[ops.pop()],
+                                  _dims_group(mesh, big))
+        for m in cut:
+            cur[m] = want[m]
+            route[m] = "reduce_scatter"
+    for m in reversed(part):
         if isinstance(cur[m], Partial):
             loc = loc.contiguous().clone()
             dist.all_reduce(loc, op=_REDUCE_OPS[cur[m].reduce_op],
-                            group=group)
-            _sent(kind, loc, 2)
-        elif isinstance(cur[m], Shard):
-            d = cur[m].dim
-            k = mesh.size(m)
-            # the length along d once gathered; uneven shards (DTensor's
-            # chunks: ceil-sized, the last shorter, trailing ones empty)
-            # travel padded to the chunk size and are trimmed after
-            full = compute_local_shape_and_global_offset(
-                x.shape, mesh, cur[:m] + [Replicate()] + cur[m + 1:])[0][d]
-            part = loc.movedim(d, 0)
-            c = -(-full // k)
-            if part.shape[0] < c:
-                part = torch.cat([part, part.new_zeros(
-                    (c - part.shape[0],) + part.shape[1:])])
-            part = part.contiguous()
-            out = part.new_empty((k * c,) + part.shape[1:])
-            dist.all_gather_into_tensor(out, part, group=group)
-            _sent(kind, out)
-            loc = out[:full].movedim(0, d)
-            if kind == "all_to_all":
-                EXCHANGE_BYTES[kind] += part.numel() * part.element_size()
-        cur[m] = Replicate()
-    for m in sorted(widen):
+                            group=mesh.get_group(m))
+            _sent("all_reduce", loc, 2)
+            cur[m] = Replicate()
+            route[m] = "all_reduce"
+    changed = _renested(cur, want)
+    swap = {m for m in changed
+            if isinstance(cur[m], Shard) and isinstance(want[m], Shard)}
+    while True:           # every changing dim that shares a tensor dim
+        dims = {q.dim for m in swap for q in (cur[m], want[m])
+                if isinstance(q, Shard)}
+        more = {m for m in changed - swap
+                if {q.dim for q in (cur[m], want[m])
+                    if isinstance(q, Shard)} & dims}
+        if not more:
+            break
+        swap |= more
+    for m in sorted(changed - swap, reverse=True):
+        if isinstance(cur[m], Shard):
+            loc = _gather(loc, shape, mesh, cur, m)
+            cur[m] = Replicate()
+            route[m] = "all_gather"
+    if swap:
+        mid = [want[m] if m in swap else q for m, q in enumerate(cur)]
+        loc = _exchange(loc, shape, mesh, cur, mid, swap)
+        cur = mid
+        for m in swap:
+            route[m] = "+".join(filter(None, (route.get(m), "all_to_all")))
+    for m in sorted(changed - swap):
         if isinstance(want[m], Shard):
             d = want[m].dim
             c = -(-loc.shape[d] // mesh.size(m))
             start = min(mesh.get_local_rank(m) * c, loc.shape[d])
             loc = loc.narrow(d, start, min(c, loc.shape[d] - start))
             cur[m] = want[m]
-        elif isinstance(want[m], Partial):
-            raise ValueError(f"no move makes a partial sum: {want}")
+            route[m] = "+".join(filter(None, (route.get(m), "slice")))
+    for m, how in route.items():
+        MOVE_ROUTES[f"{_move_kind(have[m], want[m])}->{how}"] += 1
     return DTensor.from_local(loc.contiguous(), mesh, want,
                               run_check=False, shape=x.shape,
                               stride=x.stride())
 
 
+def _renested(cur, want) -> set:
+    """The mesh dims that change from ``cur`` to ``want``, and every later
+    one cutting a tensor dim that a changing one gives up or takes: it
+    sits inside that one and is cut again."""
+    n = len(cur)
+    out = {m for m in range(n) if cur[m] != want[m]}
+    for m in range(n):               # a later dim joins after the earlier
+        if m not in out:
+            continue
+        dims = {q.dim for q in (cur[m], want[m]) if isinstance(q, Shard)}
+        out |= {j for j in range(m + 1, n)
+                if isinstance(cur[j], Shard) and cur[j].dim in dims}
+    return out
+
+
+def _box(shape, sizes, coord, placements):
+    """(offsets, lengths) of the block that the rank at mesh coordinate
+    ``coord`` holds of a value of ``shape`` placed as ``placements`` over
+    a mesh of ``sizes``: DTensor's chunks, first mesh dim outermost."""
+    off, ext = [0] * len(shape), list(shape)
+    for m, q in enumerate(placements):
+        if isinstance(q, Shard):
+            d = q.dim
+            c = -(-ext[d] // sizes[m])
+            start = min(coord[m] * c, ext[d])
+            off[d] += start
+            ext[d] = min(c, ext[d] - start)
+    return off, ext
+
+
+def _coords(mesh) -> dict:
+    """``{global rank: its mesh coordinate}``, kept on the mesh."""
+    got = mesh.__dict__.get("_rank_coords")
+    if got is None:
+        flat = mesh.mesh
+        got = {int(flat[c]): c for c in np.ndindex(*flat.shape)}
+        mesh.__dict__["_rank_coords"] = got
+    return got
+
+
+def _members(mesh, group) -> list:
+    """The mesh coordinates of ``group``'s members in group rank order
+    (the order in which a collective lays out their blocks)."""
+    at = _coords(mesh)
+    return [at[r] for r in dist.get_process_group_ranks(group)]
+
+
+def exchange_groups(mesh) -> dict:
+    """One process group over every set of two or more of ``mesh``'s dims
+    (those of more than one rank): the ranks that share their coordinates
+    on the other dims.  A move's all-to-all or reduce-scatter over several
+    mesh dims runs in one of them (``_dims_group``).  Making a group is
+    collective over the whole world, so this runs on every rank, in the
+    same order, where the mesh is made (``launch.mesh`` does), and never
+    inside a move; a second call returns the groups already made.
+    ``{dims: this rank's group}``."""
+    got = mesh.__dict__.get("_exchange_groups")
+    if got is not None:
+        return got
+    ranks = mesh.mesh
+    big = [m for m in range(ranks.dim()) if ranks.shape[m] > 1]
+    me = dist.get_rank()
+    out = {}
+    for r in range(2, len(big) + 1):
+        for dims in itertools.combinations(big, r):
+            rest = [m for m in range(ranks.dim()) if m not in dims]
+            rows = ranks.permute(rest + list(dims)).reshape(
+                -1, math.prod(ranks.shape[m] for m in dims))
+            for row in rows.tolist():
+                group = dist.new_group(row)
+                if me in row:
+                    out[dims] = group
+    mesh.__dict__["_exchange_groups"] = out
+    return out
+
+
+def _staged(group, t: torch.Tensor) -> bool:
+    """Whether a collective of ``t`` over ``group`` goes through host
+    memory: gloo runs an all-to-all and a reduce-scatter on CPU tensors
+    only, NCCL on card tensors, and the fake group of the dry run on
+    any."""
+    return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _on_host(collective, out, inp, *args, **kw):
+    """``collective(out, inp, ...)`` run on pinned host copies of a card
+    tensor's input and output, the result copied back into ``out``."""
+    h_in = torch.empty(inp.shape, dtype=inp.dtype, pin_memory=True)
+    h_in.copy_(inp, non_blocking=True)
+    h_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    torch.cuda.current_stream(inp.device).synchronize()
+    collective(h_out, h_in, *args, **kw)
+    out.copy_(h_out, non_blocking=True)
+
+
+def _reduce_scatter(loc, d: int, mesh, dims, op, group):
+    """A partial value over the mesh dims ``dims`` reduced and cut along
+    tensor dim ``d`` as DTensor nests the chunks of ``Shard(d)`` on those
+    dims (the first outermost): one reduce-scatter over ``group``, each
+    member's chunk padded to the largest and trimmed after."""
+    part = loc.movedim(d, 0)
+    full = part.shape[0]
+    members = _members(mesh, group)
+    spans = []
+    for q in members:
+        off, ln = 0, full
+        for m in dims:
+            c = -(-ln // mesh.size(m))
+            start = min(q[m] * c, ln)
+            off, ln = off + start, min(c, ln - start)
+        spans.append((off, ln))
+    c = max(ln for _, ln in spans)
+    if spans == [(min(i * c, full), max(0, min(c, full - i * c)))
+                 for i in range(len(spans))]:
+        # the chunks lie in group order, one after another
+        if full < len(spans) * c:
+            part = torch.cat([part, part.new_zeros(
+                (len(spans) * c - full,) + part.shape[1:])])
+    else:
+        part = torch.cat([torch.cat([part.narrow(0, off, ln), part.new_zeros(
+            (c - ln,) + part.shape[1:])]) for off, ln in spans])
+    part = part.contiguous()
+    out = part.new_empty((c,) + part.shape[1:])
+    if _staged(group, part):
+        _on_host(dist.reduce_scatter_tensor, out, part, op=op, group=group)
+    else:
+        dist.reduce_scatter_tensor(out, part, op=op, group=group)
+    _sent("reduce_scatter", out)
+    mine = spans[members.index(tuple(mesh.get_coordinate()))][1]
+    return out[:mine].movedim(0, d)
+
+
+def _dims_group(mesh, dims):
+    """The process group over mesh dims ``dims``: one dim's own, or the
+    one ``exchange_groups`` made for several."""
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    group = mesh.__dict__.get("_exchange_groups", {}).get(tuple(dims))
+    if group is None:
+        raise RuntimeError(
+            f"no process group over mesh dims {tuple(dims)}: call "
+            "sharding.exchange_groups(mesh) on every rank where the mesh "
+            "is made (launch.mesh does)")
+    return group
+
+
+def _gather(loc, shape, mesh, cur, m: int):
+    """Shard mesh dim ``m`` of ``cur`` gathered: one all-gather, uneven
+    chunks travelling padded to the chunk size and trimmed after."""
+    d = cur[m].dim
+    k = mesh.size(m)
+    full = _box(shape, mesh.mesh.shape, mesh.get_coordinate(),
+                cur[:m] + [Replicate()] + cur[m + 1:])[1][d]
+    part = loc.movedim(d, 0)
+    c = -(-full // k)
+    if part.shape[0] < c:
+        part = torch.cat([part, part.new_zeros(
+            (c - part.shape[0],) + part.shape[1:])])
+    part = part.contiguous()
+    out = part.new_empty((k * c,) + part.shape[1:])
+    dist.all_gather_into_tensor(out, part, group=mesh.get_group(m))
+    _sent("all_gather", out)
+    return out[:full].movedim(0, d)
+
+
+def _exchange_plan(mesh, shape, cur, mid, dims, group):
+    """What ``_exchange`` sends to and receives from each member of
+    ``group``, in group rank order: ``(send, recv, out_shape)``, each of
+    ``send`` / ``recv`` a list of (slices into the local block, box
+    shape).  A member's box is the intersection of what the sender holds
+    under ``cur`` with what the receiver wants under ``mid``.  Where
+    ``cur`` replicates a dim of ``dims``, only the holder at the
+    receiver's own coordinate there sends.  Kept on the mesh."""
+    plans = mesh.__dict__.setdefault("_exchange_plans", {})
+    key = (shape, tuple(cur), tuple(mid), dims)
+    if key in plans:
+        return plans[key]
+    sizes = tuple(mesh.mesh.shape)
+    me = tuple(mesh.get_coordinate())
+    rep = [m for m in dims if not isinstance(cur[m], Shard)]
+    have_o, have_n = _box(shape, sizes, me, cur)
+    want_o, want_n = _box(shape, sizes, me, mid)
+
+    def cut(o1, n1, o2, n2, rel):
+        lo = [max(a, b) for a, b in zip(o1, o2)]
+        hi = [min(a + x, b + y) for a, x, b, y in zip(o1, n1, o2, n2)]
+        ext = [max(0, h - lo_) for lo_, h in zip(lo, hi)]
+        return (tuple(slice(a - r, a - r + e) for a, r, e in
+                      zip(lo, rel, ext)), tuple(ext))
+
+    send, recv = [], []
+    for peer in _members(mesh, group):
+        if all(peer[m] == me[m] for m in rep):
+            send.append(cut(have_o, have_n, *_box(shape, sizes, peer, mid),
+                            have_o))
+            recv.append(cut(*_box(shape, sizes, peer, cur), want_o, want_n,
+                            want_o))
+        else:
+            empty = (tuple(slice(0, 0) for _ in shape), (0,) * len(shape))
+            send.append(empty)
+            recv.append(empty)
+    plans[key] = (send, recv, tuple(want_n))
+    return plans[key]
+
+
+def _exchange(loc, shape, mesh, cur, mid, swap):
+    """``cur`` -> ``mid`` over the mesh dims ``swap``: one all-to-all
+    over the group of those dims that hold more than one rank (``_swap``
+    of ``_exchange_plan``'s boxes)."""
+    dims = tuple(sorted(m for m in swap if mesh.size(m) > 1))
+    if not dims:
+        return loc
+    group = _dims_group(mesh, dims)
+    return _swap(loc, _exchange_plan(mesh, shape, cur, mid, dims, group),
+                 group)
+
+
+def _swap(loc, plan, group):
+    """One ``all_to_all_single`` with split sizes over ``group``: each
+    member gets the box of ``loc`` that ``plan`` names for it, and the
+    boxes received are assembled into the new local block."""
+    send, recv, out_shape = plan
+    ins = [math.prod(b) for _, b in send]
+    outs = [math.prod(b) for _, b in recv]
+    # the boxes travel as their bytes, so every dtype goes as it is
+    size = loc.element_size()
+    flat = torch.cat([loc[sl].reshape(-1) for (sl, _), n in zip(send, ins)
+                      if n] or [loc.new_empty(0)])
+    raw = flat.view(torch.uint8)
+    got = raw.new_empty(sum(outs) * size)
+    outs_b, ins_b = [n * size for n in outs], [n * size for n in ins]
+    if _staged(group, raw):
+        _on_host(dist.all_to_all_single, got, raw, outs_b, ins_b,
+                 group=group)
+    else:
+        dist.all_to_all_single(got, raw, outs_b, ins_b, group=group)
+    got = got.view(loc.dtype)
+    out = loc.new_empty(out_shape)
+    for (sl, b), at, n in zip(recv, itertools.accumulate([0] + outs), outs):
+        if n:
+            out[sl] = got.narrow(0, at, n).view(b)
+    _sent("all_to_all", out)
+    return out
+
+
 class _Move(torch.autograd.Function):
     """``_move`` with its backward through ``_move`` too: the gradient
     goes back to the input's placements (a partial sum's gradient is
-    replicated), never through DTensor's own backward collectives."""
+    replicated: a reduce-scatter's backward is an all-gather, an
+    exchange's the reverse exchange), never through DTensor's own
+    backward collectives."""
 
     @staticmethod
     def forward(ctx, x, want):
@@ -452,19 +727,23 @@ def whole(x):
 REDISTRIBUTES: Counter = Counter()
 
 # the bytes a rank receives from each collective the port issues (``move``
-# and ``MeshCollective``), and how many it issues, by kind, at the
-# reference's rule (``hlo_analysis.analyze_hlo``: the result's bytes, an
-# all-reduce doubled).  The kind is the move's on that mesh dim (as in
-# ``REDISTRIBUTES``), the bytes what the port sends for it: a
-# ``Shard -> Shard`` dim, and a dim gathered only to be cut again,
-# gather the whole (ROADMAP fault 22) and count that gather under
-# ``all_to_all``; a ``Partial -> Shard`` dim all-reduces before its cut
-# and counts that under ``reduce_scatter``.  ``EXCHANGE_BYTES`` holds, for
-# the same ``all_to_all`` dims, the result a true all-to-all would have
-# (the local shard).  Read and reset with ``REDISTRIBUTES``.
+# and ``MeshCollective``), and how many it issues, by the collective's
+# kind, at the reference's rule (``hlo_analysis.analyze_hlo``: the
+# result's bytes, an all-reduce doubled): an all-gather its gathered
+# block, an all-reduce twice its value, a reduce-scatter its own chunk,
+# an all-to-all the local block it assembles (what its own block keeps
+# included, as the reference's all-to-all result holds it).  Read and
+# reset with ``REDISTRIBUTES``.
 COLLECTIVE_BYTES: Counter = Counter()
 COLLECTIVE_COUNTS: Counter = Counter()
-EXCHANGE_BYTES: Counter = Counter()
+
+# how each mesh dim of a move went, ``"<its kind>-><the collectives it
+# took>"``: ``all_to_all->all_to_all`` (a Shard -> Shard dim exchanged),
+# ``none->all_to_all`` (a re-nested dim exchanged with it),
+# ``reduce_scatter->reduce_scatter``, ``all_gather->all_gather``,
+# ``all_reduce->all_reduce``, ``slice->slice``; a dim over one rank, which
+# moves nothing, is not counted.  Read and reset with ``REDISTRIBUTES``.
+MOVE_ROUTES: Counter = Counter()
 
 
 def _move_kind(a, b) -> str:

@@ -8,8 +8,10 @@ reference's axis names.  Start the process group first (``torchrun`` /
 ``LOCAL_RANK``; or ``init_process_group`` with a store).  Building a mesh
 creates its process groups, which is collective over the whole world:
 every rank calls these functions with the same arguments, in the same
-order, also for meshes it is not part of.  Importing this module touches
-no process group.
+order, also for meshes it is not part of.  Besides one group a mesh dim,
+each mesh gets one group over every set of two or more of its dims
+(``sharding.exchange_groups``), in which a move's all-to-all spans
+several mesh dims.  Importing this module touches no process group.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.distributed.sharding import (MULTI_POD_PLAN,
-                                              SINGLE_POD_PLAN, ShardPlan)
+                                              SINGLE_POD_PLAN, ShardPlan,
+                                              exchange_groups)
 
 __all__ = ["make_production_mesh", "make_plan", "make_test_mesh",
            "make_cell_meshes"]
@@ -33,9 +36,11 @@ def _world() -> int:
 def _mesh(ranks, shape, axes, device_type) -> DeviceMesh:
     if device_type is None:
         device_type = "cuda" if torch.cuda.is_available() else "cpu"
-    return DeviceMesh(device_type,
+    mesh = DeviceMesh(device_type,
                       torch.as_tensor(list(ranks)).reshape(tuple(shape)),
                       mesh_dim_names=tuple(axes))
+    exchange_groups(mesh)
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -20,8 +20,14 @@ computed and no storage is held).  It returns the keys of
   the port issues by hand) and the functional collectives DTensor issues
   on its own (the backward of a replicated value), each at the
   reference's rule, the result's bytes with an all-reduce doubled;
-  ``all_to_all_exchange_bytes`` is what a true all-to-all would move for
-  the port's ``all-to-all`` moves (ROADMAP fault 22);
+* ``collective_ops``: the process-group ops the step issued, by name as
+  the dispatcher sees them (``c10d.alltoall_base_``,
+  ``c10d._reduce_scatter_base_``, ``c10d._allgather_base_``,
+  ``c10d.allreduce_``, ...): what ``collective_counts`` counts by kind,
+  read off the calls themselves;
+* ``moves`` and ``move_routes``: ``sharding.REDISTRIBUTES`` and
+  ``sharding.MOVE_ROUTES``, the moves' mesh dims by kind, and by kind and
+  the collectives each took;
 * ``peak_liveness``: the most bytes of storage the step held at once
   beyond its arguments, and the largest buffers live at that point
   (``(op, bytes, shape)``).  Each storage an op makes is counted from
@@ -117,6 +123,7 @@ class StepAccounting(TorchDispatchMode):
         self.mem_bytes = 0
         self.coll_bytes: Counter = Counter()
         self.coll_counts: Counter = Counter()
+        self.c10d_ops: Counter = Counter()
         self._seen = weakref.WeakSet()
         for t in known:
             self._seen.add(_local(t).untyped_storage())
@@ -157,6 +164,8 @@ class StepAccounting(TorchDispatchMode):
         ns, name = func.namespace, func._opname
         outs = [_local(t) for t in tree_leaves(out)
                 if isinstance(t, torch.Tensor)]
+        if ns == "c10d":
+            self.c10d_ops[f"{ns}.{name}"] += 1
         if ns == "_c10d_functional" and name in _FUNCTIONAL:
             kind = _FUNCTIONAL[name]
             size = sum(_nbytes(t) for t in outs)
@@ -180,7 +189,7 @@ class StepAccounting(TorchDispatchMode):
 
 def _reset_counters() -> None:
     for c in (sharding.REDISTRIBUTES, sharding.COLLECTIVE_BYTES,
-              sharding.COLLECTIVE_COUNTS, sharding.EXCHANGE_BYTES):
+              sharding.COLLECTIVE_COUNTS, sharding.MOVE_ROUTES):
         c.clear()
 
 
@@ -207,9 +216,9 @@ def analyze_step(step, args, top_n: int = 12) -> dict:
         "mem_bytes_proxy": float(acc.mem_bytes),
         "collective_bytes": coll,
         "collective_counts": counts,
-        "all_to_all_exchange_bytes": int(
-            sharding.EXCHANGE_BYTES["all_to_all"]),
+        "collective_ops": dict(acc.c10d_ops),
         "moves": dict(sharding.REDISTRIBUTES),
+        "move_routes": dict(sharding.MOVE_ROUTES),
         "peak_liveness": {
             "peak_bytes": int(acc.peak),
             "top_buffers": [list(b) for b in acc.peak_buffers],

@@ -23,6 +23,10 @@ gradient is wanted the step is out of place and runs under
 ``jax.checkpoint``: the backward recomputes each block's probabilities
 from the carried (max, denominator, accumulator) instead of saving every
 block's tile, which would rebuild the whole (Sq, Sk) matrix in fp32.
+The recompute stops after the step's last op that saves a tensor (the
+checkpoint's early stop), so the step rescales its accumulator before the
+P.V product: the recompute then runs the scores and probabilities only,
+as XLA's remat of the reference's step does.
 """
 from __future__ import annotations
 
@@ -139,9 +143,13 @@ def _block_step(qh, kc, vc, mask, m, l, acc, scale: float, qdt,
         p = torch.exp(s - m_new[..., None])
     corr = torch.exp(m - m_new)
     l = l * corr + p.sum(dim=-1)
+    # the rescale before the product: it is the step's last op that saves
+    # a tensor, so the checkpoint's recompute stops ahead of P.V, whose
+    # result the backward never reads (as XLA drops it from its remat)
+    acc = acc * corr[..., None]
     pv = torch.matmul(p.to(qdt).to(vc.dtype).view(b, g, r * sq, chunk),
                       vc).view(b, g, r, sq, -1)
-    return m_new, l, acc * corr[..., None] + pv.float()
+    return m_new, l, acc + pv.float()
 
 
 @hot_path

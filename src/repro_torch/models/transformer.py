@@ -372,8 +372,13 @@ def _positions(s: int, cfg: LMConfig, dev):
 
 def _mla_query(h, w_dq, q_ln, w_uq, cfg: LMConfig, cos, sin):
     """MLA's query of hidden ``h``: (no-rope part, roped part)."""
+    return _mla_query_heads(rms_norm(h @ w_dq, q_ln), w_uq, cfg, cos, sin)
+
+
+def _mla_query_heads(cq, w_uq, cfg: LMConfig, cos, sin):
+    """MLA's query of its normed latent ``cq``: (no-rope part, roped
+    part)."""
     m = cfg.mla
-    cq = rms_norm(h @ w_dq, q_ln)
     q = torch.einsum("bsr,rhk->bshk", cq, w_uq)
     return q[..., : m.qk_nope_head_dim], \
         rope(q[..., m.qk_nope_head_dim:], cos, sin)
@@ -383,7 +388,12 @@ def _mla_latent(h, w_dkv, w_kr, kv_ln, cos, sin):
     """MLA's cache entries of hidden ``h``: the normed kv latent and the
     roped key shared by every head (B, S, rope)."""
     ckv = rms_norm(h @ w_dkv, kv_ln)
-    return ckv, rope((h @ w_kr)[:, :, None], cos, sin)[:, :, 0]
+    return ckv, _rope_key(h @ w_kr, cos, sin)
+
+
+def _rope_key(kr, cos, sin):
+    """MLA's key shared by every head (B, S, rope), roped."""
+    return rope(kr[:, :, None], cos, sin)[:, :, 0]
 
 
 def _gqa_q(h, w_q, q_norm, cos, sin):
@@ -404,32 +414,43 @@ def _gqa_kv(h, w_k, w_v, k_norm, cos, sin):
 
 
 def _attention_block(p, h, cfg: LMConfig, cos, sin, kv_sel=None):
-    """h: post-ln1 hidden (B, S, D) -> attn output (B, S, D).  ``p`` is
-    the layer's attention weights cast to the compute dtype; ``kv_sel``
+    """GQA.  h: post-ln1 hidden (B, S, D) -> attn output (B, S, D).
+    ``p`` is the layer's attention weights cast to the compute dtype
+    (MLA: ``_mla_latents`` and ``_mla_block``); ``kv_sel``
     (``_kv_select``): the KV heads the query heads read, the only ones
     projected (their slice of the whole ``w_k`` / ``w_v``)."""
-    chunk = cfg.attn_chunk or None
-    if cfg.attn_kind == "mla":
-        m = cfg.mla
-        q_nope, q_rope = _mla_query(h, p["w_dq"], p["q_ln"], p["w_uq"], cfg,
-                                    cos, sin)
-        ckv, k_rope = _mla_latent(h, p["w_dkv"], p["w_kr"], p["kv_ln"],
-                                  cos, sin)
-        k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"])
-        v = torch.einsum("bsr,rhk->bshk", ckv, p["w_uv"])
-        k = torch.cat(
-            [k_nope, k_rope[:, :, None].expand(*k_nope.shape[:3],
-                                               k_rope.shape[-1])], dim=-1)
-        q = torch.cat([q_nope, q_rope], dim=-1)
-        scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-        o = attention(q, k, v, causal=True, chunk=chunk, scale=scale)
-    else:
-        q = _gqa_q(h, p["w_q"], p.get("q_norm"), cos, sin)
-        w_k, w_v = p["w_k"], p["w_v"]
-        if kv_sel is not None:
-            w_k, w_v = w_k[:, kv_sel], w_v[:, kv_sel]
-        k, v = _gqa_kv(h, w_k, w_v, p.get("k_norm"), cos, sin)
-        o = attention(q, k, v, causal=True, chunk=chunk)
+    q = _gqa_q(h, p["w_q"], p.get("q_norm"), cos, sin)
+    w_k, w_v = p["w_k"], p["w_v"]
+    if kv_sel is not None:
+        w_k, w_v = w_k[:, kv_sel], w_v[:, kv_sel]
+    k, v = _gqa_kv(h, w_k, w_v, p.get("k_norm"), cos, sin)
+    o = attention(q, k, v, causal=True, chunk=cfg.attn_chunk or None)
+    return torch.einsum("bshk,hkd->bsd", o, p["w_o"])
+
+
+def _mla_latents(p, h):
+    """MLA's low-rank projections of hidden ``h``, every head's: the
+    normed query and kv latents and the key shared by every head, before
+    its rope."""
+    return (rms_norm(h @ p["w_dq"], p["q_ln"]),
+            rms_norm(h @ p["w_dkv"], p["kv_ln"]), h @ p["w_kr"])
+
+
+def _mla_block(p, cq, ckv, kr, cfg: LMConfig, cos, sin):
+    """MLA's heads from its latents (``_mla_latents``) -> attn output
+    (B, S, D); ``p`` the layer's up and output projections, cast."""
+    m = cfg.mla
+    q_nope, q_rope = _mla_query_heads(cq, p["w_uq"], cfg, cos, sin)
+    k_rope = _rope_key(kr, cos, sin)
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", ckv, p["w_uv"])
+    k = torch.cat(
+        [k_nope, k_rope[:, :, None].expand(*k_nope.shape[:3],
+                                           k_rope.shape[-1])], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    o = attention(q, k, v, causal=True, chunk=cfg.attn_chunk or None,
+                  scale=scale)
     return torch.einsum("bshk,hkd->bsd", o, p["w_o"])
 
 
@@ -449,6 +470,8 @@ def _attention(p, x, cfg: LMConfig, plan: ShardPlan, cos, sin):
     split = _attn_split(x, cfg, plan)
     if split == "seq":
         return _attention_seq(p, x, cfg, plan, cos, sin)
+    if cfg.attn_kind == "mla":
+        return _attention_mla(p, x, cfg, plan, cos, sin, split)
     q_tp, kv_tp = _head_tp(cfg, plan, split)
     roles = {"ln1": (None,), **_attn_roles(cfg, q_tp, kv_tp)}
     names = list(roles)
@@ -465,6 +488,40 @@ def _attention(p, x, cfg: LMConfig, plan: ShardPlan, cos, sin):
     return local_region(plan.mesh, fn,
                         [(x, flat)] + _weights(p, roles, plan),
                         plan.partial(flat, "tp") if q_tp else flat)
+
+
+def _attention_mla(p, x, cfg: LMConfig, plan: ShardPlan, cos, sin,
+                   split: str):
+    """ln1 and MLA in two regions, as the reference's program splits it:
+    the low-rank projections (``_mla_latents``) on the residual's own
+    shard (its sequence shard over tp, where it lies there), then the
+    latents gathered whole over tp (2,112 of kimi-k2's 7,168 widths) and
+    the heads on the heads' shard (a partial sum over tp) or, where they
+    do not divide tp, every head."""
+    q_tp, _ = _head_tp(cfg, plan, split)
+    roles = _attn_roles(cfg, q_tp, q_tp)
+    low = ("w_dq", "q_ln", "w_dkv", "kv_ln", "w_kr")
+    heads = [k for k in roles if k not in low]
+    cdt, xdt = COMPUTE_DTYPE, x.dtype
+
+    def latents(x_, ln1, *ws):
+        h = rms_norm(x_, ln1).to(cdt)
+        return _mla_latents(base.cast_tree(dict(zip(low, ws)), cdt), h)
+
+    def block(cq, ckv, kr, *ws):
+        pc = base.cast_tree(dict(zip(heads, ws)), cdt)
+        return _mla_block(pc, cq, ckv, kr, cfg, cos, sin).to(xdt)
+
+    res = plan.layout(*_res_dims(x, cfg, plan))
+    lat = local_region(
+        plan.mesh, latents,
+        [(x, res), (p["ln1"], plan.layout(None))]
+        + _weights(p, {k: roles[k] for k in low}, plan), [res] * 3)
+    flat = plan.layout("dp", None, None)
+    return local_region(
+        plan.mesh, block, [(t, flat) for t in lat]
+        + _weights(p, {k: roles[k] for k in heads}, plan),
+        plan.partial(flat, "tp") if q_tp else flat)
 
 
 def _seq_shard(s: int, plan: ShardPlan, cos, sin):

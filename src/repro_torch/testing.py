@@ -32,10 +32,19 @@ shard's local with its own tables and its ``lin``, stacked and merged --
 which a search over a mesh of ranks must equal bit for bit on the same
 device: the collective only moves bytes.  Nothing on the main path calls
 it.
+
+:data:`MOVE_CASES` are moves of ``sharding.move`` (an exchange over one
+mesh dim and over several, uneven and empty chunks, partial values
+reduced and cut); :func:`run_move_cases` runs them on one rank of a
+world of four, on a ``(2, 2)`` and a ``(1, 2, 2)`` mesh, each against
+:func:`cut_as_dtensor` of the whole value (what gathering it whole and
+cutting it gives), with the collectives each move issued beside the
+ones the reference's lowering issues.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 import torch
@@ -51,7 +60,9 @@ __all__ = ["OPTION_EDGES", "EDGE_ALPHAS", "PQ_EDGES", "HAMMING_EDGES",
            "rows_edge_operands", "rows_union_topk",
            "lexical_scores_f32", "hybrid_by_parts", "shard_backends",
            "shard_loop", "mips_parity", "sasrec_mips_truth",
-           "message_dtypes", "attention_at_true_fan_in"]
+           "message_dtypes", "attention_at_true_fan_in", "MOVE_CASES",
+           "MOVE_MESHES", "placements_of", "cut_as_dtensor",
+           "run_move_cases"]
 
 # (name, B, N, d, k, rows): rows "dead" = every row dead, "half" = about
 # half live, "dup" = the second half repeats the first; the BM25 lookup's
@@ -544,3 +555,174 @@ def attention_at_true_fan_in(params: dict, cfg) -> dict:
                     w = params[stack][k]
                     local(w).mul_((w.shape[-2] / f) ** 0.5)
     return params
+
+
+# ---------------------------------------------------------------------------
+# moves over a mesh of four ranks
+# ---------------------------------------------------------------------------
+
+# mesh name -> (shape, dim names): a pod dim of one rank on the second
+MOVE_MESHES = {"2x2": ((2, 2), ("data", "model")),
+               "1x2x2": ((1, 2, 2), ("pod", "data", "model"))}
+
+# (name, mesh, global shape, have, want, the collectives the forward
+# issues, whether the backward is run too).  Placements are written
+# "S<d>" (Shard), "R" (Replicate), "P" / "Pmax" (Partial sum / max).
+# The MoE's expert exchange is ("dp", "tp") -> ("pp", "ep"): on the
+# single-pod plan "S0,S1" -> "S1,S1", on the multi-pod one "S0,S0,S1" ->
+# "S0,S1,S1" (its experts over the data and model dims of a pod) and, a
+# model's experts spread over the pods too, "S0,S0,S1" -> "S1,S1,S1".
+MOVE_CASES = (
+    ("shard to shard", "2x2", (8, 12), "S0,R", "S1,R",
+     ("all_to_all",), True),
+    ("shard to shard on model", "2x2", (6, 8, 4), "S0,S2", "S0,S1",
+     ("all_to_all",), False),
+    ("moe exchange", "2x2", (4, 8, 3, 5), "S0,S1", "S1,S1",
+     ("all_to_all",), True),
+    ("moe exchange back", "2x2", (4, 8, 3, 5), "S1,S1", "S0,S1",
+     ("all_to_all",), False),
+    ("moe exchange in a pod", "1x2x2", (4, 8, 3, 5), "S0,S0,S1",
+     "S0,S1,S1", ("all_to_all",), True),
+    ("moe exchange over pods", "1x2x2", (4, 8, 3, 5), "S0,S0,S1",
+     "S1,S1,S1", ("all_to_all",), False),
+    ("uneven", "2x2", (5, 7, 3), "S0,S1", "S1,S1", ("all_to_all",), True),
+    ("uneven on one dim", "2x2", (7, 5), "S0,R", "S1,R",
+     ("all_to_all",), False),
+    ("empty chunks", "2x2", (3, 1, 2), "S1,S0", "S0,S0",
+     ("all_to_all",), True),
+    ("empty chunks, a replicated dim joining", "2x2", (2, 6), "R,S1",
+     "S0,S0", ("all_to_all",), False),
+    ("partial sum to shard", "2x2", (8, 6), "S0,P", "S0,S1",
+     ("reduce_scatter",), True),
+    ("partial max to shard", "2x2", (8, 6), "S0,Pmax", "S0,S1",
+     ("reduce_scatter",), False),
+    ("partial max to shard, uneven", "2x2", (5, 6), "S1,Pmax", "S1,S0",
+     ("reduce_scatter",), False),
+    ("partial on both to shard", "2x2", (8, 6), "P,P", "S0,R",
+     ("all_reduce", "reduce_scatter"), False),
+    ("partial on both to one shard", "2x2", (8, 6), "P,P", "S0,S0",
+     ("reduce_scatter",), False),
+    ("partial on both to one shard, uneven", "2x2", (5, 3), "P,P",
+     "S0,S0", ("reduce_scatter",), False),
+    ("partial to shard in a pod", "1x2x2", (8, 6), "R,P,S0", "R,S1,S0",
+     ("reduce_scatter",), True),
+)
+
+
+def placements_of(spec: str) -> tuple:
+    """"S0,R,Pmax" -> (Shard(0), Replicate(), Partial("max"))."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    out = []
+    for q in spec.split(","):
+        if q == "R":
+            out.append(Replicate())
+        elif q.startswith("P"):
+            out.append(Partial(q[1:] or "sum"))
+        else:
+            out.append(Shard(int(q[1:])))
+    return tuple(out)
+
+
+def cut_as_dtensor(full, sizes, coord, placements):
+    """The block of ``full`` that the rank at mesh coordinate ``coord``
+    holds under ``placements`` (a partial dim holds the whole): cut by
+    ``torch.chunk`` along each sharded mesh dim, first mesh dim first,
+    the chunks ``torch.chunk`` does not make empty, as DTensor cuts."""
+    from torch.distributed.tensor import Shard
+
+    t = full
+    for m, q in enumerate(placements):
+        if isinstance(q, Shard):
+            pieces = list(torch.chunk(t, sizes[m], dim=q.dim))
+            pieces += [t.narrow(q.dim, 0, 0)] * (sizes[m] - len(pieces))
+            t = pieces[coord[m]]
+    return t.contiguous()
+
+
+def _move_parts(case_i: int, shape, sizes, have) -> dict:
+    """The whole value's parts: one a coordinate of the partial mesh
+    dims (one part, ``()``, with none), integer-valued fp32 so that any
+    sum order is exact."""
+    from torch.distributed.tensor import Partial
+
+    pdims = [m for m, q in enumerate(have) if isinstance(q, Partial)]
+    parts = {}
+    for at in np.ndindex(*[sizes[m] for m in pdims]):
+        g = torch.Generator().manual_seed(1000 * case_i + len(parts))
+        parts[at] = torch.randint(-64, 64, shape, generator=g).float()
+    return pdims, parts
+
+
+def run_move_cases(meshes: dict, device) -> list:
+    """Every case of :data:`MOVE_CASES` on this rank, each mesh of
+    ``meshes`` ({name: DeviceMesh}) made on every rank beforehand:
+    ``[{name, out, oracle, placements_ok, bytes, counts, routes,
+    expected_bytes, grad, grad_oracle, grad_bytes, grad_counts}]``,
+    tensors on the host."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.distributed import sharding
+
+    out = []
+    for i, (name, mesh_name, shape, have_s, want_s, kinds,
+            backward) in enumerate(MOVE_CASES):
+        mesh = meshes[mesh_name]
+        sizes = tuple(mesh.mesh.shape)
+        coord = tuple(mesh.get_coordinate())
+        have, want = placements_of(have_s), placements_of(want_s)
+        pdims, parts = _move_parts(i, shape, sizes, have)
+        stack = torch.stack(list(parts.values()))
+        full = stack.amax(0) if pdims and have[pdims[0]].reduce_op == "max" \
+            else stack.sum(0)
+        mine = parts[tuple(coord[m] for m in pdims)]
+        loc = cut_as_dtensor(mine, sizes, coord, have).to(device)
+        x = DTensor.from_local(loc, mesh, have, run_check=False,
+                               shape=torch.Size(shape),
+                               stride=full.stride())
+        if backward:
+            x = x.detach().requires_grad_()
+        for c in (sharding.COLLECTIVE_BYTES, sharding.COLLECTIVE_COUNTS,
+                  sharding.MOVE_ROUTES):
+            c.clear()
+        y = sharding.move(x, want)
+        rec = {"name": name, "out": y.to_local().detach().cpu(),
+               "oracle": cut_as_dtensor(full, sizes, coord, want),
+               "placements_ok": tuple(y.placements) == want,
+               "bytes": dict(sharding.COLLECTIVE_BYTES),
+               "counts": dict(sharding.COLLECTIVE_COUNTS),
+               "routes": dict(sharding.MOVE_ROUTES)}
+        # the reference's rule: a collective's result bytes, an
+        # all-reduce's twice (it runs last, on the block kept); a
+        # reduce-scatter's result is the largest member's chunk
+        exp = {}
+        for kind in kinds:
+            if kind in ("all_to_all", "all_reduce"):
+                exp[kind] = (2 if kind == "all_reduce" else 1) \
+                    * rec["out"].numel() * 4
+            else:
+                d = next(b.dim for a, b in zip(have, want)
+                         if isinstance(a, Partial) and a != b
+                         and not isinstance(b, Replicate))
+                c = max(cut_as_dtensor(full, sizes, at, want).shape[d]
+                        for at in np.ndindex(*sizes))
+                rest = math.prod(n for j, n in enumerate(rec["out"].shape)
+                                 if j != d)
+                exp[kind] = c * rest * 4
+        rec["expected_bytes"] = exp
+        if backward:
+            src = tuple(Replicate() if isinstance(q, Partial) else q
+                        for q in have)
+            g = torch.Generator().manual_seed(7000 + i)
+            gfull = torch.randint(-64, 64, shape, generator=g).float()
+            gloc = cut_as_dtensor(gfull, sizes, coord, want).to(device)
+            for c in (sharding.COLLECTIVE_BYTES, sharding.COLLECTIVE_COUNTS):
+                c.clear()
+            grad, = torch.autograd.grad((y.to_local() * gloc).sum(), x)
+            rec.update(grad=grad.to_local().cpu(),
+                       grad_placements_ok=tuple(grad.placements) == src,
+                       grad_oracle=cut_as_dtensor(gfull, sizes, coord, src),
+                       grad_bytes=dict(sharding.COLLECTIVE_BYTES),
+                       grad_counts=dict(sharding.COLLECTIVE_COUNTS))
+        out.append(rec)
+    return out

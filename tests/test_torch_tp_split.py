@@ -311,7 +311,7 @@ def _rank_main(rank: int, world: int, workdir: str) -> None:
     import datetime
 
     import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch.mesh import make_test_mesh
 
     torch.set_num_threads(1)
     store = dist.FileStore(os.path.join(workdir, "store"), world)
@@ -319,8 +319,7 @@ def _rank_main(rank: int, world: int, workdir: str) -> None:
                             world_size=world,
                             timeout=datetime.timedelta(seconds=60))
     try:
-        mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
-                          mesh_dim_names=("data", "model"))
+        mesh = make_test_mesh((2, 2), ("data", "model"), device_type="cpu")
         plan = sharding.SINGLE_POD_PLAN.with_mesh(mesh)
         out = {"sharded": _run_cases(plan, "cpu")}
         if rank == 0:
