@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over;
 each prints its wall time as ``[phase] <name> <s> s``):
 
 1. card    - name, count, versions, ``nvidia-smi`` name and power limit;
-2. build   - build the five CUDA sources (seven kernels) from
+2. build   - build the six CUDA sources (eight kernels) from
              ``src/repro_torch/kernels/csrc`` in parallel and print the
              ``-Xptxas -v`` register/shared/spill lines;
 3. edges   - each kernel against its plain version on the edge shapes that
@@ -21,7 +21,9 @@ each prints its wall time as ``[phase] <name> <s> s``):
              halves (``testing.hybrid_by_parts``); the same tables at
              k = 33, 64, 65 and 100 and at k = N (the kernels' passes
              above their lists' length), ``l2_topk`` at d = 960 and
-             ``l2_topk_int8`` at d = 640 and 1,000;
+             ``l2_topk_int8`` at d = 640 and 1,000; the tree descent on
+             ``testing.DESCENT_EDGES`` (its five results equal the plain
+             loop's);
 4. shapes  - each kernel against its plain version at the main path's
              shapes, on the backends' own operands, timed beside its bound,
              the plain version and a PyTorch yardstick (which the port
@@ -64,7 +66,13 @@ each prints its wall time as ``[phase] <name> <s> s``):
              DEEP brute bottom's probe chain (``candidate_topk``, rows by
              entity id) against its plain version and float64 and timed;
              counts reset just before and read just after each of the
-             three runs;
+             three runs; the sift forest under a kd top (``top="kdtree"``
+             over the 8,192 centroids, nprobe 32 and 64: kd beams 64 and
+             128) and the descent kernel at the kd top's shapes and at the
+             radio QLBT's beams 1-32, each against the plain card loop
+             and the CPU loop (rows off the CPU's descent counted, the
+             kernel's at most the plain card path's plus a slack), timed
+             beside its bound;
 10. forest serve - the sift tree-bottom index (8,192 buckets, leaf 8)
              through ``ServingCell.sharded(kind="auto")`` (the forest
              kind: nprobe 32, beam 8, k 10), 2,048 requests from 16
@@ -72,9 +80,13 @@ each prints its wall time as ``[phase] <name> <s> s``):
              before and read just after; fused against unfused on every
              batch (near-ties recomputed in float64, repeats counted);
              filtered at 0.05 and 0.5; k = 50; a stage profile of one
-             batch; ``candidate_topk``'s rows-by-id entry at the served
-             shape (B 64, C 2,048, d 128) against its plain version, timed
-             beside its bound, the library yardstick and the gathered tile;
+             batch (its launches by stage); ``candidate_topk``'s rows-by-id
+             entry at the served shape (B 64, C 2,048, d 128) against its
+             plain version, timed beside its bound, the library yardstick
+             and the gathered tile; the descent of every served batch
+             (2,048 rows of nprobe 32 x beam 8) by the kernel and by the
+             plain card loop, each against the CPU loop, both reranked:
+             answers equal on every query whose descent rows agree;
 11. lifecycle - a copy of that index (brute top): add 10,000 entities
              with metadata rows, delete 10,000, ``refresh_forest``,
              ``reboost`` (unbalance 0.23), ``rebalance``; after each,
@@ -112,8 +124,9 @@ each prints its wall time as ``[phase] <name> <s> s``):
              IVF placement of the serve phase's index, nprobe 32, k 10),
              a TinyLFU cache each, one estimator with its sketch on the
              card, 16 clients sending Zipf traffic over 2,048 queries:
-             steady windows (one cell; the fleet on its own streams and
-             on the default stream), a hedge window (one cell delayed),
+             steady windows of 2,048 requests (one cell; the fleet on its
+             own streams, on the default stream and on its own streams
+             again), a hedge window (one cell delayed),
              a failure window (one cell raising: no request lost, only
              its keys remapped), a maintenance window (the head rotates,
              a copy of the index takes the lifecycle's add and delete,
@@ -130,7 +143,7 @@ each prints its wall time as ``[phase] <name> <s> s``):
              ``src/repro_torch`` (0 findings), the recompile gate over the
              seven registered entry points on the card (0 findings; each
              step's wall ms and compiled variants; launch counts reset
-             just before and read just after: the five on-path kernels
+             just before and read just after: the six on-path kernels
              > 0), one seeded plan whose second step brings a new batch
              shape (exactly one ``recompile``), ``profile_entry_points``,
              ``roofline_report`` of the serve phase's brute and IVF
@@ -196,7 +209,7 @@ each prints its wall time as ``[phase] <name> <s> s``):
              as the reference's ``train_4k`` cell (remat, KV blocks of
              1,024, AdamW warmup_cosine(3e-4, 2000, 100000), fp32 params,
              bf16 compute) at seq 4,096 with the batch cut from 256 to 8
-             (4 microbatches of 2 through ``accum``): 2 warm-up and 4
+             (4 microbatches of 2 through ``accum``): 1 warm-up and 3
              timed steps (ms, tokens/s, peak memory, each step's loss and
              grad_norm), one microbatch's step profiled; its fp32 gradient
              and one AdamW step card against CPU on the ``lm`` phase's
@@ -224,7 +237,8 @@ each prints its wall time as ``[phase] <name> <s> s``):
              then four gloo ranks sharing the card on a ``(2, 2)`` mesh
              (spawned; the parent computes the one-card steps first and
              hands them over on the host): qwen3-0.6b at full width
-             and depth, deepseek-v3 at ``reduced()`` and granite-34b at
+             with its depth cut to 8 layers, deepseek-v3 at ``reduced()``
+             and granite-34b at
              full width with its depth cut to 2 layers (its 48 query heads
              over tp, its one KV head whole on each rank; the attention
              projections at their true fan-in, ROADMAP fault 27) through
@@ -289,7 +303,7 @@ from repro_torch.core.pq import adc_lut  # noqa: E402
 from repro_torch.core.protocol import (IndexSpec,  # noqa: E402
                                        select_index_spec)
 from repro_torch.core.graph_build import radius_graph  # noqa: E402
-from repro_torch.core.tree import tree_search  # noqa: E402
+from repro_torch.core.tree import build_kd_tree, tree_search  # noqa: E402
 from repro_torch.core.lexical import (build_lexical_slabs_flat,  # noqa: E402
                                       query_operands)
 from repro_torch.core.metadata import FilterSpec, MetadataTable  # noqa: E402
@@ -305,7 +319,8 @@ from repro_torch.data.synthetic import make_corpus, make_queries  # noqa: E402
 from repro_torch.device import require_fp32_matmul  # noqa: E402
 from repro_torch.distributed.backend import ShardedSearchBackend  # noqa: E402
 from repro_torch.kernels import (_build, bm25, bucket_topk,  # noqa: E402
-                                 hamming, l2_topk, ops, pq_adc, ref)
+                                 hamming, l2_topk, ops, pq_adc, ref,
+                                 tree_descent)
 from repro_torch.kernels.common import (LAUNCH_COUNTERS,  # noqa: E402
                                         merge_topk, stable_topk)
 from repro_torch.analysis import run_static_analysis  # noqa: E402
@@ -330,10 +345,11 @@ from repro_torch.train.loop import (init_state,  # noqa: E402
 from repro_torch.train.sparse_embed import \
     make_ctr_sparse_train_step  # noqa: E402
 from repro_torch.train.tree import leaves as tree_leaves_sorted  # noqa: E402
-from repro_torch.testing import (CHAIN_EDGES, EDGE_ALPHAS,  # noqa: E402
-                                 HAMMING_EDGES, OPTION_EDGES, PQ_EDGES,
-                                 ROWS_EDGES, attention_at_true_fan_in,
-                                 chain_edge_operands,
+from repro_torch.testing import (CHAIN_EDGES, DESCENT_EDGES,  # noqa: E402
+                                 EDGE_ALPHAS, HAMMING_EDGES, OPTION_EDGES,
+                                 PQ_EDGES, ROWS_EDGES,
+                                 attention_at_true_fan_in,
+                                 chain_edge_operands, descent_edge_operands,
                                  chain_union_topk, hamming_edge_operands,
                                  hybrid_by_parts, message_dtypes,
                                  mips_parity, option_edge_operands,
@@ -386,6 +402,7 @@ WIDE = FilterSpec.range("pct", 0, 49)        # selectivity 0.5
 INDEX_QUERIES = 1024
 DEEP_NPROBES = (8, 16, 32, 64)
 SIFT_NPROBE = 32
+KD_NPROBES = (32, 64)         # the kd top's beams max(2 nprobe, 8): 64, 128
 BEAM = 8
 BUCKET_LSH_BITS = 64
 FLAT_LSH_BITS = 96
@@ -463,6 +480,8 @@ def _kernel_name(mangled: str) -> str:
     """``l2_tile_scan<Int8Rows, float4, bounded>`` or ``hamming_count<3>``
     from a mangled kernel name (``bounded``: the instantiation for a pass
     with a bound; 3: the words a code)."""
+    if "tree_descent" in mangled:
+        return "tree_descent"
     last = re.search(r"Lb([01])EEEv", mangled)
     suffix = ", bounded" if last and last.group(1) == "1" else ""
     tile = re.search(r"l2_tile_scanINS_\d+(\w+?Rows)ELb(\d)ELb(\d)E", mangled)
@@ -897,6 +916,7 @@ def phase_edges(dev) -> None:
                        plain=plain)["near_ties"]
     near += edges_chain(dev)
     near += edges_rows(dev)
+    edges_descent(dev)
     near += edges_options(dev)
     edges_index(dev)
     # d = 960: the staged chunks carry any d (the old tile refused d > 512)
@@ -2137,6 +2157,9 @@ def phase_index_sift(dev, ctx) -> dict:
     log(f"[index sift] launches {out['two_level_launches']}")
     require(out["two_level_launches"]["pq_adc_topk"] > 0,
             "the PQ top level never launched pq_adc_topk")
+    require(out["two_level_launches"]["tree_descent"] > 0,
+            "the forest bottom never launched tree_descent")
+    out["kd_top"] = index_sift_kd(dev, ctx, tree_idx, queries, truth)
     out["k100"] = search_index_k100(index, corpus, queries, dev)
     for name, r in rows.items():
         require(r["recall_at_10"] >= 0.5,
@@ -2235,6 +2258,51 @@ def phase_index_sift(dev, ctx) -> dict:
         f"library {res['library_ms']:.4f} (k=64: "
         f"{res['library_ms_k64']:.4f})")
     del xt
+    return out
+
+
+def index_sift_kd(dev, ctx, tree_idx, queries, truth) -> dict:
+    """The two-level kd top (``top="kdtree"``: a kd-tree of leaf 4 over the
+    8,192 centroids, as ``build_two_level`` builds it) over the tree
+    bottom's forest, at nprobe 32 and 64 (kd beams 64 and 128): recall@10
+    and launches (reset just before, read just after: ``tree_descent``
+    for the kd top and the forest bottom); then the descent kernel at the
+    kd top's shapes (1,024 queries, d 128) against its plain version and
+    the CPU loop, timed beside its bound."""
+    t0 = time.perf_counter()
+    kd_idx = dataclasses.replace(
+        tree_idx, config=dataclasses.replace(tree_idx.config, top="kdtree"),
+        top_pq=None, top_kd=build_kd_tree(tree_idx.centroids, leaf_size=4))
+    out = {"kd_build_s": time.perf_counter() - t0,
+           "kd_nodes": kd_idx.top_kd.n_nodes,
+           "kd_max_depth": kd_idx.top_kd.max_depth}
+    reset_launches()
+    for nprobe in KD_NPROBES:
+        ids, work, per_q = timed_search(kd_idx.search, queries,
+                                        nprobe=nprobe, beam_width=BEAM)
+        out[nprobe] = {"recall_at_10": recall_at_k(ids, truth),
+                       "per_query_ms": per_q * 1e3,
+                       "work_per_query": {k: v / len(queries)
+                                          for k, v in work.items()}}
+        log(f"[index sift] kd top + tree bottom, nprobe {nprobe} (kd beam "
+            f"{max(2 * nprobe, 8)}) beam {BEAM}: {out[nprobe]}")
+    torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    log(f"[index sift] kd top launches {out['launches']}")
+    require(out["launches"]["tree_descent"] > 0,
+            "the kd top and forest bottom never launched tree_descent")
+    arrays = kd_idx.top_kd.device_arrays(dev)
+    q = torch.as_tensor(queries, device=dev)
+    out["shapes"] = {}
+    for nprobe in KD_NPROBES:
+        kw = {"kind": "kd", "beam_width": max(2 * nprobe, 8),
+              "max_steps": kd_idx.top_kd.max_depth + 4}
+        res = shape_descent(f"kd top W{kw['beam_width']}", arrays, q, kw)
+        res.pop("_results")
+        out["shapes"][kw["beam_width"]] = res
+        RESULTS["kernels"].setdefault("tree_descent", {})[
+            f"kd{kw['beam_width']}"] = res
+    del kd_idx
     return out
 
 
@@ -2509,6 +2577,23 @@ def phase_index_radio(dev) -> dict:
         log(f"[index radio] {name}: {r}")
     torch.cuda.synchronize()
     out["launches"] = read_launches()
+    log(f"[index radio] launches {out['launches']}")
+    require(out["launches"]["tree_descent"] > 0,
+            "SearchIndex's tree search never launched tree_descent")
+    t = idxs["qlbt"].tree
+    arrays, cpu_arrays = t.device_arrays(dev), t.device_arrays("cpu")
+    out["descent"] = {}
+    for w in RADIO_BEAMS:
+        kw = {"kind": t.kind, "beam_width": w, "max_steps": t.max_depth + 4}
+        if w == out["qlbt"]["beam"]:
+            res = shape_descent(f"radio qlbt W{w}", arrays, qt, kw,
+                                cpu_arrays=cpu_arrays)
+            RESULTS["kernels"].setdefault("tree_descent", {})["radio"] = res
+        else:
+            res = descent_parity(f"radio qlbt descent W{w}", arrays, qt, kw,
+                                 cpu_arrays=cpu_arrays)
+        res.pop("_results")
+        out["descent"][w] = res
     out["mean_work_gain"] = 1 - out["qlbt"]["mean_work"] / out["tree"][
         "mean_work"]
     out["p90_work_gain"] = 1 - out["qlbt"]["p90_work"] / out["tree"][
@@ -2546,9 +2631,240 @@ LIFE_ADDS = 10_000         # 1 % of sift-1m: 100 near each of 100 buckets
 LIFE_HOT = 100
 LIFE_DELETES = 10_000      # the members of whole cold buckets
 LIFE_CHUNK = 1024          # queries a call in the lifecycle's checks
-STAGE_KERNELS = (("descent gathers", r"index|gather|Gather|take"),
+# the descent's kernels by name: the hand-written descent first (its name
+# holds none of the other patterns)
+# the hand-written kernels by the stage that launches them: their launches
+# (through ctypes, inside no aten op) are not attached to the ranges
+HAND_STAGES = (("descent", r"tree_descent"),
+               ("rerank", r"candidate_scan|candidate_merge"))
+STAGE_KERNELS = (("descent kernel", r"tree_descent"),
+                 ("descent gathers", r"index|gather|Gather|take"),
                  ("node products", r"gemm|gemv|Gemm|xmma|cutlass|bmm|dot"),
                  ("beam sorts", r"[sS]ort|radix|Radix|topk"))
+
+
+# The descent kernel against the plain batch loop on the card, each against
+# the plain loop on the CPU: split margins within rounding of zero may fall
+# to the other side in any of the three sums (ROADMAP fault 11), so the
+# kernel may leave the CPU's descent on no more rows than the plain card
+# path does, plus this slack (rows, and a share of the rows).
+DESCENT_SLACK = (4, 0.005)
+DESCENT_NAMES = ("nodes", "steps", "internal_visits", "candidates",
+                 "n_candidates")
+
+
+def _descent_rows_off(a, b) -> torch.Tensor:
+    """Rows whose leaf candidates, steps or internal visits differ."""
+    return ((a[3] != b[3]).any(dim=1) | (a[1] != b[1]) | (a[2] != b[2]))
+
+
+def descent_parity(name, arrays, q, kw, roots=None, cpu_arrays=None) -> dict:
+    """The kernel and the plain loop on the card on the same operands, each
+    held against the plain loop on the CPU: the rows each leaves the CPU's
+    descent on (``_descent_rows_off``), the kernel's at most the plain
+    card path's plus ``DESCENT_SLACK``; beside it the rows where kernel and
+    plain card path differ, the largest |internal_visits| gap between them
+    and that gap over the plain's visits."""
+    kern = tree_descent.tree_descent(arrays, q, roots=roots, **kw)
+    plain = ref.tree_descent_ref(arrays, q, roots=roots, **kw)
+    cpu_arrays = cpu_arrays or {n: v.cpu() for n, v in arrays.items()}
+    cpu = ref.tree_descent_ref(cpu_arrays, q.cpu(),
+                               roots=None if roots is None else roots.cpu(),
+                               **kw)
+    kern_h = [t.cpu() for t in kern]
+    plain_h = [t.cpu() for t in plain]
+    for t, n in zip(kern_h, DESCENT_NAMES):
+        require(t.dtype == torch.int32, f"{name}: kernel {n} is {t.dtype}")
+    R = q.shape[0]
+    k_off = int(_descent_rows_off(kern_h, cpu).sum())
+    p_off = int(_descent_rows_off(plain_h, cpu).sum())
+    differ = _descent_rows_off(kern_h, plain_h)
+    gap = (kern_h[2] - plain_h[2]).abs()
+    out = {"descent_rows": R, "beam": kw["beam_width"], "kind": kw["kind"],
+           "max_steps": kw["max_steps"],
+           "kernel_rows_off_cpu": k_off, "plain_rows_off_cpu": p_off,
+           "kernel_vs_plain_rows": int(differ.sum()),
+           "rows_match": float(1.0 - differ.float().mean()) if R else 1.0,
+           "max_abs_err": float(gap.max()) if R else 0.0,
+           "max_rel_err": float((gap / plain_h[2].clamp(min=1)).max())
+           if R else 0.0,
+           "steps_max": int(kern_h[1].max()) if R else 0,
+           "internal_visits": int(kern_h[2].sum()),
+           "candidates": int(kern_h[4].sum())}
+    slack = DESCENT_SLACK[0] + DESCENT_SLACK[1] * R
+    log(f"[{name}] {out}")
+    require(k_off <= p_off + slack,
+            f"{name}: the kernel leaves the CPU descent on {k_off} rows, the "
+            f"plain card path on {p_off} (slack {slack:.1f})")
+    out["_results"] = kern
+    return out
+
+
+def descent_bound(res: dict, arrays, q, kw, roots=None) -> dict:
+    """The descent's least time at 3.35 TB/s and 67 TFLOP/s, each input
+    read once: the proj row, tau and children of every distinct internal
+    node the run visits (the internal live nodes of the beams after 0, 1,
+    ... steps: the kernel run with ``max_steps`` cut there), each row's
+    query and start node, the leaf-table rows of the final beams, the node
+    ids those rows are found by, and the five outputs written once; 2 d
+    FLOP a visit.  Beside it the figure that reads a node's row at every
+    visit (``visit_bound_ms``: repeats in cache not subtracted)."""
+    R, d = q.shape
+    W = kw["beam_width"]
+    leaf = arrays["leaf_entities"].shape[1]
+    row_bytes = 4.0 * (3 + (1 if kw["kind"] == "kd" else d))
+    children = arrays["children"]
+    seen = []
+    for s in range(min(res["steps_max"], kw["max_steps"])):
+        nodes = tree_descent.tree_descent(
+            arrays, q, roots=roots, **dict(kw, max_steps=s))[0]
+        live = nodes[nodes >= 0].long()
+        seen.append(live[children[live, 0] >= 0])
+    distinct = int(torch.unique(torch.cat(seen)).numel()) if seen else 0
+    final = res["_results"][0]
+    leaf_rows = arrays["leaf_row"][final[final >= 0].long()]
+    distinct_leaves = int(torch.unique(leaf_rows[leaf_rows >= 0]).numel())
+    fixed = (4.0 * R * (d + 1) + 4.0 * R * W
+             + 4.0 * distinct_leaves * leaf + 4.0 * R * (W + 3 + W * leaf))
+    flops = 2.0 * (1 if kw["kind"] == "kd" else d) * res["internal_visits"]
+    ms, by = bound(row_bytes * distinct + fixed, flops)
+    visit_ms, _ = bound(row_bytes * res["internal_visits"] + fixed, flops)
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_bytes": row_bytes * distinct + fixed,
+            "bound_flops": flops, "distinct_internal_nodes": distinct,
+            "distinct_leaf_rows": distinct_leaves,
+            "visit_bound_ms": visit_ms}
+
+
+def shape_descent(name, arrays, q, kw, roots=None, cpu_arrays=None) -> dict:
+    """``descent_parity`` at a main path's shape, then the kernel's time
+    (CUDA graph replays: one call costs the host more than the card),
+    the plain card loop's time (CUDA events: its exit test reads the card
+    each step) and the bound.  No PyTorch call computes the descent, so
+    there is no library time."""
+    res = descent_parity(name, arrays, q, kw, roots, cpu_arrays)
+    res["ms"] = time_graph_ms(lambda: tree_descent.tree_descent(
+        arrays, q, roots=roots, **kw), 20)
+    res["plain_ms"] = time_ms(lambda: ref.tree_descent_ref(
+        arrays, q, roots=roots, **kw), 3, warmup=1)
+    res["library_ms"] = None
+    res.update(descent_bound(res, arrays, q, kw, roots))
+    log(f"[shape tree_descent {name}] R={q.shape[0]} d={q.shape[1]} "
+        f"W={kw['beam_width']} ms {res['ms']:.5f} bound "
+        f"{res['bound_ms']:.5f} ({res['bound_by']}; "
+        f"{res['distinct_internal_nodes']} distinct internal nodes of "
+        f"{res['internal_visits']} internal visits; a row read at every "
+        f"visit {res['visit_bound_ms']:.5f}) plain "
+        f"{res['plain_ms']:.4f} library none")
+    return res
+
+
+def edges_descent(dev) -> None:
+    """Every ``DESCENT_EDGES`` case: the kernel's five results equal the
+    plain loop's on the card (continuous normal data: no split margin
+    within rounding of zero), one launch a call."""
+    for case in DESCENT_EDGES:
+        o = descent_edge_operands(case)
+        arrays = o["tree"].device_arrays(dev)
+        q = torch.as_tensor(o["q"], device=dev)
+        roots = (None if o["roots"] is None
+                 else torch.as_tensor(o["roots"], device=dev))
+        got, n = counted("tree_descent", lambda: tree_descent.tree_descent(
+            arrays, q, roots=roots, **o["kw"]))
+        want = ref.tree_descent_ref(arrays, q, roots=roots, **o["kw"])
+        require(n == 1, f"edge descent {case[0]}: {n} launches")
+        for a, b, name in zip(got, want, DESCENT_NAMES):
+            require(a.dtype == torch.int32 and torch.equal(a, b),
+                    f"edge descent {case[0]}: {name} differs from the "
+                    "plain version")
+    log(f"[edges] tree_descent: {len(DESCENT_EDGES)} edges equal the plain "
+        "version (nodes, steps, internal visits, candidates)")
+
+
+def forest_descent_inputs(be, q):
+    """The forest local's descent operands for the batch ``q`` on ``be``'s
+    placed tables: (arrays, the (B nprobe, d) query rows, their start
+    nodes, the keywords)."""
+    (cents, valid, roots, _bids, bvecs, proj, dims, tau, children, leaf_row,
+     leaf_ents) = (t[0] for t in be._args)
+    arrays = dict(proj=proj, dims=dims, tau=tau, children=children,
+                  leaf_row=leaf_row, leaf_entities=leaf_ents)
+    d2c = torch.where(valid[None, :], pairwise_l2sq(q, cents), float("inf"))
+    _, probe = stable_topk(d2c, min(be.nprobe_local, cents.shape[0]))
+    kw = {"kind": "rp", "beam_width": be.beam_width,
+          "max_steps": be._shapes.max_depth + 4}
+    return (arrays, torch.repeat_interleave(q, probe.shape[1], dim=0),
+            roots[probe].reshape(-1), kw)
+
+
+def forest_descent(dev, be, queries, truth) -> dict:
+    """The served forest's descent over every batch of ``queries``: the
+    kernel and the plain loop on the card against the CPU loop
+    (``descent_parity``); each batch's answers through the fused rerank
+    from the kernel's candidates and from the plain card loop's, equal on
+    every query but those whose descent rows differ; recall@10 of both;
+    the first batch timed (``shape_descent``)."""
+    flat = be._args[3][0].reshape(-1)
+    rows = be._args[4][0].reshape(-1, queries.shape[1])
+    cpu_arrays = None
+    totals = {"descent_rows": 0, "kernel_rows_off_cpu": 0,
+              "plain_rows_off_cpu": 0,
+              "kernel_vs_plain_rows": 0, "queries_differ": 0,
+              "answers_differ_elsewhere": 0, "max_abs_err": 0.0,
+              "max_rel_err": 0.0}
+    ids_k, ids_p = [], []
+    first = None
+    for s in range(0, len(queries), BATCH):
+        q = torch.as_tensor(queries[s:s + BATCH], device=dev)
+        arrays, qq, rr, kw = forest_descent_inputs(be, q)
+        if cpu_arrays is None:
+            cpu_arrays = {n: v.cpu() for n, v in arrays.items()}
+        if first is None:
+            first = shape_descent(
+                f"forest B{q.shape[0]} nprobe {qq.shape[0] // q.shape[0]}",
+                arrays, qq, kw, rr, cpu_arrays)
+            res = first
+        else:
+            res = descent_parity(f"forest descent batch {s // BATCH}",
+                                 arrays, qq, kw, rr, cpu_arrays)
+        kern = res.pop("_results")
+        plain = ref.tree_descent_ref(arrays, qq, roots=rr, **kw)
+        answers = []
+        for cand in (kern[3], plain[3]):
+            c = cand.reshape(q.shape[0], -1)
+            c = torch.where((c >= 0) & (flat[c.clamp(min=0).long()] >= 0),
+                            c, -1)
+            ld, slot = bucket_topk.candidate_rows_topk(q, rows, c, K)
+            answers.append(torch.where(
+                (slot >= 0) & ~torch.isinf(ld),
+                flat[slot.clamp(min=0).long()], -1).cpu().numpy())
+        qdiff = _descent_rows_off([t.cpu() for t in kern],
+                                  [t.cpu() for t in plain]).reshape(
+            q.shape[0], -1).any(dim=1).numpy()
+        elsewhere = (answers[0] != answers[1]).any(axis=1) & ~qdiff
+        for key in ("descent_rows", "kernel_rows_off_cpu",
+                    "plain_rows_off_cpu", "kernel_vs_plain_rows"):
+            totals[key] += res[key]
+        totals["queries_differ"] += int(qdiff.sum())
+        totals["answers_differ_elsewhere"] += int(elsewhere.sum())
+        for key in ("max_abs_err", "max_rel_err"):
+            totals[key] = max(totals[key], res[key])
+        ids_k.append(answers[0])
+        ids_p.append(answers[1])
+    ids_k, ids_p = np.concatenate(ids_k), np.concatenate(ids_p)
+    totals["recall_at_10_kernel"] = recall_at_k(ids_k, truth)
+    totals["recall_at_10_plain_descent"] = recall_at_k(ids_p, truth)
+    log(f"[forest descent] {len(queries)} queries: {totals}")
+    require(totals["answers_differ_elsewhere"] == 0,
+            "forest answers from the kernel's descent differ from the plain "
+            "card descent's on a query whose descent rows agree")
+    first.update({k: v for k, v in totals.items()
+                  if k not in ("max_abs_err", "max_rel_err")})
+    first["max_abs_err"] = totals["max_abs_err"]
+    first["max_rel_err"] = totals["max_rel_err"]
+    first["ids_match"] = 1.0 - totals["kernel_vs_plain_rows"] / max(
+        totals["descent_rows"], 1)
+    return first
 
 
 def forest_parity(name, a, b, queries, db, floor: float = 0.99) -> dict:
@@ -2620,9 +2936,10 @@ def forest_local_stages(be, q):
 
 def forest_stage_profile(be, q, label: str) -> dict:
     """Device time of one batch by stage of the forest local (the
-    ``record_function`` ranges' kernels), the descent's kernels split into
-    gathers, node products, beam sorts and the rest by kernel name; beside
-    it each stage's time by CUDA events, the stages run one at a time."""
+    ``record_function`` ranges' kernels) and its launches, the descent's
+    kernels split into the descent kernel, gathers, node products, beam
+    sorts and the rest by kernel name; beside it each stage's time by CUDA
+    events, the stages run one at a time."""
     import re
 
     from torch.autograd import DeviceType
@@ -2646,6 +2963,8 @@ def forest_stage_profile(be, q, label: str) -> dict:
 
     stages, descent = {}, {name: 0.0 for name, _ in STAGE_KERNELS}
     descent["descent other"] = 0.0
+    stage_n, descent_n = {}, {name: 0 for name in descent}
+    attached: dict = {}
     for e in prof.events():
         # the host-side range (the device timeline repeats each range as a
         # user annotation with no kernels of its own)
@@ -2655,14 +2974,34 @@ def forest_stage_profile(be, q, label: str) -> dict:
         ks = kernels_of(e)
         stage = e.name[len("forest: "):]
         stages[stage] = stages.get(stage, 0.0) + sum(dur for _, dur in ks)
+        stage_n[stage] = stage_n.get(stage, 0) + len(ks)
+        for kname, dur in ks:
+            n, us = attached.get(kname, (0, 0.0))
+            attached[kname] = (n + 1, us + dur)
         if e.name == "forest: descent":
             for kname, dur in ks:
                 for cat, pat in STAGE_KERNELS:
                     if re.search(pat, kname):
-                        descent[cat] += dur
                         break
                 else:
-                    descent["descent other"] += dur
+                    cat = "descent other"
+                descent[cat] += dur
+                descent_n[cat] += 1
+    # the hand-written kernels the ranges did not hold, by name
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for stage, pat in HAND_STAGES:
+            if not re.search(pat, e.key):
+                continue
+            n, us = attached.get(e.key, (0, 0.0))
+            if e.count > n:
+                extra = e.self_device_time_total - us
+                stages[stage] = stages.get(stage, 0.0) + extra
+                stage_n[stage] = stage_n.get(stage, 0) + e.count - n
+                if stage == "descent":
+                    descent["descent kernel"] += extra
+                    descent_n["descent kernel"] += e.count - n
     # CUDA events around each stage, one at a time
     events = {}
     (cents, valid, *_rest) = (t[0] for t in be._args)
@@ -2678,12 +3017,16 @@ def forest_stage_profile(be, q, label: str) -> dict:
         marks[1].synchronize()
         events[name] = marks[0].elapsed_time(marks[1]) * 1e3
     out = {"stage_us": stages, "descent_us": descent,
+           "stage_launches": stage_n, "descent_launches": descent_n,
+           "launches_per_batch": sum(stage_n.values()),
            "events_us": events,
            "measured": bool(sum(stages.values()) > 0)}
     log(f"[profile forest stages] on {label}: one batch of {q.shape[0]}: "
-        + ", ".join(f"{k} {v:.1f} us" for k, v in stages.items())
-        + "; descent: " + ", ".join(f"{k} {v:.1f} us"
+        + ", ".join(f"{k} {v:.1f} us ({stage_n[k]} launches)"
+                    for k, v in stages.items())
+        + "; descent: " + ", ".join(f"{k} {v:.1f} us ({descent_n[k]})"
                                     for k, v in descent.items())
+        + f"; {out['launches_per_batch']} launches a batch in the ranges"
         + f"; CUDA events: {events}")
     if not out["measured"]:
         log("[profile forest stages] the ranges recorded no device time: "
@@ -2795,7 +3138,12 @@ def phase_forest_serve(dev, ctx) -> dict:
     log(f"[forest] launches {launches}")
     require(launches["candidate_topk"] > 0,
             "the forest path never launched candidate_topk")
-    require(all(v == 0 for n, v in launches.items() if n != "candidate_topk"),
+    require(launches["tree_descent"] > 0,
+            "the forest path never launched tree_descent")
+    require(launches["tree_descent"] == launches["candidate_topk"],
+            "the forest local made other than one descent a rerank")
+    require(all(v == 0 for n, v in launches.items()
+                if n not in ("candidate_topk", "tree_descent")),
             "the forest path launched another kernel")
     require((ids >= 0).all() and np.isfinite(dists).all(),
             "served forest results hold sentinels or non-finite distances")
@@ -2818,14 +3166,17 @@ def phase_forest_serve(dev, ctx) -> dict:
         "launches": launches,
         "launches_per_batch": launches["candidate_topk"]
         / max(stats.dispatches, 1),
+        "descent_launches_per_batch": launches["tree_descent"]
+        / max(stats.dispatches, 1),
         "mean_batch": len(queries) / max(stats.dispatches, 1),
         "max_rel_err_f64": float(pair_err.max()), "stages": stats.stages})
     log(f"[forest] {len(queries)} requests, {N_CLIENTS} clients on {label}: "
         f"recall@10 {recall:.4f} (index path, tree bottom, PQ top: "
         f"{ctx['index_tree_recall']:.4f}) p50 {out['p50_ms']:.3f} ms p99 "
         f"{out['p99_ms']:.3f} ms QPS {out['qps']:.1f}; "
-        f"{out['launches_per_batch']:.2f} candidate_topk launches a batch "
-        f"of {out['mean_batch']:.1f}")
+        f"{out['launches_per_batch']:.2f} candidate_topk and "
+        f"{out['descent_launches_per_batch']:.2f} tree_descent launches a "
+        f"batch of {out['mean_batch']:.1f}")
     log(f"[forest] stages {json.dumps(stats.stages)}")
     require(recall >= ctx["index_tree_recall"] - 0.05,
             "served forest recall@10 is far below the index path's")
@@ -2879,6 +3230,11 @@ def phase_forest_serve(dev, ctx) -> dict:
     res = shape_rows(dev, be, queries)
     res["launches"] = launches["candidate_topk"]
     RESULTS["kernels"]["candidate_topk"]["rows"] = res
+    desc = forest_descent(dev, be, queries, truth)
+    desc["launches"] = launches["tree_descent"]
+    desc["launches_per_batch"] = out["descent_launches_per_batch"]
+    out["descent"] = {k: v for k, v in desc.items()}
+    RESULTS["kernels"].setdefault("tree_descent", {}).update(desc)
     RESULTS["forest"] = out
     del be, cell
     return out
@@ -3098,6 +3454,9 @@ SOURCES = {
                     "src/repro/kernels/pq_adc.py:73"),
     "hamming_topk": ("src/repro_torch/kernels/csrc/hamming_topk.cu",
                      "src/repro/kernels/hamming.py:48"),
+    # no Pallas kernel: the reference's compiled lax.while_loop descent
+    "tree_descent": ("src/repro_torch/kernels/csrc/tree_descent.cu",
+                     "src/repro/core/tree.py:1002"),
 }
 
 
@@ -3115,6 +3474,8 @@ GATHER_ITERS = 200
 # the kernel each sharded kind's local launches
 KIND_KERNEL = {"brute": "l2_topk", "ivf": "candidate_topk",
                "forest": "candidate_topk"}
+# and the forest local's descent
+KIND_DESCENT = ("forest",)
 
 
 def mesh_kinds(ctx, nprobe: int):
@@ -3186,6 +3547,9 @@ def sharded_world1(dev, ctx, label: str) -> dict:
             require(out["launches"][name].get(KIND_KERNEL[name], 0) > 0,
                     f"the world-1 {name} path never launched "
                     f"{KIND_KERNEL[name]}")
+            require(name not in KIND_DESCENT
+                    or out["launches"][name].get("tree_descent", 0) > 0,
+                    f"the world-1 {name} path never launched tree_descent")
             b = batched(plain, q)
             same_bits(f"world-1 NCCL {name} against no mesh", a, b)
             out[f"{name}_recall_at_10"] = recall_at_k(
@@ -3559,6 +3923,9 @@ def sharded_four_ranks(dev, ctx, label: str, one_shard: dict) -> dict:
     for name, kernel in KIND_KERNEL.items():
         require(all(lc[kernel] > 0 for lc in out[name]["launches"]),
                 f"a {name} rank never launched {kernel}")
+    for name in KIND_DESCENT:
+        require(all(lc["tree_descent"] > 0 for lc in out[name]["launches"]),
+                f"a {name} rank never launched tree_descent")
     log(f"[sharded] four gloo ranks on one card ({label}): every answer "
         f"equals the shard loop bit for bit on {SHARD_QUERIES} queries "
         f"(brute also the one-shard backend; the (2, 2) mesh with a query "
@@ -3600,7 +3967,10 @@ def phase_sharded(dev, ctx) -> dict:
 FLEET_CELLS = 4
 FLEET_POOL = 2048           # distinct queries; Zipf-drawn traffic over them
 FLEET_ZIPF = 1.1
-FLEET_REQUESTS = 4096
+# each steady window's requests (cut from 4,096 to keep the smoke within
+# its time; the A B A stream windows and every answer check stay)
+FLEET_REQUESTS = 2048
+FLEET_ROTATED = 16384       # the maintenance window's rotated traffic
 FLEET_CACHE = 1024
 FLEET_SKETCH_WIDTH = 4096
 FLEET_HALFLIFE = 4096
@@ -3920,7 +4290,7 @@ def phase_fleet(dev, ctx) -> dict:
         out["mutation_s"] = time.perf_counter() - t0
         est.set_reference(est.current_raw())
         rot = rng.permutation(FLEET_POOL)
-        rot_order = rot[rng.choice(FLEET_POOL, 4 * FLEET_REQUESTS, p=zipf)]
+        rot_order = rot[rng.choice(FLEET_POOL, FLEET_ROTATED, p=zipf)]
         sched = MaintenanceScheduler(est, life, engine=router, interval_s=None)
         live = [c for c in router.cells if c.name != "cell3"]
         gens = {c.name: c.cache.generation for c in router.cells}
@@ -4087,10 +4457,11 @@ def phase_fleet(dev, ctx) -> dict:
 
 
 # ------------------------------------------------------------ phase 14
-# the five kernels the registered entry points reach (PQ-ADC and Hamming
-# serve the index layer, which no entry point drives)
+# the six kernels the registered entry points reach (the forest entry
+# point's descent among them; PQ-ADC and Hamming serve the index layer,
+# which no entry point drives)
 GATE_KERNELS = ("l2_topk", "candidate_topk", "l2_topk_int8", "bm25_topk",
-                "hybrid_topk")
+                "hybrid_topk", "tree_descent")
 ANALYSIS_LIMIT_S = 60.0      # this phase's share of the command's time
 
 
@@ -5098,8 +5469,10 @@ SPARSE_TOL = dict(rtol=1e-5, atol_of_max=1e-5)
 TRAIN_LM_SHAPE = "train_4k"
 TRAIN_MICRO = 2
 TRAIN_ACCUM = 4
-TRAIN_WARM = 2
-TRAIN_STEPS = 4
+# one warm-up and three timed steps (cut from 2 + 4 to keep the smoke
+# within its time)
+TRAIN_WARM = 1
+TRAIN_STEPS = 3
 # the restart: qwen3-0.6b at full width, depth cut to 2, seq 512, KV
 # blocks of 128 (four: the chunked backward runs)
 RESTART_DEPTH = 2
@@ -5591,6 +5964,10 @@ SM_GLOO_DECODE_STEPS = 4
 SM_GLOO_TRAIN_BATCH = 4         # one train step of 4 x 512
 SM_DEEP_REDUCED = dict(prefill=(4, 16), train=(8, 16))   # (batch, seq)
 SM_GRANITE_LAYERS = 2           # granite-34b at full width, depth cut 88 -> 2
+# qwen3-0.6b on the four ranks at full width, depth cut 28 -> 8 to keep the
+# smoke within its time (every layer is the same code; the world-1 mesh and
+# the one-card phases keep the full depth)
+SM_QWEN_LAYERS = 8
 # the CTR cases on the four ranks: (arch, each table's rows capped at, or
 # None for the whole table); DCN-v2's 12.0 GB fp32 table lies with its
 # columns over tp, DLRM's capped as the train phase caps it
@@ -6020,7 +6397,8 @@ def _sm_deep_step(dev, plan, cfg, p, tokens: int) -> dict:
 def _sm_cases(plan, qcfg, dcfg, gcfg):
     """The four-rank LM cases' cells under ``plan`` (a (2, 2) mesh, or its
     shape alone for the one-card reference): qwen3-0.6b at full width
-    and depth, deepseek-v3-671b at ``reduced()``, granite-34b at full
+    with ``SM_QWEN_LAYERS`` layers, deepseek-v3-671b at ``reduced()``,
+    granite-34b at full
     width with ``SM_GRANITE_LAYERS`` layers (one KV head: its 48 query
     heads split over tp, K and V whole on each rank)."""
     from repro_torch.configs.base import ShapeSpec
@@ -6047,6 +6425,7 @@ def _sm_cases(plan, qcfg, dcfg, gcfg):
 
 def _sm_cfgs():
     qcfg = dataclasses.replace(get_arch("qwen3-0.6b")[0],
+                               n_layers=SM_QWEN_LAYERS,
                                residual_dtype="float32")
     d = get_arch("deepseek-v3-671b")[0].reduced()
     dcfg = dataclasses.replace(d, residual_dtype="float32", moe=dataclasses
@@ -6433,7 +6812,7 @@ def sm_gloo4(dev, smi: str) -> dict:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     out["ranks"] = ranks
-    scope = {"qwen": "full width and depth",
+    scope = {"qwen": f"full width, depth cut to {SM_QWEN_LAYERS} layers",
              "deepseek": "reduced()",
              "granite": f"full width, depth cut to {SM_GRANITE_LAYERS} "
                         f"layers"}
@@ -7003,7 +7382,7 @@ def kernel_line() -> dict:
         if "k100" in r:
             row.update(ms_k100=r["k100"]["ms"],
                        passes_k100=r["k100"]["passes"])
-        for part in ("step", "deep", "rows"):
+        for part in ("step", "deep", "rows", "kd64", "kd128", "radio"):
             if part in r:
                 row[part] = {key: r[part][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

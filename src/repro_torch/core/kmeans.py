@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.device import require_fp32_matmul, resolve
 
-__all__ = ["KMeansResult", "kmeans_fit", "kmeans_assign"]
+__all__ = ["KMeansResult", "kmeans_fit", "kmeans_assign", "pad_to_multiple"]
 
 
 @dataclasses.dataclass
@@ -31,6 +31,18 @@ class KMeansResult:
     assignments: np.ndarray     # (n,) int32
     inertia: float
     n_iter: int
+
+
+def pad_to_multiple(x: np.ndarray, m: int, axis: int = 0, value=0.0):
+    """``x`` padded along ``axis`` with ``value`` to a multiple of ``m``
+    rows, and the unpadded length."""
+    n = x.shape[axis]
+    pad = (-n) % m
+    if pad == 0:
+        return x, n
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, pad)
+    return np.pad(x, widths, constant_values=value), n
 
 
 def _assign_chunked(x: torch.Tensor, c: torch.Tensor, chunk: int):

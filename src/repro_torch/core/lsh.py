@@ -19,10 +19,11 @@ import torch
 
 from repro_torch.core.brute import batched_l2sq
 from repro_torch.device import resolve
-from repro_torch.kernels.common import stable_topk
+from repro_torch.kernels.common import popcount32, stable_topk
 from repro_torch.kernels.ops import hamming_topk_op
 
-__all__ = ["LSHIndex", "lsh_build", "pack_bits", "lsh_search"]
+__all__ = ["LSHIndex", "lsh_build", "pack_bits", "hamming_scores",
+           "lsh_search"]
 
 
 def pack_bits(bits: np.ndarray) -> np.ndarray:
@@ -61,6 +62,20 @@ def lsh_build(x: np.ndarray, n_bits: int = 64, seed: int = 0,
         proj /= np.linalg.norm(proj, axis=0, keepdims=True)
     bits = (x @ proj > 0).astype(np.uint8)
     return LSHIndex(proj=proj, codes=pack_bits(bits), n_bits=n_bits)
+
+
+def hamming_scores(qcodes: torch.Tensor, codes: torch.Tensor,
+                   chunk: int = 262144) -> torch.Tensor:
+    """(B, N) int32 Hamming distances between packed int32 codes, ``chunk``
+    codes at a time (the reference's jnp oracle of the scan)."""
+    q = qcodes.to(torch.int32)
+    c = codes.to(torch.int32)
+    n = c.shape[0]
+    out = torch.empty((q.shape[0], n), dtype=torch.int32, device=q.device)
+    for r0 in range(0, n, max(1, min(chunk, n))):
+        x = torch.bitwise_xor(q[:, None, :], c[None, r0:r0 + chunk, :])
+        out[:, r0:r0 + chunk] = popcount32(x).sum(-1, dtype=torch.int32)
+    return out
 
 
 def lsh_search(

@@ -6,7 +6,7 @@ import time
 
 import numpy as np
 
-__all__ = ["recall_at_k", "LatencyTimer"]
+__all__ = ["recall_at_k", "percentile_ms", "LatencyTimer"]
 
 
 def recall_at_k(pred_ids: np.ndarray, truth_ids: np.ndarray) -> float:
@@ -24,6 +24,11 @@ def recall_at_k(pred_ids: np.ndarray, truth_ids: np.ndarray) -> float:
     for b in range(pred_ids.shape[0]):
         inter[b] = np.intersect1d(pred_ids[b], truth_ids[b]).size
     return float((inter / truth_ids.shape[1]).mean())
+
+
+def percentile_ms(samples_s: list[float], q: float = 90.0) -> float:
+    """The ``q``-th percentile of latencies in seconds, in milliseconds."""
+    return float(np.percentile(np.asarray(samples_s) * 1e3, q))
 
 
 class LatencyTimer:

@@ -20,8 +20,10 @@ import torch
 from repro_torch.core.kmeans import kmeans_assign, kmeans_fit
 from repro_torch.device import resolve
 from repro_torch.kernels.ops import pq_adc_topk_op
+from repro_torch.kernels.ref import pq_adc_scores_ref
 
-__all__ = ["ProductQuantizer", "pq_train", "adc_lut", "pq_search"]
+__all__ = ["ProductQuantizer", "pq_train", "adc_lut", "adc_scores",
+           "pq_search"]
 
 
 @dataclasses.dataclass
@@ -101,6 +103,20 @@ def adc_lut(queries: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     qs = q.reshape(B, m, ds)
     diff = qs[:, :, None, :] - codebooks[None]            # (B, M, 256, ds)
     return torch.sum(diff * diff, dim=-1)
+
+
+def adc_scores(lut: torch.Tensor, codes: torch.Tensor,
+               chunk: int = 131072) -> torch.Tensor:
+    """(B, N) approximate distances ``sum_m lut[b, m, codes[n, m]]``,
+    ``chunk`` codes at a time (the reference's jnp oracle of the
+    ``pq_adc`` scan); the M entries are summed in order from 0.0, as the
+    kernel's plain version sums them."""
+    n = codes.shape[0]
+    out = torch.empty((lut.shape[0], n), dtype=torch.float32,
+                      device=lut.device)
+    for r0 in range(0, n, max(1, min(chunk, n))):
+        out[:, r0:r0 + chunk] = pq_adc_scores_ref(lut, codes[r0:r0 + chunk])
+    return out
 
 
 def pq_search(

@@ -3,18 +3,23 @@
 Port of ``repro/core/tree.py``.  The builders are numpy on the host, as in
 the reference (index construction is offline in the paper too): they are
 copies, so a build from the same inputs and seed gives the reference's
-arrays exactly.  Search is the batched, level-synchronous beam descent in
-plain PyTorch on the card: queries walk the structure-of-arrays node table
-in lockstep with gathers, the beam plays multi-probe backtracking
-(priority = accumulated split margin), and the gathered leaves are
-reranked exactly.
+arrays exactly.  Search is the batched beam descent over the
+structure-of-arrays node table, the beam playing multi-probe backtracking
+(priority = accumulated split margin), then an exact rerank of the
+gathered leaves.
 
-The reference runs the descent as a ``lax.while_loop`` that exits when
-every beam has bottomed out.  Here that exit test would be a host sync
-each step, so the descent runs its ``max_steps`` steps: once every beam
-has bottomed out a further step is the identity (no node is internal, the
-priorities are already sorted and the sort is stable, and ``steps`` /
-``internal_visits`` do not move), so the result is the same.
+The reference runs the descent as one compiled ``lax.while_loop`` that
+exits when every beam has bottomed out or ``steps.max()`` reaches
+``max_steps``.  Here it is ``kernels.ops.tree_descent_op``: on the card
+one launch of ``csrc/tree_descent.cu``, the leaf gather included, each
+row stopping on its own when none of its live slots is internal or its
+steps reach ``max_steps``; on the CPU the plain loop with the
+reference's exit.  The two exits agree row for row: once a row's beam
+holds only leaves and dead slots a further step is the identity (no node
+is internal, the priorities are already sorted and the sort is stable,
+and ``steps`` / ``internal_visits`` do not move), so a row's active steps
+form a prefix of the loop and the row ends where the batch loop leaves
+it.
 
 The incremental re-boost (``FlatTree.reboost``: the top levels re-split
 over frontier subtrees for a new likelihood, straddlers floated) and
@@ -32,6 +37,7 @@ import torch
 
 from repro_torch.core.brute import batched_l2sq
 from repro_torch.kernels.common import pad_sentinel, stable_topk
+from repro_torch.kernels import ops as kernel_ops
 
 __all__ = [
     "FlatTree",
@@ -899,17 +905,6 @@ class TreeSearchResult:
     candidates: torch.Tensor       # (B,) int32 exact distance evals (leaf scan)
 
 
-def _split_margin(kind: str, arrays: dict, nodes: torch.Tensor,
-                  q: torch.Tensor) -> torch.Tensor:
-    """alpha = proj[node]·q - tau[node]   (or coordinate split for kd)."""
-    if kind == "kd":
-        dim = arrays["dims"][nodes].long()                # (B, W)
-        coord = torch.gather(q, 1, dim)                   # (B, W)
-        return coord - arrays["tau"][nodes]
-    pv = arrays["proj"][nodes]                            # (B, W, d)
-    return torch.einsum("bwd,bd->bw", pv, q) - arrays["tau"][nodes]
-
-
 def tree_search(
     arrays: dict,
     db: torch.Tensor,
@@ -931,57 +926,15 @@ def tree_search(
     pays |alpha|).  ``roots`` optionally gives a per-query start node
     (forest descent in the two-level index); default is node 0.  Top-k
     selections are stable sorts, so ties go to the lower column as
-    ``lax.top_k``'s do.
+    ``lax.top_k``'s do.  The descent and the leaf gather are
+    ``tree_descent_op`` (one kernel launch on the card); the rerank
+    gathers the candidates' rows and sorts their exact distances.
     """
     queries = queries.to(torch.float32)
     dev = queries.device
-    B = queries.shape[0]
-    W = beam_width
-    children = arrays["children"]
-    leaf_row = arrays["leaf_row"]
-    leaf_entities = arrays["leaf_entities"]
-    leaf_size = leaf_entities.shape[1]
-    neg_inf = float("-inf")
-
-    nodes = torch.full((B, W), -1, dtype=torch.int32, device=dev)
-    nodes[:, 0] = 0 if roots is None else roots.to(torch.int32)
-    prios = torch.full((B, W), neg_inf, dtype=torch.float32, device=dev)
-    prios[:, 0] = 0.0
-    steps = torch.zeros(B, dtype=torch.int32, device=dev)
-    visits = torch.zeros(B, dtype=torch.int32, device=dev)
-
-    for _ in range(max_steps):
-        safe = torch.clamp(nodes, min=0).long()
-        valid = nodes >= 0
-        left = children[safe, 0]
-        right = children[safe, 1]
-        active = valid & (left >= 0)                      # internal, live
-        alpha = _split_margin(kind, arrays, safe, queries)
-        near = torch.where(alpha <= 0, left, right)
-        far = torch.where(alpha <= 0, right, left)
-        # slot A: internal -> near child (same prio); leaf -> itself
-        a_nodes = torch.where(active, near, nodes)
-        a_prios = torch.where(valid, prios, neg_inf)
-        # slot B: internal -> far child (prio - |alpha|); leaf/pad -> dead
-        b_nodes = torch.where(active, far, -1)
-        b_prios = torch.where(active, prios - torch.abs(alpha), neg_inf)
-        cand_nodes = torch.cat([a_nodes, b_nodes], dim=1)
-        cand_prios = torch.cat([a_prios, b_prios], dim=1)
-        neg_top, top_i = stable_topk(-cand_prios, W)      # largest first
-        new_nodes = torch.gather(cand_nodes, 1, top_i)
-        nodes = torch.where(neg_top == float("inf"), -1, new_nodes)
-        prios = -neg_top
-        steps = steps + active.any(dim=1).to(torch.int32)
-        visits = visits + active.sum(dim=1).to(torch.int32)
-
-    # gather leaf entity ids
-    safe = torch.clamp(nodes, min=0).long()
-    rows = torch.where(nodes >= 0, leaf_row[safe], -1)    # (B, W)
-    ents = torch.where(rows[..., None] >= 0,
-                       leaf_entities[torch.clamp(rows, min=0).long()],
-                       -1)                                # (B, W, leaf)
-    cand = ents.reshape(B, W * leaf_size)
-    n_cand = (cand >= 0).sum(dim=1).to(torch.int32)
+    _, steps, visits, cand, n_cand = kernel_ops.tree_descent_op(
+        arrays, queries, kind=kind, beam_width=beam_width,
+        max_steps=max_steps, roots=roots)
 
     if not rerank:
         return TreeSearchResult(cand, torch.zeros(cand.shape, device=dev),

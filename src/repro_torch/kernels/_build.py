@@ -32,7 +32,7 @@ __all__ = ["SOURCES", "add_listener", "build_all", "library", "loaded"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("l2_topk", "candidate_topk", "bm25_topk", "pq_adc_topk",
-           "hamming_topk")
+           "hamming_topk", "tree_descent")
 HEADERS = ("topk_common.cuh", "lexical.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

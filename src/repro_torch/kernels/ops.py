@@ -10,7 +10,8 @@ candidates padded back to ``k`` as the kernel pads them (the counterpart
 of XLA's abstract evaluation of a Pallas call).  Both answer any
 ``k``, as the reference does: the kernels whose lists hold at most
 ``common.KMAX`` (``KMAX_PQ``) pairs take a larger ``k`` in passes
-(``common.topk_passes``).
+(``common.topk_passes``).  ``tree_descent_op`` is no top-k: its ``meta``
+branch gives the descent's five int32 results by shape.
 """
 from __future__ import annotations
 
@@ -19,12 +20,12 @@ import torch
 
 from repro_torch.analysis.annotations import hot_path
 from repro_torch.kernels import (bm25, bucket_topk, hamming, l2_topk, pq_adc,
-                                 ref)
+                                 ref, tree_descent)
 
 __all__ = ["l2_topk_op", "l2_topk_int8_op", "candidate_topk_op",
            "candidate_rows_topk_op", "bucket_probe_topk_op",
            "bm25_topk_op", "hybrid_topk_op", "pq_adc_topk_op",
-           "hamming_topk_op", "quantize_rows_int8"]
+           "hamming_topk_op", "tree_descent_op", "quantize_rows_int8"]
 
 
 def _on_card(device: torch.device) -> bool:
@@ -189,3 +190,25 @@ def hamming_topk_op(qcodes, codes, k: int = 10, *, valid=None):
     if _on_card(qcodes.device):
         return hamming.hamming_topk(qcodes, codes, k, valid=valid)
     return ref.hamming_topk_ref(qcodes, codes, k, valid=valid)
+
+
+@hot_path
+def tree_descent_op(arrays: dict, queries, *, kind: str, beam_width: int,
+                    max_steps: int, roots=None):
+    """The tree beam descent and its leaf gather (``core.tree.tree_search``
+    before its rerank): (nodes (R, W), steps (R,), internal_visits (R,),
+    leaf candidates (R, W leaf) with -1 pads, their count (R,)), int32.
+    On the card one launch, each row stopping where the reference's
+    ``while_loop`` leaves it."""
+    if queries.device.type == "meta":
+        R, W = queries.shape[0], beam_width
+        leaf = arrays["leaf_entities"].shape[1]
+        return tuple(torch.empty(shape, dtype=torch.int32, device="meta")
+                     for shape in ((R, W), (R,), (R,), (R, W * leaf), (R,)))
+    if _on_card(queries.device):
+        return tree_descent.tree_descent(arrays, queries, kind=kind,
+                                         beam_width=beam_width,
+                                         max_steps=max_steps, roots=roots)
+    return ref.tree_descent_ref(arrays, queries, kind=kind,
+                                beam_width=beam_width, max_steps=max_steps,
+                                roots=roots)

@@ -2,10 +2,12 @@
 
 Port of ``repro/kernels/ref.py``: the l2, int8, candidate, BM25, hybrid,
 PQ-ADC and Hamming plain versions, the candidate tile read by row id
-(``candidate_rows_topk_ref``, the served forest's rerank), and the probe
+(``candidate_rows_topk_ref``, the served forest's rerank), the probe
 chain over buckets
 (``bucket_probe_topk_ref``, the loops the IVF local and the two-level
-brute bottom ran before the chain had a kernel).  Each
+brute bottom ran before the chain had a kernel), and the tree beam
+descent (``tree_descent_ref``, the reference's ``while_loop`` in
+``tree_search``; its kernel has no Pallas counterpart).  Each
 function computes its kernel's result with no tiling; ``ops`` runs it for
 tensors on the CPU, the tests hold it against the reference, and
 ``chip_smoke.py`` holds each kernel against it on the card.
@@ -52,7 +54,7 @@ __all__ = ["l2_topk_ref", "l2_topk_int8_ref", "candidate_topk_ref",
            "candidate_rows_topk_ref", "bucket_probe_topk_ref",
            "bm25_dists_ref", "bm25_topk_ref", "hybrid_topk_ref",
            "pq_adc_scores_ref", "pq_adc_topk_ref", "hamming_dists_ref",
-           "hamming_topk_ref"]
+           "hamming_topk_ref", "tree_descent_ref"]
 
 # Elements of the (B, rows, S) match mask ``bm25_dists_ref`` builds at
 # once (about 1 GB as float32); longer slabs are scanned in row chunks.
@@ -299,3 +301,74 @@ def hamming_topk_ref(qcodes, codes, k: int = 10, *, valid=None):
     """The Hamming scan: (dists ascending, ids); ties toward the lower id
     (a stable sort of the flat scan)."""
     return _finish(_apply_valid(hamming_dists_ref(qcodes, codes), valid), k)
+
+
+def _split_margin(kind: str, arrays: dict, nodes, q):
+    """alpha = proj[node]·q - tau[node]   (or coordinate split for kd)."""
+    if kind == "kd":
+        dim = arrays["dims"][nodes].long()                # (R, W)
+        coord = torch.gather(q, 1, dim)                   # (R, W)
+        return coord - arrays["tau"][nodes]
+    pv = arrays["proj"][nodes]                            # (R, W, d)
+    return torch.einsum("bwd,bd->bw", pv, q) - arrays["tau"][nodes]
+
+
+def tree_descent_ref(arrays: dict, queries, *, kind: str, beam_width: int,
+                     max_steps: int, roots=None):
+    """The beam descent of ``repro/core/tree.py::tree_search`` and its leaf
+    gather: (nodes (R, W), steps (R,), internal_visits (R,), candidates
+    (R, W leaf) with -1 pads, their count (R,)), int32.
+
+    Each step is the reference's ``body``; the loop ends, as its
+    ``while_loop`` does, when no row holds an internal live node or after
+    ``max_steps`` steps.  The exit test reads the card once a step where
+    the tensors lie there, which only the tests and ``chip_smoke.py`` do;
+    the kernel (``csrc/tree_descent.cu``) stops each row on its own, with
+    the same result (its header note says why)."""
+    q = queries.to(torch.float32)
+    dev = q.device
+    R = q.shape[0]
+    W = beam_width
+    children = arrays["children"]
+    neg_inf = float("-inf")
+    nodes = torch.full((R, W), -1, dtype=torch.int32, device=dev)
+    nodes[:, 0] = 0 if roots is None else roots.to(torch.int32)
+    prios = torch.full((R, W), neg_inf, dtype=torch.float32, device=dev)
+    prios[:, 0] = 0.0
+    steps = torch.zeros(R, dtype=torch.int32, device=dev)
+    visits = torch.zeros(R, dtype=torch.int32, device=dev)
+    for _ in range(max_steps):
+        safe = torch.clamp(nodes, min=0).long()
+        valid = nodes >= 0
+        left = children[safe, 0]
+        right = children[safe, 1]
+        active = valid & (left >= 0)                      # internal, live
+        if not bool(active.any()):
+            break
+        alpha = _split_margin(kind, arrays, safe, q)
+        near = torch.where(alpha <= 0, left, right)
+        far = torch.where(alpha <= 0, right, left)
+        # slot A: internal -> near child (same prio); leaf -> itself
+        a_nodes = torch.where(active, near, nodes)
+        a_prios = torch.where(valid, prios, neg_inf)
+        # slot B: internal -> far child (prio - |alpha|); leaf/pad -> dead
+        b_nodes = torch.where(active, far, -1)
+        b_prios = torch.where(active, prios - torch.abs(alpha), neg_inf)
+        cand_nodes = torch.cat([a_nodes, b_nodes], dim=1)
+        cand_prios = torch.cat([a_prios, b_prios], dim=1)
+        neg_top, top_i = stable_topk(-cand_prios, W)      # largest first
+        new_nodes = torch.gather(cand_nodes, 1, top_i)
+        nodes = torch.where(neg_top == float("inf"), -1, new_nodes)
+        prios = -neg_top
+        steps = steps + active.any(dim=1).to(torch.int32)
+        visits = visits + active.sum(dim=1).to(torch.int32)
+    # gather leaf entity ids
+    leaf_entities = arrays["leaf_entities"]
+    safe = torch.clamp(nodes, min=0).long()
+    rows = torch.where(nodes >= 0, arrays["leaf_row"][safe], -1)  # (R, W)
+    ents = torch.where(rows[..., None] >= 0,
+                       leaf_entities[torch.clamp(rows, min=0).long()],
+                       -1)                                # (R, W, leaf)
+    cand = ents.reshape(R, W * leaf_entities.shape[1]).to(torch.int32)
+    n_cand = (cand >= 0).sum(dim=1).to(torch.int32)
+    return nodes, steps, visits, cand, n_cand

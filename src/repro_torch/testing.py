@@ -57,7 +57,8 @@ __all__ = ["OPTION_EDGES", "EDGE_ALPHAS", "PQ_EDGES", "HAMMING_EDGES",
            "CHAIN_EDGES", "ROWS_EDGES", "slab_rows", "option_edge_operands",
            "pq_edge_operands", "hamming_edge_operands",
            "chain_edge_operands", "chain_union_topk", "step_chain",
-           "rows_edge_operands", "rows_union_topk",
+           "rows_edge_operands", "rows_union_topk", "DESCENT_EDGES",
+           "descent_edge_operands",
            "lexical_scores_f32", "hybrid_by_parts", "shard_backends",
            "shard_loop", "mips_parity", "sasrec_mips_truth",
            "message_dtypes", "attention_at_true_fan_in", "MOVE_CASES",
@@ -254,6 +255,58 @@ def rows_union_topk(q, rows, ids, k: int):
     sent_i = torch.full((b, k), -1, dtype=torch.int32, device=q.device)
     d, i = merge_topk(sent_d, sent_i, d2, ids.to(torch.int32), k)
     return d, torch.where(torch.isinf(d), -1, i)
+
+
+# (name, tree, B, N, d, leaf, W, steps, roots): the tree descent's edges.
+# tree "rp" (the balanced SPPT), "qlbt" (Alg. 1 under a skewed likelihood)
+# or "kd" (coordinate splits); steps None = the tree's max depth + 4 (every
+# beam bottoms out first), an int = that many (rows still active when they
+# stop); roots True = every other row starts at the root's right child (a
+# forest's per-row start nodes).  "dead slots": more beam slots than the
+# tree has leaves; "one leaf": the root is a leaf; "kd W=128": 2W = 256,
+# the kd top's beam at nprobe 64.
+DESCENT_EDGES = (
+    ("rp W=1", "rp", 12, 600, 16, 8, 1, None, False),
+    ("rp W=6 roots", "rp", 12, 900, 16, 8, 6, None, True),
+    ("qlbt W=8", "qlbt", 12, 900, 24, 8, 8, None, False),
+    ("qlbt W=3 d=13 roots", "qlbt", 9, 500, 13, 4, 3, None, True),
+    ("kd W=16 d=3", "kd", 12, 700, 3, 4, 16, None, False),
+    ("kd W=128 d=2 roots", "kd", 12, 2000, 2, 4, 128, None, True),
+    ("rp W=32 dead slots", "rp", 12, 120, 8, 8, 32, None, False),
+    ("rp W=8 steps=3", "rp", 12, 900, 16, 8, 8, 3, False),
+    ("qlbt W=8 steps=6 roots", "qlbt", 12, 900, 16, 8, 8, 6, True),
+    ("rp steps=0", "rp", 4, 200, 8, 8, 4, 0, False),
+    ("one leaf", "rp", 5, 6, 8, 8, 4, None, False),
+    ("B=1 W=24 d=130", "rp", 1, 1500, 130, 8, 24, None, False),
+)
+
+
+def descent_edge_operands(case, seed: int = 0) -> dict:
+    """numpy operands of one ``DESCENT_EDGES`` case: the port's ``tree``
+    (a ``FlatTree``, built by the builders the reference's equal), ``db``
+    (N, d), ``q`` (B, d) near the corpus, ``roots`` (B,) int32 or None and
+    the keywords ``kind``, ``beam_width`` and ``max_steps``."""
+    from repro_torch.core.tree import build_kd_tree, build_qlbt, build_rp_tree
+
+    _, tree, b, n, d, leaf, w, steps, roots = case
+    rng = np.random.default_rng([seed, b, n, d, leaf, w])
+    db = rng.normal(size=(n, d)).astype(np.float32)
+    q = (db[rng.integers(0, n, b)]
+         + 0.1 * rng.normal(size=(b, d))).astype(np.float32)
+    if tree == "kd":
+        t = build_kd_tree(db, leaf_size=leaf)
+    elif tree == "qlbt":
+        t = build_qlbt(db, rng.beta(0.3, 8.0, size=n), leaf_size=leaf,
+                       n_candidates=4, seed=1)
+    else:
+        t = build_rp_tree(db, leaf_size=leaf, n_candidates=4, seed=1)
+    r = None
+    if roots:
+        r = np.where(np.arange(b) % 2 == 0, 0,
+                     max(int(t.children[0, 1]), 0)).astype(np.int32)
+    return {"tree": t, "db": db, "q": q, "roots": r,
+            "kw": {"kind": t.kind, "beam_width": w,
+                   "max_steps": t.max_depth + 4 if steps is None else steps}}
 
 
 def _edge_rows(rng, n: int, rows):

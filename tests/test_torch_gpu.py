@@ -6,7 +6,9 @@ int8 backend at d = 640), Hamming over every word count, batch shape and
 threshold edge, the probe chain's two
 row sources against each other and against the chain of single steps,
 the tile read by row id against its plain version and the gathered
-tile, one small IVF serve, one small forest serve (fused against
+tile, the tree descent against its plain version on every edge of
+``testing.DESCENT_EDGES`` (equal nodes, steps, visits and leaf
+candidates) and through ``tree_search``, one small IVF serve, one small forest serve (fused against
 unfused), the in-place delta applies of every kind,
 one small filtered / lexical / hybrid / int8 serve and one small run of
 the index layer (PQ top level, one-level LSH) through the kernels, and
@@ -51,6 +53,7 @@ import pytest
 import torch
 
 from repro_torch.core.brute import batched_l2sq
+from repro_torch.core.tree import tree_search as port_tree_search
 from repro_torch.core.index import build_index
 from repro_torch.core.lexical import build_lexical_slabs, query_operands
 from repro_torch.core.lsh import lsh_build, lsh_search
@@ -60,11 +63,12 @@ from repro_torch.core.two_level import TwoLevelConfig, build_two_level
 from repro_torch.data.synthetic import make_corpus, make_queries
 from repro_torch.distributed.backend import ShardedSearchBackend
 from repro_torch.kernels import (bm25, bucket_topk, hamming, l2_topk, ops,
-                                 pq_adc, ref)
+                                 pq_adc, ref, tree_descent)
 from repro_torch.kernels.common import merge_topk
 from repro_torch.serve.cell import ServingCell
-from repro_torch.testing import (CHAIN_EDGES, EDGE_ALPHAS, HAMMING_EDGES,
-                                 OPTION_EDGES, PQ_EDGES, ROWS_EDGES,
+from repro_torch.testing import (CHAIN_EDGES, DESCENT_EDGES, EDGE_ALPHAS,
+                                 HAMMING_EDGES, OPTION_EDGES, PQ_EDGES,
+                                 ROWS_EDGES, descent_edge_operands,
                                  chain_edge_operands, chain_union_topk,
                                  hamming_edge_operands, step_chain,
                                  hybrid_by_parts, lexical_scores_f32,
@@ -803,6 +807,70 @@ def test_rows_entry_rejects_what_it_cannot_take(dev):
         bucket_topk.candidate_rows_topk(q, rows[:, :4], ids, 3)
     with pytest.raises(ValueError):
         bucket_topk.candidate_rows_topk(q, rows[:0], ids, 3)
+
+
+@pytest.mark.parametrize("case", DESCENT_EDGES,
+                         ids=[c[0] for c in DESCENT_EDGES])
+def test_tree_descent_kernel_matches_plain(dev, case):
+    """One launch a call; the beam, steps, internal visits, leaf
+    candidates and their counts equal the plain batch loop's on the card
+    (continuous normal data: no split margin within rounding of 0)."""
+    o = descent_edge_operands(case)
+    arrays = o["tree"].device_arrays(dev)
+    q = torch.as_tensor(o["q"], device=dev)
+    roots = (None if o["roots"] is None
+             else torch.as_tensor(o["roots"], device=dev))
+    before = tree_descent.LAUNCHES.count
+    got = tree_descent.tree_descent(arrays, q, roots=roots, **o["kw"])
+    assert tree_descent.LAUNCHES.count == before + 1
+    want = ref.tree_descent_ref(arrays, q, roots=roots, **o["kw"])
+    for name, a, b in zip(("nodes", "steps", "visits", "cand", "n_cand"),
+                          got, want):
+        assert a.dtype == torch.int32 and a.shape == b.shape, name
+        assert torch.equal(a, b), name
+
+
+def test_tree_search_on_the_card_runs_the_kernel(dev):
+    """``tree_search`` launches the descent once a call and answers as on
+    the CPU (ids exactly, distances within the tolerance)."""
+    o = descent_edge_operands(DESCENT_EDGES[2])
+    t = o["tree"]
+    before = tree_descent.LAUNCHES.count
+    got = port_tree_search(t.device_arrays(dev),
+                           torch.as_tensor(o["db"], device=dev),
+                           torch.as_tensor(o["q"], device=dev), k=10,
+                           **o["kw"])
+    assert tree_descent.LAUNCHES.count == before + 1
+    want = port_tree_search(t.device_arrays("cpu"), torch.as_tensor(o["db"]),
+                            torch.as_tensor(o["q"]), k=10, **o["kw"])
+    assert torch.equal(got.ids.cpu(), want.ids)
+    for n in ("steps", "internal_visits", "candidates"):
+        assert torch.equal(getattr(got, n).cpu(), getattr(want, n)), n
+    ids = want.ids.numpy()
+    scale = ((o["q"].astype(np.float64) ** 2).sum(1)[:, None]
+             + (o["db"].astype(np.float64) ** 2).sum(1)[ids])
+    assert (np.abs(got.dists.cpu().numpy() - want.dists.numpy())
+            <= REL * scale).all()
+
+
+def test_tree_descent_rejects_what_it_cannot_take(dev):
+    o = descent_edge_operands(DESCENT_EDGES[1])
+    arrays = o["tree"].device_arrays(dev)
+    q = torch.as_tensor(o["q"], device=dev)
+    kw = o["kw"]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tree_descent.tree_descent(o["tree"].device_arrays("cpu"), q, **kw)
+    with pytest.raises(ValueError, match="unknown kind"):
+        tree_descent.tree_descent(arrays, q, **dict(kw, kind="ball"))
+    with pytest.raises(ValueError):
+        tree_descent.tree_descent(arrays, q[:, :4], **kw)
+    with pytest.raises(ValueError):
+        tree_descent.tree_descent(arrays, q, roots=torch.zeros(
+            3, dtype=torch.int32, device=dev), **kw)
+    with pytest.raises(TypeError):
+        tree_descent.tree_descent(arrays, q.double(), **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        tree_descent.tree_descent(arrays, q, **dict(kw, beam_width=8000))
 
 
 def _forest_index(dev, n=6000, d=32, k_clusters=48, seed=4):
