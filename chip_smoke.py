@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over;
 each prints its wall time as ``[phase] <name> <s> s``):
 
 1. card    - name, count, versions, ``nvidia-smi`` name and power limit;
-2. build   - build the six CUDA sources (eight kernels) from
+2. build   - build the seven CUDA sources (nine kernels) from
              ``src/repro_torch/kernels/csrc`` in parallel and print the
              ``-Xptxas -v`` register/shared/spill lines;
 3. edges   - each kernel against its plain version on the edge shapes that
@@ -126,7 +126,10 @@ each prints its wall time as ``[phase] <name> <s> s``):
              card, 16 clients sending Zipf traffic over 2,048 queries:
              steady windows of 2,048 requests (one cell; the fleet on its
              own streams, on the default stream and on its own streams
-             again), a hedge window (one cell delayed),
+             again, each with the cells' mean queue and dispatch times;
+             then once more with every cell's estimator detached, to show
+             what share of the fleet's time the shared sketch still
+             takes), a hedge window (one cell delayed),
              a failure window (one cell raising: no request lost, only
              its keys remapped), a maintenance window (the head rotates,
              a copy of the index takes the lifecycle's add and delete,
@@ -134,11 +137,19 @@ each prints its wall time as ``[phase] <name> <s> s``):
              load; every live cell then equals a fresh backend bit for
              bit), the down cell's revive, every answer held bit for bit
              against its backend's direct call on the same batch, the
-             sketch on the card against the CPU's, and the launcher
+             sketch's update kernel (``count_min``: every request's
+             observe, one launch) against its plain version on the card
+             bit for bit over the 20 served batches and
+             ``testing.SKETCH_EDGES``, a single-id observe through the
+             kernel and the plain version in turns (the kernel's under
+             ``set_sync_debug_mode("error")``, one launch an update), the
+             kernel's time at m = 1 and 64 beside its bound, the sketch on
+             the card against the CPU's, and the launcher
              ``python -m repro_torch.launch.serve`` in a process of its
              own (its first-calls line, ``compile_signatures`` and
              ``first_call_ms``, beside its P90); launch counts reset just
-             before and read just after each window;
+             before and read just after each window (``candidate_topk``
+             and ``count_min`` > 0 in every steady window);
 14. analysis - the static gate of ``repro_torch.analysis`` over
              ``src/repro_torch`` (0 findings), the recompile gate over the
              seven registered entry points on the card (0 findings; each
@@ -209,7 +220,7 @@ each prints its wall time as ``[phase] <name> <s> s``):
              as the reference's ``train_4k`` cell (remat, KV blocks of
              1,024, AdamW warmup_cosine(3e-4, 2000, 100000), fp32 params,
              bf16 compute) at seq 4,096 with the batch cut from 256 to 8
-             (4 microbatches of 2 through ``accum``): 1 warm-up and 3
+             (4 microbatches of 2 through ``accum``): 1 warm-up and 2
              timed steps (ms, tokens/s, peak memory, each step's loss and
              grad_norm), one microbatch's step profiled; its fp32 gradient
              and one AdamW step card against CPU on the ``lm`` phase's
@@ -237,7 +248,7 @@ each prints its wall time as ``[phase] <name> <s> s``):
              then four gloo ranks sharing the card on a ``(2, 2)`` mesh
              (spawned; the parent computes the one-card steps first and
              hands them over on the host): qwen3-0.6b at full width
-             with its depth cut to 8 layers, deepseek-v3 at ``reduced()``
+             with its depth cut to 4 layers, deepseek-v3 at ``reduced()``
              and granite-34b at
              full width with its depth cut to 2 layers (its 48 query heads
              over tp, its one KV head whole on each rank; the attention
@@ -319,8 +330,8 @@ from repro_torch.data.synthetic import make_corpus, make_queries  # noqa: E402
 from repro_torch.device import require_fp32_matmul  # noqa: E402
 from repro_torch.distributed.backend import ShardedSearchBackend  # noqa: E402
 from repro_torch.kernels import (_build, bm25, bucket_topk,  # noqa: E402
-                                 hamming, l2_topk, ops, pq_adc, ref,
-                                 tree_descent)
+                                 count_min, hamming, l2_topk, ops, pq_adc,
+                                 ref, tree_descent)
 from repro_torch.kernels.common import (LAUNCH_COUNTERS,  # noqa: E402
                                         merge_topk, stable_topk)
 from repro_torch.analysis import run_static_analysis  # noqa: E402
@@ -347,7 +358,8 @@ from repro_torch.train.sparse_embed import \
 from repro_torch.train.tree import leaves as tree_leaves_sorted  # noqa: E402
 from repro_torch.testing import (CHAIN_EDGES, DESCENT_EDGES,  # noqa: E402
                                  EDGE_ALPHAS, HAMMING_EDGES, OPTION_EDGES,
-                                 PQ_EDGES, ROWS_EDGES,
+                                 PQ_EDGES, ROWS_EDGES, SKETCH_EDGES,
+                                 sketch_edge_steps,
                                  attention_at_true_fan_in,
                                  chain_edge_operands, descent_edge_operands,
                                  chain_union_topk, hamming_edge_operands,
@@ -3457,6 +3469,9 @@ SOURCES = {
     # no Pallas kernel: the reference's compiled lax.while_loop descent
     "tree_descent": ("src/repro_torch/kernels/csrc/tree_descent.cu",
                      "src/repro/core/tree.py:1002"),
+    # no Pallas kernel: the reference's jitted sketch update
+    "count_min": ("src/repro_torch/kernels/csrc/count_min.cu",
+                  "src/repro/adaptive/sketch.py:39"),
 }
 
 
@@ -4093,6 +4108,26 @@ def cell_counts(router) -> dict:
             for c in router.cells}
 
 
+def stage_sums(router) -> dict:
+    """The cells' queue and dispatch histograms summed over the cells so
+    far: {stage: (count, total ms)}."""
+    out: dict = {}
+    for c in router.cells:
+        for stage, st in c._stage_stats().items():
+            if stage in ("queue", "dispatch"):
+                n, t = out.get(stage, (0, 0.0))
+                out[stage] = (n + st["n"], t + st["n"] * st["mean_ms"])
+    return out
+
+
+def stage_means(before: dict, after: dict) -> dict:
+    """Each stage's mean ms over the requests (queue) or batches (dispatch)
+    between two ``stage_sums``."""
+    return {stage: (after[stage][1] - before.get(stage, (0, 0.0))[1])
+            / max(after[stage][0] - before.get(stage, (0, 0.0))[0], 1)
+            for stage in after}
+
+
 def window_report(name, router, res, before, truth_rows, label) -> dict:
     after = cell_counts(router)
     per_cell = {c: (after[c][0] - before[c][0]) + (after[c][1] - before[c][1])
@@ -4114,6 +4149,147 @@ def window_report(name, router, res, before, truth_rows, label) -> dict:
            if "recall_at_10" in out else "")
         + f", lost {out['lost']}")
     return out
+
+
+SKETCH_OBSERVES = 200        # single-id observes a turn (a cache hit's)
+SKETCH_GRAPH_ITERS = 50
+
+
+def _sketch_chain(name, dev, kw, steps) -> float:
+    """``steps`` through ``count_min.count_min_update`` and through
+    ``ref.count_min_update_ref`` on the card, each chain from its own last
+    state: one launch an update, the tables' int32 views and the heavy
+    hitters equal after every step.  Returns the largest table difference
+    (0.0)."""
+    from repro_torch.adaptive import CountMinSketch
+
+    sk = CountMinSketch(device=dev, seed=0, **kw)
+    kt = pt = sk.table
+    kh = ph = sk.hh_ids
+    worst = 0.0
+    for i, st in enumerate(steps):
+        decay = float(np.float32(st.decay))
+        (kt, kh, ke), n = counted("count_min", lambda: count_min.
+                                  count_min_update(kt, sk._a, sk._b, kh,
+                                                   st.ids, st.weights, decay))
+        pt, ph, pe = ref.count_min_update_ref(pt, sk._a, sk._b, ph, st.ids,
+                                              st.weights, decay)
+        require(n == 1, f"sketch {name} step {i}: {n} launches")
+        require(torch.equal(kt.view(torch.int32), pt.view(torch.int32))
+                and torch.equal(kh, ph)
+                and torch.equal(ke.view(torch.int32), pe.view(torch.int32)),
+                f"sketch {name} step {i}: the kernel differs from the plain "
+                "version")
+        worst = max(worst, float((kt - pt).abs().max()))
+    return worst
+
+
+def _observe_ms(est, ids, plain: bool) -> float:
+    """Host ms a single-id ``observe`` (what a cache hit adds), over
+    ``len(ids)`` of them ending in a synchronise; ``plain`` routes the
+    sketch's update op to the plain version for the turn."""
+    saved = ops.count_min_update_op
+    if plain:
+        ops.count_min_update_op = ref.count_min_update_ref
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(len(ids)):
+            est.observe(ids[j:j + 1])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / len(ids)
+    finally:
+        ops.count_min_update_op = saved
+
+
+def sketch_kernel(dev, est, ids_seen) -> dict:
+    """The count-min update kernel on the fleet's sketch: bit for bit with
+    its plain version over the 20 served batches (weighted and not) and
+    every ``SKETCH_EDGES`` case; one launch an update with no host
+    synchronisation; a single-id observe through the kernel and through
+    the plain version, in turns; the kernel's time (graph replays) at the
+    served sizes m = 1 and 64 beside its bound and the plain version."""
+    smi = RESULTS["card"]["nvidia_smi"]
+    kw = dict(width=FLEET_SKETCH_WIDTH, depth=4, topk=64,
+              halflife=FLEET_HALFLIFE)
+    plan = est.sketch
+    wrng = np.random.default_rng(9)
+    worst, cases = 0.0, 0
+    n20 = ids_seen.size // 20
+    for weighted in (False, True):
+        steps = []
+        for lo in range(0, n20 * 20, n20):
+            b = ids_seen[lo:lo + n20]
+            w = (wrng.random(b.size).astype(np.float32) * 3
+                 if weighted else None)
+            steps.append(plan.prepare(b, w))
+        worst = max(worst, _sketch_chain(
+            f"served {'weighted' if weighted else 'unit'}", dev, kw, steps))
+        cases += 1
+    for case in SKETCH_EDGES:
+        o = sketch_edge_steps(case)
+        worst = max(worst, _sketch_chain(case[0], dev, o["kw"], o["steps"]))
+        cases += 1
+    log(f"[sketch] count_min against its plain version on the card: the 20 "
+        f"served batches (unit and weighted) and {len(SKETCH_EDGES)} edges "
+        f"(m = 1, duplicates, invalid ids, ids >= 2^31, widths 1-65536, "
+        f"depth up to 8, m up to 4096): bit for bit on all {cases} chains "
+        f"(tables' int32 views, heavy hitters); max abs err {worst}")
+
+    # one launch an update, no host synchronisation, on the served path
+    one = ids_seen[ids_seen >= 0][:SKETCH_OBSERVES]
+    c = LAUNCH_COUNTERS["count_min"]
+    torch.cuda.synchronize()
+    before = c.count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernel_ms = [_observe_ms(est, one, plain=False)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    per_update = (c.count - before) / SKETCH_OBSERVES
+    require(per_update == 1.0, f"count_min launches an update {per_update}")
+    plain_ms = [_observe_ms(est, one, plain=True),
+                _observe_ms(est, one, plain=True)]
+    kernel_ms.append(_observe_ms(est, one, plain=False))
+    res = {"launches_per_update": per_update,
+           "observe_one_ms": float(np.mean(kernel_ms)),
+           "observe_one_plain_ms": float(np.mean(plain_ms)),
+           "observe_turns_ms": {"kernel": kernel_ms, "plain": plain_ms}}
+    log(f"[sketch] one observed id (a cache hit's update) on the host clock, "
+        f"in turns kernel / plain / plain / kernel: kernel {kernel_ms} ms, "
+        f"plain {plain_ms} ms; count_min launches an update {per_update} "
+        f"(under torch.cuda.set_sync_debug_mode('error')); {smi}")
+
+    # the kernel's time at the served sizes, on the fleet sketch's state
+    with plan._on_stream():
+        table, hh = plan.snapshot(), plan._hh_ids
+        a, b = plan._a, plan._b
+    torch.cuda.current_stream().wait_stream(plan._stream)
+    for m, key in ((1, None), (64, "m64")):
+        st = plan.prepare(ids_seen[:m])
+        decay = float(np.float32(st.decay))
+        ms = time_graph_ms(lambda: count_min.count_min_update(
+            table, a, b, hh, st.ids, st.weights, decay), SKETCH_GRAPH_ITERS)
+        pms = time_ms(lambda: ref.count_min_update_ref(
+            table, a, b, hh, st.ids, st.weights, decay), 20)
+        depth, width = table.shape
+        topk = hh.shape[0]
+        nbytes = (2 * 4 * depth * width + 2 * 8 * depth
+                  + 4 * (topk + m) + 4 * m + 2 * 4 * topk)
+        bms, by = bound(nbytes, 0.0)
+        part = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "bound_bytes": nbytes, "library_ms": None,
+                "max_abs_err": worst, "m": m}
+        if key is None:
+            res.update(part, max_rel_err=0.0, ids_match=1.0)
+        else:
+            res[key] = part
+        log(f"[shape count_min m={m}] width {width} depth {depth} topk "
+            f"{topk} ms {ms:.5f} (graph replay) bound {bms:.5f} ({by}: "
+            f"{nbytes} B, the table read and written once) plain "
+            f"{pms:.4f} library none; {smi}")
+    RESULTS["kernels"]["count_min"].update(res)
+    return res
 
 
 def phase_fleet(dev, ctx) -> dict:
@@ -4188,6 +4364,7 @@ def phase_fleet(dev, ctx) -> dict:
             since = [len(r.calls) for r in recs]
             before = cell_counts(router)
             rc0 = router.stats()
+            sums = stage_sums(router)
             reset_launches()
             res = fleet_traffic(router, pool, order)
             torch.cuda.synchronize()
@@ -4199,9 +4376,12 @@ def phase_fleet(dev, ctx) -> dict:
             rep["launches"] = {n: v for n, v in launches.items() if v}
             require(launches["candidate_topk"] > 0,
                     "the fleet's path never launched bucket_probe_topk")
+            require(launches["count_min"] > 0,
+                    "the fleet's observe path never launched count_min")
             rep["replayed"] = check_served(f"steady {w}", recs, pool, order,
                                            res, since)
             rep["route"] = router.stats().stages.get("route")
+            rep["stage_means_ms"] = stage_means(sums, stage_sums(router))
             rep["shed"] = router.shed - rc0.shed
             windows.append((streams, rep))
             log(f"[fleet] steady {w}: launches {rep['launches']}; every "
@@ -4209,11 +4389,51 @@ def phase_fleet(dev, ctx) -> dict:
                 f"bit ({rep['replayed']} served batches replayed directly)")
             if w == 0:
                 steady_res = res
+                RESULTS["kernels"]["count_min"] = {
+                    "launches": launches["count_min"]}
         out["steady"] = windows
         steady = windows[0][1]
         log(f"[fleet] recall@10 {steady['recall_at_10']:.4f} (one cell on the "
             f"same traffic {out['one_cell']['recall_at_10']:.4f}; the serve "
             f"phase's cell {RESULTS['main']['recall_at_10']:.4f})")
+        one = out["one_cell"]
+        log(f"[fleet] steady windows beside one cell ("
+            f"{RESULTS['card']['nvidia_smi']}): QPS "
+            f"{[round(r['qps'], 1) for _, r in windows]} p50 "
+            f"{[round(r['p50_ms'], 3) for _, r in windows]} ms p99 "
+            f"{[round(r['p99_ms'], 3) for _, r in windows]} ms; one cell QPS "
+            f"{one['qps']:.1f} p50 {one['p50_ms']:.3f} ms p99 "
+            f"{one['p99_ms']:.3f} ms; count_min launches "
+            f"{[r['launches'].get('count_min', 0) for _, r in windows]}; "
+            f"the cells' mean queue / dispatch ms "
+            f"{[{k: round(v, 3) for k, v in r['stage_means_ms'].items()} for _, r in windows]}")
+
+        # -- what holds the fleet: the same traffic on its own streams with
+        #    every cell's estimator detached (no observe at all)
+        for c in router.cells:
+            c.cache.invalidate_all()
+        saved = [c.estimator for c in router.cells]
+        for c in router.cells:
+            c.estimator = None
+        try:
+            before = cell_counts(router)
+            sums = stage_sums(router)
+            res = fleet_traffic(router, pool, order)
+            torch.cuda.synchronize()
+        finally:
+            for c, e in zip(router.cells, saved):
+                c.estimator = e
+        require(not res["errors"], f"the fleet lost requests "
+                f"{res['errors'][:3]}")
+        bare = window_report("steady, no estimator (own streams)", router,
+                             res, before, truth[order], label)
+        bare["stage_means_ms"] = stage_means(sums, stage_sums(router))
+        out["steady_no_estimator"] = bare
+        log(f"[fleet] with no estimator the fleet serves QPS "
+            f"{bare['qps']:.1f} p50 {bare['p50_ms']:.3f} ms (with it "
+            f"{[round(r['qps'], 1) for _, r in windows]}); the cells' mean "
+            f"queue / dispatch ms "
+            f"{ {k: round(v, 3) for k, v in bare['stage_means_ms'].items()} }")
 
         # -- hedge: cell0 straggles FLEET_DELAY_S a batch
         for c in router.cells:
@@ -4387,16 +4607,15 @@ def phase_fleet(dev, ctx) -> dict:
             f"equals a fresh backend bit for bit; resyncs 1")
         del fresh
 
-        # -- the sketch on the card against the same sketch on the CPU
+        # -- the sketch: the update kernel against its plain version, the
+        #    observe path through each, the kernel's time; then the sketch
+        #    on the card against the same sketch on the CPU
         ids_seen = steady_res["ids"][:, 0]
         t0 = time.perf_counter()
         drift = est.drift()
         out["drift_query_ms"] = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        for j in range(200):                 # what a cache hit adds
-            est.observe(ids_seen[j:j + 1])
-        torch.cuda.synchronize()
-        out["observe_one_ms"] = (time.perf_counter() - t0) * 1e3 / 200
+        out["count_min"] = sketch_kernel(dev, est, ids_seen)
+        out["observe_one_ms"] = out["count_min"]["observe_one_ms"]
         sk = {}
         for weighted in (False, True):
             card, cpu = (CountMinSketch(width=FLEET_SKETCH_WIDTH, depth=4,
@@ -4426,7 +4645,8 @@ def phase_fleet(dev, ctx) -> dict:
             f"served top-1 ids: {sk}; the estimator's drift over all "
             f"{est.n} ids {out['drift_query_ms']:.2f} ms (tv "
             f"{drift['tv']:.4f}); one observed id (a cache hit's) "
-            f"{out['observe_one_ms']:.4f} ms on the host clock")
+            f"{out['observe_one_ms']:.4f} ms on the host clock (the plain "
+            f"path {out['count_min']['observe_one_plain_ms']:.4f} ms)")
         st = router.stats()
         out["stats"] = {k_: getattr(st, k_) for k_ in (
             "n", "p50_ms", "p99_ms", "hedges", "cache_hits", "cache_misses",
@@ -5469,10 +5689,10 @@ SPARSE_TOL = dict(rtol=1e-5, atol_of_max=1e-5)
 TRAIN_LM_SHAPE = "train_4k"
 TRAIN_MICRO = 2
 TRAIN_ACCUM = 4
-# one warm-up and three timed steps (cut from 2 + 4 to keep the smoke
-# within its time)
+# one warm-up and two timed steps (cut from 2 + 4, then 1 + 3, to keep the
+# smoke within its time)
 TRAIN_WARM = 1
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
 # the restart: qwen3-0.6b at full width, depth cut to 2, seq 512, KV
 # blocks of 128 (four: the chunked backward runs)
 RESTART_DEPTH = 2
@@ -5964,10 +6184,10 @@ SM_GLOO_DECODE_STEPS = 4
 SM_GLOO_TRAIN_BATCH = 4         # one train step of 4 x 512
 SM_DEEP_REDUCED = dict(prefill=(4, 16), train=(8, 16))   # (batch, seq)
 SM_GRANITE_LAYERS = 2           # granite-34b at full width, depth cut 88 -> 2
-# qwen3-0.6b on the four ranks at full width, depth cut 28 -> 8 to keep the
+# qwen3-0.6b on the four ranks at full width, depth cut 28 -> 4 to keep the
 # smoke within its time (every layer is the same code; the world-1 mesh and
 # the one-card phases keep the full depth)
-SM_QWEN_LAYERS = 8
+SM_QWEN_LAYERS = 4
 # the CTR cases on the four ranks: (arch, each table's rows capped at, or
 # None for the whole table); DCN-v2's 12.0 GB fp32 table lies with its
 # columns over tp, DLRM's capped as the train phase caps it
@@ -7374,7 +7594,9 @@ def kernel_line() -> dict:
         for extra in ("lookup_ms", "bytes_ms", "compare_loop_ops_ms",
                       "matched_slots", "tc_bound_ms", "popc_ms", "int_ms",
                       "popc_each_word_ms", "fp32_rate_bound_ms",
-                      "models_launches", "cells_launches"):
+                      "models_launches", "cells_launches",
+                      "launches_per_update", "observe_one_ms",
+                      "observe_one_plain_ms"):
             if extra in r:
                 row[extra] = r[extra]
         if "eight_terms" in r:
@@ -7382,7 +7604,8 @@ def kernel_line() -> dict:
         if "k100" in r:
             row.update(ms_k100=r["k100"]["ms"],
                        passes_k100=r["k100"]["passes"])
-        for part in ("step", "deep", "rows", "kd64", "kd128", "radio"):
+        for part in ("step", "deep", "rows", "kd64", "kd128", "radio",
+                     "m64"):
             if part in r:
                 row[part] = {key: r[part][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

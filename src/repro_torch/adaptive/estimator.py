@@ -32,7 +32,6 @@ import numpy as np
 import torch
 
 from repro_torch.adaptive.sketch import CountMinSketch
-from repro_torch.adaptive.sketch import _query as _sketch_query
 from repro_torch.core.likelihood import decayed_empirical_likelihood
 
 __all__ = ["OnlineLikelihoodEstimator"]
@@ -140,7 +139,9 @@ class OnlineLikelihoodEstimator:
         sketch's device (none in the exact mode)."""
         if self.sketch is None:
             return None
-        return torch.arange(n, dtype=torch.int64, device=self.sketch.device)
+        with self.sketch._on_stream():
+            return torch.arange(n, dtype=torch.int64,
+                                device=self.sketch.device)
 
     def observe(self, ids: np.ndarray,
                 weights: Optional[np.ndarray] = None) -> int:
@@ -152,9 +153,13 @@ class OnlineLikelihoodEstimator:
             weights = np.asarray(weights, np.float64).ravel()[keep]
         if ids.size == 0:
             return 0
+        # the host's share (padding, the decay) before the lock; under it
+        # only the update itself, one launch on the card
+        batch = (self.sketch.prepare(ids, weights)
+                 if self.sketch is not None else None)
         with self._lock:
             if self.sketch is not None:
-                self.sketch.update(ids, weights)
+                self.sketch.apply(batch)
             else:
                 _, self._counts = decayed_empirical_likelihood(
                     ids, self.n, self.halflife, self.smoothing,
@@ -198,19 +203,19 @@ class OnlineLikelihoodEstimator:
     def _counts_and_ref(self) -> tuple[np.ndarray, np.ndarray]:
         """Decayed counts + reference captured under ONE lock hold.
 
-        The lock only covers the snapshot: the sketch's table/hash tensors
-        are replaced (never mutated) by updates, so the O(n) full-corpus
-        query runs outside the lock (on the sketch's device) and the
-        serving worker's observe() is never blocked behind it.
+        The lock only covers the snapshot: the sketch's table is replaced
+        (never mutated) by updates, so the O(n) full-corpus query runs
+        outside the lock (on the sketch's device and stream, after every
+        update made before the snapshot) and the serving worker's
+        observe() is never blocked behind it.
         """
         with self._lock:
             ref = self._ref
             ids = self._all_ids
             if self.sketch is None:
                 return self._counts.copy(), ref
-            table, a, b = self.sketch.table, self.sketch._a, self.sketch._b
-        counts = _sketch_query(table, a, b, ids).cpu().numpy().astype(
-            np.float64)
+            table = self.sketch.snapshot()
+        counts = self.sketch.query(ids, table=table).astype(np.float64)
         return counts, ref
 
     def _raw_counts(self) -> np.ndarray:

@@ -12,118 +12,55 @@ unless the caller passes ``device="cpu"``):
     update (candidates: the current top-k, then the batch), a cheap read
     of the current head without a full table scan.
 
-Hashing is multiply-shift over uint32 (width a power of two).  Torch has
-no dependable uint32 multiply on every backend, so the hash runs in
-int64: ``((a * x + b) & 0xFFFFFFFF) >> shift``.  The int64 product wraps
-in two's complement and its low 32 bits are exact, so the columns are the
-reference's.
+Hashing is multiply-shift over uint32 (width a power of two).  Ids are
+read as the reference holds them, in JAX's default 32-bit integers: an
+id's low 32 bits as an int32 give its validity and its hash input, so an
+id in [2**31, 2**32) is invalid (hashed as 0 with weight 0, never a heavy
+hitter) and 2**32 + 3 counts as 3; ``n_observed`` still adds every
+weight, as the reference's does.
 
-The reference's scatter-add runs its updates one after another in batch
-order.  ``index_put_(accumulate=True)`` may add duplicates in another
-order, or sum them before adding (and does so differently on the card and
-on the CPU), so the update adds in passes: pass ``p`` holds the ``p``-th
-occurrence of every table cell in batch order, each cell at most once a
-pass.  Every device then rounds exactly as the reference does, weighted
-or not.  The passes are planned on the host from the batch's columns
-(the same multiply-shift in numpy uint64, where it cannot wrap), so an
-update never waits for the card: the estimator observes every served
-request, cache hits included, under one lock.  Batches are padded to the
-next power of two (id -1, weight 0), as the reference pads them.
+An update is ``kernels.ops.count_min_update_op``: on the card one launch
+of ``csrc/count_min.cu`` (the reference's jitted ``_update``: the decay,
+the hash, each cell's adds in batch order, the heavy-hitter re-rank), its
+batch passed in the launch's parameters (up to 256 ids) or by one
+asynchronous copy from pinned memory; on the CPU the plain version, its
+adds planned on the host in batch order.  Updates replace the table and
+the heavy hitters, never write them, so a reader holding a table sees one
+consistent state.
+
+On the card the sketch owns one CUDA stream, and every update and every
+read (``query``, ``heavy_hitters``, the estimator's snapshot query) runs
+on it, so successive updates from any threads stay in the order they were
+made, whatever stream the caller has current, and reads come after them.
+An update never waits for the card: it allocates, launches and returns.
+The ``table`` / ``hh_ids`` / ``hh_est`` attributes make the caller's
+current stream wait for the sketch's stream (on the card, not the host)
+before handing the tensor out.  Batches are padded to the next power of
+two (id -1, weight 0), as the reference pads them.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve
-from repro_torch.kernels.common import stable_topk
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import count_min_hash, count_min_query_ref
 
-__all__ = ["CountMinSketch"]
-
-_LOW32 = 0xFFFFFFFF
-
-
-def _hash(ids: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-          width: int) -> torch.Tensor:
-    """Multiply-shift universal hash -> (depth, m) int64 column indices.
-    ``ids`` int64 (taken mod 2**32, as the reference's uint32 cast);
-    ``a`` / ``b`` int64 holding uint32 values."""
-    shift = 32 - int(np.log2(width))
-    x = ids & _LOW32
-    h = (a[:, None] * x[None, :] + b[:, None]) & _LOW32
-    return h >> shift
+__all__ = ["CountMinSketch", "SketchBatch"]
 
 
-def _query(table: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-           ids: torch.Tensor) -> torch.Tensor:
-    """Conservative estimates of ``ids`` (int64, on the table's device);
-    0 for id < 0."""
-    depth, width = table.shape
-    valid = ids >= 0
-    h = _hash(torch.where(valid, ids, 0), a, b, width)
-    rows = torch.arange(depth, device=table.device)[:, None]
-    est = table[rows, h].amin(dim=0)
-    return torch.where(valid, est, 0.0)
-
-
-def _host_columns(ids: np.ndarray, a: np.ndarray, b: np.ndarray,
-                  width: int) -> np.ndarray:
-    """``_hash`` on the host: (depth, m) columns of int64 ``ids`` with the
-    uint32 multipliers held as uint64 (a * x + b < 2**64: no wrap)."""
-    shift = np.uint64(32 - int(np.log2(width)))
-    x = (ids & _LOW32).astype(np.uint64)
-    h = (a[:, None] * x[None, :] + b[:, None]) & np.uint64(_LOW32)
-    return (h >> shift).astype(np.int64)
-
-
-def _passes(cells: np.ndarray, w: np.ndarray):
-    """Order the adds ``cells`` (flat table indices, in batch order) and
-    their weights into passes that each touch a cell at most once, the
-    ``p``-th pass holding every cell's ``p``-th add.  Returns (cells,
-    weights, adds a pass)."""
-    order = np.argsort(cells, kind="stable")
-    s = cells[order]
-    pos = np.arange(s.size)
-    new_run = np.ones(s.size, bool)
-    new_run[1:] = s[1:] != s[:-1]
-    rank = pos - np.maximum.accumulate(np.where(new_run, pos, 0))
-    by_rank = np.argsort(rank, kind="stable")
-    return s[by_rank], w[order][by_rank], np.bincount(rank).tolist()
-
-
-def _update(table, a, b, hh_ids, ids, cells, vals, counts, decay: float):
-    """One batch: decay, the adds in their passes, re-rank the heavy
-    hitters.  Returns new tensors (the old ones are never mutated, so a
-    reader holding them sees one consistent state)."""
-    table = table * decay
-    flat = table.view(-1)
-    lo = 0
-    for c in counts:
-        sl = cells[lo:lo + c]
-        flat[sl] = flat[sl] + vals[lo:lo + c]
-        lo += c
-
-    # heavy hitters: re-rank the current top-k and the batch ids by their
-    # fresh estimates; duplicates are masked so one id holds one slot
-    cand = torch.cat([hh_ids, ids.to(torch.int32)])
-    est = _query(table, a, b, cand.long())
-    est = torch.where(cand >= 0, est, -torch.inf)
-    order = torch.argsort(cand, stable=True)
-    sc = cand[order]
-    dup_sorted = torch.zeros_like(sc, dtype=torch.bool)
-    dup_sorted[1:] = (sc[1:] == sc[:-1]) & (sc[1:] >= 0)
-    dup = torch.zeros_like(dup_sorted)
-    dup[order] = dup_sorted
-    est = torch.where(dup, -torch.inf, est)
-    # lax.top_k's order: largest first, ties to the lower index
-    neg, top_i = stable_topk(-est[None], hh_ids.shape[0])
-    top_est, top_i = -neg[0], top_i[0]
-    gone = torch.isneginf(top_est)
-    new_ids = torch.where(gone, -1, cand[top_i]).to(torch.int32)
-    new_est = torch.where(gone, 0.0, top_est)
-    return table, new_ids, new_est
+class SketchBatch(NamedTuple):
+    """A batch ready for :meth:`CountMinSketch.apply`: ids and weights
+    padded to a power of two, the decay of its real size, and its weight
+    sum (all host values, made with no state of the sketch)."""
+    ids: np.ndarray
+    weights: np.ndarray
+    decay: float
+    weight_sum: float
 
 
 class CountMinSketch:
@@ -147,27 +84,68 @@ class CountMinSketch:
         # the reference's draws: odd uint32 multipliers and uint32 offsets
         a = rng.integers(1, 2**32, size=depth, dtype=np.uint32) | 1
         b = rng.integers(0, 2**32, size=depth, dtype=np.uint32)
-        self._a = torch.as_tensor(a.astype(np.int64), device=self.device)
-        self._b = torch.as_tensor(b.astype(np.int64), device=self.device)
-        self._a_host, self._b_host = a.astype(np.uint64), b.astype(np.uint64)
-        self.table = torch.zeros((depth, width), dtype=torch.float32,
-                                 device=self.device)
-        self.hh_ids = torch.full((topk,), -1, dtype=torch.int32,
-                                 device=self.device)
-        self.hh_est = torch.zeros((topk,), dtype=torch.float32,
-                                  device=self.device)
+        self._stream = (torch.cuda.Stream(device=self.device)
+                        if self.device.type == "cuda" else None)
+        with self._on_stream():
+            self._a = torch.as_tensor(a.astype(np.int64), device=self.device)
+            self._b = torch.as_tensor(b.astype(np.int64), device=self.device)
+            self._table = torch.zeros((depth, width), dtype=torch.float32,
+                                      device=self.device)
+            self._hh_ids = torch.full((topk,), -1, dtype=torch.int32,
+                                      device=self.device)
+            self._hh_est = torch.zeros((topk,), dtype=torch.float32,
+                                       device=self.device)
         self.n_observed = 0.0      # decayed total weight in the table
+
+    def _on_stream(self):
+        """The sketch's stream made current (nothing on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _handed_out(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` for a reader on the caller's current stream: that stream
+        waits for the sketch's (an event on the card, no host wait), and
+        the allocator keeps ``t``'s memory until the reader's work ran."""
+        if self._stream is not None:
+            cur = torch.cuda.current_stream(self.device)
+            if cur != self._stream:
+                cur.wait_stream(self._stream)
+                t.record_stream(cur)
+        return t
+
+    @property
+    def table(self) -> torch.Tensor:
+        return self._handed_out(self._table)
+
+    @property
+    def hh_ids(self) -> torch.Tensor:
+        return self._handed_out(self._hh_ids)
+
+    @property
+    def hh_est(self) -> torch.Tensor:
+        return self._handed_out(self._hh_est)
+
+    def snapshot(self) -> torch.Tensor:
+        """The current table, for :meth:`query`'s ``table`` later (updates
+        replace it, never write it)."""
+        return self._table
 
     def columns(self, ids: np.ndarray) -> np.ndarray:
         """(depth, m) hash columns of ``ids`` (for tests and tools)."""
-        t = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
-        return _hash(t, self._a, self._b, self.width).cpu().numpy()
+        with self._on_stream():
+            t = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+            return count_min_hash(t, self._a, self._b,
+                                  self.width).cpu().numpy()
 
-    def update(self, ids: np.ndarray, weights: Optional[np.ndarray] = None):
-        """Fold a batch of observed entity ids into the sketch."""
+    def prepare(self, ids: np.ndarray,
+                weights: Optional[np.ndarray] = None
+                ) -> Optional[SketchBatch]:
+        """A batch of observed entity ids, ready for :meth:`apply`; None for
+        an empty one."""
         ids = np.asarray(ids, dtype=np.int64).ravel()
         if ids.size == 0:
-            return
+            return None
         w = (np.ones(ids.size, np.float32) if weights is None
              else np.asarray(weights, np.float32).ravel())
         # decay follows the real observation count, computed before the
@@ -181,41 +159,50 @@ class CountMinSketch:
         if pad:
             ids = np.pad(ids, (0, pad), constant_values=-1)
             w = np.pad(w, (0, pad))
-        # the adds: invalid (and pad) ids hash as id 0 with weight 0, as
-        # in the reference
-        valid = ids >= 0
-        h = _host_columns(np.where(valid, ids, 0), self._a_host,
-                          self._b_host, self.width)
-        cells, vals, counts = _passes(
-            (np.arange(self.depth)[:, None] * self.width + h).reshape(-1),
-            np.broadcast_to(np.where(valid, w, np.float32(0.0)),
-                            h.shape).reshape(-1))
-        dev = self.device
-        self.table, self.hh_ids, self.hh_est = _update(
-            self.table, self._a, self._b, self.hh_ids,
-            torch.as_tensor(ids, device=dev),
-            torch.as_tensor(cells, device=dev),
-            torch.as_tensor(vals, device=dev), counts,
-            float(np.float32(decay)))
-        self.n_observed = self.n_observed * decay + float(w.sum())
+        return SketchBatch(ids, w, decay, float(w.sum()))
 
-    def query(self, ids: np.ndarray) -> np.ndarray:
-        """Conservative count estimates for ``ids`` (0 for id < 0)."""
-        ids = np.asarray(ids, dtype=np.int64).ravel()
-        if ids.size == 0:
+    def apply(self, batch: Optional[SketchBatch]) -> None:
+        """Fold a :meth:`prepare`d batch in: one ``count_min_update_op`` on
+        the sketch's stream."""
+        if batch is None:
+            return
+        with self._on_stream():
+            self._table, self._hh_ids, self._hh_est = ops.count_min_update_op(
+                self._table, self._a, self._b, self._hh_ids, batch.ids,
+                batch.weights, float(np.float32(batch.decay)))
+        self.n_observed = self.n_observed * batch.decay + batch.weight_sum
+
+    def update(self, ids: np.ndarray, weights: Optional[np.ndarray] = None):
+        """Fold a batch of observed entity ids into the sketch."""
+        self.apply(self.prepare(ids, weights))
+
+    def query(self, ids, *, table: Optional[torch.Tensor] = None
+              ) -> np.ndarray:
+        """Conservative count estimates for ``ids`` (0 for an invalid id),
+        from the current table or from ``table``, one :meth:`snapshot` of
+        it; ``ids`` a host array or an int64 tensor on the sketch's
+        device."""
+        if not torch.is_tensor(ids):
+            ids = np.asarray(ids, dtype=np.int64).ravel()
+        if len(ids) == 0:
             return np.zeros(0, np.float32)
-        return _query(self.table, self._a, self._b,
-                      torch.as_tensor(ids, device=self.device)).cpu().numpy()
+        with self._on_stream():
+            t = torch.as_tensor(ids, device=self.device)
+            return count_min_query_ref(
+                self._table if table is None else table, self._a, self._b,
+                t).cpu().numpy()
 
     def heavy_hitters(self) -> "tuple[np.ndarray, np.ndarray]":
         """(ids, estimates) of the current top-k, highest first."""
-        ids = self.hh_ids.cpu().numpy()
-        est = self.hh_est.cpu().numpy()
+        with self._on_stream():
+            ids = self._hh_ids.cpu().numpy()
+            est = self._hh_est.cpu().numpy()
         keep = ids >= 0
         return ids[keep], est[keep]
 
     def reset(self) -> None:
-        self.table = torch.zeros_like(self.table)
-        self.hh_ids = torch.full_like(self.hh_ids, -1)
-        self.hh_est = torch.zeros_like(self.hh_est)
+        with self._on_stream():
+            self._table = torch.zeros_like(self._table)
+            self._hh_ids = torch.full_like(self._hh_ids, -1)
+            self._hh_est = torch.zeros_like(self._hh_est)
         self.n_observed = 0.0

@@ -10,10 +10,11 @@ from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
 __all__ = ["INF", "KMAX", "KMAX_PQ", "LAUNCH_COUNTERS", "LaunchCounter",
-           "empty_result", "list_len", "merge_topk", "pad_sentinel",
+           "empty_result", "ids32", "list_len", "merge_topk", "pad_sentinel",
            "popcount32", "stable_topk", "topk_passes", "valid_operand"]
 
 INF = float("inf")
@@ -171,3 +172,12 @@ def empty_result(b: int, k: int, device):
     """(B, k) of the ``(inf, -1)`` sentinel: a scan over no rows."""
     return (torch.full((b, k), INF, device=device),
             torch.full((b, k), -1, dtype=torch.int32, device=device))
+
+
+def ids32(ids) -> np.ndarray:
+    """The low 32 bits of each integer id as an int32, as the reference's
+    32-bit arrays hold it (JAX's default integers): an id in [2**31,
+    2**32) is negative there, and 2**32 + 3 is 3.  Computed in int64, so
+    no cast has to wrap."""
+    x = np.asarray(ids, dtype=np.int64).ravel()
+    return (((x & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).astype(np.int32)

@@ -11,7 +11,8 @@ of XLA's abstract evaluation of a Pallas call).  Both answer any
 ``k``, as the reference does: the kernels whose lists hold at most
 ``common.KMAX`` (``KMAX_PQ``) pairs take a larger ``k`` in passes
 (``common.topk_passes``).  ``tree_descent_op`` is no top-k: its ``meta``
-branch gives the descent's five int32 results by shape.
+branch gives the descent's five int32 results by shape, and
+``count_min_update_op``'s the sketch's new table and heavy hitters.
 """
 from __future__ import annotations
 
@@ -19,13 +20,14 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.annotations import hot_path
-from repro_torch.kernels import (bm25, bucket_topk, hamming, l2_topk, pq_adc,
-                                 ref, tree_descent)
+from repro_torch.kernels import (bm25, bucket_topk, count_min, hamming,
+                                 l2_topk, pq_adc, ref, tree_descent)
 
 __all__ = ["l2_topk_op", "l2_topk_int8_op", "candidate_topk_op",
            "candidate_rows_topk_op", "bucket_probe_topk_op",
            "bm25_topk_op", "hybrid_topk_op", "pq_adc_topk_op",
-           "hamming_topk_op", "tree_descent_op", "quantize_rows_int8"]
+           "hamming_topk_op", "tree_descent_op", "count_min_update_op",
+           "quantize_rows_int8"]
 
 
 def _on_card(device: torch.device) -> bool:
@@ -212,3 +214,22 @@ def tree_descent_op(arrays: dict, queries, *, kind: str, beam_width: int,
     return ref.tree_descent_ref(arrays, queries, kind=kind,
                                 beam_width=beam_width, max_steps=max_steps,
                                 roots=roots)
+
+
+@hot_path
+def count_min_update_op(table, a, b, hh_ids, ids: np.ndarray,
+                        weights: np.ndarray, decay: float):
+    """One count-min sketch update (the reference's jitted ``_update``):
+    the decayed table with the batch's adds, and the re-ranked heavy
+    hitters, as new tensors (table, hh_ids (topk,) int32, hh_est (topk,)
+    fp32).  ``ids`` / ``weights`` (m,) live on the host.  On the card one
+    launch; on the CPU the plain version, its adds planned on the host."""
+    if table.device.type == "meta":
+        k = hh_ids.shape[0]
+        return (torch.empty(table.shape, dtype=torch.float32, device="meta"),
+                torch.empty((k,), dtype=torch.int32, device="meta"),
+                torch.empty((k,), dtype=torch.float32, device="meta"))
+    if _on_card(table.device):
+        return count_min.count_min_update(table, a, b, hh_ids, ids, weights,
+                                          decay)
+    return ref.count_min_update_ref(table, a, b, hh_ids, ids, weights, decay)

@@ -7,7 +7,10 @@ chain over buckets
 (``bucket_probe_topk_ref``, the loops the IVF local and the two-level
 brute bottom ran before the chain had a kernel), and the tree beam
 descent (``tree_descent_ref``, the reference's ``while_loop`` in
-``tree_search``; its kernel has no Pallas counterpart).  Each
+``tree_search``; its kernel has no Pallas counterpart), and the count-min
+sketch's update (``count_min_update_ref``, the reference's jitted
+``_update`` of ``adaptive/sketch.py``; no Pallas counterpart either) with
+its ``_query`` (``count_min_query_ref``, which stays plain torch).  Each
 function computes its kernel's result with no tiling; ``ops`` runs it for
 tensors on the CPU, the tests hold it against the reference, and
 ``chip_smoke.py`` holds each kernel against it on the card.
@@ -44,17 +47,20 @@ subspace entries in order ``m = 0..M-1`` from 0.0 (the Pallas kernel's
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.brute import batched_l2sq, pairwise_l2sq
-from repro_torch.kernels.common import (INF, pad_sentinel, popcount32,
-                                        stable_topk)
+from repro_torch.kernels.common import (INF, ids32, pad_sentinel,
+                                        popcount32, stable_topk)
 
 __all__ = ["l2_topk_ref", "l2_topk_int8_ref", "candidate_topk_ref",
            "candidate_rows_topk_ref", "bucket_probe_topk_ref",
            "bm25_dists_ref", "bm25_topk_ref", "hybrid_topk_ref",
            "pq_adc_scores_ref", "pq_adc_topk_ref", "hamming_dists_ref",
-           "hamming_topk_ref", "tree_descent_ref"]
+           "hamming_topk_ref", "tree_descent_ref", "count_min_hash",
+           "count_min_query_ref", "count_min_host_columns",
+           "count_min_update_ref"]
 
 # Elements of the (B, rows, S) match mask ``bm25_dists_ref`` builds at
 # once (about 1 GB as float32); longer slabs are scanned in row chunks.
@@ -372,3 +378,123 @@ def tree_descent_ref(arrays: dict, queries, *, kind: str, beam_width: int,
     cand = ents.reshape(R, W * leaf_entities.shape[1]).to(torch.int32)
     n_cand = (cand >= 0).sum(dim=1).to(torch.int32)
     return nodes, steps, visits, cand, n_cand
+
+
+# ------------------------------------------------------------ count-min
+_LOW32 = 0xFFFFFFFF
+
+
+def count_min_hash(ids: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                   width: int) -> torch.Tensor:
+    """Multiply-shift universal hash -> (depth, m) int64 column indices.
+
+    ``ids`` int64, taken mod 2**32 as the reference's uint32 cast takes
+    them; ``a`` / ``b`` int64 holding uint32 values.  Torch has no
+    dependable uint32 multiply on every backend, so the hash runs in int64:
+    ``((a * x + b) & 0xFFFFFFFF) >> shift``; the product wraps in two's
+    complement and its low 32 bits are exact, so the columns are the
+    reference's."""
+    shift = 32 - int(np.log2(width))
+    x = ids & _LOW32
+    h = (a[:, None] * x[None, :] + b[:, None]) & _LOW32
+    return h >> shift
+
+
+def count_min_query_ref(table: torch.Tensor, a: torch.Tensor,
+                        b: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_query``: each id's minimum over the rows of its
+    cells, 0 for an invalid id.  ``ids`` int64 on the table's device, read
+    by their low 32 bits as an int32 (the reference's arrays are 32-bit):
+    negative there means invalid."""
+    depth, width = table.shape
+    x = ((ids & _LOW32) ^ 0x80000000) - 0x80000000     # the int32 value
+    valid = x >= 0
+    h = count_min_hash(torch.where(valid, x, 0), a, b, width)
+    rows = torch.arange(depth, device=table.device)[:, None]
+    est = table[rows, h].amin(dim=0)
+    return torch.where(valid, est, 0.0)
+
+
+def count_min_host_columns(ids: np.ndarray, a: np.ndarray, b: np.ndarray,
+                           width: int) -> np.ndarray:
+    """``count_min_hash`` on the host: (depth, m) columns of int64 ``ids``
+    with the uint32 multipliers held as uint64 (a * x + b < 2**64: no
+    wrap)."""
+    shift = np.uint64(32 - int(np.log2(width)))
+    x = (ids & _LOW32).astype(np.uint64)
+    h = (a[:, None] * x[None, :] + b[:, None]) & np.uint64(_LOW32)
+    return (h >> shift).astype(np.int64)
+
+
+def _count_min_passes(cells: np.ndarray, w: np.ndarray):
+    """Order the adds ``cells`` (flat table indices, in batch order) and
+    their weights into passes that each touch a cell at most once, the
+    ``p``-th pass holding every cell's ``p``-th add.  Returns (cells,
+    weights, adds a pass)."""
+    order = np.argsort(cells, kind="stable")
+    s = cells[order]
+    pos = np.arange(s.size)
+    new_run = np.ones(s.size, bool)
+    new_run[1:] = s[1:] != s[:-1]
+    rank = pos - np.maximum.accumulate(np.where(new_run, pos, 0))
+    by_rank = np.argsort(rank, kind="stable")
+    return s[by_rank], w[order][by_rank], np.bincount(rank).tolist()
+
+
+def count_min_update_ref(table, a, b, hh_ids, ids, weights, decay: float):
+    """One sketch update, the reference's ``_update``: decay, the adds,
+    the heavy-hitter re-rank.  ``ids`` / ``weights`` (m,) on the host (ids
+    by their low 32 bits as an int32: negative means invalid, hashed as 0
+    with weight 0), ``decay`` a float32 value.  Returns new tensors (the
+    old ones are never written, so a reader holding them sees one
+    consistent state).
+
+    The reference's scatter-add runs its updates one after another in
+    batch order.  ``index_put_(accumulate=True)`` may add duplicates in
+    another order, or sum them before adding (and does so differently on
+    the card and on the CPU), so the adds run in passes planned on the
+    host: pass ``p`` holds the ``p``-th occurrence of every table cell in
+    batch order, each cell at most once a pass.  Every device then rounds
+    exactly as the reference does, weighted or not."""
+    x = ids32(ids)
+    w = np.asarray(weights, np.float32).ravel()
+    depth, width = table.shape
+    valid = x >= 0
+    h = count_min_host_columns(
+        np.where(valid, x, 0).astype(np.int64),
+        a.cpu().numpy().astype(np.uint64), b.cpu().numpy().astype(np.uint64),
+        width)
+    cells, vals, counts = _count_min_passes(
+        (np.arange(depth)[:, None] * width + h).reshape(-1),
+        np.broadcast_to(np.where(valid, w, np.float32(0.0)),
+                        h.shape).reshape(-1))
+    dev = table.device
+    cells = torch.as_tensor(cells, device=dev)
+    vals = torch.as_tensor(vals, device=dev)
+    table = table * decay
+    flat = table.view(-1)
+    lo = 0
+    for c in counts:
+        sl = cells[lo:lo + c]
+        flat[sl] = flat[sl] + vals[lo:lo + c]
+        lo += c
+
+    # heavy hitters: re-rank the current top-k and the batch ids by their
+    # fresh estimates; duplicates are masked so one id holds one slot
+    cand = torch.cat([hh_ids, torch.as_tensor(x, device=dev)])
+    est = count_min_query_ref(table, a, b, cand.long())
+    est = torch.where(cand >= 0, est, -torch.inf)
+    order = torch.argsort(cand, stable=True)
+    sc = cand[order]
+    dup_sorted = torch.zeros_like(sc, dtype=torch.bool)
+    dup_sorted[1:] = (sc[1:] == sc[:-1]) & (sc[1:] >= 0)
+    dup = torch.zeros_like(dup_sorted)
+    dup[order] = dup_sorted
+    est = torch.where(dup, -torch.inf, est)
+    # lax.top_k's order: largest first, ties to the lower index
+    neg, top_i = stable_topk(-est[None], hh_ids.shape[0])
+    top_est, top_i = -neg[0], top_i[0]
+    gone = torch.isneginf(top_est)
+    new_ids = torch.where(gone, -1, cand[top_i]).to(torch.int32)
+    new_est = torch.where(gone, 0.0, top_est)
+    return table, new_ids, new_est

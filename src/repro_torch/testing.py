@@ -58,7 +58,8 @@ __all__ = ["OPTION_EDGES", "EDGE_ALPHAS", "PQ_EDGES", "HAMMING_EDGES",
            "pq_edge_operands", "hamming_edge_operands",
            "chain_edge_operands", "chain_union_topk", "step_chain",
            "rows_edge_operands", "rows_union_topk", "DESCENT_EDGES",
-           "descent_edge_operands",
+           "descent_edge_operands", "SKETCH_EDGES", "SKETCH_BIG_IDS",
+           "sketch_edge_steps",
            "lexical_scores_f32", "hybrid_by_parts", "shard_backends",
            "shard_loop", "mips_parity", "sasrec_mips_truth",
            "message_dtypes", "attention_at_true_fan_in", "MOVE_CASES",
@@ -307,6 +308,77 @@ def descent_edge_operands(case, seed: int = 0) -> dict:
     return {"tree": t, "db": db, "q": q, "roots": r,
             "kw": {"kind": t.kind, "beam_width": w,
                    "max_steps": t.max_depth + 4 if steps is None else steps}}
+
+
+# (name, width, depth, topk, halflife, sizes, ids, weighted): one sketch
+# updated with a batch of each real size in ``sizes`` (padded to a power of
+# two by ``CountMinSketch.prepare``: 256 and below pass by value to the
+# kernel, above it through one staged copy); ids "zipf" (Zipf 1.1 over 300
+# ids: repeats), "one" (every id 7), "invalid" (about a third -1 or
+# another negative), "big" (about half of them ``SKETCH_BIG_IDS``: their
+# low 32 bits as an int32 decide, ROADMAP fault 28); weighted: weights in
+# [0, 3), else unit weights.  The served sizes are 1 (a cache hit) and up
+# to 64 (a batch) at width 4,096, depth 4, topk 64.
+SKETCH_EDGES = (
+    ("m=1 x20", 4096, 4, 64, 4096.0, (1,) * 20, "zipf", False),
+    ("m=1 x20 weighted", 4096, 4, 64, 4096.0, (1,) * 20, "zipf", True),
+    ("m=2", 4096, 4, 64, 4096.0, (2, 2, 1, 2), "zipf", True),
+    ("served sizes", 4096, 4, 64, 4096.0, (64, 33, 1, 64, 17), "zipf",
+     False),
+    ("served sizes, no decay", 4096, 4, 64, None, (64, 33, 1, 64, 17),
+     "zipf", True),
+    ("200 copies of one id", 512, 4, 16, 200.0, (200, 200, 1), "one",
+     False),
+    ("200 copies, weighted", 512, 4, 16, 200.0, (200, 200), "one", True),
+    ("invalid ids", 512, 4, 16, 300.0, (17, 64, 100, 1), "invalid", True),
+    ("ids at and above 2^31", 1024, 4, 16, None, (5, 64, 300), "big",
+     False),
+    ("ids at and above 2^31, weighted", 1024, 4, 16, 100.0, (7, 64, 1),
+     "big", True),
+    ("20 batches of 17-150", 512, 4, 16, 200.0,
+     tuple(17 + 7 * t for t in range(20)), "zipf", True),
+    ("width 65536 depth 8", 65536, 8, 64, 4096.0, (64, 1, 512), "zipf",
+     True),
+    ("m=4096 depth 8", 512, 8, 32, 1000.0, (4096, 3000), "zipf", False),
+    ("topk above the candidates", 256, 2, 128, 50.0, (3, 5), "zipf",
+     False),
+    ("width 2", 2, 3, 8, 10.0, (9, 9), "zipf", True),
+    ("width 1", 1, 2, 4, 10.0, (5, 3), "zipf", True),
+)
+SKETCH_BIG_IDS = np.array([2**31 - 1, 2**31, 2**31 + 5, 2**32 + 3, 2**33,
+                           2**32 - 1, -2**32 + 5, 2**31 + 5], np.int64)
+
+
+def sketch_edge_steps(case, seed: int = 0) -> dict:
+    """One ``SKETCH_EDGES`` case: the sketch's keywords (``kw``), its real
+    batches (``batches``: (ids int64, weights or None)) and the same
+    batches as ``CountMinSketch.prepare`` hands them to the update op
+    (``steps``: ``SketchBatch`` of padded ids and weights, decay and
+    weight sum)."""
+    from repro_torch.adaptive.sketch import CountMinSketch
+
+    _, width, depth, topk, halflife, sizes, kind, weighted = case
+    kw = dict(width=width, depth=depth, topk=topk, halflife=halflife)
+    rng = np.random.default_rng([seed, width, depth, topk, len(sizes)])
+    p = 1.0 / np.arange(1, 301) ** 1.1
+    p /= p.sum()
+    batches = []
+    for m in sizes:
+        ids = rng.choice(300, m, p=p).astype(np.int64)
+        if kind == "one":
+            ids[:] = 7
+        elif kind == "invalid":
+            dead = rng.random(m) < 1 / 3
+            ids[dead] = np.where(rng.random(int(dead.sum())) < 0.5, -1,
+                                 -ids[dead] - 2)
+        elif kind == "big":
+            pick = rng.random(m) < 0.5
+            ids[pick] = rng.choice(SKETCH_BIG_IDS, int(pick.sum()))
+        w = rng.random(m).astype(np.float32) * 3 if weighted else None
+        batches.append((ids, w))
+    plan = CountMinSketch(device="cpu", **kw)
+    return {"kw": kw, "batches": batches,
+            "steps": [plan.prepare(i, w) for i, w in batches]}
 
 
 def _edge_rows(rng, n: int, rows):

@@ -30,7 +30,7 @@ from test_torch_reference import reference  # noqa: F401  (fixture)
 from repro_torch.adaptive import (CountMinSketch, FrequencyAdmissionCache,
                                   MaintenanceScheduler,
                                   OnlineLikelihoodEstimator)
-from repro_torch.adaptive.sketch import _host_columns
+from repro_torch.kernels.ref import count_min_host_columns
 from repro_torch.core.likelihood import zipf_likelihood
 from repro_torch.core.metadata import FilterSpec
 from repro_torch.serve.cell import _opts_extra
@@ -76,9 +76,10 @@ def test_sketch_columns_equal_the_reference(reference, seed):
     want = np.asarray(reference.sketch._hash(jnp.asarray(ids, jnp.int32),
                                              ref._a, ref._b, 4096))
     assert np.array_equal(mine.columns(ids), want)
-    # the host's columns, which plan the adds, are the same
-    assert np.array_equal(_host_columns(ids, mine._a_host, mine._b_host,
-                                        4096), want)
+    # the host's columns, which plan the plain version's adds, are the same
+    assert np.array_equal(count_min_host_columns(
+        ids, mine._a.numpy().astype(np.uint64),
+        mine._b.numpy().astype(np.uint64), 4096), want)
 
 
 @pytest.mark.parametrize("weighted", [False, True])

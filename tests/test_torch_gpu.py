@@ -15,7 +15,11 @@ the index layer (PQ top level, one-level LSH) through the kernels, and
 the sharded backends over a world-size-1 NCCL mesh and over four gloo
 ranks sharing the card (against the backends without a mesh and the
 single-process shard loop, bit for bit), the count-min sketch on the card
-against the CPU's (bit for bit, weighted too), and a two-cell fleet on
+against the CPU's (bit for bit, weighted too), its update kernel against
+its plain version on the card (every ``testing.SKETCH_EDGES`` case, and
+widths 512 / 4,096 / 65,536 at depth 4 and 8 over batches of 1 to 4,096
+ids, bit for bit), one launch an update with no host synchronisation, and
+updates from two threads on two streams in lock order, and a two-cell fleet on
 ``cuda:0`` whose routed answers equal its backends' before and after a
 fan-out; the recompile gate over the seven registered entry points on
 the card, and ``roofline_report`` after a served batch; the language
@@ -62,13 +66,14 @@ from repro_torch.core.protocol import IndexSpec
 from repro_torch.core.two_level import TwoLevelConfig, build_two_level
 from repro_torch.data.synthetic import make_corpus, make_queries
 from repro_torch.distributed.backend import ShardedSearchBackend
-from repro_torch.kernels import (bm25, bucket_topk, hamming, l2_topk, ops,
-                                 pq_adc, ref, tree_descent)
+from repro_torch.kernels import (bm25, bucket_topk, count_min, hamming,
+                                 l2_topk, ops, pq_adc, ref, tree_descent)
 from repro_torch.kernels.common import merge_topk
 from repro_torch.serve.cell import ServingCell
 from repro_torch.testing import (CHAIN_EDGES, DESCENT_EDGES, EDGE_ALPHAS,
                                  HAMMING_EDGES, OPTION_EDGES, PQ_EDGES,
-                                 ROWS_EDGES, descent_edge_operands,
+                                 ROWS_EDGES, SKETCH_BIG_IDS, SKETCH_EDGES,
+                                 descent_edge_operands, sketch_edge_steps,
                                  chain_edge_operands, chain_union_topk,
                                  hamming_edge_operands, step_chain,
                                  hybrid_by_parts, lexical_scores_f32,
@@ -1108,6 +1113,127 @@ def test_sketch_on_the_card_equals_the_cpu(dev, weighted):
         assert np.array_equal(a, b)
     q = np.arange(-1, 600)
     assert np.array_equal(card.query(q), cpu.query(q))
+
+
+def _sketch_chains(dev, kw, steps, seed=3):
+    """Each step through the kernel and through the plain version on the
+    card, each chain from its own last state: asserts one launch an update
+    and the two states bit for bit after every step."""
+    from repro_torch.adaptive import CountMinSketch
+
+    sk = CountMinSketch(device=dev, seed=seed, **kw)
+    kt = pt = sk.table
+    kh = ph = sk.hh_ids
+    for st in steps:
+        decay = float(np.float32(st.decay))
+        before = count_min.LAUNCHES.count
+        kt, kh, ke = count_min.count_min_update(kt, sk._a, sk._b, kh, st.ids,
+                                                st.weights, decay)
+        assert count_min.LAUNCHES.count == before + 1
+        pt, ph, pe = ref.count_min_update_ref(pt, sk._a, sk._b, ph, st.ids,
+                                              st.weights, decay)
+        assert torch.equal(kt.view(torch.int32), pt.view(torch.int32))
+        assert torch.equal(kh, ph)
+        assert torch.equal(ke.view(torch.int32), pe.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", SKETCH_EDGES, ids=[c[0] for c in SKETCH_EDGES])
+def test_count_min_kernel_matches_plain_on_the_edges(dev, case):
+    """``csrc/count_min.cu`` against ``ref.count_min_update_ref`` on the
+    card over every ``SKETCH_EDGES`` case, bit for bit."""
+    o = sketch_edge_steps(case)
+    _sketch_chains(dev, o["kw"], o["steps"])
+
+
+@pytest.mark.parametrize("width", [512, 4096, 65536])
+@pytest.mark.parametrize("depth", [4, 8])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("halflife", [None, 500.0], ids=["no decay", "decay"])
+def test_count_min_kernel_matches_plain_over_sizes(dev, width, depth,
+                                                   weighted, halflife):
+    """Batches of 1, 2, 64, 512 and 4,096 ids (the last two staged, the
+    rest by value), a fifth of them at and above 2**31 and some -1."""
+    from repro_torch.adaptive import CountMinSketch
+
+    rng = np.random.default_rng([width, depth, weighted])
+    kw = dict(width=width, depth=depth, topk=64, halflife=halflife)
+    plan = CountMinSketch(device="cpu", **kw)
+    steps = []
+    for m in (1, 2, 64, 512, 4096, 64, 1):
+        ids = rng.integers(0, 1000, m).astype(np.int64)
+        pick = rng.random(m) < 0.2
+        ids[pick] = rng.choice(SKETCH_BIG_IDS, int(pick.sum()))
+        ids[rng.random(m) < 0.05] = -1
+        w = rng.random(m).astype(np.float32) * 3 if weighted else None
+        steps.append(plan.prepare(ids, w))
+    _sketch_chains(dev, kw, steps)
+
+
+def test_sketch_update_is_one_launch_and_never_waits(dev):
+    """``CountMinSketch.update`` on the card: one launch an update, by value
+    or staged, and no host synchronisation (sync debug mode raises on
+    one); the state equals the same updates on the CPU."""
+    from repro_torch.adaptive import CountMinSketch
+
+    kw = dict(width=4096, depth=4, topk=64, halflife=4096.0, seed=2)
+    card, cpu = CountMinSketch(device=dev, **kw), CountMinSketch(
+        device="cpu", **kw)
+    rng = np.random.default_rng(5)
+    batches = [rng.integers(0, 500, m) for m in (1, 64, 1, 300, 1, 17)]
+    card.update(batches[0])                      # builds and loads the kernel
+    torch.cuda.synchronize()
+    before = count_min.LAUNCHES.count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for ids in batches[1:]:
+            card.update(ids)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert count_min.LAUNCHES.count == before + len(batches) - 1
+    for ids in batches:
+        cpu.update(ids)
+    assert np.array_equal(card.table.cpu().numpy().view(np.int32),
+                          cpu.table.numpy().view(np.int32))
+    for a, b in zip(card.heavy_hitters(), cpu.heavy_hitters()):
+        assert np.array_equal(a, b)
+    assert card.n_observed == cpu.n_observed
+
+
+def test_sketch_updates_from_two_streams_stay_ordered(dev):
+    """Two threads, each with another current stream, update one sketch
+    under a shared lock: the table (read on the default stream with no
+    synchronise first) equals the same updates in lock order on the CPU."""
+    import threading
+
+    from repro_torch.adaptive import CountMinSketch
+
+    kw = dict(width=1024, depth=4, topk=32, halflife=300.0, seed=4)
+    card = CountMinSketch(device=dev, **kw)
+    lock = threading.Lock()
+    order = []
+    rng = np.random.default_rng(6)
+    work = [rng.integers(0, 400, int(m)) for m in rng.integers(1, 80, 120)]
+
+    def client(part):
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            for ids in part:
+                with lock:
+                    card.update(ids)
+                    order.append(ids)
+
+    threads = [threading.Thread(target=client, args=(work[t::2],))
+               for t in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    got = card.table.cpu().numpy()
+    cpu = CountMinSketch(device="cpu", **kw)
+    for ids in order:
+        cpu.update(ids)
+    assert np.array_equal(got.view(np.int32), cpu.table.numpy().view(np.int32))
+    for a, b in zip(card.heavy_hitters(), cpu.heavy_hitters()):
+        assert np.array_equal(a, b)
 
 
 def test_two_cell_fleet_on_the_card_answers_as_its_backends(dev):
