@@ -492,7 +492,7 @@ def _kernel_name(mangled: str) -> str:
     """``l2_tile_scan<Int8Rows, float4, bounded>`` or ``hamming_count<3>``
     from a mangled kernel name (``bounded``: the instantiation for a pass
     with a bound; 3: the words a code)."""
-    if "tree_descent" in mangled:
+    if "tree_descent" in mangled or "descend_" in mangled:
         return "tree_descent"
     last = re.search(r"Lb([01])EEEv", mangled)
     suffix = ", bounded" if last and last.group(1) == "1" else ""
@@ -2647,9 +2647,9 @@ LIFE_CHUNK = 1024          # queries a call in the lifecycle's checks
 # holds none of the other patterns)
 # the hand-written kernels by the stage that launches them: their launches
 # (through ctypes, inside no aten op) are not attached to the ranges
-HAND_STAGES = (("descent", r"tree_descent"),
+HAND_STAGES = (("descent", r"tree_descent|descend_(warp|block)"),
                ("rerank", r"candidate_scan|candidate_merge"))
-STAGE_KERNELS = (("descent kernel", r"tree_descent"),
+STAGE_KERNELS = (("descent kernel", r"tree_descent|descend_(warp|block)"),
                  ("descent gathers", r"index|gather|Gather|take"),
                  ("node products", r"gemm|gemv|Gemm|xmma|cutlass|bmm|dot"),
                  ("beam sorts", r"[sS]ort|radix|Radix|topk"))
@@ -2661,6 +2661,20 @@ STAGE_KERNELS = (("descent kernel", r"tree_descent"),
 # kernel may leave the CPU's descent on no more rows than the plain card
 # path does, plus this slack (rows, and a share of the rows).
 DESCENT_SLACK = (4, 0.005)
+# the descent's and the sketch update's times in their first designs, at
+# the shapes printed beside them (PERF.md §6 rows 9-10, NVIDIA H100 80GB
+# HBM3, 700.00 W); another call, so a guide, not a paired comparison
+# (tools/kernel_ab_torch.py pairs them)
+EARLIER_US = {"forest B64 nprobe 32": 28.99, "kd top W64": 108.22,
+              "kd top W128": 319.51, "radio qlbt W4": 43.91,
+              "count_min m=1": 9.84, "count_min m=64": 19.65}
+
+
+def earlier(key: str) -> str:
+    """`` (first design N us)`` for a shape with an earlier time, else
+    nothing."""
+    us = EARLIER_US.get(key)
+    return "" if us is None else f" (first design {us} us)"
 DESCENT_NAMES = ("nodes", "steps", "internal_visits", "candidates",
                  "n_candidates")
 
@@ -2762,7 +2776,7 @@ def shape_descent(name, arrays, q, kw, roots=None, cpu_arrays=None) -> dict:
     res["library_ms"] = None
     res.update(descent_bound(res, arrays, q, kw, roots))
     log(f"[shape tree_descent {name}] R={q.shape[0]} d={q.shape[1]} "
-        f"W={kw['beam_width']} ms {res['ms']:.5f} bound "
+        f"W={kw['beam_width']} ms {res['ms']:.5f}{earlier(name)} bound "
         f"{res['bound_ms']:.5f} ({res['bound_by']}; "
         f"{res['distinct_internal_nodes']} distinct internal nodes of "
         f"{res['internal_visits']} internal visits; a row read at every "
@@ -4233,7 +4247,8 @@ def sketch_kernel(dev, est, ids_seen) -> dict:
     log(f"[sketch] count_min against its plain version on the card: the 20 "
         f"served batches (unit and weighted) and {len(SKETCH_EDGES)} edges "
         f"(m = 1, duplicates, invalid ids, ids >= 2^31, widths 1-65536, "
-        f"depth up to 8, m up to 4096): bit for bit on all {cases} chains "
+        f"depth up to 1025 about one copy block's slice, m up to 4096): "
+        f"bit for bit on all {cases} chains "
         f"(tables' int32 views, heavy hitters); max abs err {worst}")
 
     # one launch an update, no host synchronisation, on the served path
@@ -4285,7 +4300,8 @@ def sketch_kernel(dev, est, ids_seen) -> dict:
         else:
             res[key] = part
         log(f"[shape count_min m={m}] width {width} depth {depth} topk "
-            f"{topk} ms {ms:.5f} (graph replay) bound {bms:.5f} ({by}: "
+            f"{topk} ms {ms:.5f} (graph replay){earlier(f'count_min m={m}')}"
+            f" bound {bms:.5f} ({by}: "
             f"{nbytes} B, the table read and written once) plain "
             f"{pms:.4f} library none; {smi}")
     RESULTS["kernels"]["count_min"].update(res)

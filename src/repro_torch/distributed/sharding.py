@@ -59,7 +59,8 @@ from repro_torch.kernels.ref import bm25_dists_ref
 __all__ = ["ShardPlan", "SINGLE_POD_PLAN", "MULTI_POD_PLAN", "LOCAL_PLAN",
            "REDISTRIBUTES", "COLLECTIVE_BYTES", "COLLECTIVE_COUNTS",
            "MOVE_ROUTES", "exchange_groups", "move", "local_region",
-           "place_on", "whole", "local", "local_offset", "layer_of",
+           "place_on", "zeros_on", "whole", "local", "local_offset",
+           "layer_of",
            "ShardSlot", "MeshCollective",
            "sharded_brute_search", "sharded_ivf_search",
            "sharded_forest_search",
@@ -176,6 +177,15 @@ class ShardPlan:
         if self.mesh is None or isinstance(x, DTensor):
             return self.constrain(x, *dims)
         return self.place(x, self.p(*dims))
+
+    def zeros(self, shape, dtype, device, *dims):
+        """Zeros of ``shape`` placed as ``distribute`` would place them,
+        each rank allocating only its own shard (``zeros_on``).  No mesh:
+        the plain zeros."""
+        if self.mesh is None:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return zeros_on(shape, self.mesh, self.placements(*dims),
+                        dtype=dtype, device=device)
 
     def place(self, x, spec):
         """``distribute`` by a resolved spec (a parameter's)."""
@@ -626,6 +636,32 @@ class _Move(torch.autograd.Function):
         return _move(g, ctx.src), None
 
 
+class _Wrap(torch.autograd.Function):
+    """``DTensor.from_local`` of a local tensor whose gradient comes back
+    to the wrap's placements (a partial sum's gradient replicated) through
+    ``_move``, as ``_Move``'s does, and not through DTensor's own
+    backward, which reshards with torch's ``redistribute_local_tensor``."""
+
+    @staticmethod
+    def forward(ctx, loc, mesh, placements):
+        ctx.set_materialize_grads(False)
+        ctx.src = tuple(Replicate() if isinstance(q, Partial) else q
+                        for q in placements)
+        return DTensor.from_local(loc, mesh, placements, run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None:
+            return None, None, None
+        return _move(g, ctx.src).to_local(), None, None
+
+
+def _wrap(loc, mesh, placements):
+    """``loc`` as this rank's shard of a DTensor with ``placements``, its
+    gradient moved by ``_move`` (``_Wrap``)."""
+    return _Wrap.apply(loc, mesh, tuple(placements))
+
+
 def move(x, want):
     """A DTensor to the placements ``want`` (differentiable), counted in
     ``REDISTRIBUTES``; ``want`` ``None`` (``ShardPlan.layout`` with no
@@ -643,7 +679,8 @@ def local_region(mesh, fn, ins, outs):
     ``ins`` moved to its placements and handed to ``fn`` as the local
     tensor (``placements`` ``None``: a plain value, passed as is); each
     of ``fn``'s outputs wrapped with its placements from ``outs`` (one
-    placement tuple, or a list of them).  A mesh dim over which any input
+    placement tuple, or a list of them), its gradient moved back by
+    ``_move`` (``_wrap``).  A mesh dim over which any input
     is sharded is one the work is split over: an input replicated there
     gets its gradient as a partial sum, so every output must be sharded
     or a partial sum on such a dim.  Shards are even (the callers pad to
@@ -666,9 +703,8 @@ def local_region(mesh, fn, ins, outs):
         loc.append(move(x, pl).to_local(grad_placements=gpl))
     out = fn(*loc)
     if isinstance(outs, list):
-        return tuple(DTensor.from_local(o, mesh, tuple(pl), run_check=False)
-                     for o, pl in zip(out, outs))
-    return DTensor.from_local(out, mesh, tuple(outs), run_check=False)
+        return tuple(_wrap(o, mesh, pl) for o, pl in zip(out, outs))
+    return _wrap(out, mesh, outs)
 
 
 def place_on(x, mesh, placements):
@@ -684,16 +720,30 @@ def place_on(x, mesh, placements):
     return dt
 
 
+def zeros_on(shape, mesh, placements, *, dtype, device):
+    """Zeros of the whole ``shape`` as a DTensor on ``mesh``: each rank
+    allocates only its own shard, as the reference's zeros under a
+    sharding never stand whole on one device (``place_on`` of whole zeros
+    holds them whole, and cuts them, on every rank)."""
+    pl = tuple(placements)
+    shape = torch.Size(shape)
+    loc_shape, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
+    loc = torch.zeros(loc_shape, dtype=dtype, device=device)
+    return DTensor.from_local(loc, mesh, pl, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
 def layer_of(w, i: int):
     """Layer ``i`` of a stacked parameter (a DTensor's leading layer dim
-    never sharded): a view of the local shard, re-wrapped, so the
-    gradient flows back into the stack; a plain tensor's ``w[i]``."""
+    never sharded): a view of the local shard, re-wrapped by ``_wrap``,
+    so the gradient flows back into the stack through ``_move``; a plain
+    tensor's ``w[i]``."""
     if not isinstance(w, DTensor):
         return w[i]
     pl = tuple(Shard(q.dim - 1) if isinstance(q, Shard) else q
                for q in w.placements)
-    return DTensor.from_local(w.to_local()[i], w.device_mesh, pl,
-                              run_check=False)
+    return _wrap(w.to_local()[i], w.device_mesh, pl)
 
 
 def local(x):

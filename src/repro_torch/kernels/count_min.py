@@ -26,11 +26,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import LaunchCounter, ids32
 
-__all__ = ["count_min_update", "INLINE", "LAUNCHES"]
+__all__ = ["count_min_update", "scratch_words", "INLINE", "SLICE",
+           "LAUNCHES"]
 
 LAUNCHES = LaunchCounter("count_min")
 
 INLINE = 256       # ids a batch passes by value (csrc/count_min.cu: INLINE)
+SLICE = 1024       # cells a copy block decays (csrc/count_min.cu: SLICE)
 
 _fn = None
 
@@ -44,6 +46,13 @@ def _launcher():
         f.restype = ctypes.c_int
         _fn = f
     return _fn
+
+
+def scratch_words(depth: int, topk: int, m: int) -> int:
+    """Words of the kernel's scratch (``csrc/count_min.cu``:
+    ``scratch_words``): the batch's columns and folded values, then the
+    candidates, their estimates, and their columns and old cells."""
+    return 2 * depth * m + (topk + m) * (2 + 2 * depth)
 
 
 def _operand(t: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:
@@ -90,10 +99,9 @@ def count_min_update(table: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"count_min: {m} ids and {w.size} weights")
     dev = t.device
     cells = depth * width
-    # the table, the estimates, the ids, then the kernel's scratch (the
-    # columns, the candidates and their estimates), which it uses only
-    # where they do not fit in its shared memory
-    flat = torch.empty((cells + 2 * topk + depth * m + 2 * (topk + m),),
+    # the table, the estimates, the ids, then the kernel's scratch, which
+    # it uses only where it does not fit in its shared memory
+    flat = torch.empty((cells + 2 * topk + scratch_words(depth, topk, m),),
                        dtype=torch.float32, device=dev)
     new_table = flat[:cells].view(depth, width)
     hh_est = flat[cells:cells + topk]

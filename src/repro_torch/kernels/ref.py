@@ -491,9 +491,15 @@ def count_min_update_ref(table, a, b, hh_ids, ids, weights, decay: float):
     dup = torch.zeros_like(dup_sorted)
     dup[order] = dup_sorted
     est = torch.where(dup, -torch.inf, est)
-    # lax.top_k's order: largest first, ties to the lower index
-    neg, top_i = stable_topk(-est[None], hh_ids.shape[0])
-    top_est, top_i = -neg[0], top_i[0]
+    # lax.top_k's order: largest first, ties to the lower index, a NaN
+    # (from a NaN weight) above every number, as the reference ranks the
+    # NaN a NaN weight leaves: by value, then the NaNs stably first
+    nan = torch.isnan(est)
+    _, by_value = stable_topk(-torch.where(nan, 0.0, est)[None],
+                              est.shape[0])
+    order = by_value[0][torch.argsort((~nan[by_value[0]]).int(), stable=True)]
+    top_i = order[:hh_ids.shape[0]]
+    top_est = est[top_i]
     gone = torch.isneginf(top_est)
     new_ids = torch.where(gone, -1, cand[top_i]).to(torch.int32)
     new_est = torch.where(gone, 0.0, top_est)

@@ -4,11 +4,12 @@ Runs the reference's compiled ``lax.while_loop`` descent of
 ``repro/core/tree.py::tree_search`` (no Pallas kernel there: XLA's loop)
 as one launch; the kernel is ``csrc/tree_descent.cu``, whose header note
 gives the step, the per-row exit and why it equals the reference's batch
-exit, the design and the bound.  This module checks the operands,
-allocates the outputs, launches on PyTorch's current stream and counts
-launches.  CUDA tensors only; the plain version is
-``ref.tree_descent_ref`` and ``ops.tree_descent_op`` picks between them by
-device.
+exit, the selection by merge, the design (a warp a row up to
+``WARP_BEAM``, a block a row above it) and the bound.  This module
+checks the operands, allocates the outputs, launches on PyTorch's
+current stream and counts launches.  CUDA tensors only; the plain
+version is ``ref.tree_descent_ref`` and ``ops.tree_descent_op`` picks
+between them by device.
 """
 from __future__ import annotations
 
@@ -19,11 +20,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import LaunchCounter
 
-__all__ = ["tree_descent", "smem_bytes", "LAUNCHES", "MAX_SMEM"]
+__all__ = ["tree_descent", "smem_bytes", "LAUNCHES", "MAX_SMEM",
+           "WARP_BEAM"]
 
 LAUNCHES = LaunchCounter("tree_descent")
 
 MAX_SMEM = 227 * 1024      # dynamic shared memory a block on the H100
+WARP_BEAM = 32             # the widest beam that runs a warp a row
 
 _fn = None
 
@@ -40,9 +43,11 @@ def _launcher():
 
 
 def smem_bytes(d: int, w: int) -> int:
-    """Dynamic shared memory a block takes: the query (d) and the beam's
-    nodes, priorities, margins, flags and 2W candidates (8W words)."""
-    return 4 * (d + 8 * w)
+    """Dynamic shared memory a row takes: a beam up to ``WARP_BEAM`` runs
+    a warp a row, with the query (d) and 32 slots' nodes, priorities and
+    leaf flags; a wider one a block a row, with the query, the beam twice,
+    the B candidates, the A nodes and B sorted (9W words)."""
+    return 4 * (d + (96 if w <= WARP_BEAM else 9 * w))
 
 
 def _operand(t: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:

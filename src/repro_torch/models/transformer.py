@@ -896,8 +896,7 @@ def prefill(params: dict, tokens, cfg: LMConfig,
     cos, sin = _positions(s, cfg, dev)
     x = _embed(params, tokens, cfg, plan)
     roles = _cache_roles(cfg)
-    cache = {k: plan.distribute(torch.zeros(shape, dtype=dt, device=dev),
-                                *roles[k])
+    cache = {k: plan.zeros(shape, dt, dev, *roles[k])
              for k, (shape, dt) in _cache_layout(cfg, b, max_len).items()}
     names = _cache_names(cfg)
     layer = 0

@@ -265,7 +265,8 @@ def rows_union_topk(q, rows, ids, k: int):
 # stop); roots True = every other row starts at the root's right child (a
 # forest's per-row start nodes).  "dead slots": more beam slots than the
 # tree has leaves; "one leaf": the root is a leaf; "kd W=128": 2W = 256,
-# the kd top's beam at nprobe 64.
+# the kd top's beam at nprobe 64; W 32 and 33 either side of the kernel's
+# switch from a warp a row to a block a row.
 DESCENT_EDGES = (
     ("rp W=1", "rp", 12, 600, 16, 8, 1, None, False),
     ("rp W=6 roots", "rp", 12, 900, 16, 8, 6, None, True),
@@ -279,6 +280,9 @@ DESCENT_EDGES = (
     ("rp steps=0", "rp", 4, 200, 8, 8, 4, 0, False),
     ("one leaf", "rp", 5, 6, 8, 8, 4, None, False),
     ("B=1 W=24 d=130", "rp", 1, 1500, 130, 8, 24, None, False),
+    ("qlbt W=17 roots", "qlbt", 9, 900, 20, 4, 17, None, True),
+    ("rp W=33 roots", "rp", 9, 900, 16, 8, 33, None, True),
+    ("kd W=33 steps=5", "kd", 9, 900, 3, 4, 33, 5, False),
 )
 
 
@@ -319,6 +323,8 @@ def descent_edge_operands(case, seed: int = 0) -> dict:
 # low 32 bits as an int32 decide, ROADMAP fault 28); weighted: weights in
 # [0, 3), else unit weights.  The served sizes are 1 (a cache hit) and up
 # to 64 (a batch) at width 4,096, depth 4, topk 64.
+# "a slice ..." sizes the table about one copy block's slice of
+# ``count_min.SLICE`` = 1,024 cells, and two.
 SKETCH_EDGES = (
     ("m=1 x20", 4096, 4, 64, 4096.0, (1,) * 20, "zipf", False),
     ("m=1 x20 weighted", 4096, 4, 64, 4096.0, (1,) * 20, "zipf", True),
@@ -344,6 +350,12 @@ SKETCH_EDGES = (
      False),
     ("width 2", 2, 3, 8, 10.0, (9, 9), "zipf", True),
     ("width 1", 1, 2, 4, 10.0, (5, 3), "zipf", True),
+    ("a slice less a row", 2, 511, 16, 100.0, (64, 1, 300), "zipf", True),
+    ("a slice", 1024, 1, 16, 100.0, (64, 1), "zipf", True),
+    ("a slice and a row", 2, 513, 16, 100.0, (64, 1, 300), "zipf", True),
+    ("a slice and a cell", 1, 1025, 8, 100.0, (17, 1), "zipf", False),
+    ("two slices and a row", 4, 513, 16, 100.0, (64, 33), "invalid",
+     True),
 )
 SKETCH_BIG_IDS = np.array([2**31 - 1, 2**31, 2**31 + 5, 2**32 + 3, 2**33,
                            2**32 - 1, -2**32 + 5, 2**31 + 5], np.int64)

@@ -31,7 +31,7 @@ from typing import Callable
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.distributed.sharding import move, place_on
+from repro_torch.distributed.sharding import move, zeros_on
 from repro_torch.train.tree import leaves, map_trees
 
 __all__ = ["Optimizer", "sgd", "adamw", "adafactor", "state_specs",
@@ -88,9 +88,8 @@ def _zeros(p, drop=None) -> torch.Tensor:
         if isinstance(q, Shard) and drop is not None and q.dim >= drop:
             q = Replicate() if q.dim == drop else Shard(q.dim - 1)
         pl.append(q)
-    return place_on(torch.zeros(shape, dtype=torch.float32,
-                                device=p.to_local().device),
-                    p.device_mesh, pl)
+    return zeros_on(shape, p.device_mesh, pl, dtype=torch.float32,
+                    device=p.to_local().device)
 
 
 def _step_f32(step) -> torch.Tensor:

@@ -10,9 +10,13 @@
   weighted and not, widths 1 to 65,536, depth up to 8, batches up to
   4,096;
 * a numpy model of the kernel's algorithm (``csrc/count_min.cu``: the
-  decay, the hash of the ids' low 32 bits, each cell's adds folded by the
-  thread of its first occurrence, the repeats masked, the stable rank
-  selection) equals the plain version bit for bit on the same cases;
+  copy blocks' decayed slices skipping the batch's cells, block 0's adds
+  folded from the old table by the item of each column's first
+  occurrence, the estimates read from its own writes or the old table
+  decayed, the repeats masked, the stable rank selection) equals the
+  plain version bit for bit on the same cases, and the reference's
+  ``_update`` on batches with repeats, candidates on touched cells,
+  invalid ids, NaN weights and batches above ``INLINE``;
 * ids at and above 2**31 follow the reference's 32-bit rule through
   ``CountMinSketch`` (ROADMAP fault 28);
 * the op's ``meta`` branch gives the shapes, and on the CPU it runs the
@@ -52,13 +56,20 @@ def _state(sk: CountMinSketch):
 
 
 def _kernel_model(table, a, b, hh_ids, ids, weights, decay):
-    """``csrc/count_min.cu``'s four phases in numpy float32, in the order
-    its threads do them."""
+    """``csrc/count_min.cu``'s two roles in numpy float32, in the order
+    their threads do them: the copy blocks decay every cell the batch does
+    not touch, a slice of ``count_min.SLICE`` cells each; block 0 folds the
+    touched cells from the old table and estimates the candidates from its
+    own writes (a touched cell) or the old table decayed (any other).
+    Every cell is written once, and the old table never."""
     depth, width = table.shape
     log2w = width.bit_length() - 1
     x = ids32(ids)
     w = np.asarray(weights, np.float32)
+    m = x.size
     a64, b64 = a.astype(np.uint64), b.astype(np.uint64)
+    old = table.copy()
+    dec = np.float32(decay)
 
     def cols_of(v):                       # (depth, n) columns of int32 v
         h = (a64[:, None] * (v.astype(np.int64) & 0xFFFFFFFF).astype(
@@ -67,31 +78,59 @@ def _kernel_model(table, a, b, hh_ids, ids, weights, decay):
             return np.zeros(h.shape, np.int64)
         return (h >> np.uint64(32 - log2w)).astype(np.int64)
 
-    # phase 1: the decayed table and the batch's columns
-    new = table * np.float32(decay)
     cols = cols_of(np.where(x >= 0, x, 0))
     wv = np.where(x >= 0, w, np.float32(0.0))
-    # phase 2: the thread of a column's first occurrence folds its adds
+    new = np.full(depth * width, np.nan, np.float32)
+    writes = np.zeros(depth * width, np.int64)
+    flat = old.reshape(-1)
+    # blocks 1..G: a slice each, the batch's cells skipped
+    touched = np.zeros(depth * width, bool)
+    touched[(np.arange(depth)[:, None] * width + cols).reshape(-1)] = True
+    for lo in range(0, depth * width, count_min.SLICE):
+        sl = slice(lo, min(lo + count_min.SLICE, depth * width))
+        keep = np.flatnonzero(~touched[sl]) + lo
+        new[keep] = flat[keep] * dec
+        writes[keep] += 1
+    # block 0: an item of a column's first occurrence folds its adds from
+    # the old table, in batch order
+    val = np.full((depth, m), np.nan, np.float32)
     for r in range(depth):
         cr = cols[r]
-        _, first = np.unique(cr, return_index=True)
-        for j in first:
-            acc = new[r, cr[j]]
+        for j in range(m):
+            if (cr[:j] == cr[j]).any():
+                continue
+            acc = np.float32(old[r, cr[j]] * dec)
             for j2 in np.flatnonzero(cr[j:] == cr[j]) + j:
                 acc = np.float32(acc + wv[j2])
-            new[r, cr[j]] = acc
-    # phase 3: the candidates' estimates, repeats after the first masked
+            new[r * width + cr[j]] = acc
+            writes[r * width + cr[j]] += 1
+            val[r, j] = acc
+    assert (writes == 1).all(), "every cell written once"
+    assert np.array_equal(old.view(np.int32), table.view(np.int32))
+    # the candidates: a touched cell's value from block 0's own fold (the
+    # row's first item with that column), else the old cell decayed;
+    # repeats after the first masked; NaN propagates, as amin
     cand = np.concatenate([hh_ids, x])
     C = cand.size
     est = np.full(C, -np.inf, np.float32)
     ccols = cols_of(np.where(cand >= 0, cand, 0))
     for c in range(C):
-        if cand[c] >= 0 and not (cand[:c] == cand[c]).any():
-            est[c] = new[np.arange(depth), ccols[:, c]].min()
-    # phase 4: rank = the candidates ahead in (estimate desc, index asc)
+        if cand[c] < 0 or (cand[:c] == cand[c]).any():
+            continue
+        e = np.float32(-np.inf)
+        for r in range(depth):
+            f = np.flatnonzero(cols[r] == ccols[r, c])
+            v = val[r, f[0]] if f.size else np.float32(old[r, ccols[r, c]]
+                                                       * dec)
+            e = v if (r == 0 or v < e or v != v) and e == e else e
+        est[c] = e
+    # the stable rank: the candidates ahead in (estimate desc, index asc),
+    # a NaN above every number
     j = np.arange(C)
-    ahead = (est[None, :] > est[:, None]) | (
-        (est[None, :] == est[:, None]) & (j[None, :] < j[:, None]))
+    nc, nj = np.isnan(est)[:, None], np.isnan(est)[None, :]
+    earlier = j[None, :] < j[:, None]
+    ahead = np.where(nc, nj & earlier, nj | (est[None, :] > est[:, None]) | (
+        (est[None, :] == est[:, None]) & earlier))
     rank = ahead.sum(axis=1)
     assert np.unique(rank).size == C, "the ranks are a permutation"
     topk = hh_ids.size
@@ -101,7 +140,80 @@ def _kernel_model(table, a, b, hh_ids, ids, weights, decay):
         gone = est[c] == -np.inf
         out_ids[rank[c]] = -1 if gone else cand[c]
         out_est[rank[c]] = 0.0 if gone else est[c]
-    return new, out_ids, out_est
+    return new.reshape(depth, width), out_ids, out_est
+
+
+# (name, width, depth, topk, ids, sizes): a sketch's batches for the split
+# model against the reference: ids "zipf" over 30 values (repeats in every
+# batch, and at width 16 heavy hitters whose cells the batch touches
+# without holding their id), "invalid" (a third -1 or another negative),
+# "nan" (two NaN weights a batch), "staged" (batches above INLINE).
+SPLIT_CASES = (
+    ("repeats, candidates on touched cells", 16, 3, 8, "zipf", (40, 9, 40)),
+    ("invalid ids", 64, 4, 8, "invalid", (50, 1, 33)),
+    ("nan weights", 32, 4, 8, "nan", (20, 5, 20)),
+    ("above INLINE", 128, 4, 16, "zipf", (300, 1, 257)),
+)
+
+
+def _split_batches(case):
+    _, width, depth, topk, kind, sizes = case
+    rng = np.random.default_rng([width, depth, topk, len(sizes)])
+    out = []
+    for m in sizes:
+        ids = rng.zipf(1.3, m).astype(np.int64) % 30
+        w = (rng.random(m) * 3).astype(np.float32)
+        if kind == "invalid":
+            dead = rng.random(m) < 1 / 3
+            ids[dead] = np.where(rng.random(int(dead.sum())) < 0.5, -1,
+                                 -ids[dead] - 2)
+        if kind == "nan":
+            w[rng.choice(m, min(m, 2), replace=False)] = np.nan
+        out.append((ids, w))
+    return out
+
+
+def _bits_or_nan(mine, theirs):
+    """Bit for bit, a NaN by being NaN (its payload is the platform's)."""
+    mine, theirs = np.asarray(mine), np.asarray(theirs)
+    if theirs.dtype != np.float32:
+        return _bits(mine, theirs)
+    nan = np.isnan(theirs)
+    assert np.array_equal(np.isnan(mine), nan)
+    _bits(np.where(nan, 0, mine).astype(np.float32),
+          np.where(nan, 0, theirs).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+def test_split_model_equals_the_reference_update(reference, case):
+    """The kernel's split (touched cells folded from the old table by one
+    block, the rest decay-copied by the others), modelled in numpy, and
+    the op's plain version, against the reference's ``_update`` from the
+    same state, batch after batch: table, ids and estimates bit for bit
+    (NaN cells by their NaN; a NaN estimate ranks above every number, as
+    the reference's ``lax.top_k`` ranks the NaN a NaN weight leaves)."""
+    import jax.numpy as jnp
+
+    _, width, depth, topk, _, _ = case
+    ref = reference.sketch.CountMinSketch(width=width, depth=depth,
+                                          topk=topk, halflife=40.0, seed=3)
+    a = np.asarray(ref._a).astype(np.int64)
+    b = np.asarray(ref._b).astype(np.int64)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    rt, rh, re_ = ref.table, ref.hh_ids, ref.hh_est
+    mt, mh = np.asarray(rt).copy(), np.asarray(rh).copy()
+    pt, ph = torch.from_numpy(mt.copy()), torch.from_numpy(mh.copy())
+    for ids, w in _split_batches(case):
+        decay = float(np.float32(0.5 ** (ids.size / 40.0)))
+        mt, mh, me = _kernel_model(mt, a, b, mh, ids, w, decay)
+        pt, ph, pe = ops.count_min_update_op(pt, ta, tb, ph, ids, w, decay)
+        rt, rh, re_ = reference.sketch._update(
+            rt, ref._a, ref._b, rh, jnp.asarray(ids32(ids)), jnp.asarray(w),
+            jnp.float32(decay))
+        for mine, plain, theirs in ((mt, pt, rt), (mh, ph, rh),
+                                    (me, pe, re_)):
+            _bits_or_nan(mine, theirs)
+            _bits_or_nan(plain.numpy(), theirs)
 
 
 @pytest.mark.parametrize("case", SKETCH_EDGES, ids=IDS)

@@ -7,8 +7,9 @@ threshold edge, the probe chain's two
 row sources against each other and against the chain of single steps,
 the tile read by row id against its plain version and the gathered
 tile, the tree descent against its plain version on every edge of
-``testing.DESCENT_EDGES`` (equal nodes, steps, visits and leaf
-candidates) and through ``tree_search``, one small IVF serve, one small forest serve (fused against
+``testing.DESCENT_EDGES`` and either side of the warp path's widest beam
+(equal nodes, steps, visits and leaf candidates) and through
+``tree_search``, one small IVF serve, one small forest serve (fused against
 unfused), the in-place delta applies of every kind,
 one small filtered / lexical / hybrid / int8 serve and one small run of
 the index layer (PQ top level, one-level LSH) through the kernels, and
@@ -16,12 +17,13 @@ the sharded backends over a world-size-1 NCCL mesh and over four gloo
 ranks sharing the card (against the backends without a mesh and the
 single-process shard loop, bit for bit), the count-min sketch on the card
 against the CPU's (bit for bit, weighted too), its update kernel against
-its plain version on the card (every ``testing.SKETCH_EDGES`` case, and
+its plain version on the card (every ``testing.SKETCH_EDGES`` case,
 widths 512 / 4,096 / 65,536 at depth 4 and 8 over batches of 1 to 4,096
-ids, bit for bit), one launch an update with no host synchronisation, and
-updates from two threads on two streams in lock order, and a two-cell fleet on
-``cuda:0`` whose routed answers equal its backends' before and after a
-fan-out; the recompile gate over the seven registered entry points on
+ids, and tables about one copy block's slice, bit for bit), one launch
+an update with no host synchronisation, and updates from two threads
+on two streams in lock order, and a two-cell fleet on ``cuda:0`` whose
+routed answers equal its backends' before and after a fan-out; the
+recompile gate over the seven registered entry points on
 the card, and ``roofline_report`` after a served batch; the language
 models, and the recsys archs and SchNet at ``reduced()`` card against
 CPU (SchNet's bf16 scatter-add within its bound), with SASRec's items
@@ -1167,6 +1169,49 @@ def test_count_min_kernel_matches_plain_over_sizes(dev, width, depth,
         w = rng.random(m).astype(np.float32) * 3 if weighted else None
         steps.append(plan.prepare(ids, w))
     _sketch_chains(dev, kw, steps)
+
+
+@pytest.mark.parametrize("width,depth", [(1, 1023), (1, 1025), (2, 511),
+                                         (2, 512), (2, 513), (4, 513),
+                                         (1024, 1), (8, 8)])
+def test_count_min_copy_blocks_at_slice_edges(dev, width, depth):
+    """Tables of one copy block's slice (``count_min.SLICE`` = 1,024
+    cells) less and more a cell or a row, two slices and one, and less
+    than one: batches of 1, 64 (by value) and 300 (staged), some ids
+    invalid, bit for bit with the plain version, one launch each."""
+    from repro_torch.adaptive import CountMinSketch
+
+    assert count_min.SLICE == 1024
+    rng = np.random.default_rng([width, depth])
+    kw = dict(width=width, depth=depth, topk=16, halflife=100.0)
+    plan = CountMinSketch(device="cpu", **kw)
+    steps = []
+    for m in (1, 64, 300, 1):
+        ids = rng.integers(0, 200, m).astype(np.int64)
+        ids[rng.random(m) < 0.1] = -1
+        steps.append(plan.prepare(ids, rng.random(m).astype(np.float32)))
+    _sketch_chains(dev, kw, steps)
+
+
+@pytest.mark.parametrize("kind", ["rp", "kd"])
+@pytest.mark.parametrize("W", [31, 32, 33])
+def test_tree_descent_either_side_of_the_warp_path(dev, kind, W):
+    """Beams of 31 and 32 (a warp a row, several rows a block, the last
+    block part full) and 33 (a block a row) on 37 rows at d 128 for
+    ``rp``, equal to the plain batch loop."""
+    tree = "kd" if kind == "kd" else "rp"
+    o = descent_edge_operands((f"{tree} W={W}", tree, 37, 3000,
+                               128 if kind == "rp" else 4, 8, W, None, True))
+    arrays = o["tree"].device_arrays(dev)
+    q = torch.as_tensor(o["q"], device=dev)
+    roots = torch.as_tensor(o["roots"], device=dev)
+    before = tree_descent.LAUNCHES.count
+    got = tree_descent.tree_descent(arrays, q, roots=roots, **o["kw"])
+    assert tree_descent.LAUNCHES.count == before + 1
+    want = ref.tree_descent_ref(arrays, q, roots=roots, **o["kw"])
+    for name, a, b in zip(("nodes", "steps", "visits", "cand", "n_cand"),
+                          got, want):
+        assert torch.equal(a, b), name
 
 
 def test_sketch_update_is_one_launch_and_never_waits(dev):

@@ -533,6 +533,69 @@ def _optimizer_cases(plan) -> dict:
     return out
 
 
+def _grad_moves_case(plan) -> dict:
+    """qwen3's train-cell step (the inputs of ``_run_cases``) twice under
+    ``plan``: with the port's wraps (``sharding._wrap``) and with
+    ``DTensor.from_local`` in their place, as before ROADMAP fault 29 was
+    closed.  Each run counts the calls into torch's
+    ``redistribute_local_tensor`` and the collectives ``sharding``
+    counted, and keeps the updated parameters whole."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _api, _dispatch, _redistribute
+
+    from repro_torch.models import transformer as PT
+    from repro_torch.train.loop import TrainState
+
+    cell = _port_cells(plan)["qwen3"]["train"]
+    real = _redistribute.redistribute_local_tensor
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    def old_wrap(loc, mesh, placements):
+        return DTensor.from_local(loc, mesh, tuple(placements),
+                                  run_check=False)
+
+    mods = (_api, _dispatch, _redistribute)
+    counters = (sharding.REDISTRIBUTES, sharding.COLLECTIVE_BYTES,
+                sharding.COLLECTIVE_COUNTS, sharding.MOVE_ROUTES)
+    out = {}
+    PT.set_precision(torch.float32, torch.float32)
+    try:
+        for mod in mods:
+            mod.redistribute_local_tensor = counted
+        for name, wrap in (("before", old_wrap), ("after", sharding._wrap)):
+            st, batch = lm_train_inputs(cell, cell.cfg.vocab)
+            state = cell.place((TrainState(
+                step=torch.tensor(int(st["step"]), dtype=torch.int32),
+                params=_tensors(st["params"]),
+                opt_state=_tensors(st["opt_state"]), ef_buf=None),),
+                "cpu")[0]
+            bt = cell.place((None, batch), "cpu")[1]
+            calls.clear()
+            for c in counters:
+                c.clear()
+            saved, sharding._wrap = sharding._wrap, wrap
+            try:
+                new, _ = cell.step_fn(state, bt)
+            finally:
+                sharding._wrap = saved
+            out[name] = {"redistribute_calls": len(calls),
+                         "bytes": dict(sharding.COLLECTIVE_BYTES),
+                         "counts": dict(sharding.COLLECTIVE_COUNTS),
+                         "routes": dict(sharding.MOVE_ROUTES),
+                         "params": _whole(new.params)}
+    finally:
+        for mod in mods:
+            mod.redistribute_local_tensor = real
+        PT.set_precision()
+        for c in counters:
+            c.clear()
+    return out
+
+
 def _tensors(tree):
     """numpy (bf16 ``ml_dtypes`` too) -> torch, the structure kept."""
     from repro_torch.convert import _leaf_tensor
@@ -563,7 +626,8 @@ def _rank_main(rank: int, world: int, workdir: str) -> None:
         out = {"sharded": _run_cases(plan, "cpu",
                                      os.path.join(workdir, "ckpt")),
                "moves": dict(sharding.REDISTRIBUTES),
-               "optim": _optimizer_cases(plan)}
+               "optim": _optimizer_cases(plan),
+               "grad_moves": _grad_moves_case(plan)}
         if rank == 0:
             out["one_card"] = _run_cases(sharding.LOCAL_PLAN, "cpu")
             out["optim_one_card"] = _optimizer_cases(sharding.LOCAL_PLAN)
@@ -1017,6 +1081,46 @@ def _f32_tree(tree):
     if isinstance(tree, dict):
         return {k: _f32_tree(v) for k, v in tree.items()}
     return _f32(tree)
+
+
+def test_gradients_move_through_the_ports_collectives(runs):
+    """ROADMAP fault 29: qwen3's train-cell step on the four ranks makes no
+    call into torch's ``redistribute_local_tensor`` (``DTensor.from_local``
+    in the wraps' place makes some), and the collectives those calls made
+    are now counted: each stacked norm weight's gradient a layer, from
+    ``(Partial, Partial)`` to replicated by an all-reduce over each mesh
+    dim, and the final norm's output gradient, the rank's batch shard
+    from ``(Shard(0), Partial)`` by one all-reduce over ``model``
+    (``COLLECTIVE_BYTES`` counts an all-reduce twice its value).  Every
+    other collective is as it was, the update bit for bit the same and
+    within the one-card step's bounds."""
+    from repro_torch.configs.base import ShapeSpec
+
+    g = runs["ranks"][0]["grad_moves"]
+    before, after = g["before"], g["after"]
+    assert before["redistribute_calls"] > 0
+    assert after["redistribute_calls"] == 0
+    params = runs["ranks"][0]["one_card"]["qwen3"]["train"]["params"]
+    stacked = [v.shape for k, v in params["dense_layers"].items()
+               if k in NORMS]
+    d = params["final_norm"].shape[0]
+    dims = lm_shapes(ShapeSpec)["train"].dims
+    rows = dims["batch"] // 2                      # the data dim's shard
+    n_all_reduce = sum(2 * L for L, _ in stacked) + 1
+    all_reduce_bytes = (sum(2 * L * 2 * 4 * n for L, n in stacked)
+                        + 2 * 4 * rows * dims["seq"] * d)
+    added = {k: after["counts"].get(k, 0) - before["counts"].get(k, 0)
+             for k in set(after["counts"]) | set(before["counts"])}
+    assert added == {"all_gather": 0, "reduce_scatter": 0,
+                     "all_reduce": n_all_reduce}
+    assert (after["bytes"]["all_reduce"] - before["bytes"]["all_reduce"]
+            == all_reduce_bytes)
+    for k in ("all_gather", "reduce_scatter"):
+        assert after["bytes"][k] == before["bytes"][k]
+    assert (after["routes"]["all_reduce->all_reduce"]
+            - before["routes"]["all_reduce->all_reduce"] == n_all_reduce)
+    _bits(after["params"], before["params"])
+    _close_leaves(after["params"], params)
 
 
 def test_the_moves_include_the_expert_all_to_all(runs):

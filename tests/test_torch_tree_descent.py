@@ -17,8 +17,11 @@ Parity inputs are continuous normal data whose split margins are never
 tied to within fp32 rounding.
 
 A numpy model of the kernel's own loop (each row stopping on its own,
-the stable rank selection) must equal the plain batch loop on every
-edge: the per-row exit is the reference's global one.
+the selection by merge) must equal the plain batch loop on every edge:
+the per-row exit is the reference's global one.  The merge itself (B
+sorted in chunks of 32, each rank a binary search in the other sorted
+lists) equals the full stable rank on random beams with ties and -inf
+slots, at beams of 1 to 128.
 """
 from __future__ import annotations
 
@@ -79,11 +82,56 @@ def test_descent_matches_reference(reference, case, rerank):
         assert (d == 0).all() and (dref == 0).all()
 
 
+def _above(e, x, ge):
+    """The kernel's binary search: how many of the descending ``e`` are
+    above ``x`` (or at or above it, ``ge``)."""
+    lo, hi = 0, len(e)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if (e[mid] >= x) if ge else (e[mid] > x):
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _merge_ranks(pa, pb):
+    """The kernel's selection by merge: the ranks of A (``pa``, the beam's
+    priorities, descending) and of B (``pb``, by column) in the stable
+    order of [A, B].  B is sorted in chunks of 32 (one chunk a warp, the
+    whole of B on the warp path) by (priority desc, column asc); A_w's
+    rank is w plus the B above it; a B's rank is its place in its chunk,
+    plus the A at or above it, plus the other chunks' B ahead of it (at
+    or above it in a chunk of lower columns, above it in a higher)."""
+    W = pa.size
+    chunks = []
+    for lo in range(0, W, 32):
+        idx = np.arange(lo, min(W, lo + 32))
+        chunks.append(idx[np.lexsort((idx, -pb[idx]))])
+    ra = np.array([w + sum(_above(pb[ch], pa[w], False) for ch in chunks)
+                   for w in range(W)], np.int64)
+    rb = np.empty(W, np.int64)
+    for c, ch in enumerate(chunks):
+        for j, v in enumerate(ch):
+            rb[v] = j + _above(pa, pb[v], True) + sum(
+                _above(pb[o], pb[v], c2 < c)
+                for c2, o in enumerate(chunks) if c2 != c)
+    return ra, rb
+
+
+def _full_ranks(p):
+    """The full stable rank over all candidates (priority descending,
+    column ascending)."""
+    j = np.arange(p.size)
+    return ((p[None, :] > p[:, None])
+            | ((p[None, :] == p[:, None]) & (j[None, :] < j[:, None]))
+            ).sum(1)
+
+
 def _kernel_model(t, q, roots, kind, beam_width, max_steps):
     """The kernel's loop in numpy, row by row: each row stops when none of
     its live slots is internal or its steps reach ``max_steps``; the top
-    W of the 2W candidates by a stable rank (priority descending, column
-    ascending)."""
+    W of the 2W candidates by the merge selection (``_merge_ranks``)."""
     R, W = q.shape[0], beam_width
     ch = t.children
     out_nodes = np.full((R, W), -1, np.int32)
@@ -111,10 +159,8 @@ def _kernel_model(t, q, roots, kind, beam_width, max_steps):
                              else (ch[n, 1], ch[n, 0]))
                 cn[w], cn[W + w] = near, far
                 cp[W + w] = np.float32(prio[w] - np.float32(abs(al)))
-            j = np.arange(2 * W)
-            rank = ((cp[None, :] > cp[:, None])
-                    | ((cp[None, :] == cp[:, None]) & (j[None, :] < j[:, None]))
-                    ).sum(1)
+            assert (cp[:W - 1] >= cp[1:W]).all(), "A is in rank order"
+            rank = np.concatenate(_merge_ranks(cp[:W], cp[W:]))
             keep = rank < W
             nodes[rank[keep]] = np.where(cp[keep] == -np.inf, -1, cn[keep])
             prio[rank[keep]] = cp[keep]
@@ -122,6 +168,34 @@ def _kernel_model(t, q, roots, kind, beam_width, max_steps):
             visits[r] += int(act.sum())
         out_nodes[r] = nodes
     return out_nodes, steps, visits
+
+
+def _beam_priorities(rng, W: int, levels):
+    """A beam's priorities in rank order (descending, dead slots -inf at
+    the end) and W slot-B priorities, both drawn from a few ``levels`` so
+    that ties within B and between A and B are common, some B -inf."""
+    live = int(rng.integers(0, W + 1))
+    pa = np.full(W, -np.inf, np.float32)
+    pa[:live] = np.sort(rng.choice(levels, live))[::-1]
+    pb = rng.choice(levels, W).astype(np.float32)
+    pb[rng.random(W) < 0.3] = -np.inf
+    return pa, pb
+
+
+@pytest.mark.parametrize("W", [1, 3, 8, 17, 32, 33, 64, 128])
+def test_merge_selection_is_the_full_stable_rank(W):
+    """The merge's ranks equal the full stable rank over [A, B] on random
+    beams with ties (within B, between A and B), -inf slots and empty
+    beams: the same permutation, so the same new beam."""
+    rng = np.random.default_rng(W)
+    for trial in range(60):
+        levels = np.float32([0.0, -0.5, -1.0, -1.5, -2.25, -np.inf])[
+            :int(rng.integers(1, 7))]
+        pa, pb = _beam_priorities(rng, W, levels)
+        ra, rb = _merge_ranks(pa, pb)
+        want = _full_ranks(np.concatenate([pa, pb]))
+        assert np.array_equal(np.concatenate([ra, rb]), want), (trial, pa,
+                                                                pb)
 
 
 @pytest.mark.parametrize("case", DESCENT_EDGES, ids=IDS)

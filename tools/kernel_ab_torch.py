@@ -1,0 +1,199 @@
+"""The tree descent and the sketch update kernels against a baseline's
+sources, timed in turns on one card.
+
+    python tools/kernel_ab_torch.py --baseline DIR [--out FILE]
+
+``DIR`` holds a ``tree_descent.cu`` and a ``count_min.cu`` whose
+``extern "C"`` launchers have the current ones' signatures (an earlier
+commit's ``src/repro_torch/kernels/csrc/``, e.g. by ``git show``).  Both
+are built with the port's nvcc flags; the wrappers
+(``tree_descent.tree_descent``, ``count_min.count_min_update``) call one
+build or the other, so each call does the same host work.  Each shape is
+timed by CUDA graph replay (the smoke's ``time_graph_ms``) in the order
+baseline, current, current, baseline, and the two builds' outputs must be
+equal.  Shapes, made from seed 0 (synthetic, near the smoke's main paths):
+
+* ``descent forest``: 2,048 rows (64 queries x 32 probes), W 8, d 128,
+  each row from an internal node six levels above the leaves of an rp
+  tree over 131,072 points with leaves of 8 (a bucket's tree);
+* ``descent kd W64`` / ``W128``: 1,024 rows over a kd tree of 8,192
+  centroids, d 128, leaves of 4 (the two-level index's kd top);
+* ``descent qlbt W4``: 2,000 rows, d 256, a QLBT over 10,000 points under
+  a skewed likelihood (the radio-station corpus);
+* ``count_min m1`` / ``m64``: width 4,096, depth 4, topk 64 after 200
+  served batches.
+
+Prints one JSON line with the card's name and power limit (and writes it
+to ``--out``).
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.adaptive import CountMinSketch  # noqa: E402
+from repro_torch.core.tree import (build_kd_tree, build_qlbt,  # noqa: E402
+                                   build_rp_tree)
+from repro_torch.kernels import _build, count_min, tree_descent  # noqa: E402
+
+GRAPH_ITERS = 20
+
+
+def build(src: Path, names, out_dir: Path) -> dict:
+    """``src``'s ``<name>.cu`` files built in parallel, loaded."""
+    procs = {n: subprocess.Popen(
+        [_build._nvcc(), *_build.FLAGS, "-o", str(out_dir / f"{n}.so"),
+         str(src / f"{n}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for n in names}
+    for n, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {src / n}.cu:\n{log}")
+    return {n: ctypes.CDLL(str(out_dir / f"{n}.so")) for n in names}
+
+
+def graph_ms(fn) -> float:
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_ITERS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / GRAPH_ITERS
+
+
+def node_depths(children: np.ndarray) -> np.ndarray:
+    depth = np.full(children.shape[0], -1, np.int64)
+    depth[0], level, frontier = 0, 0, np.array([0])
+    while frontier.size:
+        kids = children[frontier].reshape(-1)
+        kids = kids[kids >= 0]
+        level += 1
+        depth[kids] = level
+        frontier = kids
+    return depth
+
+
+def descent_shapes(dev, rng) -> dict:
+    out = {}
+    db = rng.normal(size=(131072, 128)).astype(np.float32)
+    t = build_rp_tree(db, leaf_size=8, n_candidates=4, seed=1)
+    depth = node_depths(t.children)
+    internal = np.flatnonzero((t.children[:, 0] >= 0)
+                              & (depth == t.max_depth - 6))
+    roots = rng.choice(internal, 2048).astype(np.int32)
+    q = db[rng.integers(0, db.shape[0], 2048)] + 0.1 * rng.normal(
+        size=(2048, 128))
+    out["descent forest"] = (t, q, roots, 8)
+    cents = rng.normal(size=(8192, 128)).astype(np.float32)
+    kd = build_kd_tree(cents, leaf_size=4)
+    qk = cents[rng.integers(0, 8192, 1024)] + 0.1 * rng.normal(
+        size=(1024, 128))
+    out["descent kd W64"] = (kd, qk, None, 64)
+    out["descent kd W128"] = (kd, qk, None, 128)
+    radio = rng.normal(size=(10000, 256)).astype(np.float32)
+    ql = build_qlbt(radio, rng.beta(0.3, 8.0, size=10000), leaf_size=8,
+                    n_candidates=4, seed=1)
+    qr = radio[rng.integers(0, 10000, 2000)] + 0.1 * rng.normal(
+        size=(2000, 256))
+    out["descent qlbt W4"] = (ql, qr, None, 4)
+    return {k: (t.device_arrays(dev), torch.as_tensor(
+        q, dtype=torch.float32, device=dev),
+        None if r is None else torch.as_tensor(r, device=dev),
+        {"kind": t.kind, "beam_width": w, "max_steps": t.max_depth + 4})
+        for k, (t, q, r, w) in out.items()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", required=True, type=Path)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    out_dir = REPO / "build" / "kernel_ab" / args.baseline.name
+    out_dir.mkdir(parents=True, exist_ok=True)
+    mods = {"tree_descent": tree_descent, "count_min": count_min}
+    libs = build(args.baseline, list(mods), out_dir)
+    builds = {}
+    for name, mod in mods.items():
+        mod._launcher()                   # the current build, loaded
+        cur = mod._fn
+        base = getattr(libs[name], cur.__name__)
+        base.argtypes, base.restype = cur.argtypes, cur.restype
+        builds[name] = (mod, {"baseline": base, "current": cur})
+
+    def turns(name, call) -> dict:
+        mod, fns = builds[name]
+        times = {"baseline": [], "current": []}
+        res = {}
+        for which in ("baseline", "current", "current", "baseline"):
+            mod._fn = fns[which]
+            times[which].append(graph_ms(call))
+            res[which] = [t.clone() for t in call()]
+        mod._fn = fns["current"]
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(res["baseline"], res["current"]))
+        return {"baseline_us": times["baseline"],
+                "current_us": times["current"], "equal": same}
+
+    rng = np.random.default_rng(0)
+    result = {"card": smi}
+    for key, (arrays, q, roots, kw) in descent_shapes(dev, rng).items():
+        result[key] = turns("tree_descent", lambda: tree_descent.tree_descent(
+            arrays, q, roots=roots, **kw))
+        result[key]["rows"], result[key]["W"] = q.shape[0], kw["beam_width"]
+    sk = CountMinSketch(width=4096, depth=4, topk=64, halflife=4096.0,
+                        device=dev)
+    ids = rng.zipf(1.1, 200 * 64) % 100000
+    for lo in range(0, ids.size, 64):
+        sk.update(ids[lo:lo + 64])
+    with sk._on_stream():
+        table, hh = sk.snapshot(), sk._hh_ids
+    torch.cuda.current_stream().wait_stream(sk._stream)
+    for m in (1, 64):
+        st = sk.prepare(ids[:m])
+        decay = float(np.float32(st.decay))
+        result[f"count_min m{m}"] = turns(
+            "count_min", lambda: count_min.count_min_update(
+                table, sk._a, sk._b, hh, st.ids, st.weights, decay))
+    line = json.dumps(result)
+    print(line)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return 0 if all(v["equal"] for k, v in result.items()
+                    if k != "card") else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
