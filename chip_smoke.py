@@ -320,7 +320,8 @@ from repro_torch.core.lexical import (build_lexical_slabs_flat,  # noqa: E402
 from repro_torch.core.metadata import FilterSpec, MetadataTable  # noqa: E402
 from repro_torch.core.metrics import LatencyTimer, recall_at_k  # noqa: E402
 from repro_torch.core.two_level import (TwoLevelConfig,  # noqa: E402
-                                        build_forest, build_two_level)
+                                        _first_occurrences, build_forest,
+                                        build_two_level)
 from repro_torch.data.graph import (NeighborSampler,  # noqa: E402
                                     make_graph, molecule_batch, pad_edges)
 from repro_torch.data.lm import LMStream  # noqa: E402
@@ -489,9 +490,11 @@ def phase_card() -> dict:
 
 # --------------------------------------------------------------- phase 2
 def _kernel_name(mangled: str) -> str:
-    """``l2_tile_scan<Int8Rows, float4, bounded>`` or ``hamming_count<3>``
-    from a mangled kernel name (``bounded``: the instantiation for a pass
-    with a bound; 3: the words a code)."""
+    """``l2_tile_scan<Int8Rows, float4, bounded>``, ``hamming_count<3>``
+    or ``candidate_rows_cluster<staged float4>`` from a mangled kernel name
+    (``bounded``: the instantiation for a pass with a bound; 3: the words
+    a code; the rows entry's mode: rows staged in shared memory, float4 or
+    scalar loads)."""
     if "tree_descent" in mangled or "descend_" in mangled:
         return "tree_descent"
     last = re.search(r"Lb([01])EEEv", mangled)
@@ -501,6 +504,10 @@ def _kernel_name(mangled: str) -> str:
         rows, vec, _ = tile.groups()
         return (f"l2_tile_scan<{rows}, {'float4' if vec == '1' else 'scalar'}"
                 f"{suffix}>")
+    rows = re.search(r"candidate_rows_clusterILi(\d)ELb\dE", mangled)
+    if rows:
+        mode = ("staged float4", "float4", "scalar")[int(rows.group(1))]
+        return f"candidate_rows_cluster<{mode}{suffix}>"
     name = re.search(r"(bm25_topk_partial|warp_merge_partials|"
                      r"candidate_scan|candidate_merge|pq_adc_scan|"
                      r"hamming_count|hamming_offsets|hamming_emit)", mangled)
@@ -619,11 +626,11 @@ def require_bits(name, a, b) -> None:
             f"{name}: distance bits differ")
 
 
-def check_rows(name, q, rows, ids, k, plain=None) -> dict:
+def check_rows(name, q, rows, ids, k, plain=None, host=None) -> dict:
     """The tile read by row id against its plain version (or ``plain``),
-    each returned pair's distance recomputed in float64 from ``rows``, and
-    bit for bit against the tile entry on the gathered rows (the same
-    arithmetic, the same segments)."""
+    each returned pair's distance recomputed in float64 from ``rows`` (or
+    its host copy ``host``), and bit for bit against the tile entry on the
+    gathered rows (the same arithmetic)."""
     kd, ki = bucket_topk.candidate_rows_topk(q, rows, ids, k)
     live = torch.where((ids >= 0) & (ids < rows.shape[0]), ids, -1)
     require_bits(f"{name} (tile entry on the gathered rows)", (kd, ki),
@@ -634,8 +641,10 @@ def check_rows(name, q, rows, ids, k, plain=None) -> dict:
     torch.cuda.synchronize()
     scale = (_norms(q).cpu().numpy() + float(_norms(rows).max()))[:, None] \
         * np.ones((1, k))
+    if host is None:
+        host = rows.cpu().numpy()
     return compare(name, kd, ki, pd, pi, scale,
-                   vec_of=lambda b, i: rows[int(i)].cpu().numpy(), q=q)
+                   vec_of=lambda b, i: host[int(i)], q=q)
 
 
 def check_chain(name, q, probe, bids, k, db, *, bvecs=None,
@@ -813,7 +822,7 @@ def edges_rows(dev) -> int:
             plain = (rows_union_topk(q, rows, ids, k)
                      if case[-1] == "repeat" else None)
             near += check_rows(f"edge rows k={k} {case[0]}", q, rows, ids, k,
-                               plain=plain)["near_ties"]
+                               plain=plain, host=o["rows"])["near_ties"]
     return near
 
 
@@ -2146,31 +2155,50 @@ def phase_index_sift(dev, ctx) -> dict:
     out["lsh64_query_bit_flips_vs_f64"] = sign_flips(
         queries, lsh_idx.bottom_lsh.proj, qb.cpu().numpy())
 
-    reset_launches()
-    rows = {}
+    rows, by_bottom = {}, {}
     for name, idx in (("brute", base), ("lsh", lsh_idx), ("tree", tree_idx)):
+        reset_launches()
         ids, work, per_q = timed_search(idx.search, queries,
                                         nprobe=SIFT_NPROBE, beam_width=BEAM)
+        torch.cuda.synchronize()
+        by_bottom[name] = read_launches()
         rows[name] = {"recall_at_10": recall_at_k(ids, truth),
                       "per_query_ms": per_q * 1e3,
                       "work_per_query": {k: v / len(queries)
                                          for k, v in work.items()}}
         log(f"[index sift] pq top + {name} bottom, nprobe {SIFT_NPROBE} "
             f"beam {BEAM}: {rows[name]}")
-    torch.cuda.synchronize()
     out["two_level"] = rows
-    out["two_level_launches"] = read_launches()
+    out["two_level_launches"] = {n: sum(b[n] for b in by_bottom.values())
+                                 for n in by_bottom["brute"]}
+    out["two_level_launches_by_bottom"] = by_bottom
     ctx["index_tree_recall"] = rows["tree"]["recall_at_10"]
     for name, idx in (("brute", base), ("lsh", lsh_idx), ("tree", tree_idx)):
         RESULTS[f"profile_sift_pq_{name}"] = profile_window(
             f"sift pq top + {name} bottom", ctx["label"],
             lambda idx=idx: idx.search(queries, K, nprobe=SIFT_NPROBE,
                                        beam_width=BEAM), 1, len(queries))
-    log(f"[index sift] launches {out['two_level_launches']}")
+    log(f"[index sift] launches {out['two_level_launches']}; candidate_topk "
+        f"by bottom (the brute bottom's chain, the LSH and tree bottoms' "
+        f"rerank, a warm call and a timed one): "
+        f"{ {n: b['candidate_topk'] for n, b in by_bottom.items()} }")
     require(out["two_level_launches"]["pq_adc_topk"] > 0,
             "the PQ top level never launched pq_adc_topk")
     require(out["two_level_launches"]["tree_descent"] > 0,
             "the forest bottom never launched tree_descent")
+    for name in ("lsh", "tree"):
+        require(by_bottom[name]["candidate_topk"] > 0,
+                f"the {name} bottom's rerank never launched candidate_topk")
+    xn_max = float(max((c.astype(np.float64) ** 2).sum(1).max()
+                       for c in np.array_split(corpus, 16)))
+    out["rerank_vs_plain"] = {
+        name: rerank_vs_plain(
+            f"index sift pq top + {name} bottom", corpus, xn_max, queries,
+            truth,
+            lambda q, idx=idx: idx.search(q, K, nprobe=SIFT_NPROBE,
+                                          beam_width=BEAM))
+        for name, idx in (("lsh", lsh_idx), ("tree", tree_idx))}
+    out["rows_shape"] = shape_rows_index(dev, tree_idx, queries, corpus)
     out["kd_top"] = index_sift_kd(dev, ctx, tree_idx, queries, truth)
     out["k100"] = search_index_k100(index, corpus, queries, dev)
     for name, r in rows.items():
@@ -2200,6 +2228,11 @@ def phase_index_sift(dev, ctx) -> dict:
     torch.cuda.synchronize()
     out["lsh_search"] = lsh_rows
     out["lsh_launches"] = read_launches()
+    out["rerank_vs_plain"]["lsh_search"] = rerank_vs_plain(
+        f"index sift one-level lsh_search n_candidates "
+        f"{LSH_CANDIDATES[-1]}", corpus, xn_max, queries, truth,
+        lambda q: lsh_search(flat, xt, q, K,
+                             n_candidates=LSH_CANDIDATES[-1]))
     RESULTS["profile_sift_lsh_search"] = profile_window(
         f"sift lsh_search n_candidates {LSH_CANDIDATES[-1]}", ctx["label"],
         lambda: lsh_search(flat, xt, queries, K,
@@ -2207,6 +2240,8 @@ def phase_index_sift(dev, ctx) -> dict:
     log(f"[index sift] launches {out['lsh_launches']}")
     require(out["lsh_launches"]["hamming_topk"] > 0,
             "lsh_search never launched hamming_topk")
+    require(out["lsh_launches"]["candidate_topk"] > 0,
+            "lsh_search's rerank never launched candidate_topk")
     log(f"[index sift] query sign-bit flips vs float64: 64-bit bucket "
         f"codes {out['lsh64_query_bit_flips_vs_f64']}, 96-bit flat "
         f"{out['lsh96_query_bit_flips_vs_f64']}")
@@ -2271,6 +2306,46 @@ def phase_index_sift(dev, ctx) -> dict:
         f"{res['library_ms_k64']:.4f})")
     del xt
     return out
+
+
+class plain_rows_on_card:
+    """Within the block the rows-by-id op takes its plain version on the
+    card too (the gathered tile's sort, the index path before its rerank
+    had a kernel)."""
+
+    def __enter__(self):
+        self.kernel = bucket_topk.candidate_rows_topk
+        bucket_topk.candidate_rows_topk = (
+            lambda q, rows, ids, k=10: ref.candidate_rows_topk_ref(
+                q, rows, ids, k))
+
+    def __exit__(self, *exc):
+        bucket_topk.candidate_rows_topk = self.kernel
+
+
+def rerank_vs_plain(name, corpus, xn_max, queries, truth, search) -> dict:
+    """``search(queries)`` (dists, ids, ...) with the rows kernel against
+    the same search with the plain rerank on the card: ``compare`` (every
+    slot that differs a near-tie, each kernel pair recomputed in float64)
+    and recall@10 of each, within 0.005 of each other.  ``xn_max``: the
+    largest squared norm of a corpus row."""
+    kd, ki = search(queries)[:2]
+    with plain_rows_on_card():
+        pd, pi = search(queries)[:2]
+    q = torch.as_tensor(queries)
+    scale = (queries.astype(np.float64) ** 2).sum(1) + xn_max
+    res = compare(name + " rerank kernel vs plain", torch.as_tensor(kd),
+                  torch.as_tensor(ki), torch.as_tensor(pd),
+                  torch.as_tensor(pi), scale[:, None] * np.ones((1, K)),
+                  vec_of=lambda b, i: corpus[int(i)], q=q)
+    res.update(recall_at_10=recall_at_k(ki, truth),
+               plain_recall_at_10=recall_at_k(pi, truth))
+    log(f"[index sift] {name}: recall@10 {res['recall_at_10']:.4f} through "
+        f"the rows kernel, {res['plain_recall_at_10']:.4f} through the "
+        f"plain rerank")
+    require(abs(res["recall_at_10"] - res["plain_recall_at_10"]) <= 0.005,
+            f"{name}: the rows kernel moved recall@10 by more than 0.005")
+    return res
 
 
 def index_sift_kd(dev, ctx, tree_idx, queries, truth) -> dict:
@@ -2635,6 +2710,12 @@ def phase_index(dev, ctx) -> None:
         "lsh_launches"]["hamming_topk"]
     RESULTS["kernels"]["candidate_topk"]["deep_launches"] = out["deep"][
         "launches"]["candidate_topk"]
+    sift = out["sift"]
+    RESULTS["kernels"]["candidate_topk"]["rows_index"] = dict(
+        sift["rows_shape"], launches=(
+            sift["two_level_launches_by_bottom"]["lsh"]["candidate_topk"]
+            + sift["two_level_launches_by_bottom"]["tree"]["candidate_topk"]
+            + sift["lsh_launches"]["candidate_topk"]))
 
 
 # ------------------------------------------------------------ phase 10
@@ -2648,7 +2729,8 @@ LIFE_CHUNK = 1024          # queries a call in the lifecycle's checks
 # the hand-written kernels by the stage that launches them: their launches
 # (through ctypes, inside no aten op) are not attached to the ranges
 HAND_STAGES = (("descent", r"tree_descent|descend_(warp|block)"),
-               ("rerank", r"candidate_scan|candidate_merge"))
+               ("rerank", r"candidate_rows_cluster|candidate_scan|"
+                          r"candidate_merge"))
 STAGE_KERNELS = (("descent kernel", r"tree_descent|descend_(warp|block)"),
                  ("descent gathers", r"index|gather|Gather|take"),
                  ("node products", r"gemm|gemv|Gemm|xmma|cutlass|bmm|dot"),
@@ -2661,13 +2743,14 @@ STAGE_KERNELS = (("descent kernel", r"tree_descent|descend_(warp|block)"),
 # kernel may leave the CPU's descent on no more rows than the plain card
 # path does, plus this slack (rows, and a share of the rows).
 DESCENT_SLACK = (4, 0.005)
-# the descent's and the sketch update's times in their first designs, at
-# the shapes printed beside them (PERF.md §6 rows 9-10, NVIDIA H100 80GB
-# HBM3, 700.00 W); another call, so a guide, not a paired comparison
-# (tools/kernel_ab_torch.py pairs them)
+# the descent's, the sketch update's and the rows-by-id top-k's times in
+# their first designs, at the shapes printed beside them (PERF.md §6 rows
+# 8-10, NVIDIA H100 80GB HBM3, 700.00 W); another call, so a guide, not a
+# paired comparison (tools/kernel_ab_torch.py pairs them)
 EARLIER_US = {"forest B64 nprobe 32": 28.99, "kd top W64": 108.22,
               "kd top W128": 319.51, "radio qlbt W4": 43.91,
-              "count_min m=1": 9.84, "count_min m=64": 19.65}
+              "count_min m=1": 9.84, "count_min m=64": 19.65,
+              "rows-by-id": 34.35}
 
 
 def earlier(key: str) -> str:
@@ -3060,40 +3143,79 @@ def forest_stage_profile(be, q, label: str) -> dict:
     return out
 
 
-def shape_rows(dev, be, queries) -> dict:
-    """``candidate_topk``'s rows-by-id entry at the served forest's shape
-    (B 64, C = nprobe 32 x beam 8 x leaf 8 = 2,048 slot ids a query, d
-    128) on the forest backend's own rows and candidates: against its
-    plain version at k 10 and 33 / 64 / 100, timed (CUDA graph replays)
-    beside its bound, the plain version, the library yardstick (gather,
-    ``torch.baddbmm``, ``torch.topk``) and the tile entry on the gathered
-    rows with the gather timed on its own."""
-    q = torch.as_tensor(queries[:BATCH], device=dev)
-    ld, li, cand, rows = forest_local_stages(be, q)
-    want = be(queries[:BATCH])
+def kernels_a_call(fn) -> dict:
+    """The device kernels one warm call of ``fn`` runs, by name and count:
+    ``torch.profiler`` after ``LEAD_KERNELS`` no-op kernels, which take a
+    late session's lost first records and are left out; a session that
+    recorded no kernel is taken again, at most four times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    require(np.array_equal(li.cpu().numpy(), want[1])
-            and np.array_equal(ld.cpu().numpy().view(np.int32),
-                               want[0].view(np.int32)),
-            "the forest local run stage by stage differs from the backend")
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_KERNELS):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        out = {e.key[:90]: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and "spin_kernel" not in e.key}
+        if out:
+            break
+    return out
+
+
+def rows_shape(name, q, rows, cand, host, slow: bool) -> dict:
+    """``candidate_topk``'s rows-by-id entry on a path's own operands:
+    against its plain version at k 10 and 33 / 64 / 100, the kernels a
+    pass runs (one, the cluster kernel: no merge kernel), timed (CUDA
+    graph replays) beside its bound, the plain version, the library
+    yardstick (gather, ``torch.baddbmm``, ``torch.topk``) and the tile
+    entry on the gathered rows with the gather timed on its own.  With
+    ``slow`` (a tile of a GiB) the plain version, the yardstick and the
+    gather are timed by CUDA events around plain calls."""
     B, C = cand.shape
     D = rows.shape[1]
-    res = check_rows(f"shape candidate_topk rows-by-id B{B} C{C}", q, rows,
-                     cand, K)
+    res = check_rows(f"shape {name} B{B} C{C}", q, rows, cand, K, host=host)
     near = 0
     for k in LARGE_KS:
-        near += check_rows(f"shape rows-by-id k={k}", q, rows, cand,
-                           k)["near_ties"]
+        near += check_rows(f"shape {name} k={k}", q, rows, cand, k,
+                           host=host)["near_ties"]
     res["large_k_near_ties"] = near
+    ks = kernels_a_call(lambda: bucket_topk.candidate_rows_topk(
+        q, rows, cand, K))
+    res["kernels_a_pass"] = ks
+    require(list(ks.values()) == [1]
+            and "candidate_rows_cluster" in next(iter(ks)),
+            f"{name}: one pass ran {ks}, not one candidate_rows_cluster")
+    ks100 = kernels_a_call(lambda: bucket_topk.candidate_rows_topk(
+        q, rows, cand, K_LARGE))
+    res["rows_kernels_k100"] = sum(n for key, n in ks100.items()
+                                   if "candidate_rows_cluster" in key)
+    require(res["rows_kernels_k100"] == -(-K_LARGE // 32)
+            and not any("candidate_merge" in key for key in ks100),
+            f"{name}: k={K_LARGE} ran {ks100}")
+
+    def timed(fn, iters):
+        return (time_ms(fn, iters, warmup=1) if slow
+                else time_graph_ms(fn, iters))
+
     res["ms"] = time_graph_ms(
-        lambda: bucket_topk.candidate_rows_topk(q, rows, cand, K), 100)
-    res["plain_ms"] = time_graph_ms(
+        lambda: bucket_topk.candidate_rows_topk(q, rows, cand, K),
+        20 if slow else 100)
+    res["plain_ms"] = timed(
         lambda: ref.candidate_rows_topk_ref(q, rows, cand, K), 3)
     live = cand.clamp(min=0).long()
+    res["gather_ms"] = timed(lambda: rows[live], 5 if slow else 20)
     tile = rows[live].contiguous()
-    res["gather_ms"] = time_graph_ms(lambda: rows[live], 20)
     res["tile_entry_ms"] = time_graph_ms(
-        lambda: bucket_topk.candidate_topk(q, tile, cand, K), 100)
+        lambda: bucket_topk.candidate_topk(q, tile, cand, K),
+        20 if slow else 100)
+    del tile
     vn = torch.where(cand >= 0, (rows * rows).sum(1)[live], float("inf"))
     qn = (q * q).sum(1)[:, None]
 
@@ -3102,13 +3224,13 @@ def shape_rows(dev, be, queries) -> dict:
                           alpha=-2.0)[..., 0]
         return torch.topk(d, K, largest=False)
 
-    res["library_ms"] = time_graph_ms(library, 20)
+    res["library_ms"] = timed(library, 5 if slow else 20)
     res["library_call"] = ("rows[ids] gather + torch.baddbmm + torch.topk, "
                            "row norms precomputed: three calls")
     (kd, _), passes = counted("candidate_topk", lambda: (
         bucket_topk.candidate_rows_topk(q, rows, cand, K_LARGE)))
     res["k100"] = {"ms": time_graph_ms(lambda: bucket_topk.candidate_rows_topk(
-        q, rows, cand, K_LARGE), 20), "passes": passes}
+        q, rows, cand, K_LARGE), 5 if slow else 20), "passes": passes}
     pairs = int((cand >= 0).sum())
     distinct = int(torch.unique(cand[cand >= 0]).numel())
     nbytes = 4.0 * (distinct * D + B * C + B * D) + 8.0 * B * K
@@ -3116,16 +3238,53 @@ def shape_rows(dev, be, queries) -> dict:
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
     res.update(pairs=pairs, distinct_rows=distinct,
                pair_bytes_ms=4.0 * pairs * D / HBM_BYTES_PER_S * 1e3,
-               gather_bytes=4 * B * C * D, shape=[B, C, D, K])
-    log(f"[shape candidate_topk rows-by-id] B={B} C={C} d={D} pairs {pairs} "
-        f"(distinct rows {distinct}) ms {res['ms']:.5f} bound "
-        f"{res['bound_ms']:.5f} ({res['bound_by']}; pair by pair "
-        f"{res['pair_bytes_ms']:.5f}) plain {res['plain_ms']:.4f} library "
-        f"{res['library_ms']:.5f}; the gathered tile: gather "
-        f"{res['gather_ms']:.5f} ({res['gather_bytes'] / 2**20:.0f} MiB) + "
-        f"tile entry {res['tile_entry_ms']:.5f}; k=100 "
-        f"{res['k100']['passes']} passes {res['k100']['ms']:.5f}")
+               gather_bytes=4 * B * C * D, shape=[B, C, D, K],
+               cluster=bucket_topk.cluster_for(
+                   B, C, torch.cuda.get_device_properties(
+                       q.device).multi_processor_count))
+    log(f"[shape candidate_topk {name}] B={B} C={C} d={D} pairs {pairs} "
+        f"(distinct rows {distinct}) cluster {res['cluster']} ms "
+        f"{res['ms']:.5f}{earlier(name)} bound {res['bound_ms']:.5f} ({res['bound_by']}; "
+        f"pair by pair {res['pair_bytes_ms']:.5f}) plain "
+        f"{res['plain_ms']:.4f} library {res['library_ms']:.5f}; the "
+        f"gathered tile: gather {res['gather_ms']:.5f} "
+        f"({res['gather_bytes'] / 2**20:.0f} MiB) + tile entry "
+        f"{res['tile_entry_ms']:.5f}; k=100 {res['k100']['passes']} passes "
+        f"{res['k100']['ms']:.5f}; kernels a pass {ks}")
     return res
+
+
+def shape_rows(dev, be, queries) -> dict:
+    """``rows_shape`` at the served forest's shape (B 64, C = nprobe 32 x
+    beam 8 x leaf 8 = 2,048 slot ids a query, d 128) on the forest
+    backend's own rows and candidates, the local run stage by stage first
+    held to the backend's answer bit for bit."""
+    q = torch.as_tensor(queries[:BATCH], device=dev)
+    ld, li, cand, rows = forest_local_stages(be, q)
+    want = be(queries[:BATCH])
+    torch.cuda.synchronize()
+    require(np.array_equal(li.cpu().numpy(), want[1])
+            and np.array_equal(ld.cpu().numpy().view(np.int32),
+                               want[0].view(np.int32)),
+            "the forest local run stage by stage differs from the backend")
+    return rows_shape("rows-by-id", q, rows, cand, rows.cpu().numpy(),
+                      slow=False)
+
+
+def shape_rows_index(dev, tree_idx, queries, corpus) -> dict:
+    """``rows_shape`` at the index path's shape: the sift tree bottom's own
+    candidates (B 1,024, C = nprobe 32 x beam 8 x leaf 8 = 2,048 ids, d
+    128, each repeat masked as ``_rerank`` masks it) over the 1M-row
+    corpus, which the wrapper takes as it is (no copy)."""
+    t = tree_idx._tables(dev)
+    q = torch.as_tensor(queries[:INDEX_QUERIES], device=dev)
+    buckets, _ = tree_idx._top_probe(t, q, SIFT_NPROBE)
+    cand = _first_occurrences(tree_idx._forest_candidates(
+        t, q, buckets, BEAM)).to(torch.int32)
+    rows = t["db"]
+    require(bucket_topk._rows_operand(rows).data_ptr() == rows.data_ptr(),
+            "the rows entry would copy the index's table")
+    return rows_shape("rows-by-id index", q, rows, cand, corpus, slow=True)
 
 
 def phase_forest_serve(dev, ctx) -> dict:
@@ -7593,8 +7752,8 @@ def phase_cells(dev, ctx, card) -> dict:
 
 def kernel_line() -> dict:
     """Each kernel at its main path's shape (``candidate_topk``: the served
-    chain, with its one-step, DEEP-10M and served forest rows-by-id
-    numbers beside it)."""
+    chain, with its one-step, DEEP-10M, served forest rows-by-id and index
+    path rows-by-id numbers beside it)."""
     out = []
     for name, (source, replaces) in SOURCES.items():
         r = RESULTS["kernels"][name]
@@ -7620,20 +7779,22 @@ def kernel_line() -> dict:
         if "k100" in r:
             row.update(ms_k100=r["k100"]["ms"],
                        passes_k100=r["k100"]["passes"])
-        for part in ("step", "deep", "rows", "kd64", "kd128", "radio",
-                     "m64"):
+        for part in ("step", "deep", "rows", "rows_index", "kd64", "kd128",
+                     "radio", "m64"):
             if part in r:
                 row[part] = {key: r[part][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "max_abs_err")}
         if "deep" in r:
             row["deep"]["launches"] = r["deep_launches"]
-        if "rows" in r:
-            row["rows"].update(
-                launches=r["rows"]["launches"],
-                gather_ms=r["rows"]["gather_ms"],
-                tile_entry_ms=r["rows"]["tile_entry_ms"],
-                ms_k100=r["rows"]["k100"]["ms"])
+        for part in ("rows", "rows_index"):
+            if part in r:
+                row[part].update(
+                    launches=r[part]["launches"],
+                    gather_ms=r[part]["gather_ms"],
+                    tile_entry_ms=r[part]["tile_entry_ms"],
+                    ms_k100=r[part]["k100"]["ms"],
+                    kernels_a_pass=sum(r[part]["kernels_a_pass"].values()))
         out.append(row)
     return {"kernels": out}
 

@@ -17,10 +17,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.brute import batched_l2sq
 from repro_torch.device import resolve
-from repro_torch.kernels.common import popcount32, stable_topk
-from repro_torch.kernels.ops import hamming_topk_op
+from repro_torch.kernels.common import popcount32
+from repro_torch.kernels.ops import candidate_rows_topk_op, hamming_topk_op
 
 __all__ = ["LSHIndex", "lsh_build", "pack_bits", "hamming_scores",
            "lsh_search"]
@@ -97,10 +96,9 @@ def lsh_search(
     _, cand = hamming_topk_op(
         torch.as_tensor(pack_bits(qbits), device=dev),
         torch.as_tensor(index.codes, device=dev), n_candidates)
-    # exact rerank
-    qt = torch.as_tensor(q, device=dev)
-    vecs = torch.as_tensor(db, dtype=torch.float32, device=dev)[
-        cand.long()]                                      # (B, C, d)
-    d, sel = stable_topk(batched_l2sq(vecs, qt), min(k, n_candidates))
-    ids = torch.gather(cand, 1, sel)
-    return d.cpu().numpy(), ids.cpu().numpy()
+    # exact rerank, the rows read by id (no (B, C, d) gather on the card)
+    d, ids = candidate_rows_topk_op(
+        torch.as_tensor(q, device=dev),
+        torch.as_tensor(db, dtype=torch.float32, device=dev), cand, k)
+    k = min(k, n_candidates)
+    return d[:, :k].cpu().numpy(), ids[:, :k].cpu().numpy()

@@ -35,8 +35,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.brute import batched_l2sq
-from repro_torch.kernels.common import pad_sentinel, stable_topk
 from repro_torch.kernels import ops as kernel_ops
 
 __all__ = [
@@ -927,8 +925,10 @@ def tree_search(
     (forest descent in the two-level index); default is node 0.  Top-k
     selections are stable sorts, so ties go to the lower column as
     ``lax.top_k``'s do.  The descent and the leaf gather are
-    ``tree_descent_op`` (one kernel launch on the card); the rerank
-    gathers the candidates' rows and sorts their exact distances.
+    ``tree_descent_op`` (one kernel launch on the card); the rerank is
+    ``candidate_rows_topk_op`` (the candidates' rows read by id, one
+    kernel launch a pass on the card; ``k`` may exceed the candidates,
+    unfilled slots ``(inf, -1)``).
     """
     queries = queries.to(torch.float32)
     dev = queries.device
@@ -940,12 +940,7 @@ def tree_search(
         return TreeSearchResult(cand, torch.zeros(cand.shape, device=dev),
                                 steps, visits, n_cand)
 
-    vecs = db[torch.clamp(cand, min=0).long()]            # (B, C, d)
-    diff2 = torch.where(cand >= 0, batched_l2sq(vecs, queries), float("inf"))
-    # leaves partition entities, so ids are unique by construction
-    k_eff = min(k, cand.shape[1])
-    d, idx = stable_topk(diff2, k_eff)
-    ids = torch.gather(cand, 1, idx)
-    ids = torch.where(torch.isinf(d), -1, ids)
-    d, ids = pad_sentinel(d, ids, k, k_eff)
+    # leaves partition entities, so ids are unique by construction; the
+    # rows are read by id (no (B, C, d) gather on the card)
+    d, ids = kernel_ops.candidate_rows_topk_op(queries, db, cand, k)
     return TreeSearchResult(ids, d, steps, visits, n_cand)

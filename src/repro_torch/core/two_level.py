@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import tree as tree_mod
-from repro_torch.core.brute import batched_l2sq, pairwise_l2sq
+from repro_torch.core.brute import pairwise_l2sq
 from repro_torch.core.delta import DeltaLog, DeltaManifest
 from repro_torch.core.kmeans import _assign_topm, kmeans_fit
 from repro_torch.core.lsh import LSHIndex, lsh_build, pack_bits
@@ -60,6 +60,7 @@ from repro_torch.core.pq import ProductQuantizer, adc_lut, pq_train
 from repro_torch.core.tree import (FlatTree, build_kd_tree, build_qlbt,
                                    build_rp_tree)
 from repro_torch.device import require_fp32_matmul, resolve
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.common import popcount32, stable_topk
 from repro_torch.kernels.ops import bucket_probe_topk_op, pq_adc_topk_op
 from repro_torch.obs.trace import get_tracer
@@ -707,13 +708,11 @@ def _probe_scan_lsh(codes, proj, bucket_ids, buckets, q, shortlist):
     return best_i
 
 
-def _rerank(db, q, cand, k):
-    vecs = db[torch.clamp(cand, min=0).long()]
-    d2 = torch.where(cand >= 0, batched_l2sq(vecs, q), float("inf"))
-    # mask duplicate ids (the same entity can enter via two overlapping
-    # probes): stable-sort the ids, flag every repeat of its left
-    # neighbour, scatter the flags back, and penalize all but the first
-    # occurrence so one entity holds at most one top-k slot.
+def _first_occurrences(cand: torch.Tensor) -> torch.Tensor:
+    """``cand`` with every repeat of an id but its first occurrence set
+    to -1 (the same entity can enter via two overlapping probes):
+    stable-sort the ids, flag every repeat of its left neighbour and
+    scatter the flags back, so one entity holds at most one top-k slot."""
     B = cand.shape[0]
     order = torch.sort(cand, dim=1, stable=True).indices
     sorted_ids = torch.gather(cand, 1, order)
@@ -724,11 +723,18 @@ def _rerank(db, q, cand, k):
     )
     dup = torch.zeros(cand.shape, dtype=torch.bool,
                       device=cand.device).scatter(1, order, dup_sorted)
-    d2 = torch.where(dup, float("inf"), d2)
+    return torch.where(dup, -1, cand)
+
+
+def _rerank(db, q, cand, k):
+    """The exact top-``min(k, C)`` of each query's candidate ids, an id
+    counted once: the rows-by-id rerank (one kernel launch a pass on the
+    card, the rows read by id; on the CPU its plain version, the gathered
+    tile's distances sorted as the reference's ``_rerank`` sorts them)."""
+    d, ids = kernel_ops.candidate_rows_topk_op(
+        q, db, _first_occurrences(cand).to(torch.int32), k)
     k = min(k, cand.shape[1])
-    d, sel = stable_topk(d2, k)
-    ids = torch.gather(cand, 1, sel)
-    return d, torch.where(torch.isinf(d), -1, ids)
+    return d[:, :k], ids[:, :k].to(cand.dtype)
 
 
 def check_sidecars(n: int, metadata=None, lexical=None) -> None:

@@ -3,14 +3,17 @@ tile of row ids, or the whole probe chain.
 
 Replaces ``repro/kernels/bucket_topk.py::candidate_topk_pallas``; the
 kernel is ``csrc/candidate_topk.cu`` (its header note gives the design
-and the bound).  Three entries share its device code and its launch count:
+and the bound).  Three entries share its per-row arithmetic and its
+launch count:
 
 * ``candidate_topk``: each query row scores its own ``(C, D)`` candidate
   tile and merges it into an optionally carried running best (the Pallas
   kernel's contract);
 * ``candidate_rows_topk``: each query row scores its own (C,) list of
-  row ids into one ``(N, D)`` table, the rows read inside the kernel (the
-  served forest's rerank, without the ``(B, C, D)`` gather);
+  row ids into one ``(N, D)`` table, the rows read inside the kernel
+  (the served forest's rerank and the index path's, without the ``(B, C,
+  D)`` gather), one cluster of up to ``CLUSTER_MAX`` blocks a query in one
+  launch a pass, with no scratch;
 * ``bucket_probe_topk``: each query scores the slots of its probed buckets
   in one scan and one merge, the rows read inside the kernel, from
   ``bucket_vecs`` by (bucket, slot) or from ``db`` by entity id.  On
@@ -18,8 +21,8 @@ and the bound).  Three entries share its device code and its launch count:
   bit.
 
 Each checks the operands, chooses the split count, allocates the outputs
-and the per-block partial lists, launches on PyTorch's current stream and
-counts one launch of ``candidate_topk`` per pass: one a call up to
+(and the tile and chain entries their per-block partial lists), launches
+on PyTorch's current stream and counts one launch of ``candidate_topk`` per pass: one a call up to
 ``KMAX``, and ``ceil(k / KMAX)`` above it (``common.topk_passes``).  CUDA
 tensors only; the plain versions are ``ref.candidate_topk_ref`` /
 ``ref.candidate_rows_topk_ref`` / ``ref.bucket_probe_topk_ref`` and
@@ -37,13 +40,14 @@ from repro_torch.kernels.common import (KMAX, LaunchCounter, empty_result,
 from repro_torch.kernels.l2_topk import ptr
 
 __all__ = ["candidate_topk", "candidate_rows_topk", "bucket_probe_topk",
-           "splits_for", "LAUNCHES"]
+           "splits_for", "cluster_for", "LAUNCHES"]
 
 LAUNCHES = LaunchCounter("candidate_topk")
 
 MAX_D = 8192          # the query row in the scan block's shared memory
 MIN_SEGMENT = 64      # slots a tile segment holds at least
 BLOCKS_PER_SM = 4     # tile segments: enough blocks for this many a SM
+CLUSTER_MAX = 8       # the rows entry's blocks a query: the portable cluster
 
 _fns: dict = {}
 
@@ -53,7 +57,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "candidate_topk_launch": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 7 + [_P],
     "bucket_probe_topk_launch": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 7 + [_P],
-    "candidate_rows_topk_launch": [_P] * 2 + [_I] + [_P] * 7 + [_I] * 7
+    "candidate_rows_topk_launch": [_P] * 2 + [_I] + [_P] * 5 + [_I] * 6
     + [_P],
 }
 
@@ -73,6 +77,13 @@ def splits_for(b: int, c: int, sm_count: int) -> int:
     over the batch, each segment at least ``MIN_SEGMENT`` slots."""
     want = -(-BLOCKS_PER_SM * sm_count // max(b, 1))
     return max(1, min(-(-c // MIN_SEGMENT), want))
+
+
+def cluster_for(b: int, c: int, sm_count: int) -> int:
+    """The rows entry's blocks a query, one cluster: ``splits_for``'s
+    count (about ``BLOCKS_PER_SM`` blocks a SM over the batch, segments of
+    at least ``MIN_SEGMENT`` slots) held to ``CLUSTER_MAX``."""
+    return min(CLUSTER_MAX, splits_for(b, c, sm_count))
 
 
 def _check_cuda(name: str, plain: str, tensors) -> None:
@@ -192,23 +203,22 @@ def candidate_rows_topk(queries: torch.Tensor, rows: torch.Tensor,
     dev = queries.device
     if B == 0:
         return empty_result(B, k, dev)
+    if B * CLUSTER_MAX > torch.iinfo(torch.int32).max:
+        raise ValueError(f"B={B} queries exceed the grid's "
+                         f"{torch.iinfo(torch.int32).max // CLUSTER_MAX}")
     q, r, i = queries.contiguous(), _rows_operand(rows), ids.contiguous()
-    splits = splits_for(
+    splits = cluster_for(
         B, C, torch.cuda.get_device_properties(dev).multi_processor_count)
     per = -(-C // splits)
     fn = _launcher("candidate_rows_topk_launch")
 
     def run(kr, after_d, after_i):
-        kt = list_len(kr)
-        part_d = torch.empty((B, splits, kt), dtype=torch.float32, device=dev)
-        part_i = torch.empty((B, splits, kt), dtype=torch.int32, device=dev)
         out_d = torch.empty((B, kr), dtype=torch.float32, device=dev)
         out_i = torch.empty((B, kr), dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             rc = fn(q.data_ptr(), r.data_ptr(), N, i.data_ptr(),
-                    ptr(after_d), ptr(after_i), part_d.data_ptr(),
-                    part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-                    B, C, D, kr, kt, splits, per,
+                    ptr(after_d), ptr(after_i), out_d.data_ptr(),
+                    out_i.data_ptr(), B, C, D, kr, splits, per,
                     torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"candidate_rows_topk launch failed: CUDA "

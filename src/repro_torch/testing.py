@@ -210,7 +210,12 @@ def step_chain(q, probe, bucket_ids, bucket_vecs, k: int):
 # (name, B, N, d, C, k, ids) of the tile read by row id
 # (``candidate_rows_topk``): ids "dead" = about a third -1, "repeat" = the
 # second half of each query's list repeats the first, "oob" = some ids at
-# or past N (dead slots too), None = all live and distinct
+# or past N (dead slots too), "none" = every id dead (-1 or past N), None
+# = all live and distinct.  On the card a query's C slots are split over
+# a cluster of up to 8 blocks (``bucket_topk.cluster_for``: segments of at
+# least 64 slots, 8 at these B, 1 at B 1,024); a d that is a multiple of 4
+# up to 256 stages its rows through shared memory, a larger one reads
+# float4s, any other d scalars.
 ROWS_EDGES = (
     ("dead ids d=128", 5, 300, 128, 200, 10, "dead"),
     ("repeated ids d=32", 4, 100, 32, 60, 8, "repeat"),
@@ -220,6 +225,17 @@ ROWS_EDGES = (
     ("B=1 k=1", 1, 64, 16, 64, 1, None),
     ("many segments d=96", 6, 5000, 96, 2048, 32, "dead"),
     ("B=0", 0, 10, 8, 4, 3, None),
+    ("B=1 C=2048 d=128", 1, 4000, 128, 2048, 10, "dead"),
+    ("B=5 C=1000 d=64", 5, 3000, 64, 1000, 10, "dead"),
+    ("C=40 in one short segment", 3, 200, 16, 40, 10, "dead"),
+    ("C=700 in uneven segments", 4, 2000, 32, 700, 12, None),
+    ("every id dead", 3, 400, 16, 300, 10, "none"),
+    ("repeats across a cluster's blocks", 3, 2000, 32, 1024, 10, "repeat"),
+    ("d=2", 4, 500, 2, 256, 32, "dead"),
+    ("d=6", 4, 500, 6, 300, 10, "dead"),
+    ("d=256 the widest ring", 3, 600, 256, 500, 10, "dead"),
+    ("d=260 float4 loads", 3, 600, 260, 500, 10, "dead"),
+    ("B=1024 C=2048", 1024, 20000, 8, 2048, 10, "dead"),
 )
 
 
@@ -240,6 +256,9 @@ def rows_edge_operands(case, seed: int = 0) -> dict:
         ids[:, h:2 * h] = ids[:, :h]
     elif kind == "oob":
         ids[:, ::3] = n + rng.integers(0, 5, size=ids[:, ::3].shape)
+    elif kind == "none":
+        ids[:] = -1
+        ids[:, ::2] = n + rng.integers(0, 5, size=ids[:, ::2].shape)
     return {"q": q, "rows": rows, "ids": ids, "k": k}
 
 

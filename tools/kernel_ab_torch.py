@@ -1,17 +1,24 @@
-"""The tree descent and the sketch update kernels against a baseline's
-sources, timed in turns on one card.
+"""The tree descent, the sketch update and the rows-by-id top-k kernels
+against a baseline's sources, timed in turns on one card.
 
     python tools/kernel_ab_torch.py --baseline DIR [--out FILE]
 
-``DIR`` holds a ``tree_descent.cu`` and a ``count_min.cu`` whose
-``extern "C"`` launchers have the current ones' signatures (an earlier
-commit's ``src/repro_torch/kernels/csrc/``, e.g. by ``git show``).  Both
-are built with the port's nvcc flags; the wrappers
-(``tree_descent.tree_descent``, ``count_min.count_min_update``) call one
-build or the other, so each call does the same host work.  Each shape is
-timed by CUDA graph replay (the smoke's ``time_graph_ms``) in the order
-baseline, current, current, baseline, and the two builds' outputs must be
-equal.  Shapes, made from seed 0 (synthetic, near the smoke's main paths):
+``DIR`` holds any of ``tree_descent.cu``, ``count_min.cu`` and
+``candidate_topk.cu`` (an earlier commit's
+``src/repro_torch/kernels/csrc/``, e.g. by ``git show``); the shapes of
+each kernel it holds are timed.  The first two must have the current
+launchers' signatures: the wrappers (``tree_descent.tree_descent``,
+``count_min.count_min_update``) call one build or the other, so each call
+does the same host work.  ``candidate_topk.cu``'s rows entry is the
+first design's (a scan and a merge launch handing over per-block
+partial lists, allocated a pass as its wrapper did:
+``rows_first_design``); the current one is
+``bucket_topk.candidate_rows_topk``.  All are built with the port's nvcc
+flags (headers from the current ``csrc/`` where ``DIR`` has none).
+Each shape is timed by CUDA graph replay (the smoke's ``time_graph_ms``)
+in the order baseline, current, current, baseline, and the two builds'
+outputs must be equal.  Shapes, made from seed 0
+(synthetic, near the smoke's main paths):
 
 * ``descent forest``: 2,048 rows (64 queries x 32 probes), W 8, d 128,
   each row from an internal node six levels above the leaves of an rp
@@ -21,7 +28,13 @@ equal.  Shapes, made from seed 0 (synthetic, near the smoke's main paths):
 * ``descent qlbt W4``: 2,000 rows, d 256, a QLBT over 10,000 points under
   a skewed likelihood (the radio-station corpus);
 * ``count_min m1`` / ``m64``: width 4,096, depth 4, topk 64 after 200
-  served batches.
+  served batches;
+* ``rows forest`` / ``rows index`` (k 10, and k 100 in 4 passes): a
+  (1,048,576, 128) table in 8,192 buckets of 16 leaves of 8 rows; each
+  query reads 8 distinct leaves of each of 32 distinct buckets (C
+  2,048): 64 queries over 450 buckets with 38 % of slots dead (the served
+  forest's batch: about 82,000 live pairs over 35,000 distinct rows, as
+  the smoke's forest shape reads), 1,024 queries over all with 5 % dead.
 
 Prints one JSON line with the card's name and power limit (and writes it
 to ``--out``).
@@ -34,6 +47,7 @@ import json
 import os
 import subprocess
 import sys
+from functools import partial
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
@@ -45,7 +59,11 @@ import torch  # noqa: E402
 from repro_torch.adaptive import CountMinSketch  # noqa: E402
 from repro_torch.core.tree import (build_kd_tree, build_qlbt,  # noqa: E402
                                    build_rp_tree)
-from repro_torch.kernels import _build, count_min, tree_descent  # noqa: E402
+from repro_torch.kernels import (_build, bucket_topk,  # noqa: E402
+                                 count_min, tree_descent)
+from repro_torch.kernels.common import (KMAX, list_len,  # noqa: E402
+                                        topk_passes)
+from repro_torch.kernels.l2_topk import ptr  # noqa: E402
 
 GRAPH_ITERS = 20
 
@@ -53,8 +71,9 @@ GRAPH_ITERS = 20
 def build(src: Path, names, out_dir: Path) -> dict:
     """``src``'s ``<name>.cu`` files built in parallel, loaded."""
     procs = {n: subprocess.Popen(
-        [_build._nvcc(), *_build.FLAGS, "-o", str(out_dir / f"{n}.so"),
-         str(src / f"{n}.cu")], stdout=subprocess.PIPE,
+        [_build._nvcc(), *_build.FLAGS, "-I", str(_build.CSRC), "-o",
+         str(out_dir / f"{n}.so"), str(src / f"{n}.cu")],
+        stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for n in names}
     for n, p in procs.items():
         log, _ = p.communicate()
@@ -126,6 +145,55 @@ def descent_shapes(dev, rng) -> dict:
         for k, (t, q, r, w) in out.items()}
 
 
+def rows_shapes(dev, rng) -> dict:
+    """(queries, rows, ids) of the rows entry at the forest's and the
+    index path's shapes (the module docstring)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = torch.randn((8192 * 128, 128), generator=g, device=dev)
+
+    def cands(b, pool, dead):
+        probes = np.stack([rng.choice(pool, 32, replace=False)
+                           for _ in range(b)])
+        leaves = np.argsort(rng.random((b, 32, 16)), axis=2)[:, :, :8]
+        ids = (probes[:, :, None, None] * 128 + leaves[..., None] * 8
+               + np.arange(8)).reshape(b, -1).astype(np.int32)
+        ids[rng.random(ids.shape) < dead] = -1
+        q = rows[torch.as_tensor(ids[:, 0].clip(0), device=dev).long()]
+        return (q + 0.1 * torch.randn(q.shape, generator=g, device=dev),
+                rows, torch.as_tensor(ids, device=dev))
+
+    return {"rows forest": cands(64, rng.choice(8192, 450, replace=False),
+                                 0.38),
+            "rows index": cands(1024, np.arange(8192), 0.05)}
+
+
+def rows_first_design(fn, q, rows, ids, k):
+    """The first design's rows entry through its launcher ``fn``: segments by
+    ``splits_for``, a (B, splits, kt) partial a pass, passes above KMAX."""
+    B, C = ids.shape
+    dev = q.device
+    splits = bucket_topk.splits_for(
+        B, C, torch.cuda.get_device_properties(dev).multi_processor_count)
+    per = -(-C // splits)
+
+    def run(kr, after_d, after_i):
+        kt = list_len(kr)
+        part_d = torch.empty((B, splits, kt), dtype=torch.float32, device=dev)
+        part_i = torch.empty((B, splits, kt), dtype=torch.int32, device=dev)
+        out_d = torch.empty((B, kr), dtype=torch.float32, device=dev)
+        out_i = torch.empty((B, kr), dtype=torch.int32, device=dev)
+        rc = fn(q.data_ptr(), rows.data_ptr(), rows.shape[0], ids.data_ptr(),
+                ptr(after_d), ptr(after_i), part_d.data_ptr(),
+                part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), B, C,
+                q.shape[1], kr, kt, splits, per,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"baseline rows launch failed: {rc}")
+        return out_d, out_i
+
+    return topk_passes(run, B, k, KMAX, dev)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", required=True, type=Path)
@@ -140,10 +208,15 @@ def main(argv=None) -> int:
                          text=True).stdout.strip()
     out_dir = REPO / "build" / "kernel_ab" / args.baseline.name
     out_dir.mkdir(parents=True, exist_ok=True)
-    mods = {"tree_descent": tree_descent, "count_min": count_min}
+    mods = {n: m for n, m in (("tree_descent", tree_descent),
+                              ("count_min", count_min),
+                              ("candidate_topk", bucket_topk))
+            if (args.baseline / f"{n}.cu").exists()}
     libs = build(args.baseline, list(mods), out_dir)
     builds = {}
     for name, mod in mods.items():
+        if name == "candidate_topk":
+            continue
         mod._launcher()                   # the current build, loaded
         cur = mod._fn
         base = getattr(libs[name], cur.__name__)
@@ -152,13 +225,21 @@ def main(argv=None) -> int:
 
     def turns(name, call) -> dict:
         mod, fns = builds[name]
+
+        def swapped(which):
+            mod._fn = fns[which]
+            return call()
+
+        out = paired({w: partial(swapped, w) for w in fns})
+        mod._fn = fns["current"]
+        return out
+
+    def paired(calls) -> dict:
         times = {"baseline": [], "current": []}
         res = {}
         for which in ("baseline", "current", "current", "baseline"):
-            mod._fn = fns[which]
-            times[which].append(graph_ms(call))
-            res[which] = [t.clone() for t in call()]
-        mod._fn = fns["current"]
+            times[which].append(graph_ms(calls[which]))
+            res[which] = [t.clone() for t in calls[which]()]
         same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                    for a, b in zip(res["baseline"], res["current"]))
         return {"baseline_us": times["baseline"],
@@ -166,10 +247,29 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(0)
     result = {"card": smi}
-    for key, (arrays, q, roots, kw) in descent_shapes(dev, rng).items():
+    if "candidate_topk" in libs:
+        base = libs["candidate_topk"].candidate_rows_topk_launch
+        base.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                         + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                         + [ctypes.c_void_p])
+        base.restype = ctypes.c_int
+        for key, (q, rows, ids) in rows_shapes(dev, rng).items():
+            for k in (10, 100):
+                result[f"{key} k{k}"] = paired({
+                    "baseline": partial(rows_first_design, base, q, rows,
+                                        ids, k),
+                    "current": partial(bucket_topk.candidate_rows_topk, q,
+                                       rows, ids, k)})
+            result[f"{key} k10"]["distinct_rows"] = int(
+                torch.unique(ids[ids >= 0]).numel())
+        del rows
+    for key, (arrays, q, roots, kw) in (descent_shapes(dev, rng).items()
+                                        if "tree_descent" in mods else ()):
         result[key] = turns("tree_descent", lambda: tree_descent.tree_descent(
             arrays, q, roots=roots, **kw))
         result[key]["rows"], result[key]["W"] = q.shape[0], kw["beam_width"]
+    if "count_min" not in mods:
+        return finish(result, args.out)
     sk = CountMinSketch(width=4096, depth=4, topk=64, halflife=4096.0,
                         device=dev)
     ids = rng.zipf(1.1, 200 * 64) % 100000
@@ -184,12 +284,17 @@ def main(argv=None) -> int:
         result[f"count_min m{m}"] = turns(
             "count_min", lambda: count_min.count_min_update(
                 table, sk._a, sk._b, hh, st.ids, st.weights, decay))
+    return finish(result, args.out)
+
+
+def finish(result: dict, out) -> int:
+    """Print (and write to ``out``) the result line; 0 if every pair of
+    outputs was equal."""
     line = json.dumps(result)
     print(line)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
             f.write(line + "\n")
     return 0 if all(v["equal"] for k, v in result.items()
                     if k != "card") else 1
