@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over;
 each prints its wall time as ``[phase] <name> <s> s``):
 
 1. card    - name, count, versions, ``nvidia-smi`` name and power limit;
-2. build   - build the seven CUDA sources (nine kernels) from
+2. build   - build the eight CUDA sources (ten kernels) from
              ``src/repro_torch/kernels/csrc`` in parallel and print the
              ``-Xptxas -v`` register/shared/spill lines;
 3. edges   - each kernel against its plain version on the edge shapes that
@@ -23,7 +23,8 @@ each prints its wall time as ``[phase] <name> <s> s``):
              above their lists' length), ``l2_topk`` at d = 960 and
              ``l2_topk_int8`` at d = 640 and 1,000; the tree descent on
              ``testing.DESCENT_EDGES`` (its five results equal the plain
-             loop's);
+             loop's); the LSH bottom's probe scan on
+             ``testing.LSH_PROBE_EDGES`` (ids equal in every slot);
 4. shapes  - each kernel against its plain version at the main path's
              shapes, on the backends' own operands, timed beside its bound,
              the plain version and a PyTorch yardstick (which the port
@@ -72,7 +73,10 @@ each prints its wall time as ``[phase] <name> <s> s``):
              radio QLBT's beams 1-32, each against the plain card loop
              and the CPU loop (rows off the CPU's descent counted, the
              kernel's at most the plain card path's plus a slack), timed
-             beside its bound;
+             beside its bound; the LSH bottom's probe scan (``lsh_probe``,
+             one launch a query chunk) against its plain chain on the
+             sift index's own queries and PQ-top probe rows, every slot,
+             the bottom's recall@10 through both, timed beside its bounds;
 10. forest serve - the sift tree-bottom index (8,192 buckets, leaf 8)
              through ``ServingCell.sharded(kind="auto")`` (the forest
              kind: nprobe 32, beam 8, k 10), 2,048 requests from 16
@@ -331,8 +335,8 @@ from repro_torch.data.synthetic import make_corpus, make_queries  # noqa: E402
 from repro_torch.device import require_fp32_matmul  # noqa: E402
 from repro_torch.distributed.backend import ShardedSearchBackend  # noqa: E402
 from repro_torch.kernels import (_build, bm25, bucket_topk,  # noqa: E402
-                                 count_min, hamming, l2_topk, ops, pq_adc,
-                                 ref, tree_descent)
+                                 count_min, hamming, l2_topk, lsh_probe, ops,
+                                 pq_adc, ref, tree_descent)
 from repro_torch.kernels.common import (LAUNCH_COUNTERS,  # noqa: E402
                                         merge_topk, stable_topk)
 from repro_torch.analysis import run_static_analysis  # noqa: E402
@@ -358,8 +362,9 @@ from repro_torch.train.sparse_embed import \
     make_ctr_sparse_train_step  # noqa: E402
 from repro_torch.train.tree import leaves as tree_leaves_sorted  # noqa: E402
 from repro_torch.testing import (CHAIN_EDGES, DESCENT_EDGES,  # noqa: E402
-                                 EDGE_ALPHAS, HAMMING_EDGES, OPTION_EDGES,
-                                 PQ_EDGES, ROWS_EDGES, SKETCH_EDGES,
+                                 EDGE_ALPHAS, HAMMING_EDGES, LSH_PROBE_EDGES,
+                                 OPTION_EDGES, PQ_EDGES, ROWS_EDGES,
+                                 SKETCH_EDGES, lsh_probe_edge_operands,
                                  sketch_edge_steps,
                                  attention_at_true_fan_in,
                                  chain_edge_operands, descent_edge_operands,
@@ -420,6 +425,7 @@ BEAM = 8
 BUCKET_LSH_BITS = 64
 FLAT_LSH_BITS = 96
 LSH_CANDIDATES = (64, 256, 1024)
+LSH_BOTTOM_CANDIDATES = 128   # TwoLevelIndex.search's lsh_candidates default
 RADIO_UNBALANCE = 0.23
 RADIO_QUERIES = 2000
 RADIO_BEAMS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
@@ -938,6 +944,7 @@ def phase_edges(dev) -> None:
     near += edges_chain(dev)
     near += edges_rows(dev)
     edges_descent(dev)
+    edges_lsh_probe(dev)
     near += edges_options(dev)
     edges_index(dev)
     # d = 960: the staged chunks carry any d (the old tile refused d > 512)
@@ -2189,6 +2196,20 @@ def phase_index_sift(dev, ctx) -> dict:
     for name in ("lsh", "tree"):
         require(by_bottom[name]["candidate_topk"] > 0,
                 f"the {name} bottom's rerank never launched candidate_topk")
+    require(by_bottom["lsh"]["lsh_probe"] > 0,
+            "the LSH bottom's probe scan never launched lsh_probe")
+    prof = RESULTS["profile_sift_pq_lsh"]
+    sorts = sum(e["calls"] for e in prof["all"] if "radixSort" in e["name"])
+    out["lsh_probe"] = index_sift_lsh_probe(dev, lsh_idx, queries, truth)
+    out["lsh_probe"].update(
+        launches=by_bottom["lsh"]["lsh_probe"],
+        profile_launches=prof["launched"], profile_radix_sorts=sorts)
+    log(f"[index sift] pq top + lsh bottom: lsh_probe launches "
+        f"{by_bottom['lsh']['lsh_probe']} (a warm call and a timed one); "
+        f"the profiled 1,024-query call {prof['launched']} launches (1,188 "
+        f"when the scan ran step by step), {sorts} radix sort launches (32 "
+        f"from the step-by-step scan); busy "
+        f"{prof['device_busy_share']:.3f}")
     xn_max = float(max((c.astype(np.float64) ** 2).sum(1).max()
                        for c in np.array_split(corpus, 16)))
     out["rerank_vs_plain"] = {
@@ -2306,6 +2327,108 @@ def phase_index_sift(dev, ctx) -> dict:
         f"{res['library_ms_k64']:.4f})")
     del xt
     return out
+
+
+class plain_lsh_probe_on_card:
+    """Within the block the LSH bottom's probe scan takes its plain chain
+    on the card (the loop the index ran before the scan had a kernel)."""
+
+    def __enter__(self):
+        self.kernel = lsh_probe.lsh_probe_shortlist
+        lsh_probe.lsh_probe_shortlist = ref.lsh_probe_shortlist_ref
+
+    def __exit__(self, *exc):
+        lsh_probe.lsh_probe_shortlist = self.kernel
+
+
+def index_sift_lsh_probe(dev, lsh_idx, queries, truth) -> dict:
+    """The LSH bottom's probe scan on the sift index's own operands: the
+    1,024 queries' ``q @ proj`` and the PQ top's probe rows at nprobe 32,
+    shortlist 128.  The kernel against the plain chain on the card, every
+    slot; the bottom's recall@10 through each (the same shortlist, so the
+    same answers); the kernel's time by graph replay (a call costs the
+    host more than the card) beside its bounds, the plain chain's by CUDA
+    events.  No PyTorch call computes a popcount distance, so no library
+    time."""
+    t = lsh_idx._tables(dev)
+    q = torch.as_tensor(queries, device=dev)
+    probe = lsh_idx._top_probe(t, q, SIFT_NPROBE)[0].to(torch.int32)
+    qproj = q @ t["lsh_proj"]
+    codes, bids = t["lsh_codes"], t["bucket_ids"]
+    B, P = probe.shape
+    cap, W = bids.shape[1], codes.shape[1]
+    S = min(LSH_BOTTOM_CANDIDATES, P * cap)
+    got = lsh_probe.lsh_probe_shortlist(qproj, codes, bids, probe, S)
+    want = ref.lsh_probe_shortlist_ref(qproj, codes, bids, probe, S)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"[index sift] lsh_probe: "
+            f"{int((got != want).sum())} slots differ from the plain chain")
+
+    def search(qs):
+        return lsh_idx.search(qs, K, nprobe=SIFT_NPROBE, beam_width=BEAM,
+                              lsh_candidates=LSH_BOTTOM_CANDIDATES)[1]
+
+    ids_k = search(queries)
+    with plain_lsh_probe_on_card():
+        ids_p = search(queries)
+    res = {"shape": [B, P, cap, W, S], "max_abs_err": 0.0,
+           "max_rel_err": 0.0, "ids_match": 1.0,
+           "live_in_shortlist": int((got >= 0).sum()),
+           "recall_at_10": recall_at_k(ids_k, truth),
+           "plain_recall_at_10": recall_at_k(ids_p, truth),
+           "answers_equal": bool(np.array_equal(ids_k, ids_p))}
+    require(res["recall_at_10"] == res["plain_recall_at_10"],
+            f"[index sift] lsh bottom recall@10 {res['recall_at_10']} "
+            f"through lsh_probe, {res['plain_recall_at_10']} through the "
+            "plain chain")
+    res["ms"] = time_graph_ms(lambda: lsh_probe.lsh_probe_shortlist(
+        qproj, codes, bids, probe, S), 20)
+    res["plain_ms"] = time_ms(lambda: ref.lsh_probe_shortlist_ref(
+        qproj, codes, bids, probe, S), 3, warmup=1)
+    res["library_ms"] = None
+    # the bounds from this run's operands: the distinct bucket rows and
+    # live codes the probes reach, each read once (every slot of a row is
+    # read, pads too, to find the live ones), the queries' projections and
+    # probe rows, the shortlist written; slot by slot, every slot's id and
+    # every live slot's code; the popcounts at their rate (the CUDA C++
+    # Programming Guide's table, compute capability 9.0: 16 a clock an
+    # SM), two for three words as the kernel's carry-save adder takes them
+    rows = bids[probe.long()]
+    live = rows >= 0
+    n_live = int(live.sum())
+    res["distinct_buckets"] = int(torch.unique(probe).numel())
+    res["distinct_live_ids"] = int(torch.unique(rows[live]).numel())
+    res["live_slots"] = n_live
+    fixed = 4.0 * (B * qproj.shape[1] + B * P + B * S)
+    res["bound_bytes"] = fixed + 4.0 * (res["distinct_buckets"] * cap
+                                        + res["distinct_live_ids"] * W)
+    res["slot_bytes"] = fixed + 4.0 * (B * P * cap + n_live * W)
+    res["bytes_ms"] = res["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+    res["slot_bytes_ms"] = res["slot_bytes"] / HBM_BYTES_PER_S * 1e3
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    res["sm_clock_mhz"] = sm_clocks_mhz()
+    res["popc"] = float(n_live) * (2 * (W // 3) + W % 3)
+    res["popc_ms"] = res["popc"] / (POPC_PER_CLOCK_SM * sms
+                                    * res["sm_clock_mhz"]["max"] * 1e6) * 1e3
+    res["bound_ms"] = max(res["bytes_ms"], res["popc_ms"])
+    res["bound_by"] = ("bytes" if res["bound_ms"] == res["bytes_ms"]
+                       else "operations")
+    res["stores_distances"] = lsh_probe.stores_distances(P, cap, W)
+    RESULTS["kernels"]["lsh_probe"] = res
+    log(f"[index sift] lsh bottom: recall@10 {res['recall_at_10']:.4f} "
+        f"through lsh_probe, {res['plain_recall_at_10']:.4f} through the "
+        f"plain chain (answers equal {res['answers_equal']}); shortlists "
+        "equal in every slot")
+    log(f"[shape lsh_probe sift] B={B} P={P} cap={cap} W={W} S={S} ms "
+        f"{res['ms']:.5f} (graph replay) bound {res['bound_ms']:.5f} "
+        f"({res['bound_by']}: {res['distinct_buckets']} distinct buckets, "
+        f"{res['distinct_live_ids']} distinct live ids, "
+        f"{res['bound_bytes']:.4g} B; slot by slot {res['slot_bytes']:.4g} "
+        f"B, {res['slot_bytes_ms']:.5f} ms; {res['popc']:.4g} popcounts "
+        f"{res['popc_ms']:.5f} ms at {res['sm_clock_mhz']['max']} MHz) "
+        f"plain {res['plain_ms']:.3f} library none; "
+        f"{RESULTS['card']['nvidia_smi']}")
+    return res
 
 
 class plain_rows_on_card:
@@ -2888,6 +3011,26 @@ def edges_descent(dev) -> None:
                     "plain version")
     log(f"[edges] tree_descent: {len(DESCENT_EDGES)} edges equal the plain "
         "version (nodes, steps, internal visits, candidates)")
+
+
+def edges_lsh_probe(dev) -> None:
+    """Every ``LSH_PROBE_EDGES`` case: the kernel's shortlist equals the
+    plain chain's on the card in every slot, one launch a call."""
+    for case in LSH_PROBE_EDGES:
+        o = lsh_probe_edge_operands(case)
+        qproj = (torch.as_tensor(o["q"], device=dev)
+                 @ torch.as_tensor(o["proj"], device=dev))
+        args = [torch.as_tensor(o[n], device=dev)
+                for n in ("codes", "bucket_ids", "probe")]
+        got, n = counted("lsh_probe", lambda: lsh_probe.lsh_probe_shortlist(
+            qproj, *args, o["shortlist"]))
+        want = ref.lsh_probe_shortlist_ref(qproj, *args, o["shortlist"])
+        require(n == 1, f"edge lsh_probe {case[0]}: {n} launches")
+        require(torch.equal(got, want), f"edge lsh_probe {case[0]}: "
+                f"{int((got != want).sum())} slots differ from the plain "
+                "chain")
+    log(f"[edges] lsh_probe: {len(LSH_PROBE_EDGES)} edges equal the plain "
+        "chain in every slot")
 
 
 def forest_descent_inputs(be, q):
@@ -3645,6 +3788,9 @@ SOURCES = {
     # no Pallas kernel: the reference's jitted sketch update
     "count_min": ("src/repro_torch/kernels/csrc/count_min.cu",
                   "src/repro/adaptive/sketch.py:39"),
+    # no Pallas kernel: the reference's jitted lax.scan of the LSH bottom
+    "lsh_probe": ("src/repro_torch/kernels/csrc/lsh_probe.cu",
+                  "src/repro/core/two_level.py:695"),
 }
 
 
@@ -7771,7 +7917,8 @@ def kernel_line() -> dict:
                       "popc_each_word_ms", "fp32_rate_bound_ms",
                       "models_launches", "cells_launches",
                       "launches_per_update", "observe_one_ms",
-                      "observe_one_plain_ms"):
+                      "observe_one_plain_ms", "slot_bytes_ms",
+                      "profile_launches"):
             if extra in r:
                 row[extra] = r[extra]
         if "eight_terms" in r:

@@ -40,8 +40,11 @@ runs the whole probe chain through ``bucket_probe_topk_op`` (the
 the reference runs its ``_probe_scan_brute`` loop (its docstring names the
 kernel tile loop over the probed buckets as the loop's home): the same
 ids up to rounding, except that a bucket probed twice is emitted once on
-the card (ROADMAP fault 5).  The LSH bottom's gathered Hamming scan and
-every other step are plain PyTorch.
+the card (ROADMAP fault 5).  The LSH bottom's probe scan, the
+reference's jitted ``lax.scan`` ``_probe_scan_lsh``, runs through
+``lsh_probe_shortlist_op`` (on the card one ``lsh_probe`` launch a query
+chunk, the same shortlist id for id; the product ``q @ proj`` stays a
+matmul, as in the reference).  Every other step is plain PyTorch.
 """
 from __future__ import annotations
 
@@ -61,8 +64,9 @@ from repro_torch.core.tree import (FlatTree, build_kd_tree, build_qlbt,
                                    build_rp_tree)
 from repro_torch.device import require_fp32_matmul, resolve
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.common import popcount32, stable_topk
-from repro_torch.kernels.ops import bucket_probe_topk_op, pq_adc_topk_op
+from repro_torch.kernels.common import stable_topk
+from repro_torch.kernels.ops import (bucket_probe_topk_op,
+                                     lsh_probe_shortlist_op, pq_adc_topk_op)
 from repro_torch.obs.trace import get_tracer
 
 __all__ = ["TwoLevelConfig", "TwoLevelIndex", "build_two_level",
@@ -625,8 +629,9 @@ class TwoLevelIndex:
         if bottom == "lsh":
             cap = self.bucket_ids.shape[1]
             shortlist = min(lsh_candidates, nprobe * cap)
-            cand = _probe_scan_lsh(t["lsh_codes"], t["lsh_proj"],
-                                   t["bucket_ids"], buckets, q, shortlist)
+            cand = lsh_probe_shortlist_op(
+                q @ t["lsh_proj"], t["lsh_codes"], t["bucket_ids"],
+                buckets.to(torch.int32), shortlist)
             work["candidates"] = int(cand.shape[0] * cand.shape[1])
             d, i = _rerank(t["db"], q, cand, k)
             return d, i, work
@@ -669,43 +674,6 @@ class TwoLevelIndex:
             rerank=False, roots=roots.reshape(-1),
         )
         return res.ids.reshape(B, -1)
-
-
-def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """(B, n_bits) bool -> (B, ceil(n_bits/32)) int32 little-endian words:
-    packed in int64 and wrapped to int32 (the reference packs in uint32,
-    which PyTorch supports poorly)."""
-    B, nb = bits.shape
-    pad = (-nb) % 32
-    if pad:
-        bits = torch.nn.functional.pad(bits, (0, pad))
-    b = bits.reshape(B, -1, 32).to(torch.int64)
-    w = torch.ones(32, dtype=torch.int64, device=bits.device) << torch.arange(
-        32, device=bits.device)
-    v = (b * w).sum(dim=2)
-    return (v - ((v >> 31) << 32)).to(torch.int32)
-
-
-def _probe_scan_lsh(codes, proj, bucket_ids, buckets, q, shortlist):
-    """Stream probed buckets, keep a running Hamming top-``shortlist``.
-    Ranks ``[carried best | tile]`` by column on ties, as the reference
-    does: the shortlist it keeps is what ``_rerank`` sees."""
-    B = q.shape[0]
-    qcodes = _pack_bits(q @ proj > 0)
-    best_h = q.new_full((B, shortlist), float("inf"))
-    best_i = torch.full((B, shortlist), -1, dtype=torch.int32,
-                        device=q.device)
-    for j in range(buckets.shape[1]):
-        cand = bucket_ids[buckets[:, j].long()]            # (B, cap)
-        ccodes = codes[torch.clamp(cand, min=0).long()]    # (B, cap, W)
-        x = torch.bitwise_xor(qcodes[:, None, :], ccodes)
-        ham = popcount32(x).sum(-1).to(torch.float32)
-        ham = torch.where(cand >= 0, ham, float("inf"))
-        cat_h = torch.cat([best_h, ham], dim=1)
-        cat_i = torch.cat([best_i, cand], dim=1)
-        best_h, sel = stable_topk(cat_h, shortlist)
-        best_i = torch.gather(cat_i, 1, sel)
-    return best_i
 
 
 def _first_occurrences(cand: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,9 @@ of XLA's abstract evaluation of a Pallas call).  Both answer any
 ``k``, as the reference does: the kernels whose lists hold at most
 ``common.KMAX`` (``KMAX_PQ``) pairs take a larger ``k`` in passes
 (``common.topk_passes``).  ``tree_descent_op`` is no top-k: its ``meta``
-branch gives the descent's five int32 results by shape, and
-``count_min_update_op``'s the sketch's new table and heavy hitters.
+branch gives the descent's five int32 results by shape,
+``count_min_update_op``'s the sketch's new table and heavy hitters, and
+``lsh_probe_shortlist_op``'s the (B, shortlist) int32 ids.
 """
 from __future__ import annotations
 
@@ -21,13 +22,14 @@ import torch
 
 from repro_torch.analysis.annotations import hot_path
 from repro_torch.kernels import (bm25, bucket_topk, count_min, hamming,
-                                 l2_topk, pq_adc, ref, tree_descent)
+                                 l2_topk, lsh_probe, pq_adc, ref,
+                                 tree_descent)
 
 __all__ = ["l2_topk_op", "l2_topk_int8_op", "candidate_topk_op",
            "candidate_rows_topk_op", "bucket_probe_topk_op",
            "bm25_topk_op", "hybrid_topk_op", "pq_adc_topk_op",
-           "hamming_topk_op", "tree_descent_op", "count_min_update_op",
-           "quantize_rows_int8"]
+           "hamming_topk_op", "lsh_probe_shortlist_op", "tree_descent_op",
+           "count_min_update_op", "quantize_rows_int8"]
 
 
 def _on_card(device: torch.device) -> bool:
@@ -192,6 +194,24 @@ def hamming_topk_op(qcodes, codes, k: int = 10, *, valid=None):
     if _on_card(qcodes.device):
         return hamming.hamming_topk(qcodes, codes, k, valid=valid)
     return ref.hamming_topk_ref(qcodes, codes, k, valid=valid)
+
+
+@hot_path
+def lsh_probe_shortlist_op(qproj, codes, bucket_ids, probe,
+                           shortlist: int):
+    """The LSH bottom's probe scan (the reference's jitted ``lax.scan``
+    ``_probe_scan_lsh``): each query's Hamming shortlist over its probed
+    buckets' slots, (B, shortlist) int32 ids in (distance, probe slot,
+    column) order, -1 past the live slots.  ``qproj`` is queries @
+    projections; on the card one launch, which packs the sign bits."""
+    meta = _shape_only(qproj, shortlist)
+    if meta is not None:
+        return meta[1]
+    if _on_card(qproj.device):
+        return lsh_probe.lsh_probe_shortlist(qproj, codes, bucket_ids,
+                                             probe, shortlist)
+    return ref.lsh_probe_shortlist_ref(qproj, codes, bucket_ids, probe,
+                                       shortlist)
 
 
 @hot_path

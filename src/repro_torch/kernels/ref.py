@@ -58,7 +58,8 @@ __all__ = ["l2_topk_ref", "l2_topk_int8_ref", "candidate_topk_ref",
            "candidate_rows_topk_ref", "bucket_probe_topk_ref",
            "bm25_dists_ref", "bm25_topk_ref", "hybrid_topk_ref",
            "pq_adc_scores_ref", "pq_adc_topk_ref", "hamming_dists_ref",
-           "hamming_topk_ref", "tree_descent_ref", "count_min_hash",
+           "hamming_topk_ref", "pack_bits", "lsh_probe_shortlist_ref",
+           "tree_descent_ref", "count_min_hash",
            "count_min_query_ref", "count_min_host_columns",
            "count_min_update_ref"]
 
@@ -307,6 +308,53 @@ def hamming_topk_ref(qcodes, codes, k: int = 10, *, valid=None):
     """The Hamming scan: (dists ascending, ids); ties toward the lower id
     (a stable sort of the flat scan)."""
     return _finish(_apply_valid(hamming_dists_ref(qcodes, codes), valid), k)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(B, n_bits) bool -> (B, ceil(n_bits/32)) int32 little-endian words:
+    packed in int64 and wrapped to int32 (the reference packs in uint32,
+    which PyTorch supports poorly)."""
+    B, nb = bits.shape
+    pad = (-nb) % 32
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    b = bits.reshape(B, -1, 32).to(torch.int64)
+    w = torch.ones(32, dtype=torch.int64, device=bits.device) << torch.arange(
+        32, device=bits.device)
+    v = (b * w).sum(dim=2)
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
+def lsh_probe_shortlist_ref(qproj, codes, bucket_ids, probe,
+                            shortlist: int):
+    """The LSH bottom's probe scan, one probe step at a time: query b's
+    sign bits are ``qproj[b] > 0`` (``qproj`` = queries @ projections,
+    (B, n_bits)), its candidates the slots of buckets ``probe[b, :]`` of
+    ``bucket_ids`` (K, cap), ``-1`` dead; a running Hamming top-
+    ``shortlist`` over ``codes`` (N, W).  Returns (B, shortlist) int32 ids.
+
+    Each step ranks ``[carried best | the bucket's row]`` with a stable
+    sort, ties toward the lower column, as the reference's ``lax.top_k``:
+    the list kept is the ``shortlist`` smallest slots under (distance,
+    probe slot, column), dead slots after every live one, and ``-1`` where
+    no live slot is left.  A bucket probed twice keeps both copies (the
+    rerank drops the repeats)."""
+    B = qproj.shape[0]
+    qcodes = pack_bits(qproj > 0)
+    best_h = torch.full((B, shortlist), INF, device=qproj.device)
+    best_i = torch.full((B, shortlist), -1, dtype=torch.int32,
+                        device=qproj.device)
+    for j in range(probe.shape[1]):
+        cand = bucket_ids[probe[:, j].long()]              # (B, cap)
+        ccodes = codes[torch.clamp(cand, min=0).long()]    # (B, cap, W)
+        x = torch.bitwise_xor(qcodes[:, None, :], ccodes)
+        ham = popcount32(x).sum(-1).to(torch.float32)
+        ham = torch.where(cand >= 0, ham, INF)
+        cat_h = torch.cat([best_h, ham], dim=1)
+        cat_i = torch.cat([best_i, cand], dim=1)
+        best_h, sel = stable_topk(cat_h, shortlist)
+        best_i = torch.gather(cat_i, 1, sel)
+    return best_i
 
 
 def _split_margin(kind: str, arrays: dict, nodes, q):

@@ -58,7 +58,8 @@ __all__ = ["OPTION_EDGES", "EDGE_ALPHAS", "PQ_EDGES", "HAMMING_EDGES",
            "pq_edge_operands", "hamming_edge_operands",
            "chain_edge_operands", "chain_union_topk", "step_chain",
            "rows_edge_operands", "rows_union_topk", "DESCENT_EDGES",
-           "descent_edge_operands", "SKETCH_EDGES", "SKETCH_BIG_IDS",
+           "descent_edge_operands", "LSH_PROBE_EDGES",
+           "lsh_probe_edge_operands", "SKETCH_EDGES", "SKETCH_BIG_IDS",
            "sketch_edge_steps",
            "lexical_scores_f32", "hybrid_by_parts", "shard_backends",
            "shard_loop", "mips_parity", "sasrec_mips_truth",
@@ -331,6 +332,84 @@ def descent_edge_operands(case, seed: int = 0) -> dict:
     return {"tree": t, "db": db, "q": q, "roots": r,
             "kw": {"kind": t.kind, "beam_width": w,
                    "max_steps": t.max_depth + 4 if steps is None else steps}}
+
+
+# The LSH bottom's probe scan (``lsh_probe``): (name, B, N, n_bits, K, cap,
+# P, S, kind).  Codes are the sign bits of an 8-dimensional corpus, so a
+# few hundred rows tie by the dozen at every distance; each bucket holds
+# a random number of ids (repeats across buckets allowed), the rest -1.
+# kind "repeat": every query probes one bucket twice and query 0 probes
+# one bucket P times; "empty": every other bucket empty, and every bucket
+# query 0 probes; "mutated": the bucket table, codes and projections of a
+# small LSH-bottom index after ``delete_entities`` and ``add_entities``.
+# They cover 32, 40 and 64 bits (W 1-2), every W up to 8 (1, 96, 200 and
+# 256 bits), S = 1, below 32, not a multiple of 32 and = P cap, and the
+# kernel's recompute path, where a query's distances exceed shared memory
+# (P cap 102,400 slots at W = 2; 51,200 at W = 8, two bytes a slot).
+LSH_PROBE_EDGES = (
+    ("32 bits", 6, 300, 32, 12, 40, 4, 64, None),
+    ("64 bits", 6, 400, 64, 16, 40, 5, 100, None),
+    ("40 bits", 5, 300, 40, 10, 48, 4, 50, None),
+    ("repeated bucket", 5, 300, 64, 10, 40, 6, 120, "repeat"),
+    ("S=1", 4, 300, 64, 10, 40, 4, 1, None),
+    ("S=7", 4, 300, 64, 10, 40, 4, 7, None),
+    ("S=45", 4, 300, 64, 10, 40, 4, 45, None),
+    ("S=P cap", 4, 300, 64, 10, 40, 4, 160, None),
+    ("empty buckets", 5, 200, 64, 12, 40, 5, 64, "empty"),
+    ("after delete and add", 6, 400, 64, 8, 0, 4, 48, "mutated"),
+    ("1 bit", 3, 200, 1, 6, 30, 3, 20, None),
+    ("96 bits", 4, 300, 96, 10, 40, 4, 64, None),
+    ("200 bits", 4, 300, 200, 10, 40, 4, 64, None),
+    ("256 bits", 4, 300, 256, 10, 40, 4, 64, None),
+    ("recompute W=2", 2, 300, 64, 200, 800, 128, 256, None),
+    ("recompute W=8", 2, 300, 256, 100, 800, 64, 256, None),
+)
+
+
+def lsh_probe_edge_operands(case, seed: int = 0) -> dict:
+    """numpy operands of one ``LSH_PROBE_EDGES`` case: queries ``q`` (B,
+    8) near the corpus, ``proj`` (8, n_bits), ``codes`` (N', W) int32,
+    ``bucket_ids`` (K, cap') int32 with -1 pads, ``probe`` (B, P) int32 and
+    ``shortlist``; a "mutated" case takes N', K and cap' from its index
+    (cap 0 in the table)."""
+    from repro_torch.core.lsh import pack_bits
+
+    _, b, n, bits, k, cap, p, s, kind = case
+    rng = np.random.default_rng([seed, b, n, bits, k, cap, p, s])
+    x = rng.normal(size=(n, 8)).astype(np.float32)
+    q = (x[rng.integers(0, n, b)]
+         + 0.3 * rng.normal(size=(b, 8))).astype(np.float32)
+    if kind == "mutated":
+        from repro_torch.core.two_level import TwoLevelConfig, build_two_level
+
+        idx = build_two_level(x, TwoLevelConfig(
+            n_clusters=k, top="brute", bottom="lsh", lsh_bits=bits,
+            kmeans_iters=2, kmeans_minibatch=None, seed=1), device="cpu")
+        idx.delete_entities(rng.choice(n, n // 4, replace=False))
+        idx.add_entities((x[rng.integers(0, n, n // 8)] + 0.1 * rng.normal(
+            size=(n // 8, 8))).astype(np.float32))
+        proj = idx.bottom_lsh.proj
+        codes, bids = idx.bottom_lsh.codes, idx.bucket_ids
+        probe = rng.integers(0, bids.shape[0], (b, p)).astype(np.int32)
+    else:
+        proj = rng.normal(size=(8, bits)).astype(np.float32)
+        codes = pack_bits((x @ proj > 0).astype(np.uint8))
+        fill = rng.integers(0, cap + 1, k)
+        if kind == "empty":
+            fill[::2] = 0
+        bids = np.full((k, cap), -1, np.int32)
+        for r in range(k):
+            bids[r, :fill[r]] = rng.integers(0, n, fill[r])
+        probe = rng.integers(0, k, (b, p)).astype(np.int32)
+        if kind == "repeat":
+            probe[:, -1] = probe[:, 0]
+            probe[0, :] = probe[0, 0]
+        elif kind == "empty":
+            probe[0, :] = 2 * rng.integers(0, (k + 1) // 2, p)
+    return {"q": q, "proj": np.ascontiguousarray(proj, np.float32),
+            "codes": np.ascontiguousarray(codes, np.int32),
+            "bucket_ids": np.ascontiguousarray(bids, np.int32),
+            "probe": probe, "shortlist": s}
 
 
 # (name, width, depth, topk, halflife, sizes, ids, weighted): one sketch

@@ -9,7 +9,10 @@ the tile read by row id against its plain version and the gathered
 tile, the tree descent against its plain version on every edge of
 ``testing.DESCENT_EDGES`` and either side of the warp path's widest beam
 (equal nodes, steps, visits and leaf candidates) and through
-``tree_search``, one small IVF serve, one small forest serve (fused against
+``tree_search``, the LSH bottom's probe scan against its plain chain (every
+edge of ``testing.LSH_PROBE_EDGES``, every word count, the sift-1m
+shape; ids equal in every slot) and through ``TwoLevelIndex.search``,
+one small IVF serve, one small forest serve (fused against
 unfused), the in-place delta applies of every kind,
 one small filtered / lexical / hybrid / int8 serve and one small run of
 the index layer (PQ top level, one-level LSH) through the kernels, and
@@ -69,13 +72,16 @@ from repro_torch.core.two_level import TwoLevelConfig, build_two_level
 from repro_torch.data.synthetic import make_corpus, make_queries
 from repro_torch.distributed.backend import ShardedSearchBackend
 from repro_torch.kernels import (bm25, bucket_topk, count_min, hamming,
-                                 l2_topk, ops, pq_adc, ref, tree_descent)
+                                 l2_topk, lsh_probe, ops, pq_adc, ref,
+                                 tree_descent)
 from repro_torch.kernels.common import merge_topk
 from repro_torch.serve.cell import ServingCell
 from repro_torch.testing import (CHAIN_EDGES, DESCENT_EDGES, EDGE_ALPHAS,
-                                 HAMMING_EDGES, OPTION_EDGES, PQ_EDGES,
+                                 HAMMING_EDGES, LSH_PROBE_EDGES,
+                                 OPTION_EDGES, PQ_EDGES,
                                  ROWS_EDGES, SKETCH_BIG_IDS, SKETCH_EDGES,
-                                 descent_edge_operands, sketch_edge_steps,
+                                 descent_edge_operands,
+                                 lsh_probe_edge_operands, sketch_edge_steps,
                                  chain_edge_operands, chain_union_topk,
                                  hamming_edge_operands, step_chain,
                                  hybrid_by_parts, lexical_scores_f32,
@@ -852,6 +858,109 @@ def test_index_reranks_run_the_rows_kernel(dev):
         assert ((i == ic) | (np.abs(d - dc) <= tol)).all()
         for row in i:
             assert len(set(row[row >= 0].tolist())) == (row >= 0).sum()
+
+
+def _lsh_probe_both(dev, o):
+    """The kernel (one launch) and the plain chain on the card, on one
+    set of ``lsh_probe_edge_operands``-like operands."""
+    qproj = (torch.as_tensor(o["q"], device=dev)
+             @ torch.as_tensor(o["proj"], device=dev))
+    args = [torch.as_tensor(o[n], device=dev)
+            for n in ("codes", "bucket_ids", "probe")]
+    before = lsh_probe.LAUNCHES.count
+    got = lsh_probe.lsh_probe_shortlist(qproj, *args, o["shortlist"])
+    assert lsh_probe.LAUNCHES.count == before + 1
+    want = ref.lsh_probe_shortlist_ref(qproj, *args, o["shortlist"])
+    return got, want
+
+
+@pytest.mark.parametrize("case", LSH_PROBE_EDGES,
+                         ids=[c[0] for c in LSH_PROBE_EDGES])
+def test_lsh_probe_kernel_matches_plain(dev, case):
+    got, want = _lsh_probe_both(dev, lsh_probe_edge_operands(case))
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def _lsh_probe_random(b, n, n_bits, k, cap, p, s, seed):
+    """Random codes and half-filled buckets (ids may repeat) at any size."""
+    rng = np.random.default_rng(seed)
+    w = -(-n_bits // 32)
+    fill = rng.integers(cap // 4, cap + 1, k)
+    bids = np.where(np.arange(cap)[None, :] < fill[:, None],
+                    rng.integers(0, n, (k, cap)), -1).astype(np.int32)
+    return {"q": rng.normal(size=(b, 16)).astype(np.float32),
+            "proj": rng.normal(size=(16, n_bits)).astype(np.float32),
+            "codes": rng.integers(-2**31, 2**31, (n, w)).astype(np.int32),
+            "bucket_ids": bids,
+            "probe": rng.integers(0, k, (b, p)).astype(np.int32),
+            "shortlist": s}
+
+
+@pytest.mark.parametrize("w", list(range(1, 9)))
+def test_lsh_probe_every_word_count(dev, w):
+    o = _lsh_probe_random(70, 5000, 32 * w - 3 * (w % 2), 64, 50, 9, 100,
+                          seed=w)
+    got, want = _lsh_probe_both(dev, o)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def test_lsh_probe_at_the_sift_shape(dev):
+    """sift-1m's LSH bottom: 1,024 queries, 32 probes of 8,192 buckets of
+    306 slots, 64 bits, shortlist 128, and the shortlist at P cap."""
+    o = _lsh_probe_random(1024, 1_000_000, 64, 8192, 306, 32, 128, seed=0)
+    got, want = _lsh_probe_both(dev, o)
+    assert torch.equal(got, want), int((got != want).sum())
+    o["shortlist"] = 32 * 306
+    got, want = _lsh_probe_both(dev, dict(o, q=o["q"][:64],
+                                          probe=o["probe"][:64]))
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def test_lsh_bottom_runs_the_kernel_once_a_chunk(dev):
+    """``TwoLevelIndex.search`` with the LSH bottom: one ``lsh_probe``
+    launch a query chunk, no plain chain; the answers equal the CPU's
+    (ids where the distances differ by more than the rerank's tolerance)."""
+    db = make_corpus("deep", scale=0.002, seed=0)
+    queries = make_queries(db, 64, seed=1)
+    base = build_index(IndexSpec("two_level", TwoLevelConfig(
+        n_clusters=128, top="pq", bottom="brute", seed=0)), db).two_level
+    idx = dataclasses.replace(
+        base, config=dataclasses.replace(base.config, bottom="lsh"),
+        bottom_lsh=lsh_build(db, n_bits=64, seed=0))
+    before = lsh_probe.LAUNCHES.count
+    d, i, _ = idx.search(queries, 10, nprobe=8, query_chunk=32)
+    torch.cuda.synchronize()
+    assert lsh_probe.LAUNCHES.count == before + 2
+    cpu = dataclasses.replace(idx, device=torch.device("cpu"))
+    dc, ic, _ = cpu.search(queries, 10, nprobe=8, query_chunk=32)
+    qn = (queries.astype(np.float64) ** 2).sum(1)[:, None]
+    xn = (db.astype(np.float64) ** 2).sum(1)
+    tol = REL * (qn + xn[np.maximum(ic, 0)])
+    assert np.array_equal(np.isinf(d), np.isinf(dc))
+    assert ((i == ic) | (np.abs(d - dc) <= tol)).all()
+
+
+def test_lsh_probe_rejects_what_it_cannot_take(dev):
+    o = _lsh_probe_random(4, 100, 64, 8, 10, 3, 16, seed=1)
+    qproj = torch.as_tensor(o["q"] @ o["proj"], device=dev)
+    args = [torch.as_tensor(o[n], device=dev)
+            for n in ("codes", "bucket_ids", "probe")]
+    with pytest.raises(ValueError, match="CUDA"):
+        lsh_probe.lsh_probe_shortlist(qproj.cpu(), *(a.cpu() for a in args),
+                                      16)
+    for at in range(3):
+        bad = list(args)
+        bad[at] = bad[at].long()
+        with pytest.raises(TypeError):
+            lsh_probe.lsh_probe_shortlist(qproj, *bad, 16)
+    wide = torch.zeros((4, 288), device=dev)
+    with pytest.raises(ValueError, match="W=9"):
+        lsh_probe.lsh_probe_shortlist(
+            wide, torch.zeros((100, 9), dtype=torch.int32, device=dev),
+            *args[1:], 16)
+    with pytest.raises(ValueError, match="words"):
+        lsh_probe.lsh_probe_shortlist(qproj[:, :30], *args, 16)
 
 
 def test_rows_entry_rejects_what_it_cannot_take(dev):

@@ -45,8 +45,7 @@ from repro_torch.core.lsh import LSHIndex, lsh_build, lsh_search, pack_bits
 from repro_torch.core.metrics import recall_at_k
 from repro_torch.core.pq import ProductQuantizer, pq_search, pq_train
 from repro_torch.core.protocol import IndexSpec, select_index_spec
-from repro_torch.core.two_level import (TwoLevelConfig, _pack_bits,
-                                        build_two_level)
+from repro_torch.core.two_level import TwoLevelConfig, build_two_level
 from repro_torch.kernels import ref
 from repro_torch.testing import (HAMMING_EDGES, PQ_EDGES,
                                  hamming_edge_operands, pq_edge_operands)
@@ -169,7 +168,7 @@ def test_pack_bits_match_reference_and_wrap(reference):
         bits[0] = True                    # every word 0xFFFFFFFF = -1
         want = reference.lsh.pack_bits(bits.astype(np.uint8))
         assert np.array_equal(pack_bits(bits.astype(np.uint8)), want)
-        assert np.array_equal(_pack_bits(torch.as_tensor(bits)).numpy(),
+        assert np.array_equal(ref.pack_bits(torch.as_tensor(bits)).numpy(),
                               want)
         assert (want[0, :nb // 32] == -1).all()
 
