@@ -323,6 +323,7 @@ from repro_torch.core.lexical import (build_lexical_slabs_flat,  # noqa: E402
                                       query_operands)
 from repro_torch.core.metadata import FilterSpec, MetadataTable  # noqa: E402
 from repro_torch.core.metrics import LatencyTimer, recall_at_k  # noqa: E402
+from repro_torch.core import two_level as two_level_mod  # noqa: E402
 from repro_torch.core.two_level import (TwoLevelConfig,  # noqa: E402
                                         _first_occurrences, build_forest,
                                         build_two_level)
@@ -2355,10 +2356,12 @@ def index_sift_lsh_probe(dev, lsh_idx, queries, truth) -> dict:
     probe = lsh_idx._top_probe(t, q, SIFT_NPROBE)[0].to(torch.int32)
     qproj = q @ t["lsh_proj"]
     codes, bids = t["lsh_codes"], t["bucket_ids"]
+    ext = t["bucket_counts"].to(torch.int32)
     B, P = probe.shape
     cap, W = bids.shape[1], codes.shape[1]
     S = min(LSH_BOTTOM_CANDIDATES, P * cap)
-    got = lsh_probe.lsh_probe_shortlist(qproj, codes, bids, probe, S)
+    got = lsh_probe.lsh_probe_shortlist(qproj, codes, bids, probe, S,
+                                        extents=ext)
     want = ref.lsh_probe_shortlist_ref(qproj, codes, bids, probe, S)
     torch.cuda.synchronize()
     require(torch.equal(got, want), f"[index sift] lsh_probe: "
@@ -2382,7 +2385,7 @@ def index_sift_lsh_probe(dev, lsh_idx, queries, truth) -> dict:
             f"through lsh_probe, {res['plain_recall_at_10']} through the "
             "plain chain")
     res["ms"] = time_graph_ms(lambda: lsh_probe.lsh_probe_shortlist(
-        qproj, codes, bids, probe, S), 20)
+        qproj, codes, bids, probe, S, extents=ext), 20)
     res["plain_ms"] = time_ms(lambda: ref.lsh_probe_shortlist_ref(
         qproj, codes, bids, probe, S), 3, warmup=1)
     res["library_ms"] = None
@@ -2390,12 +2393,21 @@ def index_sift_lsh_probe(dev, lsh_idx, queries, truth) -> dict:
     # live codes the probes reach, each read once (every slot of a row is
     # read, pads too, to find the live ones), the queries' projections and
     # probe rows, the shortlist written; slot by slot, every slot's id and
-    # every live slot's code; the popcounts at their rate (the CUDA C++
-    # Programming Guide's table, compute capability 9.0: 16 a clock an
-    # SM), two for three words as the kernel's carry-save adder takes them
+    # every live slot's code; live slot by live slot (what the kernel
+    # reads), each live slot's id and code; the popcounts at their rate
+    # (the CUDA C++ Programming Guide's table, compute capability 9.0: 16 a
+    # clock an SM), two for three words as the kernel's carry-save adder
+    # takes them
     rows = bids[probe.long()]
     live = rows >= 0
     n_live = int(live.sum())
+    n_slots = ext[probe.long()].sum(1).cpu().numpy()
+    store = lsh_probe.store_bytes(P, cap, W)
+    paths = [lsh_probe.path_of(int(n), store, W) for n in n_slots]
+    res["paths"] = {p: paths.count(p) for p in lsh_probe.PATHS}
+    res["slots_a_query"] = {"mean": float(n_slots.mean()),
+                            "max": int(n_slots.max())}
+    res["kernel"] = lsh_probe.kernel_info(qproj.shape[1], P, cap)
     res["distinct_buckets"] = int(torch.unique(probe).numel())
     res["distinct_live_ids"] = int(torch.unique(rows[live]).numel())
     res["live_slots"] = n_live
@@ -2403,8 +2415,10 @@ def index_sift_lsh_probe(dev, lsh_idx, queries, truth) -> dict:
     res["bound_bytes"] = fixed + 4.0 * (res["distinct_buckets"] * cap
                                         + res["distinct_live_ids"] * W)
     res["slot_bytes"] = fixed + 4.0 * (B * P * cap + n_live * W)
+    res["live_slot_bytes"] = fixed + 4.0 * n_live * (1 + W)
     res["bytes_ms"] = res["bound_bytes"] / HBM_BYTES_PER_S * 1e3
     res["slot_bytes_ms"] = res["slot_bytes"] / HBM_BYTES_PER_S * 1e3
+    res["live_slot_ms"] = res["live_slot_bytes"] / HBM_BYTES_PER_S * 1e3
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     res["sm_clock_mhz"] = sm_clocks_mhz()
     res["popc"] = float(n_live) * (2 * (W // 3) + W % 3)
@@ -2419,16 +2433,106 @@ def index_sift_lsh_probe(dev, lsh_idx, queries, truth) -> dict:
         f"through lsh_probe, {res['plain_recall_at_10']:.4f} through the "
         f"plain chain (answers equal {res['answers_equal']}); shortlists "
         "equal in every slot")
+    kin = res["kernel"]
     log(f"[shape lsh_probe sift] B={B} P={P} cap={cap} W={W} S={S} ms "
-        f"{res['ms']:.5f} (graph replay) bound {res['bound_ms']:.5f} "
-        f"({res['bound_by']}: {res['distinct_buckets']} distinct buckets, "
+        f"{res['ms']:.5f} (graph replay){earlier('lsh_probe sift')} bound "
+        f"{res['bound_ms']:.5f} ({res['bound_by']}: "
+        f"{res['distinct_buckets']} distinct buckets, "
         f"{res['distinct_live_ids']} distinct live ids, "
-        f"{res['bound_bytes']:.4g} B; slot by slot {res['slot_bytes']:.4g} "
-        f"B, {res['slot_bytes_ms']:.5f} ms; {res['popc']:.4g} popcounts "
+        f"{res['bound_bytes']:.4g} B; live slot by live slot "
+        f"{res['live_slot_bytes']:.4g} B, {res['live_slot_ms']:.5f} ms; "
+        f"slot by slot {res['slot_bytes']:.4g} B, "
+        f"{res['slot_bytes_ms']:.5f} ms; {res['popc']:.4g} popcounts "
         f"{res['popc_ms']:.5f} ms at {res['sm_clock_mhz']['max']} MHz) "
-        f"plain {res['plain_ms']:.3f} library none; "
-        f"{RESULTS['card']['nvidia_smi']}")
+        f"plain {res['plain_ms']:.3f} library none; slots a query "
+        f"{res['slots_a_query']}; paths {res['paths']} (store "
+        f"{kin['store_bytes']} B); one run a lane in flight, "
+        f"{kin['registers']} registers, {kin['local_bytes']} B spilled, "
+        f"{kin['blocks_per_sm']} blocks an SM, {kin['shared_bytes']} B "
+        f"shared a block; {RESULTS['card']['nvidia_smi']}")
+    require(kin["local_bytes"] == 0,
+            f"[shape lsh_probe sift] the kernel spills {kin}")
+    res["host_stages"] = sift_lsh_host_stages(dev, lsh_idx, queries)
     return res
+
+
+HOST_STAGE_CALLS = 20    # 1,024-query calls a stage timing takes
+
+
+def sift_lsh_host_stages(dev, lsh_idx, queries) -> dict:
+    """Where the sift PQ + LSH call's host time goes: the real ``search``
+    on one 1,024-query chunk, its stages marked on the host's clock by
+    spies around what ``_search_chunk`` calls (the PQ top's
+    ``_top_probe``, the op, ``_rerank``), median of ``HOST_STAGE_CALLS``
+    calls: as the call runs them (no wait between stages, so a stage's
+    time is what the host spends issuing it, and the copies back wait for
+    the card), and with a synchronise at each mark (its host and device
+    time together).  Between the top probe and the op lie the arguments
+    ``_search_chunk`` makes for it (int32 probe rows, the counts as
+    extents, ``q @ proj``).  Beside them the call without spies, whose
+    answer the spied calls must equal."""
+    qn = np.ascontiguousarray(queries[:1024], dtype=np.float32)
+    marks, sync = [], [False]
+
+    def mark(name):
+        if sync[0]:
+            torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    def spy(fn, before, after):
+        def call(*a, **kw):
+            if before:
+                mark(before)
+            out = fn(*a, **kw)
+            mark(after)
+            return out
+        return call
+
+    def search():
+        return lsh_idx.search(qn, K, nprobe=SIFT_NPROBE, beam_width=BEAM,
+                              lsh_candidates=LSH_BOTTOM_CANDIDATES)
+
+    want = search()[1]
+    cls, mod = type(lsh_idx), two_level_mod
+    real = (cls._top_probe, mod.lsh_probe_shortlist_op, mod._rerank)
+    out, same = {}, True
+    try:
+        cls._top_probe = spy(real[0], "copies in", "top probe")
+        mod.lsh_probe_shortlist_op = spy(
+            real[1], "probe rows, extents, q @ proj", "the op (lsh_probe)")
+        mod._rerank = spy(real[2], None, "rerank")
+        for label, on in (("as run", False), ("synced", True)):
+            sync[0], runs = on, []
+            for n in range(HOST_STAGE_CALLS + 1):
+                marks.clear()
+                mark("start")
+                ids = search()[1]
+                mark("copies back")
+                same = same and bool(np.array_equal(ids, want))
+                if n:      # the first call warms up
+                    runs.append({name: (marks[m + 1][1] - marks[m][1]) * 1e3
+                                 for m, (name, _) in enumerate(marks[1:])})
+            require([list(r) for r in runs] == [list(runs[0])] * len(runs),
+                    f"[index sift] host stages out of order: {runs[0]}")
+            out[label] = {k: float(np.median([r[k] for r in runs]))
+                          for k in runs[0]}
+    finally:
+        cls._top_probe, mod.lsh_probe_shortlist_op, mod._rerank = real
+    require(same, "[index sift] the spied search's answers differ from "
+            "the search's")
+    walls = []
+    for _ in range(HOST_STAGE_CALLS):
+        t0 = time.perf_counter()
+        search()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["search_ms"] = float(np.median(walls))
+    log(f"[index sift] pq top + lsh bottom host ms by stage (1,024 "
+        f"queries, median of {HOST_STAGE_CALLS} calls of search): as run "
+        f"{ {k: round(v, 4) for k, v in out['as run'].items()} }; synced "
+        f"at each mark "
+        f"{ {k: round(v, 4) for k, v in out['synced'].items()} }; the "
+        f"call without spies {out['search_ms']:.4f} ms")
+    return out
 
 
 class plain_rows_on_card:
@@ -2866,14 +2970,15 @@ STAGE_KERNELS = (("descent kernel", r"tree_descent|descend_(warp|block)"),
 # kernel may leave the CPU's descent on no more rows than the plain card
 # path does, plus this slack (rows, and a share of the rows).
 DESCENT_SLACK = (4, 0.005)
-# the descent's, the sketch update's and the rows-by-id top-k's times in
-# their first designs, at the shapes printed beside them (PERF.md §6 rows
-# 8-10, NVIDIA H100 80GB HBM3, 700.00 W); another call, so a guide, not a
-# paired comparison (tools/kernel_ab_torch.py pairs them)
+# the descent's, the sketch update's, the rows-by-id top-k's and the LSH
+# probe scan's times in their first designs, at the shapes printed beside
+# them (PERF.md §6 rows 8-11, NVIDIA H100 80GB HBM3, 700.00 W); another
+# call, so a guide, not a paired comparison (tools/kernel_ab_torch.py
+# pairs them)
 EARLIER_US = {"forest B64 nprobe 32": 28.99, "kd top W64": 108.22,
               "kd top W128": 319.51, "radio qlbt W4": 43.91,
               "count_min m=1": 9.84, "count_min m=64": 19.65,
-              "rows-by-id": 34.35}
+              "rows-by-id": 34.35, "lsh_probe sift": 62.65}
 
 
 def earlier(key: str) -> str:
@@ -3022,15 +3127,17 @@ def edges_lsh_probe(dev) -> None:
                  @ torch.as_tensor(o["proj"], device=dev))
         args = [torch.as_tensor(o[n], device=dev)
                 for n in ("codes", "bucket_ids", "probe")]
+        ext = torch.as_tensor(o["extents"], device=dev)
         got, n = counted("lsh_probe", lambda: lsh_probe.lsh_probe_shortlist(
-            qproj, *args, o["shortlist"]))
+            qproj, *args, o["shortlist"], extents=ext))
         want = ref.lsh_probe_shortlist_ref(qproj, *args, o["shortlist"])
         require(n == 1, f"edge lsh_probe {case[0]}: {n} launches")
         require(torch.equal(got, want), f"edge lsh_probe {case[0]}: "
                 f"{int((got != want).sum())} slots differ from the plain "
                 "chain")
     log(f"[edges] lsh_probe: {len(LSH_PROBE_EDGES)} edges equal the plain "
-        "chain in every slot")
+        "chain in every slot (both emit paths, distances stored and "
+        "recompute; P above the staged rows)")
 
 
 def forest_descent_inputs(be, q):
@@ -7918,6 +8025,7 @@ def kernel_line() -> dict:
                       "models_launches", "cells_launches",
                       "launches_per_update", "observe_one_ms",
                       "observe_one_plain_ms", "slot_bytes_ms",
+                      "live_slot_ms",
                       "profile_launches"):
             if extra in r:
                 row[extra] = r[extra]

@@ -616,8 +616,7 @@ class TwoLevelIndex:
         nprobe = min(nprobe, self.k_clusters)
         buckets, top_work = self._top_probe(t, qp, nprobe)   # (B, nprobe)
         B = q.shape[0]
-        counts = t["bucket_counts"][buckets.long()]
-        work = {"top_scored": top_work * B, "candidates": int(counts.sum())}
+        work = {"top_scored": top_work * B}
 
         bottom = self.config.bottom
         if bottom == "brute":
@@ -625,13 +624,18 @@ class TwoLevelIndex:
             # launch of candidate_topk a pass, rows read by entity id
             d, i = bucket_probe_topk_op(q, buckets, t["bucket_ids"], k,
                                         db=t["db"])
+            counts = t["bucket_counts"][buckets.long()]
+            work["candidates"] = int(counts.sum())
             return d, i, work
         if bottom == "lsh":
             cap = self.bucket_ids.shape[1]
             shortlist = min(lsh_candidates, nprobe * cap)
+            # every mutation keeps a row's live ids before its count, so
+            # the counts are the kernel's extents
             cand = lsh_probe_shortlist_op(
                 q @ t["lsh_proj"], t["lsh_codes"], t["bucket_ids"],
-                buckets.to(torch.int32), shortlist)
+                buckets.to(torch.int32), shortlist,
+                extents=t["bucket_counts"].to(torch.int32))
             work["candidates"] = int(cand.shape[0] * cand.shape[1])
             d, i = _rerank(t["db"], q, cand, k)
             return d, i, work

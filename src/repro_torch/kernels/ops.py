@@ -198,20 +198,24 @@ def hamming_topk_op(qcodes, codes, k: int = 10, *, valid=None):
 
 @hot_path
 def lsh_probe_shortlist_op(qproj, codes, bucket_ids, probe,
-                           shortlist: int):
+                           shortlist: int, *, extents):
     """The LSH bottom's probe scan (the reference's jitted ``lax.scan``
     ``_probe_scan_lsh``): each query's Hamming shortlist over its probed
     buckets' slots, (B, shortlist) int32 ids in (distance, probe slot,
     column) order, -1 past the live slots.  ``qproj`` is queries @
-    projections; on the card one launch, which packs the sign bits."""
+    projections; ``extents`` (K,) int32 one past each bucket row's last
+    live column (the index's ``bucket_counts``).  On the card one launch,
+    which packs the sign bits and reads only the columns before each
+    row's extent; the plain chain reads whole rows and ignores them."""
     meta = _shape_only(qproj, shortlist)
     if meta is not None:
         return meta[1]
     if _on_card(qproj.device):
         return lsh_probe.lsh_probe_shortlist(qproj, codes, bucket_ids,
-                                             probe, shortlist)
+                                             probe, shortlist,
+                                             extents=extents)
     return ref.lsh_probe_shortlist_ref(qproj, codes, bucket_ids, probe,
-                                       shortlist)
+                                       shortlist, extents=extents)
 
 
 @hot_path

@@ -326,7 +326,7 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def lsh_probe_shortlist_ref(qproj, codes, bucket_ids, probe,
-                            shortlist: int):
+                            shortlist: int, *, extents=None):
     """The LSH bottom's probe scan, one probe step at a time: query b's
     sign bits are ``qproj[b] > 0`` (``qproj`` = queries @ projections,
     (B, n_bits)), its candidates the slots of buckets ``probe[b, :]`` of
@@ -338,7 +338,8 @@ def lsh_probe_shortlist_ref(qproj, codes, bucket_ids, probe,
     the list kept is the ``shortlist`` smallest slots under (distance,
     probe slot, column), dead slots after every live one, and ``-1`` where
     no live slot is left.  A bucket probed twice keeps both copies (the
-    rerank drops the repeats)."""
+    rerank drops the repeats).  ``extents`` is the kernel's operand and
+    is ignored: the chain reads whole rows, as the reference's scan does."""
     B = qproj.shape[0]
     qcodes = pack_bits(qproj > 0)
     best_h = torch.full((B, shortlist), INF, device=qproj.device)

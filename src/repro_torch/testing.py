@@ -337,15 +337,25 @@ def descent_edge_operands(case, seed: int = 0) -> dict:
 # The LSH bottom's probe scan (``lsh_probe``): (name, B, N, n_bits, K, cap,
 # P, S, kind).  Codes are the sign bits of an 8-dimensional corpus, so a
 # few hundred rows tie by the dozen at every distance; each bucket holds
-# a random number of ids (repeats across buckets allowed), the rest -1.
-# kind "repeat": every query probes one bucket twice and query 0 probes
-# one bucket P times; "empty": every other bucket empty, and every bucket
-# query 0 probes; "mutated": the bucket table, codes and projections of a
-# small LSH-bottom index after ``delete_entities`` and ``add_entities``.
-# They cover 32, 40 and 64 bits (W 1-2), every W up to 8 (1, 96, 200 and
-# 256 bits), S = 1, below 32, not a multiple of 32 and = P cap, and the
-# kernel's recompute path, where a query's distances exceed shared memory
-# (P cap 102,400 slots at W = 2; 51,200 at W = 8, two bytes a slot).
+# a random number of ids in its first columns (repeats across buckets
+# allowed), the rest -1.  kind "repeat": every query probes one bucket
+# twice and query 0 probes one bucket P times; "empty": every other
+# bucket empty, and every bucket query 0 probes; "all empty": every
+# bucket empty (no query has a live slot: the whole shortlist -1);
+# "holes": a -1 inside every row of two or more ids, before its last live
+# id; "short": every row ends before its last column; "sparse": at most
+# three ids a row, fewer live slots than S; "full": every row full;
+# "mutated": the bucket table, codes and projections of a small
+# LSH-bottom index after ``delete_entities`` and ``add_entities``.  They
+# cover 32, 40 and 64 bits (W 1-2), every W up to 8 (1, 96, 200 and 256
+# bits), S = 1, below 32, not a multiple of 32 and = P cap, P above the
+# rows the kernel stages at once (``lsh_probe.PSTAGE`` = 1,024), and the
+# kernel's two emit paths (``lsh_probe.path_of``): the distances kept in
+# shared memory (most cases), and the recompute path, where a query's
+# distances exceed the store (about 51,200 live slots a query at W = 2;
+# 25,600 at W = 8, two bytes a slot), also with P above the staged rows
+# (about 70,400 live slots a query at W = 2 and 35,200 at W = 8 against
+# a 24 KB store: the chunked recompute).
 LSH_PROBE_EDGES = (
     ("32 bits", 6, 300, 32, 12, 40, 4, 64, None),
     ("64 bits", 6, 400, 64, 16, 40, 5, 100, None),
@@ -363,15 +373,24 @@ LSH_PROBE_EDGES = (
     ("256 bits", 4, 300, 256, 10, 40, 4, 64, None),
     ("recompute W=2", 2, 300, 64, 200, 800, 128, 256, None),
     ("recompute W=8", 2, 300, 256, 100, 800, 64, 256, None),
+    ("holes inside the extents", 5, 300, 64, 12, 40, 6, 90, "holes"),
+    ("every probed row empty", 4, 300, 64, 10, 40, 4, 32, "all empty"),
+    ("fewer live slots than S", 4, 300, 64, 10, 40, 5, 150, "sparse"),
+    ("P 1100 above the staged rows", 2, 300, 64, 40, 8, 1100, 64, None),
+    ("every row short of cap", 5, 300, 64, 12, 40, 5, 64, "short"),
+    ("full rows", 2, 300, 64, 40, 300, 40, 128, "full"),
+    ("P 1100 recompute W=2", 2, 300, 64, 40, 128, 1100, 64, None),
+    ("P 1100 recompute W=8", 2, 300, 256, 40, 64, 1100, 64, None),
 )
 
 
 def lsh_probe_edge_operands(case, seed: int = 0) -> dict:
     """numpy operands of one ``LSH_PROBE_EDGES`` case: queries ``q`` (B,
     8) near the corpus, ``proj`` (8, n_bits), ``codes`` (N', W) int32,
-    ``bucket_ids`` (K, cap') int32 with -1 pads, ``probe`` (B, P) int32 and
-    ``shortlist``; a "mutated" case takes N', K and cap' from its index
-    (cap 0 in the table)."""
+    ``bucket_ids`` (K, cap') int32 with -1 pads, ``extents`` (K,) int32
+    (one past each row's last live column, exact for any table), ``probe``
+    (B, P) int32 and ``shortlist``; a "mutated" case takes N', K and cap'
+    from its index (cap 0 in the table)."""
     from repro_torch.core.lsh import pack_bits
 
     _, b, n, bits, k, cap, p, s, kind = case
@@ -397,19 +416,33 @@ def lsh_probe_edge_operands(case, seed: int = 0) -> dict:
         fill = rng.integers(0, cap + 1, k)
         if kind == "empty":
             fill[::2] = 0
+        elif kind == "all empty":
+            fill[:] = 0
+        elif kind == "short":
+            fill = np.minimum(fill, cap - 1 - rng.integers(0, 3, k))
+        elif kind == "sparse":
+            fill = rng.integers(0, 4, k)
+        elif kind == "full":
+            fill[:] = cap
         bids = np.full((k, cap), -1, np.int32)
         for r in range(k):
             bids[r, :fill[r]] = rng.integers(0, n, fill[r])
+        if kind == "holes":
+            for r in np.flatnonzero(fill >= 2):
+                bids[r, rng.integers(0, fill[r] - 1)] = -1
         probe = rng.integers(0, k, (b, p)).astype(np.int32)
         if kind == "repeat":
             probe[:, -1] = probe[:, 0]
             probe[0, :] = probe[0, 0]
         elif kind == "empty":
             probe[0, :] = 2 * rng.integers(0, (k + 1) // 2, p)
+    live = bids >= 0
+    extents = np.where(live.any(1), bids.shape[1] - np.argmax(
+        live[:, ::-1], axis=1), 0).astype(np.int32)
     return {"q": q, "proj": np.ascontiguousarray(proj, np.float32),
             "codes": np.ascontiguousarray(codes, np.int32),
             "bucket_ids": np.ascontiguousarray(bids, np.int32),
-            "probe": probe, "shortlist": s}
+            "extents": extents, "probe": probe, "shortlist": s}
 
 
 # (name, width, depth, topk, halflife, sizes, ids, weighted): one sketch

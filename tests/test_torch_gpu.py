@@ -867,8 +867,10 @@ def _lsh_probe_both(dev, o):
              @ torch.as_tensor(o["proj"], device=dev))
     args = [torch.as_tensor(o[n], device=dev)
             for n in ("codes", "bucket_ids", "probe")]
+    ext = torch.as_tensor(o["extents"], device=dev)
     before = lsh_probe.LAUNCHES.count
-    got = lsh_probe.lsh_probe_shortlist(qproj, *args, o["shortlist"])
+    got = lsh_probe.lsh_probe_shortlist(qproj, *args, o["shortlist"],
+                                        extents=ext)
     assert lsh_probe.LAUNCHES.count == before + 1
     want = ref.lsh_probe_shortlist_ref(qproj, *args, o["shortlist"])
     return got, want
@@ -892,7 +894,7 @@ def _lsh_probe_random(b, n, n_bits, k, cap, p, s, seed):
     return {"q": rng.normal(size=(b, 16)).astype(np.float32),
             "proj": rng.normal(size=(16, n_bits)).astype(np.float32),
             "codes": rng.integers(-2**31, 2**31, (n, w)).astype(np.int32),
-            "bucket_ids": bids,
+            "bucket_ids": bids, "extents": fill.astype(np.int32),
             "probe": rng.integers(0, k, (b, p)).astype(np.int32),
             "shortlist": s}
 
@@ -946,21 +948,59 @@ def test_lsh_probe_rejects_what_it_cannot_take(dev):
     qproj = torch.as_tensor(o["q"] @ o["proj"], device=dev)
     args = [torch.as_tensor(o[n], device=dev)
             for n in ("codes", "bucket_ids", "probe")]
+    ext = torch.as_tensor(o["extents"], device=dev)
     with pytest.raises(ValueError, match="CUDA"):
         lsh_probe.lsh_probe_shortlist(qproj.cpu(), *(a.cpu() for a in args),
-                                      16)
+                                      16, extents=ext.cpu())
     for at in range(3):
         bad = list(args)
         bad[at] = bad[at].long()
         with pytest.raises(TypeError):
-            lsh_probe.lsh_probe_shortlist(qproj, *bad, 16)
+            lsh_probe.lsh_probe_shortlist(qproj, *bad, 16, extents=ext)
     wide = torch.zeros((4, 288), device=dev)
     with pytest.raises(ValueError, match="W=9"):
         lsh_probe.lsh_probe_shortlist(
             wide, torch.zeros((100, 9), dtype=torch.int32, device=dev),
-            *args[1:], 16)
+            *args[1:], 16, extents=ext)
     with pytest.raises(ValueError, match="words"):
-        lsh_probe.lsh_probe_shortlist(qproj[:, :30], *args, 16)
+        lsh_probe.lsh_probe_shortlist(qproj[:, :30], *args, 16, extents=ext)
+
+
+def test_lsh_probe_rejects_bad_extents(dev):
+    """The extents operand: required, on the card, int32, (K,)."""
+    o = _lsh_probe_random(4, 100, 64, 8, 10, 3, 16, seed=1)
+    qproj = torch.as_tensor(o["q"] @ o["proj"], device=dev)
+    args = [torch.as_tensor(o[n], device=dev)
+            for n in ("codes", "bucket_ids", "probe")]
+    ext = torch.as_tensor(o["extents"], device=dev)
+    with pytest.raises(TypeError, match="extents"):
+        lsh_probe.lsh_probe_shortlist(qproj, *args, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        lsh_probe.lsh_probe_shortlist(qproj, *args, 16, extents=ext.cpu())
+    with pytest.raises(TypeError):
+        lsh_probe.lsh_probe_shortlist(qproj, *args, 16, extents=ext.long())
+    with pytest.raises(ValueError, match="dim"):
+        lsh_probe.lsh_probe_shortlist(qproj, *args, 16,
+                                      extents=ext[:, None])
+    with pytest.raises(ValueError, match="entries"):
+        lsh_probe.lsh_probe_shortlist(qproj, *args, 16, extents=ext[:-1])
+    got = lsh_probe.lsh_probe_shortlist(qproj, *args, 16, extents=ext)
+    assert torch.equal(got, ref.lsh_probe_shortlist_ref(qproj, *args, 16))
+
+
+def test_lsh_probe_kernel_info(dev):
+    """The built kernel at the sift shape: no spills, one wave of 1,024
+    blocks on the card's SMs."""
+    info = lsh_probe.kernel_info(64, 32, 306)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert info["local_bytes"] == 0, info
+    assert info["blocks_per_sm"] * sms >= 1024, info
+    assert info["store_bytes"] == 32 * 306
+    # the query leaves the launch's shared-memory limit as it was: a
+    # launch with more staged rows after it still runs
+    o = _lsh_probe_random(8, 5000, 64, 300, 800, 128, 64, seed=3)
+    got, want = _lsh_probe_both(dev, o)
+    assert torch.equal(got, want), int((got != want).sum())
 
 
 def test_rows_entry_rejects_what_it_cannot_take(dev):

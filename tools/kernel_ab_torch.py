@@ -1,10 +1,12 @@
-"""The tree descent, the sketch update and the rows-by-id top-k kernels
-against a baseline's sources, timed in turns on one card.
+"""The tree descent, the sketch update, the rows-by-id top-k and the LSH
+probe scan kernels against a baseline's sources, timed in turns on one
+card.
 
     python tools/kernel_ab_torch.py --baseline DIR [--out FILE]
+                                    [--lsh-ablation] [--lsh-spans]
 
-``DIR`` holds any of ``tree_descent.cu``, ``count_min.cu`` and
-``candidate_topk.cu`` (an earlier commit's
+``DIR`` holds any of ``tree_descent.cu``, ``count_min.cu``,
+``candidate_topk.cu`` and ``lsh_probe.cu`` (an earlier commit's
 ``src/repro_torch/kernels/csrc/``, e.g. by ``git show``); the shapes of
 each kernel it holds are timed.  The first two must have the current
 launchers' signatures: the wrappers (``tree_descent.tree_descent``,
@@ -13,7 +15,9 @@ does the same host work.  ``candidate_topk.cu``'s rows entry is the
 first design's (a scan and a merge launch handing over per-block
 partial lists, allocated a pass as its wrapper did:
 ``rows_first_design``); the current one is
-``bucket_topk.candidate_rows_topk``.  All are built with the port's nvcc
+``bucket_topk.candidate_rows_topk``.  ``lsh_probe.cu`` is the first
+design's (every slot of P cap read, no extents: ``lsh_first_design``);
+the current one is ``lsh_probe.lsh_probe_shortlist``.  All are built with the port's nvcc
 flags (headers from the current ``csrc/`` where ``DIR`` has none).
 Each shape is timed by CUDA graph replay (the smoke's ``time_graph_ms``)
 in the order baseline, current, current, baseline, and the two builds'
@@ -34,7 +38,24 @@ outputs must be equal.  Shapes, made from seed 0
   query reads 8 distinct leaves of each of 32 distinct buckets (C
   2,048): 64 queries over 450 buckets with 38 % of slots dead (the served
   forest's batch: about 82,000 live pairs over 35,000 distinct rows, as
-  the smoke's forest shape reads), 1,024 queries over all with 5 % dead.
+  the smoke's forest shape reads), 1,024 queries over all with 5 % dead;
+* ``lsh sift``: 1,024 queries, 32 probes of 8,192 bucket rows of 306
+  columns, each row's live ids in front (a count uniform in 38..244,
+  about 46 % of the slots, as the sift index's probed rows), 1,000,000
+  random 64-bit codes, shortlist 128; ``lsh W8``: the same at 256 bits;
+  ``lsh recompute``: 128 probes of 2,048 rows of 800 columns at 64 bits
+  (the first design's and this one's recompute path).
+
+``--lsh-ablation`` builds the current ``lsh_probe.cu`` with one part
+taken out or done another way at a time (``LSH_ABLATIONS``: the
+histogram by ``__match_any_sync``, no histogram, no code loads, random
+ids for the id loads, no read of the winners' ids, no emit pass, the
+prologue alone) and times each beside
+the shipped source on ``lsh sift`` and ``lsh W8``: a part's cost is the
+kernel's time less its variant's.  ``--lsh-spans`` builds it with a
+stamp at each phase boundary of every block (``LSH_SPANS``) and reports
+the cycles each phase takes a block and the spread of the blocks' start
+and end times.
 
 Prints one JSON line with the card's name and power limit (and writes it
 to ``--out``).
@@ -60,7 +81,7 @@ from repro_torch.adaptive import CountMinSketch  # noqa: E402
 from repro_torch.core.tree import (build_kd_tree, build_qlbt,  # noqa: E402
                                    build_rp_tree)
 from repro_torch.kernels import (_build, bucket_topk,  # noqa: E402
-                                 count_min, tree_descent)
+                                 count_min, lsh_probe, tree_descent)
 from repro_torch.kernels.common import (KMAX, list_len,  # noqa: E402
                                         topk_passes)
 from repro_torch.kernels.l2_topk import ptr  # noqa: E402
@@ -194,10 +215,217 @@ def rows_first_design(fn, q, rows, ids, k):
     return topk_passes(run, B, k, KMAX, dev)
 
 
+def lsh_shapes(dev, rng) -> dict:
+    """(qproj, codes, bucket_ids, extents, probe, S) of the LSH probe
+    scan's shapes (the module docstring)."""
+
+    def shape(n_bits, k, cap, p, lo, hi, b=1024, n=1_000_000, s=128):
+        w = -(-n_bits // 32)
+        fill = rng.integers(lo, hi + 1, k)
+        bids = np.where(np.arange(cap)[None, :] < fill[:, None],
+                        rng.integers(0, n, (k, cap)), -1).astype(np.int32)
+        q = torch.as_tensor(rng.normal(size=(b, 16)), dtype=torch.float32,
+                            device=dev)
+        proj = torch.as_tensor(rng.normal(size=(16, n_bits)),
+                               dtype=torch.float32, device=dev)
+        return (q @ proj, torch.as_tensor(
+            rng.integers(-2**31, 2**31, (n, w)).astype(np.int32), device=dev),
+            torch.as_tensor(bids, device=dev),
+            torch.as_tensor(fill.astype(np.int32), device=dev),
+            torch.as_tensor(rng.integers(0, k, (b, p)).astype(np.int32),
+                            device=dev), s)
+
+    return {"lsh sift": shape(64, 8192, 306, 32, 38, 244),
+            "lsh W8": shape(256, 8192, 306, 32, 38, 244),
+            "lsh recompute": shape(64, 2048, 800, 128, 0, 800)}
+
+
+def lsh_first_design(fn, qproj, codes, bids, probe, S):
+    """The first design's launch: every slot of P cap, its distances kept
+    where P cap of them fit 96 KB (``lsh_probe.stores_distances``)."""
+    B, n_bits = qproj.shape
+    K, cap = bids.shape
+    P, W = probe.shape[1], codes.shape[1]
+    out = torch.empty((B, S), dtype=torch.int32, device=qproj.device)
+    rc = fn(qproj.data_ptr(), codes.data_ptr(), bids.data_ptr(),
+            probe.data_ptr(), out.data_ptr(), B, n_bits, codes.shape[0], K,
+            cap, P, S, int(lsh_probe.stores_distances(P, cap, W)),
+            torch.cuda.current_stream(qproj.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"baseline lsh_probe launch failed: {rc}")
+    return (out,)
+
+
+def lsh_current(qproj, codes, bids, ext, probe, S):
+    return (lsh_probe.lsh_probe_shortlist(qproj, codes, bids, probe, S,
+                                          extents=ext),)
+
+
+def lsh_launch(fn, qproj, codes, bids, ext, probe, S):
+    """The current launcher ``fn`` (a variant's build), as the wrapper
+    calls it."""
+    B, n_bits = qproj.shape
+    K, cap = bids.shape
+    P, W = probe.shape[1], codes.shape[1]
+    out = torch.empty((B, S), dtype=torch.int32, device=qproj.device)
+    rc = fn(qproj.data_ptr(), codes.data_ptr(), bids.data_ptr(),
+            ext.data_ptr(), probe.data_ptr(), out.data_ptr(), B, n_bits,
+            codes.shape[0], K, cap, P, S, lsh_probe.store_bytes(P, cap, W),
+            torch.cuda.current_stream(qproj.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"lsh_probe variant launch failed: {rc}")
+    return (out,)
+
+
+# the current lsh_probe.cu with one part taken out or done another way:
+# (label, [(source text, replacement), ...]); answers differ by
+# construction but for "hist by match_any", whose counts are equal
+LSH_ABLATIONS = (
+    ("hist by match_any", [(
+        """      if (d != DEAD) atomicAdd(&h[d], 1);""",
+        """      const unsigned mk = __ballot_sync(full, d != DEAD);
+      if (d != DEAD) {
+        const unsigned peers = __match_any_sync(mk, d);
+        if (lane == __ffs(peers) - 1) h[d] += __popc(peers);
+      }
+      __syncwarp();""")]),
+    ("no count histogram", [(
+        """      if (d != DEAD) atomicAdd(&h[d], 1);""",
+        """      if (d == -7) atomicAdd(&h[0], 1);""")]),
+    ("no code loads", [(
+        """  load_code<W>(a.codes + (size_t)min(id, a.N - 1) * W, x);""",
+        """  for (int w = 0; w < W; ++w) x[w] = (uint32_t)id * (w + 1);""")]),
+    ("no id loads (random ids)", [(
+        """    id = __ldg(a.bucket_ids + (size_t)rows.bkt[j] * a.cap + (s - rows.rstart[j]));""",
+        """    id = (int)(((unsigned)(s + 7919 * blockIdx.x + rows.bkt[j]) * 2654435761u) % (unsigned)a.N);""")]),
+    ("no winners' id reads", [(
+        """    const int wins = min(live, a.S);""",
+        """    const int wins = 0;""")]),
+    ("no emit", [("""  // 3. emit:""", """  if (a.S > 0) return;
+  // 3. emit:""")]),
+    ("prologue only", [("""  // 1. count
+""", """  if (a.S > 0) return;
+  // 1. count
+""")]),
+)
+
+
+# phase stamps for ``--lsh-spans``: (source text, text put before it,
+# phase that ends there); each stamp follows a block barrier, so it marks
+# the block's slowest warp
+LSH_STAMP = """__syncthreads();
+  if (threadIdx.x == 0) {{
+    unsigned long long g;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
+    g_lsh_stamps[(size_t)blockIdx.x * 12 + 2 * {k}] = clock64();
+    g_lsh_stamps[(size_t)blockIdx.x * 12 + 2 * {k} + 1] = g;
+  }}
+"""
+LSH_SPANS = (
+    ("  const bool chunked = a.P > a.ps;\n", "start"),
+    ("  const int n = chunked ? total : rows.rstart[a.ps];\n", "prologue"),
+    ("  // 2. offsets\n", "count"),
+    ("  // 3. emit:", "offsets"),
+    ("    // 4. the winners' ids", "emit"),
+    ("    if (chunked) {\n      __syncthreads();\n      for (int p = tid; p < wins;",
+     "ids"),
+)
+
+
+def lsh_spans(dev, shapes: dict, out_dir: Path) -> dict:
+    """The shipped source with a stamp (``clock64`` and the global timer)
+    at each phase boundary of every block (``LSH_SPANS``), run once on
+    each shape: per phase the mean and the largest cycles a block spent,
+    and the spread of the blocks' start and end times (ns from the
+    launch's first start), with the stamped kernel's own time."""
+    src = (_build.CSRC / "lsh_probe.cu").read_text()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    text = src.replace("namespace {\n", "__device__ unsigned long long* "
+                       "g_lsh_stamps;\nnamespace {\n", 1)
+    for k, (marker, _) in enumerate(LSH_SPANS):
+        if marker not in text:
+            return {"skipped": f"marker {marker!r} no longer matches"}
+        text = text.replace(marker, LSH_STAMP.format(k=k) + marker, 1)
+    text += ("\nextern \"C\" int lsh_probe_set_stamps(void* p) {\n"
+             "  return (int)cudaMemcpyToSymbol(g_lsh_stamps, &p, "
+             "sizeof(p));\n}\n")
+    (out_dir / "lsh_spans.cu").write_text(text)
+    lib = build(out_dir, ["lsh_spans"], out_dir)["lsh_spans"]
+    fn = lib.lsh_probe_launch
+    fn.argtypes, fn.restype = lsh_probe._launcher().argtypes, ctypes.c_int
+    lib.lsh_probe_set_stamps.argtypes = [ctypes.c_void_p]
+    res = {}
+    for key, (qproj, codes, bids, ext, probe, S) in shapes.items():
+        B = qproj.shape[0]
+        stamps = torch.zeros((B, 6, 2), dtype=torch.int64, device=dev)
+        rc = lib.lsh_probe_set_stamps(stamps.data_ptr())
+        want = lsh_probe.lsh_probe_shortlist(qproj, codes, bids, probe, S,
+                                             extents=ext)
+        got = lsh_launch(fn, qproj, codes, bids, ext, probe, S)[0]
+        torch.cuda.synchronize()
+        st = stamps.cpu().numpy().astype(np.float64)
+        cyc, ns = np.diff(st[:, :, 0], axis=1), st[:, :, 1]
+        ns = ns - ns[:, 0].min()
+        phases = [name for _, name in LSH_SPANS[1:]]
+        res[key] = {
+            "rc": rc, "equal": torch.equal(got, want),
+            "us": graph_ms(partial(lsh_launch, fn, qproj, codes, bids, ext,
+                                   probe, S)),
+            "cycles_mean": dict(zip(phases, cyc.mean(0).round(1).tolist())),
+            "cycles_max": dict(zip(phases, cyc.max(0).tolist())),
+            "start_ns": np.percentile(ns[:, 0], [0, 50, 90, 100]).tolist(),
+            "end_ns": np.percentile(ns[:, -1], [0, 50, 90, 100]).tolist(),
+            "block_ns_mean": float((ns[:, -1] - ns[:, 0]).mean())}
+    return res
+
+
+def lsh_ablation(dev, shapes: dict, out_dir: Path) -> dict:
+    """Each ``LSH_ABLATIONS`` variant of the current source built and timed
+    beside the unchanged source on ``shapes``, two rounds (forward,
+    backward) by graph replay."""
+    src = (_build.CSRC / "lsh_probe.cu").read_text()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    variants, res = {"as shipped": src}, {}
+    for label, edits in LSH_ABLATIONS:
+        text = src
+        for old, new in edits:
+            if old not in text:
+                res[label] = {"skipped": "edit no longer matches"}
+                break
+            text = text.replace(old, new)
+        else:
+            variants[label] = text
+    names = {label: f"lsh_abl_{n}" for n, label in enumerate(variants)}
+    for label, text in variants.items():
+        (out_dir / f"{names[label]}.cu").write_text(text)
+    libs = build(out_dir, list(names.values()), out_dir)
+    for key, (qproj, codes, bids, ext, probe, S) in shapes.items():
+        want = lsh_probe.lsh_probe_shortlist(qproj, codes, bids, probe, S,
+                                             extents=ext)
+        fns = {}
+        for label, name in names.items():
+            fn = libs[name].lsh_probe_launch
+            fn.argtypes, fn.restype = lsh_probe._launcher().argtypes, \
+                ctypes.c_int
+            fns[label] = fn
+        row = {label: {"us": [], "equal": torch.equal(lsh_launch(
+            fn, qproj, codes, bids, ext, probe, S)[0], want)}
+            for label, fn in fns.items()}
+        for order in (list(fns), list(fns)[::-1]):
+            for label in order:
+                row[label]["us"].append(graph_ms(partial(
+                    lsh_launch, fns[label], qproj, codes, bids, ext, probe,
+                    S)))
+        res[key] = row
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", required=True, type=Path)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--lsh-ablation", action="store_true")
+    ap.add_argument("--lsh-spans", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -210,12 +438,13 @@ def main(argv=None) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     mods = {n: m for n, m in (("tree_descent", tree_descent),
                               ("count_min", count_min),
-                              ("candidate_topk", bucket_topk))
+                              ("candidate_topk", bucket_topk),
+                              ("lsh_probe", lsh_probe))
             if (args.baseline / f"{n}.cu").exists()}
     libs = build(args.baseline, list(mods), out_dir)
     builds = {}
     for name, mod in mods.items():
-        if name == "candidate_topk":
+        if name in ("candidate_topk", "lsh_probe"):
             continue
         mod._launcher()                   # the current build, loaded
         cur = mod._fn
@@ -247,6 +476,37 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(0)
     result = {"card": smi}
+    if "lsh_probe" in libs or args.lsh_ablation or args.lsh_spans:
+        shapes = lsh_shapes(dev, rng)
+        if args.lsh_spans:
+            result["lsh spans"] = lsh_spans(
+                dev, {k: shapes[k] for k in ("lsh sift", "lsh W8")},
+                out_dir / "spans")
+        if args.lsh_ablation:
+            result["lsh ablation"] = lsh_ablation(
+                dev, {k: shapes[k] for k in ("lsh sift", "lsh W8")},
+                out_dir / "ablation")
+        for key, (qproj, codes, bids, ext, probe, S) in (
+                shapes.items() if "lsh_probe" in libs else ()):
+            base = libs["lsh_probe"].lsh_probe_launch
+            base.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+                ctypes.c_void_p]
+            base.restype = ctypes.c_int
+            result[key] = paired({
+                "baseline": partial(lsh_first_design, base, qproj, codes,
+                                    bids, probe, S),
+                "current": partial(lsh_current, qproj, codes, bids, ext,
+                                   probe, S)})
+            P, cap = probe.shape[1], bids.shape[1]
+            n = ext[probe.long()].sum(1).cpu().numpy()
+            store = lsh_probe.store_bytes(P, cap, codes.shape[1])
+            paths = [lsh_probe.path_of(int(x), store, codes.shape[1])
+                     for x in n]
+            result[key].update(
+                live_slots_a_query=float(n.mean()),
+                paths={p: paths.count(p) for p in lsh_probe.PATHS},
+                kernel=lsh_probe.kernel_info(qproj.shape[1], P, cap))
+        del shapes
     if "candidate_topk" in libs:
         base = libs["candidate_topk"].candidate_rows_topk_launch
         base.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
@@ -296,8 +556,12 @@ def finish(result: dict, out) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as f:
             f.write(line + "\n")
-    return 0 if all(v["equal"] for k, v in result.items()
-                    if k != "card") else 1
+    def equal(v):
+        return v["equal"] if "equal" in v else all(
+            x["equal"] for x in v.values())
+
+    return 0 if all(k in ("lsh ablation", "lsh spans") or equal(v)
+                    for k, v in result.items() if k != "card") else 1
 
 
 if __name__ == "__main__":
