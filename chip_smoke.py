@@ -280,6 +280,7 @@ go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import gc
@@ -335,9 +336,10 @@ from repro_torch.data.recsys import (batch_for,  # noqa: E402
 from repro_torch.data.synthetic import make_corpus, make_queries  # noqa: E402
 from repro_torch.device import require_fp32_matmul  # noqa: E402
 from repro_torch.distributed.backend import ShardedSearchBackend  # noqa: E402
-from repro_torch.kernels import (_build, bm25, bucket_topk,  # noqa: E402
-                                 count_min, hamming, l2_topk, lsh_probe, ops,
-                                 pq_adc, ref, tree_descent)
+from repro_torch.kernels import (_build, attention,  # noqa: E402
+                                 bm25, bucket_topk, count_min, hamming,
+                                 l2_topk, lsh_probe, ops, pq_adc, ref,
+                                 tree_descent)
 from repro_torch.kernels.common import (LAUNCH_COUNTERS,  # noqa: E402
                                         merge_topk, stable_topk)
 from repro_torch.analysis import run_static_analysis  # noqa: E402
@@ -362,7 +364,10 @@ from repro_torch.train.loop import (init_state,  # noqa: E402
 from repro_torch.train.sparse_embed import \
     make_ctr_sparse_train_step  # noqa: E402
 from repro_torch.train.tree import leaves as tree_leaves_sorted  # noqa: E402
-from repro_torch.testing import (CHAIN_EDGES, DESCENT_EDGES,  # noqa: E402
+from repro_torch.testing import (ATTN_EDGES, ATTN_TOL,  # noqa: E402
+                                 DECODE_EDGES, attn_edge_operands,
+                                 attn_row_err, decode_edge_operands,
+                                 CHAIN_EDGES, DESCENT_EDGES,
                                  EDGE_ALPHAS, HAMMING_EDGES, LSH_PROBE_EDGES,
                                  OPTION_EDGES, PQ_EDGES, ROWS_EDGES,
                                  SKETCH_EDGES, lsh_probe_edge_operands,
@@ -384,6 +389,8 @@ from repro_torch.testing import (CHAIN_EDGES, DESCENT_EDGES,  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+# dense bf16 on the tensor cores: the attention kernels' products
+BF16_FLOPS_PER_S = 989e12
 # Results a clock on each SM of compute capability 9.0 (the CUDA C++
 # Programming Guide's arithmetic-instruction throughput table): population
 # count, and 32-bit integer add and bitwise operations.
@@ -946,6 +953,7 @@ def phase_edges(dev) -> None:
     near += edges_rows(dev)
     edges_descent(dev)
     edges_lsh_probe(dev)
+    edges_attention(dev)
     near += edges_options(dev)
     edges_index(dev)
     # d = 960: the staged chunks carry any d (the old tile refused d > 512)
@@ -3898,6 +3906,12 @@ SOURCES = {
     # no Pallas kernel: the reference's jitted lax.scan of the LSH bottom
     "lsh_probe": ("src/repro_torch/kernels/csrc/lsh_probe.cu",
                   "src/repro/core/two_level.py:695"),
+    # no Pallas kernel: the reference's lax.scan over KV blocks (plain jnp)
+    "attention_chunked": ("src/repro_torch/kernels/csrc/attention.cu",
+                          "src/repro/models/attention.py:96"),
+    # no Pallas kernel: the reference's plain-jnp decode attention
+    "attention_decode": ("src/repro_torch/kernels/csrc/attention.cu",
+                         "src/repro/models/attention.py:104"),
 }
 
 
@@ -5255,8 +5269,339 @@ def phase_analysis(ctx) -> dict:
     return out
 
 
+# ------------------------------------------------------ attention kernels
+# The LM serving path's two kernels (csrc/attention.cu), each held to its
+# plain version on the same card inputs: every output row within
+# ATTN_TOL of its max |o| (bf16 2**-7, two bf16 ulps; fp32 1e-5).  Times
+# by CUDA events (the decode by graph replay: its host costs more than
+# the card); the library yardstick is one
+# torch.nn.functional.scaled_dot_product_attention call (it rounds at
+# other points, so it is timed, never compared).
+
+
+def check_attention(name: str, q, k, v, kw: dict) -> dict:
+    """``attention_chunked`` against ``chunked_attention_ref``."""
+    got = attention.attention_chunked(q, k, v, **kw)
+    want = ref.chunked_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = attn_row_err(got, want)
+    tol = ATTN_TOL[got.dtype]
+    require(bool(torch.isfinite(got).all()) and err["max_rel"] <= tol,
+            f"[attention] {name}: {err} beyond {tol} of each row's max")
+    return err
+
+
+def check_decode(name: str, q, kc, vc, lengths, scale: float) -> dict:
+    """``attention_decode`` against ``decode_attention_ref``."""
+    got = attention.attention_decode(q, kc, vc, lengths, scale=scale)
+    want = ref.decode_attention_ref(q, kc, vc, lengths, scale=scale)
+    torch.cuda.synchronize()
+    err = attn_row_err(got, want)
+    tol = ATTN_TOL[got.dtype]
+    require(bool(torch.isfinite(got).all()) and err["max_rel"] <= tol,
+            f"[attention] {name}: {err} beyond {tol} of each row's max")
+    return err
+
+
+def edges_attention(dev) -> None:
+    """Every ``ATTN_EDGES`` and ``DECODE_EDGES`` case (fp32, MQA R 48, MLA
+    dh 192 / dv 128, Sk not a multiple of chunk, q_pos at a shard's
+    offset, a fully masked kv_mask row, decode lengths 0, 1 and S, strided
+    views) against the plain version."""
+    worst = {}
+    for case in ATTN_EDGES:
+        o = attn_edge_operands(case, dev)
+        err = check_attention(f"edge {case[0]}", o["q"], o["k"], o["v"],
+                              o["kw"])
+        log(f"[edges] attention_chunked {case[0]} ({case[12]}): max |err| "
+            f"{err['max_abs']:.3e}, {err['max_rel']:.3e} of the row max, "
+            f"{err['share_differ']:.2e} of the elements differ")
+        worst[case[12]] = max(worst.get(case[12], 0.0), err["max_rel"])
+    for case in DECODE_EDGES:
+        o = decode_edge_operands(case, dev)
+        err = check_decode(f"edge decode {case[0]}", o["q"], o["k"], o["v"],
+                           o["lengths"], o["scale"])
+        log(f"[edges] attention_decode {case[0]} ({case[8]}): max |err| "
+            f"{err['max_abs']:.3e}, {err['max_rel']:.3e} of the row max, "
+            f"{err['share_differ']:.2e} of the elements differ")
+    log(f"[edges] attention: {len(ATTN_EDGES)} chunked and "
+        f"{len(DECODE_EDGES)} decode edges within {dict((str(t), v) for t, v in ATTN_TOL.items())} "
+        f"of each row's max; worst chunked {worst}")
+    RESULTS["attention_edges_worst"] = worst
+
+
+def _attention_bound(nbytes: float, flops: float, dtype) -> tuple:
+    """The least ms for ``nbytes`` read or written once and ``flops`` at
+    the dense bf16 tensor rate (bf16) or the fp32 rate, and which of the
+    two bounds it."""
+    tb = nbytes / HBM_BYTES_PER_S
+    tf = flops / (BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                  else FP32_FLOPS_PER_S)
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+
+
+def _sdpa_gqa(q, k, v, **kw):
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        enable_gqa=True, **kw)
+
+
+def shape_attention(name: str, q, k, v, kw: dict, smi: str) -> dict:
+    """``attention_chunked`` at a served shape: checked, timed, its bound
+    (the live (query, slot) pairs' Q K^T and P.V; the inputs read and the
+    output written once), the plain loop's and SDPA's times."""
+    err = check_attention(name, q, k, v, kw)
+    b, sq, hq, dh = q.shape
+    sk, dv = k.shape[1], v.shape[-1]
+    qp = (torch.arange(sq) if kw.get("q_pos") is None
+          else kw["q_pos"].cpu()).long()
+    pairs = int((torch.clamp(qp + 1, 0, sk) if kw["causal"]
+                 else torch.full_like(qp, sk)).sum())
+    flops = 2.0 * b * hq * pairs * (dh + dv)
+    nbytes = (q.numel() + k.numel() + v.numel() + b * sq * hq * dv) \
+        * q.element_size()
+    bound_ms, by = _attention_bound(nbytes, flops, q.dtype)
+    ms = time_ms(lambda: attention.attention_chunked(q, k, v, **kw), 3, 1)
+    plain_ms = time_ms(lambda: ref.chunked_attention_ref(q, k, v, **kw), 1,
+                       1)
+    lib_ms = time_ms(lambda: _sdpa_gqa(q, k, v, is_causal=kw["causal"],
+                                       scale=kw["scale"]), 3, 1)
+    res = {"shape": [b, sq, sk, hq, k.shape[2], dh, dv, kw["chunk"]],
+           "max_abs_err": err["max_abs"], "max_rel_err": err["max_rel"],
+           "share_differ": err["share_differ"], "ids_match": None,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": by, "library_ms": lib_ms, "flops": flops,
+           "bytes": nbytes, "tflops_per_s": flops / ms / 1e9}
+    log(f"[shape attention_chunked {name}] B={b} Sq={sq} Sk={sk} Hq={hq} "
+        f"Hkv={k.shape[2]} dh={dh} dv={dv} chunk={kw['chunk']} "
+        f"{q.dtype}: ms {ms:.3f} ({res['tflops_per_s']:.1f} TFLOP/s on the "
+        f"live pairs) bound {bound_ms:.4f} ({by}: {flops:.3e} FLOP at the "
+        f"dense bf16 rate, {nbytes} B) plain {plain_ms:.3f} library "
+        f"{lib_ms:.3f} (SDPA is_causal, enable_gqa); max |err| "
+        f"{err['max_abs']:.3e}, {err['max_rel']:.3e} of the row max, "
+        f"{err['share_differ']:.2e} differ; {smi}")
+    return res
+
+
+def shape_decode(name: str, q, kc, vc, lengths, scale: float,
+                 smi: str) -> dict:
+    """``attention_decode`` at a served shape: checked, timed by graph
+    replay, its bound (the live slots' K and V read once), the plain
+    version's and SDPA's times (a boolean mask of the lengths)."""
+    err = check_decode(name, q, kc, vc, lengths, scale)
+    b, s, hkv, dh = kc.shape
+    hq, dv = q.shape[2], vc.shape[-1]
+    ln = lengths.cpu().long()
+    live = int(torch.where(ln <= 0, s, torch.clamp(ln, max=s)).sum())
+    nbytes = (live * hkv * (dh + dv) + q.numel() + b * hq * dv) \
+        * q.element_size()
+    flops = 2.0 * hq * live * (dh + dv)
+    bound_ms, by = _attention_bound(nbytes, flops, q.dtype)
+    ms = time_graph_ms(lambda: attention.attention_decode(
+        q, kc, vc, lengths, scale=scale), 20)
+    plain_ms = time_ms(lambda: ref.decode_attention_ref(
+        q, kc, vc, lengths, scale=scale), 5)
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    lib_ms = time_ms(lambda: _sdpa_gqa(q, kc, vc, attn_mask=mask,
+                                       scale=scale), 5)
+    res = {"shape": [b, s, hq, hkv, dh, dv], "lengths": ln.tolist(),
+           "max_abs_err": err["max_abs"], "max_rel_err": err["max_rel"],
+           "share_differ": err["share_differ"], "ids_match": None,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": by, "library_ms": lib_ms, "bytes": nbytes,
+           "gbps": nbytes / ms / 1e6}
+    log(f"[shape attention_decode {name}] B={b} S={s} Hq={hq} Hkv={hkv} "
+        f"dh={dh} dv={dv} lengths {ln.tolist()} {q.dtype}: ms {ms:.4f} "
+        f"(graph replay; {res['gbps']:.0f} GB/s) bound {bound_ms:.4f} ({by}: "
+        f"{nbytes} B of live K and V) plain {plain_ms:.4f} library "
+        f"{lib_ms:.4f} (SDPA, boolean mask); max |err| "
+        f"{err['max_abs']:.3e}, {err['max_rel']:.3e} of the row max, "
+        f"{err['share_differ']:.2e} differ; {smi}")
+    return res
+
+
+def _fp32_products_step(qh, kc, vc, mask, m, l, acc, scale: float, qdt,
+                        inplace: bool):
+    """``ref._block_step`` with its two products taken in fp32 from the
+    same bf16 operands and rounded where the bf16 products round: the
+    reference's rounding points in another summation order (the side by
+    side's noise floor)."""
+    b, g, r, sq = m.shape
+    chunk = kc.shape[-1]
+    s = torch.matmul(qh.float(), kc.float()).to(qh.dtype)
+    s = s.view(b, g, r, sq, chunk).float().mul_(scale).masked_fill_(mask,
+                                                                  -1e30)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = s.sub_(m_new[..., None]).exp_()
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    pv = torch.matmul(p.to(qdt).float().view(b, g, r * sq, chunk),
+                      vc.float()).to(qdt)
+    return m_new, l, acc * corr[..., None] + pv.float().view(b, g, r, sq, -1)
+
+
+class _PlainAttention:
+    """Binds ``transformer.attention`` to the plain chunked loop for the
+    duration of a ``with`` (the smoke's side-by-side call; the package has
+    no such switch); ``fp32_products``: the loop's block step with its
+    products in fp32 (``_fp32_products_step``)."""
+
+    def __init__(self, fp32_products: bool = False):
+        self.fp32_products = fp32_products
+
+    def __enter__(self):
+        self.real, self.step = transformer.attention, ref._block_step
+
+        def plain(q, k, v, *, causal=True, chunk=None, q_pos=None,
+                  kv_mask=None, scale=None):
+            if chunk is None or chunk >= k.shape[1]:
+                return self.real(q, k, v, causal=causal, chunk=chunk,
+                                 q_pos=q_pos, kv_mask=kv_mask, scale=scale)
+            return ref.chunked_attention_ref(
+                q, k, v, causal=causal, chunk=chunk, q_pos=q_pos,
+                kv_mask=kv_mask, scale=scale or q.shape[-1] ** -0.5)
+
+        transformer.attention = plain
+        if self.fp32_products:
+            ref._block_step = _fp32_products_step
+        return self
+
+    def __exit__(self, *exc):
+        transformer.attention, ref._block_step = self.real, self.step
+
+
+class _Record:
+    """Keeps the arguments of one call of ``transformer.<name>`` (the first
+    or the last) while passing every call through."""
+
+    def __init__(self, name: str, last: bool = False):
+        self.name, self.last, self.args = name, last, None
+
+    def __enter__(self):
+        self.real = getattr(transformer, self.name)
+
+        def rec(*a, **kw):
+            if self.args is None or self.last:
+                self.args = (a, kw)
+            return self.real(*a, **kw)
+
+        setattr(transformer, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(transformer, self.name, self.real)
+
+
+def _final_hidden(params, tokens, cfg):
+    """The final-norm hidden state of every position of ``tokens``."""
+    cos, sin = transformer._positions(tokens.shape[1], cfg, tokens.device)
+    return transformer._backbone(params, tokens, cfg, LOCAL_PLAN, cos, sin)
+
+
+def lm_prefill_side_by_side(sparams, scfg, prompt, smi: str) -> dict:
+    """The 2 x 8,192 bf16 prefill's every position through the kernel,
+    through the plain loop and through the plain loop with fp32 products
+    (the same rounding points in another summation order: the noise
+    floor); the unembedding 1,024 positions at a time.  At random weights
+    many positions have their top two bf16 logits within two bf16 ulps of
+    the top one (a near-tie), which any two summation orders split, so
+    the floor holds off the near-ties, and the agreement over every
+    position is reported beside the noise floor's."""
+    toks = prompt[:, :LM_PROFILE_SEQ]
+    h, secs = {}, {}
+    for name, ctx in (("kernel", contextlib.nullcontext()),
+                      ("plain", _PlainAttention()),
+                      ("plain fp32 products", _PlainAttention(True))):
+        with ctx:
+            t0 = time.perf_counter()
+            h[name] = _final_hidden(sparams, toks, scfg)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+    w = sparams["embed"].T if scfg.tie_embeddings else sparams["unembed"]
+    same = {"kernel": 0, "plain fp32 products": 0}
+    off_same = ties = 0
+    err = 0.0
+    for i in range(0, toks.shape[1], 1024):
+        lg = {n: hh[:, i:i + 1024].to(w.dtype) @ w for n, hh in h.items()}
+        top = lg["plain"].float().topk(2, dim=-1)
+        _, ex = torch.frexp(top.values[..., 0].abs())
+        tie = (top.values[..., 0] - top.values[..., 1]) <= 2 * torch.ldexp(
+            torch.ones_like(top.values[..., 0]), ex - 8)
+        best = lg["plain"].argmax(-1)
+        for n in same:
+            eq = lg[n].argmax(-1) == best
+            same[n] += int(eq.sum())
+            if n == "kernel":
+                off_same += int((eq & ~tie).sum())
+        ties += int(tie.sum())
+        err = max(err, float((lg["kernel"].float() - lg["plain"].float()
+                              ).abs().max()))
+    n = toks.numel()
+    off = off_same / max(n - ties, 1)
+    out = {"positions": n, "argmax_agree": same["kernel"] / n,
+           "argmax_agree_off_ties": off, "near_ties": ties,
+           "noise_floor_agree": same["plain fp32 products"] / n,
+           "logits_max_abs_err": err, "seconds": secs}
+    log(f"[lm] qwen3-0.6b bf16 {LM_BATCH} x {LM_PROFILE_SEQ}, every "
+        f"position through attention_chunked and through the plain loop: "
+        f"argmax agrees at {off:.5f} of the {n - ties} positions off a "
+        f"near-tie (floor {LM_ARGMAX_FLOOR}), {out['argmax_agree']:.5f} of "
+        f"all {n} ({ties} near-ties: top two bf16 logits within two ulps); "
+        f"the plain loop against its fp32-product twin (the noise floor) "
+        f"{out['noise_floor_agree']:.5f} of all; logits max abs err "
+        f"{err:.4e}; backbone s {secs}; {smi}")
+    require(off >= LM_ARGMAX_FLOOR,
+            f"[lm] kernel vs plain argmax agreement {off} off near-ties")
+    return out
+
+
+def _lm_chunked_parity(dev, cfg, params) -> dict:
+    """The chunked path at full width and the fp32 policy (KV blocks of
+    ``LM_CHUNK_PARITY[0]``, a prompt of ``LM_CHUNK_PARITY[1]`` tokens: 5
+    blocks, 180 pad slots): card against CPU at 2 of 28 layers (logits and
+    cache), and decode after prefill(S) against prefill(S + 1) on the card
+    at 28 layers."""
+    chunk, s = LM_CHUNK_PARITY
+    ccfg = dataclasses.replace(cfg, attn_chunk=chunk)
+    toks = LMStream(cfg.vocab, s + 1, LM_BATCH, seed=3).batch_at(0)["tokens"]
+    c2 = dataclasses.replace(ccfg, n_layers=2)
+    p2 = transformer.init(c2, seed=0, device=dev)
+    out, errs = {}, {}
+    for side, p in (("card", p2), ("cpu", tree_map(lambda t: t.cpu(), p2))):
+        logits, cache = transformer.prefill(p, toks[:, :s], c2,
+                                            max_len=s + 1)
+        out[side] = (logits.cpu(), {k: v.cpu() for k, v in cache.items()})
+    del p2
+    errs["prefill_logits_2_layers"] = _lm_close(
+        "chunked 2 layers prefill", out["card"][0], out["cpu"][0],
+        LM_PARITY_TOL, argmax=True)
+    for k in out["card"][1]:
+        errs[f"prefill_{k}_2_layers"] = _lm_close(
+            f"chunked 2 layers cache {k}", out["card"][1][k],
+            out["cpu"][1][k], LM_PARITY_TOL)
+    logits, cache = transformer.prefill(params, toks[:, :s], ccfg,
+                                        max_len=s + 1)
+    dlog, _ = transformer.decode_step(params, cache, toks[:, s:], ccfg)
+    whole, _ = transformer.prefill(params, toks, ccfg)
+    errs["decode_vs_prefill_s1"] = _lm_close(
+        "chunked decode after prefill(S) vs prefill(S+1)", dlog, whole,
+        LM_CONSIST_TOL)
+    log(f"[lm] qwen3-0.6b full width, fp32 policy, KV blocks of {chunk} "
+        f"over {s} tokens ({-(-s // chunk)} blocks, "
+        f"{-(-s // chunk) * chunk - s} pad slots): card vs CPU at 2 of "
+        f"{cfg.n_layers} layers max abs err prefill logits "
+        f"{errs['prefill_logits_2_layers']:.3e}, cache k / v "
+        f"{errs['prefill_k_2_layers']:.3e} / {errs['prefill_v_2_layers']:.3e}"
+        f" (tol {LM_PARITY_TOL}, argmax equal); decode after prefill(S) vs "
+        f"prefill(S+1) at {cfg.n_layers} layers "
+        f"{errs['decode_vs_prefill_s1']:.3e} (tol {LM_CONSIST_TOL})")
+    return errs
+
+
 # ------------------------------------------------------------ phase 15
-# The language models' serving path (plain torch; no kernel of its own).
+# The language models' serving path (its chunked prefill and GQA decode
+# attentions on attention_chunked / attention_decode).
 # Tolerances, stated before the run: card against CPU at the fp32 policy
 # (no TF32) on the same weights; decode after prefill(S) against
 # prefill(S + 1), the reference's own invariant (tests/test_models.py).
@@ -5276,6 +5621,14 @@ LM_PROFILE_SEQ = 8192
 LM_DEEP_DEPTH = dict(n_layers=2, n_dense_layers=1)
 LM_DEEP_SEQ = 512
 LM_DEEP_STEPS = 8
+# the chunked path at full width and the fp32 policy: KV blocks of 256
+# over 1,100 tokens (5 blocks, 180 pad slots)
+LM_CHUNK_PARITY = (256, 1100)
+# the 2 x 8,192 prefill, kernel against the plain loop: argmax agreement
+# at the positions whose top two logits are not a near-tie
+LM_ARGMAX_FLOOR = 0.99
+# a ragged pair of decode lengths at the served cache
+LM_RAGGED = (32768, 12289)
 
 
 def _lm_close(name: str, a, b, tol: dict, argmax: bool = False) -> float:
@@ -5372,6 +5725,7 @@ def phase_lm(dev, card) -> dict:
     transformer.set_precision(torch.float32, torch.float32)
     try:
         errs = _lm_parity("qwen3-0.6b", cfg, params)
+        out["qwen_chunked_parity"] = _lm_chunked_parity(dev, cfg, params)
     finally:
         transformer.set_precision()
     out["qwen_parity"] = errs
@@ -5405,20 +5759,51 @@ def phase_lm(dev, card) -> dict:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    logits, cache = transformer.prefill(sparams, prompt, scfg,
-                                        max_len=max_len)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    prefill_peak = torch.cuda.max_memory_allocated()
-    require(bool(torch.isfinite(logits).all()), "[lm] prefill logits")
-    logits, cache, ms, gen, finite = _greedy(sparams, scfg, logits, cache,
-                                             LM_DECODE_STEPS)
+    # the main path: the served prefill and 32 decode steps, each layer's
+    # attention through attention_chunked / attention_decode (the counts
+    # set to 0 just before and read just after); one layer's operands kept
+    reset_launches()
+    with _Record("attention") as rec_a, \
+            _Record("decode_attention", last=True) as rec_d:
+        t0 = time.perf_counter()
+        logits, cache = transformer.prefill(sparams, prompt, scfg,
+                                            max_len=max_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_peak = torch.cuda.max_memory_allocated()
+        require(bool(torch.isfinite(logits).all()), "[lm] prefill logits")
+        logits, cache, ms, gen, finite = _greedy(sparams, scfg, logits,
+                                                 cache, LM_DECODE_STEPS)
+    launches = read_launches()
     require(finite, "[lm] qwen3-0.6b decode logits are not finite")
+    la, ld = launches["attention_chunked"], launches["attention_decode"]
+    log(f"[lm] launches on the served path: attention_chunked {la} "
+        f"(prefill, {cfg.n_layers} layers), attention_decode {ld} "
+        f"({LM_DECODE_STEPS} steps x {cfg.n_layers} layers)")
+    require(la == cfg.n_layers and ld == LM_DECODE_STEPS * cfg.n_layers,
+            f"[lm] attention launches {la} / {ld} on the served path")
     require(cache["lengths"].tolist() == [max_len] * LM_BATCH,
             f"[lm] lengths {cache['lengths'].tolist()} != {max_len}")
     require(bool(((gen >= 0) & (gen < cfg.vocab)).all()),
             "[lm] generated tokens out of the vocabulary")
+    # each kernel at the served shapes against its plain version: layer
+    # 0's q / k / v of the served prompt, the last step's cache at 32,768
+    # and at a ragged pair of lengths
+    (qa, ka, va), akw = rec_a.args
+    scale = akw.get("scale") or qa.shape[-1] ** -0.5
+    akw = {"causal": akw.get("causal", True), "chunk": akw["chunk"],
+           "scale": scale, "q_pos": akw.get("q_pos")}
+    res_c = shape_attention(LM_SERVE_SHAPE, qa, ka, va, akw, smi)
+    # the 2 x 8,192 prefill's layer 0: the served prompt's first positions
+    n8 = LM_PROFILE_SEQ
+    res_c8 = shape_attention(f"{LM_BATCH} x {n8}", qa[:, :n8], ka[:, :n8],
+                             va[:, :n8], akw, smi)
+    (qd, kcd, vcd, lend), dkw = rec_d.args
+    scale = dkw.get("scale") or qd.shape[-1] ** -0.5
+    res_d = shape_decode("decode_32k", qd, kcd, vcd, lend, scale, smi)
+    res_dr = shape_decode("decode_32k ragged", qd, kcd, vcd, torch.tensor(
+        LM_RAGGED, dtype=torch.int32, device=dev), scale, smi)
+    del qa, ka, va, qd, kcd, vcd, rec_a, rec_d
     # where a step's time goes: two decode steps at the full context (the
     # last two slots written again), and a prefill of 2 x 8,192 (8 KV
     # blocks of the 32 above)
@@ -5438,6 +5823,15 @@ def phase_lm(dev, card) -> dict:
         "lm prefill", f"qwen3-0.6b bf16 {LM_BATCH} x {LM_PROFILE_SEQ}",
         lambda: transformer.prefill(sparams, prompt[:, :LM_PROFILE_SEQ],
                                     scfg), 1, LM_BATCH)
+    side = lm_prefill_side_by_side(sparams, scfg, prompt, smi)
+    RESULTS["kernels"]["attention_chunked"] = {
+        **res_c, "launches": la, "prefill_8192": res_c8,
+        "argmax_agree_8192": side["argmax_agree"],
+        "argmax_agree_off_ties_8192": side["argmax_agree_off_ties"],
+        "noise_floor_agree_8192": side["noise_floor_agree"],
+        "logits_max_abs_err_8192": side["logits_max_abs_err"]}
+    RESULTS["kernels"]["attention_decode"] = {
+        **res_d, "launches": ld, "ragged": res_dr}
     p_bytes = tree_bytes(sparams)
     c_bytes = tree_bytes(cache)
     ms_sorted = sorted(ms)
@@ -5453,7 +5847,8 @@ def phase_lm(dev, card) -> dict:
              "param_bytes": p_bytes, "cache_bytes": c_bytes,
              "decode_bytes_bound_ms": (p_bytes + c_bytes)
              / HBM_BYTES_PER_S * 1e3,
-             "profile_decode": prof_decode, "profile_prefill": prof_prefill}
+             "profile_decode": prof_decode, "profile_prefill": prof_prefill,
+             "side_by_side_8192": side, "launches": launches}
     out["qwen_serve"] = serve
     log(f"[lm] qwen3-0.6b bf16 serve ({LM_SERVE_SHAPE}, batch cut 32 -> "
         f"{LM_BATCH}): prefill {LM_BATCH} x {s} tokens in {prefill_s:.3f} s"
@@ -8026,7 +8421,10 @@ def kernel_line() -> dict:
                       "launches_per_update", "observe_one_ms",
                       "observe_one_plain_ms", "slot_bytes_ms",
                       "live_slot_ms",
-                      "profile_launches"):
+                      "profile_launches", "share_differ", "tflops_per_s",
+                      "gbps", "argmax_agree_8192",
+                      "argmax_agree_off_ties_8192", "noise_floor_agree_8192",
+                      "logits_max_abs_err_8192"):
             if extra in r:
                 row[extra] = r[extra]
         if "eight_terms" in r:
@@ -8035,7 +8433,7 @@ def kernel_line() -> dict:
             row.update(ms_k100=r["k100"]["ms"],
                        passes_k100=r["k100"]["passes"])
         for part in ("step", "deep", "rows", "rows_index", "kd64", "kd128",
-                     "radio", "m64"):
+                     "radio", "m64", "ragged", "prefill_8192"):
             if part in r:
                 row[part] = {key: r[part][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

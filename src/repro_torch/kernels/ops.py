@@ -13,7 +13,12 @@ of XLA's abstract evaluation of a Pallas call).  Both answer any
 (``common.topk_passes``).  ``tree_descent_op`` is no top-k: its ``meta``
 branch gives the descent's five int32 results by shape,
 ``count_min_update_op``'s the sketch's new table and heavy hitters, and
-``lsh_probe_shortlist_op``'s the (B, shortlist) int32 ids.
+``lsh_probe_shortlist_op``'s the (B, shortlist) int32 ids.  The two
+attentions are no top-k either: ``chunked_attention_op`` and
+``decode_attention_op`` give their output's shape and type on ``meta``,
+and dispatch there the plain versions' products (per KV block, as the
+reference's dry run counts its scan's dots), so that a FLOP counter sees
+what the kernel computes.
 """
 from __future__ import annotations
 
@@ -21,15 +26,16 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.annotations import hot_path
-from repro_torch.kernels import (bm25, bucket_topk, count_min, hamming,
-                                 l2_topk, lsh_probe, pq_adc, ref,
+from repro_torch.kernels import (attention, bm25, bucket_topk, count_min,
+                                 hamming, l2_topk, lsh_probe, pq_adc, ref,
                                  tree_descent)
 
 __all__ = ["l2_topk_op", "l2_topk_int8_op", "candidate_topk_op",
            "candidate_rows_topk_op", "bucket_probe_topk_op",
            "bm25_topk_op", "hybrid_topk_op", "pq_adc_topk_op",
            "hamming_topk_op", "lsh_probe_shortlist_op", "tree_descent_op",
-           "count_min_update_op", "quantize_rows_int8"]
+           "count_min_update_op", "chunked_attention_op",
+           "decode_attention_op", "quantize_rows_int8"]
 
 
 def _on_card(device: torch.device) -> bool:
@@ -257,3 +263,59 @@ def count_min_update_op(table, a, b, hh_ids, ids: np.ndarray,
         return count_min.count_min_update(table, a, b, hh_ids, ids, weights,
                                           decay)
     return ref.count_min_update_ref(table, a, b, hh_ids, ids, weights, decay)
+
+
+def _meta_products(batch: int, m: int, depth: int, n: int, dv: int,
+                   times: int, dtype) -> None:
+    """``times`` pairs of ``meta`` products, (batch, m, depth) @ (depth,
+    n) then (batch, m, n) @ (n, dv): an attention's scores and P.V."""
+    for _ in range(times):
+        torch.bmm(torch.empty((batch, m, depth), dtype=dtype, device="meta"),
+                  torch.empty((batch, depth, n), dtype=dtype, device="meta"))
+        torch.bmm(torch.empty((batch, m, n), dtype=dtype, device="meta"),
+                  torch.empty((batch, n, dv), dtype=dtype, device="meta"))
+
+
+@hot_path
+def chunked_attention_op(q, k, v, *, causal: bool, chunk: int,
+                         scale: float, q_pos=None, kv_mask=None):
+    """The chunked attention (the reference's ``lax.scan`` over KV blocks
+    of ``chunk`` slots): q (B, Sq, Hq, dh), k (B, Sk, Hkv, dh), v (B, Sk,
+    Hkv, dv) -> (B, Sq, Hq, dv) in q's type.  On the card one launch of
+    ``attention_chunked``; on the CPU the plain block loop."""
+    if q.device.type == "meta":
+        b, sq, hq, dh = q.shape
+        sk, hkv = k.shape[1], k.shape[2]
+        _meta_products(b * hkv, (hq // hkv) * sq, dh, chunk, v.shape[-1],
+                       -(-sk // chunk), torch.promote_types(q.dtype, k.dtype))
+        return torch.empty((b, sq, hq, v.shape[-1]), dtype=q.dtype,
+                           device="meta")
+    if _on_card(q.device):
+        return attention.attention_chunked(q, k, v, causal=causal,
+                                           chunk=chunk, scale=scale,
+                                           q_pos=q_pos, kv_mask=kv_mask)
+    return ref.chunked_attention_ref(q, k, v, causal=causal, chunk=chunk,
+                                     q_pos=q_pos, kv_mask=kv_mask,
+                                     scale=scale)
+
+
+@hot_path
+def decode_attention_op(q, k_cache, v_cache, lengths, *, scale: float):
+    """One-token attention over a KV cache (the reference's
+    ``decode_attention``): q (B, 1, Hq, dh), caches (B, S, Hkv, dh|dv),
+    slots t < ``lengths[b]`` valid -> (B, 1, Hq, dv).  On the card one
+    ``attention_decode`` call reading the cache in place; on the CPU the
+    plain version."""
+    if q.device.type == "meta":
+        b, s, hkv, dh = k_cache.shape
+        hq, dv = q.shape[2], v_cache.shape[-1]
+        _meta_products(b * hkv, hq // hkv, dh, s, dv, 1,
+                       torch.promote_types(q.dtype, k_cache.dtype))
+        return torch.empty((b, 1, hq, dv),
+                           dtype=torch.promote_types(q.dtype, v_cache.dtype),
+                           device="meta")
+    if _on_card(q.device):
+        return attention.attention_decode(q, k_cache, v_cache, lengths,
+                                          scale=scale)
+    return ref.decode_attention_ref(q, k_cache, v_cache, lengths,
+                                    scale=scale)

@@ -10,7 +10,12 @@ descent (``tree_descent_ref``, the reference's ``while_loop`` in
 ``tree_search``; its kernel has no Pallas counterpart), and the count-min
 sketch's update (``count_min_update_ref``, the reference's jitted
 ``_update`` of ``adaptive/sketch.py``; no Pallas counterpart either) with
-its ``_query`` (``count_min_query_ref``, which stays plain torch).  Each
+its ``_query`` (``count_min_query_ref``, which stays plain torch), and
+the LM serving path's two attentions (``chunked_attention_ref``, the
+reference's ``lax.scan`` over KV blocks, and ``decode_attention_ref``,
+its plain ``jnp`` decode; no Pallas counterpart either), each with a
+split model (``chunked_attention_split``, ``decode_attention_split``)
+that computes in its kernel's own order.  Each
 function computes its kernel's result with no tiling; ``ops`` runs it for
 tensors on the CPU, the tests hold it against the reference, and
 ``chip_smoke.py`` holds each kernel against it on the card.
@@ -49,8 +54,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.brute import batched_l2sq, pairwise_l2sq
+from repro_torch.kernels.attention import DECODE_SPLIT, tiles_of
 from repro_torch.kernels.common import (INF, ids32, pad_sentinel,
                                         popcount32, stable_topk)
 
@@ -61,7 +69,9 @@ __all__ = ["l2_topk_ref", "l2_topk_int8_ref", "candidate_topk_ref",
            "hamming_topk_ref", "pack_bits", "lsh_probe_shortlist_ref",
            "tree_descent_ref", "count_min_hash",
            "count_min_query_ref", "count_min_host_columns",
-           "count_min_update_ref"]
+           "count_min_update_ref", "chunked_attention_ref",
+           "chunked_attention_split", "decode_attention_ref",
+           "decode_attention_split"]
 
 # Elements of the (B, rows, S) match mask ``bm25_dists_ref`` builds at
 # once (about 1 GB as float32); longer slabs are scanned in row chunks.
@@ -553,3 +563,285 @@ def count_min_update_ref(table, a, b, hh_ids, ids, weights, decay: float):
     new_ids = torch.where(gone, -1, cand[top_i]).to(torch.int32)
     new_est = torch.where(gone, 0.0, top_est)
     return table, new_ids, new_est
+
+
+# --------------------------------------------------------------- attention
+# The LM serving path's two attentions (``models/attention.py`` keeps the
+# signatures, the dense path and the contract).  Masked scores are -1e30,
+# not -inf, so a row with no live slot gets the reference's uniform
+# softmax, never NaN.
+
+_NEG = -1e30
+
+
+def _ein(eq: str, a, b):
+    """``einsum`` with numpy's type promotion (``jnp.einsum`` of a bf16
+    and an fp32 operand computes in fp32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def _group(q, n_kv: int):
+    b, s, h, d = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, d)
+
+
+def chunked_attention_ref(q, k, v, *, causal: bool, chunk: int, q_pos=None,
+                          kv_mask=None, scale: float):
+    """The reference's chunked attention (``repro/models/attention.py``'s
+    ``lax.scan`` over KV blocks of ``chunk`` slots): q (B, Sq, Hq, dh), k
+    (B, Sk, Hkv, dh), v (B, Sk, Hkv, dv) -> (B, Sq, Hq, dv) in q's dtype.
+
+    A Python loop over the blocks, carrying the running (max, denominator,
+    accumulator) in fp32; like the reference it computes every block, the
+    last one padded (pads masked, V zero).  Each block's step
+    (``_block_step``) runs in one of two modes, with the same numbers.
+    Serving (no gradient wanted) updates each block's score tile in place,
+    so a 32K prefill holds one tile.  When a gradient is wanted the step
+    is out of place and runs under ``torch.utils.checkpoint``, as the
+    reference wraps its scan step in ``jax.checkpoint``: the backward
+    recomputes each block's probabilities from the carried statistics
+    instead of saving every block's tile, which would rebuild the whole
+    (Sq, Sk) matrix in fp32.  The recompute stops after the step's last op
+    that saves a tensor (the checkpoint's early stop), so the step
+    rescales its accumulator before the P.V product: the recompute then
+    runs the scores and probabilities only, as XLA's remat of the
+    reference's step does."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    qg = _group(q, hkv)                                   # (B,Sq,G,R,dh)
+    qp = torch.arange(sq, dtype=torch.int64, device=dev) if q_pos is None \
+        else q_pos.to(dev)
+    n_blk = -(-sk // chunk)
+    pad = n_blk * chunk - sk
+    kpad = F.pad(k, (0, 0, 0, 0, 0, pad))
+    vpad = F.pad(v, (0, 0, 0, 0, 0, pad))
+    kvm = torch.ones((b, sk), dtype=torch.bool, device=dev) \
+        if kv_mask is None else kv_mask.to(dev) > 0
+    kvm = F.pad(kvm, (0, pad))
+    dv = v.shape[-1]
+    g, r = hkv, hq // hkv
+    cdt = torch.promote_types(q.dtype, k.dtype)
+    pdt = torch.promote_types(q.dtype, v.dtype)
+    # (B, G, R*Sq, dh): one product a block per (batch, kv head)
+    qh = qg.permute(0, 2, 3, 1, 4).reshape(b, g, r * sq, dh).to(cdt)
+    m = torch.full((b, g, r, sq), _NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, g, r, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, g, r, sq, dv), dtype=torch.float32, device=dev)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    for blk in range(n_blk):
+        lo = blk * chunk
+        kc = kpad[:, lo:lo + chunk].permute(0, 2, 3, 1).to(cdt)  # B,G,dh,C
+        vc = vpad[:, lo:lo + chunk].permute(0, 2, 1, 3).to(pdt)  # B,G,C,dv
+        mask = ~kvm[:, lo:lo + chunk][:, None, None, None, :]
+        if causal:
+            kpos = lo + torch.arange(chunk, dtype=torch.int64, device=dev)
+            mask = mask | ~(qp[:, None] >= kpos[None, :])
+        if grad:
+            m, l, acc = checkpoint(_block_step, qh, kc, vc, mask, m, l, acc,
+                                   scale, q.dtype, False, use_reentrant=False)
+        else:
+            m, l, acc = _block_step(qh, kc, vc, mask, m, l, acc, scale,
+                                    q.dtype, True)
+    o = acc / torch.clamp(l[..., None], min=1e-30)
+    o = o.permute(0, 3, 1, 2, 4)                           # (B,Sq,G,R,dv)
+    return o.reshape(b, sq, hq, dv).to(q.dtype)
+
+
+def _block_step(qh, kc, vc, mask, m, l, acc, scale: float, qdt,
+                inplace: bool):
+    """One KV block of the online softmax: scores (B, G, R, Sq, C) in
+    fp32, ``mask`` True where a slot is masked; returns the carried (max,
+    denominator, accumulator).  ``inplace`` (no autograd: serving) updates
+    the score tile in place; the same numbers either way."""
+    b, g, r, sq = m.shape
+    chunk = kc.shape[-1]
+    s = torch.matmul(qh, kc).view(b, g, r, sq, chunk).float()
+    if inplace:
+        s = s.mul_(scale).masked_fill_(mask, _NEG)
+    else:
+        s = (s * scale).masked_fill(mask, _NEG)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    if inplace:
+        p = s.sub_(m_new[..., None]).exp_()
+    else:
+        p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    # the rescale before the product: it is the step's last op that saves
+    # a tensor, so the checkpoint's recompute stops ahead of P.V, whose
+    # result the backward never reads (as XLA drops it from its remat)
+    acc = acc * corr[..., None]
+    pv = torch.matmul(p.to(qdt).to(vc.dtype).view(b, g, r * sq, chunk),
+                      vc).view(b, g, r, sq, -1)
+    return m_new, l, acc + pv.float()
+
+
+def decode_attention_ref(q, k_cache, v_cache, lengths, *, scale: float):
+    """The reference's one-token attention over a KV cache: q (B, 1, Hq,
+    dh), caches (B, S, Hkv, dh|dv), slot t of row b valid where t <
+    ``lengths[b]``; -> (B, 1, Hq, dv).  A row with no valid slot gets the
+    uniform softmax over all S slots."""
+    b, s, hkv, dh = k_cache.shape
+    hq = q.shape[2]
+    qg = _group(q, hkv)                                   # (B,1,G,R,dh)
+    sc = _ein("bqgrd,bkgd->bgrqk", qg, k_cache).float() * scale
+    valid = torch.arange(s, dtype=torch.int64,
+                         device=q.device)[None, :] < lengths[:, None]
+    sc = sc.masked_fill(~valid[:, None, None, None, :], _NEG)
+    p = torch.softmax(sc, dim=-1).to(q.dtype)
+    o = _ein("bgrqk,bkgd->bqgrd", p, v_cache)
+    return o.reshape(b, 1, hq, -1)
+
+
+def _to(x, dt):
+    """``x`` rounded to ``dt`` and back to fp32 (a rounding point)."""
+    return x.to(dt).float()
+
+
+def chunked_attention_split(q, k, v, *, causal: bool, chunk: int,
+                            q_pos=None, kv_mask=None, scale: float,
+                            tiles=None):
+    """``attention_chunked``'s design in plain torch, in the kernel's own
+    order (``csrc/attention.cu``), so that the CPU tests hold the design
+    against the reference where there is no card.
+
+    Each (batch, KV head) flattens its query rows position-major, row t
+    the position t // R and query head g R + t % R; a query tile is
+    ``tiles[0]`` rows, walked over the reference's blocks of ``chunk``
+    slots in inner tiles of ``tiles[1]`` slots (``attention.tiles_of``
+    by default: the bf16 or the fp32 kernel's).  Each block takes two
+    passes over its tiles: the block's max first, then ``p``, its sum and
+    the block's P.V, which is rounded to the dtype once at the block's
+    end.  A tile is skipped when it is masked for every row of the query
+    tile and every row of the tile has a live slot somewhere (such work
+    adds exactly 0); a causal tile past the tile's last position ends the
+    walk.  A tile with a row that has no live slot skips nothing, so that
+    row gets the reference's uniform answer over every slot, pads
+    included."""
+    bm, bn = tiles or tiles_of(q.dtype)
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    r = hq // hkv
+    dt = q.dtype
+    rows = sq * r
+    qp = (torch.arange(sq) if q_pos is None else q_pos.cpu()).long()
+    rpos = qp.repeat_interleave(r)                        # (rows,)
+    live = (torch.ones((b, sk), dtype=torch.bool) if kv_mask is None
+            else kv_mask.cpu() > 0)
+    n_blk = -(-sk // chunk)
+    out = torch.empty((b, sq, hq, dv), dtype=torch.float32)
+    neg_inf = float("-inf")
+    for bi in range(b):
+        hit = torch.nonzero(live[bi])
+        first = int(hit[0]) if len(hit) else sk
+        for g in range(hkv):
+            qrows = q[bi, :, g * r:(g + 1) * r].reshape(rows, dh).float()
+            kk, vv = k[bi, :, g].float(), v[bi, :, g].float()
+            for t0 in range(0, rows, bm):
+                t1 = min(t0 + bm, rows)
+                Q, pos = qrows[t0:t1], rpos[t0:t1]
+                qmax = int(pos.max())
+                row_live = first <= pos if causal else \
+                    torch.full(pos.shape, first < sk)
+                skip_ok = bool(row_live.all())
+
+                def scores(k0, k1):
+                    n = torch.arange(k0, k0 + bn)
+                    inb = n < sk
+                    kt = torch.zeros((bn, dh))
+                    kt[inb] = kk[n[inb]]
+                    s = _to(Q @ kt.T, dt) * scale
+                    ok = inb.clone()
+                    ok[inb] = live[bi, n[inb]]
+                    dead = ~ok[None, :]
+                    if causal:
+                        dead = dead | (n[None, :] > pos[:, None])
+                    s = s.masked_fill(dead, _NEG)
+                    return s.masked_fill((n >= k1)[None, :], neg_inf), n, inb
+
+                m = torch.full((t1 - t0,), _NEG)
+                l = torch.zeros(t1 - t0)
+                acc = torch.zeros((t1 - t0, dv))
+                done = False
+                for blk in range(n_blk):
+                    blo, bhi = blk * chunk, (blk + 1) * chunk
+                    walk = []
+                    for k0 in range(blo, bhi, bn):
+                        k1 = min(k0 + bn, bhi)
+                        if skip_ok:
+                            if causal and k0 > qmax:
+                                done = True
+                                break
+                            if k0 >= sk:
+                                break
+                            if not bool(live[bi, k0:min(k1, sk)].any()):
+                                continue
+                        walk.append((k0, k1))
+                    if walk:
+                        mloc = torch.stack([scores(*w)[0].amax(1)
+                                            for w in walk]).amax(0)
+                        m_new = torch.maximum(m, mloc)
+                        lsum = torch.zeros_like(l)
+                        pv = torch.zeros_like(acc)
+                        for w in walk:
+                            s, n, inb = scores(*w)
+                            p = torch.exp(s - m_new[:, None])
+                            lsum += p.sum(1)
+                            vt = torch.zeros((bn, dv))
+                            vt[inb] = vv[n[inb]]
+                            pv += _to(p, dt) @ vt
+                        corr = torch.exp(m - m_new)
+                        l = l * corr + lsum
+                        acc = acc * corr[:, None] + _to(pv, dt)
+                        m = m_new
+                    if done:
+                        break
+                o = acc / torch.clamp(l[:, None], min=1e-30)
+                tt = torch.arange(t0, t1)
+                out[bi, tt // r, g * r + tt % r] = o
+    return out.to(dt)
+
+
+def decode_attention_split(q, k_cache, v_cache, lengths, *, scale: float,
+                           split=None):
+    """``attention_decode``'s design in plain torch, in the kernel's own
+    order: each (batch, KV head)'s live slots (all S where ``lengths[b]``
+    is 0: the uniform row) cut into splits of ``split`` slots
+    (``attention.DECODE_SPLIT`` by default); each split's scores, max
+    ``m_i`` and ``z_i = sum exp(s - m_i)``; the row's max ``M = max m_i``
+    and ``Z = sum_i z_i exp(m_i - M)`` in split order; each split's fp32
+    P.V with ``p`` rounded to the dtype; the splits' sum rounded once."""
+    split = split or DECODE_SPLIT
+    b, s, hkv, dh = k_cache.shape
+    hq, dv = q.shape[2], v_cache.shape[-1]
+    r = hq // hkv
+    dt = q.dtype
+    out = torch.empty((b, 1, hq, dv), dtype=torch.float32)
+    for bi in range(b):
+        length = int(lengths[bi])
+        end = s if length <= 0 else min(length, s)
+        for g in range(hkv):
+            Q = q[bi, 0, g * r:(g + 1) * r].float().cpu()
+            K = k_cache[bi, :end, g].float().cpu()
+            V = v_cache[bi, :end, g].float().cpu()
+            sc = _to(Q @ K.T, dt) * scale
+            if length <= 0:
+                sc = torch.full_like(sc, _NEG)
+            segs = [(i, min(i + split, end)) for i in range(0, end, split)]
+            ms = [sc[:, a:e].amax(1) for a, e in segs]
+            zs = [torch.exp(sc[:, a:e] - mi[:, None]).sum(1)
+                  for (a, e), mi in zip(segs, ms)]
+            M = torch.stack(ms).amax(0)
+            Z = torch.zeros_like(M)
+            for mi, zi in zip(ms, zs):
+                Z = Z + zi * torch.exp(mi - M)
+            o = torch.zeros((r, dv))
+            for a, e in segs:
+                p = _to(torch.exp(sc[:, a:e] - M[:, None]) / Z[:, None], dt)
+                o = o + p @ V[a:e]
+            out[bi, 0, g * r:(g + 1) * r] = o
+    return out.to(dt)

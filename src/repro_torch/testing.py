@@ -25,7 +25,10 @@ top-k, near-ties rescored in float64; :func:`sasrec_mips_truth` gives it
 SASRec's users, their exact top-k and the items.  :func:`message_dtypes`
 records the dtype SchNet's message sums are taken in.
 :func:`attention_at_true_fan_in` rescales an LM's attention projections
-to the fan-in the CPU tests draw them at.
+to the fan-in the CPU tests draw them at.  :data:`ATTN_EDGES` and
+:data:`DECODE_EDGES` are the two attention kernels' edges, drawn by
+:func:`attn_edge_operands` and :func:`decode_edge_operands` and held to
+:data:`ATTN_TOL` of each output row's max by :func:`attn_row_err`.
 
 :func:`shard_loop` computes a sharded search in one process -- every
 shard's local with its own tables and its ``lin``, stacked and merged --
@@ -65,7 +68,8 @@ __all__ = ["OPTION_EDGES", "EDGE_ALPHAS", "PQ_EDGES", "HAMMING_EDGES",
            "shard_loop", "mips_parity", "sasrec_mips_truth",
            "message_dtypes", "attention_at_true_fan_in", "MOVE_CASES",
            "MOVE_MESHES", "placements_of", "cut_as_dtensor",
-           "run_move_cases"]
+           "run_move_cases", "ATTN_EDGES", "DECODE_EDGES", "ATTN_TOL",
+           "attn_edge_operands", "decode_edge_operands", "attn_row_err"]
 
 # (name, B, N, d, k, rows): rows "dead" = every row dead, "half" = about
 # half live, "dup" = the second half repeats the first; the BM25 lookup's
@@ -994,3 +998,146 @@ def run_move_cases(meshes: dict, device) -> list:
                        grad_counts=dict(sharding.COLLECTIVE_COUNTS))
         out.append(rec)
     return out
+
+
+# ---------------------------------------------------------------- attention
+# (name, B, Sq, Sk, Hq, Hkv, dh, dv, chunk, causal, q_pos offset, kv_mask
+# kind, dtype, layout): kv_mask "row0-empty" = batch row 0 fully masked
+# (its rows get the uniform answer over every slot, pads included),
+# "ragged" = row 0 valid up to a third of Sk; layout "strided" = K and V
+# are views of a wider (B, Sk, 2 Hkv + 1, d) buffer and q a view with a
+# gap between heads, read by their strides.  The served shapes are
+# qwen3-0.6b's (16 query / 8 KV heads of 128, KV blocks of 1,024).
+ATTN_EDGES = (
+    ("qwen3 bf16 several blocks", 2, 1100, 1100, 16, 8, 128, 128, 256, True,
+     None, None, "bfloat16", None),
+    ("fp32", 2, 300, 300, 4, 2, 128, 128, 128, True, None, None, "float32",
+     None),
+    ("MQA R 48", 1, 100, 100, 48, 1, 128, 128, 64, True, None, None,
+     "bfloat16", None),
+    ("MLA dh 192 dv 128", 2, 200, 200, 4, 4, 192, 128, 128, True, None,
+     None, "bfloat16", None),
+    ("MLA fp32", 1, 100, 100, 4, 4, 192, 128, 64, True, None, None,
+     "float32", None),
+    ("Sk not a multiple of chunk", 2, 333, 333, 4, 2, 128, 128, 100, True,
+     None, None, "bfloat16", None),
+    ("q_pos at a shard's offset", 2, 100, 400, 4, 2, 128, 128, 128, True, 300,
+     None, "bfloat16", None),
+    ("kv_mask, a fully masked row", 2, 150, 150, 4, 2, 128, 128, 64, True,
+     None, "row0-empty", "bfloat16", None),
+    ("kv_mask fully masked, fp32", 2, 70, 70, 4, 2, 64, 64, 32, True, None,
+     "row0-empty", "float32", None),
+    ("kv_mask ragged, not causal", 2, 150, 150, 4, 2, 128, 128, 64, False,
+     None, "ragged", "bfloat16", None),
+    ("not causal", 2, 200, 300, 4, 2, 64, 64, 128, False, None, None,
+     "bfloat16", None),
+    ("dh 8 dv 6, scalar loads", 2, 13, 13, 4, 2, 8, 6, 4, True, None, None,
+     "bfloat16", None),
+    ("dh 8 dv 6 fp32", 2, 13, 13, 4, 2, 8, 6, 4, True, None, None, "float32",
+     None),
+    ("dh 24 dv 16 (MLA reduced)", 2, 40, 40, 4, 4, 24, 16, 8, True, None,
+     None, "bfloat16", None),
+    ("dh dv 256", 1, 130, 130, 2, 1, 256, 256, 64, True, None, None,
+     "bfloat16", None),
+    ("dh dv 256 fp32", 1, 70, 70, 2, 1, 256, 256, 32, True, None, None,
+     "float32", None),
+    ("strided views", 2, 200, 200, 4, 2, 128, 128, 64, True, None, None,
+     "bfloat16", "strided"),
+    ("several query tiles, causal skips", 1, 1024, 1024, 4, 2, 64, 64, 256,
+     True, None, None, "bfloat16", None),
+)
+
+# (name, B, S, Hq, Hkv, dh, dv, lengths, dtype, layout): lengths a tuple
+# (0: the uniform row over all S slots; S: every slot); layout "layer" =
+# the caches are one layer of a (2, B, S, Hkv, d) buffer, as
+# ``sharding.layer_of`` gives the decode step.
+DECODE_EDGES = (
+    ("qwen3 bf16 lengths 0 1 S", 3, 2048, 16, 8, 128, 128, (0, 1, 2048),
+     "bfloat16", "layer"),
+    ("ragged", 2, 3000, 16, 8, 128, 128, (1500, 2999), "bfloat16", None),
+    ("fp32 lengths 0 1 S", 3, 1100, 4, 2, 128, 128, (0, 1, 1100), "float32",
+     "layer"),
+    ("MQA R 48", 2, 700, 48, 1, 128, 128, (513, 700), "bfloat16", None),
+    ("dh 8 dv 6, scalar loads", 3, 9, 4, 2, 8, 6, (0, 4, 9), "bfloat16",
+     None),
+    ("dh 8 dv 6 fp32", 3, 9, 8, 1, 8, 6, (0, 4, 9), "float32", None),
+    ("dh dv 256", 2, 600, 4, 2, 256, 256, (600, 37), "bfloat16", None),
+    ("split edges", 4, 1536, 4, 2, 64, 64, (511, 512, 513, 1536),
+     "bfloat16", None),
+)
+
+# each output row's max |o| times this bounds |kernel - plain|: two bf16
+# ulps (the kernels sum in another order, so a rounding point may land a
+# unit apart); fp32 to 1e-5
+ATTN_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+
+
+def attn_edge_operands(case, device, seed: int = 0) -> dict:
+    """q, k, v (on ``device``, in the case's dtype and layout) and the
+    keyword arguments of ``models.attention.attention`` for one
+    ``ATTN_EDGES`` case."""
+    _, b, sq, sk, hq, hkv, dh, dv, chunk, causal, off, mk, dt, lay = case
+    rng = np.random.default_rng([seed, b, sq, sk, hq, dh, dv, chunk])
+    dt = getattr(torch, dt)
+
+    def t(x):
+        return torch.as_tensor(x.astype(np.float32)).to(device=device,
+                                                        dtype=dt)
+
+    if lay == "strided":
+        qb = t(rng.normal(size=(b, sq, hq + 1, dh)))
+        q = qb[:, :, 1:]
+        kvb = t(rng.normal(size=(b, sk, 2 * hkv + 1, max(dh, dv))))
+        k, v = kvb[:, :, :hkv, :dh], kvb[:, :, hkv + 1:, :dv]
+    else:
+        q = t(rng.normal(size=(b, sq, hq, dh)))
+        k = t(rng.normal(size=(b, sk, hkv, dh)))
+        v = t(rng.normal(size=(b, sk, hkv, dv)))
+    kw = {"causal": causal, "chunk": chunk, "scale": dh ** -0.5}
+    if off is not None:
+        kw["q_pos"] = torch.arange(off, off + sq, device=device)
+    if mk is not None:
+        m = np.ones((b, sk), np.int32)
+        if mk == "row0-empty":
+            m[0] = 0
+        else:
+            m[0, sk // 3:] = 0
+        kw["kv_mask"] = torch.as_tensor(m, device=device)
+    return {"q": q, "k": k, "v": v, "kw": kw}
+
+
+def decode_edge_operands(case, device, seed: int = 0) -> dict:
+    """q, the caches and lengths (on ``device``) and the scale of one
+    ``DECODE_EDGES`` case."""
+    _, b, s, hq, hkv, dh, dv, lengths, dt, lay = case
+    rng = np.random.default_rng([seed, b, s, hq, hkv, dh, dv])
+    dt = getattr(torch, dt)
+
+    def t(x):
+        return torch.as_tensor(x.astype(np.float32)).to(device=device,
+                                                        dtype=dt)
+
+    q = t(rng.normal(size=(b, 1, hq, dh)))
+    if lay == "layer":
+        k = t(rng.normal(size=(2, b, s, hkv, dh)))[1]
+        v = t(rng.normal(size=(2, b, s, hkv, dv)))[1]
+    else:
+        k = t(rng.normal(size=(b, s, hkv, dh)))
+        v = t(rng.normal(size=(b, s, hkv, dv)))
+    return {"q": q, "k": k, "v": v,
+            "lengths": torch.tensor(lengths, dtype=torch.int32,
+                                    device=device),
+            "scale": dh ** -0.5}
+
+
+def attn_row_err(got, want) -> dict:
+    """|got - want| over each output row's (last dim's) max |want|: the
+    largest (``max_rel``), the largest absolute difference, and the share
+    of elements that differ at all."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    diff = (g - w).abs()
+    row = w.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    return {"max_rel": float((diff / row).max()) if diff.numel() else 0.0,
+            "max_abs": float(diff.max()) if diff.numel() else 0.0,
+            "share_differ": float((diff > 0).float().mean())
+            if diff.numel() else 0.0}

@@ -33,7 +33,10 @@ CPU (SchNet's bf16 scatter-add within its bound), with SASRec's items
 through a small two-level index at d 51, exact at full probing; one
 train step of a reduced arch of each family and one CTR sparse step card
 against CPU, ``save_async`` of card tensors, and a restart on the card
-bit for bit.
+bit for bit; the two attention kernels against their plain versions on
+every edge of ``testing.ATTN_EDGES`` / ``DECODE_EDGES`` (within
+``testing.ATTN_TOL`` of each output row's max), and ``prefill`` and
+``decode_step`` launching them with no plain block step.
 
 Marked ``gpu``; each test decides inside itself whether a card is there
 and skips with the reason when not.  Run on the card with:
@@ -71,12 +74,15 @@ from repro_torch.core.protocol import IndexSpec
 from repro_torch.core.two_level import TwoLevelConfig, build_two_level
 from repro_torch.data.synthetic import make_corpus, make_queries
 from repro_torch.distributed.backend import ShardedSearchBackend
-from repro_torch.kernels import (bm25, bucket_topk, count_min, hamming,
-                                 l2_topk, lsh_probe, ops, pq_adc, ref,
-                                 tree_descent)
+from repro_torch.kernels import (attention, bm25, bucket_topk, count_min,
+                                 hamming, l2_topk, lsh_probe, ops, pq_adc,
+                                 ref, tree_descent)
 from repro_torch.kernels.common import merge_topk
 from repro_torch.serve.cell import ServingCell
-from repro_torch.testing import (CHAIN_EDGES, DESCENT_EDGES, EDGE_ALPHAS,
+from repro_torch.testing import (ATTN_EDGES, ATTN_TOL, DECODE_EDGES,
+                                 attn_edge_operands, attn_row_err,
+                                 decode_edge_operands,
+                                 CHAIN_EDGES, DESCENT_EDGES, EDGE_ALPHAS,
                                  HAMMING_EDGES, LSH_PROBE_EDGES,
                                  OPTION_EDGES, PQ_EDGES,
                                  ROWS_EDGES, SKETCH_BIG_IDS, SKETCH_EDGES,
@@ -2061,3 +2067,92 @@ def test_restart_on_the_card_is_bit_for_bit(dev, tmp_path):
     again = train(C.restore(d, 2, fresh()), step, stream.batch_at, 4)
     for a, b in zip(leaves(full.state.params), leaves(again.state.params)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- attention
+
+
+@pytest.mark.parametrize("case", ATTN_EDGES, ids=[c[0] for c in ATTN_EDGES])
+def test_attention_chunked_matches_plain(dev, case):
+    o = attn_edge_operands(case, dev)
+    got = attention.attention_chunked(o["q"], o["k"], o["v"], **o["kw"])
+    want = ref.chunked_attention_ref(o["q"], o["k"], o["v"], **o["kw"])
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    err = attn_row_err(got, want)
+    assert err["max_rel"] <= ATTN_TOL[got.dtype], err
+
+
+@pytest.mark.parametrize("case", DECODE_EDGES,
+                         ids=[c[0] for c in DECODE_EDGES])
+def test_attention_decode_matches_plain(dev, case):
+    o = decode_edge_operands(case, dev)
+    got = attention.attention_decode(o["q"], o["k"], o["v"], o["lengths"],
+                                     scale=o["scale"])
+    want = ref.decode_attention_ref(o["q"], o["k"], o["v"], o["lengths"],
+                                    scale=o["scale"])
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    err = attn_row_err(got, want)
+    assert err["max_rel"] <= ATTN_TOL[got.dtype], err
+
+
+def test_attention_kernels_on_the_lm_path(dev, monkeypatch):
+    """``prefill`` at a chunked shape launches ``attention_chunked`` once a
+    layer and ``decode_step`` (GQA) ``attention_decode`` once a layer; the
+    plain block step never runs."""
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(_lm_cfg("qwen3-0.6b"), attn_chunk=4)
+    p = T.init(cfg, seed=0, device=dev)
+    steps = []
+    block = ref._block_step
+    monkeypatch.setattr(ref, "_block_step",
+                        lambda *a: steps.append(1) or block(*a))
+    toks = torch.randint(0, cfg.vocab, (2, 11), device=dev)
+    c, d = attention.CHUNKED_LAUNCHES, attention.DECODE_LAUNCHES
+    c.reset()
+    d.reset()
+    with torch.no_grad():
+        logits, cache = T.prefill(p, toks, cfg, max_len=14)
+        T.decode_step(p, cache, logits.argmax(-1)[:, None], cfg)
+    torch.cuda.synchronize()
+    assert (c.count, d.count, len(steps)) == (cfg.n_layers, cfg.n_layers, 0)
+
+
+def test_attention_rejects_what_it_cannot_take(dev):
+    q = torch.zeros((1, 4, 2, 8), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention.attention_chunked(q.cpu(), q.cpu(), q.cpu(), causal=True,
+                                    chunk=2, scale=1.0)
+    with pytest.raises(TypeError):
+        attention.attention_chunked(q, q.float(), q, causal=True, chunk=2,
+                                    scale=1.0)
+    with pytest.raises(TypeError):
+        attention.attention_chunked(q.half(), q.half(), q.half(),
+                                    causal=True, chunk=2, scale=1.0)
+    big = torch.zeros((1, 4, 2, 300), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="outside"):
+        attention.attention_chunked(big, big, big, causal=True, chunk=2,
+                                    scale=1.0)
+    with pytest.raises(ValueError, match="query heads"):
+        attention.attention_decode(
+            torch.zeros((1, 1, 3, 8), device=dev, dtype=torch.bfloat16),
+            q, q, torch.ones(1, dtype=torch.int32, device=dev), scale=1.0)
+
+
+@pytest.mark.parametrize("kind,dtype,dh,dv,r", [
+    ("chunked", torch.bfloat16, 128, 128, 2),
+    ("chunked", torch.bfloat16, 192, 128, 1),
+    ("chunked", torch.float32, 128, 128, 2),
+    ("decode scores", torch.bfloat16, 128, 128, 2),
+    ("decode pv", torch.bfloat16, 128, 128, 2),
+    ("decode combine", torch.bfloat16, 128, 128, 2),
+])
+def test_attention_kernel_info(dev, kind, dtype, dh, dv, r):
+    """The built kernels spill nothing at the served shapes, and the bf16
+    chunked kernel keeps two blocks an SM."""
+    info = attention.kernel_info(kind, dtype, dh, dv, r)
+    assert info["local_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= (2 if kind == "chunked"
+                                     and dtype == torch.bfloat16 else 1), info

@@ -14,7 +14,9 @@ scores and probabilities only.
    block step's checkpoint (the recompute gives the values it saves).
 
 The whole loss's gradients with and without the layer's remat are held
-bit for bit in ``tests/test_torch_train_models.py``.
+bit for bit in ``tests/test_torch_train_models.py``.  The block loop
+with its checkpoint lives in ``kernels/ref.py`` (``chunked_attention_ref``),
+where ``models/attention.py`` sends every call that wants a gradient.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as attn_mod
 
 B, S, HQ, HKV, DH, CHUNK = 2, 48, 4, 2, 8, 16
@@ -55,7 +58,7 @@ def test_block_step_recompute_skips_the_pv_product():
 def test_block_step_checkpoint_changes_no_bit(monkeypatch):
     q, k, v = _qkv()
     with_ckpt = _grads(q, k, v)
-    monkeypatch.setattr(attn_mod, "checkpoint",
+    monkeypatch.setattr(kref, "checkpoint",
                         lambda fn, *a, use_reentrant: fn(*a))
     plain = _grads(q, k, v)
     for a, b in zip(with_ckpt, plain):
